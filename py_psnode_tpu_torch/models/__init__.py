@@ -1,0 +1,4 @@
+"""Neural function blocks and the DAE no-encode model."""
+
+from py_psnode_tpu_torch.models.dae import DAEModel  # noqa: F401
+from py_psnode_tpu_torch.models.funcs import AEFunc, DEFunc, InitFunc, MLP  # noqa: F401

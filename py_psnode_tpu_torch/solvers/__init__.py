@@ -1,0 +1,10 @@
+"""Fixed-grid steppers, event streams and the DAE rollout."""
+
+from py_psnode_tpu_torch.solvers.events import event_match, jumped_stream  # noqa: F401
+from py_psnode_tpu_torch.solvers.integrate import integrate_dae  # noqa: F401
+from py_psnode_tpu_torch.solvers.steppers import (  # noqa: F401
+    RK4,
+    Euler,
+    Midpoint,
+    get_stepper,
+)

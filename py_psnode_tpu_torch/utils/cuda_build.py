@@ -1,0 +1,81 @@
+"""Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch header), so
+``nvcc`` builds it into a shared library in seconds. The library lands in
+``py_psnode_tpu_torch/_build/lib<name>-<hash>.so``, where the hash covers
+the source and the flags: a changed source is rebuilt on its next use.
+Nothing is built when a module is imported; the first launch builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
+SOURCE_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on the PATH, else
+    ``/usr/local/cuda/bin/nvcc``."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    candidates += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for c in candidates:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError(
+        "nvcc was not found (CUDA_HOME, PATH, /usr/local/cuda/bin): the "
+        "port's CUDA kernels are built on the machine with the card"
+    )
+
+
+def library_path(name: str) -> pathlib.Path:
+    src = SOURCE_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(name: str) -> float:
+    """Compile ``csrc/<name>.cu`` unless the current build exists; returns
+    the seconds ``nvcc`` took (0.0 when the build was already there)."""
+    out = library_path(name)
+    if out.exists():
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE_DIR / f"{name}.cu")]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed to build {name}.cu (exit {res.returncode}):\n"
+            f"{' '.join(cmd)}\n{res.stdout}{res.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    print(f"built {out.name} with nvcc in {seconds:.2f} s", flush=True)
+    if res.stderr.strip():
+        print(res.stderr.strip(), flush=True)  # ptxas: registers, spills
+    return seconds
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    build(name)
+    return ctypes.CDLL(str(library_path(name)))
