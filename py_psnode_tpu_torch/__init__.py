@@ -7,11 +7,13 @@ the CPU). Its layout mirrors the JAX package's (``data/``, ``solvers/``,
 counterpart is easy to find. It imports nothing of JAX and nothing of the
 JAX package.
 
-Ported so far: the serving path of the DAE no-encode variant,
-``--testing [--fused]``. The fused forward rollout runs through a CUDA
-kernel written by hand (``csrc/fused_dae_rollout.cu``), built with ``nvcc``
-on first use and bound with ``ctypes``. Entry points run on ``cuda`` unless
-the caller asks for ``cpu``.
+Ported so far: the DAE no-encode variant, served (``--testing [--fused]``)
+and trained (``--training [--fused]``). The fused rollout runs through two
+CUDA kernels written by hand, the forward (``csrc/fused_dae_rollout.cu``)
+and the reverse-time backward (``csrc/fused_dae_rollout_bwd.cu``) behind a
+``torch.autograd.Function``, each built with ``nvcc`` on first use and
+bound with ``ctypes``. Entry points run on ``cuda`` unless the caller asks
+for ``cpu``.
 """
 
 __version__ = "0.1.0"

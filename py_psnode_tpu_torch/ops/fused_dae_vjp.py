@@ -1,0 +1,401 @@
+"""Reverse-time VJP of the fused DAE rollout (counterpart of
+``py_psnode_tpu/ops/fused_dae_vjp.py``).
+
+The backward walks the time grid in reverse, recomputing each step's
+activations from the saved packed solution (the only residual the forward
+keeps), and accumulates:
+
+  * every weight and bias gradient over all batch rows and steps;
+  * the per-step cotangents of the precomputed layer-1 streams
+    (``g_s_de``/``g_s_ae``/``g_s_ae_ev``), which autograd then carries back
+    through the stream precompute's large matrix products;
+  * the reverse-time carries ``dL/dx_t`` and ``dL/di_t`` (the lagged
+    algebraic coupling makes ``i_t`` a second adjoint state).
+
+Event steps are handled as in the forward: the algebraic recompute is
+re-evaluated and its VJP routes the ``i_in`` cotangent of event rows into
+the ``x_t``/stream/weight gradients instead of the ``i_t`` carry. ``dt``
+and ``ev`` get no gradient.
+
+:func:`fused_dae_rollout_bwd` runs the hand-written CUDA kernel
+``csrc/fused_dae_rollout_bwd.cu`` on CUDA tensors and
+:func:`fused_dae_rollout_bwd_plain`, the same walk as an eager PyTorch
+loop, on CPU tensors. :class:`FusedDaeRollout` is the
+``torch.autograd.Function`` around the forward kernel and this backward.
+
+Not ported: teacher forcing (``tf_x``, the ``g_xt/g_xt1`` outputs), the
+bf16 compute mode, and the TPU's time padding, time blocking, ``any_ev``
+scalar prefetch and lanes (scheduling that does not change the result).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Dict, List, Tuple
+
+import torch
+
+from py_psnode_tpu_torch.models.funcs import elu
+from py_psnode_tpu_torch.ops.fused_dae import (
+    _ONE_THIRD,
+    _SOLVER_CODE,
+    _check_kernel_inputs,
+    cast_compute,
+    fused_dae_rollout_packed,
+    normalize_solver,
+    pack_aux,
+    unpack_solution,
+)
+from py_psnode_tpu_torch.utils import cuda_build
+
+
+def delu(p: torch.Tensor) -> torch.Tensor:
+    """ELU'(p): 1 for p > 0, exp(p) for p <= 0."""
+    return torch.where(p > 0, 1.0, torch.exp(torch.clamp(p, max=0.0)))
+
+
+def flatten_weights(weights: Dict):
+    """``[wx_de, wi_de, gx_ae, W, b, ... (DE tail), W, b, ... (AE tail)]``
+    and ``(n_de, n_ae)``: the order of the kernel's gradient row."""
+    flat = [weights["wx_de"], weights["wi_de"], weights["gx_ae"]]
+    for net in ("de_tail", "ae_tail"):
+        for W, b in weights[net]:
+            flat += [W, b]
+    return flat, (len(weights["de_tail"]), len(weights["ae_tail"]))
+
+
+def unflatten_weights(flat, n_tails) -> Dict:
+    n_de, _ = n_tails
+    pairs = lambda seq: [(seq[2 * k], seq[2 * k + 1]) for k in range(len(seq) // 2)]
+    return dict(
+        wx_de=flat[0], wi_de=flat[1], gx_ae=flat[2],
+        de_tail=pairs(flat[3 : 3 + 2 * n_de]), ae_tail=pairs(flat[3 + 2 * n_de :]),
+    )
+
+
+def _tail_fwd_res(h1pre, tail):
+    """Forward through the tail layers keeping the pre-activations and
+    activations for the VJP."""
+    pres, h = [h1pre], elu(h1pre)
+    hs = [h]
+    for W, b in tail[:-1]:
+        pre = h @ W + b
+        pres.append(pre)
+        h = elu(pre)
+        hs.append(h)
+    W, b = tail[-1]
+    return h @ W + b, (pres, hs)
+
+
+def _tail_bwd(res, gy, tail, d_tail):
+    """Backprop the tail, adding the weight/bias grads into ``d_tail`` in
+    place; returns the cotangent of the first-layer pre-activation."""
+    pres, hs = res
+    d_tail[-1][0].add_(hs[-1].T @ gy)
+    d_tail[-1][1].add_(gy.sum(0))
+    g = gy @ tail[-1][0].T
+    for k in range(len(tail) - 2, -1, -1):
+        gpre = g * delu(pres[k + 1])
+        d_tail[k][0].add_(hs[k].T @ gpre)
+        d_tail[k][1].add_(gpre.sum(0))
+        g = gpre @ tail[k][0].T
+    return g * delu(pres[0])
+
+
+@torch.no_grad()
+def fused_dae_rollout_bwd_plain(
+    streams: Dict, weights: Dict, x0, i0, aux, packed, cot, solver: str = "rk4"
+):
+    """The reverse walk as an eager PyTorch loop on any device, in the
+    inputs' dtype: the plain version of the CUDA kernel.
+
+    Args:
+      streams/weights/x0/i0/aux: the forward's inputs (``aux`` from
+        :func:`~py_psnode_tpu_torch.ops.fused_dae.pack_aux`).
+      packed: the forward's packed solution ``[T-1, B, xd+id]``.
+      cot: cotangents of the full solutions, ``cat(g_xsol, g_isol)`` as
+        ``[T, B, xd+id]``; row 0 is not read.
+
+    Returns ``(g_streams, g_weights, g_x0, g_i0)``: the stream cotangents
+    ``[T-1, B, h]``, the weight grads in the layout of ``weights``, and
+    the carries at t=0 (without ``cot[0]``).
+    """
+    solver = normalize_solver(solver)
+    s_de, s_ae, s_ae_ev = streams["s_de"], streams["s_ae"], streams["s_ae_ev"]
+    wx, wi, gx = weights["wx_de"], weights["wi_de"], weights["gx_ae"]
+    de_tail, ae_tail = weights["de_tail"], weights["ae_tail"]
+    Tm1 = s_de.shape[0]
+    xd = x0.shape[-1]
+    dt_all = aux[..., 0:1].to(s_de.dtype)
+    ev_all = aux[..., 1:2] > 0.0
+    any_ev = ev_all.any(dim=1)[:, 0].tolist()  # one host read for all steps
+    z = torch.zeros_like
+    g_w = dict(
+        wx_de=z(wx), wi_de=z(wi), gx_ae=z(gx),
+        de_tail=[(z(W), z(b)) for W, b in de_tail],
+        ae_tail=[(z(W), z(b)) for W, b in ae_tail],
+    )
+    g_s = {k: z(v) for k, v in streams.items()}
+    gx_c, gi_c = z(x0), z(i0)
+    for t in reversed(range(Tm1)):
+        x_t, i_t = (x0, i0) if t == 0 else (packed[t - 1, :, :xd], packed[t - 1, :, xd:])
+        x1 = packed[t, :, :xd]
+        dt, ev = dt_all[t], ev_all[t]
+        gX1 = cot[t + 1, :, :xd] + gx_c
+        gI1 = cot[t + 1, :, xd:] + gi_c
+
+        # i_in exactly as the forward computed it
+        i_in = i_t
+        if any_ev[t]:
+            i_ev, res_ev = _tail_fwd_res(s_ae_ev[t] + x_t @ gx, ae_tail)
+            i_in = torch.where(ev, i_ev, i_t)
+        i_proj = i_in @ wi
+
+        # AE at t+1: i_{t+1} = AE(x_{t+1}; s_ae[t])
+        _, res_ae = _tail_fwd_res(s_ae[t] + x1 @ gx, ae_tail)
+        gp_ae = _tail_bwd(res_ae, gI1, ae_tail, g_w["ae_tail"])
+        g_w["gx_ae"] += x1.T @ gp_ae
+        g_s["s_ae"][t] = gp_ae
+        gX1 = gX1 + gp_ae @ gx.T
+
+        def F_fwd(x, t=t, i_proj=i_proj):
+            out, res = _tail_fwd_res(s_de[t] + x @ wx + i_proj, de_tail)
+            return out, (x, res)
+
+        def F_bwd(xres, gf, i_in=i_in):
+            """Adds the DE weight grads; returns (g_x, g_i_in, g_s_de)."""
+            x, res = xres
+            gp = _tail_bwd(res, gf, de_tail, g_w["de_tail"])
+            g_w["wx_de"] += x.T @ gp
+            g_w["wi_de"] += i_in.T @ gp
+            return gp @ wx.T, gp @ wi.T, gp
+
+        if solver == "euler":
+            _, res = F_fwd(x_t)
+            g_x, g_i_in, gs_de = F_bwd(res, dt * gX1)
+            g_x0 = gX1 + g_x
+        elif solver == "midpoint":
+            # x1 = x + dt * F(x_mid), x_mid = x + (dt/2) F(x)
+            f0, res0 = F_fwd(x_t)
+            _, res_m = F_fwd(x_t + f0 * (0.5 * dt))
+            g_xmid, gi_m, gp_m = F_bwd(res_m, dt * gX1)
+            g_x00, gi_0, gp_0 = F_bwd(res0, (0.5 * dt) * g_xmid)
+            g_x0 = gX1 + g_xmid + g_x00
+            g_i_in = gi_m + gi_0
+            gs_de = gp_m + gp_0
+        else:  # rk4, Kutta's 3/8 rule
+            k1, res1 = F_fwd(x_t)
+            k2, res2 = F_fwd(x_t + dt * k1 * _ONE_THIRD)
+            k3, res3 = F_fwd(x_t + dt * (k2 - k1 * _ONE_THIRD))
+            _, res4 = F_fwd(x_t + dt * (k1 - k2 + k3))
+            c = dt * 0.125
+            g_k1, g_k2, g_k3, g_k4 = gX1 * c, 3.0 * gX1 * c, 3.0 * gX1 * c, gX1 * c
+            g_x0, g_i_in, gs_de = gX1, z(i_in), z(s_de[t])
+
+            g_a4, gi4, gp4 = F_bwd(res4, g_k4)
+            g_x0 = g_x0 + g_a4
+            g_k1 = g_k1 + dt * g_a4
+            g_k2 = g_k2 - dt * g_a4
+            g_k3 = g_k3 + dt * g_a4
+            g_i_in, gs_de = g_i_in + gi4, gs_de + gp4
+
+            g_a3, gi3, gp3 = F_bwd(res3, g_k3)
+            g_x0 = g_x0 + g_a3
+            g_k2 = g_k2 + dt * g_a3
+            g_k1 = g_k1 - dt * g_a3 * _ONE_THIRD
+            g_i_in, gs_de = g_i_in + gi3, gs_de + gp3
+
+            g_a2, gi2, gp2 = F_bwd(res2, g_k2)
+            g_x0 = g_x0 + g_a2
+            g_k1 = g_k1 + dt * g_a2 * _ONE_THIRD
+            g_i_in, gs_de = g_i_in + gi2, gs_de + gp2
+
+            g_a1, gi1, gp1 = F_bwd(res1, g_k1)
+            g_x0 = g_x0 + g_a1
+            g_i_in, gs_de = g_i_in + gi1, gs_de + gp1
+        g_s["s_de"][t] = gs_de
+
+        # route the i_in cotangent: event rows through the AE_ev VJP, the
+        # other rows to the i_t carry
+        if any_ev[t]:
+            gp_ev = _tail_bwd(res_ev, torch.where(ev, g_i_in, 0.0), ae_tail, g_w["ae_tail"])
+            g_w["gx_ae"] += x_t.T @ gp_ev
+            g_s["s_ae_ev"][t] = gp_ev
+            gx_c = g_x0 + gp_ev @ gx.T
+            gi_c = torch.where(ev, 0.0, g_i_in)
+        else:
+            gx_c, gi_c = g_x0, g_i_in
+    return g_s, g_w, gx_c, gi_c
+
+
+def grad_layout(weights: Dict) -> Tuple[List[Tuple[int, Tuple[int, ...]]], int]:
+    """``([(offset, shape), ...], total)``: where each gradient lies in the
+    kernel's flat gradient row, in :func:`flatten_weights` order."""
+    out, off = [], 0
+    for a in flatten_weights(weights)[0]:
+        out.append((off, tuple(a.shape)))
+        off += math.prod(a.shape)
+    return out, off
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    """The C launcher of ``csrc/fused_dae_rollout_bwd.cu`` with its
+    signature."""
+    lib = cuda_build.load("fused_dae_rollout_bwd")
+    fn = lib.psn_fused_dae_rollout_bwd_f32
+    P, I = ctypes.c_void_p, ctypes.c_int
+    PP = ctypes.POINTER(ctypes.c_void_p)
+    fn.argtypes = [
+        P, P, P, P,  # s_de, s_ae, s_ae_ev, aux
+        P, P, P, P,  # x0, i0, sol, cot
+        P, P, P,  # wx_de, wi_de, gx_ae
+        P, P, P,  # their transposes
+        PP, PP, PP, I,  # de tail W, W^T, b, count
+        PP, PP, PP, I,  # ae tail W, W^T, b, count
+        P, P, P,  # g_s_de, g_s_ae, g_s_ae_ev
+        P, P, P, P,  # partial, g_w, g_x0, g_i0
+        I, I, I, I, I,  # Tm1, B, h, xd, id
+        I,  # solver
+        P,  # stream
+    ]
+    fn.restype = ctypes.c_int
+    size = lib.psn_fused_dae_bwd_grad_size
+    size.argtypes = [I, I, I, I, I]
+    size.restype = ctypes.c_int
+    err = lib.psn_cuda_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, size, err
+
+
+def fused_dae_rollout_bwd_cuda(
+    streams: Dict, weights: Dict, x0, i0, aux, packed, cot, solver: str = "rk4",
+):
+    """Launch the CUDA backward (one launch walks all steps, one block per
+    batch row; a second small kernel sums the blocks' partial weight grads
+    in a fixed order). Same contract as :func:`fused_dae_rollout_bwd_plain`,
+    float32."""
+    solver = normalize_solver(solver)
+    _check_kernel_inputs(streams, weights, x0, i0, aux)
+    s_de = streams["s_de"]
+    Tm1, B, h = s_de.shape
+    xd, idim = x0.shape[-1], i0.shape[-1]
+    for name, a, shape in (("packed", packed, (Tm1, B, xd + idim)),
+                           ("cot", cot, (Tm1 + 1, B, xd + idim))):
+        if a.device != s_de.device or a.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 on {s_de.device}, got {a.dtype} on {a.device}")
+        if tuple(a.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(a.shape)}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    fn, size, err = _launcher()
+    layout, total = grad_layout(weights)
+    n_tails = (len(weights["de_tail"]), len(weights["ae_tail"]))
+    if size(h, xd, idim, *n_tails) != total:
+        raise RuntimeError("gradient layout of the CUDA backward and of its wrapper disagree")
+    dev = s_de.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    g_s = {k: torch.empty(Tm1, B, h, **f32) for k in ("s_de", "s_ae", "s_ae_ev")}
+    partial = torch.zeros(B, total, **f32)  # one row per block
+    g_flat = torch.empty(total, **f32)
+    g_x0, g_i0 = torch.empty(B, xd, **f32), torch.empty(B, idim, **f32)
+    tr = lambda a: a.t().contiguous()
+    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+    keep = []  # transposes must outlive the launch
+
+    def tail_args(net):
+        Ws = [W for W, _ in weights[net]]
+        WTs = [tr(W) for W in Ws]
+        keep.extend(WTs)
+        return ptrs(Ws), ptrs(WTs), ptrs([b for _, b in weights[net]]), len(Ws)
+
+    wxt, wit, gxt = tr(weights["wx_de"]), tr(weights["wi_de"]), tr(weights["gx_ae"])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(
+            s_de.data_ptr(), streams["s_ae"].data_ptr(), streams["s_ae_ev"].data_ptr(),
+            aux.data_ptr(), x0.data_ptr(), i0.data_ptr(), packed.data_ptr(), cot.data_ptr(),
+            weights["wx_de"].data_ptr(), weights["wi_de"].data_ptr(), weights["gx_ae"].data_ptr(),
+            wxt.data_ptr(), wit.data_ptr(), gxt.data_ptr(),
+            *tail_args("de_tail"), *tail_args("ae_tail"),
+            g_s["s_de"].data_ptr(), g_s["s_ae"].data_ptr(), g_s["s_ae_ev"].data_ptr(),
+            partial.data_ptr(), g_flat.data_ptr(), g_x0.data_ptr(), g_i0.data_ptr(),
+            Tm1, B, h, xd, idim, _SOLVER_CODE[solver], stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"fused_dae_rollout_bwd kernel launch failed: CUDA error {rc} ({err(rc).decode()})"
+        )
+    fused_dae_rollout_bwd.launches += 1
+    g_list = [g_flat[off : off + math.prod(shape)].view(shape) for off, shape in layout]
+    return g_s, unflatten_weights(g_list, n_tails), g_x0, g_i0
+
+
+def fused_dae_rollout_bwd(streams, weights, x0, i0, aux, packed, cot, solver="rk4"):
+    """Reverse walk on the tensors' device: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors, an error otherwise."""
+    dev = streams["s_de"].device
+    if dev.type == "cuda":
+        return fused_dae_rollout_bwd_cuda(streams, weights, x0, i0, aux, packed, cot, solver)
+    if dev.type == "cpu":
+        return fused_dae_rollout_bwd_plain(streams, weights, x0, i0, aux, packed, cot, solver)
+    raise ValueError(f"fused_dae_rollout_bwd runs on cuda or cpu tensors, got {dev}")
+
+
+fused_dae_rollout_bwd.launches = 0
+
+
+class FusedDaeRollout(torch.autograd.Function):
+    """The fused rollout with its reverse-time backward (counterpart of the
+    ``jax.custom_vjp`` ``fused_dae_rollout_diff``, :693-720).
+
+    Forward: the forward rollout (the CUDA kernel on the card); it saves
+    the inputs and the packed solution rows, nothing per step. Backward:
+    :func:`fused_dae_rollout_bwd`. Weights enter as flat tensor arguments
+    (:func:`flatten_weights`); ``aux`` (dt, ev) gets no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, solver, n_tails, s_de, s_ae, s_ae_ev, x0, i0, aux, *wflat):
+        streams = dict(s_de=s_de, s_ae=s_ae, s_ae_ev=s_ae_ev)
+        packed = fused_dae_rollout_packed(
+            streams, unflatten_weights(wflat, n_tails), x0, i0, aux, solver
+        )
+        ctx.solver, ctx.n_tails = solver, n_tails
+        ctx.save_for_backward(s_de, s_ae, s_ae_ev, x0, i0, aux, packed, *wflat)
+        return unpack_solution(packed, x0, i0, s_de.shape[0])
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_xsol, g_isol):
+        s_de, s_ae, s_ae_ev, x0, i0, aux, packed, *wflat = ctx.saved_tensors
+        streams = dict(s_de=s_de, s_ae=s_ae, s_ae_ev=s_ae_ev)
+        cot = torch.cat([g_xsol, g_isol], dim=-1).contiguous()
+        g_s, g_w, g_x0, g_i0 = fused_dae_rollout_bwd(
+            streams, unflatten_weights(wflat, ctx.n_tails), x0, i0, aux, packed, cot, ctx.solver
+        )
+        # the initial rows of the solutions are x0/i0 themselves
+        g_x0 = g_x0 + g_xsol[0]
+        g_i0 = g_i0 + g_isol[0]
+        return (None, None, g_s["s_de"], g_s["s_ae"], g_s["s_ae_ev"], g_x0, g_i0, None,
+                *flatten_weights(g_w)[0])
+
+
+def fused_dae_rollout_diff(
+    streams: Dict, weights: Dict, x0, i0, dt, ev, solver: str = "rk4",
+    precision: str = "default",
+):
+    """Differentiable fused rollout (the training entry): the contract of
+    :func:`~py_psnode_tpu_torch.ops.fused_dae.fused_dae_rollout`, with
+    gradients to ``streams``, ``weights``, ``x0`` and ``i0`` through
+    :class:`FusedDaeRollout`; ``dt``/``ev`` get none."""
+    streams, weights = cast_compute(streams, weights, precision)
+    wflat, n_tails = flatten_weights(weights)
+    return FusedDaeRollout.apply(
+        normalize_solver(solver), n_tails,
+        streams["s_de"], streams["s_ae"], streams["s_ae_ev"],
+        x0.contiguous(), i0.contiguous(), pack_aux(dt, ev), *wflat,
+    )

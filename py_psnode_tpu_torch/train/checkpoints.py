@@ -1,8 +1,11 @@
-"""Checkpoint discovery and loading (counterpart of
-``py_psnode_tpu/train/checkpoints.py:21-104``).
+"""Checkpoint discovery, loading and writing (counterpart of
+``py_psnode_tpu/train/checkpoints.py:21-104`` and of ``save_params_npz``,
+``py_psnode_tpu/export/artifacts.py:55``).
 
-The port reads the single-file npz snapshots ``model_checkpoint.{epoch}``;
-orbax checkpoint directories are not ported yet.
+The port reads and writes the single-file npz snapshots
+``model_checkpoint.{epoch}``, with the JAX package's flat ``params/...``
+keys, so that each package reads the other's; orbax checkpoint directories
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ import re
 
 import numpy as np
 
-from py_psnode_tpu_torch.bridge import load_params_npz
+from py_psnode_tpu_torch.bridge import flatten_params, flax_params, load_params_npz
 
 
 def list_checkpoints(model_dir):
@@ -80,3 +83,20 @@ def load_checkpoint_params(path):
     if not path.exists():
         raise FileNotFoundError(f"{path} does not exist!")
     return load_params_npz(path)
+
+
+def save_params_npz(path, model):
+    """Write ``model``'s weights as a flat npz checkpoint: keys
+    ``params/<module path>/kernel`` (``[in, out]``) and ``.../bias``, as
+    the JAX package writes them. Written through a file object, so that
+    ``np.savez`` cannot append ``.npz``, to ``<path>.tmp`` and then renamed,
+    so that a crash never leaves a truncated checkpoint."""
+    path = pathlib.Path(path)
+    tmp = path.with_name(path.name + ".tmp")
+    flat = {
+        k: v.detach().cpu().numpy()
+        for k, v in flatten_params({"params": flax_params(model)}).items()
+    }
+    with open(tmp, "wb") as f:
+        np.savez(f, **flat)
+    tmp.replace(path)

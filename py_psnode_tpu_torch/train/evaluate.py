@@ -1,6 +1,6 @@
-"""DAE model evaluation and curve plotting (counterpart of
-``py_psnode_tpu/train/evaluate.py``; the ODE evaluation and the training
-summaries are not ported yet).
+"""DAE model evaluation, curve plotting and the training-process summary
+(counterpart of ``py_psnode_tpu/train/evaluate.py``; the ODE evaluation and
+its summary are not ported yet).
 
 Same outputs as the JAX package: per-dim masked losses and totals to the
 testing log, per-sample loss vectors, optional true-vs-pred jpgs under
@@ -137,3 +137,28 @@ def evaluate_dae(
                 break
 
     return np.array([x_loss, i_loss, x_ps, i_ps], dtype=object)
+
+
+def output_training_process_dae(logger: Logger, eval_list):
+    """The end-of-training summary in the testing log (ref
+    neural_01_DAE_01_no_encode.py:225-253): the final per-sample losses,
+    then per epoch the x and i eval means and per-sample spreads."""
+    a = np.array(eval_list, dtype=object)
+    bar = "-" * 69
+    logger.testing_log(bar)
+    logger.testing_log("Output final testing loss per testing sample")
+    logger.testing_log(bar)
+    for aa, bb in zip(a[-1, 2], a[-1, 3]):
+        logger.testing_log(f"{aa[0] + bb[0]}")
+    for label, col in (("x", 0), ("i", 1)):
+        logger.testing_log(bar)
+        logger.testing_log(f"Output {label} testing loss mean")
+        logger.testing_log(bar)
+        for aa in a:
+            logger.testing_log(f"{aa[col]}")
+        logger.testing_log(bar)
+        logger.testing_log(f"Output {label} testing loss variant")
+        logger.testing_log(bar)
+        for aa in a:
+            logger.testing_log(f"{np.std(aa[col + 2], ddof=0)}")
+    logger.testing_log(bar)

@@ -8,6 +8,7 @@ import math
 from typing import Callable, Optional, Tuple
 
 from py_psnode_tpu_torch.models import DAEModel
+from py_psnode_tpu_torch.train import losses as L
 
 DAE_BATCH_ARGS = ("t", "x", "z", "v", "i", "event_t", "z_jump", "v_jump")
 
@@ -22,6 +23,11 @@ class Variant:
     larger_than: Optional[float]
     batch_args: Tuple[str, ...]
     make_model: Callable
+    loss_fn: Callable
+
+    @property
+    def loss_keys(self):
+        return ("x_loss", "i_loss", "loss")
 
 
 def _dae_dims(ds):
@@ -40,6 +46,7 @@ VARIANTS = {
         larger_than=math.pi,
         batch_args=DAE_BATCH_ARGS,
         make_model=lambda dims, hidden, **kw: DAEModel(**dims, hidden_dim=hidden, **kw),
+        loss_fn=L.dae_no_encode_loss,
     ),
 }
 

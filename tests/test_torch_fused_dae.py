@@ -103,11 +103,19 @@ def test_fused_dae_apply_matches_jax_and_plain_model(solver):
 
 
 def test_fused_dae_apply_is_forward_only():
+    """With no parameter requiring grad (or grad mode off) the fused entry
+    runs forward only and builds no graph; a parameter that requires grad
+    makes the result differentiable."""
     model, _, b = _model_and_batch("euler")
     tb = {k: torch.tensor(v) for k, v in b.items()}
+    x, i = fused_dae_apply(model, tb)
+    assert x.grad_fn is None and i.grad_fn is None
     model.de_func.x_dot.dense_1.weight.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        fused_dae_apply(model, tb)
+    with torch.no_grad():
+        assert fused_dae_apply(model, tb)[0].grad_fn is None
+    x_g, _ = fused_dae_apply(model, tb)
+    assert x_g.requires_grad
+    np.testing.assert_array_equal(x_g.detach().numpy(), x.numpy())
     model.requires_grad_(False)
     with pytest.raises(NotImplementedError, match="bfloat16"):
         fused_dae_apply(model, tb, precision="bfloat16")

@@ -83,9 +83,16 @@ def test_port_plain_path_matches_the_fused_one(jax_runs, tmp_path):
 
 
 def test_port_cli_refuses_what_is_not_ported(tmp_path):
-    for flag in ("--training", "--saving"):
+    train = ["--training", "--device", "cpu", "--train_data", str(TEST_DATA), "--test_data",
+             str(TEST_DATA), "--model", str(tmp_path / "run")]
+    for extra in (["--checkpointer", "orbax"], ["--auto_resume"], ["--devices", "2"],
+                  ["--input_true_x"], ["--input_true_i"], ["--n_windows", "20"],
+                  ["--remat", "sqrt"]):
         with pytest.raises(NotImplementedError, match="not ported"):
-            port_main("dae_no_encode", [flag, "--device", "cpu"])
+            port_main("dae_no_encode", train + extra)
+    assert not (tmp_path / "run").exists()
+    with pytest.raises(NotImplementedError, match="not ported"):
+        port_main("dae_no_encode", ["--saving", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="not ported"):
         port_main("dae_encode", ["--testing", "--device", "cpu", "--model", str(CKPT),
                                  "--test_data", str(TEST_DATA)])
