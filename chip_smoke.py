@@ -2,12 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (``py_psnode_tpu_torch``) on one card.
 
     python3 chip_smoke.py            # the smoke run, needs one CUDA card
-    python3 chip_smoke.py --sweep    # also time every forward launch shape
+    python3 chip_smoke.py --sweep    # also time every DAE forward launch shape
 
 Phases, each printed as it ends; any failure exits non-zero:
   1. card: name, device count, and nvidia-smi's name and power limit;
-  2. build: nvcc builds the forward and the backward library, both at once
-     (seconds printed for each);
+  2. build: nvcc builds the four libraries (the DAE and the ODE forward and
+     backward), all at once (seconds printed for each);
   3. forward kernel against plain: the kernel and its eager PyTorch version
      on the same seeded random inputs at the motor evaluation shape (B=32,
      T=1001, h=128, xd=3, id=2, events in some rows), for Euler, Midpoint
@@ -29,7 +29,28 @@ Phases, each printed as it ends; any failure exits non-zero:
   7. times (CUDA events): the forward at B=32, 64 and 1024, the backward at
      B=64 for each solver, and one whole training step (streams, both
      kernels, stream backprop, Adam) at bench.py's shape (B=64, T=1001,
-     h=128, RK4) against the plain (non-fused) route.
+     h=128, RK4) against the plain (non-fused) route;
+  8. ODE forward kernel against plain: seeded random inputs at B=32,
+     T=1001, h=128, for the no-encode shape (xd=2, three tail layers) with
+     each solver and the direct-encode latent shape (xd=h, one tail layer)
+     with Euler, within |kernel - plain| <= 1e-4 * max(1, |plain|); then
+     the encode shape at lecun scale, the kernel and the float32 plain
+     loop each against a float64 plain loop, the kernel at most 4x as far
+     from it as the float32 plain loop;
+  9. ODE backward kernel against the float64 plain walk at B=64 with
+     unit-scale cotangents, each solver, each output tensor on its own
+     scale as in phase 4, bit-identical on relaunch;
+ 10. ODE slice: the port's AVR data (128 training and 32 test samples,
+     T=1001, seed 0) and the numpy starting checkpoint (h=128, seed 0);
+     the port's Trainer (fused) for one epoch of two steps, Euler then RK4,
+     steps 1 and 2 and the epoch-1 eval against the JAX package's anchors
+     at rtol 1e-3; then the CLI ``--training --fused`` (Euler) and
+     ``--testing --fused`` (Euler and RK4), each with both ODE kernels'
+     launches counted; every loss must also lie nearer its own solver's
+     anchor than the other's;
+ 11. ODE times (CUDA events): the forward at B=32 Euler, B=64 RK4 and
+     B=1024 Euler, the backward at B=64 for each solver, and one whole
+     training step (B=64, T=1001, h=128, RK4) against the plain route.
 
 The line before the last two is the kernels' JSON record, then nvidia-smi's
 line, and the last line is ``{"ok": true, "device": {...}}``. Nothing is
@@ -57,14 +78,22 @@ sys.path.insert(0, str(REPO))
 
 from py_psnode_tpu_torch.bridge import load_params  # noqa: E402
 from py_psnode_tpu_torch.cli.common import main as cli_main  # noqa: E402
-from py_psnode_tpu_torch.data import DaeSamples  # noqa: E402
-from py_psnode_tpu_torch.models import DAEModel  # noqa: E402
+from py_psnode_tpu_torch.data import DaeSamples, OdeSamples  # noqa: E402
+from py_psnode_tpu_torch.data.synthetic import write_avr_dataset  # noqa: E402
+from py_psnode_tpu_torch.models import DAEModel, ODEModel  # noqa: E402
 from py_psnode_tpu_torch.ops import fused_dae as F  # noqa: E402
 from py_psnode_tpu_torch.ops import fused_dae_vjp as V  # noqa: E402
-from py_psnode_tpu_torch.ops.fused_model import fused_dae_apply, rollout_inputs  # noqa: E402
+from py_psnode_tpu_torch.ops import fused_ode as FO  # noqa: E402
+from py_psnode_tpu_torch.ops import fused_ode_vjp as VO  # noqa: E402
+from py_psnode_tpu_torch.ops.fused_model import (  # noqa: E402
+    fused_dae_apply,
+    fused_ode_apply,
+    ode_rollout_inputs,
+    rollout_inputs,
+)
 from py_psnode_tpu_torch.train import TrainConfig, Trainer  # noqa: E402
 from py_psnode_tpu_torch.train.checkpoints import load_checkpoint_params  # noqa: E402
-from py_psnode_tpu_torch.train.losses import dae_no_encode_loss  # noqa: E402
+from py_psnode_tpu_torch.train.losses import dae_no_encode_loss, ode_no_encode_loss  # noqa: E402
 from py_psnode_tpu_torch.train.optim import make_optimizer  # noqa: E402
 from py_psnode_tpu_torch.utils import cuda_build  # noqa: E402
 from py_psnode_tpu_torch.utils.device import use_full_float32  # noqa: E402
@@ -88,16 +117,51 @@ TRAIN_STEP1_RTOL = 1e-3
 # The eval after Adam's first update (about lr * sign(g) per parameter),
 # held as the CPU slice holds it
 TRAIN_EVAL1_RTOL = 1e-3
+# The ODE slice (AVR data and the numpy starting checkpoint, both seed 0;
+# one epoch of training, batch 64, lr 5e-3, seed 0): step 1 and step 2
+# (loss, gradient norm), the epoch-1 eval x_loss, and the --testing
+# x_loss_total on the starting checkpoint, of the JAX package on the CPU in
+# float32; re-derived by `python tests/test_torch_ode_slice.py` (needs JAX).
+ODE_ANCHORS = {
+    "euler": dict(step1=(42.697582, 115.89577), step2=(35.27792, 113.6741),
+                  eval1_x_loss=18.735991, test_x_loss=37.461788),
+    "rk4": dict(step1=(42.720161, 115.87241), step2=(35.205109, 113.66186),
+                eval1_x_loss=18.748568, test_x_loss=37.491188),
+}
 # Per output tensor, on its own scale: max|kernel - plain| <= BWD_TOL *
 # max|plain|. Each weight gradient sums 64 x 1000 row-steps in another
 # order than the float64 plain walk, and each row's cotangent is carried
 # back through 1000 steps of float32; a tensor whose plain maximum is 0
 # fails, as it would hold the kernel to nothing.
 BWD_TOL = 1e-4
+# Where the float32 rollout is ill-conditioned (the encode shape at lecun
+# scale), the kernel's distance to a float64 loop may be at most this many
+# times the float32 plain loop's: the two sum in other orders, so neither
+# is the reference there.
+ODE_F64_RATIO = 4.0
 # H100 SXM peaks (NVIDIA data sheet): float32 on the CUDA cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 SOLVERS = ("euler", "midpoint", "rk4")
+
+
+def ode_start_checkpoint(path, dims, hidden, seed):
+    """Write the ODE no-encode model's starting weights as a flax-layout npz
+    checkpoint (``params/de_func/x_dot/dense_k/{kernel,bias}``), drawn with
+    numpy so that every machine gets the same bits: each kernel ``[in,
+    out]`` a standard normal clipped to +-2 and scaled by ``1/sqrt(in)``,
+    each bias zero. ``dims`` is ``(xd, zd)``."""
+    xd, zd = dims
+    rng = np.random.default_rng(seed)
+    widths = [3 * (xd + zd), hidden, hidden, hidden, xd]
+    flat = {}
+    for k, (n_in, n_out) in enumerate(zip(widths[:-1], widths[1:])):
+        w = np.clip(rng.standard_normal((n_in, n_out)), -2.0, 2.0) / np.sqrt(n_in)
+        flat[f"params/de_func/x_dot/dense_{k}/kernel"] = w.astype(np.float32)
+        flat[f"params/de_func/x_dot/dense_{k}/bias"] = np.zeros(n_out, np.float32)
+    with open(path, "wb") as f:  # a file object: np.savez appends no ".npz"
+        np.savez(f, **flat)
+    return pathlib.Path(path)
 
 
 def say(*parts):
@@ -254,16 +318,17 @@ def phase_card():
 
 
 def phase_build():
-    """Both libraries at once (one nvcc each), then load them."""
+    """The four libraries at once (one nvcc each), then load them."""
     t0 = time.perf_counter()
-    names = ("fused_dae_rollout", "fused_dae_rollout_bwd")
+    names = ("fused_dae_rollout", "fused_dae_rollout_bwd", "fused_ode_rollout",
+             "fused_ode_rollout_bwd")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         nvcc_s = dict(zip(names, pool.map(cuda_build.build, names)))
-    F._launcher()
-    V._launcher()
+    for mod in (F, V, FO, VO):
+        mod._launcher()
     for name in names:
         say(f"[build] {name}.cu: nvcc {nvcc_s[name]:.2f} s")
-    say(f"[build] both built and loaded in {time.perf_counter() - t0:.2f} s")
+    say(f"[build] all four built and loaded in {time.perf_counter() - t0:.2f} s")
     return nvcc_s
 
 
@@ -486,10 +551,325 @@ def phase_times(dev, sweep):
             f"{ms:.3f} ms, {traj_steps / ms * 1e3:.1f} trajectory-steps/s")
     return times
 
+# ------------------------------------------------------------------ the ODE
+
+
+def ode_random_inputs(B, Tm1, h, xd, n_tail, seed, dev, readout=0.1):
+    """Seeded random ODE rollout inputs: lecun-scaled weights with the
+    readout (the last tail layer) scaled by ``readout`` more, dt = 0.01.
+    The default readout keeps the rolled state bounded over 1000 steps; at
+    ``readout=1`` (lecun scale) the 128-wide latent state of the encode
+    shape grows to about 3e3, where the float32 sums of any order drift
+    apart (phase 8 measures how far)."""
+    rng = np.random.default_rng(seed)
+    t = lambda shape, scale: torch.tensor(
+        (rng.standard_normal(shape) * scale).astype(np.float32), device=dev
+    )
+    outs = [h] * (n_tail - 1) + [xd]
+    scale = [1.0] * (n_tail - 1) + [readout]
+    weights = dict(wx_de=t((xd, h), 1 / np.sqrt(xd)),
+                   de_tail=[(t((h, o), c / np.sqrt(h)), t((o,), 0.1 * c)) for o, c in zip(outs, scale)])
+    return t((Tm1, B, h), 0.5), weights, t((B, xd), 1.0), torch.full((Tm1, B, 1), 0.01, device=dev)
+
+
+def ode_work(s_de, weights, x0, solver):
+    """(forward bytes, forward FLOP, backward bytes, backward FLOP) of the
+    ODE rollout on these inputs. Bytes: each input read once and each
+    output written once (forward: s_de, dt, x0, weights in, the solution
+    rows out; backward: s_de, dt, the solution, its cotangent and the
+    weights in, g_s_de, the weight grads and g_x0 out). FLOP (2 per
+    multiply-add): per row-step and stage, one evaluation of f (the x
+    projection and the tail layers); the backward recomputes it and adds
+    two products per layer (the cotangent through the weight and the
+    weight-gradient outer product)."""
+    Tm1, B, h = s_de.shape
+    xd = x0.shape[-1]
+    w = [weights["wx_de"]] + [a for pair in weights["de_tail"] for a in pair]
+    w_bytes = sum(a.numel() * 4 for a in w)
+    tail = sum(2 * W.shape[0] * W.shape[1] for W, _ in weights["de_tail"])
+    ev = 2 * xd * h + tail
+    stages = {"euler": 1, "midpoint": 2, "rk4": 4}[solver]
+    fwd_bytes = (Tm1 * B * (h + 1) + B * xd + Tm1 * B * xd) * 4 + w_bytes
+    bwd_bytes = (2 * Tm1 * B * h + Tm1 * B + 2 * (Tm1 + 1) * B * xd + B * xd) * 4 + 2 * w_bytes
+    fwd_flops = Tm1 * B * stages * ev
+    bwd_flops = Tm1 * B * stages * (ev + 2 * tail + 4 * xd * h)
+    return fwd_bytes, fwd_flops, bwd_bytes, bwd_flops
+
+
+def rel_err(a, ref):
+    """max |a - ref| / max(1, |ref|), elementwise, as KERNEL_TOL reads it."""
+    return ((a.double() - ref.double()).abs() / ref.double().abs().clamp(min=1.0)).max().item()
+
+
+def phase_ode_kernel_vs_plain(dev):
+    """The ODE forward kernel against its plain version: the no-encode shape
+    with each solver, the direct-encode latent shape with Euler, at
+    KERNEL_TOL. Then the encode shape at lecun scale, where the state grows
+    large: the kernel and the float32 plain loop are each held against a
+    float64 plain loop, and the kernel may lie at most ODE_F64_RATIO times
+    as far from it as the float32 plain loop does."""
+    worst_abs = 0.0
+    for xd, n_tail, solvers in ((2, 3, SOLVERS), (128, 1, ("euler",))):
+        args = ode_random_inputs(32, 1000, 128, xd, n_tail, seed=4, dev=dev)
+        for solver in solvers:
+            ref = FO.fused_ode_rollout_plain(*args, solver)
+            got = FO.fused_ode_rollout_cuda(*args, solver)
+            torch.cuda.synchronize()
+            if got.shape != ref.shape or not torch.isfinite(got).all():
+                fail(f"ODE kernel {solver} xd={xd}: shape {tuple(got.shape)} or non-finite values")
+            d = (got - ref).abs()
+            max_abs = d.max().item()
+            ok = bool((d <= KERNEL_TOL * torch.clamp(ref.abs(), min=1.0)).all())
+            say(f"[ode-kernel] {solver:8s} xd={xd} n_tail={n_tail}: max|d| {max_abs:.3e} "
+                f"max|ref| {ref.abs().max().item():.3f} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"ODE kernel {solver} xd={xd} disagrees with plain beyond {KERNEL_TOL}")
+            worst_abs = max(worst_abs, max_abs)
+
+    s_de, weights, x0, dt = ode_random_inputs(32, 1000, 128, 128, 1, seed=4, dev=dev, readout=1.0)
+    ref64 = FO.fused_ode_rollout_plain(s_de.double(), double(weights), x0.double(), dt, "euler")
+    plain = FO.fused_ode_rollout_plain(s_de, weights, x0, dt, "euler")
+    got = FO.fused_ode_rollout_cuda(s_de, weights, x0, dt, "euler")
+    torch.cuda.synchronize()
+    if got.shape != ref64.shape or not torch.isfinite(got).all():
+        fail(f"ODE kernel lecun-scale encode shape: shape {tuple(got.shape)} or non-finite values")
+    e_kernel, e_plain = rel_err(got, ref64), rel_err(plain, ref64)
+    ok = e_kernel <= ODE_F64_RATIO * e_plain
+    say(f"[ode-kernel] euler    xd=128 n_tail=1 lecun scale: max|ref64| "
+        f"{ref64.abs().max().item():.3f}; max|d|/max(1,|ref64|): kernel {e_kernel:.3e}, float32 plain "
+        f"{e_plain:.3e}, kernel - float32 plain {rel_err(got, plain):.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"ODE kernel at lecun scale lies {e_kernel} from the float64 loop, more than "
+             f"{ODE_F64_RATIO} x the float32 plain loop's {e_plain}")
+    return worst_abs
+
+
+def phase_ode_bwd_vs_plain(dev):
+    """The ODE backward kernel against the float64 plain walk at B=64,
+    every solver; a relaunch must be bit-identical."""
+    worst_abs = 0.0
+    s_de, weights, x0, dt = ode_random_inputs(64, 1000, 128, 2, 3, seed=5, dev=dev)
+    cot = torch.tensor(np.random.default_rng(6).standard_normal((1001, 64, 2)).astype(np.float32),
+                       device=dev)
+    names = ["g_s_de", "g_x0", "wx_de"] + [f"de_tail[{k}].{p}" for k in range(3) for p in "Wb"]
+    flat = lambda g: [g[0], g[2]] + VO.flatten_weights(g[1])
+    for solver in SOLVERS:
+        sol = torch.cat([x0[None], FO.fused_ode_rollout_cuda(s_de, weights, x0, dt, solver)])
+        got = flat(VO.fused_ode_rollout_bwd_cuda(s_de, weights, dt, sol, cot, solver))
+        again = flat(VO.fused_ode_rollout_bwd_cuda(s_de, weights, dt, sol, cot, solver))
+        t0 = time.perf_counter()
+        ref = flat(VO.fused_ode_rollout_bwd_plain(s_de.double(), double(weights), dt, sol.double(),
+                                                  cot.double(), solver))
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        parts = []
+        for name, g, g2, r in zip(names, got, again, ref):
+            if g.shape != r.shape or not torch.isfinite(g).all():
+                fail(f"ODE backward {solver} {name}: shape {tuple(g.shape)} or non-finite values")
+            if not torch.equal(g, g2):
+                fail(f"ODE backward {solver} {name}: a relaunch gave other bits")
+            d = (g.double() - r).abs().max().item()
+            scale = r.abs().max().item()
+            parts.append(f"{name} {d:.2e}/{scale:.3e}")
+            if not scale > 0:
+                fail(f"ODE backward {solver} {name}: the plain gradient is 0, so the check holds nothing")
+            if d > BWD_TOL * scale:
+                fail(f"ODE backward {solver} {name}: max|d| {d} > {BWD_TOL} * max|plain| = {BWD_TOL * scale}")
+            worst_abs = max(worst_abs, d)
+        say(f"[ode-bwd-kernel] {solver:8s}: ok, bit-identical on relaunch; plain float64 walk "
+            f"{plain_s:.1f} s; max|d| / max|plain| per tensor: {', '.join(parts)}")
+    return worst_abs
+
+
+def near(value, anchor, rtol):
+    return abs(value - anchor) <= rtol * abs(anchor)
+
+
+def check_ode_anchor(what, value, solver, key, rtol, nearest=True):
+    """Fail unless ``value`` lies within ``rtol`` of ``solver``'s ODE anchor
+    ``key`` (a name, or a (name, index) pair) and, where ``nearest``, nearer
+    it than the other solver's: the Euler and RK4 anchors differ by less
+    than 1e-3, so the rtol alone cannot tell a run of the wrong solver."""
+    name, i = key if isinstance(key, tuple) else (key, None)
+    pick = lambda sv: ODE_ANCHORS[sv][name] if i is None else ODE_ANCHORS[sv][name][i]
+    own, other = pick(solver), pick("rk4" if solver == "euler" else "euler")
+    if not (np.isfinite(value) and near(value, own, rtol)):
+        fail(f"ODE {what} {value} misses the {solver} anchor {own} at rtol {rtol}")
+    if nearest and not abs(value - own) < abs(value - other):
+        fail(f"ODE {what} {value} lies nearer the other solver's anchor {other} than {own}")
+    return abs(value - own) / abs(own)
+
+
+def reset_ode_counts():
+    FO.fused_ode_rollout.launches = 0
+    VO.fused_ode_rollout_bwd.launches = 0
+
+
+def ode_counts():
+    return FO.fused_ode_rollout.launches, VO.fused_ode_rollout_bwd.launches
+
+
+def phase_ode_slice(dev, root):
+    """The ODE no-encode slice on the AVR data from the starting checkpoint:
+    the Trainer (every step logged) for Euler and RK4, then the CLI
+    ``--training --fused`` and ``--testing --fused`` (Euler)."""
+    data = root / "avr"
+    train_f, test_f = write_avr_dataset(data, n_train=128, n_test=32, n_steps=1001, seed=0)
+    start = ode_start_checkpoint(root / "start.ckpt", (2, 2), 128, seed=0)
+    for solver in ("euler", "rk4"):
+        shutil.copy(start, root / f"ws_{solver}")
+        cfg = TrainConfig(
+            variant="ode_no_encode", train_data=str(train_f), test_data=str(test_f),
+            model=str(root / f"run_{solver}"), num=128, batch=64, epoch=200, hidden=128,
+            larger_than=None, seed=0, warm_start=str(root / f"ws_{solver}"), stop_after=1,
+            loss_record_iter=1, solver=solver, fused=True, echo_logs=False, device="cuda",
+        )
+        reset_ode_counts()
+        t0 = time.perf_counter()
+        _, run_dir = Trainer(cfg).train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_fwd, n_bwd = ode_counts()
+        recs = [json.loads(line) for line in (run_dir / "train_metrics.jsonl").read_text().splitlines()]
+        steps = [r for r in recs if r["kind"] == "train"]
+        (ev,) = [r for r in recs if r["kind"] == "eval"]
+        for r in steps:
+            say(f"[ode-train] fused {solver} step {r['batch']}: loss {r['loss']:.8g} "
+                f"gradient_norm {r['grad_norm']:.8g}")
+        if len(steps) != 2:
+            fail(f"ODE fused {solver} training logged {len(steps)} steps, not 2")
+        what = f"fused {solver}"
+        errs = [
+            check_ode_anchor(f"{what} step-1 loss", steps[0]["loss"], solver, ("step1", 0), TRAIN_STEP1_RTOL),
+            check_ode_anchor(f"{what} step-1 gradient_norm", steps[0]["grad_norm"], solver,
+                             ("step1", 1), TRAIN_STEP1_RTOL, nearest=False),
+            check_ode_anchor(f"{what} step-2 loss", steps[1]["loss"], solver, ("step2", 0), TRAIN_EVAL1_RTOL),
+            check_ode_anchor(f"{what} step-2 gradient_norm", steps[1]["grad_norm"], solver,
+                             ("step2", 1), TRAIN_EVAL1_RTOL, nearest=False),
+            check_ode_anchor(f"{what} epoch-1 eval x_loss", ev["x_loss"], solver, "eval1_x_loss",
+                             TRAIN_EVAL1_RTOL),
+        ]
+        say(f"[ode-train] fused {solver} epoch-1 eval: x_loss {ev['x_loss']:.8g}; launches: forward "
+            f"{n_fwd}, backward {n_bwd}; wall {wall:.2f} s; rel. err. to the JAX anchors (step-1 "
+            f"loss, gradient_norm, step-2 loss, gradient_norm, eval x_loss): "
+            f"{', '.join(f'{e:.2e}' for e in errs)}")
+        if n_fwd < 1 or n_bwd < 1:
+            fail(f"ODE fused {solver} training launched the forward {n_fwd} and the backward {n_bwd} times")
+
+    # the CLI entry points a user calls, with the counts of this run only
+    shutil.copy(start, root / "ws_cli")
+    argv = ["--training", "--fused", "--device", "cuda", "--train_data", str(train_f),
+            "--test_data", str(test_f), "--model", str(root / "run_cli"), "--num", "128",
+            "--batch", "64", "--epoch", "200", "--stop_after", "1", "--lr", "5e-3",
+            "--larger_than", "none", "--seed", "0", "--warm_start", str(root / "ws_cli")]
+    reset_ode_counts()
+    t0 = time.perf_counter()
+    _, run_dir = cli_main("ode_no_encode", argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_launches = ode_counts()
+    recs = [json.loads(line) for line in (run_dir / "train_metrics.jsonl").read_text().splitlines()]
+    (ev,) = [r for r in recs if r["kind"] == "eval"]
+    err = check_ode_anchor("CLI --training epoch-1 eval x_loss", ev["x_loss"], "euler",
+                           "eval1_x_loss", TRAIN_EVAL1_RTOL)
+    say(f"[ode-cli] --training --fused: epoch-1 eval x_loss {ev['x_loss']:.8g} (rel. err. {err:.2e}); "
+        f"launches: forward {train_launches[0]}, backward {train_launches[1]}; wall {wall:.2f} s")
+    if min(train_launches) < 1 or not (run_dir / "model_checkpoint.1").exists():
+        fail(f"ODE CLI training launched the kernels {train_launches} times or wrote no checkpoint")
+
+    for solver in ("euler", "rk4"):
+        # the eval writes its log beside the checkpoint: one copy per run
+        (root / f"test_{solver}").mkdir()
+        ckpt = shutil.copy(start, root / f"test_{solver}" / "model_checkpoint.0")
+        reset_ode_counts()
+        t0 = time.perf_counter()
+        res = cli_main("ode_no_encode", ["--testing", "--fused", "--device", "cuda", "--solver", solver,
+                                         "--model", str(ckpt), "--test_data", str(test_f)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        test_launches = ode_counts()
+        x_loss = float(res[0])
+        err = check_ode_anchor(f"CLI --testing {solver} x_loss_total", x_loss, solver, "test_x_loss",
+                               ANCHOR_RTOL)
+        say(f"[ode-cli] --testing --fused --solver {solver}: x_loss_total {x_loss:.10f} (JAX anchor "
+            f"{ODE_ANCHORS[solver]['test_x_loss']}, rel. err. {err:.2e}); launches: forward "
+            f"{test_launches[0]}, backward {test_launches[1]}; wall {wall:.3f} s")
+        if test_launches[0] < 1 or test_launches[1]:
+            fail(f"ODE CLI --testing launched the forward {test_launches[0]} and the backward "
+                 f"{test_launches[1]} times")
+    return train_launches, (train_f, test_f, start)
+
+
+def ode_model(start, dev, solver):
+    model = ODEModel(2, 2, 128, solver=solver, device="meta")
+    return load_params(model, load_checkpoint_params(start), device=dev)
+
+
+def phase_ode_times(dev, files):
+    """CUDA-event times of both ODE kernels at the slice's shapes (the
+    starting checkpoint on the AVR sets) and of one whole training step."""
+    train_f, test_f, start = files
+    test_ds, train_ds = OdeSamples.load(str(test_f)), OdeSamples.load(str(train_f))
+    keys = ("t", "x", "z", "event_t", "z_jump")
+    model = ode_model(start, dev, "euler").requires_grad_(False)
+    times = {}
+
+    def inputs(ds, n):
+        idx = np.arange(n) % len(ds)
+        batch = {k: torch.as_tensor(getattr(ds, k)[idx], device=dev) for k in keys}
+        with torch.no_grad():
+            s_de, weights, x0, dt = ode_rollout_inputs(model, batch)
+        return s_de, weights, x0.contiguous(), dt.contiguous()
+
+    for B, solver, ds in ((32, "euler", test_ds), (64, "euler", train_ds), (64, "rk4", train_ds),
+                          (1024, "euler", test_ds)):
+        args = inputs(ds, B)
+        k_ms = cuda_ms(lambda: FO.fused_ode_rollout_cuda(*args, solver), 2, 10)
+        p_ms = cuda_ms(lambda: FO.fused_ode_rollout_plain(*args, solver), 1, 2)
+        n_bytes, flops, _, _ = ode_work(args[0], args[1], args[2], solver)
+        bound_ms, bound_by = bound(n_bytes, flops)
+        times[("fwd", B, solver)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
+        say(f"[ode-times] forward B={B} {solver:8s}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+            f"bound {bound_ms:.5f} ms ({bound_by}; {n_bytes} B, {flops} FLOP), kernel/bound "
+            f"{k_ms / bound_ms:.1f}x, library n/a: no single PyTorch call computes this rollout")
+
+    s_de, weights, x0, dt = inputs(train_ds, 64)
+    cot = torch.tensor(np.random.default_rng(7).standard_normal((1001, 64, 2)).astype(np.float32)
+                       * 0.01, device=dev)
+    for solver in SOLVERS:
+        sol = torch.cat([x0[None], FO.fused_ode_rollout_cuda(s_de, weights, x0, dt, solver)])
+        k_ms = cuda_ms(lambda: VO.fused_ode_rollout_bwd_cuda(s_de, weights, dt, sol, cot, solver), 1, 5)
+        p_ms = cuda_ms(lambda: VO.fused_ode_rollout_bwd_plain(s_de, weights, dt, sol, cot, solver), 0, 1)
+        _, _, n_bytes, flops = ode_work(s_de, weights, x0, solver)
+        bound_ms, bound_by = bound(n_bytes, flops)
+        times[("bwd", solver)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
+        say(f"[ode-times] backward B=64 {solver:8s}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+            f"bound {bound_ms:.5f} ms ({bound_by}; {n_bytes} B, {flops} FLOP), kernel/bound "
+            f"{k_ms / bound_ms:.1f}x, library n/a: no single PyTorch call computes this VJP")
+
+    batch = {k: torch.as_tensor(getattr(train_ds, k)[:64], device=dev) for k in keys + ("mask",)}
+    for fused, reps in ((True, 5), (False, 1)):
+        m = ode_model(start, dev, "rk4")
+        opt = make_optimizer(m.parameters(), 5e-3, epochs=1, steps_per_epoch=1)
+        forward = ((lambda: fused_ode_apply(m, batch)) if fused
+                   else (lambda: m(*[batch[k] for k in keys])))
+
+        def step():
+            opt.adam.zero_grad()
+            loss, _ = ode_no_encode_loss(forward(), batch)
+            loss.backward()
+            opt.step()
+
+        ms = cuda_ms(step, 1, reps)
+        times[("step", fused)] = ms
+        say(f"[ode-times] training step B=64 T=1001 h=128 rk4, {'fused' if fused else 'plain'} "
+            f"route: {ms:.3f} ms, {64 * 1000 / ms * 1e3:.1f} trajectory-steps/s")
+    return times
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--sweep", action="store_true", help="time every forward launch shape")
+    ap.add_argument("--sweep", action="store_true", help="time every DAE forward launch shape")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     name, count, smi = phase_card()
@@ -502,6 +882,11 @@ def main(argv=None):
     fwd_launches = phase_slice(dev)
     train_launches = phase_train(dev)
     times = phase_times(dev, args.sweep)
+    ode_fwd_err = phase_ode_kernel_vs_plain(dev)
+    ode_bwd_err = phase_ode_bwd_vs_plain(dev)
+    with tempfile.TemporaryDirectory(prefix="psnode_ode_") as tmp:
+        ode_launches, ode_files = phase_ode_slice(dev, pathlib.Path(tmp))
+        ode_times = phase_ode_times(dev, ode_files)
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all, nvcc "
         f"{', '.join(f'{k} {v:.2f} s' for k, v in nvcc_s.items())}; card {smi}")
     # the forward as the evaluation slice drives it (B=32, Euler); the
@@ -518,6 +903,14 @@ def main(argv=None):
               "py_psnode_tpu/ops/fused_dae.py:371", fwd_launches, fwd_err, fwd_t),
         entry("fused_dae_rollout_bwd", "py_psnode_tpu_torch/csrc/fused_dae_rollout_bwd.cu",
               "py_psnode_tpu/ops/fused_dae_vjp.py:147", train_launches["euler"][1], bwd_err, bwd_t),
+        # the ODE kernels as the CLI's --training --fused drives them (B=64,
+        # Euler, the CLI's default solver)
+        entry("fused_ode_rollout", "py_psnode_tpu_torch/csrc/fused_ode_rollout.cu",
+              "py_psnode_tpu/ops/fused_ode.py:125", ode_launches[0], ode_fwd_err,
+              ode_times[("fwd", 64, "euler")]),
+        entry("fused_ode_rollout_bwd", "py_psnode_tpu_torch/csrc/fused_ode_rollout_bwd.cu",
+              "py_psnode_tpu/ops/fused_ode.py:171", ode_launches[1], ode_bwd_err,
+              ode_times[("bwd", "euler")]),
     ]}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

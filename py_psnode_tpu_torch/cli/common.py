@@ -24,8 +24,8 @@ from py_psnode_tpu_torch.utils.device import use_full_float32
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
     parser.add_argument("--device", type=str, default="cuda",
-                        help='Device: "cuda" (default) or "cpu". There is no '
-                             "fallback from cuda to cpu.")
+                        help='Device: "cuda" (default; "gpu" is the same) or '
+                             '"cpu". There is no fallback from cuda to cpu.')
     parser.add_argument("--id", type=int, default=0,
                         help="Device index within the backend. Default 0.")
     parser.add_argument("--training", action="store_true",
@@ -131,12 +131,22 @@ def _parse_larger_than(value: str):
         ) from None
 
 
+def device_name(device: str, index: int) -> str:
+    """``--device``/``--id`` as a torch device string: ``cuda`` or ``gpu``
+    (any case; the reference's command lines say ``gpu``) is ``cuda:<id>``,
+    ``cpu`` is ``cpu``; anything else exits with an error."""
+    d = device.lower()
+    if d in ("cuda", "gpu"):
+        return f"cuda:{index}"
+    if d == "cpu":
+        return "cpu"
+    raise SystemExit(f'Argument "--device" is illegal. Expected "cuda", "gpu" or "cpu" but {device}')
+
+
 def main(variant: str, argv=None):
     args = build_parser().parse_args(argv)
     use_full_float32()
-    device = args.device.lower()
-    if device not in ("cuda", "cpu"):
-        raise SystemExit(f'Argument "--device" is illegal. Expected "cuda" or "cpu" but {args.device}')
+    device = device_name(args.device, args.id)
     if args.saving:
         raise NotImplementedError("--saving (the model export) is not ported yet")
     _check_ported(args)
@@ -162,7 +172,7 @@ def main(variant: str, argv=None):
         robust_limit=args.robust_limit,
         gradient_clip=args.gradient_clip,
         init_style=args.init_style,
-        device=f"cuda:{args.id}" if device == "cuda" else "cpu",
+        device=device,
     )
     if args.training:
         if not (args.train_data and args.test_data):

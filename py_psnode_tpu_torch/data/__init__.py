@@ -1,3 +1,4 @@
-"""Trajectory datasets over the PSOPS ``.npz`` schema (numpy)."""
+"""Trajectory datasets over the PSOPS ``.npz`` schema and the synthetic AVR
+generator (numpy)."""
 
-from py_psnode_tpu_torch.data.schema import DaeSamples  # noqa: F401
+from py_psnode_tpu_torch.data.schema import DaeSamples, OdeSamples  # noqa: F401

@@ -1,6 +1,6 @@
-"""Fused DAE path: stream precompute, the CUDA forward and backward kernels
-with their plain PyTorch versions, the autograd Function and the
-model-level entry."""
+"""Fused DAE and ODE paths: stream precompute, the CUDA forward and
+backward kernels with their plain PyTorch versions, the autograd Functions
+and the model-level entries."""
 
 from py_psnode_tpu_torch.ops.fused_dae import (  # noqa: F401
     fused_dae_rollout,
@@ -11,4 +11,9 @@ from py_psnode_tpu_torch.ops.fused_dae_vjp import (  # noqa: F401
     FusedDaeRollout,
     fused_dae_rollout_diff,
 )
-from py_psnode_tpu_torch.ops.fused_model import fused_dae_apply  # noqa: F401
+from py_psnode_tpu_torch.ops.fused_model import fused_dae_apply, fused_ode_apply  # noqa: F401
+from py_psnode_tpu_torch.ops.fused_ode import fused_ode_rollout, precompute_ode_streams  # noqa: F401
+from py_psnode_tpu_torch.ops.fused_ode_vjp import (  # noqa: F401
+    FusedOdeRollout,
+    fused_ode_rollout_diff,
+)

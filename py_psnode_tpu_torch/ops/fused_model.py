@@ -1,11 +1,13 @@
-"""Model-level entry of the fused DAE path (counterpart of
-``py_psnode_tpu/ops/fused_model.py:22-69``).
+"""Model-level entries of the fused paths (counterparts of
+``py_psnode_tpu/ops/fused_model.py:22-69`` and of
+``py_psnode_tpu/ops/fused_ode.py:393`` ``fused_ode_apply``).
 
-Drop-in for ``DAEModel.forward``: the Init/AE initial evaluations and the
-stream precompute run as plain PyTorch (differentiated by autograd), the
-time loop runs through
-:func:`~py_psnode_tpu_torch.ops.fused_dae_vjp.fused_dae_rollout_diff`: the
-forward and backward CUDA kernels on the card.
+:func:`fused_dae_apply` is a drop-in for ``DAEModel.forward``,
+:func:`fused_ode_apply` for ``ODEModel.forward``: the initial evaluations,
+the event streams and the stream precompute run as plain PyTorch
+(differentiated by autograd), the time loop runs through the rollout's
+``torch.autograd.Function``: the forward and backward CUDA kernels on the
+card.
 """
 
 from __future__ import annotations
@@ -17,8 +19,11 @@ import torch
 
 from py_psnode_tpu_torch.bridge import flax_params
 from py_psnode_tpu_torch.models.dae import DAEModel
+from py_psnode_tpu_torch.models.ode import ODEModel
 from py_psnode_tpu_torch.ops.fused_dae import normalize_solver, precompute_streams
 from py_psnode_tpu_torch.ops.fused_dae_vjp import fused_dae_rollout_diff
+from py_psnode_tpu_torch.ops.fused_ode import precompute_ode_streams
+from py_psnode_tpu_torch.ops.fused_ode_vjp import fused_ode_rollout_diff
 from py_psnode_tpu_torch.solvers import event_match, jumped_stream
 
 
@@ -65,8 +70,47 @@ def fused_dae_apply(
     ``torch.no_grad()``.
     """
     solver = normalize_solver(model.solver if solver is None else solver)
-    needs_grad = torch.is_grad_enabled() and any(p.requires_grad for p in model.parameters())
-    with contextlib.nullcontext() if needs_grad else torch.no_grad():
+    with _grad_mode(model):
         streams, weights, x0, i0, dt, ev = rollout_inputs(model, batch)
         x_sol, i_sol = fused_dae_rollout_diff(streams, weights, x0, i0, dt, ev, solver, precision)
     return x_sol.transpose(0, 1), i_sol.transpose(0, 1)
+
+
+def _grad_mode(model):
+    """Grad mode as it is where a parameter of ``model`` requires grad,
+    else ``torch.no_grad()``."""
+    needs_grad = torch.is_grad_enabled() and any(p.requires_grad for p in model.parameters())
+    return contextlib.nullcontext() if needs_grad else torch.no_grad()
+
+
+def ode_rollout_inputs(model: ODEModel, batch: Dict[str, torch.Tensor]):
+    """The fused ODE rollout's inputs for ``model`` on ``batch``:
+    ``(s_de, weights, x0, dt)``. ``all_initial`` is ``cat(x[0], z[0])`` of
+    the un-jumped ``z``; the jumped ``z`` of each step goes into ``s_de``."""
+    tm = lambda a: a.transpose(0, 1)
+    is_event, e_idx = event_match(batch["t"], batch.get("event_t"))
+    z_used = tm(jumped_stream(batch["z"], batch.get("z_jump"), is_event, e_idx))[:-1]
+    tT, xT, zT = tm(batch["t"]).float(), tm(batch["x"]), tm(batch["z"])
+    all_initial = torch.cat([xT[0], zT[0]], dim=-1)
+    s_de, weights = precompute_ode_streams(flax_params(model), all_initial, z_used, model.x_dim)
+    return s_de, weights, xT[0], tT[1:] - tT[:-1]
+
+
+def fused_ode_apply(model: ODEModel, batch: Dict[str, torch.Tensor], solver=None):
+    """Forward the ODE no-encode model through the fused rollout.
+
+    Args:
+      model: an :class:`ODEModel`.
+      batch: batch-major tensors ``t/x/z`` and optionally
+        ``event_t/z_jump``, on the device to run on.
+      solver: defaults to ``model.solver``.
+
+    Returns ``x_pred [B, T, xd]``, the ``ODEModel.forward`` contract. Where a
+    parameter requires grad (and grad mode is on) the result is
+    differentiable; otherwise the call runs under ``torch.no_grad()``.
+    """
+    solver = normalize_solver(model.solver if solver is None else solver)
+    with _grad_mode(model):
+        s_de, weights, x0, dt = ode_rollout_inputs(model, batch)
+        sol = fused_ode_rollout_diff(s_de, weights, x0, dt, solver)
+    return sol.transpose(0, 1)

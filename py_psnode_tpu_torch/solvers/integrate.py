@@ -1,12 +1,18 @@
-"""Fixed-grid semi-explicit DAE rollout, forward only (counterpart of the
-DAE half of ``py_psnode_tpu/solvers/integrate.py``).
+"""Fixed-grid ODE and semi-explicit DAE rollouts, forward only (counterpart
+of ``py_psnode_tpu/solvers/integrate.py``: ``integrate_ode`` :101,
+``integrate_dae``).
 
-This is the plain, step-by-step path: a Python loop over the time grid that
-evaluates the nets as they are, without the layer-1 lift of the fused path.
-It is the second, independent check of the fused rollout. Teacher forcing
-and rematerialization are not ported yet.
+These are the plain, step-by-step paths: a Python loop over the time grid
+that evaluates the nets as they are, without the layer-1 lift of the fused
+path. They are the second, independent check of the fused rollouts.
+Teacher forcing, rematerialization and the discrete adjoint are not ported
+yet.
 
-Semantics (ref my_solvers.py:82-131):
+ODE semantics (ref my_solvers.py:52-80): ``x_solution[0] = x0``; step ``j``
+advances the rolled state from ``t[j]`` to ``t[j+1]`` with the
+event-adjusted input ``z_step[j]``.
+
+DAE semantics (ref my_solvers.py:82-131):
   * ``i_solution[0] = g(x0, z[0], v[0])``;
   * each step consumes the *lagged* algebraic output from the previous step
     (explicit discretization, no Newton solve), then
@@ -22,6 +28,27 @@ from typing import Callable, Optional
 import torch
 
 from py_psnode_tpu_torch.solvers.steppers import get_stepper
+
+
+def integrate_ode(stepper, de_fn: Callable, t: torch.Tensor, x0: torch.Tensor,
+                  z_step: torch.Tensor) -> torch.Tensor:
+    """Integrate ``dx/dt = de_fn(t, x, z)`` on the sample's time grid.
+
+    Args:
+      de_fn: ``(t, x, z) -> dx/dt``; any conditioning on the initial state
+        is closed over by the caller.
+      t: ``[T, B, 1]`` time grid; x0: ``[B, xd]`` initial state.
+      z_step: ``[T-1, B, zd]`` event-adjusted inputs per step.
+
+    Returns ``[T, B, xd]`` with ``solution[0] == x0``.
+    """
+    stepper = get_stepper(stepper)
+    xs = [x0]
+    for j in range(t.shape[0] - 1):
+        t0, t1, z0 = t[j], t[j + 1], z_step[j]
+        f = lambda tt, xx: de_fn(tt, xx, z0)
+        xs.append(xs[-1] + stepper(f, t0, t1 - t0, t1, xs[-1]))
+    return torch.stack(xs)
 
 
 def integrate_dae(

@@ -1,11 +1,13 @@
-"""DAE model evaluation, curve plotting and the training-process summary
-(counterpart of ``py_psnode_tpu/train/evaluate.py``; the ODE evaluation and
-its summary are not ported yet).
+"""ODE and DAE model evaluation, curve plotting and the training-process
+summaries (counterpart of ``py_psnode_tpu/train/evaluate.py``:
+``evaluate_ode`` :93, ``evaluate_dae``, ``output_training_process_ode``
+:190, ``output_training_process_dae``).
 
 Same outputs as the JAX package: per-dim masked losses and totals to the
 testing log, per-sample loss vectors, optional true-vs-pred jpgs under
-``pics/Sample_N/``, and the ``[x_loss, i_loss, x_per_sample,
-i_per_sample]`` object array. matplotlib is imported only when drawing.
+``pics/Sample_N/``, and the ``[x_loss, x_per_sample]`` (ODE) or
+``[x_loss, i_loss, x_per_sample, i_per_sample]`` (DAE) object array.
+matplotlib is imported only when drawing.
 """
 
 from __future__ import annotations
@@ -89,6 +91,48 @@ def _draw_sample_curves(pic_path, sample_no, tt, channels, desc, logger):
     plt.close()
 
 
+def evaluate_ode(
+    apply_fn: Callable,  # eval_fn(idx) -> {"x_loss_ps", ["x_pred"]}
+    dataset,
+    batch_size: int,
+    logger: Logger,
+    desc: str = "",
+    pic_path: Optional[pathlib.Path] = None,
+    show_larger_than: Optional[float] = None,
+    pic_num: int = PIC_NUM,
+):
+    N, T, xd = dataset.x.shape
+    res = _run_eval(apply_fn, N, batch_size)
+    x_ps = res["x_loss_ps"]
+    x_pred = res.get("x_pred")
+    total_mask = float(dataset.mask.sum())
+    for d in range(xd):
+        logger.testing_log(desc + f": x_loss_dim_{d}: {x_ps[:, d].sum() / total_mask:14.10f}.")
+    x_loss = float(x_ps.sum() / total_mask)
+    logger.testing_log(desc + f": x_loss_total: {x_loss:14.10f}.")
+    x_ps = (x_ps / np.sum(dataset.mask, axis=1)).sum(axis=-1).reshape(-1, 1)
+
+    if pic_path is not None:
+        pathlib.Path(pic_path).mkdir(parents=True, exist_ok=True)
+        logger.testing_log("Picture Drawing")
+        logger.testing_log("=" * 86)
+        drawn = 0
+        for n in range(N):
+            tt = dataset.t[n, :, 0]
+            if tt[-1] == -1:
+                continue  # ref ODE eval skips truncated samples (:151)
+            if show_larger_than is not None and dataset.x[n].max() < show_larger_than:
+                continue
+            channels = list(zip(dataset.data_name, dataset.x[n].T, x_pred[n].T))
+            _draw_sample_curves(pic_path, n, tt, channels, desc, logger)
+            logger.testing_log("-" * 86)
+            drawn += 1
+            if drawn >= pic_num:
+                break
+
+    return np.array([x_loss, x_ps], dtype=object)
+
+
 def evaluate_dae(
     apply_fn: Callable,  # eval_fn(idx) -> {"x_loss_ps", "i_loss_ps", ["x_pred", "i_pred"]}
     dataset,
@@ -137,6 +181,30 @@ def evaluate_dae(
                 break
 
     return np.array([x_loss, i_loss, x_ps, i_ps], dtype=object)
+
+
+def output_training_process_ode(logger: Logger, eval_list):
+    """The end-of-training summary in the testing log (ref
+    neural_00_ODE_01_no_encode.py:182-200): the final per-sample losses,
+    then per epoch the eval mean and the per-sample spread."""
+    a = np.array(eval_list, dtype=object)
+    bar = "-" * 69
+    logger.testing_log(bar)
+    logger.testing_log("Output final testing loss per testing sample")
+    logger.testing_log(bar)
+    for row in a[-1, 1]:
+        logger.testing_log(f"{row[0]}")
+    logger.testing_log(bar)
+    logger.testing_log("Output testing loss mean")
+    logger.testing_log(bar)
+    for aa in a:
+        logger.testing_log(f"{aa[0]}")
+    logger.testing_log(bar)
+    logger.testing_log("Output testing loss variant")
+    logger.testing_log(bar)
+    for aa in a:
+        logger.testing_log(f"{np.std(aa[1], ddof=0)}")
+    logger.testing_log(bar)
 
 
 def output_training_process_dae(logger: Logger, eval_list):

@@ -1,6 +1,6 @@
-"""Training loss of the DAE no-encode variant (counterpart of
+"""Training losses of the ODE and DAE no-encode variants (counterpart of
 ``py_psnode_tpu/train/losses.py``: ``mse`` :29, ``masked_sum_se`` :45,
-``dae_no_encode_loss`` :78-93).
+``ode_no_encode_loss`` :50, ``dae_no_encode_loss`` :78-93).
 
 Masked MSE compositions with the reference's quirks kept:
 
@@ -36,6 +36,17 @@ def mse(a: torch.Tensor, b: torch.Tensor, sample_w: Optional[torch.Tensor] = Non
 def masked_sum_se(pred, true, mask):
     """``sum(se * mask) / sum(mask)``: the reference's masked normalization."""
     return ((pred - true) ** 2 * mask).sum() / mask.sum()
+
+
+def ode_no_encode_loss(x_pred, batch) -> Tuple[torch.Tensor, Dict]:
+    """ref neural_00_ODE_01_no_encode.py:353-355: the per-dim masked losses
+    summed; ``x0_loss`` is computed and NOT added. Returns ``(loss,
+    {"x_loss", "x0_loss", "loss"})``."""
+    x, mask = batch["x"], batch["mask"]
+    se = (x_pred - x) ** 2 * mask
+    x_loss = (se.sum(dim=(0, 1)) / mask.sum()).sum()
+    x0_loss = mse(x[:, 0, :], x_pred[:, 0, :], batch.get("sample_w"))
+    return x_loss, {"x_loss": x_loss, "x0_loss": x0_loss, "loss": x_loss}
 
 
 def dae_no_encode_loss(outputs, batch, omega_extra_weight: float = 9.0) -> Tuple[torch.Tensor, Dict]:

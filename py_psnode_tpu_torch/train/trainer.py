@@ -2,7 +2,7 @@
 ``build_model``, ``_make_train_step`` :577-680, ``_eval_batch_size`` :682,
 ``_make_eval_apply`` :702, ``train`` :796-1129 and ``test`` :1131).
 
-``Trainer.train`` trains the DAE no-encode variant on one device: Adam +
+``Trainer.train`` trains the ODE or DAE no-encode variant on one device: Adam +
 StepLR, the zero-loss freeze and the optional robust-loss guard, the
 training set resident on the device and gathered by index, rolling
 record-window log lines, an npz checkpoint and an eval each epoch,
@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from py_psnode_tpu_torch.bridge import load_params
-from py_psnode_tpu_torch.data import DaeSamples
+from py_psnode_tpu_torch.data import DaeSamples, OdeSamples
 from py_psnode_tpu_torch.models.initializers import init_params
 from py_psnode_tpu_torch.train import evaluate as E
 from py_psnode_tpu_torch.train.checkpoints import (
@@ -45,6 +45,12 @@ from py_psnode_tpu_torch.utils.batching import pad_batch
 from py_psnode_tpu_torch.utils.device import resolve_device
 from py_psnode_tpu_torch.utils.logging import Logger
 from py_psnode_tpu_torch.utils.profiling import JsonlMetrics
+
+# per variant kind: the evaluation and the end-of-training summary
+_EVALUATE = {
+    "dae": (E.evaluate_dae, E.output_training_process_dae),
+    "ode": (E.evaluate_ode, E.output_training_process_ode),
+}
 
 
 @dataclasses.dataclass
@@ -85,7 +91,7 @@ class TrainConfig:
     robust_limit: Optional[float] = None
     init_style: str = "lecun"  # "lecun" (flax default) | "torch"
     jsonl_metrics: bool = True  # train_metrics.jsonl beside the text logs
-    # route the DAE no-encode forward and backward through the fused
+    # route the ODE/DAE no-encode forward and backward through the fused
     # rollout (the CUDA kernels on the card)
     fused: bool = False
     # keep the training set on the device and gather batches by index
@@ -132,13 +138,18 @@ class Trainer:
 
     def load_train_dataset(self):
         cfg = self.cfg
-        return DaeSamples.load(
+        cls = DaeSamples if self.variant.kind == "dae" else OdeSamples
+        return cls.load(
             cfg.train_data, num_sample=cfg.num, cut_length=cfg.step,
             contain_larger_than=self.larger_than,
         )
 
     def load_test_dataset(self):
-        return DaeSamples.load(self.cfg.test_data, cut_length=self.cfg.step)
+        """The DAE test set is cut to ``step``; the ODE test set runs at full
+        length (ref script1:289)."""
+        if self.variant.kind == "dae":
+            return DaeSamples.load(self.cfg.test_data, cut_length=self.cfg.step)
+        return OdeSamples.load(self.cfg.test_data)
 
     # ----------------------------------------------------------------- model
 
@@ -159,6 +170,10 @@ class Trainer:
             from py_psnode_tpu_torch.ops import fused_dae_apply
 
             return lambda batch: fused_dae_apply(model, batch, solver=cfg.solver)
+        if cfg.fused and variant.name == "ode_no_encode":
+            from py_psnode_tpu_torch.ops import fused_ode_apply
+
+            return lambda batch: fused_ode_apply(model, batch, solver=cfg.solver)
         return lambda batch: model(*[batch.get(k) for k in variant.batch_args])
 
     # ------------------------------------------------------------ train step
@@ -237,14 +252,16 @@ class Trainer:
                 idx_t = torch.as_tensor(idx, device=self.device)
                 batch = {k: v[idx_t] for k, v in ddata.items()}
                 with torch.no_grad():
-                    x_pred, i_pred = forward(batch)
+                    out = forward(batch)
+                    x_pred, i_pred = out if variant.kind == "dae" else (out, None)
                     mask = batch["mask"]
-                    res = {
-                        "x_loss_ps": torch.sum((x_pred - batch["x"]) ** 2 * mask, dim=1),
-                        "i_loss_ps": torch.sum((i_pred - batch["i"]) ** 2 * mask, dim=1),
-                    }
+                    res = {"x_loss_ps": torch.sum((x_pred - batch["x"]) ** 2 * mask, dim=1)}
+                    if i_pred is not None:
+                        res["i_loss_ps"] = torch.sum((i_pred - batch["i"]) ** 2 * mask, dim=1)
                 if want_preds:
-                    res["x_pred"], res["i_pred"] = x_pred, i_pred
+                    res["x_pred"] = x_pred
+                    if i_pred is not None:
+                        res["i_pred"] = i_pred
                 return res
 
             return call
@@ -304,9 +321,10 @@ class Trainer:
         train_step = self._make_train_step(model, opt, device_data=device_data)
         apply_fn_factory = self._make_eval_apply(model, test_ds)
         pic_path = model_path / "pics" if cfg.drawing else None
+        eval_fn, summarize = _EVALUATE[variant.kind]
 
         def evaluate(desc):
-            return E.evaluate_dae(
+            return eval_fn(
                 apply_fn_factory(want_preds=bool(cfg.drawing)), test_ds, eval_batch, logger,
                 desc=desc, pic_path=pic_path, show_larger_than=self.larger_than,
             )
@@ -393,7 +411,10 @@ class Trainer:
             )
             if metrics is not None:
                 ev = eval_error_list[-1]
-                metrics.log(kind="eval", epoch=epoch, x_loss=float(ev[0]), i_loss=float(ev[1]))
+                rec = {"kind": "eval", "epoch": epoch, "x_loss": float(ev[0])}
+                if variant.kind == "dae":
+                    rec["i_loss"] = float(ev[1])
+                metrics.log(**rec)
                 metrics.log(
                     kind="epoch_time", epoch=epoch,
                     steps_s=round(t_steps, 4), ckpt_s=round(t_ckpt, 4),
@@ -404,7 +425,7 @@ class Trainer:
         logger.training_log(
             "export of the 'saved model' directory is not ported yet: nothing exported"
         )
-        E.output_training_process_dae(logger, eval_error_list)
+        summarize(logger, eval_error_list)
         logger.close()
         if metrics is not None:
             metrics.close()
@@ -426,11 +447,13 @@ class Trainer:
         logger = Logger(
             model_path.parent,
             test_log_name=f"Model_{model_path.name}_Evaluation.log",
+            echo=cfg.echo_logs,
         )
         logger.testing_log(f"Model {model_path} Evaluation")
         logger.testing_log(f"Use testing data: {cfg.test_data}")
         logger.testing_log("=" * 86)
-        result = E.evaluate_dae(
+        eval_fn, _ = _EVALUATE[self.variant.kind]
+        result = eval_fn(
             self._make_eval_apply(model, test_ds)(want_preds=pic_path is not None),
             test_ds, eval_batch, logger,
             desc=f"Model {model_path.name} Evaluation", pic_path=pic_path,

@@ -1,5 +1,6 @@
 """Registry of the model variants the port serves (counterpart of
-``py_psnode_tpu/train/variants.py``). Only ``dae_no_encode`` is ported."""
+``py_psnode_tpu/train/variants.py``). Ported: ``ode_no_encode`` and
+``dae_no_encode``."""
 
 from __future__ import annotations
 
@@ -7,19 +8,20 @@ import dataclasses
 import math
 from typing import Callable, Optional, Tuple
 
-from py_psnode_tpu_torch.models import DAEModel
+from py_psnode_tpu_torch.models import DAEModel, ODEModel
 from py_psnode_tpu_torch.train import losses as L
 
+ODE_BATCH_ARGS = ("t", "x", "z", "event_t", "z_jump")
 DAE_BATCH_ARGS = ("t", "x", "z", "v", "i", "event_t", "z_jump", "v_jump")
 
 # variants of the JAX package that the port does not serve yet
-NOT_PORTED = ("ode_no_encode", "ode_encode", "dae_encode", "ode_channelwise", "dae_channelwise")
+NOT_PORTED = ("ode_encode", "dae_encode", "ode_channelwise", "dae_channelwise")
 
 
 @dataclasses.dataclass(frozen=True)
 class Variant:
     name: str
-    kind: str  # 'dae' (the ODE family is not ported yet)
+    kind: str  # 'ode' | 'dae'
     larger_than: Optional[float]
     batch_args: Tuple[str, ...]
     make_model: Callable
@@ -27,19 +29,18 @@ class Variant:
 
     @property
     def loss_keys(self):
-        return ("x_loss", "i_loss", "loss")
-
-
-def _dae_dims(ds):
-    return dict(
-        x_dim=ds.x.shape[-1],
-        z_dim=ds.z.shape[-1],
-        v_dim=ds.v.shape[-1],
-        i_dim=ds.i.shape[-1],
-    )
+        return ("x_loss", "i_loss", "loss") if self.kind == "dae" else ("x_loss", "loss")
 
 
 VARIANTS = {
+    "ode_no_encode": Variant(
+        name="ode_no_encode",
+        kind="ode",
+        larger_than=3.29,
+        batch_args=ODE_BATCH_ARGS,
+        make_model=lambda dims, hidden, **kw: ODEModel(**dims, hidden_dim=hidden, **kw),
+        loss_fn=L.ode_no_encode_loss,
+    ),
     "dae_no_encode": Variant(
         name="dae_no_encode",
         kind="dae",
@@ -61,4 +62,7 @@ def get_variant(name: str) -> Variant:
 
 
 def dataset_dims(variant: Variant, ds):
-    return _dae_dims(ds)
+    dims = dict(x_dim=ds.x.shape[-1], z_dim=ds.z.shape[-1])
+    if variant.kind == "dae":
+        dims.update(v_dim=ds.v.shape[-1], i_dim=ds.i.shape[-1])
+    return dims

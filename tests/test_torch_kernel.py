@@ -1,5 +1,5 @@
-"""The CUDA rollout kernels (forward and backward) against their plain
-PyTorch versions.
+"""The CUDA rollout kernels (the DAE and the ODE forward and backward)
+against their plain PyTorch versions.
 
 This file imports neither JAX nor the JAX package, so that it also runs on
 the machine with the card, which has no JAX; run it there without the JAX
@@ -22,6 +22,8 @@ import torch
 
 from py_psnode_tpu_torch.ops import fused_dae as F
 from py_psnode_tpu_torch.ops import fused_dae_vjp as V
+from py_psnode_tpu_torch.ops import fused_ode as FO
+from py_psnode_tpu_torch.ops import fused_ode_vjp as VO
 
 
 def rollout_inputs(B, Tm1, h, xd=3, idim=2, seed=0, dev="cpu"):
@@ -128,3 +130,77 @@ def test_bwd_kernel_refuses_bad_inputs_on_card():
         V.fused_dae_rollout_bwd_cuda(*args, packed, cot[:12].contiguous())
     with pytest.raises(ValueError, match="float32"):
         V.fused_dae_rollout_bwd_cuda(*args, packed.double(), cot)
+
+
+def ode_inputs(B, Tm1, h, xd, n_tail, seed=0, dev="cpu"):
+    """Seeded ODE rollout inputs in the flax layout, per-row step sizes."""
+    rng = np.random.default_rng(seed)
+    t = lambda *s, sc=1.0: torch.tensor((rng.standard_normal(s) * sc).astype(np.float32), device=dev)
+    s_de = t(Tm1, B, h, sc=0.5)
+    outs = [h] * (n_tail - 1) + [xd]
+    weights = dict(wx_de=t(xd, h, sc=xd ** -0.5),
+                   de_tail=[(t(h, o, sc=h ** -0.5), t(o, sc=0.1)) for o in outs])
+    dt = torch.full((Tm1, B, 1), 0.05, device=dev)
+    dt[:, 1] = 0.02
+    return s_de, weights, t(B, xd), dt
+
+
+# (xd, n_tail): the no-encode dynamics and the direct-encode latent shape
+ODE_SHAPES = [(2, 3), (128, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["euler", "midpoint", "rk4"])
+@pytest.mark.parametrize("xd,n_tail", ODE_SHAPES)
+@pytest.mark.parametrize("batch", [37, 133])  # fewer and more blocks than a 132-SM card has SMs
+def test_ode_kernel_matches_plain_on_card(solver, xd, n_tail, batch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    args = ode_inputs(batch, 64, 128, xd, n_tail, dev="cuda")
+    ref = FO.fused_ode_rollout_plain(*args, solver)
+    before = FO.fused_ode_rollout.launches
+    got = FO.fused_ode_rollout_cuda(*args, solver)
+    torch.cuda.synchronize()
+    assert torch.all((got - ref).abs() <= 1e-4 * ref.abs().clamp(min=1.0))
+    assert FO.fused_ode_rollout.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["euler", "midpoint", "rk4"])
+@pytest.mark.parametrize("xd,n_tail", ODE_SHAPES)
+def test_ode_bwd_kernel_matches_plain_on_card(solver, xd, n_tail):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    s_de, weights, x0, dt = ode_inputs(37, 64, 128, xd, n_tail, dev="cuda")
+    sol = torch.cat([x0[None], FO.fused_ode_rollout_plain(s_de, weights, x0, dt, solver)])
+    rng = np.random.default_rng(1)
+    cot = torch.tensor(rng.standard_normal(tuple(sol.shape)).astype(np.float32), device="cuda")
+    r_s, r_w, r_x0 = VO.fused_ode_rollout_bwd_plain(
+        s_de.double(), _double(weights), dt, sol.double(), cot.double(), solver)
+    flat = lambda g_s, g_w, g_x0: [g_s, g_x0] + VO.flatten_weights(g_w)
+    before = VO.fused_ode_rollout_bwd.launches
+    got = flat(*VO.fused_ode_rollout_bwd_cuda(s_de, weights, dt, sol, cot, solver))
+    again = flat(*VO.fused_ode_rollout_bwd_cuda(s_de, weights, dt, sol, cot, solver))
+    torch.cuda.synchronize()
+    for k, (g, g2, r) in enumerate(zip(got, again, flat(r_s, r_w, r_x0))):
+        scale = r.abs().max().item()
+        assert scale > 0, k
+        assert torch.equal(g, g2), k
+        assert (g.double() - r).abs().max() <= 1e-4 * scale, k
+    assert VO.fused_ode_rollout_bwd.launches == before + 2
+
+
+@pytest.mark.gpu
+def test_ode_kernels_refuse_bad_inputs_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    s_de, weights, x0, dt = ode_inputs(4, 12, 32, 2, 3, dev="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        FO.fused_ode_rollout_cuda(s_de, weights, x0.double(), dt)
+    with pytest.raises(ValueError, match="shape"):
+        FO.fused_ode_rollout_cuda(s_de, weights, x0, dt[:, :3].contiguous())
+    with pytest.raises(ValueError, match="layers"):
+        FO.fused_ode_rollout_cuda(s_de, dict(weights, de_tail=weights["de_tail"] * 3), x0, dt)
+    sol = torch.cat([x0[None], FO.fused_ode_rollout(s_de, weights, x0, dt)])
+    with pytest.raises(ValueError, match="shape"):
+        VO.fused_ode_rollout_bwd_cuda(s_de, weights, dt, sol, sol[:12].contiguous())
