@@ -6,8 +6,8 @@
 
 Phases, each printed as it ends; any failure exits non-zero:
   1. card: name, device count, and nvidia-smi's name and power limit;
-  2. build: nvcc builds the four libraries (the DAE and the ODE forward and
-     backward), all at once (seconds printed for each);
+  2. build: nvcc builds the six libraries (the DAE, ODE and channel-wise
+     forward and backward), all at once (seconds printed for each);
   3. forward kernel against plain: the kernel and its eager PyTorch version
      on the same seeded random inputs at the motor evaluation shape (B=32,
      T=1001, h=128, xd=3, id=2, events in some rows), for Euler, Midpoint
@@ -50,7 +50,28 @@ Phases, each printed as it ends; any failure exits non-zero:
      anchor than the other's;
  11. ODE times (CUDA events): the forward at B=32 Euler, B=64 RK4 and
      B=1024 Euler, the backward at B=64 for each solver, and one whole
-     training step (B=64, T=1001, h=128, RK4) against the plain route.
+     training step (B=64, T=1001, h=128, RK4) against the plain route;
+ 12. channel-wise forward kernel against plain, for each solver, at the AVR
+     ODE's channels (xd=2, zd=2) and the motor DAE's (xd=3, zd=1): seeded
+     random inputs at h=40, B=5, and the numpy starting checkpoint on 64
+     training rows at h=128, T=1001, within 1e-4 * max(1, |plain|) (the
+     float32 plain loop lies within 2.6e-6 of a float64 one there);
+ 13. channel-wise backward kernel against the float64 plain walk at B=64
+     (Euler and RK4 over T=1001, Midpoint over T=201, unit-scale
+     cotangents), each output tensor on its own scale, bit-identical on
+     relaunch;
+ 14. channel-wise slice: the Trainer (fused) for one epoch, Euler then RK4,
+     and the CLIs ``--training --fused`` (Euler, both kernels' launches
+     counted) and ``--testing --fused`` (Euler and RK4) of both variants
+     from the numpy starting checkpoint (the ODE on the AVR set, batch 64;
+     the DAE on 16 motor samples, batch 8), every loss against the JAX
+     package's anchors (``CW_ANCHORS``) and nearer its own solver's where
+     the two lie between 1e-6 and 1e-3 apart;
+ 15. channel-wise times (CUDA events): the forward at B=32 Euler, B=64
+     Euler and B=64 RK4, the backward at B=64 for each solver, and one whole
+     training step per family (B=64, T=1001, h=128, RK4) fused and plain,
+     with the step's peak memory; the fused step's loss and gradients from
+     the starting weights held against the plain step's at rtol 1e-3.
 
 The line before the last two is the kernels' JSON record, then nvidia-smi's
 line, and the last line is ``{"ok": true, "device": {...}}``. Nothing is
@@ -80,12 +101,22 @@ from py_psnode_tpu_torch.bridge import load_params  # noqa: E402
 from py_psnode_tpu_torch.cli.common import main as cli_main  # noqa: E402
 from py_psnode_tpu_torch.data import DaeSamples, OdeSamples  # noqa: E402
 from py_psnode_tpu_torch.data.synthetic import write_avr_dataset  # noqa: E402
-from py_psnode_tpu_torch.models import DAEModel, ODEModel  # noqa: E402
+from py_psnode_tpu_torch.models import (  # noqa: E402
+    ChannelWiseDAEModel,
+    ChannelWiseODEModel,
+    DAEModel,
+    ODEModel,
+)
+from py_psnode_tpu_torch.ops import fused_channelwise as FC  # noqa: E402
+from py_psnode_tpu_torch.ops import fused_channelwise_vjp as VC  # noqa: E402
 from py_psnode_tpu_torch.ops import fused_dae as F  # noqa: E402
 from py_psnode_tpu_torch.ops import fused_dae_vjp as V  # noqa: E402
 from py_psnode_tpu_torch.ops import fused_ode as FO  # noqa: E402
 from py_psnode_tpu_torch.ops import fused_ode_vjp as VO  # noqa: E402
 from py_psnode_tpu_torch.ops.fused_model import (  # noqa: E402
+    cw_rollout_inputs,
+    fused_cw_dae_apply,
+    fused_cw_ode_apply,
     fused_dae_apply,
     fused_ode_apply,
     ode_rollout_inputs,
@@ -93,7 +124,12 @@ from py_psnode_tpu_torch.ops.fused_model import (  # noqa: E402
 )
 from py_psnode_tpu_torch.train import TrainConfig, Trainer  # noqa: E402
 from py_psnode_tpu_torch.train.checkpoints import load_checkpoint_params  # noqa: E402
-from py_psnode_tpu_torch.train.losses import dae_no_encode_loss, ode_no_encode_loss  # noqa: E402
+from py_psnode_tpu_torch.train.losses import (  # noqa: E402
+    dae_channelwise_loss,
+    dae_no_encode_loss,
+    ode_channelwise_loss,
+    ode_no_encode_loss,
+)
 from py_psnode_tpu_torch.train.optim import make_optimizer  # noqa: E402
 from py_psnode_tpu_torch.utils import cuda_build  # noqa: E402
 from py_psnode_tpu_torch.utils.device import use_full_float32  # noqa: E402
@@ -159,6 +195,40 @@ def ode_start_checkpoint(path, dims, hidden, seed):
         w = np.clip(rng.standard_normal((n_in, n_out)), -2.0, 2.0) / np.sqrt(n_in)
         flat[f"params/de_func/x_dot/dense_{k}/kernel"] = w.astype(np.float32)
         flat[f"params/de_func/x_dot/dense_{k}/bias"] = np.zeros(n_out, np.float32)
+    with open(path, "wb") as f:  # a file object: np.savez appends no ".npz"
+        np.savez(f, **flat)
+    return pathlib.Path(path)
+
+
+def cw_start_checkpoint(path, variant, dims, hidden, seed):
+    """Write a channel-wise model's starting weights as a flax-layout npz
+    checkpoint, drawn with numpy so that every machine gets the same bits:
+    in sorted key order, each dense kernel ``[in, out]`` and each
+    per-channel stack ``w_k [C, d_in, f]`` a standard normal clipped to +-2
+    and scaled by ``1/sqrt(fan_in)`` with flax's fan-in (``in``, and ``C *
+    d_in`` for a stack), each bias zero. ``variant`` is ``ode_channelwise``
+    with ``dims = (xd, zd)`` or ``dae_channelwise`` with ``(xd, zd, vd,
+    id)``."""
+    cls = ChannelWiseODEModel if variant == "ode_channelwise" else ChannelWiseDAEModel
+    model = cls(*dims, hidden_dim=hidden, device="meta")
+    shapes = {}
+    for name, prm in model.named_parameters():
+        *mod, leaf = name.split(".")
+        if leaf == "weight":  # nn.Linear [out, in] -> flax kernel [in, out]
+            shapes["/".join(mod + ["kernel"])] = ((prm.shape[1], prm.shape[0]), prm.shape[1])
+        elif leaf.startswith("w_"):
+            shapes["/".join(mod + [leaf])] = (tuple(prm.shape), prm.shape[0] * prm.shape[1])
+        else:
+            shapes["/".join(mod + [leaf])] = (tuple(prm.shape), None)
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for key in sorted(shapes):
+        shape, fan_in = shapes[key]
+        if fan_in is None:
+            w = np.zeros(shape)
+        else:
+            w = np.clip(rng.standard_normal(shape), -2.0, 2.0) / np.sqrt(fan_in)
+        flat[f"params/{key}"] = w.astype(np.float32)
     with open(path, "wb") as f:  # a file object: np.savez appends no ".npz"
         np.savez(f, **flat)
     return pathlib.Path(path)
@@ -318,17 +388,17 @@ def phase_card():
 
 
 def phase_build():
-    """The four libraries at once (one nvcc each), then load them."""
+    """The six libraries at once (one nvcc each), then load them."""
     t0 = time.perf_counter()
     names = ("fused_dae_rollout", "fused_dae_rollout_bwd", "fused_ode_rollout",
-             "fused_ode_rollout_bwd")
+             "fused_ode_rollout_bwd", "fused_cw_rollout", "fused_cw_rollout_bwd")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         nvcc_s = dict(zip(names, pool.map(cuda_build.build, names)))
-    for mod in (F, V, FO, VO):
+    for mod in (F, V, FO, VO, FC, VC):
         mod._launcher()
     for name in names:
         say(f"[build] {name}.cu: nvcc {nvcc_s[name]:.2f} s")
-    say(f"[build] all four built and loaded in {time.perf_counter() - t0:.2f} s")
+    say(f"[build] all six built and loaded in {time.perf_counter() - t0:.2f} s")
     return nvcc_s
 
 
@@ -867,6 +937,436 @@ def phase_ode_times(dev, files):
     return times
 
 
+# ------------------------------------------------------------ channel-wise
+
+
+CW_VARIANTS = ("ode_channelwise", "dae_channelwise")
+CW_DIMS = {"ode_channelwise": (2, 2), "dae_channelwise": (3, 1, 2, 2)}
+CW_KEYS = {"ode_channelwise": ("t", "x", "z", "event_t", "z_jump"),
+           "dae_channelwise": ("t", "x", "z", "v", "i", "event_t", "z_jump", "v_jump")}
+# One epoch of training from the numpy starting checkpoint: the ODE on the
+# AVR set in batches of 64, the DAE on 16 motor samples in batches of 8
+# (whose JAX step on the CPU, where the anchors are derived, holds its
+# [T, B, h, h] readout activations in a few GB; the card's step at B=64 is
+# timed in phase 15)
+CW_TRAIN = {"ode_channelwise": dict(num=128, batch=64), "dae_channelwise": dict(num=16, batch=8)}
+# The JAX package on the CPU in float32, from the numpy starting checkpoint
+# (cw_start_checkpoint, seed 0): step 1 and step 2 (loss, gradient norm), the
+# epoch-1 eval and the --testing losses (x_loss_total, and i_loss_total for
+# the DAE); re-derived by `python tests/test_torch_cw_slice.py` (needs JAX).
+CW_ANCHORS = {
+    "ode_channelwise": {
+        "euler": dict(step1=(59.124146, 362.23892), step2=(50.36034, 355.64255), eval1=(27.881929,),
+                      test=(22.770948,)),
+        "rk4": dict(step1=(59.1241, 362.24945), step2=(50.342285, 355.61511), eval1=(27.904562,),
+                    test=(22.770893,)),
+    },
+    "dae_channelwise": {
+        "euler": dict(step1=(4.0819025, 328.75537), step2=(142.96591, 401.73727),
+                      eval1=(8.6056328, 7.9732785), test=(0.47544611, 2.3678608)),
+        "rk4": dict(step1=(4.081902, 328.77106), step2=(142.4919, 401.79456),
+                    eval1=(8.6551476, 7.9919271), test=(0.47545066, 2.3678558)),
+    },
+}
+CW_STEPS = 1001  # the slice's series length T
+# Two solvers' anchors closer than this (relative) are not told apart: the
+# card's losses lie up to 4e-7 from their anchors (the ODE step-1 loss), so
+# the step-1 losses of Euler and RK4 (7.8e-7 apart for the ODE, 1.2e-7 for
+# the DAE) are not resolved; the --testing anchors (2.1e-6 apart and more,
+# card errors up to 1.2e-7) are.
+CW_SOLVER_RESOLVED = 1e-6
+
+
+def cw_setup(root):
+    """The channel-wise slice's inputs under ``root``: per variant ``(train,
+    test, start checkpoint)``: the AVR set (seed 0) for the ODE, the motor
+    set for the DAE, and the numpy starting weights (h=128, seed 0)."""
+    train_f, test_f = write_avr_dataset(root / "avr", n_train=128, n_test=32, n_steps=CW_STEPS, seed=0)
+    files = {}
+    for variant, (tr, te) in zip(CW_VARIANTS, ((train_f, test_f), (TRAIN_DATA, TEST_DATA))):
+        start = cw_start_checkpoint(root / f"{variant}.start", variant, CW_DIMS[variant], 128, seed=0)
+        files[variant] = (pathlib.Path(tr), pathlib.Path(te), start)
+    return files
+
+
+def cw_model(variant, start, dev, solver="euler"):
+    cls = ChannelWiseODEModel if variant == "ode_channelwise" else ChannelWiseDAEModel
+    model = cls(*CW_DIMS[variant], hidden_dim=128, solver=solver, device="meta")
+    return load_params(model, load_checkpoint_params(start), device=dev)
+
+
+def cw_batch(variant, files, B, split, dev):
+    """``B`` rows of the variant's training or test set (repeated as
+    needed), with the mask, on ``dev``."""
+    train_f, test_f, _ = files[variant]
+    f = train_f if split == "train" else test_f
+    ds = OdeSamples.load(str(f)) if variant == "ode_channelwise" else DaeSamples.load(str(f), cut_length=CW_STEPS)
+    idx = np.arange(B) % len(ds)
+    return {k: torch.as_tensor(getattr(ds, k)[idx], device=dev) for k in CW_KEYS[variant] + ("mask",)}
+
+
+def cw_inputs(variant, files, B, split, dev):
+    """The fused rollout's inputs for the starting checkpoint on ``B`` rows
+    of the data, as ``fused_cw_*_apply`` builds them."""
+    model = cw_model(variant, files[variant][2], dev).requires_grad_(False)
+    with torch.no_grad():
+        streams, weights, xh0, dt = cw_rollout_inputs(model, cw_batch(variant, files, B, split, dev))
+    return streams, weights, xh0.contiguous(), dt.contiguous()
+
+
+def cw_random_inputs(B, Tm1, h, xd, zd, seed, dev):
+    """Seeded random rollout inputs: lecun-scaled weights, the vertical
+    readout scaled by 0.1 more (which keeps the state bounded over 1000
+    steps), dt = 0.01."""
+    rng = np.random.default_rng(seed)
+    t = lambda *shape, sc=1.0: torch.tensor((rng.standard_normal(shape) * sc).astype(np.float32), device=dev)
+    C = xd + zd
+    stack = lambda: (t(xd, h, h, sc=h ** -0.5), t(xd, h, sc=0.1), t(xd, h, h, sc=h ** -0.5), t(xd, h, sc=0.1))
+    weights = dict(a=t(C, h, sc=C ** -0.5),
+                   vert=[(t(h, h, sc=h ** -0.5), t(h, sc=0.1)), (t(h, h, sc=h ** -0.5), t(h, sc=0.1)),
+                         (t(h, xd, sc=0.1 * h ** -0.5), t(xd, sc=0.01))],
+                   ext=stack(), head=stack())
+    streams = dict(fz=t(Tm1, B, zd, h, sc=0.5), s_constV=t(B, h, h, sc=0.5))
+    return streams, weights, t(B, xd, h), torch.full((Tm1, B, 1), 0.01, device=dev)
+
+
+def cw_cut(args, Tm1):
+    """The first ``Tm1`` steps of rollout inputs."""
+    streams, weights, x0, dt = args
+    return dict(streams, fz=streams["fz"][:Tm1].contiguous()), weights, x0, dt[:Tm1].contiguous()
+
+
+def cw_eval_flops(h, xd, zd):
+    """FLOP (2 per multiply-add) of one evaluation of the dynamics for one
+    batch row: ext 2 xd h^2, the folded first layer C h^2, two h^3 layers,
+    the readout xd h^2 and the head 2 xd h^2 multiply-adds."""
+    return 2 * (2 * h ** 3 + (5 * xd + xd + zd) * h * h)
+
+
+def cw_work(streams, weights, x0, solver):
+    """(forward bytes, forward FLOP, backward bytes, backward FLOP) of the
+    channel-wise rollout on these inputs. Bytes: each input read once and
+    each output written once (forward: fz, dt, s_constV, x0 and the weights
+    in, the solution rows out; backward: fz, dt, s_constV, the solution,
+    its cotangent and the weights in, g_fz, g_s_constV, the weight grads
+    and g_x0 out). FLOP per row-step: S evaluations forward; backward, the
+    S stage evaluations once and twice their products for the cotangents
+    and the weight grads (3, 6 and 12 evaluation-equivalents for Euler,
+    Midpoint and RK4). The kernel's own recomputation (the stage points
+    re-evaluated, a0 recomputed per stage) is its design's cost, not the
+    function's, and is not counted."""
+    fz, sV = streams["fz"], streams["s_constV"]
+    Tm1, B, zd, h = fz.shape
+    xd = x0.shape[1]
+    w_bytes = sum(a.numel() * 4 for a in FC.flatten_weights(weights))
+    ev = cw_eval_flops(h, xd, zd)
+    S = {"euler": 1, "midpoint": 2, "rk4": 4}[solver]
+    sol = Tm1 * B * xd * h
+    fwd_bytes = (fz.numel() + Tm1 * B + sV.numel() + x0.numel() + sol) * 4 + w_bytes
+    bwd_bytes = (2 * fz.numel() + Tm1 * B + 2 * sV.numel() + 2 * (sol + x0.numel()) + x0.numel()) * 4 \
+        + 2 * w_bytes
+    fwd_flops = Tm1 * B * S * ev
+    bwd_flops = Tm1 * B * 3 * S * ev
+    return fwd_bytes, fwd_flops, bwd_bytes, bwd_flops
+
+
+def cw_bwd_outputs(g):
+    g_s, g_w, g_x0 = g
+    names = ["a", "vert[0].W", "vert[0].b", "vert[1].W", "vert[1].b", "vert[2].W", "vert[2].b"] + [
+        f"{net}.{k}" for net in ("ext", "head") for k in ("w0", "b0", "w1", "b1")]
+    return [("g_fz", g_s["fz"]), ("g_s_constV", g_s["s_constV"]), ("g_x0", g_x0)] + list(
+        zip(names, FC.flatten_weights(g_w)))
+
+
+def phase_cw_kernel_vs_plain(dev, files):
+    """Kernel 5 against its plain version for each solver, at the ODE's
+    channels (xd=2, zd=2) and the motor DAE's (xd=3, zd=1): seeded random
+    inputs at h=40, B=5, and the starting checkpoint on 64 training rows at
+    h=128, all at T=1001, within KERNEL_TOL."""
+    worst_abs = 0.0
+    for variant in CW_VARIANTS:
+        xd, zd = CW_DIMS[variant][:2]
+        cases = (("random h=40 B=5", cw_random_inputs(5, CW_STEPS - 1, 40, xd, zd, seed=11, dev=dev)),
+                 ("start checkpoint h=128 B=64", cw_inputs(variant, files, 64, "train", dev)))
+        for label, args in cases:
+            for solver in SOLVERS:
+                ref = FC.fused_cw_rollout_plain(*args, solver)
+                got = FC.fused_cw_rollout_cuda(*args, solver)
+                torch.cuda.synchronize()
+                if got.shape != ref.shape or not torch.isfinite(got).all():
+                    fail(f"cw kernel {variant} {label} {solver}: shape {tuple(got.shape)} or non-finite values")
+                d = (got - ref).abs()
+                max_abs = d.max().item()
+                ok = bool((d <= KERNEL_TOL * torch.clamp(ref.abs(), min=1.0)).all())
+                say(f"[cw-kernel] {variant} {label} {solver:8s}: max|d| {max_abs:.3e} max rel "
+                    f"{rel_err(got, ref):.3e} max|ref| {ref.abs().max().item():.3f} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"cw kernel {variant} {label} {solver} disagrees with plain beyond {KERNEL_TOL}")
+                worst_abs = max(worst_abs, max_abs)
+    return worst_abs
+
+
+def phase_cw_bwd_vs_plain(dev, files):
+    """Kernel 6 against the float64 plain walk at B=64 (the starting
+    checkpoint on 64 training rows, unit-scale cotangents): Euler and RK4
+    over all 1000 steps, Midpoint over the first 200; each output tensor on
+    its own scale; a relaunch must be bit-identical."""
+    worst_abs = 0.0
+    for variant in CW_VARIANTS:
+        full = cw_inputs(variant, files, 64, "train", dev)
+        for solver, Tm1 in (("euler", CW_STEPS - 1), ("midpoint", min(200, CW_STEPS - 1)),
+                            ("rk4", CW_STEPS - 1)):
+            streams, weights, x0, dt = cw_cut(full, Tm1)
+            sol = torch.cat([x0[None], FC.fused_cw_rollout_cuda(streams, weights, x0, dt, solver)])
+            rng = np.random.default_rng(12)
+            cot = torch.tensor(rng.standard_normal(tuple(sol.shape)).astype(np.float32), device=dev)
+            got = cw_bwd_outputs(VC.fused_cw_rollout_bwd_cuda(streams, weights, dt, sol, cot, solver))
+            again = cw_bwd_outputs(VC.fused_cw_rollout_bwd_cuda(streams, weights, dt, sol, cot, solver))
+            t0 = time.perf_counter()
+            w64 = FC.unflatten_weights([a.double() for a in FC.flatten_weights(weights)])
+            ref = cw_bwd_outputs(VC.fused_cw_rollout_bwd_plain(
+                {k: v.double() for k, v in streams.items()}, w64, dt, sol.double(), cot.double(), solver))
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            # the float32 plain walk's own distance to the float64 one, for scale
+            f32 = cw_bwd_outputs(VC.fused_cw_rollout_bwd_plain(streams, weights, dt, sol, cot, solver))
+            f32_worst = max((a.double() - r).abs().max().item() / r.abs().max().item()
+                            for (_, a), (_, r) in zip(f32, ref))
+            parts, k_worst = [], 0.0
+            for (name, g), (_, g2), (_, r) in zip(got, again, ref):
+                if g.shape != r.shape or not torch.isfinite(g).all():
+                    fail(f"cw backward {variant} {solver} {name}: shape {tuple(g.shape)} or non-finite values")
+                if not torch.equal(g, g2):
+                    fail(f"cw backward {variant} {solver} {name}: a relaunch gave other bits")
+                d = (g.double() - r).abs().max().item()
+                scale = r.abs().max().item()
+                parts.append(f"{name} {d:.2e}/{scale:.3e}")
+                k_worst = max(k_worst, d / scale) if scale > 0 else k_worst
+                if not scale > 0:
+                    fail(f"cw backward {variant} {solver} {name}: the plain gradient is 0, so the check holds nothing")
+                if d > BWD_TOL * scale:
+                    fail(f"cw backward {variant} {solver} {name}: max|d| {d} > {BWD_TOL} * max|plain| = "
+                         f"{BWD_TOL * scale}")
+                worst_abs = max(worst_abs, d)
+            say(f"[cw-bwd-kernel] {variant} {solver:8s} T={Tm1 + 1}: ok, bit-identical on relaunch; plain "
+                f"float64 walk {plain_s:.1f} s; worst max|d|/max|plain|: kernel {k_worst:.2e}, float32 plain "
+                f"walk {f32_worst:.2e}; per tensor: {', '.join(parts)}")
+    return worst_abs
+
+
+def reset_cw_counts():
+    FC.fused_cw_rollout.launches = 0
+    VC.fused_cw_rollout_bwd.launches = 0
+
+
+def cw_counts():
+    return FC.fused_cw_rollout.launches, VC.fused_cw_rollout_bwd.launches
+
+
+def check_cw_anchor(what, value, variant, solver, key, i, rtol):
+    """Fail unless ``value`` lies within ``rtol`` of the anchor and, where
+    the two solvers' anchors differ by less than 1e-3 but more than
+    CW_SOLVER_RESOLVED (relative), nearer its own solver's anchor than the
+    other's. Returns the relative error."""
+    own = CW_ANCHORS[variant][solver][key][i]
+    other = CW_ANCHORS[variant]["rk4" if solver == "euler" else "euler"][key][i]
+    if not (np.isfinite(value) and near(value, own, rtol)):
+        fail(f"{variant} {what} {value} misses the {solver} anchor {own} at rtol {rtol}")
+    gap = abs(own - other) / abs(own)
+    if CW_SOLVER_RESOLVED < gap < 1e-3 and not abs(value - own) < abs(value - other):
+        fail(f"{variant} {what} {value} lies nearer the other solver's anchor {other} than {own}")
+    return abs(value - own) / abs(own)
+
+
+def phase_cw_slice(dev, files, root):
+    """Both channel-wise variants through their entry points: the Trainer
+    (every step logged) for one epoch with Euler and RK4, then the CLI
+    ``--training --fused`` (Euler; the main path of kernels 5 and 6, whose
+    counts are set to 0 just before and read just after) and ``--testing
+    --fused`` (Euler and RK4). Every loss is held to its JAX anchor."""
+    main_launches = {}
+    for variant in CW_VARIANTS:
+        train_f, test_f, start = files[variant]
+        size = CW_TRAIN[variant]
+        n_loss = 2 if variant == "dae_channelwise" else 1
+        for solver in ("euler", "rk4"):
+            shutil.copy(start, root / f"{variant}_ws_{solver}")
+            cfg = TrainConfig(
+                variant=variant, train_data=str(train_f), test_data=str(test_f),
+                model=str(root / f"{variant}_run_{solver}"), num=size["num"], batch=size["batch"],
+                epoch=200, hidden=128, larger_than=None, seed=0,
+                warm_start=str(root / f"{variant}_ws_{solver}"), stop_after=1, loss_record_iter=1,
+                solver=solver, fused=True, echo_logs=False, device="cuda",
+            )
+            reset_cw_counts()
+            t0 = time.perf_counter()
+            _, run_dir = Trainer(cfg).train()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_fwd, n_bwd = cw_counts()
+            recs = [json.loads(line) for line in (run_dir / "train_metrics.jsonl").read_text().splitlines()]
+            steps = [r for r in recs if r["kind"] == "train"]
+            (ev,) = [r for r in recs if r["kind"] == "eval"]
+            if len(steps) != 2:
+                fail(f"{variant} fused {solver} training logged {len(steps)} steps, not 2")
+            what = f"fused {solver}"
+            errs = [check_cw_anchor(f"{what} step-1 loss", steps[0]["loss"], variant, solver, "step1", 0,
+                                    TRAIN_STEP1_RTOL),
+                    check_cw_anchor(f"{what} step-1 gradient_norm", steps[0]["grad_norm"], variant, solver,
+                                    "step1", 1, TRAIN_STEP1_RTOL),
+                    check_cw_anchor(f"{what} step-2 loss", steps[1]["loss"], variant, solver, "step2", 0,
+                                    TRAIN_EVAL1_RTOL),
+                    check_cw_anchor(f"{what} step-2 gradient_norm", steps[1]["grad_norm"], variant, solver,
+                                    "step2", 1, TRAIN_EVAL1_RTOL)]
+            errs += [check_cw_anchor(f"{what} epoch-1 eval {k}", ev[k], variant, solver, "eval1", i,
+                                     TRAIN_EVAL1_RTOL) for i, k in enumerate(("x_loss", "i_loss")[:n_loss])]
+            say(f"[cw-train] {variant} fused {solver}: steps (loss, gradient_norm) "
+                f"{[(r['loss'], r['grad_norm']) for r in steps]}; epoch-1 eval "
+                f"{[ev[k] for k in ('x_loss', 'i_loss')[:n_loss]]}; launches: forward {n_fwd}, backward "
+                f"{n_bwd}; wall {wall:.2f} s; rel. err. to the JAX anchors {', '.join(f'{e:.2e}' for e in errs)}")
+            if n_fwd < 1 or n_bwd < 1:
+                fail(f"{variant} fused {solver} training launched the forward {n_fwd} and the backward "
+                     f"{n_bwd} times")
+
+        # the CLI entry points a user calls, with the counts of this run only
+        shutil.copy(start, root / f"{variant}_ws_cli")
+        argv = ["--training", "--fused", "--device", "cuda", "--train_data", str(train_f),
+                "--test_data", str(test_f), "--model", str(root / f"{variant}_run_cli"),
+                "--num", str(size["num"]), "--batch", str(size["batch"]), "--epoch", "200",
+                "--stop_after", "1", "--lr", "5e-3", "--larger_than", "none", "--seed", "0",
+                "--warm_start", str(root / f"{variant}_ws_cli")]
+        reset_cw_counts()
+        t0 = time.perf_counter()
+        _, run_dir = cli_main(variant, argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        main_launches[variant] = cw_counts()
+        recs = [json.loads(line) for line in (run_dir / "train_metrics.jsonl").read_text().splitlines()]
+        (ev,) = [r for r in recs if r["kind"] == "eval"]
+        errs = [check_cw_anchor(f"CLI --training epoch-1 eval {k}", ev[k], variant, "euler", "eval1", i,
+                                TRAIN_EVAL1_RTOL) for i, k in enumerate(("x_loss", "i_loss")[:n_loss])]
+        say(f"[cw-cli] {variant} --training --fused: epoch-1 eval {[ev[k] for k in ('x_loss', 'i_loss')[:n_loss]]} "
+            f"(rel. err. {', '.join(f'{e:.2e}' for e in errs)}); launches: forward {main_launches[variant][0]}, "
+            f"backward {main_launches[variant][1]}; wall {wall:.2f} s")
+        if min(main_launches[variant]) < 1 or not (run_dir / "model_checkpoint.1").exists():
+            fail(f"{variant} CLI training launched the kernels {main_launches[variant]} times or wrote no checkpoint")
+
+        for solver in ("euler", "rk4"):
+            # the eval writes its log beside the checkpoint: one copy per run
+            (root / f"{variant}_test_{solver}").mkdir()
+            ckpt = shutil.copy(start, root / f"{variant}_test_{solver}" / "model_checkpoint.0")
+            reset_cw_counts()
+            t0 = time.perf_counter()
+            res = cli_main(variant, ["--testing", "--fused", "--device", "cuda", "--solver", solver,
+                                     "--model", str(ckpt), "--test_data", str(test_f)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = cw_counts()
+            losses = [float(v) for v in res[:n_loss]]
+            errs = [check_cw_anchor(f"CLI --testing {solver} loss {i}", v, variant, solver, "test", i,
+                                    ANCHOR_RTOL) for i, v in enumerate(losses)]
+            say(f"[cw-cli] {variant} --testing --fused --solver {solver}: losses {losses} (JAX anchors "
+                f"{list(CW_ANCHORS[variant][solver]['test'])}, rel. err. {', '.join(f'{e:.2e}' for e in errs)}); "
+                f"launches: forward {n[0]}, backward {n[1]}; wall {wall:.3f} s")
+            if n[0] < 1 or n[1]:
+                fail(f"{variant} CLI --testing launched the forward {n[0]} and the backward {n[1]} times")
+    return main_launches
+
+
+def cw_step(variant, files, dev, fused, reps):
+    """One training step of the variant at B=64, T=1001, h=128, RK4 from
+    the starting checkpoint: streams, rollout, readout, loss, backward and
+    Adam, timed with CUDA events; returns (ms, peak bytes allocated, the
+    first step's loss, the first step's gradient of each parameter)."""
+    model = cw_model(variant, files[variant][2], dev, "rk4")
+    batch = cw_batch(variant, files, 64, "train", dev)
+    opt = make_optimizer(model.parameters(), 5e-3, epochs=1, steps_per_epoch=1)
+    if variant == "ode_channelwise":
+        apply, loss_fn = fused_cw_ode_apply, ode_channelwise_loss
+    else:
+        apply, loss_fn = fused_cw_dae_apply, dae_channelwise_loss
+    args = [batch[k] for k in CW_KEYS[variant]]
+    forward = (lambda: apply(model, batch)) if fused else (lambda: model(*args))
+    first = {}
+
+    def step():
+        opt.adam.zero_grad()
+        loss, _ = loss_fn(forward(), batch)
+        loss.backward()
+        if not first:  # the untimed warm-up step, from the starting weights
+            first["loss"] = loss.item()
+            first["grads"] = {n: torch.zeros_like(q) if q.grad is None else q.grad.detach().clone()
+                              for n, q in model.named_parameters()}
+        opt.step()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = cuda_ms(step, 1, reps)
+    return ms, torch.cuda.max_memory_allocated(dev), first["loss"], first["grads"]
+
+
+def phase_cw_times(dev, files):
+    """CUDA-event times of kernels 5 and 6 on the starting checkpoints and
+    of one whole training step per family, fused and plain."""
+    times = {}
+    for variant in CW_VARIANTS:
+        for B, solver, split in ((32, "euler", "test"), (64, "euler", "train"), (64, "rk4", "train")):
+            args = cw_inputs(variant, files, B, split, dev)
+            k_ms = cuda_ms(lambda: FC.fused_cw_rollout_cuda(*args, solver), 1, 3)
+            p_ms = cuda_ms(lambda: FC.fused_cw_rollout_plain(*args, solver), 0, 1)
+            n_bytes, flops, _, _ = cw_work(*args[:3], solver)
+            bound_ms, bound_by = bound(n_bytes, flops)
+            times[(variant, "fwd", B, solver)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
+            say(f"[cw-times] {variant} forward B={B} {solver:8s}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by}; {n_bytes} B, {flops} FLOP), kernel/bound "
+                f"{k_ms / bound_ms:.2f}x, library n/a: no single PyTorch call computes this rollout")
+        streams, weights, x0, dt = cw_inputs(variant, files, 64, "train", dev)
+        rng = np.random.default_rng(13)
+        cot = torch.tensor(rng.standard_normal((dt.shape[0] + 1,) + tuple(x0.shape)).astype(np.float32)
+                           * 0.01, device=dev)
+        for solver in SOLVERS:
+            sol = torch.cat([x0[None], FC.fused_cw_rollout_cuda(streams, weights, x0, dt, solver)])
+            k_ms = cuda_ms(lambda: VC.fused_cw_rollout_bwd_cuda(streams, weights, dt, sol, cot, solver), 1, 2)
+            p_ms = cuda_ms(lambda: VC.fused_cw_rollout_bwd_plain(streams, weights, dt, sol, cot, solver), 0, 1)
+            _, _, n_bytes, flops = cw_work(streams, weights, x0, solver)
+            bound_ms, bound_by = bound(n_bytes, flops)
+            times[(variant, "bwd", solver)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
+            say(f"[cw-times] {variant} backward B=64 {solver:8s}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by}; {n_bytes} B, {flops} FLOP), kernel/bound "
+                f"{k_ms / bound_ms:.2f}x, library n/a: no single PyTorch call computes this VJP")
+        first = {}
+        for fused, reps in ((True, 2), (False, 1)):
+            ms, peak, loss, grads = cw_step(variant, files, dev, fused, reps)
+            times[(variant, "step", fused)] = ms
+            first[fused] = loss, grads
+            say(f"[cw-times] {variant} training step B=64 T={CW_STEPS} h=128 rk4, {'fused' if fused else 'plain'} "
+                f"route: {ms:.3f} ms, {64 * (CW_STEPS - 1) / ms * 1e3:.1f} trajectory-steps/s, peak memory allocated "
+                f"{peak / 2**30:.2f} GiB")
+        check_cw_step(variant, first[True], first[False])
+    return times
+
+
+def check_cw_step(variant, fused, plain):
+    """The fused route's first training step at B=64, RK4 (the batch the
+    anchors' DAE runs do not reach) against the plain route's from the
+    same weights and batch: the loss, and each parameter's gradient on its
+    own scale, within TRAIN_STEP1_RTOL."""
+    (f_loss, f_grads), (p_loss, p_grads) = fused, plain
+    d_loss = abs(f_loss - p_loss) / abs(p_loss)
+    worst_name, worst = None, 0.0
+    for name, g in p_grads.items():
+        d = (f_grads[name] - g).abs().max().item()
+        scale = g.abs().max().item()
+        if not np.isfinite(d) or d > TRAIN_STEP1_RTOL * scale:
+            fail(f"{variant} fused step's gradient of {name} lies {d} from the plain step's (max|plain| {scale})")
+        if scale > 0 and d / scale >= worst:
+            worst_name, worst = name, d / scale
+    say(f"[cw-step-check] {variant} B=64 rk4, fused against plain from the same weights and batch: loss {f_loss} "
+        f"/ {p_loss} (rel. {d_loss:.2e}); worst gradient max|d|/max|plain| {worst:.2e} ({worst_name})")
+    if not np.isfinite(f_loss) or d_loss > TRAIN_STEP1_RTOL:
+        fail(f"{variant} fused step's loss {f_loss} misses the plain step's {p_loss} at rtol {TRAIN_STEP1_RTOL}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", action="store_true", help="time every DAE forward launch shape")
@@ -887,6 +1387,12 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(prefix="psnode_ode_") as tmp:
         ode_launches, ode_files = phase_ode_slice(dev, pathlib.Path(tmp))
         ode_times = phase_ode_times(dev, ode_files)
+    with tempfile.TemporaryDirectory(prefix="psnode_cw_") as tmp:
+        cw_files = cw_setup(pathlib.Path(tmp))
+        cw_fwd_err = phase_cw_kernel_vs_plain(dev, cw_files)
+        cw_bwd_err = phase_cw_bwd_vs_plain(dev, cw_files)
+        cw_launches = phase_cw_slice(dev, cw_files, pathlib.Path(tmp))
+        cw_times = phase_cw_times(dev, cw_files)
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all, nvcc "
         f"{', '.join(f'{k} {v:.2f} s' for k, v in nvcc_s.items())}; card {smi}")
     # the forward as the evaluation slice drives it (B=32, Euler); the
@@ -911,6 +1417,14 @@ def main(argv=None):
         entry("fused_ode_rollout_bwd", "py_psnode_tpu_torch/csrc/fused_ode_rollout_bwd.cu",
               "py_psnode_tpu/ops/fused_ode.py:171", ode_launches[1], ode_bwd_err,
               ode_times[("bwd", "euler")]),
+        # the channel-wise kernels as the ODE channel-wise CLI's --training
+        # --fused drives them (B=64, Euler)
+        entry("fused_cw_rollout", "py_psnode_tpu_torch/csrc/fused_cw_rollout.cu",
+              "py_psnode_tpu/ops/fused_channelwise.py:258", cw_launches["ode_channelwise"][0], cw_fwd_err,
+              cw_times[("ode_channelwise", "fwd", 64, "euler")]),
+        entry("fused_cw_rollout_bwd", "py_psnode_tpu_torch/csrc/fused_cw_rollout_bwd.cu",
+              "py_psnode_tpu/ops/fused_channelwise.py:370", cw_launches["ode_channelwise"][1], cw_bwd_err,
+              cw_times[("ode_channelwise", "bwd", "euler")]),
     ]}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

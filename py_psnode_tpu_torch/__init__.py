@@ -7,13 +7,14 @@ the CPU). Its layout mirrors the JAX package's (``data/``, ``solvers/``,
 counterpart is easy to find. It imports nothing of JAX and nothing of the
 JAX package.
 
-Ported so far: the DAE no-encode variant, served (``--testing [--fused]``)
-and trained (``--training [--fused]``). The fused rollout runs through two
-CUDA kernels written by hand, the forward (``csrc/fused_dae_rollout.cu``)
-and the reverse-time backward (``csrc/fused_dae_rollout_bwd.cu``) behind a
-``torch.autograd.Function``, each built with ``nvcc`` on first use and
-bound with ``ctypes``. Entry points run on ``cuda`` unless the caller asks
-for ``cpu``.
+Ported so far: the DAE and ODE no-encode variants and the channel-wise
+family (``ode_channelwise``, ``dae_channelwise``), each served
+(``--testing [--fused]``) and trained (``--training [--fused]``). Each
+fused rollout runs through two CUDA kernels written by hand, a forward and
+a reverse-time backward behind a ``torch.autograd.Function``
+(``csrc/fused_{dae,ode,cw}_rollout{,_bwd}.cu``), each built with ``nvcc``
+on first use and bound with ``ctypes``. Entry points run on ``cuda`` unless
+the caller asks for ``cpu``.
 """
 
 __version__ = "0.1.0"

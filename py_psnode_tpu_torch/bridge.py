@@ -6,7 +6,9 @@ keys such as ``params/de_func/x_dot/dense_0/kernel``. The port's modules
 keep the flax names, so that key maps to the state-dict entry
 ``de_func.x_dot.dense_0.weight``. Flax stores a dense kernel as
 ``[in, out]`` and torch's ``Linear.weight`` is ``[out, in]``: the bridge
-transposes. Orbax checkpoint directories are not supported by the port yet.
+transposes. The stacked weights of a per-channel net (``.../w_k [C, d_in,
+f]`` and ``.../b_k [C, f]``, ``PerChannelMLP``) keep their layout and name
+both ways. Orbax checkpoint directories are not supported by the port yet.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from torch import nn
 
 _ORBAX_DIR = re.compile(r"model_checkpoint\.\d+")
+_STACKED = re.compile(r"[wb]_\d+")  # PerChannelMLP's w_k [C, d_in, f] and b_k [C, f]
 
 
 def unflatten_params(flat: Mapping[str, np.ndarray]) -> Dict:
@@ -63,7 +66,8 @@ def load_params_npz(path) -> Dict:
 
 def state_dict_from_params(params: Mapping) -> Dict[str, torch.Tensor]:
     """Flax-layout tree (with or without the top ``"params"`` level) →
-    torch state dict: ``kernel [in, out]`` becomes ``weight [out, in]``."""
+    torch state dict: ``kernel [in, out]`` becomes ``weight [out, in]``;
+    per-channel stacks ``w_k``/``b_k`` pass through unchanged."""
     if "params" in params and isinstance(params["params"], Mapping):
         params = params["params"]
     sd = {}
@@ -72,10 +76,12 @@ def state_dict_from_params(params: Mapping) -> Dict[str, torch.Tensor]:
         t = torch.tensor(np.asarray(arr))  # a copy: npz arrays may be read-only
         if leaf == "kernel":
             sd[".".join(path + ["weight"])] = t.t().contiguous()
-        elif leaf == "bias":
-            sd[".".join(path + ["bias"])] = t
+        elif leaf == "bias" or _STACKED.fullmatch(leaf):
+            sd[".".join(path + [leaf])] = t
         else:
-            raise ValueError(f"unexpected parameter {key!r} (want .../kernel or .../bias)")
+            raise ValueError(
+                f"unexpected parameter {key!r} (want .../kernel, .../bias, .../w_k or .../b_k)"
+            )
     return sd
 
 
@@ -91,8 +97,9 @@ def load_params(module: nn.Module, params: Mapping, device=None) -> nn.Module:
 
 def flax_params(module: nn.Module) -> Dict:
     """The module's weights as a nested flax-layout dict of tensors
-    (``kernel [in, out]`` contiguous, ``bias``), without the top
-    ``"params"`` level. Kernels are copies; biases are the parameters."""
+    (``kernel [in, out]`` contiguous, ``bias``, per-channel ``w_k``/``b_k``
+    as they are), without the top ``"params"`` level. Kernels are copies;
+    biases and stacks are the parameters."""
     flat = {}
     for name, p in module.named_parameters():
         *path, leaf = name.split(".")

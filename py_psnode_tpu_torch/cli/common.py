@@ -5,10 +5,10 @@ reference CLI scripts' flags and the mode dispatch. ``--training`` and
 Flags: --device --id --training --testing --saving --drawing --train_data
 --test_data --model --num --batch --hidden --epoch --step, plus the JAX
 package's --warm_start --stop_after --solver --lr --seed --fused
---robust_loss --robust_limit --gradient_clip --init_style --larger_than,
-with its names and defaults. The JAX flags of paths that are not ported
-(--devices --dcn_size --checkpointer --auto_resume --input_true_x
---input_true_i --n_windows --gap_weight --channel_impl --remat) are
+--robust_loss --robust_limit --gradient_clip --init_style --larger_than
+--channel_impl, with its names and defaults. The JAX flags of paths that are
+not ported (--devices --dcn_size --checkpointer --auto_resume --input_true_x
+--input_true_i --n_windows --gap_weight --remat) are
 accepted at their defaults and raise "not ported yet" otherwise.
 ``--device`` defaults to ``cuda``; ``cpu`` must be asked for.
 """
@@ -89,6 +89,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help='contain_larger_than/show_larger_than filter: a '
                              'float, "none", or "variant" (per-variant '
                              'reference constant).')
+    parser.add_argument("--channel_impl", type=str, default="einsum",
+                        choices=("einsum", "blockdiag"),
+                        help="Channel-wise variants: per-channel matmul form, "
+                             "one grouped einsum per layer or one "
+                             "block-diagonal product (same numbers).")
     # flags of the JAX package's paths that are not ported yet
     for flag, kw in _NOT_PORTED_FLAGS.items():
         parser.add_argument(flag, help="Not ported yet.", **kw)
@@ -105,7 +110,6 @@ _NOT_PORTED_FLAGS = {
     "--input_true_i": dict(action="store_true"),
     "--n_windows": dict(type=int, default=0),
     "--gap_weight": dict(type=float, default=1.0),
-    "--channel_impl": dict(type=str, default="einsum"),
     "--remat": dict(type=str, default="true"),
 }
 
@@ -172,6 +176,7 @@ def main(variant: str, argv=None):
         robust_limit=args.robust_limit,
         gradient_clip=args.gradient_clip,
         init_style=args.init_style,
+        channel_impl=args.channel_impl,
         device=device,
     )
     if args.training:

@@ -1,0 +1,240 @@
+"""Fused forward rollout of the channel-wise family (counterpart of
+``py_psnode_tpu/ops/fused_channelwise.py``: ``precompute_cw_streams`` :84,
+``_cw_eval_multi`` :244, ``_fwd_kernel`` :258, ``_forward`` :493).
+
+One evaluation of the channel-wise dynamics at the latent state ``xs [B,
+xd, h]`` (``f_init`` and the z-features lifted out of the loop):
+
+  * ``ext``: per channel ``c``, ``fx[c] = elu(xs[c] @ E0[c] + e0[c]) @ E1[c]
+    + e1[c]``;
+  * the vertical net on the rows ``(b, l)``: ``V[b, l, :] = ft[b, :, l]``
+    with ``ft = cat(fx, fz[t])`` (``xd + zd`` channels),
+    ``H0 = elu(V @ A + s_constV[b])``, ``H1 = elu(H0 @ W1 + b1)``,
+    ``H2 = elu(H1 @ W2 + b2)``, ``O = H2 @ W3 + b3`` (``[h, xd]`` per row);
+  * ``head``: per channel, the column ``O[b, :, c]`` through the same
+    two-layer form as ``ext``.
+
+The vertical first layer is folded (:func:`precompute_cw_streams`):
+``cat(ft, f_init, ft - f_init) @ W0 = ft @ A + f_init @ S`` with ``A =
+W0[:C] + W0[2C:]`` and ``S = W0[C:2C] - W0[2C:]``; the constant part
+``s_constV = f_init @ S + b0`` is one ``[h, h]`` tile per batch row,
+computed once per trajectory in PyTorch and differentiated by autograd.
+
+The port's layouts are batch-major per step, as suits one CUDA block per
+batch row: ``fz [T-1, B, zd, h]``, ``s_constV [B, h, h]`` (row ``l``,
+column ``j``), ``x0 [B, xd, h]``, the solution rows ``[T-1, B, xd, h]``.
+The TPU's ``[T-1, zd, B, h]`` streams and its sublane relayouts
+(``_build_V``/``_unbuild_V``) are Mosaic scheduling and are not carried
+over: in CUDA, building ``V`` is indexing.
+
+:func:`fused_cw_rollout` runs the hand-written kernel
+``csrc/fused_cw_rollout.cu`` on CUDA tensors (one launch for the whole
+rollout) and :func:`fused_cw_rollout_plain`, the same function as an eager
+PyTorch loop, on CPU tensors. There is no fallback from the kernel to the
+plain version. The kernel takes ``h <= MAX_HIDDEN`` and the model's
+vertical net of three tail layers.
+
+Not ported: the bf16 compute mode (``_cast_cw`` :161) and the TPU's block
+and time choice (``choose_cw_blocks``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, List
+
+import torch
+
+from py_psnode_tpu_torch.models.funcs import elu
+from py_psnode_tpu_torch.ops.fused_dae import _SOLVER_CODE, normalize_solver
+from py_psnode_tpu_torch.ops.fused_ode import _step_fwd, pointer_array
+from py_psnode_tpu_torch.utils import cuda_build
+
+MAX_HIDDEN = 128  # the kernels keep [h, h] tiles of h <= 128 in shared memory
+N_VERT_TAIL = 3  # the vertical net's layers after the folded first one
+
+
+def precompute_cw_streams(params: Dict, f_init: torch.Tensor, fz: torch.Tensor):
+    """Fold the vertical first layer and collect the kernel's weights.
+
+    Args:
+      params: flax-layout tree with ``de_func`` (``xh_ext``, ``xh_dot_v``,
+        ``xh_dot_head``).
+      f_init: ``[B, C, h]`` features at the initial state (``C = xd + zd``).
+      fz: ``[T-1, B, zd, h]`` event-adjusted z-features of every step.
+
+    Returns ``(streams, weights)``: ``streams = {fz, s_constV [B, h, h]}``,
+    ``weights = {a [C, h], vert [(W1, b1), (W2, b2), (W3, b3)], ext (w0,
+    b0, w1, b1), head (w0, b0, w1, b1)}`` with the per-channel stacks as
+    they are (``w [xd, h, h]``, ``b [xd, h]``). Every entry is contiguous
+    and differentiable.
+    """
+    de = params["de_func"]
+    vert = de["xh_dot_v"]
+    C = f_init.shape[1]
+    W0, b0 = vert["dense_0"]["kernel"], vert["dense_0"]["bias"]
+    A = W0[:C] + W0[2 * C:]
+    S = W0[C:2 * C] - W0[2 * C:]
+    s_constV = torch.einsum("bcl,cj->blj", f_init, S) + b0
+    stack = lambda net: tuple(de[net][k].contiguous() for k in ("w_0", "b_0", "w_1", "b_1"))
+    weights = dict(
+        a=A.contiguous(),
+        vert=[(vert[f"dense_{k}"]["kernel"].contiguous(), vert[f"dense_{k}"]["bias"].contiguous())
+              for k in range(1, N_VERT_TAIL + 1)],
+        ext=stack("xh_ext"),
+        head=stack("xh_dot_head"),
+    )
+    return dict(fz=fz.contiguous(), s_constV=s_constV.contiguous()), weights
+
+
+def flatten_weights(weights: Dict) -> List[torch.Tensor]:
+    """``[a, W1, b1, W2, b2, W3, b3, ext w0, b0, w1, b1, head w0, b0, w1,
+    b1]``: the kernels' order and that of their gradient row."""
+    flat = [weights["a"]]
+    for W, b in weights["vert"]:
+        flat += [W, b]
+    return flat + list(weights["ext"]) + list(weights["head"])
+
+
+def unflatten_weights(flat) -> Dict:
+    n = 1 + 2 * N_VERT_TAIL
+    return dict(a=flat[0], vert=[(flat[k], flat[k + 1]) for k in range(1, n, 2)],
+                ext=tuple(flat[n:n + 4]), head=tuple(flat[n + 4:n + 8]))
+
+
+def _chan2(tile, w0, b0, w1, b1):
+    """Per-channel two-layer net on ``tile [B, n, h]`` (stacks ``[n, h, h]``)."""
+    e = elu(torch.einsum("bci,cio->bco", tile, w0) + b0)
+    return torch.einsum("bci,cio->bco", e, w1) + b1
+
+
+def cw_eval(xs, fz_t, s_constV, weights: Dict):
+    """One evaluation of the dynamics, ``xs [B, xd, h] -> [B, xd, h]``, as
+    the kernel computes it (ELU as ``exp(min(x, 0)) - 1`` below 0)."""
+    ft = torch.cat([_chan2(xs, *weights["ext"]), fz_t], dim=1)  # [B, C, h]
+    H = elu(ft.transpose(1, 2) @ weights["a"] + s_constV)  # [B, h, h]
+    (W1, b1), (W2, b2), (W3, b3) = weights["vert"]
+    H = elu(H @ W1 + b1)
+    H = elu(H @ W2 + b2)
+    O = H @ W3 + b3  # [B, h, xd]
+    return _chan2(O.transpose(1, 2), *weights["head"])
+
+
+def fused_cw_rollout_plain(streams: Dict, weights: Dict, x0, dt, solver: str = "euler"):
+    """The rollout as an eager PyTorch loop on any device and in the
+    inputs' dtype: the plain version of the CUDA kernel. Returns the rows
+    ``[T-1, B, xd, h]`` of steps 1..T-1."""
+    solver = normalize_solver(solver)
+    fz, sV = streams["fz"], streams["s_constV"]
+    dt = dt.to(sV.dtype)[..., None]  # [T-1, B, 1, 1]
+    xs, x = [], x0
+    for t in range(fz.shape[0]):
+        f = lambda xx, t=t: cw_eval(xx, fz[t], sV, weights)
+        x = _step_fwd(f, x, dt[t], solver)
+        xs.append(x)
+    return torch.stack(xs)
+
+
+def check_inputs(streams: Dict, weights: Dict, x0, dt):
+    """Raise unless the rollout's inputs are float32, contiguous, on one
+    CUDA device, shaped as the kernels take them, with ``h <=
+    MAX_HIDDEN``."""
+    fz, sV = streams["fz"], streams["s_constV"]
+    if sV.device.type != "cuda":
+        raise ValueError(f"the CUDA channel-wise kernels take CUDA tensors, got {sV.device}")
+    if x0.dim() != 3 or fz.dim() != 4:
+        raise ValueError(f"x0 must be [B, xd, h] and fz [T-1, B, zd, h], got {tuple(x0.shape)}, "
+                         f"{tuple(fz.shape)}")
+    B, xd, h = x0.shape
+    Tm1, zd = fz.shape[0], fz.shape[2]
+    if h > MAX_HIDDEN:
+        raise ValueError(f"the channel-wise kernels take h <= {MAX_HIDDEN}, got h={h}")
+    if len(weights["vert"]) != N_VERT_TAIL:
+        raise ValueError(f"vert must hold {N_VERT_TAIL} layers, got {len(weights['vert'])}")
+    C = xd + zd
+    expect = {"fz": (fz, (Tm1, B, zd, h)), "s_constV": (sV, (B, h, h)), "dt": (dt, (Tm1, B, 1)),
+              "x0": (x0, (B, xd, h)), "a": (weights["a"], (C, h))}
+    for k, (W, b) in enumerate(weights["vert"]):
+        n_out = xd if k == N_VERT_TAIL - 1 else h
+        expect[f"vert[{k}].W"] = (W, (h, n_out))
+        expect[f"vert[{k}].b"] = (b, (n_out,))
+    for net in ("ext", "head"):
+        for name, a, shape in zip(("w0", "b0", "w1", "b1"), weights[net],
+                                  ((xd, h, h), (xd, h), (xd, h, h), (xd, h))):
+            expect[f"{net}.{name}"] = (a, shape)
+    for name, (a, shape) in expect.items():
+        if a.device != sV.device:
+            raise ValueError(f"{name} is on {a.device}, s_constV on {sV.device}")
+        if a.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {a.dtype}")
+        if tuple(a.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(a.shape)}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    """The C launcher of ``csrc/fused_cw_rollout.cu`` with its signature."""
+    lib = cuda_build.load("fused_cw_rollout")
+    fn = lib.psn_fused_cw_rollout_f32
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [
+        P, P, P, P,  # fz, dt, s_constV, x0
+        ctypes.POINTER(ctypes.c_void_p),  # the 15 weights, flatten_weights order
+        P,  # sol
+        I, I, I, I, I,  # Tm1, B, h, xd, zd
+        I,  # solver
+        P,  # stream
+    ]
+    fn.restype = ctypes.c_int
+    err = lib.psn_cuda_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, err
+
+
+def fused_cw_rollout_cuda(streams: Dict, weights: Dict, x0, dt, solver: str = "euler"):
+    """Launch the CUDA kernel once for the whole rollout, one block per
+    batch row; returns the rows ``[T-1, B, xd, h]``."""
+    solver = normalize_solver(solver)
+    check_inputs(streams, weights, x0, dt)
+    fz, sV = streams["fz"], streams["s_constV"]
+    Tm1, B, zd, h = fz.shape
+    xd = x0.shape[1]
+    fn, err = _launcher()
+    sol = torch.empty(Tm1, B, xd, h, dtype=torch.float32, device=sV.device)
+    with torch.cuda.device(sV.device):
+        stream = torch.cuda.current_stream(sV.device).cuda_stream
+        rc = fn(fz.data_ptr(), dt.data_ptr(), sV.data_ptr(), x0.data_ptr(),
+                pointer_array(flatten_weights(weights)), sol.data_ptr(),
+                Tm1, B, h, xd, zd, _SOLVER_CODE[solver], stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"fused_cw_rollout kernel launch failed: CUDA error {rc} ({err(rc).decode()})"
+        )
+    fused_cw_rollout.launches += 1
+    return sol
+
+
+def fused_cw_rollout(streams: Dict, weights: Dict, x0, dt, solver: str = "euler"):
+    """The rollout's rows ``[T-1, B, xd, h]`` (steps 1..T-1, without
+    ``x0``) on the tensors' device: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors, an error otherwise.
+
+    Args:
+      streams/weights: from :func:`precompute_cw_streams`.
+      x0: ``[B, xd, h]`` latent initial state; dt: ``[T-1, B, 1]`` float32.
+
+    ``fused_cw_rollout.launches`` counts kernel launches.
+    """
+    dev = streams["s_constV"].device
+    if dev.type == "cuda":
+        return fused_cw_rollout_cuda(streams, weights, x0, dt, solver)
+    if dev.type == "cpu":
+        return fused_cw_rollout_plain(streams, weights, x0, dt, solver)
+    raise ValueError(f"fused_cw_rollout runs on cuda or cpu tensors, got {dev}")
+
+
+fused_cw_rollout.launches = 0

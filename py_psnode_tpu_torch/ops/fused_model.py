@@ -1,9 +1,14 @@
 """Model-level entries of the fused paths (counterparts of
-``py_psnode_tpu/ops/fused_model.py:22-69`` and of
-``py_psnode_tpu/ops/fused_ode.py:393`` ``fused_ode_apply``).
+``py_psnode_tpu/ops/fused_model.py:22-69``, of
+``py_psnode_tpu/ops/fused_ode.py:393`` ``fused_ode_apply`` and of
+``py_psnode_tpu/ops/fused_channelwise.py:633-724`` ``fused_cw_ode_apply``
+and ``fused_cw_dae_apply``).
 
 :func:`fused_dae_apply` is a drop-in for ``DAEModel.forward``,
-:func:`fused_ode_apply` for ``ODEModel.forward``: the initial evaluations,
+:func:`fused_ode_apply` for ``ODEModel.forward``, :func:`fused_cw_ode_apply`
+and :func:`fused_cw_dae_apply` for the channel-wise models' ``forward``
+(their decoders and the DAE's algebraic readout over all T run as plain
+PyTorch after the rollout): the initial evaluations,
 the event streams and the stream precompute run as plain PyTorch
 (differentiated by autograd), the time loop runs through the rollout's
 ``torch.autograd.Function``: the forward and backward CUDA kernels on the
@@ -18,8 +23,11 @@ from typing import Dict
 import torch
 
 from py_psnode_tpu_torch.bridge import flax_params
+from py_psnode_tpu_torch.models.channelwise import ChannelWiseDAEModel, ChannelWiseODEModel
 from py_psnode_tpu_torch.models.dae import DAEModel
 from py_psnode_tpu_torch.models.ode import ODEModel
+from py_psnode_tpu_torch.ops.fused_channelwise import precompute_cw_streams
+from py_psnode_tpu_torch.ops.fused_channelwise_vjp import fused_cw_rollout_diff
 from py_psnode_tpu_torch.ops.fused_dae import normalize_solver, precompute_streams
 from py_psnode_tpu_torch.ops.fused_dae_vjp import fused_dae_rollout_diff
 from py_psnode_tpu_torch.ops.fused_ode import precompute_ode_streams
@@ -114,3 +122,49 @@ def fused_ode_apply(model: ODEModel, batch: Dict[str, torch.Tensor], solver=None
         s_de, weights, x0, dt = ode_rollout_inputs(model, batch)
         sol = fused_ode_rollout_diff(s_de, weights, x0, dt, solver)
     return sol.transpose(0, 1)
+
+
+def cw_rollout_inputs(model, batch: Dict[str, torch.Tensor]):
+    """The fused channel-wise rollout's inputs for ``model`` (either
+    channel-wise model) on ``batch``: ``(streams, weights, xh0, dt)``.
+    ``f_init`` uses the un-jumped ``z[0]``; the z-features of every step use
+    the jumped stream."""
+    de = model.de_func
+    tm = lambda a: a.transpose(0, 1)
+    is_event, e_idx = event_match(batch["t"], batch.get("event_t"))
+    z_used = tm(jumped_stream(batch["z"], batch.get("z_jump"), is_event, e_idx))[:-1]
+    tT, xT, zT = tm(batch["t"]).float(), tm(batch["x"]), tm(batch["z"])
+    xh0 = de.encode_x(xT[0])  # [B, xd, h]
+    f_init = de.features_of(xh0, zT[0])
+    streams, weights = precompute_cw_streams(flax_params(model), f_init, de.z_features(z_used))
+    return streams, weights, xh0, tT[1:] - tT[:-1]
+
+
+def _cw_latent(model, batch, solver):
+    solver = normalize_solver(model.solver if solver is None else solver)
+    streams, weights, xh0, dt = cw_rollout_inputs(model, batch)
+    return fused_cw_rollout_diff(streams, weights, xh0, dt, solver)  # [T, B, xd, h]
+
+
+def fused_cw_ode_apply(model: ChannelWiseODEModel, batch: Dict[str, torch.Tensor], solver=None):
+    """Forward the channel-wise ODE through the fused rollout: returns
+    batch-major ``(x_pred, x_re)``, the ``ChannelWiseODEModel.forward``
+    contract. Differentiable where a parameter requires grad, else run
+    under ``torch.no_grad()``."""
+    de = model.de_func
+    with _grad_mode(model):
+        xh_sol = _cw_latent(model, batch, solver)
+        return de.decode_x(xh_sol).transpose(0, 1), de.decode_x(de.encode_x(batch["x"]))
+
+
+def fused_cw_dae_apply(model: ChannelWiseDAEModel, batch: Dict[str, torch.Tensor], solver=None):
+    """Forward the channel-wise DAE through the fused rollout: returns
+    batch-major ``(x_pred, i_pred, x_re)``, the ``ChannelWiseDAEModel``
+    contract. The algebraic readout runs over all T at once after the
+    rollout, as plain PyTorch."""
+    de = model.de_func
+    with _grad_mode(model):
+        xh_sol = _cw_latent(model, batch, solver)
+        i_pred = model.ae_func(xh_sol, batch["v"].transpose(0, 1))
+        return (de.decode_x(xh_sol).transpose(0, 1), i_pred.transpose(0, 1),
+                de.decode_x(de.encode_x(batch["x"])))

@@ -1,6 +1,7 @@
-"""Training losses of the ODE and DAE no-encode variants (counterpart of
+"""Training losses of the no-encode and channel-wise variants (counterpart of
 ``py_psnode_tpu/train/losses.py``: ``mse`` :29, ``masked_sum_se`` :45,
-``ode_no_encode_loss`` :50, ``dae_no_encode_loss`` :78-93).
+``ode_no_encode_loss`` :50, ``ode_encode_loss`` :61, ``dae_no_encode_loss``
+:78-93, ``ode_channelwise_loss`` and ``dae_channelwise_loss`` :123-143).
 
 Masked MSE compositions with the reference's quirks kept:
 
@@ -63,3 +64,39 @@ def dae_no_encode_loss(outputs, batch, omega_extra_weight: float = 9.0) -> Tuple
     i0_loss = mse(i[:, 0, :], i_pred[:, 0, :], w)
     loss = x_loss + i_loss + x0_loss + i0_loss
     return loss, {"x_loss": x_loss, "i_loss": i_loss, "loss": loss}
+
+
+def ode_encode_loss(outputs, batch) -> Tuple[torch.Tensor, Dict]:
+    """ref neural_00_ODE_02_direct_encode.py:267-270: the masked x loss plus
+    the unmasked x0 term and the reconstruction ``mse(x_re, x)``. Returns
+    ``(loss, {"x_loss", "x0_loss", "recon_loss", "loss"})``."""
+    x_pred, x_re = outputs
+    x, mask = batch["x"], batch["mask"]
+    w = batch.get("sample_w")
+    x_loss = (((x_pred - x) ** 2 * mask).sum(dim=(0, 1)) / mask.sum()).sum()
+    x0_loss = mse(x[:, 0, :], x_pred[:, 0, :], w)
+    recon = mse(x_re, x, w)
+    loss = x0_loss + x_loss + recon
+    return loss, {"x_loss": x_loss, "x0_loss": x0_loss, "recon_loss": recon, "loss": loss}
+
+
+def ode_channelwise_loss(outputs, batch) -> Tuple[torch.Tensor, Dict]:
+    """The channel-wise ODE is an autoencoding design: the direct-encode
+    recipe, :func:`ode_encode_loss`."""
+    return ode_encode_loss(outputs, batch)
+
+
+def dae_channelwise_loss(outputs, batch) -> Tuple[torch.Tensor, Dict]:
+    """Channel-wise DAE: masked x and i losses (no ω weighting), the
+    unmasked x0 and i0 terms and the x reconstruction. Returns ``(loss,
+    {"x_loss", "i_loss", "recon_loss", "loss"})``."""
+    x_pred, i_pred, x_re = outputs
+    x, i, mask = batch["x"], batch["i"], batch["mask"]
+    w = batch.get("sample_w")
+    x_loss = masked_sum_se(x_pred, x, mask)
+    i_loss = masked_sum_se(i_pred, i, mask)
+    recon = mse(x_re, x, w)
+    x0_loss = mse(x[:, 0, :], x_pred[:, 0, :], w)
+    i0_loss = mse(i[:, 0, :], i_pred[:, 0, :], w)
+    loss = x_loss + i_loss + x0_loss + i0_loss + recon
+    return loss, {"x_loss": x_loss, "i_loss": i_loss, "recon_loss": recon, "loss": loss}

@@ -2,16 +2,18 @@
 ``build_model``, ``_make_train_step`` :577-680, ``_eval_batch_size`` :682,
 ``_make_eval_apply`` :702, ``train`` :796-1129 and ``test`` :1131).
 
-``Trainer.train`` trains the ODE or DAE no-encode variant on one device: Adam +
-StepLR, the zero-loss freeze and the optional robust-loss guard, the
+``Trainer.train`` trains the ODE or DAE no-encode or channel-wise variants
+on one device: Adam + StepLR, the zero-loss freeze and the optional robust-loss guard, the
 training set resident on the device and gathered by index, rolling
 record-window log lines, an npz checkpoint and an eval each epoch,
 ``train_and_eval.npz``, ``train_metrics.jsonl`` and the training-process
 summary. ``Trainer.test`` loads a ``model_checkpoint.{epoch}`` npz,
 evaluates it and writes ``Model_<ckpt>_Evaluation.log`` and
 ``evaluation.npz`` next to the checkpoint. Not ported yet: the export of
-``saved model/``, orbax checkpoints, ``auto_resume``, multishoot, teacher
-forcing and data parallelism.
+``saved model/``, orbax checkpoints, ``auto_resume``, multishoot (the
+channel-wise one included), teacher forcing and data parallelism. The
+channel-wise family defines no teacher forcing and refuses it as the JAX
+package does.
 """
 
 from __future__ import annotations
@@ -91,9 +93,12 @@ class TrainConfig:
     robust_limit: Optional[float] = None
     init_style: str = "lecun"  # "lecun" (flax default) | "torch"
     jsonl_metrics: bool = True  # train_metrics.jsonl beside the text logs
-    # route the ODE/DAE no-encode forward and backward through the fused
-    # rollout (the CUDA kernels on the card)
+    # route the forward and backward of every ported variant through the
+    # fused rollout (the CUDA kernels on the card)
     fused: bool = False
+    # the channel-wise variants' per-channel matmul form: "einsum" or
+    # "blockdiag" (models.funcs.PerChannelMLP)
+    channel_impl: str = "einsum"
     # keep the training set on the device and gather batches by index
     device_data: bool = True
     device_data_max_bytes: int = 2 << 30
@@ -126,6 +131,11 @@ class Trainer:
     def __init__(self, cfg: TrainConfig):
         self.cfg = cfg
         self.variant: Variant = get_variant(cfg.variant)
+        if self.variant.channel_wise and (cfg.input_true_x or cfg.input_true_i):
+            raise ValueError(
+                "the channel-wise family defines no teacher forcing "
+                "(ref neural_base.py has none for it)"
+            )
         missing = _not_ported(cfg)
         if missing:
             raise NotImplementedError(f"{missing} is not ported yet")
@@ -158,22 +168,18 @@ class Trainer:
         ``init_style`` from ``seed``; with ``init=False`` on the ``meta``
         device (no weights yet: a checkpoint fills it)."""
         cfg = self.cfg
-        model = self.variant.make_model(
-            dataset_dims(self.variant, ds), cfg.hidden, solver=cfg.solver,
-            device=self.device if init else "meta",
-        )
+        kw = dict(solver=cfg.solver, device=self.device if init else "meta")
+        if self.variant.channel_wise:
+            kw["channel_impl"] = cfg.channel_impl
+        elif cfg.channel_impl != "einsum":
+            raise ValueError("channel_impl applies to the channel-wise variants only")
+        model = self.variant.make_model(dataset_dims(self.variant, ds), cfg.hidden, **kw)
         return init_params(model, cfg.init_style, cfg.seed) if init else model
 
     def _forward_fn(self, model):
         cfg, variant = self.cfg, self.variant
-        if cfg.fused and variant.name == "dae_no_encode":
-            from py_psnode_tpu_torch.ops import fused_dae_apply
-
-            return lambda batch: fused_dae_apply(model, batch, solver=cfg.solver)
-        if cfg.fused and variant.name == "ode_no_encode":
-            from py_psnode_tpu_torch.ops import fused_ode_apply
-
-            return lambda batch: fused_ode_apply(model, batch, solver=cfg.solver)
+        if cfg.fused:
+            return lambda batch: variant.fused_apply(model, batch, solver=cfg.solver)
         return lambda batch: model(*[batch.get(k) for k in variant.batch_args])
 
     # ------------------------------------------------------------ train step
@@ -232,9 +238,13 @@ class Trainer:
         return step_idx
 
     def _eval_batch_size(self, test_ds):
-        """Reference eval-batch rule (N/10); small sets run as one batch."""
+        """Reference eval-batch rule (N/10); small sets run as one batch. A
+        variant with ``eval_batch_capped`` (the DAE channel-wise readout
+        holds ``[T, b, h, h]`` activations) evaluates at most the training
+        batch at once."""
         n = len(test_ds)
-        return n if n <= 512 else max(int(n / 10), 1)
+        b = n if n <= 512 else max(int(n / 10), 1)
+        return min(b, self.cfg.batch) if self.variant.eval_batch_capped else b
 
     def _make_eval_apply(self, model, test_ds):
         """Index-based eval function: the test set is moved to the device
@@ -253,7 +263,11 @@ class Trainer:
                 batch = {k: v[idx_t] for k, v in ddata.items()}
                 with torch.no_grad():
                     out = forward(batch)
-                    x_pred, i_pred = out if variant.kind == "dae" else (out, None)
+                    # a DAE gives (x, i[, x_re]); an ODE x or (x, x_re)
+                    if variant.kind == "dae":
+                        x_pred, i_pred = out[0], out[1]
+                    else:
+                        x_pred, i_pred = (out[0] if isinstance(out, tuple) else out), None
                     mask = batch["mask"]
                     res = {"x_loss_ps": torch.sum((x_pred - batch["x"]) ** 2 * mask, dim=1)}
                     if i_pred is not None:

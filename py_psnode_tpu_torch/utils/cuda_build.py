@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch header), so
 ``nvcc`` builds it into a shared library in seconds. The library lands in
 ``py_psnode_tpu_torch/_build/lib<name>-<hash>.so``, where the hash covers
-the source and the flags: a changed source is rebuilt on its next use.
+the source, the shared headers ``csrc/*.cuh`` and the flags: a changed
+source or header is rebuilt on its next use.
 Nothing is built when a module is imported; the first launch builds.
 """
 
@@ -45,8 +46,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = SOURCE_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((SOURCE_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SOURCE_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

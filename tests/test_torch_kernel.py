@@ -1,5 +1,5 @@
-"""The CUDA rollout kernels (the DAE and the ODE forward and backward)
-against their plain PyTorch versions.
+"""The CUDA rollout kernels (the DAE, ODE and channel-wise forward and
+backward) against their plain PyTorch versions.
 
 This file imports neither JAX nor the JAX package, so that it also runs on
 the machine with the card, which has no JAX; run it there without the JAX
@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+from py_psnode_tpu_torch.ops import fused_channelwise as FC
+from py_psnode_tpu_torch.ops import fused_channelwise_vjp as VC
 from py_psnode_tpu_torch.ops import fused_dae as F
 from py_psnode_tpu_torch.ops import fused_dae_vjp as V
 from py_psnode_tpu_torch.ops import fused_ode as FO
@@ -204,3 +206,83 @@ def test_ode_kernels_refuse_bad_inputs_on_card():
     sol = torch.cat([x0[None], FO.fused_ode_rollout(s_de, weights, x0, dt)])
     with pytest.raises(ValueError, match="shape"):
         VO.fused_ode_rollout_bwd_cuda(s_de, weights, dt, sol, sol[:12].contiguous())
+
+
+def cw_inputs(B, Tm1, h, xd, zd, seed=0, dev="cpu"):
+    """Seeded channel-wise rollout inputs in the port's layout: lecun-scaled
+    weights, per-row step sizes."""
+    rng = np.random.default_rng(seed)
+    t = lambda *s, sc=1.0: torch.tensor((rng.standard_normal(s) * sc).astype(np.float32), device=dev)
+    C = xd + zd
+    stack = lambda: (t(xd, h, h, sc=h ** -0.5), t(xd, h, sc=0.1), t(xd, h, h, sc=h ** -0.5), t(xd, h, sc=0.1))
+    weights = dict(a=t(C, h, sc=C ** -0.5),
+                   vert=[(t(h, h, sc=h ** -0.5), t(h, sc=0.1)), (t(h, h, sc=h ** -0.5), t(h, sc=0.1)),
+                         (t(h, xd, sc=h ** -0.5), t(xd, sc=0.1))],
+                   ext=stack(), head=stack())
+    streams = dict(fz=t(Tm1, B, zd, h, sc=0.5), s_constV=t(B, h, h, sc=0.5))
+    dt = torch.full((Tm1, B, 1), 0.05, device=dev)
+    dt[:, 1] = 0.02
+    return streams, weights, t(B, xd, h), dt
+
+
+# (xd, zd): the AVR ODE's channels and the motor DAE's
+CW_SHAPES = [(2, 2), (3, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["euler", "midpoint", "rk4"])
+@pytest.mark.parametrize("xd,zd", CW_SHAPES)
+@pytest.mark.parametrize("h", [40, 128])
+def test_cw_kernel_matches_plain_on_card(solver, xd, zd, h):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    args = cw_inputs(37, 32, h, xd, zd, dev="cuda")
+    ref = FC.fused_cw_rollout_plain(*args, solver)
+    before = FC.fused_cw_rollout.launches
+    got = FC.fused_cw_rollout_cuda(*args, solver)
+    torch.cuda.synchronize()
+    assert torch.all((got - ref).abs() <= 1e-4 * ref.abs().clamp(min=1.0))
+    assert FC.fused_cw_rollout.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["euler", "midpoint", "rk4"])
+@pytest.mark.parametrize("xd,zd", CW_SHAPES)
+def test_cw_bwd_kernel_matches_plain_on_card(solver, xd, zd):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    streams, weights, x0, dt = cw_inputs(5, 16, 128, xd, zd, dev="cuda")
+    sol = torch.cat([x0[None], FC.fused_cw_rollout_plain(streams, weights, x0, dt, solver)])
+    rng = np.random.default_rng(1)
+    cot = torch.tensor(rng.standard_normal(tuple(sol.shape)).astype(np.float32), device="cuda")
+    r_s, r_w, r_x0 = VC.fused_cw_rollout_bwd_plain(
+        {k: v.double() for k, v in streams.items()},
+        FC.unflatten_weights([a.double() for a in FC.flatten_weights(weights)]),
+        dt, sol.double(), cot.double(), solver)
+    flat = lambda g_s, g_w, g_x0: [g_s["fz"], g_s["s_constV"], g_x0] + FC.flatten_weights(g_w)
+    before = VC.fused_cw_rollout_bwd.launches
+    got = flat(*VC.fused_cw_rollout_bwd_cuda(streams, weights, dt, sol, cot, solver))
+    again = flat(*VC.fused_cw_rollout_bwd_cuda(streams, weights, dt, sol, cot, solver))
+    torch.cuda.synchronize()
+    for k, (g, g2, r) in enumerate(zip(got, again, flat(r_s, r_w, r_x0))):
+        scale = r.abs().max().item()
+        assert scale > 0, k
+        assert torch.equal(g, g2), k
+        assert (g.double() - r).abs().max() <= 1e-4 * scale, k
+    assert VC.fused_cw_rollout_bwd.launches == before + 2
+
+
+@pytest.mark.gpu
+def test_cw_kernels_refuse_bad_inputs_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    streams, weights, x0, dt = cw_inputs(4, 6, 32, 2, 2, dev="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        FC.fused_cw_rollout_cuda(streams, weights, x0.double(), dt)
+    with pytest.raises(ValueError, match="shape"):
+        FC.fused_cw_rollout_cuda(streams, weights, x0, dt[:, :3].contiguous())
+    with pytest.raises(ValueError, match="h <= 128"):
+        FC.fused_cw_rollout_cuda(*cw_inputs(2, 3, 136, 2, 2, dev="cuda"))
+    sol = torch.cat([x0[None], FC.fused_cw_rollout(streams, weights, x0, dt)])
+    with pytest.raises(ValueError, match="shape"):
+        VC.fused_cw_rollout_bwd_cuda(streams, weights, dt, sol, sol[:6].contiguous())
