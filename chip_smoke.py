@@ -7,7 +7,7 @@
 Phases, each printed as it ends; any failure exits non-zero:
   1. card: name, device count, and nvidia-smi's name and power limit;
   2. build: nvcc builds the six libraries (the DAE, ODE and channel-wise
-     forward and backward), all at once (seconds printed for each);
+     forward and backward) all at once (seconds printed for each);
   3. forward kernel against plain: the kernel and its eager PyTorch version
      on the same seeded random inputs at the motor evaluation shape (B=32,
      T=1001, h=128, xd=3, id=2, events in some rows), for Euler, Midpoint
@@ -68,10 +68,15 @@ Phases, each printed as it ends; any failure exits non-zero:
      package's anchors (``CW_ANCHORS``) and nearer its own solver's where
      the two lie between 1e-6 and 1e-3 apart;
  15. channel-wise times (CUDA events): the forward at B=32 Euler, B=64
-     Euler and B=64 RK4, the backward at B=64 for each solver, and one whole
-     training step per family (B=64, T=1001, h=128, RK4) fused and plain,
-     with the step's peak memory; the fused step's loss and gradients from
-     the starting weights held against the plain step's at rtol 1e-3.
+     Euler and B=64 RK4, the backward at B=64 for each solver, each beside
+     two bounds (the h^3 products on the tensor cores in three TF32 passes,
+     and all of it in float32 on the CUDA cores); the backward's pair
+     contraction alone at the B=64 RK4 walk's size beside torch.einsum of
+     the same pairs; kernel 5 at B = 8-64 with 1, 2 and 4 blocks a row
+     beside the launcher's choice; and one whole training step per family
+     (B=64, T=1001, h=128, RK4) fused and plain, with the step's peak
+     memory; the fused step's loss and gradients from the starting weights
+     held against the plain step's at rtol 1e-3.
 
 The line before the last two is the kernels' JSON record, then nvidia-smi's
 line, and the last line is ``{"ok": true, "device": {...}}``. Nothing is
@@ -175,8 +180,10 @@ BWD_TOL = 1e-4
 # times the float32 plain loop's: the two sum in other orders, so neither
 # is the reference there.
 ODE_F64_RATIO = 4.0
-# H100 SXM peaks (NVIDIA data sheet): float32 on the CUDA cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): float32 on the CUDA cores, TF32 on
+# the tensor cores (dense), HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 SOLVERS = ("euler", "midpoint", "rk4")
 
@@ -350,9 +357,14 @@ def bwd_work(streams, weights, x0, i0, aux, solver):
     return n_bytes, flops
 
 
-def bound(n_bytes, flops):
-    """(bound ms, what bounds it) against the card's published peaks."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+def bound(n_bytes, flops, tc_flops=0):
+    """(bound ms, what bounds it) against the card's published peaks: the
+    bytes at the memory rate, or the FLOP at float32's rate on the CUDA
+    cores, of which ``tc_flops`` run on the tensor cores at float32
+    accuracy in three TF32 passes (3xTF32), 3 x their FLOP at the TF32
+    rate."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = (flops - tc_flops) / PEAK_F32_FLOPS + 3 * tc_flops / PEAK_TF32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
 
@@ -396,9 +408,9 @@ def phase_build():
         nvcc_s = dict(zip(names, pool.map(cuda_build.build, names)))
     for mod in (F, V, FO, VO, FC, VC):
         mod._launcher()
-    for name in names:
-        say(f"[build] {name}.cu: nvcc {nvcc_s[name]:.2f} s")
-    say(f"[build] all six built and loaded in {time.perf_counter() - t0:.2f} s")
+    for name, t in nvcc_s.items():
+        say(f"[build] {name}: nvcc {t:.2f} s")
+    say(f"[build] all built and loaded in {time.perf_counter() - t0:.2f} s")
     return nvcc_s
 
 
@@ -1043,9 +1055,17 @@ def cw_eval_flops(h, xd, zd):
     return 2 * (2 * h ** 3 + (5 * xd + xd + zd) * h * h)
 
 
+def cw_eval_tc_flops(h):
+    """The part of ``cw_eval_flops`` in the two h x h x h products, which
+    kernels 5 and 6 run on the tensor cores."""
+    return 4 * h ** 3
+
+
 def cw_work(streams, weights, x0, solver):
-    """(forward bytes, forward FLOP, backward bytes, backward FLOP) of the
-    channel-wise rollout on these inputs. Bytes: each input read once and
+    """(forward bytes, forward FLOP, backward bytes, backward FLOP, forward
+    tensor-core FLOP, backward tensor-core FLOP) of the channel-wise rollout
+    on these inputs; the last two are the parts of the FLOP in the h x h x h
+    products. Bytes: each input read once and
     each output written once (forward: fz, dt, s_constV, x0 and the weights
     in, the solution rows out; backward: fz, dt, s_constV, the solution,
     its cotangent and the weights in, g_fz, g_s_constV, the weight grads
@@ -1067,7 +1087,20 @@ def cw_work(streams, weights, x0, solver):
         + 2 * w_bytes
     fwd_flops = Tm1 * B * S * ev
     bwd_flops = Tm1 * B * 3 * S * ev
-    return fwd_bytes, fwd_flops, bwd_bytes, bwd_flops
+    tc = cw_eval_tc_flops(h)
+    return fwd_bytes, fwd_flops, bwd_bytes, bwd_flops, Tm1 * B * S * tc, Tm1 * B * 3 * S * tc
+
+
+def contraction_work(pairs):
+    """(bytes, FLOP, tensor-core FLOP) of contracting ``pairs [rows, 4, 2,
+    xd, h]`` into the per-channel gradients: the pairs read once and dW [4,
+    xd, h, h] and db written once; a multiply-add per (row, layer, channel,
+    k, j), the product U^T V that tensor cores can run at float32 accuracy
+    in 3xTF32, and an add per (row, layer, channel, j)."""
+    rows, P, _, xd, h = pairs.shape
+    n_bytes = (pairs.numel() + P * xd * h * (h + 1)) * 4
+    tc = rows * P * xd * 2 * h * h
+    return n_bytes, tc + rows * P * xd * h, tc
 
 
 def cw_bwd_outputs(g):
@@ -1313,13 +1346,19 @@ def phase_cw_times(dev, files):
         for B, solver, split in ((32, "euler", "test"), (64, "euler", "train"), (64, "rk4", "train")):
             args = cw_inputs(variant, files, B, split, dev)
             k_ms = cuda_ms(lambda: FC.fused_cw_rollout_cuda(*args, solver), 1, 3)
+            one_ms = cuda_ms(lambda: FC._launch(*args, solver, 1), 1, 3)
+            kc = FC.chosen_cluster(B, args[2].shape[2], args[2].shape[1], args[0]["fz"].shape[2])
             p_ms = cuda_ms(lambda: FC.fused_cw_rollout_plain(*args, solver), 0, 1)
-            n_bytes, flops, _, _ = cw_work(*args[:3], solver)
-            bound_ms, bound_by = bound(n_bytes, flops)
+            n_bytes, flops, _, _, tc, _ = cw_work(*args[:3], solver)
+            bound_ms, bound_by = bound(n_bytes, flops, tc)
+            cuda_core_ms = bound(n_bytes, flops)[0]
             times[(variant, "fwd", B, solver)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
-            say(f"[cw-times] {variant} forward B={B} {solver:8s}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by}; {n_bytes} B, {flops} FLOP), kernel/bound "
-                f"{k_ms / bound_ms:.2f}x, library n/a: no single PyTorch call computes this rollout")
+            say(f"[cw-times] {variant} forward B={B} {solver:8s}: kernel {k_ms:.3f} ms ({kc} blocks a row; one block a "
+                f"row {one_ms:.3f} ms), plain {p_ms:.3f} ms, "
+                f"bound {bound_ms:.4f} ms (3xTF32 tensor cores for the {tc} FLOP of the h^3 products, the rest "
+                f"float32; {bound_by}; {n_bytes} B, {flops} FLOP), kernel/bound {k_ms / bound_ms:.2f}x; "
+                f"CUDA-core float32 bound {cuda_core_ms:.4f} ms, kernel/that {k_ms / cuda_core_ms:.2f}x; "
+                f"library n/a: no single PyTorch call computes this rollout")
         streams, weights, x0, dt = cw_inputs(variant, files, 64, "train", dev)
         rng = np.random.default_rng(13)
         cot = torch.tensor(rng.standard_normal((dt.shape[0] + 1,) + tuple(x0.shape)).astype(np.float32)
@@ -1327,13 +1366,22 @@ def phase_cw_times(dev, files):
         for solver in SOLVERS:
             sol = torch.cat([x0[None], FC.fused_cw_rollout_cuda(streams, weights, x0, dt, solver)])
             k_ms = cuda_ms(lambda: VC.fused_cw_rollout_bwd_cuda(streams, weights, dt, sol, cot, solver), 1, 2)
+            one_ms = cuda_ms(lambda: VC._launch_bwd(streams, weights, dt, sol, cot, solver, 1),
+                             1, 2)
+            kc = FC.chosen_cluster(64, x0.shape[2], x0.shape[1], streams["fz"].shape[2], backward=True)
             p_ms = cuda_ms(lambda: VC.fused_cw_rollout_bwd_plain(streams, weights, dt, sol, cot, solver), 0, 1)
-            _, _, n_bytes, flops = cw_work(streams, weights, x0, solver)
-            bound_ms, bound_by = bound(n_bytes, flops)
+            _, _, n_bytes, flops, _, tc = cw_work(streams, weights, x0, solver)
+            bound_ms, bound_by = bound(n_bytes, flops, tc)
+            cuda_core_ms = bound(n_bytes, flops)[0]
             times[(variant, "bwd", solver)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
-            say(f"[cw-times] {variant} backward B=64 {solver:8s}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by}; {n_bytes} B, {flops} FLOP), kernel/bound "
-                f"{k_ms / bound_ms:.2f}x, library n/a: no single PyTorch call computes this VJP")
+            say(f"[cw-times] {variant} backward B=64 {solver:8s}: kernel {k_ms:.3f} ms (the walk, {kc} blocks a row, "
+                f"and the contraction; one block a row {one_ms:.3f} ms), plain {p_ms:.3f} ms, bound {bound_ms:.4f} "
+                f"ms (3xTF32 tensor cores for the {tc} FLOP of the h^3 products, the rest float32; {bound_by}; "
+                f"{n_bytes} B, {flops} FLOP), kernel/bound "
+                f"{k_ms / bound_ms:.2f}x; CUDA-core float32 bound {cuda_core_ms:.4f} ms, kernel/that "
+                f"{k_ms / cuda_core_ms:.2f}x; library n/a: no single PyTorch call computes this VJP")
+        times[(variant, "contract")] = contraction_times(variant, 64 * 4 * dt.shape[0], x0.shape[1], x0.shape[2], dev)
+        cluster_times(variant, files, dev)
         first = {}
         for fused, reps in ((True, 2), (False, 1)):
             ms, peak, loss, grads = cw_step(variant, files, dev, fused, reps)
@@ -1344,6 +1392,49 @@ def phase_cw_times(dev, files):
                 f"{peak / 2**30:.2f} GiB")
         check_cw_step(variant, first[True], first[False])
     return times
+
+
+def contraction_times(variant, rows, xd, h, dev):
+    """Kernel 6's contraction alone on seeded random pairs (drawn on the
+    card) of the B=64 RK4
+    walk's size (``rows`` = (T-1) 4 B): the CUDA kernels, their plain
+    version, and ``torch.einsum`` of the same pairs as a yardstick
+    (``library_ms``; the port never calls it); the kernel held against
+    einsum at 1e-4 of its max."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    pairs = torch.randn((rows, 4, 2, xd, h), generator=gen, device=dev)
+    u, v = pairs[:, :, 0], pairs[:, :, 1]
+    einsum = lambda: (torch.einsum("nqck,nqcj->qckj", u, v), v.sum(0))
+    got, ref = VC.contract_channel_pairs_cuda(pairs), einsum()
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        d = (g - r).abs().max().item()
+        if not d <= 1e-4 * r.abs().max().item():
+            fail(f"{variant} pair contraction lies {d} from einsum (max {r.abs().max().item()})")
+    k_ms = cuda_ms(lambda: VC.contract_channel_pairs_cuda(pairs), 1, 3)
+    p_ms = cuda_ms(lambda: VC.contract_channel_pairs_plain(pairs), 0, 1)
+    l_ms = cuda_ms(einsum, 1, 3)
+    n_bytes, flops, tc = contraction_work(pairs)
+    bound_ms, bound_by = bound(n_bytes, flops, tc)
+    cuda_core_ms = bound(n_bytes, flops)[0]
+    say(f"[cw-times] {variant} backward's pair contraction, {rows} rows of the B=64 RK4 walk ({pairs.numel() * 4} "
+        f"B): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, torch.einsum {l_ms:.3f} ms (yardstick, not called by "
+        f"the port), bound {bound_ms:.4f} ms (3xTF32 tensor cores for the {tc} FLOP of U^T V, the rest float32; "
+        f"{bound_by}; {n_bytes} B, {flops} FLOP), kernel/bound {k_ms / bound_ms:.2f}x; CUDA-core float32 bound "
+        f"{cuda_core_ms:.4f} ms")
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def cluster_times(variant, files, dev):
+    """Kernel 5 at B = 8, 24, 32 and 64 (the starting checkpoint on test
+    rows, Euler, T=1001) with 1, 2 and 4 blocks a row and with the
+    launcher's choice: the evidence for the choice."""
+    for B in (8, 24, 32, 64):
+        args = cw_inputs(variant, files, B, "test", dev)
+        ms = {c: cuda_ms(lambda: FC._launch(*args, "euler", c), 1, 2) for c in (1, 2, 4, 0)}
+        kc = FC.chosen_cluster(B, args[2].shape[2], args[2].shape[1], args[0]["fz"].shape[2])
+        say(f"[cw-clusters] {variant} forward B={B} euler: one block a row {ms[1]:.3f} ms, 2 {ms[2]:.3f} ms, 4 "
+            f"{ms[4]:.3f} ms; the launcher's choice {kc}: {ms[0]:.3f} ms")
 
 
 def check_cw_step(variant, fused, plain):

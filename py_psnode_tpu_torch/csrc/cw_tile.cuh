@@ -1,7 +1,6 @@
 // Building blocks of the channel-wise kernels (csrc/fused_cw_rollout.cu and
-// csrc/fused_cw_rollout_bwd.cu): one block of kThreads threads evaluates the
-// channel-wise dynamics of one batch row, float32 on the CUDA cores (no TF32,
-// no tensor cores).
+// csrc/fused_cw_rollout_bwd.cu): a cluster of KC = 1, 2 or 4 blocks of
+// kThreads threads evaluates the channel-wise dynamics of one batch row.
 //
 // One evaluation at the latent state xs [xd, h] (ops/fused_channelwise.py):
 //
@@ -13,35 +12,91 @@
 //   HE = elu(O[:, c] @ H0[c] + h0[c]);  y[c] = HE[c] @ H1[c] + h1[c]
 //
 // The two h x h x h products are nearly all of the arithmetic (2 h^3 of
-// 2 h^3 + (5 xd + C) h^2 multiply-adds). They run as tiles: the
-// [h, h] activations live in shared memory as feature-major tiles T[f][l]
-// (stride kLdt = 129, odd, so that a warp reads a row or a column of a tile
-// without bank conflicts), the weight streams from L2 through a
-// double-buffered staging area of kKc rows, and each thread keeps an 8 x 8
-// register tile of the output (rows ty + 16 i, columns tx + 16 j). The
-// per-channel nets are matrix-vector products read straight from L2 (one
-// thread per output, coalesced over the output index).
+// 2 h^3 + (5 xd + C) h^2 multiply-adds). They run on the tensor cores:
+// warp-level mma.sync m16n8k8 with TF32 inputs and float32 accumulation
+// (csrc/hopper_ops.cuh), at float32 accuracy by the 3xTF32 split: each
+// operand x = hi + lo with hi = tf32(x), lo = tf32(x - hi) (x - hi is exact),
+// and a b = a_lo b_hi + a_hi b_lo + a_hi b_hi, the dropped a_lo b_lo lying
+// 2^-22 below a b. One TF32 pass alone keeps about 11 bits.
 //
-// h is a runtime value up to kMaxH; the tiles are sized for kMaxH and the
-// rows and columns beyond h are masked.
+// The [h, h] activations live in shared memory as feature-major tiles
+// T[f][l] (f the feature, l the position) of stride kLdt = 136: 8 mod 32,
+// so the A fragment of a forward product (8 positions x 4 features a load)
+// falls on 32 distinct banks. A weight streams from L2 by cp.async, kKc
+// rows at a time, into a double-buffered staging area of the same stride,
+// the next chunk in flight while the current one is multiplied.
+//
+// A cluster of KC blocks shares a row: every block keeps the whole tiles
+// and state, and computes the column slice [rank, rank + 1) * kMaxH / KC of
+// each product (and of the folded first layer, K = C = xd + zd, float32 on
+// the CUDA cores); the epilogue (bias, s_constV, elu, elu', the gradient
+// sums) writes its slice into the tile of every block of the cluster
+// through distributed shared memory, and a cluster barrier publishes it.
+// The 16 warps of a block tile its slice (Tiling), so a thread holds the
+// accumulators of a few mma tiles in the fragment layout of the PTX ISA.
+// The per-channel nets (matrix-vector products read from L2, one thread per
+// output) and the state updates are small: every block computes them all.
+//
+// h is a runtime value up to kMaxH; the tiles are sized for kMaxH, their
+// rows and columns beyond h are zero (set once, never written), and the
+// staged weight rows and columns beyond h are zero-filled by cp.async.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+
+#include "hopper_ops.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;          // 16 x 16 threads, an 8 x 8 output tile each
-constexpr int kMaxH = 128;             // the largest hidden width the tiles hold
-constexpr int kLdt = kMaxH + 1;        // tile stride: odd, conflict-free both ways
-constexpr int kTile = kMaxH * kLdt;    // floats in one [h, h] tile
-constexpr int kKc = 16;                // weight rows staged at once
-constexpr int kChunk = kKc * kMaxH;    // floats in one staged chunk
-constexpr int kPre = kChunk / kThreads;  // staged floats per thread
-constexpr int kR = 8;                  // register tile: kR x kR outputs a thread
+constexpr int kThreads = 512;         // 16 warps
+constexpr int kMaxH = 128;            // the largest hidden width the tiles hold
+constexpr int kLdt = kMaxH + 8;       // tile stride: 8 mod 32, see above
+constexpr int kTile = kMaxH * kLdt;   // floats in one [h, h] tile
+constexpr int kKc = 32;               // weight rows staged at once
+constexpr int kChunk = kKc * kLdt;    // floats in one staged chunk
 constexpr float kOneThird = 1.0f / 3.0f;
+
+// The phase clock, for measuring where an evaluation's time goes: built
+// with -DCW_PHASE_CLOCK, thread 0 of block 0 notes clock64() at each phase
+// boundary (CW_PHASE) while g_phase_on is set, into g_phase: marks 0-9 in
+// eval_fwd, 16-26 in the backward's eval_bwd; otherwise the marks compile
+// to nothing.
+constexpr int kPhaseMarks = 32;
+#ifdef CW_PHASE_CLOCK
+__device__ long long g_phase[kPhaseMarks];
+__device__ int g_phase_on;
+#define CW_PHASE(i)                                               \
+  do {                                                            \
+    if (g_phase_on && threadIdx.x == 0 && blockIdx.x == 0)        \
+      g_phase[i] = clock64();                                     \
+  } while (0)
+#else
+#define CW_PHASE(i) \
+  do {              \
+  } while (0)
+#endif
+
+// How the 16 warps of a block of a KC-block cluster tile its column slice
+// [kMaxH, kSlice] of an [h, h] product: kAlongM warps along the rows, each
+// a kWarpM x kWarpN slice of kMi x kNi mma tiles of 16 x 8.
+template <int KC>
+struct Tiling {
+  static constexpr int kSlice = kMaxH / KC;
+  static constexpr int kAlongM = KC == 4 ? 8 : 4;
+  static constexpr int kWarpM = kMaxH / kAlongM;
+  static constexpr int kWarpN = kSlice / (kThreads / 32 / kAlongM);
+  static constexpr int kMi = kWarpM / 16;
+  static constexpr int kNi = kWarpN / 8;
+};
+
+// A thread's accumulators: acc[i][j][r] is D[m][n] of the [h, h] output with
+// m = acc_row(i, r), n = acc_col(j, r).
+template <int KC>
+using Acc = float[Tiling<KC>::kMi][Tiling<KC>::kNi][4];
 
 __device__ __forceinline__ float elu(float v) {
   return v > 0.f ? v : expf(fminf(v, 0.f)) - 1.f;
@@ -49,6 +104,296 @@ __device__ __forceinline__ float elu(float v) {
 
 // elu'(p) from the activation a = elu(p): 1 above 0, else exp(p) = a + 1.
 __device__ __forceinline__ float delu_act(float a) { return a > 0.f ? 1.f : a + 1.f; }
+
+template <int KC>
+__device__ __forceinline__ unsigned block_rank() {
+  if constexpr (KC == 1) return 0;
+  else return cluster_rank();
+}
+
+// A barrier of the cluster's threads (of the block's when KC = 1), and its
+// two halves: arrive when done reading what the other blocks write next,
+// wait before writing it. A KC = 1 block needs no split barrier: its
+// evaluation has barriers of its own in between.
+template <int KC>
+__device__ __forceinline__ void cl_sync() {
+  if constexpr (KC == 1) {
+    __syncthreads();
+  } else {
+    cluster_arrive();
+    cluster_wait();
+  }
+}
+
+template <int KC>
+__device__ __forceinline__ void cl_arrive() {
+  if constexpr (KC > 1) cluster_arrive();
+}
+
+template <int KC>
+__device__ __forceinline__ void cl_wait() {
+  if constexpr (KC > 1) cluster_wait();
+}
+
+// The warp's output slice and the lane's place in the fragments.
+struct Frag {
+  int m0, n0, g, q;
+};
+
+template <int KC>
+__device__ __forceinline__ Frag frag() {
+  using T = Tiling<KC>;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  return Frag{(w % T::kAlongM) * T::kWarpM,
+              static_cast<int>(block_rank<KC>()) * T::kSlice + (w / T::kAlongM) * T::kWarpN,
+              lane >> 2, lane & 3};
+}
+
+__device__ __forceinline__ int acc_row(const Frag& f, int i, int r) {
+  return f.m0 + 16 * i + f.g + 8 * (r >> 1);
+}
+
+__device__ __forceinline__ int acc_col(const Frag& f, int j, int r) {
+  return f.n0 + 8 * j + 2 * f.q + (r & 1);
+}
+
+template <int KC>
+__device__ __forceinline__ void zero(Acc<KC>& acc) {
+#pragma unroll
+  for (int i = 0; i < Tiling<KC>::kMi; ++i)
+#pragma unroll
+    for (int j = 0; j < Tiling<KC>::kNi; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+}
+
+// fn(acc[i][j][r], m, n) for each of the thread's outputs with m, n < h.
+template <int KC, class F>
+__device__ __forceinline__ void for_acc(Acc<KC>& acc, int h, F fn) {
+  const Frag f = frag<KC>();
+#pragma unroll
+  for (int i = 0; i < Tiling<KC>::kMi; ++i)
+#pragma unroll
+    for (int j = 0; j < Tiling<KC>::kNi; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int m = acc_row(f, i, r), n = acc_col(f, j, r);
+        if (m < h && n < h) fn(acc[i][j][r], m, n);
+      }
+}
+
+// The same shared-memory location in every block of the cluster.
+template <int KC>
+struct AllRanks {
+  float* p[KC];
+};
+
+template <int KC>
+__device__ __forceinline__ AllRanks<KC> all_ranks(float* t) {
+  AllRanks<KC> d;
+#pragma unroll
+  for (int r = 0; r < KC; ++r) d.p[r] = KC == 1 ? t : map_rank(t, r);
+  return d;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// acc += A[m][kb + k] B[kb + k][n] over k < 8 and the warp's slice, in the
+// three TF32 passes; ga(m, k) and gb(k, n) read one operand element.
+template <int KC, class GA, class GB>
+__device__ __forceinline__ void mma_k8(const Frag& f, int kb, GA ga, GB gb, Acc<KC>& acc) {
+  using T = Tiling<KC>;
+  uint32_t bh[T::kNi][2], bl[T::kNi][2];
+#pragma unroll
+  for (int j = 0; j < T::kNi; ++j) {
+    const int n = f.n0 + 8 * j + f.g;
+    split_tf32(gb(kb + f.q, n), bh[j][0], bl[j][0]);
+    split_tf32(gb(kb + f.q + 4, n), bh[j][1], bl[j][1]);
+  }
+#pragma unroll
+  for (int i = 0; i < T::kMi; ++i) {
+    const int m = f.m0 + 16 * i + f.g;
+    uint32_t ah[4], al[4];
+    split_tf32(ga(m, kb + f.q), ah[0], al[0]);
+    split_tf32(ga(m + 8, kb + f.q), ah[1], al[1]);
+    split_tf32(ga(m, kb + f.q + 4), ah[2], al[2]);
+    split_tf32(ga(m + 8, kb + f.q + 4), ah[3], al[3]);
+#pragma unroll
+    for (int j = 0; j < T::kNi; ++j) {  // the small terms first
+      mma_tf32(acc[i][j], al, bh[j]);
+      mma_tf32(acc[i][j], ah, bl[j]);
+      mma_tf32(acc[i][j], ah, bh[j]);
+    }
+  }
+}
+
+// acc = sum_{k < K} tin[k][m] w[k][n] over the block's column slice: a tile
+// (feature-major) times a weight [K, n] row-major in global memory (K, n <=
+// kMaxH), the slice's columns staged kKc rows at a time by cp.async. The
+// tile's rows beyond K must be zero. Starts by writing wbuf (no thread of
+// the block may read it then) and ends with a barrier of the block.
+template <int KC>
+__device__ __forceinline__ void mma_tile_weight(const float* tin, int K,
+                                                const float* __restrict__ w, int n, float* wbuf,
+                                                Acc<KC>& acc) {
+  constexpr int kSlice = Tiling<KC>::kSlice;
+  const Frag f = frag<KC>();
+  const int c0 = static_cast<int>(block_rank<KC>()) * kSlice;  // the slice's first column
+  zero<KC>(acc);
+  const int nchunk = (K + kKc - 1) / kKc;
+  // 16-byte copies where the weight's rows are 16-byte aligned
+  const bool v4 = n % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  auto stage = [&](int c) {
+    float* buf = wbuf + (c & 1) * kChunk;
+    if (v4) {
+      for (int e = threadIdx.x; e < kKc * kSlice / 4; e += kThreads) {
+        const int r = e / (kSlice / 4), col = c0 + 4 * (e % (kSlice / 4)), k = c * kKc + r;
+        const bool ok = k < K && col < n;
+        cp_async_f32x4(buf + r * kLdt + col, ok ? w + static_cast<size_t>(k) * n + col : w, ok);
+      }
+    } else {
+      for (int e = threadIdx.x; e < kKc * kSlice; e += kThreads) {
+        const int r = e / kSlice, col = c0 + e % kSlice, k = c * kKc + r;
+        const bool ok = k < K && col < n;
+        cp_async_f32(buf + r * kLdt + col, ok ? w + static_cast<size_t>(k) * n + col : w, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  stage(0);
+  for (int c = 0; c < nchunk; ++c) {
+    if (c + 1 < nchunk) {
+      stage(c + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // chunk c (and the tile) visible to every thread
+    const float* bw = wbuf + (c & 1) * kChunk;
+    const float* ta = tin + c * kKc * kLdt;
+    const int kr = K - c * kKc;  // rows of this chunk below K
+#pragma unroll
+    for (int s = 0; s < kKc / 8; ++s)
+      if (8 * s < kr)
+        mma_k8<KC>(
+            f, 8 * s, [&](int m, int k) { return ta[k * kLdt + m]; },
+            [&](int k, int nn) { return bw[k * kLdt + nn]; }, acc);
+    __syncthreads();  // done with buffer c & 1 before chunk c + 2 lands there
+  }
+}
+
+// acc = sum_{l < L} ta[m][l] tb[n][l] over the block's column slice: two
+// tiles multiplied over their position axis, a^T g for an activation tile
+// aT and a cotangent tile gT (the gradient of a dense weight). Positions
+// beyond L must be zero. No barrier.
+template <int KC>
+__device__ __forceinline__ void mma_tile_tile(const float* ta, const float* tb, int L,
+                                              Acc<KC>& acc) {
+  const Frag f = frag<KC>();
+  zero<KC>(acc);
+  for (int kb = 0; kb < L; kb += 8)
+    mma_k8<KC>(
+        f, kb, [&](int m, int k) { return ta[m * kLdt + k]; },
+        [&](int k, int n) { return tb[n * kLdt + k]; }, acc);
+}
+
+// The epilogues below read every operand without a condition (an index
+// beyond h is clamped or lands in a zero-padded row of shared memory) and
+// write under m, n < h, so that a thread's loads are all in flight at
+// once: under the condition, each global load would wait for the one
+// before it.
+
+// acc = V A + s_constV over the block's column slice: acc at (m, n) is
+// sum_{c < C} ft[c][m] as[c][n] + sv[m][n], float32 on the CUDA cores (K =
+// C is a few channels); as in shared memory, sv the row's [h, h] tile in
+// global memory.
+template <int KC>
+__device__ __forceinline__ void first_layer(const float* ft, const float* as, int C, int h,
+                                            const float* __restrict__ sv, Acc<KC>& acc) {
+  using T = Tiling<KC>;
+  const Frag f = frag<KC>();
+  // a thread's outputs come in pairs of neighbouring columns (r, r + 1)
+  const bool v2 = h % 2 == 0 && (reinterpret_cast<uintptr_t>(sv) & 7) == 0;
+#pragma unroll
+  for (int i = 0; i < T::kMi; ++i)
+#pragma unroll
+    for (int j = 0; j < T::kNi; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; r += 2) {
+        const int m = min(acc_row(f, i, r), h - 1), n = acc_col(f, j, r);
+        if (v2) {
+          const float2 v = __ldg(reinterpret_cast<const float2*>(sv + m * h + min(n, h - 2)));
+          acc[i][j][r] = v.x;
+          acc[i][j][r + 1] = v.y;
+        } else {
+          acc[i][j][r] = __ldg(sv + m * h + min(n, h - 1));
+          acc[i][j][r + 1] = __ldg(sv + m * h + min(n + 1, h - 1));
+        }
+      }
+  for (int c = 0; c < C; ++c) {
+    float fr[T::kMi][2], ac[T::kNi][2];  // the rows' features, the columns' coefficients
+#pragma unroll
+    for (int i = 0; i < T::kMi; ++i)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) fr[i][u] = ft[c * kLdt + acc_row(f, i, 2 * u)];
+#pragma unroll
+    for (int j = 0; j < T::kNi; ++j)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) ac[j][u] = as[c * kMaxH + acc_col(f, j, u)];
+#pragma unroll
+    for (int i = 0; i < T::kMi; ++i)
+#pragma unroll
+      for (int j = 0; j < T::kNi; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          acc[i][j][r] = fmaf(fr[i][r >> 1], ac[j][r & 1], acc[i][j][r]);
+  }
+}
+
+// tout[n][m] = elu(acc + bias[n]) (bias in shared memory, kMaxH long, or
+// none) in every block of the cluster.
+template <int KC>
+__device__ __forceinline__ void store_act(Acc<KC>& acc, int h, const float* bias, float* tout) {
+  const Frag f = frag<KC>();
+  const AllRanks<KC> d = all_ranks<KC>(tout);
+#pragma unroll
+  for (int i = 0; i < Tiling<KC>::kMi; ++i)
+#pragma unroll
+    for (int j = 0; j < Tiling<KC>::kNi; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int m = acc_row(f, i, r), n = acc_col(f, j, r);
+        const float v = elu(acc[i][j][r] + (bias ? bias[n] : 0.f));
+        if (m < h && n < h)
+#pragma unroll
+          for (int k = 0; k < KC; ++k) d.p[k][n * kLdt + m] = v;
+      }
+}
+
+// t[n][m] = acc * elu'(t[n][m]) in every block of the cluster, from this
+// block's t: the cotangent of a pre-activation from that of its
+// activation, over the activation tile; acc becomes it too.
+template <int KC>
+__device__ __forceinline__ void store_bwd(Acc<KC>& acc, int h, float* t) {
+  const Frag f = frag<KC>();
+  const AllRanks<KC> d = all_ranks<KC>(t);
+#pragma unroll
+  for (int i = 0; i < Tiling<KC>::kMi; ++i)
+#pragma unroll
+    for (int j = 0; j < Tiling<KC>::kNi; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int m = acc_row(f, i, r), n = acc_col(f, j, r);
+        const float g = acc[i][j][r] * delu_act(t[n * kLdt + m]);
+        acc[i][j][r] = g;
+        if (m < h && n < h)
+#pragma unroll
+          for (int k = 0; k < KC; ++k) d.p[k][n * kLdt + m] = g;
+      }
+}
 
 // The weights of the channel-wise dynamics, device pointers, in the order of
 // flatten_weights in ops/fused_channelwise.py. Dense kernels are [in, out]
@@ -86,117 +431,58 @@ struct EvalSmem {
   float* e;     // [xd][h]: ext activations
   float* ot;    // [xd][h]: the vertical net's output, per channel
   float* he;    // [xd][h]: head activations
+  float* as;    // [C][kMaxH]: a, zero beyond h
+  float* b1;    // [kMaxH]: b1, zero beyond h
+  float* b2;    // [kMaxH]: b2, zero beyond h
+  float* w3;    // [h][xd]: W3
+  float* b3;    // [xd]: b3
 };
 
-// acc[i][j] = sum_{k < K} tin[k * kLdt + m] * w[k * n + col], m = ty + 16 i,
-// col = tx + 16 j: a tile (feature-major) times a weight [K, n] from global
-// memory, staged kKc rows at a time, the next chunk's loads in flight while
-// the current one is multiplied. Starts by writing wbuf (no other thread may
-// read it then) and ends with a barrier.
-__device__ __forceinline__ void gemm_tw(const float* tin, int K, const float* __restrict__ w,
-                                        int n, float* wbuf, float (&acc)[kR][kR]) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-#pragma unroll
-  for (int i = 0; i < kR; ++i)
-#pragma unroll
-    for (int j = 0; j < kR; ++j) acc[i][j] = 0.f;
-  float pre[kPre];
-  const int nchunk = (K + kKc - 1) / kKc;
-  auto load = [&](int c) {
-#pragma unroll
-    for (int s = 0; s < kPre; ++s) {
-      const int e = tid + s * kThreads;
-      const int k = c * kKc + e / kMaxH, col = e % kMaxH;
-      pre[s] = (k < K && col < n) ? __ldg(w + static_cast<size_t>(k) * n + col) : 0.f;
-    }
-  };
-  auto stash = [&](float* buf) {
-#pragma unroll
-    for (int s = 0; s < kPre; ++s) buf[tid + s * kThreads] = pre[s];
-  };
-  load(0);
-  stash(wbuf);
-  __syncthreads();
-  for (int c = 0; c < nchunk; ++c) {
-    if (c + 1 < nchunk) load(c + 1);
-    const float* bw = wbuf + (c & 1) * kChunk;
-    const int kn = K - c * kKc < kKc ? K - c * kKc : kKc;
-    const float* ta = tin + static_cast<size_t>(c) * kKc * kLdt + ty;
-#pragma unroll 4
-    for (int kk = 0; kk < kn; ++kk) {
-      float av[kR], bv[kR];
-#pragma unroll
-      for (int i = 0; i < kR; ++i) av[i] = ta[kk * kLdt + 16 * i];
-#pragma unroll
-      for (int j = 0; j < kR; ++j) bv[j] = bw[kk * kMaxH + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < kR; ++i)
-#pragma unroll
-        for (int j = 0; j < kR; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    if (c + 1 < nchunk) stash(wbuf + ((c + 1) & 1) * kChunk);
-    __syncthreads();
-  }
+// Floats of EvalSmem's constants (as, b1, b2, w3, b3).
+__host__ inline size_t consts_floats(int h, int xd, int zd) {
+  return static_cast<size_t>(xd + zd + 2) * kMaxH + static_cast<size_t>(h + 1) * xd;
 }
 
-// acc[i][j] += sum_{l < L} ta[m * kLdt + l] * tb[col * kLdt + l]: the
-// product of two tiles over their position axis, a^T g for tiles aT, gT
-// (the gradient of a dense weight). No barrier.
-__device__ __forceinline__ void gemm_tt(const float* ta, const float* tb, int L,
-                                        float (&acc)[kR][kR]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float* pa = ta + ty * kLdt;
-  const float* pb = tb + tx * kLdt;
-#pragma unroll 4
-  for (int l = 0; l < L; ++l) {
-    float av[kR], bv[kR];
-#pragma unroll
-    for (int i = 0; i < kR; ++i) av[i] = pa[16 * i * kLdt + l];
-#pragma unroll
-    for (int j = 0; j < kR; ++j) bv[j] = pb[16 * j * kLdt + l];
-#pragma unroll
-    for (int i = 0; i < kR; ++i)
-#pragma unroll
-      for (int j = 0; j < kR; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
+// Carves EvalSmem out of p (t1, t2, wbuf, ft, the constants, e, ot, he);
+// returns the first float after it.
+__device__ __forceinline__ float* carve_eval(EvalSmem& s, float* p, int h, int xd, int zd) {
+  const int n = xd * h;
+  s.t1 = p;    p += kTile;
+  s.t2 = p;    p += kTile;
+  s.wbuf = p;  p += 2 * kChunk;
+  s.ft = p;    p += (xd + zd) * kLdt;
+  s.as = p;    p += (xd + zd) * kMaxH;
+  s.b1 = p;    p += kMaxH;
+  s.b2 = p;    p += kMaxH;
+  s.w3 = p;    p += h * xd;
+  s.b3 = p;    p += xd;
+  s.e = p;     p += n;
+  s.ot = p;    p += n;
+  s.he = p;    p += n;
+  return p;
 }
 
-// tout[col * kLdt + m] = elu(acc + add), add = bias[col] or, with rows set,
-// rows[m * h + col] (the row's s_constV tile); m, col < h.
-__device__ __forceinline__ void store_fwd(const float (&acc)[kR][kR], int h,
-                                          const float* __restrict__ bias,
-                                          const float* __restrict__ rows, float* tout) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    const int m = ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < kR; ++j) {
-      const int col = tx + 16 * j;
-      if (m < h && col < h) {
-        const float add = rows ? __ldg(rows + static_cast<size_t>(m) * h + col) : __ldg(bias + col);
-        tout[col * kLdt + m] = elu(acc[i][j] + add);
-      }
-    }
-  }
+// Floats of carve_eval's share.
+__host__ inline size_t eval_floats(int h, int xd, int zd) {
+  return 2 * static_cast<size_t>(kTile) + 2 * kChunk + static_cast<size_t>(xd + zd) * kLdt +
+         consts_floats(h, xd, zd) + 3 * static_cast<size_t>(xd) * h;
 }
 
-// t[col * kLdt + m] = acc * elu'(t[col * kLdt + m]) in place: the cotangent
-// of a pre-activation from that of its activation, over the activation tile.
-__device__ __forceinline__ void store_bwd(const float (&acc)[kR][kR], int h, float* t) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    const int m = ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < kR; ++j) {
-      const int col = tx + 16 * j;
-      if (m < h && col < h) {
-        float* p = t + col * kLdt + m;
-        *p = acc[i][j] * delu_act(*p);
-      }
-    }
+// Zeroes the tiles (their rows and columns beyond h are read, never
+// written) and copies the small weights into shared memory; the caller
+// publishes them with a barrier.
+__device__ __forceinline__ void init_eval(const Net& w, const EvalSmem& s, int h, int xd, int zd) {
+  for (int e = threadIdx.x; e < 2 * kTile; e += kThreads) s.t1[e] = 0.f;  // t2 follows t1
+  for (int e = threadIdx.x; e < (xd + zd) * kMaxH; e += kThreads) {
+    const int c = e / kMaxH, n = e % kMaxH;
+    s.as[e] = n < h ? __ldg(w.a + c * h + n) : 0.f;
   }
+  for (int n = threadIdx.x; n < kMaxH; n += kThreads) {
+    s.b1[n] = n < h ? __ldg(w.b1 + n) : 0.f;
+    s.b2[n] = n < h ? __ldg(w.b2 + n) : 0.f;
+  }
+  for (int e = threadIdx.x; e < h * xd; e += kThreads) s.w3[e] = __ldg(w.w3 + e);
+  for (int c = threadIdx.x; c < xd; c += kThreads) s.b3[c] = __ldg(w.b3 + c);
 }
 
 // Per-channel matrix-vector products: out[c][j] = sum_{k < K} in[c][k]
@@ -204,9 +490,10 @@ __device__ __forceinline__ void store_bwd(const float (&acc)[kR][kR], int h, flo
 // elu'(dact[c][j]) when dact is set. in/out/dact in shared memory with row
 // strides ld_in/ld_out/n, w [nc, K, n] and b [nc, n] in global memory. One
 // thread per output; neighbouring threads read neighbouring weights.
-__device__ void gemv_ch(const float* in, int ld_in, int nc, int K, const float* __restrict__ w,
-                        const float* __restrict__ b, float* out, int ld_out, int n, bool act,
-                        const float* dact) {
+__device__ __forceinline__ void gemv_ch(const float* in, int ld_in, int nc, int K,
+                                        const float* __restrict__ w, const float* __restrict__ b,
+                                        float* out, int ld_out, int n, bool act,
+                                        const float* dact) {
   for (int o = threadIdx.x; o < nc * n; o += kThreads) {
     const int c = o / n, j = o - c * n;
     const float* x = in + c * ld_in;
@@ -225,42 +512,118 @@ __device__ void gemv_ch(const float* in, int ld_in, int nc, int K, const float* 
 // memory, published by a barrier) into y [xd][h]. Leaves the residuals the
 // backward reads: e, ft, ot, he, a1 in t2 and a2 in t1. fz_t: this step's
 // row of z-features [zd][h], sv: the row's s_constV tile [h][h]. Ends with
-// a barrier. Not inlined: the steppers reach it from several places.
-__device__ __noinline__ void eval_fwd(const Net& w, const EvalSmem& s, int h, int xd, int zd,
-                                      const float* xs, const float* __restrict__ fz_t,
-                                      const float* __restrict__ sv, float* y) {
+// a barrier of the block. The a0 store waits at the cluster barrier whose
+// arrival the caller made once done reading t1; with kArrive, the
+// evaluation makes the next one itself, after its readout. Inlined (the
+// steppers call it from one place each), so that no register state of the
+// caller is saved around a call.
+template <int KC, bool kArrive>
+__device__ __forceinline__ void eval_fwd(const Net& w, const EvalSmem& s, int h, int xd, int zd,
+                                         const float* xs, const float* __restrict__ fz_t,
+                                         const float* __restrict__ sv, float* y) {
   const int C = xd + zd;
-  float acc[kR][kR];
+  Acc<KC> acc;
+  CW_PHASE(0);
   gemv_ch(xs, h, xd, h, w.ew0, w.eb0, s.e, h, h, true, nullptr);
   for (int o = threadIdx.x; o < zd * h; o += kThreads) {
     const int c = o / h, l = o - c * h;
     s.ft[(xd + c) * kLdt + l] = __ldg(fz_t + o);
   }
   __syncthreads();
+  CW_PHASE(1);
   gemv_ch(s.e, h, xd, h, w.ew1, w.eb1, s.ft, kLdt, h, false, nullptr);
   __syncthreads();
-  gemm_tw(s.ft, C, w.a, h, s.wbuf, acc);  // a0 = elu(V A + s_constV)
-  store_fwd(acc, h, nullptr, sv, s.t1);
-  __syncthreads();
-  gemm_tw(s.t1, h, w.w1, h, s.wbuf, acc);  // a1
-  store_fwd(acc, h, w.b1, nullptr, s.t2);
-  __syncthreads();
-  gemm_tw(s.t2, h, w.w2, h, s.wbuf, acc);  // a2
-  store_fwd(acc, h, w.b2, nullptr, s.t1);
-  __syncthreads();
+  CW_PHASE(2);
+  first_layer<KC>(s.ft, s.as, C, h, sv, acc);  // a0 = elu(V A + s_constV)
+  CW_PHASE(3);
+  cl_wait<KC>();  // no block of the cluster reads its t1 any more
+  store_act<KC>(acc, h, nullptr, s.t1);
+  cl_sync<KC>();
+  CW_PHASE(4);
+  mma_tile_weight<KC>(s.t1, h, w.w1, h, s.wbuf, acc);  // a1
+  store_act<KC>(acc, h, s.b1, s.t2);
+  cl_sync<KC>();
+  CW_PHASE(5);
+  mma_tile_weight<KC>(s.t2, h, w.w2, h, s.wbuf, acc);  // a2
+  store_act<KC>(acc, h, s.b2, s.t1);
+  cl_sync<KC>();
+  CW_PHASE(6);
   // O = a2 W3 + b3 as ot[c][l]: one thread per output
   for (int o = threadIdx.x; o < xd * h; o += kThreads) {
     const int c = o / h, l = o - c * h;
     float v = 0.f;
 #pragma unroll 8
-    for (int k = 0; k < h; ++k) v = fmaf(s.t1[k * kLdt + l], __ldg(w.w3 + k * xd + c), v);
-    s.ot[o] = v + __ldg(w.b3 + c);
+    for (int k = 0; k < h; ++k) v = fmaf(s.t1[k * kLdt + l], s.w3[k * xd + c], v);
+    s.ot[o] = v + s.b3[c];
   }
   __syncthreads();
+  CW_PHASE(7);
+  if constexpr (kArrive) cl_arrive<KC>();
   gemv_ch(s.ot, h, xd, h, w.hw0, w.hb0, s.he, h, h, true, nullptr);
   __syncthreads();
+  CW_PHASE(8);
   gemv_ch(s.he, h, xd, h, w.hw1, w.hb1, y, h, h, false, nullptr);
   __syncthreads();
+  CW_PHASE(9);
+}
+
+// The launch configuration of `clusters` clusters of kc blocks.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  ClusterLaunch(int clusters, int kc, size_t smem, cudaStream_t st) : cfg{}, attr{} {
+    cfg.gridDim = dim3(clusters * kc);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = kc;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// Sets the kernel's dynamic shared memory to smem bytes; returns the
+// error of that.
+template <class K>
+cudaError_t set_smem(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// How many clusters of kc blocks of the kernel the card runs at once (0 if
+// none, or if the query fails).
+template <class K>
+int active_clusters(K kernel, int kc, size_t smem) {
+  if (set_smem(kernel, smem) != cudaSuccess) return 0;
+  ClusterLaunch l(1, kc, smem, nullptr);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &l.cfg) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return n;
+}
+
+// Blocks per batch row: 4 when the card runs `rows` clusters of 4 at once,
+// else 2 when it runs `rows` clusters of 2, else 1 (a row per block).
+template <class K4, class K2>
+int pick_cluster(K4 k4, K2 k2, int rows, size_t smem) {
+  if (rows <= active_clusters(k4, 4, smem)) return 4;
+  if (rows <= active_clusters(k2, 2, smem)) return 2;
+  return 1;
+}
+
+// Launches `rows` clusters of kc blocks of the kernel on st.
+template <class K, class... A>
+cudaError_t launch_clusters(K kernel, int rows, int kc, size_t smem, cudaStream_t st,
+                            const A&... args) {
+  const cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  ClusterLaunch l(rows, kc, smem, st);
+  return cudaLaunchKernelEx(&l.cfg, kernel, args...);
 }
 
 }  // namespace

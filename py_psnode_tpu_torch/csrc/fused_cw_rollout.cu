@@ -2,11 +2,11 @@
 //
 // Replaces the TPU kernel py_psnode_tpu/ops/fused_channelwise.py:_fwd_kernel
 // (:258), launched by _forward (pallas_call at :515). It computes the same
-// function in float32 with float32 accumulation (no TF32, no tensor cores),
-// without the TPU's grid, time blocking, dt == 0 padding, sublane relayouts
-// or bf16 mode. Per step t and batch row b, with the z-features fz and the
-// constant part of the folded first layer s_constV lifted out of the loop
-// (ops/fused_channelwise.py:precompute_cw_streams):
+// function at float32 accuracy, without the TPU's grid, time blocking,
+// dt == 0 padding, sublane relayouts or bf16 mode. Per step t and batch row
+// b, with the z-features fz and the constant part of the folded first layer
+// s_constV lifted out of the loop (ops/fused_channelwise.py:
+// precompute_cw_streams):
 //
 //   xh1 = Euler / Midpoint / RK4-3/8 step of f from xh_c with dt[t, b]
 //   sol[t, b] = xh1;  xh_c = xh1
@@ -16,19 +16,24 @@
 //
 // Bound on an H100 SXM: an evaluation costs 2 (2 h^3 + (5 xd + C) h^2)
 // FLOP per batch row, 8.8 MFLOP at h=128, xd=2, C=4; the two h x h x h
-// products are 95% of it. At B=64 with RK4 over 1000 steps that is 2.3
-// TFLOP, 34 ms at the card's 67 TFLOP/s of float32 on the CUDA cores,
-// against 0.05 ms for its bytes (fz, s_constV and the solution). So, unlike
-// the other rollouts of the port, it is bound by arithmetic.
+// products are 95% of it. They run on the tensor cores in three TF32
+// passes (3xTF32, float32 accuracy), so their least time is 3 x their
+// FLOP at 495 TFLOP/s; the rest runs at the 67 TFLOP/s of float32 on the
+// CUDA cores. At B=64 with RK4 over 1000 steps that is 14.8 ms, against
+// 0.05 ms for its bytes (fz, s_constV and the solution): bound by
+// arithmetic, unlike the no-encode rollouts of the port.
 //
-// Design: one block of 256 threads per batch row runs the whole loop (the
-// rows are independent; a row's evaluation is a chain of dependent [h, h]
-// layers). The two [h, h] activation tiles (2 x 66 KB) and the state live
-// in shared memory; the vertical weights stream from L2 through a
-// double-buffered staging area, and each thread holds an 8 x 8 register
-// tile of every product. B blocks use min(B, 132) SMs: at B=64 half the
-// card idles, which a later design that splits a row's 128 positions over
-// a cluster of blocks would use.
+// Design: a cluster of blocks (512 threads each) per batch row runs the
+// whole loop; the rows are independent, a row's evaluation a chain of
+// dependent [h, h] layers. The two [h, h] activation tiles (2 x 68 KB) and
+// the state live in shared memory; the vertical weights stream from L2 by
+// cp.async into a double-buffered staging area, and the products run as
+// warp-level mma.sync (cw_tile.cuh). One block per row would leave SMs idle
+// at the batches the trainer and the evaluation run (B=64, B=32 on 132
+// SMs), so the launcher gives each row a cluster of 4 blocks when the card
+// runs B such clusters at once, else 2 when it runs B of those, else 1:
+// the blocks of a cluster split each product's columns and share the
+// results through distributed shared memory.
 
 #include "cw_tile.cuh"
 
@@ -45,65 +50,58 @@ struct Args {
 };
 
 size_t smem_floats(int h, int xd, int zd) {
-  const size_t xdh = static_cast<size_t>(xd) * h;
-  // t1, t2, wbuf, ft; e, ot, he; xc, xs, k1..k4
-  return 2 * static_cast<size_t>(kTile) + 2 * kChunk + static_cast<size_t>(xd + zd) * kLdt +
-         3 * xdh + 6 * xdh;
+  // EvalSmem; xc, xs, k1..k4
+  return eval_floats(h, xd, zd) + 6 * static_cast<size_t>(xd) * h;
 }
 
+template <int KC>
 __global__ void __launch_bounds__(kThreads, 1) fused_cw_rollout_kernel(const __grid_constant__ Args a) {
-  extern __shared__ float smem[];
-  const int h = a.h, xd = a.xd, zd = a.zd, B = a.batch, row = blockIdx.x, tid = threadIdx.x;
+  extern __shared__ __align__(16) float smem[];
+  const int h = a.h, xd = a.xd, zd = a.zd, B = a.batch, row = blockIdx.x / KC, tid = threadIdx.x;
   const int n = xd * h;
+  const bool lead = block_rank<KC>() == 0;  // the block that writes the row's results
   EvalSmem s;
-  float* p = smem;
-  s.t1 = p;    p += kTile;
-  s.t2 = p;    p += kTile;
-  s.wbuf = p;  p += 2 * kChunk;
-  s.ft = p;    p += (xd + zd) * kLdt;
-  s.e = p;     p += n;
-  s.ot = p;    p += n;
-  s.he = p;    p += n;
+  float* p = carve_eval(s, smem, h, xd, zd);
   float* xc = p;  p += n;  // the rolled state
   float* xs = p;  p += n;  // a stage input
-  float* k1 = p;  p += n;  // stage derivatives
+  float* k1 = p;  p += n;  // stage derivatives, consecutive
   float* k2 = p;  p += n;
   float* k3 = p;  p += n;
   float* k4 = p;
-  // zero the tiles once: their rows and columns beyond h are read, never used
-  for (int e = tid; e < 2 * kTile; e += kThreads) smem[e] = 0.f;
+  init_eval(a.w, s, h, xd, zd);
   for (int e = tid; e < n; e += kThreads) xc[e] = a.x0[static_cast<size_t>(row) * n + e];
   const float* sv = a.sv + static_cast<size_t>(row) * h * h;
+  cl_arrive<KC>();  // t1 is free: the first evaluation's a0 store waits for this
 
+  const int S = a.solver == 0 ? 1 : (a.solver == 1 ? 2 : 4);
   for (int t = 0; t < a.tm1; ++t) {
     const size_t step = static_cast<size_t>(t) * B + row;
     const float dt = __ldg(a.dt + step);
     const float* fz_t = a.fz + step * zd * h;
-    __syncthreads();  // publishes xc
-    eval_fwd(a.w, s, h, xd, zd, xc, fz_t, sv, k1);
-    if (a.solver == 0) {  // Euler
-      for (int e = tid; e < n; e += kThreads) xc[e] = xc[e] + dt * k1[e];
-    } else if (a.solver == 1) {  // Midpoint
-      for (int e = tid; e < n; e += kThreads) xs[e] = xc[e] + k1[e] * (0.5f * dt);
-      __syncthreads();
-      eval_fwd(a.w, s, h, xd, zd, xs, fz_t, sv, k2);
-      for (int e = tid; e < n; e += kThreads) xc[e] = xc[e] + dt * k2[e];
-    } else {  // RK4, Kutta's 3/8 rule
-      for (int e = tid; e < n; e += kThreads) xs[e] = xc[e] + dt * k1[e] * kOneThird;
-      __syncthreads();
-      eval_fwd(a.w, s, h, xd, zd, xs, fz_t, sv, k2);
-      for (int e = tid; e < n; e += kThreads) xs[e] = xc[e] + dt * (k2[e] - k1[e] * kOneThird);
-      __syncthreads();
-      eval_fwd(a.w, s, h, xd, zd, xs, fz_t, sv, k3);
-      for (int e = tid; e < n; e += kThreads) xs[e] = xc[e] + dt * (k1[e] - k2[e] + k3[e]);
-      __syncthreads();
-      eval_fwd(a.w, s, h, xd, zd, xs, fz_t, sv, k4);
-      for (int e = tid; e < n; e += kThreads)
-        xc[e] = xc[e] + (k1[e] + 3.0f * (k2[e] + k3[e]) + k4[e]) * dt * 0.125f;
+#ifdef CW_PHASE_CLOCK
+    if (blockIdx.x == 0 && tid == 0) g_phase_on = t == a.tm1 / 2;  // the middle step (its last stage's marks stay)
+#endif
+    for (int st = 0; st < S; ++st) {
+      __syncthreads();  // publishes xc or xs
+      eval_fwd<KC, true>(a.w, s, h, xd, zd, st == 0 ? xc : xs, fz_t, sv, k1 + st * n);
+      if (st + 1 < S) {  // the next stage point
+        for (int e = tid; e < n; e += kThreads) {
+          if (a.solver == 1) xs[e] = xc[e] + k1[e] * (0.5f * dt);  // Midpoint
+          else if (st == 0) xs[e] = xc[e] + dt * k1[e] * kOneThird;  // RK4, Kutta's 3/8 rule
+          else if (st == 1) xs[e] = xc[e] + dt * (k2[e] - k1[e] * kOneThird);
+          else xs[e] = xc[e] + dt * (k1[e] - k2[e] + k3[e]);
+        }
+      }
     }
-    // the thread that updated xc[e] writes it out
-    for (int e = tid; e < n; e += kThreads) a.sol[step * n + e] = xc[e];
+    // the step (every block of the cluster keeps the state; the lead writes it out)
+    for (int e = tid; e < n; e += kThreads) {
+      if (a.solver == 0) xc[e] = xc[e] + dt * k1[e];
+      else if (a.solver == 1) xc[e] = xc[e] + dt * k2[e];
+      else xc[e] = xc[e] + (k1[e] + 3.0f * (k2[e] + k3[e]) + k4[e]) * dt * 0.125f;
+      if (lead) a.sol[step * n + e] = xc[e];
+    }
   }
+  cl_wait<KC>();  // no block leaves while another may still write its memory
 }
 
 }  // namespace
@@ -111,15 +109,17 @@ __global__ void __launch_bounds__(kThreads, 1) fused_cw_rollout_kernel(const __g
 // C interface, loaded with ctypes. Pointers are device pointers to
 // contiguous float32 arrays; w is a host array of the 15 weight pointers in
 // the order of flatten_weights (ops/fused_channelwise.py). solver: 0 Euler,
-// 1 Midpoint, 2 RK4 (3/8 rule). Launches one block per batch row on
-// `stream` without synchronising and returns cudaGetLastError() of the
-// launch (0 on success); cudaErrorInvalidValue for h outside 1..128.
+// 1 Midpoint, 2 RK4 (3/8 rule). cluster: blocks per batch row, 1, 2 or 4,
+// or 0 to take 4 when the card runs batch clusters of 4 at once, else 2
+// when it runs batch clusters of 2, else 1. Launches on `stream` without
+// synchronising and returns the launch's error (0 on success);
+// cudaErrorInvalidValue for h outside 1..128 or another cluster size.
 extern "C" int psn_fused_cw_rollout_f32(const void* fz, const void* dt, const void* sv,
                                         const void* x0, const void* const* w, void* sol, int tm1,
-                                        int batch, int h, int xd, int zd, int solver,
+                                        int batch, int h, int xd, int zd, int solver, int cluster,
                                         void* stream) {
   if (tm1 < 0 || batch < 1 || h < 1 || h > kMaxH || xd < 1 || zd < 0 || solver < 0 ||
-      solver > 2)
+      solver > 2 || (cluster != 0 && cluster != 1 && cluster != 2 && cluster != 4))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.fz = static_cast<const float*>(fz);
@@ -136,13 +136,32 @@ extern "C" int psn_fused_cw_rollout_f32(const void* fz, const void* dt, const vo
   a.solver = solver;
   if (tm1 == 0) return static_cast<int>(cudaSuccess);
   const size_t smem = smem_floats(h, xd, zd) * sizeof(float);
-  const cudaError_t e = cudaFuncSetAttribute(
-      fused_cw_rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (cluster == 0)
+    cluster = pick_cluster(fused_cw_rollout_kernel<4>, fused_cw_rollout_kernel<2>, batch, smem);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  fused_cw_rollout_kernel<<<batch, kThreads, smem, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t e =
+      cluster == 4   ? launch_clusters(fused_cw_rollout_kernel<4>, batch, 4, smem, st, a)
+      : cluster == 2 ? launch_clusters(fused_cw_rollout_kernel<2>, batch, 2, smem, st, a)
+                     : launch_clusters(fused_cw_rollout_kernel<1>, batch, 1, smem, st, a);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
+
+// The blocks per batch row psn_fused_cw_rollout_f32 takes for cluster = 0
+// at these shapes on the current device.
+extern "C" int psn_fused_cw_cluster(int batch, int h, int xd, int zd) {
+  return pick_cluster(fused_cw_rollout_kernel<4>, fused_cw_rollout_kernel<2>, batch,
+                      smem_floats(h, xd, zd) * sizeof(float));
+}
+
+#ifdef CW_PHASE_CLOCK
+// The phase clock's kPhaseMarks marks of the last launch (csrc/cw_tile.cuh),
+// copied to out after the device is synchronised; returns the error.
+extern "C" int psn_cw_phase_clock(long long* out) {
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out, g_phase, sizeof(long long) * kPhaseMarks);
+  return static_cast<int>(e);
+}
+#endif
 
 extern "C" const char* psn_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

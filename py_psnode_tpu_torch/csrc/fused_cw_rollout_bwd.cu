@@ -1,11 +1,12 @@
-// Reverse-time VJP of the channel-wise rollout in one launch, plus a small
-// kernel that sums the blocks' partial weight gradients.
+// Reverse-time VJP of the channel-wise rollout: the reverse walk in one
+// launch, then a contraction of the per-channel nets' gradients and two
+// small kernels that sum partial gradients in a fixed order.
 //
 // Replaces the TPU kernel py_psnode_tpu/ops/fused_channelwise.py:_bwd_kernel
 // (:370), launched by _vjp_bwd (pallas_call at :580). It computes the same
-// function in float32 with float32 accumulation (no TF32, no tensor cores),
-// without the TPU's grid, time blocking or bf16 mode. Per batch row, for
-// t = T-2 down to 0, with x_t = sol[t] and the carry gx_c (zero at first):
+// function at float32 accuracy, without the TPU's grid, time blocking or
+// bf16 mode. Per batch row, for t = T-2 down to 0, with x_t = sol[t] and the
+// carry gx_c (zero at first):
 //
 //   gX1 = cot[t+1] + gx_c
 //   recompute the stage points of the Euler / Midpoint / RK4-3/8 step, then
@@ -18,45 +19,64 @@
 // and the gradients of every weight and bias accumulate over all rows and
 // steps. g_x0 is the carry after step 0 (the wrapper adds cot[0]).
 //
-// Where the residuals live. A stage's activations a1 and a2 ([h, h] each)
-// stay in the two shared-memory tiles of the forward evaluation; the
-// backward overwrites each activation tile with the cotangent of its
-// pre-activation (elu' is computed from the activation: 1 above 0, a + 1
-// below), and recomputes a0 = elu(V A + s_constV) from the small ft when it
-// needs it, so no third tile is kept. Per-channel activations ([xd, h]) stay
-// in shared memory. The block's partial gradients are one row in global
-// memory (L2): 2 (h^2 + h) + C h + (h + 1) xd + 4 xd (h^2 + h) floats, 0.66
-// MB at h=128, xd=2 and 0.93 MB at xd=3 (59 MB at B=64, more than the 50
-// MB L2, so part of it goes to device memory). The dense weights' grads are
-// added per stage from the register tiles of a^T g products; the per-channel
-// nets' grads, rank-one per stage, are added once per step for all its
-// stages from the vectors kept in a per-block scratch in global memory. The
-// row's s_constV cotangent [h, h] is the block's own, so it needs no
-// reduction. reduce_partials sums the blocks' rows in block order: each
-// accumulator is only touched by one thread, in step order, so the result is
-// bit-identical from run to run, with no atomics.
+// Where the residuals and the sums live.
+// - A stage's activations a1 and a2 ([h, h] each) stay in the two shared
+//   tiles of the forward evaluation; the backward overwrites each with the
+//   cotangent of its pre-activation (elu' from the activation: 1 above 0,
+//   a + 1 below), and recomputes a0 = elu(V A + s_constV) from the small ft
+//   when it needs it, so no third tile is kept.
+// - The four h x h x h products of a stage's VJP (two cotangents, two
+//   dense weight gradients a^T g) run on the tensor cores in 3xTF32, like
+//   the forward's (cw_tile.cuh).
+// - g_s_constV: each thread owns the same 64 outputs of the g_P0 product
+//   every stage, so it sums them in registers over the whole walk and
+//   writes the row's [h, h] tile once at the end.
+// - The dense weights' gradients (a, W1..W3, b1..b3: 34 k floats, 135 KB a
+//   row at h=128, 8.6 MB at B=64, inside the 50 MB L2) go into the batch
+//   row's row of partials in global memory: a stage's product is summed
+//   from zero and added to the row once (summed on top of the row, each of
+//   its h terms would round at the row's magnitude, which grows over the
+//   1000-4000 stages a row adds), each entry by one thread only, as a
+//   reduction in L2 that it does not wait for. reduce_partials sums the
+//   rows in batch order.
+// - The per-channel nets' gradients (ext and head, W and b) are sums of
+//   rank-one terms u v^T: each stage writes its four (u, v) pairs of [xd,
+//   h] to pairs[t, s, b] (coalesced, 8 xd h floats), and contract_pairs
+//   multiplies them out after the walk, dW = U^T V and db = sum V over the
+//   (T-1) S B rows, on the CUDA cores, in nsplit contiguous row ranges
+//   whose partial sums reduce_pair_parts adds in range order.
+// Every sum has a fixed order and no atomics, so a relaunch is
+// bit-identical.
 //
-// Bound on an H100 SXM: a stage's VJP recomputes its evaluation (2 h^3
-// multiply-adds in the two big products, plus a0 again) and backpropagates
-// it (four h^3 products: two weight grads, two cotangents), about 6 h^3 +
-// O(xd h^2) multiply-adds, 26 MFLOP at h=128; RK4 adds three forward-only
-// evaluations a step. At B=64 over 1000 steps: Euler 1.7, Midpoint 4.0, RK4
-// 8.5 TFLOP, 25 / 59 / 127 ms at the card's 67 TFLOP/s of float32, against
-// well under a millisecond for the bytes that must move. Bound by
-// arithmetic, like the forward.
+// Bound on an H100 SXM: a stage's VJP is its evaluation plus twice its
+// products again (three evaluation-equivalents: the cotangents and the
+// weight grads); the kernel's own recomputation (the stage points
+// re-evaluated, a0 again) is its design's cost, not the function's. The
+// h x h x h products run in three TF32 passes at 495 TFLOP/s, the rest at
+// the 67 TFLOP/s of float32: at B=64 over 1000 steps, Euler 11.1, Midpoint
+// 22.2, RK4 44.3 ms (xd=2), against well under a millisecond for the bytes
+// that must move (the pairs buffer, written and read once, 2-3 GB at RK4,
+// is the design's). Bound by arithmetic, like the forward.
 //
-// Design: one block of 256 threads per batch row walks all steps (csrc/
-// cw_tile.cuh for the tiles and the per-channel products).
+// Design: a cluster of blocks per batch row walks all steps, the cluster's
+// size chosen as in the forward (csrc/fused_cw_rollout.cu): its blocks split
+// the products' columns, the folded first layer and the dense weights'
+// gradient columns, and the lead block writes the row's own results
+// (g_fz, the pairs, g_x0); csrc/cw_tile.cuh holds the tiles and the
+// per-channel products.
 
 #include "cw_tile.cuh"
 
 namespace {
 
-constexpr int kStages = 4;  // RK4's; Euler uses 1, Midpoint 2
-constexpr int kPairs = 4;   // rank-one gradient pairs of the per-channel nets
+constexpr int kPairs = 4;  // rank-one gradient pairs of the per-channel nets
+constexpr int kNc = 32;    // pair rows a contraction block stages at once
+constexpr int kCThreads = 256;  // a contraction block: 16 x 16 threads, 8 x 8 outputs each
+constexpr int kMaxSplit = 32;  // row ranges of the contraction
 
-// Offsets of each gradient in one block's row of partials, in the order of
-// flatten_weights (ops/fused_channelwise.py).
+// Offsets of each gradient in the flat gradient row, in the order of
+// flatten_weights (ops/fused_channelwise.py). The dense ones come first:
+// a batch row's row of partials holds [0, ew0).
 struct GradOffsets {
   long long a, w1, b1, w2, b2, w3, b3, ew0, eb0, ew1, eb1, hw0, hb0, hw1, hb1, total;
 };
@@ -89,11 +109,20 @@ GradOffsets grad_offsets(int h, int xd, int zd) {
   return o;
 }
 
-// Floats of one block's scratch: per stage, the kPairs (u, v) vector pairs
-// of [xd, h] whose outer products are the per-channel nets' weight grads.
-long long scratch_floats(int h, int xd) {
-  return static_cast<long long>(kStages) * kPairs * 2 * xd * h;
+__host__ __device__ inline int n_stages(int solver) { return solver == 0 ? 1 : (solver == 1 ? 2 : 4); }
+
+// Contiguous row ranges of the contraction: a function of the shapes only,
+// so that a relaunch sums in the same order.
+int n_splits(long long rows) {
+  const long long most = (rows + kNc - 1) / kNc;
+  return static_cast<int>(most < kMaxSplit ? (most < 1 ? 1 : most) : kMaxSplit);
 }
+
+// Where pair q's weight and bias gradients go, per channel c: dW at
+// out + wo[q] + c h^2 ([h, h], row k = input), db at out + bo[q] + c h.
+struct PairDest {
+  long long wo[kPairs], bo[kPairs];
+};
 
 // The transposed weights the cotangent products read.
 struct NetT {
@@ -115,12 +144,10 @@ struct Args {
   NetT wt;
   float* g_fz;        // [tm1, batch, zd, h]
   float* g_sv;        // [batch, h, h]
-  float* partial;     // [batch, off.total], zeroed by the caller
-  float* g_w;         // [off.total]
-  float* g_x0;        // [batch, xd, h]
-  float* scratch;     // [batch, scratch_floats]
+  float* partial;     // [batch, off.ew0], zeroed by the caller
+  float* pairs;       // [tm1, S, batch, kPairs, 2, xd, h]
   GradOffsets off;
-  long long scratch_n;
+  float* g_x0;        // [batch, xd, h]
   int tm1, batch, h, xd, zd, solver;
 };
 
@@ -134,144 +161,135 @@ struct BwdSmem {
   float* gfz;  // [zd][h]: the step's g_fz, summed over stages
 };
 
-// P[k * n + j] += sum_{q < nq} u_q[k] v_q[j] (K x n), or with u null
-// P[j] += sum_q v_q[j]. Thread e owns entries e, e + kThreads, ...: the
-// same thread every step.
-__device__ void accumulate(float* __restrict__ P, int K, int n, const float* const* u,
-                           const float* const* v, int nq) {
-  constexpr int kU = 8;  // accumulators in flight per thread
-  const int KN = u ? K * n : n;
-  for (int e0 = threadIdx.x; e0 < KN; e0 += kU * kThreads) {
-    float acc[kU];
-#pragma unroll
-    for (int s = 0; s < kU; ++s) {
-      const int e = e0 + s * kThreads;
-      acc[s] = e < KN ? P[e] : 0.f;
-    }
-#pragma unroll
-    for (int s = 0; s < kU; ++s) {
-      const int e = e0 + s * kThreads;
-      if (e < KN) {
-        const int k = u ? e / n : 0, j = e - k * n;
-        float inc = 0.f;  // the step's sum, added to the partial once
-        for (int q = 0; q < nq; ++q) inc = u ? fmaf(u[q][k], v[q][j], inc) : inc + v[q][j];
-        acc[s] += inc;
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < kU; ++s) {
-      const int e = e0 + s * kThreads;
-      if (e < KN) P[e] = acc[s];
-    }
-  }
+// P[m * h + n] += acc at the thread's outputs (P a dense weight's partial
+// gradient [h, h], row m = input), as reductions in L2 that the thread does
+// not wait for. Only this thread ever adds to these entries, in program
+// order, so the sums are the same from run to run.
+template <int KC>
+__device__ __forceinline__ void add_partial(float* __restrict__ P, int h, Acc<KC>& acc) {
+  for_acc<KC>(acc, h, [&](float& v, int m, int n) { atomicAdd(P + m * h + n, v); });
 }
 
-// P += ta^T tb over the positions, P a dense weight's partial gradient
-// [h, h] (row k = input). The stage's product is summed from zero and added
-// to P once: summed on top of P, each of its h products would round at P's
-// magnitude, which grows over the 1000-4000 stages a row adds.
-__device__ __forceinline__ void add_weight_grad(float* __restrict__ P, int h, const float* ta,
-                                                const float* tb) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[kR][kR];
-#pragma unroll
-  for (int i = 0; i < kR; ++i)
-#pragma unroll
-    for (int j = 0; j < kR; ++j) acc[i][j] = 0.f;
-  gemm_tt(ta, tb, h, acc);
-#pragma unroll
-  for (int i = 0; i < kR; ++i)
-#pragma unroll
-    for (int j = 0; j < kR; ++j) {
-      const int m = ty + 16 * i, col = tx + 16 * j;
-      if (m < h && col < h) P[m * h + col] += acc[i][j];
-    }
-}
-
-// db[j] += sum_{l < h} t[j * kLdt + l]: a bias grad from a cotangent tile.
+// db[j] += sum_{l < h} t[j][l] for the block's columns j: a bias grad from
+// a cotangent tile. Thread j starts at position j, so that a warp's reads
+// fall on distinct banks.
+template <int KC>
 __device__ __forceinline__ void add_bias_grad(float* __restrict__ db, int h, const float* t) {
-  for (int j = threadIdx.x; j < h; j += kThreads) {
+  constexpr int kSlice = Tiling<KC>::kSlice;
+  const int j0 = static_cast<int>(block_rank<KC>()) * kSlice;
+  for (int j = j0 + threadIdx.x; j < j0 + kSlice && j < h; j += kThreads) {
     float sum = 0.f;
-    for (int l = 0; l < h; ++l) sum += t[j * kLdt + l];
+    for (int i = 0, l = j; i < h; ++i, l = l + 1 == h ? 0 : l + 1) sum += t[j * kLdt + l];
     db[j] += sum;
   }
 }
 
 // The VJP of one evaluation at xs with output cotangent gy (both [xd][h],
 // published): recomputes the evaluation, adds the vertical net's and a's
-// weight grads into the block's partials Pb, the row's s_constV cotangent
-// into gsv, this stage's z cotangent into b.gfz, writes g_x = dL/dxs into gx
-// and the stage's per-channel (u, v) pairs into scr. Ends with a barrier.
-__device__ __noinline__ void eval_bwd(const Args& a, const EvalSmem& s, const BwdSmem& b,
-                                      const float* xs, const float* gy, const float* fz_t,
-                                      const float* sv, float* __restrict__ gsv,
-                                      float* __restrict__ Pb, float* __restrict__ scr, float* gx) {
+// weight grads into the row's partials Pb, this stage's g_P0 into the
+// thread's g_s_constV sums gsv, this stage's z cotangent into b.gfz, writes
+// g_x = dL/dxs into gx and, in the lead block, the stage's per-channel (u,
+// v) pairs into pr. The blocks of a cluster split the products, the folded
+// first layer and the sums over the dense weights' columns (and the lead
+// adds W3's and b3's); each computes the rest itself. Ends with a barrier
+// of the block and with this block's arrival at the cluster barrier that
+// the next a0 store waits at. Inlined at its one call site, so that gsv
+// stays in registers.
+template <int KC>
+__device__ __forceinline__ void eval_bwd(const Args& a, const EvalSmem& s, const BwdSmem& b,
+                                         const float* xs, const float* gy, const float* fz_t,
+                                         const float* sv, Acc<KC>& gsv, float* __restrict__ Pb,
+                                         float* __restrict__ pr, float* gx) {
   const int h = a.h, xd = a.xd, zd = a.zd, C = xd + zd, n = xd * h, tid = threadIdx.x;
+  const bool lead = block_rank<KC>() == 0;
   const Net& w = a.w;
   const NetT& wt = a.wt;
-  float acc[kR][kR];
-  eval_fwd(w, s, h, xd, zd, xs, fz_t, sv, b.y);  // t1 = a2, t2 = a1
+  Acc<KC> acc;
+  CW_PHASE(16);
+  eval_fwd<KC, false>(w, s, h, xd, zd, xs, fz_t, sv, b.y);  // t1 = a2, t2 = a1
+  CW_PHASE(17);
 
   // head: ghe = (gy H1^T) * elu'(HE), go = ghe H0^T
   gemv_ch(gy, h, xd, h, wt.hw1t, nullptr, b.ghe, h, h, false, s.he);
   __syncthreads();
   gemv_ch(b.ghe, h, xd, h, wt.hw0t, nullptr, b.go, h, h, false, nullptr);
   __syncthreads();
+  CW_PHASE(18);
 
   // last vertical layer: dW3[k][c] += sum_l a2[l][k] go[c][l], db3
-  for (int o = tid; o < h * xd; o += kThreads) {
-    const int k = o / xd, c = o - k * xd;
-    float sum = 0.f;
-    for (int l = 0; l < h; ++l) sum = fmaf(s.t1[k * kLdt + l], b.go[c * h + l], sum);
-    Pb[a.off.w3 + o] += sum;
-  }
-  for (int c = tid; c < xd; c += kThreads) {
-    float sum = 0.f;
-    for (int l = 0; l < h; ++l) sum += b.go[c * h + l];
-    Pb[a.off.b3 + c] += sum;
+  if (lead) {
+    for (int o = tid; o < h * xd; o += kThreads) {
+      const int k = o / xd, c = o - k * xd;
+      float sum = 0.f;
+      for (int i = 0, l = k; i < h; ++i, l = l + 1 == h ? 0 : l + 1)
+        sum = fmaf(s.t1[k * kLdt + l], b.go[c * h + l], sum);
+      Pb[a.off.w3 + o] += sum;
+    }
+    for (int c = tid; c < xd; c += kThreads) {
+      float sum = 0.f;
+      for (int l = 0; l < h; ++l) sum += b.go[c * h + l];
+      Pb[a.off.b3 + c] += sum;
+    }
   }
   __syncthreads();
   // t1: a2 -> g_P2 = (go W3^T) * elu'(a2), in place
   for (int o = tid; o < h * h; o += kThreads) {
     const int k = o / h, l = o - k * h;
     float g = 0.f;
-    for (int c = 0; c < xd; ++c) g = fmaf(b.go[c * h + l], __ldg(w.w3 + k * xd + c), g);
+    for (int c = 0; c < xd; ++c) g = fmaf(b.go[c * h + l], s.w3[k * xd + c], g);
     float* p = s.t1 + k * kLdt + l;
     *p = g * delu_act(*p);
   }
   __syncthreads();
-  add_weight_grad(Pb + a.off.w2, h, s.t2, s.t1);  // dW2 += a1^T g_P2
-  add_bias_grad(Pb + a.off.b2, h, s.t1);
-  __syncthreads();
-  gemm_tw(s.t1, h, wt.w2t, h, s.wbuf, acc);  // t2: a1 -> g_P1
-  store_bwd(acc, h, s.t2);
-  __syncthreads();
-  gemm_tw(s.ft, C, w.a, h, s.wbuf, acc);  // t1 = a0 again
-  store_fwd(acc, h, nullptr, sv, s.t1);
-  __syncthreads();
-  add_weight_grad(Pb + a.off.w1, h, s.t1, s.t2);  // dW1 += a0^T g_P1
-  add_bias_grad(Pb + a.off.b1, h, s.t2);
-  __syncthreads();
-  gemm_tw(s.t2, h, wt.w1t, h, s.wbuf, acc);  // t1: a0 -> g_P0
-  store_bwd(acc, h, s.t1);
-  __syncthreads();
+  CW_PHASE(19);
+  mma_tile_tile<KC>(s.t2, s.t1, h, acc);  // dW2 += a1^T g_P2
+  add_partial<KC>(Pb + a.off.w2, h, acc);
+  add_bias_grad<KC>(Pb + a.off.b2, h, s.t1);
+  CW_PHASE(20);
+  mma_tile_weight<KC>(s.t1, h, wt.w2t, h, s.wbuf, acc);  // g_P1 = g_P2 W2^T ...
+  cl_sync<KC>();  // ... into t2, which no block reads any more (a1 for dW2)
+  store_bwd<KC>(acc, h, s.t2);
+  CW_PHASE(21);
+  first_layer<KC>(s.ft, s.as, C, h, sv, acc);  // t1 = a0 again (g_P2 no longer read)
+  store_act<KC>(acc, h, nullptr, s.t1);
+  cl_sync<KC>();
+  CW_PHASE(22);
+  mma_tile_tile<KC>(s.t1, s.t2, h, acc);  // dW1 += a0^T g_P1
+  add_partial<KC>(Pb + a.off.w1, h, acc);
+  add_bias_grad<KC>(Pb + a.off.b1, h, s.t2);
+  CW_PHASE(23);
+  mma_tile_weight<KC>(s.t2, h, wt.w1t, h, s.wbuf, acc);  // g_P0 = g_P1 W1^T ...
+  cl_sync<KC>();  // ... into t1, which no block reads any more (a0 for dW1)
+  store_bwd<KC>(acc, h, s.t1);
+#pragma unroll
+  for (int i = 0; i < Tiling<KC>::kMi; ++i)
+#pragma unroll
+    for (int j = 0; j < Tiling<KC>::kNi; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) gsv[i][j][r] += acc[i][j][r];  // g_s_constV; 0 beyond h
+  cl_sync<KC>();
+  CW_PHASE(24);
 
-  // the folded first layer: g_s_constV[l][j] += g_P0[l][j],
-  // dA[c][j] += sum_l ft[c][l] g_P0[l][j], gft[c][l] = sum_j g_P0[l][j] A[c][j]
-  for (int o = tid; o < h * h; o += kThreads) {
-    const int l = o / h, j = o - l * h;
-    gsv[o] += s.t1[j * kLdt + l];
-  }
+  // the folded first layer: dA[c][j] += sum_l ft[c][l] g_P0[l][j] (the
+  // block's columns j), gft[c][l] = sum_j g_P0[l][j] A[c][j] (all)
+  constexpr int kSlice = Tiling<KC>::kSlice;
+  const int j0 = static_cast<int>(block_rank<KC>()) * kSlice;
   for (int o = tid; o < C * h; o += kThreads) {
     const int c = o / h, j = o - c * h;
-    float da = 0.f, g = 0.f;
-    for (int l = 0; l < h; ++l) da = fmaf(s.ft[c * kLdt + l], s.t1[j * kLdt + l], da);
-    // here j is the position l of gft and l the feature j of g_P0
-    for (int f = 0; f < h; ++f) g = fmaf(s.t1[f * kLdt + j], __ldg(w.a + c * h + f), g);
-    Pb[a.off.a + o] += da;
+    float g = 0.f;
+    // here j is the position l of gft and f the feature j of g_P0
+    for (int f = 0; f < h; ++f) g = fmaf(s.t1[f * kLdt + j], s.as[c * kMaxH + f], g);
     b.gft[o] = g;
+    if (j >= j0 && j < j0 + kSlice) {
+      float da = 0.f;
+      for (int i = 0, l = j; i < h; ++i, l = l + 1 == h ? 0 : l + 1)
+        da = fmaf(s.ft[c * kLdt + l], s.t1[j * kLdt + l], da);
+      Pb[a.off.a + o] += da;
+    }
   }
   __syncthreads();
+  CW_PHASE(25);
+  cl_arrive<KC>();  // done with t1 until the next evaluation's a0 store
   for (int o = tid; o < zd * h; o += kThreads) b.gfz[o] += b.gft[n + o];
 
   // ext: gep = (gft[:xd] E1^T) * elu'(E), gx = gep E0^T
@@ -280,61 +298,34 @@ __device__ __noinline__ void eval_bwd(const Args& a, const EvalSmem& s, const Bw
   gemv_ch(b.gep, h, xd, h, wt.ew0t, nullptr, gx, h, h, false, nullptr);
 
   // the per-channel nets' rank-one pairs (u, v): head W1, head W0, ext W1,
-  // ext W0, in the order of the partial row's offsets
-  const float* pairs[kPairs][2] = {{s.he, gy}, {s.ot, b.ghe}, {s.e, b.gft}, {xs, b.gep}};
-  for (int q = 0; q < kPairs; ++q)
-    for (int r = 0; r < 2; ++r)
-      for (int e = tid; e < n; e += kThreads) scr[(2 * q + r) * n + e] = pairs[q][r][e];
-  __syncthreads();
-}
-
-// Adds the per-channel nets' weight and bias grads of a step's nq stages
-// from the scratch pairs into the block's partials.
-__device__ void add_channel_grads(const Args& a, float* __restrict__ Pb, const float* scr,
-                                  int nq) {
-  const int h = a.h, xd = a.xd, n = xd * h;
-  const long long hh = static_cast<long long>(h) * h;
-  // pair q's (W offset, b offset), in the order eval_bwd writes the pairs
-  const long long wo[kPairs] = {a.off.hw1, a.off.hw0, a.off.ew1, a.off.ew0};
-  const long long bo[kPairs] = {a.off.hb1, a.off.hb0, a.off.eb1, a.off.eb0};
-  for (int q = 0; q < kPairs; ++q) {
-    for (int c = 0; c < xd; ++c) {
-      const float* u[kStages];
-      const float* v[kStages];
-      for (int st = 0; st < nq; ++st) {
-        const float* base = scr + static_cast<long long>(st) * kPairs * 2 * n;
-        u[st] = base + (2 * q) * n + c * h;
-        v[st] = base + (2 * q + 1) * n + c * h;
-      }
-      accumulate(Pb + wo[q] + c * hh, h, h, u, v, nq);
-      accumulate(Pb + bo[q] + c * h, 1, h, nullptr, v, nq);
-    }
+  // ext W0 (PairDest's order)
+  if (lead) {
+    const float* pairs[kPairs][2] = {{s.he, gy}, {s.ot, b.ghe}, {s.e, b.gft}, {xs, b.gep}};
+    for (int q = 0; q < kPairs; ++q)
+      for (int r = 0; r < 2; ++r)
+        for (int e = tid; e < n; e += kThreads) pr[(2 * q + r) * n + e] = pairs[q][r][e];
   }
+  __syncthreads();
+  CW_PHASE(26);
 }
 
 size_t smem_floats(int h, int xd, int zd) {
   const size_t xdh = static_cast<size_t>(xd) * h, C = xd + zd;
-  // t1, t2, wbuf, ft; e, ot, he; gft, gfz; y, ghe, go, gep;
+  // EvalSmem; gft, gfz; y, ghe, go, gep;
   // xc, x2, x3, x4, k1, k2, k3, gX1, gxc, gk1, gk2, gk3, gy, tx
-  return 2 * static_cast<size_t>(kTile) + 2 * kChunk + C * kLdt + 3 * xdh + C * h +
-         static_cast<size_t>(zd) * h + 4 * xdh + 14 * xdh;
+  return eval_floats(h, xd, zd) + C * h + static_cast<size_t>(zd) * h + 4 * xdh + 14 * xdh;
 }
 
+template <int KC>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_cw_rollout_bwd_kernel(const __grid_constant__ Args a) {
-  extern __shared__ float smem[];
-  const int h = a.h, xd = a.xd, zd = a.zd, B = a.batch, row = blockIdx.x, tid = threadIdx.x;
+  extern __shared__ __align__(16) float smem[];
+  const int h = a.h, xd = a.xd, zd = a.zd, B = a.batch, row = blockIdx.x / KC, tid = threadIdx.x;
   const int n = xd * h, C = xd + zd;
+  const bool lead = block_rank<KC>() == 0;  // the block that writes the row's own results
   EvalSmem s;
   BwdSmem b;
-  float* p = smem;
-  s.t1 = p;    p += kTile;
-  s.t2 = p;    p += kTile;
-  s.wbuf = p;  p += 2 * kChunk;
-  s.ft = p;    p += C * kLdt;
-  s.e = p;     p += n;
-  s.ot = p;    p += n;
-  s.he = p;    p += n;
+  float* p = carve_eval(s, smem, h, xd, zd);
   b.gft = p;   p += C * h;
   b.gfz = p;   p += zd * h;
   b.y = p;     p += n;
@@ -342,10 +333,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   b.go = p;    p += n;
   b.gep = p;   p += n;
   float* xc = p;   p += n;  // x_t, the first stage's input
-  float* x2 = p;   p += n;  // RK4's (Midpoint's) further stage inputs
+  float* x2 = p;   p += n;  // RK4's (Midpoint's) further stage inputs, consecutive
   float* x3 = p;   p += n;
   float* x4 = p;   p += n;
-  float* k1 = p;   p += n;  // stage outputs
+  float* k1 = p;   p += n;  // stage outputs, consecutive
   float* k2 = p;   p += n;
   float* k3 = p;   p += n;
   float* gX1 = p;  p += n;  // cotangent of x_{t+1}
@@ -356,19 +347,32 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* gy = p;   p += n;  // the next stage's output cotangent
   float* tx = p;            // g_x of one stage's VJP
 
-  for (int e = tid; e < 2 * kTile; e += kThreads) smem[e] = 0.f;
+  init_eval(a.w, s, h, xd, zd);
   for (int e = tid; e < n; e += kThreads) gxc[e] = 0.f;
   const size_t hh = static_cast<size_t>(h) * h;
   const float* sv = a.sv + row * hh;
-  float* gsv = a.g_sv + row * hh;
-  for (size_t e = tid; e < hh; e += kThreads) gsv[e] = 0.f;
-  float* Pb = a.partial + static_cast<size_t>(row) * a.off.total;
-  float* scr = a.scratch + static_cast<size_t>(row) * a.scratch_n;
-  const long long slot = static_cast<long long>(kPairs) * 2 * n;  // one stage's pairs
-  const int S = a.solver == 0 ? 1 : (a.solver == 1 ? 2 : 4);
+  float* Pb = a.partial + static_cast<size_t>(row) * a.off.ew0;
+  const int S = n_stages(a.solver);
+  // the stage inputs in the order their VJPs are taken
+  const float* xs_of[4] = {xc, nullptr, nullptr, nullptr};
+  if (a.solver == 1) {
+    xs_of[0] = x2;
+    xs_of[1] = xc;
+  } else if (a.solver == 2) {
+    xs_of[0] = x4;
+    xs_of[1] = x3;
+    xs_of[2] = x2;
+    xs_of[3] = xc;
+  }
+  Acc<KC> gsv;
+  zero<KC>(gsv);
   __syncthreads();
+  cl_arrive<KC>();  // t1 is free: the first evaluation's a0 store waits for this
 
   for (int t = a.tm1 - 1; t >= 0; --t) {
+#ifdef CW_PHASE_CLOCK
+    if (blockIdx.x == 0 && tid == 0) g_phase_on = t == a.tm1 / 2;  // the middle step (its last stage's marks stay)
+#endif
     const size_t step = static_cast<size_t>(t) * B + row;
     const float dt = __ldg(a.dt + step);
     const float* fz_t = a.fz + step * zd * h;
@@ -379,80 +383,68 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int e = tid; e < zd * h; e += kThreads) b.gfz[e] = 0.f;
     __syncthreads();
 
-    if (a.solver == 0) {  // Euler: x1 = x + dt f(x)
-      for (int e = tid; e < n; e += kThreads) gy[e] = dt * gX1[e];
-      __syncthreads();
-      eval_bwd(a, s, b, xc, gy, fz_t, sv, gsv, Pb, scr, tx);
-      for (int e = tid; e < n; e += kThreads) gxc[e] = gX1[e] + tx[e];
-    } else if (a.solver == 1) {  // Midpoint: x1 = x + dt f(x + (dt/2) f(x))
-      eval_fwd(a.w, s, h, xd, zd, xc, fz_t, sv, k1);
+    // the stage points x2 (Midpoint), x2..x4 (RK4) from their evaluations
+    for (int st = 0; st + 1 < S; ++st) {
+      eval_fwd<KC, true>(a.w, s, h, xd, zd, st == 0 ? xc : x2 + (st - 1) * n, fz_t, sv, k1 + st * n);
+      float* xn = x2 + st * n;
       for (int e = tid; e < n; e += kThreads) {
-        x2[e] = xc[e] + k1[e] * (0.5f * dt);
+        if (a.solver == 1) xn[e] = xc[e] + k1[e] * (0.5f * dt);  // x + (dt/2) f(x)
+        else if (st == 0) xn[e] = xc[e] + dt * k1[e] * kOneThird;  // RK4, Kutta's 3/8 rule
+        else if (st == 1) xn[e] = xc[e] + dt * (k2[e] - k1[e] * kOneThird);
+        else xn[e] = xc[e] + dt * (k1[e] - k2[e] + k3[e]);
+      }
+      __syncthreads();
+    }
+    // the first stage's output cotangent gy, and RK4's stage cotangents
+    const float c8 = dt * 0.125f;
+    for (int e = tid; e < n; e += kThreads) {
+      gxc[e] = gX1[e];
+      if (a.solver == 2) {
+        gk1[e] = gX1[e] * c8;
+        gk2[e] = 3.0f * gX1[e] * c8;
+        gk3[e] = 3.0f * gX1[e] * c8;
+        gy[e] = gX1[e] * c8;  // g_k4
+      } else {
         gy[e] = dt * gX1[e];
       }
-      __syncthreads();
-      eval_bwd(a, s, b, x2, gy, fz_t, sv, gsv, Pb, scr, tx);  // tx = g_xmid
-      for (int e = tid; e < n; e += kThreads) {
-        gy[e] = (0.5f * dt) * tx[e];
-        gxc[e] = gX1[e] + tx[e];
-      }
-      __syncthreads();
-      eval_bwd(a, s, b, xc, gy, fz_t, sv, gsv, Pb, scr + slot, tx);
-      for (int e = tid; e < n; e += kThreads) gxc[e] += tx[e];
-    } else {  // RK4, Kutta's 3/8 rule
-      eval_fwd(a.w, s, h, xd, zd, xc, fz_t, sv, k1);
-      for (int e = tid; e < n; e += kThreads) x2[e] = xc[e] + dt * k1[e] * kOneThird;
-      __syncthreads();
-      eval_fwd(a.w, s, h, xd, zd, x2, fz_t, sv, k2);
-      for (int e = tid; e < n; e += kThreads) x3[e] = xc[e] + dt * (k2[e] - k1[e] * kOneThird);
-      __syncthreads();
-      eval_fwd(a.w, s, h, xd, zd, x3, fz_t, sv, k3);
-      const float c = dt * 0.125f;
-      for (int e = tid; e < n; e += kThreads) {
-        x4[e] = xc[e] + dt * (k1[e] - k2[e] + k3[e]);
-        gk1[e] = gX1[e] * c;
-        gk2[e] = 3.0f * gX1[e] * c;
-        gk3[e] = 3.0f * gX1[e] * c;
-        gy[e] = gX1[e] * c;  // g_k4
-        gxc[e] = gX1[e];
-      }
-      __syncthreads();
-      eval_bwd(a, s, b, x4, gy, fz_t, sv, gsv, Pb, scr, tx);  // g_a4
-      for (int e = tid; e < n; e += kThreads) {
-        const float g = tx[e];
-        gxc[e] += g;
-        gk1[e] += dt * g;
-        gk2[e] -= dt * g;
-        gy[e] = gk3[e] + dt * g;  // final g_k3
-      }
-      __syncthreads();
-      eval_bwd(a, s, b, x3, gy, fz_t, sv, gsv, Pb, scr + slot, tx);  // g_a3
-      for (int e = tid; e < n; e += kThreads) {
-        const float g = tx[e];
-        gxc[e] += g;
-        gy[e] = gk2[e] + dt * g;  // final g_k2
-        gk1[e] -= dt * g * kOneThird;
-      }
-      __syncthreads();
-      eval_bwd(a, s, b, x2, gy, fz_t, sv, gsv, Pb, scr + 2 * slot, tx);  // g_a2
-      for (int e = tid; e < n; e += kThreads) {
-        const float g = tx[e];
-        gxc[e] += g;
-        gy[e] = gk1[e] + dt * g * kOneThird;  // final g_k1
-      }
-      __syncthreads();
-      eval_bwd(a, s, b, xc, gy, fz_t, sv, gsv, Pb, scr + 3 * slot, tx);  // g_a1
-      for (int e = tid; e < n; e += kThreads) gxc[e] += tx[e];
     }
-    for (int e = tid; e < zd * h; e += kThreads) a.g_fz[step * zd * h + e] = b.gfz[e];
-    add_channel_grads(a, Pb, scr, S);
     __syncthreads();
+
+    for (int st = 0; st < S; ++st) {
+      float* pr = a.pairs + ((static_cast<size_t>(t) * S + st) * B + row) * (2 * kPairs * n);
+      eval_bwd<KC>(a, s, b, xs_of[st], gy, fz_t, sv, gsv, Pb, pr, tx);  // tx = g_a of the stage
+      for (int e = tid; e < n; e += kThreads) {
+        const float g = tx[e];
+        gxc[e] += g;
+        if (a.solver == 1 && st == 0) {
+          gy[e] = (0.5f * dt) * g;
+        } else if (a.solver == 2) {
+          if (st == 0) {
+            gk1[e] += dt * g;
+            gk2[e] -= dt * g;
+            gy[e] = gk3[e] + dt * g;  // final g_k3
+          } else if (st == 1) {
+            gy[e] = gk2[e] + dt * g;  // final g_k2
+            gk1[e] -= dt * g * kOneThird;
+          } else if (st == 2) {
+            gy[e] = gk1[e] + dt * g * kOneThird;  // final g_k1
+          }
+        }
+      }
+      __syncthreads();
+    }
+    if (lead)
+      for (int e = tid; e < zd * h; e += kThreads) a.g_fz[step * zd * h + e] = b.gfz[e];
   }
 
-  for (int e = tid; e < n; e += kThreads) a.g_x0[static_cast<size_t>(row) * n + e] = gxc[e];
+  float* gs = a.g_sv + row * hh;  // each block its columns
+  for_acc<KC>(gsv, h, [&](float& v, int m, int nn) { gs[m * h + nn] = v; });
+  if (lead)
+    for (int e = tid; e < n; e += kThreads) a.g_x0[static_cast<size_t>(row) * n + e] = gxc[e];
+  cl_wait<KC>();  // no block leaves while another may still write its memory
 }
 
-// g_w[e] = sum over blocks b, in order, of partial[b, e].
+// g_w[e] = sum over batch rows b, in order, of partial[b, e] (e < total).
 __global__ void reduce_partials(const float* __restrict__ partial, int blocks, long long total,
                                 float* __restrict__ g_w) {
   const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -462,29 +454,146 @@ __global__ void reduce_partials(const float* __restrict__ partial, int blocks, l
   g_w[e] = acc;
 }
 
+// One block per (row range blockIdx.x, pair and channel blockIdx.y = q xd +
+// c): over the pair rows of its range, in order, the sums
+//   part[k][j] = sum u[q][c][k] v[q][c][j],  part[h h + j] = sum v[q][c][j]
+// (pairs rows of 2 kPairs xd h floats, u then v per pair), into its slot
+// of `parts` [nsplit, kPairs xd, h h + h]. 256 threads, each an 8 x 8
+// register tile of the [h, h] sum; kNc rows staged at once in shared
+// memory (u then v, [kNc][kMaxH] each).
+__global__ void __launch_bounds__(kCThreads)
+    contract_pairs(const float* __restrict__ pairs, long long rows, int xd, int h,
+                   float* __restrict__ parts) {
+  extern __shared__ __align__(16) float smem[];
+  float* us = smem;
+  float* vs = smem + kNc * kMaxH;
+  const int split = blockIdx.x, nsplit = gridDim.x, qc = blockIdx.y;
+  const int q = qc / xd, c = qc - q * xd, n = xd * h, tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const long long r0 = rows * split / nsplit, r1 = rows * (split + 1) / nsplit;
+  const long long stride = 2LL * kPairs * n;
+  const float* u0 = pairs + (2 * q) * n + c * h;
+  const float* v0 = u0 + n;
+  float acc[8][8], bsum[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    bsum[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+  for (long long rb = r0; rb < r1; rb += kNc) {
+    const int nr = r1 - rb < kNc ? static_cast<int>(r1 - rb) : kNc;
+    for (int e = tid; e < kNc * kMaxH; e += kCThreads) {
+      const int r = e / kMaxH, k = e % kMaxH;
+      const bool ok = r < nr && k < h;
+      us[e] = ok ? __ldg(u0 + (rb + r) * stride + k) : 0.f;
+      vs[e] = ok ? __ldg(v0 + (rb + r) * stride + k) : 0.f;
+    }
+    __syncthreads();
+    for (int r = 0; r < nr; ++r) {
+      float av[8], bv[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) av[i] = us[r * kMaxH + ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) bv[j] = vs[r * kMaxH + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      if (ty == 0) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) bsum[j] += bv[j];
+      }
+    }
+    __syncthreads();
+  }
+  const long long slot = static_cast<long long>(h) * h + h;
+  float* out = parts + (static_cast<long long>(split) * gridDim.y + qc) * slot;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int k = ty + 16 * i, col = tx + 16 * j;
+      if (k < h && col < h) out[k * h + col] = acc[i][j];
+    }
+  if (ty == 0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = tx + 16 * j;
+      if (col < h) out[static_cast<long long>(h) * h + col] = bsum[j];
+    }
+  }
+}
+
+// out[dest(e)] = sum over the row ranges, in order, of parts[., e] for
+// every entry e of the kPairs xd slots (PairDest maps a slot's [h, h] and
+// [h] into out).
+__global__ void reduce_pair_parts(const float* __restrict__ parts, int nsplit, int xd, int h,
+                                  PairDest dest, float* __restrict__ out) {
+  const long long slot = static_cast<long long>(h) * h + h;
+  const long long per = slot * kPairs * xd;
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= per) return;
+  const int qc = static_cast<int>(e / slot);
+  const long long r = e - qc * slot;
+  const int q = qc / xd, c = qc - q * xd;
+  const long long hh = static_cast<long long>(h) * h;
+  const long long at = r < hh ? dest.wo[q] + c * hh + r : dest.bo[q] + c * h + (r - hh);
+  float acc = 0.f;
+  for (int sp = 0; sp < nsplit; ++sp) acc += parts[sp * per + e];
+  out[at] = acc;
+}
+
+// The contraction of `rows` pair rows into out at dest: both kernels on
+// stream st. parts holds nsplit x kPairs xd (h^2 + h) floats.
+cudaError_t launch_contraction(const float* pairs, long long rows, int xd, int h,
+                               const PairDest& dest, float* parts, float* out,
+                               cudaStream_t st) {
+  const int nsplit = n_splits(rows);
+  const size_t smem = 2 * kNc * kMaxH * sizeof(float);
+  const dim3 grid(nsplit, kPairs * xd);
+  contract_pairs<<<grid, kCThreads, smem, st>>>(pairs, rows, xd, h, parts);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const long long per = (static_cast<long long>(h) * h + h) * kPairs * xd;
+  const int blocks = static_cast<int>((per + 255) / 256);
+  reduce_pair_parts<<<blocks, 256, 0, st>>>(parts, nsplit, xd, h, dest, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// sizes[0]: floats in one row of partial gradients (and in g_w); sizes[1]:
-// floats of one block's scratch.
-extern "C" void psn_fused_cw_bwd_sizes(int h, int xd, int zd, long long* sizes) {
-  sizes[0] = grad_offsets(h, xd, zd).total;
-  sizes[1] = scratch_floats(h, xd);
+// sizes[0]: floats of the flat gradient row g_w; sizes[1]: floats of one
+// block's row of dense partials; sizes[2]: floats of the pairs buffer;
+// sizes[3]: floats of the contraction's partial sums.
+extern "C" void psn_fused_cw_bwd_sizes(int tm1, int batch, int h, int xd, int zd, int solver,
+                                       long long* sizes) {
+  const GradOffsets o = grad_offsets(h, xd, zd);
+  const long long rows = static_cast<long long>(tm1) * n_stages(solver) * batch;
+  sizes[0] = o.total;
+  sizes[1] = o.ew0;
+  sizes[2] = rows * 2 * kPairs * xd * h;
+  sizes[3] = static_cast<long long>(n_splits(rows)) * kPairs * xd * (static_cast<long long>(h) * h + h);
 }
 
 // C interface, loaded with ctypes. Pointers are device pointers to
 // contiguous float32 arrays; w is a host array of the 15 weight pointers in
 // the order of flatten_weights, wt one of the 6 transposes of
 // transposed_weights (ops/fused_channelwise_vjp.py). `partial` is [batch,
-// sizes[0]] and must be zero; g_w receives the summed gradients in the same
-// layout; scratch is [batch, sizes[1]]. solver: 0 Euler, 1 Midpoint, 2 RK4
-// (3/8 rule). Launches both kernels on `stream` without synchronising and
-// returns cudaGetLastError() (0 on success).
+// sizes[1]] and must be zero; g_w receives the summed gradients in the
+// flatten_weights layout; pairs and parts are scratch of sizes[2] and
+// sizes[3] floats. solver: 0 Euler, 1 Midpoint, 2 RK4 (3/8 rule). cluster:
+// blocks per batch row of the walk, as for psn_fused_cw_rollout_f32.
+// Launches the walk, the dense partials' sum and the contraction on
+// `stream` without synchronising and returns cudaGetLastError() (0 on
+// success).
 extern "C" int psn_fused_cw_rollout_bwd_f32(
     const void* fz, const void* dt, const void* sv, const void* sol, const void* cot,
     const void* const* w, const void* const* wt, void* g_fz, void* g_sv, void* partial,
-    void* g_w, void* g_x0, void* scratch, int tm1, int batch, int h, int xd, int zd, int solver,
-    void* stream) {
-  if (tm1 < 1 || batch < 1 || h < 1 || h > kMaxH || xd < 1 || zd < 0 || solver < 0 || solver > 2)
+    void* g_w, void* g_x0, void* pairs, void* parts, int tm1, int batch, int h, int xd, int zd,
+    int solver, int cluster, void* stream) {
+  if (tm1 < 1 || batch < 1 || h < 1 || h > kMaxH || xd < 1 || zd < 0 || solver < 0 ||
+      solver > 2 || (cluster != 0 && cluster != 1 && cluster != 2 && cluster != 4))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.fz = static_cast<const float*>(fz);
@@ -498,11 +607,9 @@ extern "C" int psn_fused_cw_rollout_bwd_f32(
   a.g_fz = static_cast<float*>(g_fz);
   a.g_sv = static_cast<float*>(g_sv);
   a.partial = static_cast<float*>(partial);
-  a.g_w = static_cast<float*>(g_w);
-  a.g_x0 = static_cast<float*>(g_x0);
-  a.scratch = static_cast<float*>(scratch);
+  a.pairs = static_cast<float*>(pairs);
   a.off = grad_offsets(h, xd, zd);
-  a.scratch_n = scratch_floats(h, xd);
+  a.g_x0 = static_cast<float*>(g_x0);
   a.tm1 = tm1;
   a.batch = batch;
   a.h = h;
@@ -510,17 +617,61 @@ extern "C" int psn_fused_cw_rollout_bwd_f32(
   a.zd = zd;
   a.solver = solver;
   const size_t smem = smem_floats(h, xd, zd) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(fused_cw_rollout_bwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (cluster == 0)
+    cluster = pick_cluster(fused_cw_rollout_bwd_kernel<4>, fused_cw_rollout_bwd_kernel<2>, batch, smem);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  fused_cw_rollout_bwd_kernel<<<batch, kThreads, smem, st>>>(a);
+  cudaError_t e =
+      cluster == 4   ? launch_clusters(fused_cw_rollout_bwd_kernel<4>, batch, 4, smem, st, a)
+      : cluster == 2 ? launch_clusters(fused_cw_rollout_bwd_kernel<2>, batch, 2, smem, st, a)
+                     : launch_clusters(fused_cw_rollout_bwd_kernel<1>, batch, 1, smem, st, a);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  float* gw = static_cast<float*>(g_w);
+  const int grid = static_cast<int>((a.off.ew0 + 255) / 256);
+  reduce_partials<<<grid, 256, 0, st>>>(a.partial, batch, a.off.ew0, gw);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int grid = static_cast<int>((a.off.total + 255) / 256);
-  reduce_partials<<<grid, 256, 0, st>>>(a.partial, batch, a.off.total, a.g_w);
-  return static_cast<int>(cudaGetLastError());
+  const PairDest dest{{a.off.hw1, a.off.hw0, a.off.ew1, a.off.ew0},
+                      {a.off.hb1, a.off.hb0, a.off.eb1, a.off.eb0}};
+  const long long rows = static_cast<long long>(tm1) * n_stages(solver) * batch;
+  return static_cast<int>(launch_contraction(a.pairs, rows, xd, h, dest,
+                                             static_cast<float*>(parts), gw, st));
+}
+
+// The contraction alone, for its tests and timing: pairs [rows, kPairs, 2,
+// xd, h] into dW [kPairs, xd, h, h] followed by db [kPairs, xd, h] in out;
+// parts as sizes[3] of psn_fused_cw_bwd_sizes for these rows (tm1 = rows,
+// batch = 1, Euler). Launches on `stream`; returns cudaGetLastError().
+extern "C" int psn_cw_contract_pairs_f32(const void* pairs, long long rows, int h, int xd,
+                                         void* parts, void* out, void* stream) {
+  if (rows < 1 || h < 1 || h > kMaxH || xd < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long hh = static_cast<long long>(h) * h;
+  PairDest dest{};
+  for (int q = 0; q < kPairs; ++q) {
+    dest.wo[q] = q * xd * hh;
+    dest.bo[q] = kPairs * xd * hh + static_cast<long long>(q) * xd * h;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(launch_contraction(static_cast<const float*>(pairs), rows, xd, h, dest,
+                                             static_cast<float*>(parts), static_cast<float*>(out),
+                                             st));
+}
+
+#ifdef CW_PHASE_CLOCK
+// The phase clock's kPhaseMarks marks of the last launch (csrc/cw_tile.cuh),
+// copied to out after the device is synchronised; returns the error.
+extern "C" int psn_cw_phase_clock(long long* out) {
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out, g_phase, sizeof(long long) * kPhaseMarks);
+  return static_cast<int>(e);
+}
+#endif
+
+// The blocks per batch row psn_fused_cw_rollout_bwd_f32 takes for cluster = 0
+// at these shapes on the current device.
+extern "C" int psn_fused_cw_bwd_cluster(int batch, int h, int xd, int zd) {
+  return pick_cluster(fused_cw_rollout_bwd_kernel<4>, fused_cw_rollout_bwd_kernel<2>, batch,
+                      smem_floats(h, xd, zd) * sizeof(float));
 }
 
 extern "C" const char* psn_cuda_error_string(int code) {

@@ -29,8 +29,9 @@ over: in CUDA, building ``V`` is indexing.
 
 :func:`fused_cw_rollout` runs the hand-written kernel
 ``csrc/fused_cw_rollout.cu`` on CUDA tensors (one launch for the whole
-rollout) and :func:`fused_cw_rollout_plain`, the same function as an eager
-PyTorch loop, on CPU tensors. There is no fallback from the kernel to the
+rollout, a cluster of blocks per batch row, the h x h x h products on the
+tensor cores in 3xTF32) and :func:`fused_cw_rollout_plain`, the same
+function as an eager PyTorch loop, on CPU tensors. There is no fallback from the kernel to the
 plain version. The kernel takes ``h <= MAX_HIDDEN`` and the model's
 vertical net of three tail layers.
 
@@ -103,22 +104,37 @@ def unflatten_weights(flat) -> Dict:
                 ext=tuple(flat[n:n + 4]), head=tuple(flat[n + 4:n + 8]))
 
 
-def _chan2(tile, w0, b0, w1, b1):
-    """Per-channel two-layer net on ``tile [B, n, h]`` (stacks ``[n, h, h]``)."""
-    e = elu(torch.einsum("bci,cio->bco", tile, w0) + b0)
-    return torch.einsum("bci,cio->bco", e, w1) + b1
+def _chan2(tile, w0, b0, w1, b1, record=None):
+    """Per-channel two-layer net on ``tile [B, n, h]`` (stacks ``[n, h, h]``).
+    With ``record`` a list, appends each layer's (input, pre-activation
+    output), the second layer first."""
+    p = torch.einsum("bci,cio->bco", tile, w0) + b0
+    e = elu(p)
+    out = torch.einsum("bci,cio->bco", e, w1) + b1
+    if record is not None:
+        record += [(e, out), (tile, p)]
+    return out
 
 
-def cw_eval(xs, fz_t, s_constV, weights: Dict):
+def cw_eval(xs, fz_t, s_constV, weights: Dict, record=None):
     """One evaluation of the dynamics, ``xs [B, xd, h] -> [B, xd, h]``, as
-    the kernel computes it (ELU as ``exp(min(x, 0)) - 1`` below 0)."""
-    ft = torch.cat([_chan2(xs, *weights["ext"]), fz_t], dim=1)  # [B, C, h]
+    the kernel computes it (ELU as ``exp(min(x, 0)) - 1`` below 0).
+
+    With ``record`` a list, appends the evaluation's four per-channel layers
+    as (input, pre-activation output) in the backward kernel's pair order:
+    head W1, head W0, ext W1, ext W0 (the rank-one gradient of layer ``W``
+    is input^T times the output's cotangent)."""
+    ext, head = ([], []) if record is not None else (None, None)
+    ft = torch.cat([_chan2(xs, *weights["ext"], record=ext), fz_t], dim=1)  # [B, C, h]
     H = elu(ft.transpose(1, 2) @ weights["a"] + s_constV)  # [B, h, h]
     (W1, b1), (W2, b2), (W3, b3) = weights["vert"]
     H = elu(H @ W1 + b1)
     H = elu(H @ W2 + b2)
     O = H @ W3 + b3  # [B, h, xd]
-    return _chan2(O.transpose(1, 2), *weights["head"])
+    y = _chan2(O.transpose(1, 2), *weights["head"], record=head)
+    if record is not None:
+        record.append(head + ext)
+    return y
 
 
 def fused_cw_rollout_plain(streams: Dict, weights: Dict, x0, dt, solver: str = "euler"):
@@ -174,10 +190,10 @@ def check_inputs(streams: Dict, weights: Dict, x0, dt):
             raise ValueError(f"{name} must be contiguous")
 
 
-@functools.lru_cache(maxsize=None)
-def _launcher():
-    """The C launcher of ``csrc/fused_cw_rollout.cu`` with its signature."""
-    lib = cuda_build.load("fused_cw_rollout")
+def bind_rollout(lib: ctypes.CDLL):
+    """``(launcher, error string)``: the C functions of a build of
+    ``csrc/fused_cw_rollout.cu`` (for the card or, in
+    ``utils/host_build.py``, the host) with their signatures."""
     fn = lib.psn_fused_cw_rollout_f32
     P, I = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [
@@ -185,7 +201,7 @@ def _launcher():
         ctypes.POINTER(ctypes.c_void_p),  # the 15 weights, flatten_weights order
         P,  # sol
         I, I, I, I, I,  # Tm1, B, h, xd, zd
-        I,  # solver
+        I, I,  # solver, cluster (blocks per row; 0: the launcher picks)
         P,  # stream
     ]
     fn.restype = ctypes.c_int
@@ -195,25 +211,55 @@ def _launcher():
     return fn, err
 
 
-def fused_cw_rollout_cuda(streams: Dict, weights: Dict, x0, dt, solver: str = "euler"):
-    """Launch the CUDA kernel once for the whole rollout, one block per
-    batch row; returns the rows ``[T-1, B, xd, h]``."""
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    """The C launcher of ``csrc/fused_cw_rollout.cu`` with its signature."""
+    return bind_rollout(cuda_build.load("fused_cw_rollout"))
+
+
+def chosen_cluster(B: int, h: int, xd: int, zd: int, backward: bool = False) -> int:
+    """Blocks per batch row (1, 2 or 4) that the CUDA forward (or, with
+    ``backward``, the reverse walk) takes at these shapes on the current
+    card: 4 when the card runs B clusters of 4 at once, else 2 when it runs
+    B clusters of 2, else 1."""
+    name, fn = (("fused_cw_rollout_bwd", "psn_fused_cw_bwd_cluster") if backward
+                else ("fused_cw_rollout", "psn_fused_cw_cluster"))
+    f = getattr(cuda_build.load(name), fn)
+    f.argtypes = [ctypes.c_int] * 4
+    f.restype = ctypes.c_int
+    return f(B, h, xd, zd)
+
+
+def _launch(streams: Dict, weights: Dict, x0, dt, solver: str, cluster: int, launcher=None):
+    """Launch the forward through ``launcher`` (``(fn, err)`` of
+    :func:`bind_rollout`; the default build when None) with ``cluster``
+    blocks per row (0: the launcher's choice); returns the rows. Counts
+    nothing: :func:`fused_cw_rollout_cuda` is the entry, and a fixed
+    cluster is for timing one choice against another."""
     solver = normalize_solver(solver)
     check_inputs(streams, weights, x0, dt)
     fz, sV = streams["fz"], streams["s_constV"]
     Tm1, B, zd, h = fz.shape
     xd = x0.shape[1]
-    fn, err = _launcher()
+    fn, err = launcher or _launcher()
     sol = torch.empty(Tm1, B, xd, h, dtype=torch.float32, device=sV.device)
     with torch.cuda.device(sV.device):
         stream = torch.cuda.current_stream(sV.device).cuda_stream
         rc = fn(fz.data_ptr(), dt.data_ptr(), sV.data_ptr(), x0.data_ptr(),
                 pointer_array(flatten_weights(weights)), sol.data_ptr(),
-                Tm1, B, h, xd, zd, _SOLVER_CODE[solver], stream)
+                Tm1, B, h, xd, zd, _SOLVER_CODE[solver], cluster, stream)
     if rc != 0:
         raise RuntimeError(
             f"fused_cw_rollout kernel launch failed: CUDA error {rc} ({err(rc).decode()})"
         )
+    return sol
+
+
+def fused_cw_rollout_cuda(streams: Dict, weights: Dict, x0, dt, solver: str = "euler"):
+    """Launch the CUDA kernel once for the whole rollout, a cluster of
+    blocks per batch row (1, 2 or 4, chosen by the launcher from B and the
+    card); returns the rows ``[T-1, B, xd, h]``."""
+    sol = _launch(streams, weights, x0, dt, solver, 0)
     fused_cw_rollout.launches += 1
     return sol
 

@@ -18,6 +18,13 @@ accumulates:
 ``dt`` gets a zero gradient; :class:`FusedCwRollout` adds ``g_sol[0]`` to
 ``g_x0`` (the solution's first row is ``x0``), as ``_vjp_bwd`` does.
 
+The per-channel nets' weight and bias gradients are sums of rank-one terms
+``u^T v`` (a layer's input and its output's cotangent, per channel). The
+CUDA walk writes each stage's four (u, v) pairs out (:func:`channel_pairs_plain`
+computes the same pairs) and a second kernel contracts them over all
+(T-1)·S·B rows after the walk (:func:`contract_channel_pairs_plain` is its
+plain version).
+
 :func:`fused_cw_rollout_bwd` runs the hand-written CUDA kernel
 ``csrc/fused_cw_rollout_bwd.cu`` on CUDA tensors and
 :func:`fused_cw_rollout_bwd_plain` on CPU tensors. The plain walk
@@ -35,6 +42,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from py_psnode_tpu_torch.ops.fused_channelwise import (
+    MAX_HIDDEN,
     check_inputs,
     cw_eval,
     flatten_weights,
@@ -83,6 +91,51 @@ def fused_cw_rollout_bwd_plain(streams: Dict, weights: Dict, dt, sol, cot, solve
     return dict(fz=g_fz, s_constV=g_sV), unflatten_weights(g_w), gx
 
 
+def channel_pairs_plain(streams: Dict, weights: Dict, dt, sol, cot, solver: str = "euler"):
+    """The per-channel layers' (u, v) pairs of the reverse walk, as the CUDA
+    walk writes them: ``[T-1, S, B, 4, 2, xd, h]``, the stages in the order
+    their VJPs are taken (the reverse of their evaluation), the four layers
+    in the order head W1, head W0, ext W1, ext W0, ``u`` the layer's input
+    and ``v`` the cotangent of its pre-activation output. Same arguments as
+    :func:`fused_cw_rollout_bwd_plain`; recomputes each step and takes its
+    VJP with autograd."""
+    solver = normalize_solver(solver)
+    fz, sV = streams["fz"], streams["s_constV"]
+    w = unflatten_weights([a.detach() for a in flatten_weights(weights)])
+    dt_all = dt.to(sV.dtype)[..., None]  # [T-1, B, 1, 1]
+    gx = torch.zeros_like(sol[0])
+    steps = []
+    for t in reversed(range(fz.shape[0])):
+        rec = []  # per evaluation, its four (u, pre-activation output) pairs
+        with torch.enable_grad():
+            x0 = sol[t].detach().requires_grad_()
+            x1 = _step_fwd(lambda xx: cw_eval(xx, fz[t], sV, w, rec), x0, dt_all[t], solver)
+            outs = [o for ev in rec for _, o in ev]
+            grads = torch.autograd.grad(x1, [x0, *outs], cot[t + 1] + gx)
+        gx, v = grads[0], iter(grads[1:])
+        stages = [torch.stack([torch.stack([u.detach(), next(v)]) for u, _ in ev]) for ev in rec]
+        # [S, 4, 2, B, xd, h] in evaluation order -> [S, B, 4, 2, xd, h] in VJP order
+        steps.append(torch.stack(stages[::-1]).permute(0, 3, 1, 2, 4, 5))
+    return torch.stack(steps[::-1])
+
+
+def contract_channel_pairs_plain(pairs):
+    """``(dW [4, xd, h, h], db [4, xd, h])``: the sums over every row of
+    ``pairs [..., 4, 2, xd, h]`` of ``u^T v`` and ``v`` per layer and
+    channel, in the pairs' dtype and device, as an eager loop of outer
+    products 256 rows at a time: the plain version of the CUDA
+    contraction."""
+    *_, P, _, xd, h = pairs.shape
+    rows = pairs.reshape(-1, P, 2, xd, h)
+    dW = rows.new_zeros(P, xd, h, h)
+    db = rows.new_zeros(P, xd, h)
+    for r0 in range(0, rows.shape[0], 256):
+        u, v = rows[r0:r0 + 256, :, 0], rows[r0:r0 + 256, :, 1]
+        dW += (u[..., :, None] * v[..., None, :]).sum(0)
+        db += v.sum(0)
+    return dW, db
+
+
 def transposed_weights(weights: Dict) -> List[torch.Tensor]:
     """``[W1^T, W2^T, ext w0^T, ext w1^T, head w0^T, head w1^T]`` (the
     per-channel stacks transposed per channel): the backward kernel's
@@ -104,37 +157,58 @@ def grad_layout(weights: Dict) -> Tuple[List[Tuple[int, Tuple[int, ...]]], int]:
     return out, off
 
 
-@functools.lru_cache(maxsize=None)
-def _launcher():
-    """The C launcher of ``csrc/fused_cw_rollout_bwd.cu`` with its
-    signature."""
-    lib = cuda_build.load("fused_cw_rollout_bwd")
+def bind_rollout_bwd(lib: ctypes.CDLL):
+    """``(walk, sizes, contraction, error string)``: the C functions of a
+    build of ``csrc/fused_cw_rollout_bwd.cu`` (for the card or, in
+    ``utils/host_build.py``, the host) with their signatures."""
     fn = lib.psn_fused_cw_rollout_bwd_f32
-    P, I = ctypes.c_void_p, ctypes.c_int
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     PP = ctypes.POINTER(ctypes.c_void_p)
     fn.argtypes = [
         P, P, P, P, P,  # fz, dt, s_constV, sol, cot
         PP, PP,  # the 15 weights (flatten_weights order), the 6 transposes
-        P, P, P, P, P, P,  # g_fz, g_s_constV, partial, g_w, g_x0, scratch
+        P, P, P, P, P,  # g_fz, g_s_constV, partial, g_w, g_x0
+        P, P,  # pairs, parts (scratch)
         I, I, I, I, I,  # Tm1, B, h, xd, zd
-        I,  # solver
+        I, I,  # solver, cluster (blocks per row; 0: the launcher picks)
         P,  # stream
     ]
     fn.restype = ctypes.c_int
     sizes = lib.psn_fused_cw_bwd_sizes
-    sizes.argtypes = [I, I, I, ctypes.POINTER(ctypes.c_longlong)]
+    sizes.argtypes = [I, I, I, I, I, I, ctypes.POINTER(L)]
     sizes.restype = None
+    contract = lib.psn_cw_contract_pairs_f32
+    contract.argtypes = [P, L, I, I, P, P, P]  # pairs, rows, h, xd, parts, out, stream
+    contract.restype = ctypes.c_int
     err = lib.psn_cuda_error_string
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
-    return fn, sizes, err
+    return fn, sizes, contract, err
 
 
-def fused_cw_rollout_bwd_cuda(streams: Dict, weights: Dict, dt, sol, cot, solver: str = "euler"):
-    """Launch the CUDA backward (one launch walks all steps, one block per
-    batch row; a second small kernel sums the blocks' partial weight grads
-    in a fixed order). Same contract as :func:`fused_cw_rollout_bwd_plain`,
-    float32."""
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    """The C launchers of ``csrc/fused_cw_rollout_bwd.cu`` with their
+    signatures (:func:`bind_rollout_bwd`)."""
+    return bind_rollout_bwd(cuda_build.load("fused_cw_rollout_bwd"))
+
+
+def bwd_sizes(sizes, Tm1, B, h, xd, zd, solver) -> Tuple[int, int, int, int]:
+    """``(g_w floats, dense partial row floats, pairs floats, parts
+    floats)`` of the backward at these shapes, from the C function
+    ``sizes`` of :func:`bind_rollout_bwd`."""
+    got = (ctypes.c_longlong * 4)()
+    sizes(Tm1, B, h, xd, zd, _SOLVER_CODE[solver], got)
+    return tuple(got)
+
+
+def _launch_bwd(streams: Dict, weights: Dict, dt, sol, cot, solver: str, cluster: int,
+                launcher=None):
+    """Launch the backward through ``launcher`` (of :func:`bind_rollout_bwd`;
+    the default build when None) with ``cluster`` blocks per row (0: the
+    launcher's choice). Counts nothing: :func:`fused_cw_rollout_bwd_cuda`
+    is the entry, and a fixed cluster is for timing one choice against
+    another."""
     solver = normalize_solver(solver)
     check_inputs(streams, weights, sol[0], dt)
     fz, sV = streams["fz"], streams["s_constV"]
@@ -147,34 +221,75 @@ def fused_cw_rollout_bwd_cuda(streams: Dict, weights: Dict, dt, sol, cot, solver
             raise ValueError(f"{name} must have shape {(Tm1 + 1, B, xd, h)}, got {tuple(a.shape)}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    fn, sizes, err = _launcher()
+    fn, sizes, _, err = launcher or _launcher()
     layout, total = grad_layout(weights)
-    got = (ctypes.c_longlong * 2)()
-    sizes(h, xd, zd, got)
-    if got[0] != total:
+    n_w, n_dense, n_pairs, n_parts = bwd_sizes(sizes, Tm1, B, h, xd, zd, solver)
+    if n_w != total:
         raise RuntimeError("gradient layout of the CUDA backward and of its wrapper disagree")
     f32 = dict(dtype=torch.float32, device=sV.device)
     g_fz = torch.empty(Tm1, B, zd, h, **f32)
     g_sV = torch.empty(B, h, h, **f32)
-    partial = torch.zeros(B, total, **f32)  # one row per block
+    partial = torch.zeros(B, n_dense, **f32)  # one row per block
     g_flat = torch.empty(total, **f32)
     g_x0 = torch.empty(B, xd, h, **f32)
-    scratch = torch.empty(B, got[1], **f32)
+    pairs = torch.empty(n_pairs, **f32)
+    parts = torch.empty(n_parts, **f32)
     wts = transposed_weights(weights)  # must outlive the launch
     with torch.cuda.device(sV.device):
         stream = torch.cuda.current_stream(sV.device).cuda_stream
         rc = fn(fz.data_ptr(), dt.data_ptr(), sV.data_ptr(), sol.data_ptr(), cot.data_ptr(),
                 pointer_array(flatten_weights(weights)), pointer_array(wts),
                 g_fz.data_ptr(), g_sV.data_ptr(), partial.data_ptr(), g_flat.data_ptr(),
-                g_x0.data_ptr(), scratch.data_ptr(), Tm1, B, h, xd, zd, _SOLVER_CODE[solver],
-                stream)
+                g_x0.data_ptr(), pairs.data_ptr(), parts.data_ptr(), Tm1, B, h, xd, zd,
+                _SOLVER_CODE[solver], cluster, stream)
     if rc != 0:
         raise RuntimeError(
             f"fused_cw_rollout_bwd kernel launch failed: CUDA error {rc} ({err(rc).decode()})"
         )
-    fused_cw_rollout_bwd.launches += 1
     g_list = [g_flat[off:off + math.prod(shape)].view(shape) for off, shape in layout]
     return dict(fz=g_fz, s_constV=g_sV), unflatten_weights(g_list), g_x0
+
+
+def fused_cw_rollout_bwd_cuda(streams: Dict, weights: Dict, dt, sol, cot, solver: str = "euler"):
+    """Launch the CUDA backward: the reverse walk (one launch walks all
+    steps, a cluster of blocks per batch row chosen as for
+    :func:`fused_cw_rollout_cuda`), the fixed-order sum of the rows' dense
+    partial gradients, and the contraction of the per-channel pairs. Same
+    contract as :func:`fused_cw_rollout_bwd_plain`, float32. Scratch: the
+    pairs buffer of ``(T-1) S B 8 xd h`` floats (2.1 GB at B=64, RK4, xd=2,
+    h=128) lives until the launch ends."""
+    out = _launch_bwd(streams, weights, dt, sol, cot, solver, 0)
+    fused_cw_rollout_bwd.launches += 1
+    return out
+
+
+def contract_channel_pairs_cuda(pairs):
+    """Launch the CUDA contraction alone on ``pairs [..., 4, 2, xd, h]``
+    (float32, contiguous, on the card); returns ``(dW, db)`` as
+    :func:`contract_channel_pairs_plain` does. The backward launches the
+    same kernels on its own pairs buffer."""
+    if pairs.device.type != "cuda" or pairs.dtype != torch.float32 or not pairs.is_contiguous():
+        raise ValueError(f"pairs must be contiguous float32 on a CUDA device, got {pairs.dtype} on "
+                         f"{pairs.device}")
+    *_, P, two, xd, h = pairs.shape
+    if (P, two) != (4, 2) or h > MAX_HIDDEN:
+        raise ValueError(f"pairs must be [..., 4, 2, xd, h <= {MAX_HIDDEN}], got {tuple(pairs.shape)}")
+    rows = pairs.numel() // (8 * xd * h)
+    _, sizes, contract, err = _launcher()
+    n_parts = bwd_sizes(sizes, rows, 1, h, xd, 1, "euler")[3]
+    parts = torch.empty(n_parts, dtype=torch.float32, device=pairs.device)
+    out = torch.empty(4 * xd * h * (h + 1), dtype=torch.float32, device=pairs.device)
+    with torch.cuda.device(pairs.device):
+        stream = torch.cuda.current_stream(pairs.device).cuda_stream
+        rc = contract(pairs.data_ptr(), rows, h, xd, parts.data_ptr(), out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"cw pair contraction launch failed: CUDA error {rc} ({err(rc).decode()})")
+    contract_channel_pairs_cuda.launches += 1
+    n = 4 * xd * h * h
+    return out[:n].view(4, xd, h, h), out[n:].view(4, xd, h)
+
+
+contract_channel_pairs_cuda.launches = 0
 
 
 def fused_cw_rollout_bwd(streams: Dict, weights: Dict, dt, sol, cot, solver: str = "euler"):

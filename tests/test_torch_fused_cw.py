@@ -16,6 +16,10 @@ on the CPU.
 * The plain reverse walk, in float32 and in float64, against
   ``torch.autograd.grad`` through the plain forward loop: rtol 1e-4 / atol
   1e-5 in float32 (another summation order), 1e-10 in float64.
+* The per-channel nets' (u, v) pairs of the reverse walk, contracted by the
+  plain version of the CUDA backward's contraction, against the weight and
+  bias grads of the plain reverse walk: rtol 1e-5 / atol 1e-6 in float32
+  (the same terms, summed in another order).
 
 The CUDA kernels themselves run only on a card: ``tests/test_torch_kernel.py``.
 """
@@ -46,6 +50,9 @@ from test_torch_kernel import cw_inputs
 SOLVERS = ["euler", "midpoint", "rk4"]
 FWD_TOL = dict(rtol=1e-5, atol=1e-6)
 GRAD_TOL = dict(rtol=2e-3, atol=2e-4)
+# The (u, v) pairs' layers in the backward kernel's order: (net, index of
+# the layer's kernel in its stack); the bias follows its kernel.
+PAIR_LAYERS = (("head", 2), ("head", 0), ("ext", 2), ("ext", 0))
 
 
 def rollout_inputs(B=3, Tm1=8, h=16, xd=2, zd=2, seed=0, dtype=torch.float32):
@@ -184,6 +191,22 @@ def test_plain_walk_matches_autograd(solver, dtype, tol):
     for g, r in zip(got, ref):
         assert g.dtype == dtype
         torch.testing.assert_close(g, r, **tol)
+
+
+@pytest.mark.parametrize("xd,zd", [(2, 2), (3, 1)])
+@pytest.mark.parametrize("solver", SOLVERS)
+def test_pair_contraction_gives_the_per_channel_grads(solver, xd, zd):
+    streams, weights, x0, dt = rollout_inputs(B=3, Tm1=6, h=16, xd=xd, zd=zd, seed=11)
+    sol = torch.cat([x0[None], FC.fused_cw_rollout_plain(streams, weights, x0, dt, solver)])
+    cot = torch.tensor(np.random.default_rng(12).standard_normal(sol.shape).astype(np.float32))
+    _, g_w, _ = VC.fused_cw_rollout_bwd_plain(streams, weights, dt, sol, cot, solver)
+    pairs = VC.channel_pairs_plain(streams, weights, dt, sol, cot, solver)
+    S = {"euler": 1, "midpoint": 2, "rk4": 4}[solver]
+    assert tuple(pairs.shape) == (6, S, 3, 4, 2, xd, 16)
+    dW, db = VC.contract_channel_pairs_plain(pairs)
+    for q, (net, k) in enumerate(PAIR_LAYERS):
+        torch.testing.assert_close(dW[q], g_w[net][k], rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(db[q], g_w[net][k + 1], rtol=1e-5, atol=1e-6)
 
 
 def test_autograd_function_matches_plain_walk_and_counts_no_launch():

@@ -26,6 +26,7 @@ from py_psnode_tpu_torch.ops import fused_dae as F
 from py_psnode_tpu_torch.ops import fused_dae_vjp as V
 from py_psnode_tpu_torch.ops import fused_ode as FO
 from py_psnode_tpu_torch.ops import fused_ode_vjp as VO
+from py_psnode_tpu_torch.utils.cw_inputs import seeded_inputs
 
 
 def rollout_inputs(B, Tm1, h, xd=3, idim=2, seed=0, dev="cpu"):
@@ -209,20 +210,12 @@ def test_ode_kernels_refuse_bad_inputs_on_card():
 
 
 def cw_inputs(B, Tm1, h, xd, zd, seed=0, dev="cpu"):
-    """Seeded channel-wise rollout inputs in the port's layout: lecun-scaled
-    weights, per-row step sizes."""
-    rng = np.random.default_rng(seed)
-    t = lambda *s, sc=1.0: torch.tensor((rng.standard_normal(s) * sc).astype(np.float32), device=dev)
-    C = xd + zd
-    stack = lambda: (t(xd, h, h, sc=h ** -0.5), t(xd, h, sc=0.1), t(xd, h, h, sc=h ** -0.5), t(xd, h, sc=0.1))
-    weights = dict(a=t(C, h, sc=C ** -0.5),
-                   vert=[(t(h, h, sc=h ** -0.5), t(h, sc=0.1)), (t(h, h, sc=h ** -0.5), t(h, sc=0.1)),
-                         (t(h, xd, sc=h ** -0.5), t(xd, sc=0.1))],
-                   ext=stack(), head=stack())
-    streams = dict(fz=t(Tm1, B, zd, h, sc=0.5), s_constV=t(B, h, h, sc=0.5))
-    dt = torch.full((Tm1, B, 1), 0.05, device=dev)
-    dt[:, 1] = 0.02
-    return streams, weights, t(B, xd, h), dt
+    """Seeded channel-wise rollout inputs in the port's layout
+    (``utils.cw_inputs.seeded_inputs``: lecun-scaled weights, per-row step
+    sizes) on ``dev``."""
+    streams, weights, x0, dt = seeded_inputs(B, Tm1, h, xd, zd, seed)
+    weights = FC.unflatten_weights([a.to(dev) for a in FC.flatten_weights(weights)])
+    return {k: v.to(dev) for k, v in streams.items()}, weights, x0.to(dev), dt.to(dev)
 
 
 # (xd, zd): the AVR ODE's channels and the motor DAE's
@@ -270,6 +263,98 @@ def test_cw_bwd_kernel_matches_plain_on_card(solver, xd, zd):
         assert torch.equal(g, g2), k
         assert (g.double() - r).abs().max() <= 1e-4 * scale, k
     assert VC.fused_cw_rollout_bwd.launches == before + 2
+
+
+def cw_bwd_against_float64(streams, weights, x0, dt, solver, seed=1):
+    """Kernel 6 twice and the float64 plain walk on the same inputs (the
+    solution from the plain forward, unit-scale cotangents): returns the
+    kernel's outputs, the relaunch's and the walk's, as flat lists."""
+    sol = torch.cat([x0[None], FC.fused_cw_rollout_plain(streams, weights, x0, dt, solver)])
+    rng = np.random.default_rng(seed)
+    cot = torch.tensor(rng.standard_normal(tuple(sol.shape)).astype(np.float32), device=sol.device)
+    r_s, r_w, r_x0 = VC.fused_cw_rollout_bwd_plain(
+        {k: v.double() for k, v in streams.items()},
+        FC.unflatten_weights([a.double() for a in FC.flatten_weights(weights)]),
+        dt, sol.double(), cot.double(), solver)
+    flat = lambda g_s, g_w, g_x0: [g_s["fz"], g_s["s_constV"], g_x0] + FC.flatten_weights(g_w)
+    got = flat(*VC.fused_cw_rollout_bwd_cuda(streams, weights, dt, sol, cot, solver))
+    again = flat(*VC.fused_cw_rollout_bwd_cuda(streams, weights, dt, sol, cot, solver))
+    torch.cuda.synchronize()
+    return got, again, flat(r_s, r_w, r_x0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [40, 128])
+@pytest.mark.parametrize("batch", [1, 5, 33, 64, 67])  # one to more than 132 / 2 blocks
+def test_cw_kernels_match_plain_across_batches_on_card(batch, h):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    args = cw_inputs(batch, 8, h, 3, 1, seed=batch, dev="cuda")
+    ref = FC.fused_cw_rollout_plain(*args, "rk4")
+    got = FC.fused_cw_rollout_cuda(*args, "rk4")
+    torch.cuda.synchronize()
+    assert torch.all((got - ref).abs() <= 1e-4 * ref.abs().clamp(min=1.0))
+    got, again, ref = cw_bwd_against_float64(*args, "rk4")
+    for k, (g, g2, r) in enumerate(zip(got, again, ref)):
+        scale = r.abs().max().item()
+        assert scale > 0, k
+        assert torch.equal(g, g2), k
+        assert (g.double() - r).abs().max() <= 1e-4 * scale, k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+def test_cw_kernels_match_plain_at_each_cluster_size_on_card(cluster):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    args = cw_inputs(5, 8, 128, 2, 2, seed=cluster, dev="cuda")
+    ref = FC.fused_cw_rollout_plain(*args, "midpoint")
+    got = FC._launch(*args, "midpoint", cluster)
+    torch.cuda.synchronize()
+    assert torch.all((got - ref).abs() <= 1e-4 * ref.abs().clamp(min=1.0))
+    streams, weights, x0, dt = args
+    sol = torch.cat([x0[None], ref])
+    cot = torch.tensor(np.random.default_rng(cluster).standard_normal(tuple(sol.shape)).astype(np.float32),
+                       device="cuda")
+    flat = lambda g_s, g_w, g_x0: [g_s["fz"], g_s["s_constV"], g_x0] + FC.flatten_weights(g_w)
+    got = flat(*VC._launch_bwd(streams, weights, dt, sol, cot, "midpoint", cluster))
+    one = flat(*VC._launch_bwd(streams, weights, dt, sol, cot, "midpoint", 1))
+    ref = flat(*VC.fused_cw_rollout_bwd_plain(
+        {k: v.double() for k, v in streams.items()},
+        FC.unflatten_weights([a.double() for a in FC.flatten_weights(weights)]),
+        dt, sol.double(), cot.double(), "midpoint"))
+    torch.cuda.synchronize()
+    for k, (g, g1, r) in enumerate(zip(got, one, ref)):
+        assert (g.double() - r).abs().max() <= 1e-4 * r.abs().max(), k
+        # a cluster splits each output's work, not its sum: the same bits
+        assert torch.equal(g, g1), k
+
+
+@pytest.mark.gpu
+def test_cw_bwd_kernel_is_bit_identical_on_relaunch_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    got, again, _ = cw_bwd_against_float64(*cw_inputs(64, 32, 128, 2, 2, seed=3, dev="cuda"), "rk4")
+    for k, (g, g2) in enumerate(zip(got, again)):
+        assert torch.equal(g, g2), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,xd,h", [(1, 2, 128), (1000, 3, 40), (5000, 2, 128)])
+def test_cw_pair_contraction_matches_plain_on_card(rows, xd, h):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    rng = np.random.default_rng(rows)
+    pairs = torch.tensor(rng.standard_normal((rows, 4, 2, xd, h)).astype(np.float32), device="cuda")
+    before = VC.contract_channel_pairs_cuda.launches
+    got = VC.contract_channel_pairs_cuda(pairs)
+    again = VC.contract_channel_pairs_cuda(pairs)
+    torch.cuda.synchronize()
+    assert VC.contract_channel_pairs_cuda.launches == before + 2
+    for g, g2, r in zip(got, again, VC.contract_channel_pairs_plain(pairs.double())):
+        assert g.shape == r.shape
+        assert torch.equal(g, g2)
+        assert (g.double() - r).abs().max() <= 1e-5 * r.abs().max()
 
 
 @pytest.mark.gpu
