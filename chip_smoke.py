@@ -27,9 +27,14 @@ Phases, each printed as it ends; any failure exits non-zero:
      anchors: step 1 and the Euler epoch-1 eval at rtol 1e-3; both
      kernels' launches counted;
   7. times (CUDA events): the forward at B=32, 64 and 1024, the backward at
-     B=64 for each solver, and one whole training step (streams, both
-     kernels, stream backprop, Adam) at bench.py's shape (B=64, T=1001,
-     h=128, RK4) against the plain (non-fused) route;
+     B=64 for each solver beside two bounds (the h x h layers on the
+     tensor cores in three TF32 passes, and all of it in float32 on the
+     CUDA cores), its three kernels (recompute, walk, contraction) timed
+     apart at B=64 RK4 with the contraction beside torch.matmul of the
+     same operands (held against it at 1e-4 of its max), the backward at
+     B=256 RK4, and one whole training step (streams, both kernels, stream
+     backprop, Adam) at bench.py's shape (B=64, T=1001, h=128, RK4)
+     against the plain (non-fused) route, with its peak memory;
   8. ODE forward kernel against plain: seeded random inputs at B=32,
      T=1001, h=128, for the no-encode shape (xd=2, three tail layers) with
      each solver and the direct-encode latent shape (xd=h, one tail layer)
@@ -49,8 +54,10 @@ Phases, each printed as it ends; any failure exits non-zero:
      launches counted; every loss must also lie nearer its own solver's
      anchor than the other's;
  11. ODE times (CUDA events): the forward at B=32 Euler, B=64 RK4 and
-     B=1024 Euler, the backward at B=64 for each solver, and one whole
-     training step (B=64, T=1001, h=128, RK4) against the plain route;
+     B=1024 Euler, the backward as in phase 7 (B=64 each solver, its three
+     kernels apart at RK4 beside torch.matmul, B=256 RK4), and one whole
+     training step (B=64, T=1001, h=128, RK4) against the plain route,
+     with its peak memory;
  12. channel-wise forward kernel against plain, for each solver, at the AVR
      ODE's channels (xd=2, zd=2) and the motor DAE's (xd=3, zd=1): seeded
      random inputs at h=40, B=5, and the numpy starting checkpoint on 64
@@ -118,6 +125,7 @@ from py_psnode_tpu_torch.ops import fused_dae as F  # noqa: E402
 from py_psnode_tpu_torch.ops import fused_dae_vjp as V  # noqa: E402
 from py_psnode_tpu_torch.ops import fused_ode as FO  # noqa: E402
 from py_psnode_tpu_torch.ops import fused_ode_vjp as VO  # noqa: E402
+from py_psnode_tpu_torch.ops.noencode_bwd import STAGES, net_operands  # noqa: E402
 from py_psnode_tpu_torch.ops.fused_model import (  # noqa: E402
     cw_rollout_inputs,
     fused_cw_dae_apply,
@@ -330,14 +338,16 @@ def rollout_work(streams, weights, x0, i0, aux, solver):
 
 
 def bwd_work(streams, weights, x0, i0, aux, solver):
-    """(bytes, FLOP) the reverse walk needs on these inputs. Bytes: each
-    input read once (streams, aux, x0, i0, the packed solution, the
-    cotangents, the weights), each output written once (three stream
-    cotangents, the weight grads, g_x0, g_i0). FLOP (2 per multiply-add):
-    per row-step the recomputed forward of every DE stage and of the AE at
-    t+1, and their backward, two products per layer (the cotangent through
-    the weight and the weight-gradient outer product); per event row-step
-    the AE recompute and its backward."""
+    """(bytes, FLOP, tensor-core FLOP) the reverse walk needs on these
+    inputs. Bytes: each input read once (streams, aux, x0, i0, the packed
+    solution, the cotangents, the weights), each output written once (three
+    stream cotangents, the weight grads, g_x0, g_i0). FLOP (2 per
+    multiply-add): per row-step the recomputed forward of every DE stage
+    and of the AE at t+1, and their backward, two products per layer (the
+    cotangent through the weight and the weight-gradient outer product);
+    per event row-step the AE recompute and its backward. The tensor-core
+    FLOP are those of the h x h layers (forward, cotangent and weight
+    gradient), which kernel 2 runs in 3xTF32."""
     Tm1, B, h = streams["s_de"].shape
     xd, idim = x0.shape[-1], i0.shape[-1]
     w = [weights["wx_de"], weights["wi_de"], weights["gx_ae"]]
@@ -354,7 +364,9 @@ def bwd_work(streams, weights, x0, i0, aux, solver):
     stages = {"euler": 1, "midpoint": 2, "rk4": 4}[solver]
     event_row_steps = int((aux[..., 1] > 0).sum().item())
     flops = Tm1 * B * (stages * (de_fwd + de_bwd) + ae_fwd + ae_bwd) + event_row_steps * (ae_fwd + ae_bwd)
-    return n_bytes, flops
+    hh = lambda net: 3 * sum(2 * h * h for W, _ in weights[net] if tuple(W.shape) == (h, h))
+    tc = Tm1 * B * (stages * hh("de_tail") + hh("ae_tail")) + event_row_steps * hh("ae_tail")
+    return n_bytes, flops, tc
 
 
 def bound(n_bytes, flops, tc_flops=0):
@@ -567,7 +579,8 @@ def phase_train(dev):
 def step_ms(dev, fused, reps):
     """One training step at bench.py's shape on the motor model (B=64 of
     the training set, T=1001, h=128, RK4): streams, rollout, loss,
-    backward and Adam, timed with CUDA events."""
+    backward and Adam, timed with CUDA events; returns (ms, trajectory-steps,
+    peak memory allocated in bytes)."""
     ds = DaeSamples.load(str(TRAIN_DATA), cut_length=1001)
     dims = (ds.x.shape[-1], ds.z.shape[-1], ds.v.shape[-1], ds.i.shape[-1])
     model = DAEModel(*dims, hidden_dim=128, solver="rk4", device="meta")
@@ -584,7 +597,9 @@ def step_ms(dev, fused, reps):
         loss.backward()
         opt.step()
 
-    return cuda_ms(step, 1, reps), 64 * 1000
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    return cuda_ms(step, 1, reps), 64 * 1000, torch.cuda.max_memory_allocated(dev)
 
 
 def phase_times(dev, sweep):
@@ -619,19 +634,92 @@ def phase_times(dev, sweep):
         packed = F.fused_dae_rollout_packed_cuda(*args, solver)
         k_ms = cuda_ms(lambda: V.fused_dae_rollout_bwd_cuda(*args, packed, cot, solver), 1, 5)
         p_ms = cuda_ms(lambda: V.fused_dae_rollout_bwd_plain(*args, packed, cot, solver), 0, 1)
-        n_bytes, flops = bwd_work(*args, solver)
-        bound_ms, bound_by = bound(n_bytes, flops)
-        times[("bwd", solver)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
-        say(f"[times] backward B=64 {solver:8s}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
-            f"bound {bound_ms:.5f} ms ({bound_by}; {n_bytes} B, {flops} FLOP), kernel/bound "
-            f"{k_ms / bound_ms:.1f}x, library n/a: no single PyTorch call computes this VJP")
+        n_bytes, flops, tc = bwd_work(*args, solver)
+        times[("bwd", solver)] = bwd_times_line("[times] backward B=64", solver, k_ms, p_ms, n_bytes, flops, tc)
+    times["split"] = noencode_split(
+        "[times] backward B=64 rk4", lambda st, bufs=None: V._launch_bwd(*args, packed, cot, "rk4", stages=st, bufs=bufs),
+        lambda b: dae_contraction(b, args, "rk4"), lambda g: V.flatten_weights(g)[0])
+    args256 = model_inputs(8, dev)  # the test set eight times: B=256
+    cot256 = torch.tensor(np.random.default_rng(3).standard_normal((1001, 256, 5)).astype(np.float32)
+                          * 0.01, device=dev)
+    packed = F.fused_dae_rollout_packed_cuda(*args256, "rk4")
+    k_ms = cuda_ms(lambda: V.fused_dae_rollout_bwd_cuda(*args256, packed, cot256, "rk4"), 1, 3)
+    n_bytes, flops, tc = bwd_work(*args256, "rk4")
+    bwd_times_line("[times] backward B=256", "rk4", k_ms, None, n_bytes, flops, tc)
+    del args256, cot256, packed
 
     for fused, reps in ((True, 5), (False, 1)):
-        ms, traj_steps = step_ms(dev, fused, reps)
+        ms, traj_steps, peak = step_ms(dev, fused, reps)
         times[("step", fused)] = ms
         say(f"[times] training step B=64 T=1001 h=128 rk4, {'fused' if fused else 'plain'} route: "
-            f"{ms:.3f} ms, {traj_steps / ms * 1e3:.1f} trajectory-steps/s")
+            f"{ms:.3f} ms, {traj_steps / ms * 1e3:.1f} trajectory-steps/s, peak memory allocated "
+            f"{peak / 2**30:.2f} GiB")
     return times
+
+
+def bwd_times_line(what, solver, k_ms, p_ms, n_bytes, flops, tc):
+    """Prints a backward kernel's time beside its two bounds (3xTF32 for
+    the h x h products, and all on the CUDA cores); returns the record."""
+    bound_ms, bound_by = bound(n_bytes, flops, tc)
+    cuda_core_ms = bound(n_bytes, flops)[0]
+    plain = "not timed" if p_ms is None else f"{p_ms:.3f} ms"
+    say(f"{what} {solver:8s}: kernel {k_ms:.4f} ms, plain {plain}, bound {bound_ms:.5f} ms (3xTF32 "
+        f"tensor cores for the {tc} FLOP of the h x h layers, the rest float32; {bound_by}; {n_bytes} B, "
+        f"{flops} FLOP), kernel/bound {k_ms / bound_ms:.1f}x; CUDA-core float32 bound {cuda_core_ms:.5f} ms, "
+        f"kernel/that {k_ms / cuda_core_ms:.1f}x; library n/a: no single PyTorch call computes this VJP")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by, cuda_core_ms=cuda_core_ms)
+
+
+def dae_contraction(bufs, args, solver):
+    """Kernel 2's contraction done plainly on the walk's buffers: the
+    gradients in the order of ``flatten_weights`` (``contract_plain``,
+    float32 matrix products), and the products' operands ``(U, V, bias)``
+    (``net_operands``, the AE at the event on event rows only) for the
+    yardstick."""
+    streams, weights, x0, i0, aux = args
+    Tm1, B, h = streams["s_de"].shape
+    R, S, xd, idim = Tm1 * B, STAGES[solver], x0.shape[-1], i0.shape[-1]
+    n_de, n_ae = len(weights["de_tail"]), len(weights["ae_tail"])
+    L = max(n_de, n_ae)
+    res, gres = bufs["res"].view(S + 2, L, R, h), bufs["gres"].view(S + 2, L, R, h)
+    gy, xin = bufs["gy"].view(S + 2, R, -1), bufs["xin"].view(S + 2, R, -1)
+    ev = aux[..., 1].reshape(R) > 0
+    ref = V.flatten_weights(V.contract_plain(res, gres, gy, xin, ev, (n_de, n_ae), xd, idim))[0]
+    ops = (net_operands(res, gres, gy, xin, range(S), xd + idim, n_de, xd)
+           + net_operands(res, gres, gy, xin, (S, S + 1), xd, n_ae, idim, keep=ev))
+    return ref, ops
+
+
+def noencode_split(what, launch, contraction, flat):
+    """A redesigned backward's three kernels timed alone (``launch(stages,
+    bufs)``: 1 the recompute, 2 the walk, 4 the contraction) on the
+    buffers of one whole run, and the contraction beside ``torch.matmul``
+    of the same operands (``contraction(bufs)``: the plain gradients and
+    the operands, gathered outside the timing; the yardstick
+    ``library_ms``, not called by the port); the contraction's gradients
+    (``flat(g_weights)``) held against the plain ones at 1e-4 of their
+    max."""
+    _, bufs = launch(7)
+    ms = {name: cuda_ms(lambda: launch(bit, bufs), 1, 3) for bit, name in
+          ((1, "recompute"), (2, "walk"), (4, "contraction"))}
+    g_w = launch(4, bufs)[0][1]
+    ref, ops = contraction(bufs)
+    torch.cuda.synchronize()
+    for g, r in zip(flat(g_w), ref):
+        d = (g - r).abs().max().item()
+        if not d <= 1e-4 * r.abs().max().item():
+            fail(f"{what} contraction lies {d} from torch.matmul of its buffers (max {r.abs().max().item()})")
+    l_ms = cuda_ms(lambda: [(u.T @ v, v.sum(0) if b else None) for u, v, b in ops], 1, 3)
+    n_bytes = sum((u.numel() + v.numel()) * 4 + u.shape[1] * v.shape[1] * 4 for u, v, _ in ops)
+    flops = sum(2 * u.shape[0] * u.shape[1] * v.shape[1] + (u.shape[0] * v.shape[1] if b else 0)
+                for u, v, b in ops)
+    tc = sum(2 * u.shape[0] * u.shape[1] * v.shape[1] for u, v, _ in ops if u.shape[1] == v.shape[1] > 8)
+    bound_ms, bound_by = bound(n_bytes, flops, tc)
+    say(f"{what}: recompute {ms['recompute']:.3f} ms, walk {ms['walk']:.3f} ms, contraction "
+        f"{ms['contraction']:.3f} ms (bound {bound_ms:.4f} ms, {bound_by}: {n_bytes} B of operands, 3xTF32 for the "
+        f"{tc} FLOP of its h x h sums; torch.matmul of the same operands {l_ms:.3f} ms, the yardstick, not called "
+        f"by the port)")
+    return dict(ms, library_ms=l_ms, contraction_bound_ms=bound_ms)
 
 # ------------------------------------------------------------------ the ODE
 
@@ -655,8 +743,10 @@ def ode_random_inputs(B, Tm1, h, xd, n_tail, seed, dev, readout=0.1):
 
 
 def ode_work(s_de, weights, x0, solver):
-    """(forward bytes, forward FLOP, backward bytes, backward FLOP) of the
-    ODE rollout on these inputs. Bytes: each input read once and each
+    """(forward bytes, forward FLOP, backward bytes, backward FLOP, backward
+    tensor-core FLOP) of the ODE rollout on these inputs; the last is the
+    part in the h x h layers (forward, cotangent and weight gradient),
+    which kernel 4 runs in 3xTF32. Bytes: each input read once and each
     output written once (forward: s_de, dt, x0, weights in, the solution
     rows out; backward: s_de, dt, the solution, its cotangent and the
     weights in, g_s_de, the weight grads and g_x0 out). FLOP (2 per
@@ -675,7 +765,8 @@ def ode_work(s_de, weights, x0, solver):
     bwd_bytes = (2 * Tm1 * B * h + Tm1 * B + 2 * (Tm1 + 1) * B * xd + B * xd) * 4 + 2 * w_bytes
     fwd_flops = Tm1 * B * stages * ev
     bwd_flops = Tm1 * B * stages * (ev + 2 * tail + 4 * xd * h)
-    return fwd_bytes, fwd_flops, bwd_bytes, bwd_flops
+    bwd_tc = Tm1 * B * stages * 3 * sum(2 * h * h for W, _ in weights["de_tail"] if tuple(W.shape) == (h, h))
+    return fwd_bytes, fwd_flops, bwd_bytes, bwd_flops, bwd_tc
 
 
 def rel_err(a, ref):
@@ -908,7 +999,7 @@ def phase_ode_times(dev, files):
         args = inputs(ds, B)
         k_ms = cuda_ms(lambda: FO.fused_ode_rollout_cuda(*args, solver), 2, 10)
         p_ms = cuda_ms(lambda: FO.fused_ode_rollout_plain(*args, solver), 1, 2)
-        n_bytes, flops, _, _ = ode_work(args[0], args[1], args[2], solver)
+        n_bytes, flops = ode_work(args[0], args[1], args[2], solver)[:2]
         bound_ms, bound_by = bound(n_bytes, flops)
         times[("fwd", B, solver)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
         say(f"[ode-times] forward B={B} {solver:8s}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
@@ -922,12 +1013,19 @@ def phase_ode_times(dev, files):
         sol = torch.cat([x0[None], FO.fused_ode_rollout_cuda(s_de, weights, x0, dt, solver)])
         k_ms = cuda_ms(lambda: VO.fused_ode_rollout_bwd_cuda(s_de, weights, dt, sol, cot, solver), 1, 5)
         p_ms = cuda_ms(lambda: VO.fused_ode_rollout_bwd_plain(s_de, weights, dt, sol, cot, solver), 0, 1)
-        _, _, n_bytes, flops = ode_work(s_de, weights, x0, solver)
-        bound_ms, bound_by = bound(n_bytes, flops)
-        times[("bwd", solver)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
-        say(f"[ode-times] backward B=64 {solver:8s}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
-            f"bound {bound_ms:.5f} ms ({bound_by}; {n_bytes} B, {flops} FLOP), kernel/bound "
-            f"{k_ms / bound_ms:.1f}x, library n/a: no single PyTorch call computes this VJP")
+        times[("bwd", solver)] = bwd_times_line("[ode-times] backward B=64", solver, k_ms, p_ms,
+                                                *ode_work(s_de, weights, x0, solver)[2:])
+    times["split"] = noencode_split(
+        "[ode-times] backward B=64 rk4",
+        lambda st, bufs=None: VO._launch_bwd(s_de, weights, dt, sol, cot, "rk4", stages=st, bufs=bufs),
+        lambda b: ode_contraction(b, weights, sol), VO.flatten_weights)
+    args = inputs(train_ds, 256)
+    sol = torch.cat([args[2][None], FO.fused_ode_rollout_cuda(*args, "rk4")])
+    cot256 = torch.tensor(np.random.default_rng(7).standard_normal((1001, 256, 2)).astype(np.float32)
+                          * 0.01, device=dev)
+    k_ms = cuda_ms(lambda: VO.fused_ode_rollout_bwd_cuda(args[0], args[1], args[3], sol, cot256, "rk4"), 1, 3)
+    bwd_times_line("[ode-times] backward B=256", "rk4", k_ms, None, *ode_work(*args[:3], "rk4")[2:])
+    del args, sol, cot256
 
     batch = {k: torch.as_tensor(getattr(train_ds, k)[:64], device=dev) for k in keys + ("mask",)}
     for fused, reps in ((True, 5), (False, 1)):
@@ -942,11 +1040,26 @@ def phase_ode_times(dev, files):
             loss.backward()
             opt.step()
 
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         ms = cuda_ms(step, 1, reps)
         times[("step", fused)] = ms
         say(f"[ode-times] training step B=64 T=1001 h=128 rk4, {'fused' if fused else 'plain'} "
-            f"route: {ms:.3f} ms, {64 * 1000 / ms * 1e3:.1f} trajectory-steps/s")
+            f"route: {ms:.3f} ms, {64 * 1000 / ms * 1e3:.1f} trajectory-steps/s, peak memory allocated "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     return times
+
+
+def ode_contraction(bufs, weights, sol):
+    """Kernel 4's contraction done plainly on the walk's buffers (as
+    :func:`dae_contraction`)."""
+    Tm1, B, xd = sol.shape[0] - 1, sol.shape[1], sol.shape[2]
+    n, R, h = len(weights["de_tail"]), Tm1 * B, weights["wx_de"].shape[1]
+    S = bufs["res"].numel() // (n * R * h)
+    res, gres = bufs["res"].view(S, n, R, h), bufs["gres"].view(S, n, R, h)
+    gy, xin = bufs["gy"].view(S, R, xd), bufs["xin"].view(S, R, xd)
+    ref = VO.flatten_weights(VO.contract_plain(res, gres, gy, xin, n, xd))
+    return ref, net_operands(res, gres, gy, xin, range(S), xd, n, xd)
 
 
 # ------------------------------------------------------------ channel-wise

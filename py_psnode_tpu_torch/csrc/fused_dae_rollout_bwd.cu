@@ -1,86 +1,61 @@
-// Reverse-time VJP of the fused DAE rollout in one launch, plus a small
-// kernel that sums the blocks' partial weight gradients.
+// Reverse-time VJP of the fused DAE rollout: a time-parallel recompute, the
+// reverse walk of the cotangents, and a time-parallel contraction of the
+// weight gradients, three kernels launched in order by one call.
 //
 // Replaces the TPU kernel py_psnode_tpu/ops/fused_dae_vjp.py:_bwd_kernel
 // (:147), launched by _run_backward (pallas_call at :562). It computes the
-// same function in float32 with float32 accumulation (no TF32, no tensor
-// cores), without the TPU's grid, time padding, lanes, bf16 mode or teacher
-// forcing. Per batch row, for t = T-2 down to 0, with x_t, i_t, x_{t+1} read
-// from the saved packed solution and the carries gx_c, gi_c (zero at the
-// start):
+// same function at float32 accuracy, without the TPU's grid, time padding,
+// lanes, bf16 mode or teacher forcing. Per batch row, for t = T-2 down to 0,
+// with x_t, i_t, x_{t+1} from the saved packed solution and the carries
+// gx_c, gi_c (zero at the start):
 //
 //   gX1 = cot_x[t+1] + gx_c,  gI1 = cot_i[t+1] + gi_c
 //   i_in = ev[t] > 0 ? AE(x_t, s_ae_ev[t]) : i_t          (recomputed)
 //   AE at t+1:  backprop gI1 through AE(x_{t+1}, s_ae[t]) -> g_s_ae[t],
-//               gX1 += g_pre0 @ gx_ae^T
-//   DE stages:  recompute the Euler / Midpoint / RK4-3/8 stages of
+//               gX1 += its x cotangent
+//   DE stages:  the Euler / Midpoint / RK4-3/8 stages of
 //               f(x) = DE(s_de[t] + x @ wx_de + i_in @ wi_de), backprop
 //               the step -> g_s_de[t] (sum over stages), g_x, g_i_in
 //   events:     rows with ev > 0 send g_i_in through the AE_ev VJP into
 //               g_s_ae_ev[t] and the x carry; the other rows keep it in
 //               the i carry (g_s_ae_ev[t] = 0 there)
 //
-// and every weight and bias gradient accumulates over all rows and steps.
-// g_x0 / g_i0 are the carries after step 0 (the wrapper adds cot[0]).
-//
-// The TPU grid runs its batch blocks one after another, so the TPU kernel
-// accumulates the weight gradients in one output block. Here the blocks run
-// in parallel and in no order: each block owns disjoint batch rows and adds
-// into its OWN row of partial gradients in global memory (about 270 KB per
-// block at h=128: 65 k accumulators fit neither a block's registers nor its
-// shared memory, so they live in L2), and reduce_partials sums the rows in
-// block order. Each accumulator is only ever touched by the one thread that
-// owns its index, in step order, so the result is bit-identical from run to
-// run, with no atomics.
+// and every weight and bias gradient summed over all rows and steps. g_x0 /
+// g_i0 are the carries after step 0 (the wrapper adds cot[0]).
 //
 // Bound on an H100 SXM at the main training shape (B=64, T=1001, h=128,
-// xd=3, id=2, RK4): a row-step recomputes the forward (four DE evaluations
-// and one AE evaluation, 3.3e5 FLOP) and runs the backward, two products
-// per layer (the cotangent through W^T and the weight-gradient outer
-// product), 6.6e5 FLOP: about 1e6 FLOP per row-step, 6.4e10 for the call,
-// 0.95 ms at the card's 67 TFLOP/s of float32 on the CUDA cores. Its bytes
-// (three h-wide streams in, three out: 6 x 1000 x 64 x 128 x 4 B = 197 MB)
-// take 0.06 ms at 3.35 TB/s. So it is compute-bound on paper and
-// latency-bound in practice, as the forward is: each step is a serial chain
-// of about twice the forward's dependent 128-wide layers (30 with RK4),
-// each closed by a block barrier, and B=64 gives 64 blocks.
+// xd=3, id=2, three-layer tails, RK4): a row-step evaluates four DE stages
+// and the AE at t+1 and backpropagates each, two products a layer (the
+// cotangent and the weight gradient): 1.0 MFLOP, 6.5e10 for the call. Its
+// h x h products (two hidden layers an evaluation, three times each) are
+// 6.3e10, 0.38 ms in three TF32 passes at 495 TFLOP/s; the rest, at
+// float32's 67 TFLOP/s, 0.03 ms (all on the CUDA cores: 0.97 ms). Its
+// bytes (three h-wide streams in, three out: 197 MB) take 0.06 ms at 3.35
+// TB/s. The design's buffers (the residuals and their cotangents, six
+// evaluation slots of three layers: 1.2 GB at RK4) are written once and
+// read once more.
 //
-// Design: each block owns one batch row and loops over all steps inside
-// the block; as in the forward (csrc/fused_dae_rollout.cu), KS=4 threads share each output column of a
-// wide layer and combine with warp shuffles. The step's residuals
-// (pre-activations and activations of every evaluation, stage inputs,
-// output cotangents) live in shared memory; the backward overwrites each
-// pre-activation with its cotangent. The backward products read transposed
-// copies of the weights that the wrapper makes, so that neighbouring
-// threads read neighbouring addresses. After the chain, one pass per step
-// adds every evaluation's outer products into the block's partial
-// gradients: each accumulator is read and written once per step.
+// What the design does about the serial chain: the forward recompute (the
+// AE and the stages, 30% of a step of the one-kernel walk this design
+// replaces) and the weight-gradient sums (`accumulate`, 40%: the pass over
+// 65 k partial gradients a row-step; utils/phase_clock.py) leave the walk
+// for two kernels that run over all row-steps at once on the tensor cores.
+// The walk keeps the cotangent chain, 15 dependent matrix-vector layers a
+// step at RK4 (three for the AE at t+1, twelve for the stages, three more
+// on an event), each with its elu' prefetched a step ahead; the DE's two
+// hidden weights are resident in shared memory, the AE's come through L1
+// and L2 (the four do not fit in one block's 227 KB, and with three
+// resident the walk is slower than with two: the L1 left is too small).
+// csrc/noencode_bwd.cuh holds the three kernels' building blocks.
 
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "noencode_bwd.cuh"
 
 namespace {
 
-constexpr int kMaxTail = 8;        // tail layers per net
-constexpr int kColThreads = 128;   // output columns a block covers at once
-constexpr int kKS = 4;             // threads per output column of a wide layer
-constexpr int kThreads = kColThreads * kKS;
-constexpr int kEvals = 6;          // DE stages 0..3, AE at t+1, AE at the event
-constexpr int kAeNext = 4;
-constexpr int kAeEv = 5;
-constexpr float kOneThird = 1.0f / 3.0f;
-
-struct Tail {
-  const float* w[kMaxTail];   // [in, out] row-major (flax kernel layout)
-  const float* wt[kMaxTail];  // [out, in]: the transpose, for the backward
-  const float* b[kMaxTail];   // [out]
-  int n;                      // number of tail layers
-  int out;                    // width of the last layer
-};
-
-// Offsets of each gradient in one block's row of partials; the order of
-// flatten_weights in ops/fused_dae_vjp.py.
+// Offsets of each gradient in the flat gradient row, in the order of
+// flatten_weights in ops/fused_dae_vjp.py: wx_de, wi_de, gx_ae, the DE tail
+// (W, b)..., the AE tail (W, b)...; hidden layers are [h, h], the last [h,
+// out].
 struct GradOffsets {
   int wx, wi, gx;
   int de_w[kMaxTail], de_b[kMaxTail];
@@ -88,513 +63,6 @@ struct GradOffsets {
   int total;
 };
 
-struct Args {
-  const float* s_de;     // [tm1, batch, h]
-  const float* s_ae;     // [tm1, batch, h]
-  const float* s_ae_ev;  // [tm1, batch, h]
-  const float* aux;      // [tm1, batch, 2]: (dt, ev)
-  const float* x0;       // [batch, xd]
-  const float* i0;       // [batch, id]
-  const float* sol;      // [tm1, batch, xd + id]: (x, i) of steps 1..tm1
-  const float* cot;      // [tm1 + 1, batch, xd + id]: cotangents of (x, i)
-  const float* wx_de;    // [xd, h]
-  const float* wi_de;    // [id, h]
-  const float* gx_ae;    // [xd, h]
-  const float* wx_t;     // [h, xd]
-  const float* wi_t;     // [h, id]
-  const float* gx_t;     // [h, xd]
-  Tail de;               // hidden layers [h, h], last [h, xd]
-  Tail ae;               // hidden layers [h, h], last [h, id]
-  float* g_s_de;         // [tm1, batch, h]
-  float* g_s_ae;         // [tm1, batch, h]
-  float* g_s_ae_ev;      // [tm1, batch, h]
-  float* partial;        // [blocks, off.total], zeroed by the caller
-  float* g_w;            // [off.total]
-  float* g_x0;           // [batch, xd]
-  float* g_i0;           // [batch, id]
-  GradOffsets off;
-  int tm1, batch, h, xd, id, solver, n_max;
-};
-
-__device__ __forceinline__ float elu(float v) {
-  return v > 0.f ? v : expf(fminf(v, 0.f)) - 1.f;
-}
-
-__device__ __forceinline__ float delu(float p) {
-  return p > 0.f ? 1.f : expf(fminf(p, 0.f));
-}
-
-// What a dense layer does with v = sum_k in[k] w[k, j] (+ b[j]):
-enum Epilogue {
-  kStore = 0,  // out = v
-  kFwd = 1,    // out = v (pre-activation), act = elu(v)
-  kBwd = 2,    // out holds pre-activations p: out = v * elu'(p), in place
-};
-
-__device__ __forceinline__ void store(int mode, float v, float* out, float* act, int idx) {
-  if (mode == kFwd) {
-    out[idx] = v;
-    act[idx] = elu(v);
-  } else if (mode == kBwd) {
-    out[idx] = v * delu(out[idx]);
-  } else {
-    out[idx] = v;
-  }
-}
-
-// out[j] for j < n_out; KS threads per output column, in/out in shared
-// memory, w [k_in, n_out] in global memory, b may be null.
-__device__ void dense_wide(const float* in, int k_in, const float* __restrict__ w,
-                           const float* __restrict__ b, float* out, float* act, int n_out,
-                           int mode) {
-  const int ks = threadIdx.x % kKS;
-  const int col = threadIdx.x / kKS;
-  const int ncol = blockDim.x / kKS;
-  // every thread runs the same trip count, so the shuffles below see full warps
-  for (int j0 = 0; j0 < n_out; j0 += ncol) {
-    const int j = j0 + col;
-    const bool live = j < n_out;
-    float acc = 0.f;
-    if (live) {
-#pragma unroll 8
-      for (int k = ks; k < k_in; k += kKS)
-        acc = fmaf(in[k], __ldg(w + static_cast<size_t>(k) * n_out + j), acc);
-    }
-#pragma unroll
-    for (int o = kKS / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (live && ks == 0) store(mode, acc + (b ? __ldg(b + j) : 0.f), out, act, j);
-  }
-}
-
-// Narrow layer (n_out < 32): one warp per output, lanes split the reduction.
-__device__ void dense_narrow(const float* in, int k_in, const float* __restrict__ w,
-                             const float* __restrict__ b, float* out, float* act, int n_out,
-                             int mode) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarp = blockDim.x >> 5;
-  for (int j = warp; j < n_out; j += nwarp) {
-    float acc = 0.f;
-    for (int k = lane; k < k_in; k += 32)
-      acc = fmaf(in[k], __ldg(w + static_cast<size_t>(k) * n_out + j), acc);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (lane == 0) store(mode, acc + (b ? __ldg(b + j) : 0.f), out, act, j);
-  }
-}
-
-__device__ __forceinline__ void dense(const float* in, int k_in, const float* w, const float* b,
-                                      float* out, float* act, int n_out, int mode) {
-  if (n_out >= 32) {
-    dense_wide(in, k_in, w, b, out, act, n_out, mode);
-  } else {
-    dense_narrow(in, k_in, w, b, out, act, n_out, mode);
-  }
-}
-
-// The residuals of one net evaluation in shared memory: per tail layer l,
-// the pre-activation pre[l] (overwritten by its cotangent in the backward)
-// and the activation act[l], each [h]; the evaluation's x input [xd], its
-// output and the output's cotangent [out].
-struct Res {
-  float* pre;
-  float* act;
-  float* x;
-  float* y;
-  float* gy;
-};
-
-// Forward through the tail keeping residuals. pre[0]/act[0] hold the lifted
-// first layer; starts after a barrier that published them, ends with one.
-__device__ __noinline__ void tail_fwd(const Tail& tl, const Res& rs, int h) {
-  for (int l = 0; l + 1 < tl.n; ++l) {
-    dense(rs.act + l * h, h, tl.w[l], tl.b[l], rs.pre + (l + 1) * h, rs.act + (l + 1) * h, h,
-          kFwd);
-    __syncthreads();
-  }
-  dense(rs.act + (tl.n - 1) * h, h, tl.w[tl.n - 1], tl.b[tl.n - 1], rs.y, nullptr, tl.out,
-        kStore);
-  __syncthreads();
-}
-
-// Backward through the tail from the cotangent rs.gy (published by a
-// barrier): leaves the cotangent of every pre-activation in rs.pre, so
-// rs.pre[0] is the cotangent of the lifted first layer. Ends with a barrier.
-__device__ __noinline__ void tail_bwd(const Tail& tl, const Res& rs, int h) {
-  dense(rs.gy, tl.out, tl.wt[tl.n - 1], nullptr, rs.pre + (tl.n - 1) * h, nullptr, h, kBwd);
-  __syncthreads();
-  for (int l = tl.n - 2; l >= 0; --l) {
-    dense(rs.pre + (l + 1) * h, h, tl.wt[l], nullptr, rs.pre + l * h, nullptr, h, kBwd);
-    __syncthreads();
-  }
-}
-
-// First layer of AE(x, s) for the block's row: pre[0] = s[row] + x @ gx_ae.
-__device__ void ae_first(const Args& a, const float* s_t, const Res& rs, int row) {
-  const int h = a.h, xd = a.xd;
-  for (int j = threadIdx.x; j < h; j += blockDim.x) {
-    float xp = 0.f;
-    for (int k = 0; k < xd; ++k) xp = fmaf(rs.x[k], __ldg(a.gx_ae + k * h + j), xp);
-    const float v = __ldg(s_t + static_cast<size_t>(row) * h + j) + xp;
-    rs.pre[j] = v;
-    rs.act[j] = elu(v);
-  }
-}
-
-// First layer of f(x): pre[0] = s_de[row] + x @ wx_de + i_in @ wi_de.
-__device__ void de_first(const Args& a, const float* s_t, const float* i_in, const Res& rs,
-                         int row) {
-  const int h = a.h, xd = a.xd, id = a.id;
-  for (int j = threadIdx.x; j < h; j += blockDim.x) {
-    float xp = 0.f;
-    for (int k = 0; k < xd; ++k) xp = fmaf(rs.x[k], __ldg(a.wx_de + k * h + j), xp);
-    float ip = 0.f;
-    for (int k = 0; k < id; ++k) ip = fmaf(i_in[k], __ldg(a.wi_de + k * h + j), ip);
-    const float v = (__ldg(s_t + static_cast<size_t>(row) * h + j) + xp) + ip;
-    rs.pre[j] = v;
-    rs.act[j] = elu(v);
-  }
-}
-
-// One DE stage forward: rs.x holds the stage input (published).
-__device__ void de_stage_fwd(const Args& a, const float* s_t, const float* i_in, const Res& rs,
-                             int row) {
-  de_first(a, s_t, i_in, rs, row);
-  __syncthreads();
-  tail_fwd(a.de, rs, a.h);
-}
-
-// One DE stage backward from rs.gy (published): the cotangent of the
-// lifted first layer stays in rs.pre[0]; g_x = it @ wx_de^T and
-// g_i = it @ wi_de^T go to gxo [xd] and gio [id]. Ends with a barrier.
-__device__ void de_stage_bwd(const Args& a, const Res& rs, float* gxo, float* gio) {
-  tail_bwd(a.de, rs, a.h);
-  dense_narrow(rs.pre, a.h, a.wx_t, nullptr, gxo, nullptr, a.xd, kStore);
-  dense_narrow(rs.pre, a.h, a.wi_t, nullptr, gio, nullptr, a.id, kStore);
-  __syncthreads();
-}
-
-// P[k, j] += sum over evaluations q < nq of u_q[k] * v_q[j] (u_q [K],
-// v_q [N]), or with u == null, P[j] += sum v_q[j]. Thread e owns entries
-// e, e + blockDim.x, ...: the same thread every step.
-__device__ void accumulate(float* __restrict__ P, int K, int N, const float* const* u,
-                           const float* const* v, int nq) {
-  constexpr int kU = 8;  // accumulators in flight per thread
-  const int KN = u ? K * N : N;
-  for (int e0 = threadIdx.x; e0 < KN; e0 += kU * blockDim.x) {
-    float acc[kU];
-#pragma unroll
-    for (int s = 0; s < kU; ++s) {
-      const int e = e0 + s * blockDim.x;
-      acc[s] = e < KN ? P[e] : 0.f;
-    }
-#pragma unroll
-    for (int s = 0; s < kU; ++s) {
-      const int e = e0 + s * blockDim.x;
-      if (e < KN) {
-        const int k = u ? e / N : 0, j = e - k * N;
-        float sum = acc[s];
-        for (int q = 0; q < nq; ++q) sum = u ? fmaf(u[q][k], v[q][j], sum) : sum + v[q][j];
-        acc[s] = sum;
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < kU; ++s) {
-      const int e = e0 + s * blockDim.x;
-      if (e < KN) P[e] = acc[s];
-    }
-  }
-}
-
-// Add the step's weight and bias gradients of one net's tail, over the
-// evaluations rs[0..nq).
-__device__ void accumulate_tail(float* P, const int* w_off, const int* b_off, const Tail& tl,
-                                const Res* rs, int nq, int h) {
-  const float* u[4];
-  const float* v[4];
-  for (int l = 0; l < tl.n; ++l) {
-    const bool last = l == tl.n - 1;
-    const int n_out = last ? tl.out : h;
-    for (int q = 0; q < nq; ++q) {
-      u[q] = rs[q].act + l * h;
-      v[q] = last ? rs[q].gy : rs[q].pre + (l + 1) * h;
-    }
-    accumulate(P + w_off[l], h, n_out, u, v, nq);
-    accumulate(P + b_off[l], 1, n_out, nullptr, v, nq);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) fused_dae_rollout_bwd_kernel(const __grid_constant__ Args a) {
-  extern __shared__ float smem[];
-  const int h = a.h, xd = a.xd, id = a.id, B = a.batch, D = xd + id;
-  const int ow = xd > id ? xd : id;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int row = blockIdx.x;
-  float* p = smem;
-  Res rs[kEvals];
-  for (int q = 0; q < kEvals; ++q) {
-    rs[q].pre = p;
-    p += a.n_max * h;
-    rs[q].act = p;
-    p += a.n_max * h;
-    rs[q].x = p;
-    p += xd;
-    rs[q].y = p;
-    p += ow;
-    rs[q].gy = p;
-    p += ow;
-  }
-  float* gsde = p;  p += h;       // sum of the stages' first-layer cotangents
-  float* xc = p;    p += xd;      // x_t
-  float* iin = p;   p += id;      // i_in of the step (i_t, or AE_ev's output)
-  float* gX1 = p;   p += xd;      // cotangent of x_{t+1}
-  float* gxc = p;   p += xd;      // x carry, then g_x0 of the step
-  float* gic = p;   p += id;      // i carry
-  float* gii = p;   p += id;      // cotangent of i_in
-  float* gk = p;    p += 4 * xd;  // stage cotangents g_k1..g_k4
-  float* tx = p;    p += xd;      // g_x of one stage backward
-  float* ti = p;    p += id;      // g_i of one stage backward
-
-  for (int e = tid; e < xd; e += nt) gxc[e] = 0.f;
-  for (int e = tid; e < id; e += nt) gic[e] = 0.f;
-  const int S = a.solver == 0 ? 1 : (a.solver == 1 ? 2 : 4);
-  float* Pb = a.partial + static_cast<size_t>(row) * a.off.total;
-  __syncthreads();
-
-  for (int t = a.tm1 - 1; t >= 0; --t) {
-    const size_t step = static_cast<size_t>(t) * B;
-    // the step's (dt, ev), the same for every thread of the block
-    const float dt = __ldg(a.aux + (step + row) * 2);
-    const bool ev = __ldg(a.aux + (step + row) * 2 + 1) > 0.f;
-    // x_t, i_t (row t-1 of the packed solution, x0/i0 at t=0), x_{t+1},
-    // and the incoming cotangents of x_{t+1}, i_{t+1}
-    for (int c = tid; c < D; c += nt) {
-      float cur;
-      if (t == 0) {
-        cur = c < xd ? a.x0[static_cast<size_t>(row) * xd + c]
-                     : a.i0[static_cast<size_t>(row) * id + (c - xd)];
-      } else {
-        cur = a.sol[(step - B + row) * D + c];
-      }
-      const float nxt = a.sol[(step + row) * D + c];
-      const float cn = a.cot[(step + B + row) * D + c];
-      if (c < xd) {
-        xc[c] = cur;
-        rs[kAeEv].x[c] = cur;
-        rs[kAeNext].x[c] = nxt;
-        gX1[c] = cn + gxc[c];
-      } else {
-        iin[c - xd] = cur;
-        rs[kAeNext].gy[c - xd] = cn + gic[c - xd];  // gI1
-      }
-    }
-    __syncthreads();
-
-    // ---- recompute i_in exactly as the forward did ----
-    if (ev) {
-      ae_first(a, a.s_ae_ev + step * h, rs[kAeEv], row);
-      __syncthreads();
-      tail_fwd(a.ae, rs[kAeEv], h);
-      for (int e = tid; e < id; e += nt) iin[e] = rs[kAeEv].y[e];
-    }
-
-    // ---- AE at t+1: forward with residuals, backward from gI1 ----
-    ae_first(a, a.s_ae + step * h, rs[kAeNext], row);
-    __syncthreads();
-    tail_fwd(a.ae, rs[kAeNext], h);
-    tail_bwd(a.ae, rs[kAeNext], h);
-    dense_narrow(rs[kAeNext].pre, h, a.gx_t, nullptr, tx, nullptr, xd, kStore);
-    for (int e = tid; e < h; e += nt) a.g_s_ae[(step + row) * h + e] = rs[kAeNext].pre[e];
-    __syncthreads();
-    for (int e = tid; e < xd; e += nt) gX1[e] += tx[e];
-
-    // ---- DE stages: recompute ----
-    const float* s_de_t = a.s_de + step * h;
-    for (int e = tid; e < xd; e += nt) rs[0].x[e] = xc[e];
-    __syncthreads();
-    de_stage_fwd(a, s_de_t, iin, rs[0], row);
-    if (a.solver == 1) {  // Midpoint
-      for (int e = tid; e < xd; e += nt) rs[1].x[e] = xc[e] + rs[0].y[e] * (0.5f * dt);
-      __syncthreads();
-      de_stage_fwd(a, s_de_t, iin, rs[1], row);
-    } else if (a.solver == 2) {  // RK4, Kutta's 3/8 rule
-      const float* k1 = rs[0].y;
-      for (int e = tid; e < xd; e += nt) rs[1].x[e] = xc[e] + dt * k1[e] * kOneThird;
-      __syncthreads();
-      de_stage_fwd(a, s_de_t, iin, rs[1], row);
-      const float* k2 = rs[1].y;
-      for (int e = tid; e < xd; e += nt) rs[2].x[e] = xc[e] + dt * (k2[e] - k1[e] * kOneThird);
-      __syncthreads();
-      de_stage_fwd(a, s_de_t, iin, rs[2], row);
-      const float* k3 = rs[2].y;
-      for (int e = tid; e < xd; e += nt) rs[3].x[e] = xc[e] + dt * (k1[e] - k2[e] + k3[e]);
-      __syncthreads();
-      de_stage_fwd(a, s_de_t, iin, rs[3], row);
-    }
-
-    // ---- differential step backward ----
-    if (a.solver == 0) {  // Euler: x1 = x + dt f(x)
-      for (int e = tid; e < xd; e += nt) rs[0].gy[e] = dt * gX1[e];
-      __syncthreads();
-      de_stage_bwd(a, rs[0], tx, gii);
-      for (int e = tid; e < xd; e += nt) gxc[e] = gX1[e] + tx[e];
-      for (int e = tid; e < h; e += nt) gsde[e] = rs[0].pre[e];
-    } else if (a.solver == 1) {  // Midpoint
-      for (int e = tid; e < xd; e += nt) rs[1].gy[e] = dt * gX1[e];
-      __syncthreads();
-      de_stage_bwd(a, rs[1], tx, ti);  // tx = g_xmid, ti = gi_m
-      for (int e = tid; e < xd; e += nt) rs[0].gy[e] = (0.5f * dt) * tx[e];
-      for (int e = tid; e < xd; e += nt) gxc[e] = gX1[e] + tx[e];
-      for (int e = tid; e < id; e += nt) gii[e] = ti[e];
-      __syncthreads();
-      de_stage_bwd(a, rs[0], tx, ti);
-      for (int e = tid; e < xd; e += nt) gxc[e] += tx[e];
-      for (int e = tid; e < id; e += nt) gii[e] += ti[e];
-      for (int e = tid; e < h; e += nt) gsde[e] = rs[1].pre[e] + rs[0].pre[e];
-    } else {  // RK4
-      float* gk1 = gk;
-      float* gk2 = gk + xd;
-      float* gk3 = gk + 2 * xd;
-      const float c = dt * 0.125f;
-      for (int e = tid; e < xd; e += nt) {
-        gk1[e] = gX1[e] * c;
-        gk2[e] = 3.0f * gX1[e] * c;
-        gk3[e] = 3.0f * gX1[e] * c;
-        rs[3].gy[e] = gX1[e] * c;  // g_k4
-        gxc[e] = gX1[e];
-      }
-      for (int e = tid; e < id; e += nt) gii[e] = 0.f;
-      for (int e = tid; e < h; e += nt) gsde[e] = 0.f;
-      __syncthreads();
-      de_stage_bwd(a, rs[3], tx, ti);  // g_a4, gi4
-      for (int e = tid; e < xd; e += nt) {
-        const float g = tx[e];
-        gxc[e] += g;
-        gk1[e] += dt * g;
-        gk2[e] -= dt * g;
-        rs[2].gy[e] = gk3[e] + dt * g;  // final g_k3
-      }
-      for (int e = tid; e < id; e += nt) gii[e] += ti[e];
-      for (int e = tid; e < h; e += nt) gsde[e] += rs[3].pre[e];
-      __syncthreads();
-      de_stage_bwd(a, rs[2], tx, ti);  // g_a3, gi3
-      for (int e = tid; e < xd; e += nt) {
-        const float g = tx[e];
-        gxc[e] += g;
-        rs[1].gy[e] = gk2[e] + dt * g;  // final g_k2
-        gk1[e] -= dt * g * kOneThird;
-      }
-      for (int e = tid; e < id; e += nt) gii[e] += ti[e];
-      for (int e = tid; e < h; e += nt) gsde[e] += rs[2].pre[e];
-      __syncthreads();
-      de_stage_bwd(a, rs[1], tx, ti);  // g_a2, gi2
-      for (int e = tid; e < xd; e += nt) {
-        const float g = tx[e];
-        gxc[e] += g;
-        rs[0].gy[e] = gk1[e] + dt * g * kOneThird;  // final g_k1
-      }
-      for (int e = tid; e < id; e += nt) gii[e] += ti[e];
-      for (int e = tid; e < h; e += nt) gsde[e] += rs[1].pre[e];
-      __syncthreads();
-      de_stage_bwd(a, rs[0], tx, ti);  // g_a1, gi1
-      for (int e = tid; e < xd; e += nt) gxc[e] += tx[e];
-      for (int e = tid; e < id; e += nt) gii[e] += ti[e];
-      for (int e = tid; e < h; e += nt) gsde[e] += rs[0].pre[e];
-    }
-    __syncthreads();
-    for (int e = tid; e < h; e += nt) a.g_s_de[(step + row) * h + e] = gsde[e];
-
-    // ---- route the i_in cotangent: on an event through the AE_ev VJP
-    // into the x carry, else to the i carry ----
-    if (ev) {
-      for (int e = tid; e < id; e += nt) rs[kAeEv].gy[e] = gii[e];
-      __syncthreads();
-      tail_bwd(a.ae, rs[kAeEv], h);
-      dense_narrow(rs[kAeEv].pre, h, a.gx_t, nullptr, tx, nullptr, xd, kStore);
-      __syncthreads();
-      for (int e = tid; e < xd; e += nt) gxc[e] += tx[e];
-      for (int e = tid; e < id; e += nt) gic[e] = 0.f;
-    } else {
-      for (int e = tid; e < id; e += nt) gic[e] = gii[e];
-    }
-    for (int e = tid; e < h; e += nt)
-      a.g_s_ae_ev[(step + row) * h + e] = ev ? rs[kAeEv].pre[e] : 0.f;
-
-    // ---- add the step's weight and bias gradients ----
-    {
-      const float* u[4];
-      const float* v[4];
-      for (int q = 0; q < S; ++q) {
-        u[q] = rs[q].x;
-        v[q] = rs[q].pre;
-      }
-      accumulate(Pb + a.off.wx, xd, h, u, v, S);
-      for (int q = 0; q < S; ++q) u[q] = iin;
-      accumulate(Pb + a.off.wi, id, h, u, v, S);
-      accumulate_tail(Pb, a.off.de_w, a.off.de_b, a.de, rs, S, h);
-      const int na = ev ? 2 : 1;
-      const Res ae_rs[2] = {rs[kAeNext], rs[kAeEv]};
-      for (int q = 0; q < na; ++q) {
-        u[q] = ae_rs[q].x;
-        v[q] = ae_rs[q].pre;
-      }
-      accumulate(Pb + a.off.gx, xd, h, u, v, na);
-      accumulate_tail(Pb, a.off.ae_w, a.off.ae_b, a.ae, ae_rs, na, h);
-    }
-    __syncthreads();
-  }
-
-  for (int e = tid; e < xd; e += nt) a.g_x0[static_cast<size_t>(row) * xd + e] = gxc[e];
-  for (int e = tid; e < id; e += nt) a.g_i0[static_cast<size_t>(row) * id + e] = gic[e];
-}
-
-// g_w[e] = sum over blocks b, in order, of partial[b, e].
-__global__ void reduce_partials(const float* __restrict__ partial, int blocks, int total,
-                                float* __restrict__ g_w) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= total) return;
-  float acc = 0.f;
-  for (int b = 0; b < blocks; ++b) acc += partial[static_cast<size_t>(b) * total + e];
-  g_w[e] = acc;
-}
-
-size_t smem_floats(int h, int xd, int id, int n_max) {
-  const int ow = xd > id ? xd : id;
-  const size_t per_eval = 2 * static_cast<size_t>(n_max) * h + xd + 2 * ow;
-  return kEvals * per_eval + h + 8 * xd + 4 * id;
-}
-
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_floats(a.h, a.xd, a.id, a.n_max) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_dae_rollout_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  fused_dae_rollout_bwd_kernel<<<a.batch, kThreads, smem, stream>>>(a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  reduce_partials<<<(a.off.total + 255) / 256, 256, 0, stream>>>(a.partial, a.batch, a.off.total,
-                                                                 a.g_w);
-  return cudaGetLastError();
-}
-
-bool fill_tail(Tail* tl, const void* const* w, const void* const* wt, const void* const* b, int n,
-               int out) {
-  if (n < 1 || n > kMaxTail || out < 1) return false;
-  for (int l = 0; l < kMaxTail; ++l) {
-    tl->w[l] = l < n ? static_cast<const float*>(w[l]) : nullptr;
-    tl->wt[l] = l < n ? static_cast<const float*>(wt[l]) : nullptr;
-    tl->b[l] = l < n ? static_cast<const float*>(b[l]) : nullptr;
-  }
-  tl->n = n;
-  tl->out = out;
-  return true;
-}
-
-// Offsets in the order wx_de, wi_de, gx_ae, DE tail (W, b)..., AE tail
-// (W, b)...; hidden tail layers are [h, h], the last [h, out].
 GradOffsets grad_offsets(int h, int xd, int id, int n_de, int n_ae) {
   GradOffsets o{};
   int off = 0;
@@ -622,31 +90,256 @@ GradOffsets grad_offsets(int h, int xd, int id, int n_de, int n_ae) {
   return o;
 }
 
+struct Args {
+  const float* s_de;     // [tm1, batch, h]
+  const float* s_ae;     // [tm1, batch, h]
+  const float* s_ae_ev;  // [tm1, batch, h]
+  const float* aux;      // [tm1, batch, 2]: (dt, ev)
+  const float* x0;       // [batch, xd]
+  const float* i0;       // [batch, id]
+  const float* sol;      // [tm1, batch, xd + id]: (x, i) of steps 1..tm1
+  const float* cot;      // [tm1 + 1, batch, xd + id]: cotangents of (x, i)
+  Net de;                // first layer [wx_de; wi_de] (kin = xd + id), out = xd
+  Net ae;                // first layer gx_ae (kin = xd), out = id
+  Bufs bf;               // slots: the S stages, the AE at t+1, the AE at the event
+  float* g_s_de;         // [tm1, batch, h]
+  float* g_s_ae;         // [tm1, batch, h]
+  float* g_s_ae_ev;      // [tm1, batch, h]
+  float* g_x0;           // [batch, xd]
+  float* g_i0;           // [batch, id]
+  int tm1, batch, xd, id, solver;
+};
+
+// ---- kernel 1: every evaluation of every row-step, a tile of kRows at a time ----
+__global__ void __launch_bounds__(kThreads, 1) dae_recompute(const __grid_constant__ Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const RcSmem s = carve_rc(smem);
+  const Bufs& bf = a.bf;
+  const long long r0 = static_cast<long long>(blockIdx.x) * kRows, B = a.batch;
+  const int xd = a.xd, id = a.id, D = xd + id, S = n_stages(a.solver);
+  const int eN = S, eV = S + 1;  // the AE at t+1, the AE at the event
+  rc_begin(s, r0, bf.R, [&](long long r) { return __ldg(a.aux + 2 * r); },
+           [&](long long r) { return __ldg(a.aux + 2 * r + 1); });
+  __syncthreads();
+  rc_any_event(s);
+  __syncthreads();
+  // x_t, i_t (row t-1 of the packed solution, x0 / i0 at t = 0), x_{t+1}
+  auto x_t = [&](long long r, int c) {
+    return r < B ? __ldg(a.x0 + r * xd + c) : __ldg(a.sol + (r - B) * D + c);
+  };
+  auto i_t = [&](long long r, int c) {
+    return r < B ? __ldg(a.i0 + r * id + c) : __ldg(a.sol + (r - B) * D + xd + c);
+  };
+  if (s.flag[0] > 0.f) {  // i_in exactly as the forward computed it, on event rows
+    rc_input(s, bf, eV, r0, xd, [&](int m, int c) { return x_t(r0 + m, c); });
+    rc_eval(a.ae, bf, eV, r0, a.s_ae_ev, s, [&](int m) { return s.ev[m] > 0.f; },
+            bf.gy_row(eV, 0), bf.ow);
+  }
+  rc_input(s, bf, eN, r0, xd, [&](int m, int c) { return __ldg(a.sol + (r0 + m) * D + c); });
+  rc_eval(a.ae, bf, eN, r0, a.s_ae, s, [](int) { return true; }, nullptr, 0);
+  // stage q's output k_q waits in gy slot q, the AE at the event's in slot
+  // eV (the walk overwrites both)
+  auto k = [&](int q, long long r, int c) { return bf.gy_row(q, r)[c]; };
+  for (int q = 0; q < S; ++q) {
+    rc_input(s, bf, q, r0, D, [&](int m, int c) {
+      const long long r = r0 + m;
+      if (c >= xd) return s.ev[m] > 0.f ? bf.gy_row(eV, r)[c - xd] : i_t(r, c - xd);
+      const float x = x_t(r, c), dt = s.dt[m];
+      if (q == 0) return x;
+      if (a.solver == 1) return x + k(0, r, c) * (0.5f * dt);  // Midpoint
+      if (q == 1) return x + dt * k(0, r, c) * kOneThird;     // RK4, Kutta's 3/8 rule
+      if (q == 2) return x + dt * (k(1, r, c) - k(0, r, c) * kOneThird);
+      return x + dt * (k(0, r, c) - k(1, r, c) + k(2, r, c));
+    });
+    rc_eval(a.de, bf, q, r0, a.s_de, s, [](int) { return true; },
+            q + 1 < S ? bf.gy_row(q, 0) : nullptr, bf.ow);
+  }
+}
+
+// ---- kernel 2: the reverse walk, one block per batch row ----
+__global__ void __launch_bounds__(kThreads, 1) dae_walk(const __grid_constant__ Args a, int slots) {
+  extern __shared__ __align__(16) float smem[];
+  const Bufs& bf = a.bf;
+  const int xd = a.xd, id = a.id, D = xd + id, B = a.batch, h = bf.h, tid = threadIdx.x;
+  const int S = n_stages(a.solver), eN = S, eV = S + 1;
+  const int row = blockIdx.x, k = walk_k();
+  const int step_f = walk_step_floats(bf.E, bf.L), slot_f = bf.L * kMaxH;
+  float* wres = smem;
+  float* pf = wres + static_cast<size_t>(slots) * kMat;  // two steps
+  float* va = pf + 2 * step_f;
+  float* vb = va + kMaxH;
+  float* gyv = vb + kMaxH;   // the output cotangent of the next evaluation
+  float* gX1 = gyv + kMaxH;  // cotangent of x_{t+1}
+  float* gxc = gX1 + kMaxH;  // x carry, then dL/dx_t of the step
+  float* gic = gxc + kMaxH;  // i carry
+  float* gii = gic + kMaxH;  // cotangent of i_in
+  float* gk1 = gii + kMaxH;  // RK4 stage cotangents
+  float* gk2 = gk1 + kMaxH;
+  float* gk3 = gk2 + kMaxH;
+
+  load_resident(a.de, wres);
+  load_resident(a.ae, wres);
+  for (int e = tid; e < kMaxH; e += kThreads) {
+    gxc[e] = 0.f;
+    gic[e] = 0.f;
+  }
+  auto prefetch = [&](int t, float* dst) {
+    const long long r = static_cast<long long>(t) * B + row;
+    walk_prefetch(bf, dst, r, a.cot + (r + B) * D, D, a.aux + 2 * r, 2);
+    cp_async_commit();
+  };
+  prefetch(a.tm1 - 1, pf + ((a.tm1 - 1) & 1) * step_f);
+  for (int t = a.tm1 - 1; t >= 0; --t) {
+    const long long r = static_cast<long long>(t) * B + row;
+    cp_async_wait<0>();
+    __syncthreads();  // step t landed; every thread is done with the other buffer
+    if (t > 0) prefetch(t - 1, pf + ((t - 1) & 1) * step_f);
+    const float* P = pf + (t & 1) * step_f;  // slot q's layers at P + q slot_f
+    const float* cot = P + bf.E * slot_f;
+    const float dt = cot[kMaxH];
+    const bool ev = cot[kMaxH + 1] > 0.f;
+    NE_PHASE(0);
+    for (int c = tid; c < xd; c += kThreads) gX1[c] = cot[c] + gxc[c];
+    for (int c = tid; c < id; c += kThreads) {
+      gyv[c] = cot[xd + c] + gic[c];  // gI1
+      gii[c] = 0.f;
+    }
+    __syncthreads();
+
+    // ---- the AE at t+1, from gI1 ----
+    const float* v = walk_eval(a.ae, bf, eN, r, P + eN * slot_f, gyv, va, vb, wres);
+    if (walk_ks() == 0 && k < h) a.g_s_ae[r * h + k] = v[k];
+    walk_inputs(a.ae, v, [&](int c, float g) { gX1[c] += g; });
+    __syncthreads();
+    NE_PHASE(1);
+
+    // ---- the DE stages' VJPs, last stage first; gsde, the sum of their
+    // first layers' cotangents, is kept by the threads of output k ----
+    float gsde = 0.f;
+    auto stage = [&](int q, auto glue) {
+      const float* u = walk_eval(a.de, bf, q, r, P + q * slot_f, gyv, va, vb, wres);
+      gsde += u[k];
+      walk_inputs(a.de, u, [&](int c, float g) {
+        if (c < xd) {
+          glue(c, g);
+        } else {
+          gii[c - xd] += g;
+        }
+      });
+      __syncthreads();
+    };
+    if (a.solver == 0) {  // Euler: x1 = x + dt f(x)
+      for (int c = tid; c < xd; c += kThreads) gyv[c] = dt * gX1[c];
+      __syncthreads();
+      stage(0, [&](int c, float g) { gxc[c] = gX1[c] + g; });
+    } else if (a.solver == 1) {  // Midpoint
+      for (int c = tid; c < xd; c += kThreads) gyv[c] = dt * gX1[c];
+      __syncthreads();
+      stage(1, [&](int c, float g) {  // g = g_xmid
+        gyv[c] = (0.5f * dt) * g;
+        gxc[c] = gX1[c] + g;
+      });
+      stage(0, [&](int c, float g) { gxc[c] += g; });
+    } else {  // RK4, Kutta's 3/8 rule
+      const float cc = dt * 0.125f;
+      for (int c = tid; c < xd; c += kThreads) {
+        gk1[c] = gX1[c] * cc;
+        gk2[c] = 3.0f * gX1[c] * cc;
+        gk3[c] = 3.0f * gX1[c] * cc;
+        gyv[c] = gX1[c] * cc;  // g_k4
+        gxc[c] = gX1[c];
+      }
+      __syncthreads();
+      stage(3, [&](int c, float g) {  // g_a4
+        gxc[c] += g;
+        gk1[c] += dt * g;
+        gk2[c] -= dt * g;
+        gyv[c] = gk3[c] + dt * g;  // final g_k3
+      });
+      stage(2, [&](int c, float g) {  // g_a3
+        gxc[c] += g;
+        gyv[c] = gk2[c] + dt * g;  // final g_k2
+        gk1[c] -= dt * g * kOneThird;
+      });
+      stage(1, [&](int c, float g) {  // g_a2
+        gxc[c] += g;
+        gyv[c] = gk1[c] + dt * g * kOneThird;  // final g_k1
+      });
+      stage(0, [&](int c, float g) { gxc[c] += g; });  // g_a1
+    }
+    if (walk_ks() == 0 && k < h) a.g_s_de[r * h + k] = gsde;
+    NE_PHASE(2);
+
+    // ---- route the i_in cotangent: on an event through the AE_ev VJP
+    // into the x carry, else to the i carry ----
+    if (ev) {
+      for (int c = tid; c < id; c += kThreads) gyv[c] = gii[c];
+      __syncthreads();
+      const float* u = walk_eval(a.ae, bf, eV, r, P + eV * slot_f, gyv, va, vb, wres);
+      if (walk_ks() == 0 && k < h) a.g_s_ae_ev[r * h + k] = u[k];
+      walk_inputs(a.ae, u, [&](int c, float g) { gxc[c] += g; });
+      for (int c = tid; c < id; c += kThreads) gic[c] = 0.f;
+    } else {
+      for (int c = tid; c < id; c += kThreads) gic[c] = gii[c];
+      if (walk_ks() == 0 && k < h) a.g_s_ae_ev[r * h + k] = 0.f;
+    }
+    NE_PHASE(3);
+  }
+  __syncthreads();
+  for (int c = tid; c < xd; c += kThreads) a.g_x0[static_cast<size_t>(row) * xd + c] = gxc[c];
+  for (int c = tid; c < id; c += kThreads) a.g_i0[static_cast<size_t>(row) * id + c] = gic[c];
+}
+
+// The contraction's jobs: the DE over the stages' slots ([wx; wi] from
+// their inputs, then the tail), the AE over the AE slots, the event slot's
+// rows counted only on events.
+Jobs dae_jobs(const Net& de, const Net& ae, int h, int xd, int id, int S) {
+  const GradOffsets o = grad_offsets(h, xd, id, de.n, ae.n);
+  Jobs jobs{};
+  add_net_jobs(&jobs, de, h, 0, S, 0, o.wx, o.de_w, o.de_b);  // wx_de and wi_de are adjacent
+  add_net_jobs(&jobs, ae, h, S, 2, 1, o.gx, o.ae_w, o.ae_b);
+  return jobs;
+}
+
 }  // namespace
 
-// Number of floats in one row of partial gradients (and in g_w).
-extern "C" int psn_fused_dae_bwd_grad_size(int h, int xd, int id, int n_de, int n_ae) {
-  return grad_offsets(h, xd, id, n_de, n_ae).total;
+// sizes[0]: floats of the flat gradient row g_w; sizes[1]: of the residual
+// buffer (and of its cotangents); sizes[2]: of gy; sizes[3]: of xin;
+// sizes[4]: of the contraction's partial sums.
+extern "C" void psn_fused_dae_bwd_sizes(int tm1, int batch, int h, int xd, int id, int n_de,
+                                        int n_ae, int solver, long long* sizes) {
+  const long long R = static_cast<long long>(tm1) * batch;
+  const int S = n_stages(solver), E = S + 2, L = n_de > n_ae ? n_de : n_ae;
+  const Jobs jobs = dae_jobs(make_net(nullptr, nullptr, n_de, xd + id, xd),
+                             make_net(nullptr, nullptr, n_ae, xd, id), h, xd, id, S);
+  sizes[0] = grad_offsets(h, xd, id, n_de, n_ae).total;
+  sizes[1] = static_cast<long long>(E) * L * R * h;
+  sizes[2] = E * R * (xd > id ? xd : id);
+  sizes[3] = E * R * (xd + id);
+  sizes[4] = n_splits(max_rows(jobs, R)) * jobs.per_split;
 }
 
 // C interface, loaded with ctypes. Pointers are device pointers to
-// contiguous float32 arrays; de_*/ae_* are host arrays of them (W, W^T, b
-// per tail layer). `partial` is [batch, psn_fused_dae_bwd_grad_size(...)]
-// (one row per block, a block per batch row) and must be zero; g_w
-// receives the summed gradients in the same layout. solver: 0 Euler, 1
-// Midpoint, 2 RK4 (3/8 rule). Launches both kernels on `stream`
-// without synchronising and returns cudaGetLastError() (0 on success).
+// contiguous float32 arrays: w_de the DE's padded weights [n_de + 1][128][128]
+// ([wx_de; wi_de], then the tail layers), b_de its padded biases
+// [n_de][128], w_ae / b_ae the AE's (gx_ae first); res, gres, gy, xin and
+// parts scratch of the sizes psn_fused_dae_bwd_sizes gives. solver: 0 Euler,
+// 1 Midpoint, 2 RK4 (3/8 rule). stages: the kernels to launch, 1 the
+// recompute, 2 the walk, 4 the contraction (7 for the backward; one alone
+// times it, or runs the contraction on given buffers). max_slots: the
+// walk's weights resident in shared memory, in the order DE, AE (negative:
+// the DE's hidden ones; the others come from L2). Launches on `stream` without synchronising and returns the first launch error (0 on success).
 extern "C" int psn_fused_dae_rollout_bwd_f32(
-    const void* s_de, const void* s_ae, const void* s_ae_ev, const void* aux,
-    const void* x0, const void* i0, const void* sol, const void* cot,
-    const void* wx_de, const void* wi_de, const void* gx_ae,
-    const void* wx_t, const void* wi_t, const void* gx_t,
-    const void* const* de_w, const void* const* de_wt, const void* const* de_b, int n_de,
-    const void* const* ae_w, const void* const* ae_wt, const void* const* ae_b, int n_ae,
-    void* g_s_de, void* g_s_ae, void* g_s_ae_ev, void* partial, void* g_w, void* g_x0,
-    void* g_i0, int tm1, int batch, int h, int xd, int id, int solver, void* stream) {
-  if (tm1 < 1 || batch < 1 || h < 1 || xd < 1 || id < 1 || solver < 0 || solver > 2)
+    const void* s_de, const void* s_ae, const void* s_ae_ev, const void* aux, const void* x0,
+    const void* i0, const void* sol, const void* cot, const void* w_de, const void* b_de, int n_de,
+    const void* w_ae, const void* b_ae, int n_ae, void* g_s_de, void* g_s_ae, void* g_s_ae_ev,
+    void* g_w, void* g_x0, void* g_i0, void* res, void* gres, void* gy, void* xin, void* parts,
+    int tm1, int batch, int h, int xd, int id, int solver, int stages, int max_slots, void* stream) {
+  if (tm1 < 1 || batch < 1 || h < 1 || h > kMaxH || xd < 1 || id < 1 || xd + id > kMaxH ||
+      solver < 0 || solver > 2 || n_de < 1 || n_de > kMaxTail || n_ae < 1 || n_ae > kMaxTail)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int S = n_stages(solver), E = S + 2, L = n_de > n_ae ? n_de : n_ae;
+  const long long R = static_cast<long long>(tm1) * batch;
   Args a;
   a.s_de = static_cast<const float*>(s_de);
   a.s_ae = static_cast<const float*>(s_ae);
@@ -656,31 +349,56 @@ extern "C" int psn_fused_dae_rollout_bwd_f32(
   a.i0 = static_cast<const float*>(i0);
   a.sol = static_cast<const float*>(sol);
   a.cot = static_cast<const float*>(cot);
-  a.wx_de = static_cast<const float*>(wx_de);
-  a.wi_de = static_cast<const float*>(wi_de);
-  a.gx_ae = static_cast<const float*>(gx_ae);
-  a.wx_t = static_cast<const float*>(wx_t);
-  a.wi_t = static_cast<const float*>(wi_t);
-  a.gx_t = static_cast<const float*>(gx_t);
-  if (!fill_tail(&a.de, de_w, de_wt, de_b, n_de, xd) ||
-      !fill_tail(&a.ae, ae_w, ae_wt, ae_b, n_ae, id))
-    return static_cast<int>(cudaErrorInvalidValue);
+  a.de = make_net(static_cast<const float*>(w_de), static_cast<const float*>(b_de), n_de, xd + id, xd);
+  a.ae = make_net(static_cast<const float*>(w_ae), static_cast<const float*>(b_ae), n_ae, xd, id);
+  a.bf = make_bufs(static_cast<float*>(res), static_cast<float*>(gres), static_cast<float*>(gy),
+                   static_cast<float*>(xin), R, E, L, h, xd > id ? xd : id, xd + id);
   a.g_s_de = static_cast<float*>(g_s_de);
   a.g_s_ae = static_cast<float*>(g_s_ae);
   a.g_s_ae_ev = static_cast<float*>(g_s_ae_ev);
-  a.partial = static_cast<float*>(partial);
-  a.g_w = static_cast<float*>(g_w);
   a.g_x0 = static_cast<float*>(g_x0);
   a.g_i0 = static_cast<float*>(g_i0);
-  a.off = grad_offsets(h, xd, id, n_de, n_ae);
   a.tm1 = tm1;
   a.batch = batch;
-  a.h = h;
   a.xd = xd;
   a.id = id;
   a.solver = solver;
-  a.n_max = n_de > n_ae ? n_de : n_ae;
-  return static_cast<int>(launch(a, static_cast<cudaStream_t>(stream)));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaSuccess;
+  if (stages & 1) {
+    const size_t smem = rc_smem_bytes();
+    e = allow_smem(dae_recompute, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int tiles = static_cast<int>((R + kRows - 1) / kRows);
+    dae_recompute<<<tiles, kThreads, smem, st>>>(a);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (stages & 2) {
+    Net* nets[2] = {&a.de, &a.ae};
+    // by default the DE's hidden weights, used S times a step; the AE's,
+    // used once, read through L1 and L2 (phase_clock's [ne-slots] sweep:
+    // the AE's first one resident too leaves L1 too small for the second)
+    const int fit = walk_fit(E, L), cap = max_slots >= 0 ? max_slots : n_de - 1;
+    const int slots = place(nets, 2, cap < fit ? cap : fit);
+    const size_t smem = walk_floats(slots, E, L) * sizeof(float);
+    e = allow_smem(dae_walk, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    dae_walk<<<batch, kThreads, smem, st>>>(a, slots);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (stages & 4) {
+    CtArgs c{};
+    c.jobs = dae_jobs(a.de, a.ae, h, xd, id, S);
+    c.bf = a.bf;
+    c.ev = a.aux + 1;
+    c.ev_stride = 2;
+    c.parts = static_cast<float*>(parts);
+    c.g_w = static_cast<float*>(g_w);
+    e = launch_contraction(c, n_splits(max_rows(c.jobs, R)), st);
+  }
+  return static_cast<int>(e);
 }
 
 extern "C" const char* psn_cuda_error_string(int code) {

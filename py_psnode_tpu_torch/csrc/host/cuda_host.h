@@ -1,5 +1,6 @@
-// A host model of the CUDA subset the channel-wise kernels use, so that
-// their sources build with g++ and run on a CPU at small shapes
+// A host model of the CUDA subset the port's tensor-core kernels use (the
+// channel-wise pair and the no-encode backward pair), so that their
+// sources build with g++ and run on a CPU at small shapes
 // (py_psnode_tpu_torch/utils/host_build.py): one OS thread per CUDA thread;
 // __syncthreads as a std::barrier of the block; a cluster's blocks run at
 // once, the next cluster after them; shared memory a poisoned (NaN) buffer
@@ -26,10 +27,15 @@ struct dim3 {
 struct float2 {
   float x, y;
 };
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
 
-// One warp's mma operands, one slot a lane (hopper_ops.cuh).
+// One warp's mma operands (hopper_ops.cuh) or shuffled values, one slot a
+// lane.
 struct HostMmaSlot {
   uint32_t a[4], b[2];
+  float f;
 };
 // A cp.async copy, made when its group is waited for.
 struct HostCopy {
@@ -64,6 +70,16 @@ inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 #define __align__(n) alignas(n)
 
 inline void __syncthreads() { host_t.block_bar->arrive_and_wait(); }
+// the value of lane (lane ^ m) of the warp, through the warp's slots; every
+// lane of the warp takes part, as in the kernels
+inline float __shfl_xor_sync(unsigned, float v, int m) {
+  const int lane = threadIdx.x & 31;
+  host_t.slots[lane].f = v;
+  host_t.warp_bar->arrive_and_wait();
+  const float o = host_t.slots[lane ^ m].f;
+  host_t.warp_bar->arrive_and_wait();
+  return o;
+}
 template <class T>
 inline T __ldg(const T* p) { return *p; }
 inline float __uint_as_float(uint32_t u) {

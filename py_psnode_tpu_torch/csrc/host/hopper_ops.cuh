@@ -1,13 +1,16 @@
 // The host model of csrc/hopper_ops.cuh (with csrc/host/cuda_host.h): TF32
 // rounding on the top 19 bits, round to nearest with ties away from zero;
 // mma.sync m16n8k8 through a slot per lane and a barrier of the warp, each
-// lane gathering its four outputs in the PTX ISA's fragment layout; a
+// lane gathering its four outputs in the PTX ISA's fragment layout, each
+// output's sum (the accumulator and eight exact products) rounded toward
+// zero, as the tensor cores truncate when they accumulate; a
 // cp.async copy made only when its group is waited for; the cluster's
 // barrier and shared-memory map, with a check that arrivals and waits
 // alternate.
 
 #pragma once
 
+#include <cmath>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
@@ -32,14 +35,16 @@ inline void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[
   float out[4];
   for (int r = 0; r < 4; ++r) {
     const int row = g + 8 * (r >> 1), col = 2 * q + (r & 1);
-    float acc = d[r];
+    double acc = d[r];
     for (int k = 0; k < 8; ++k) {
       // A[row][k] lies with lane (row % 8, k % 4), B[k][col] with lane (col, k % 4)
       const float av = tf32_value(s[(row % 8) * 4 + k % 4].a[(row >= 8) + 2 * (k >= 4)]);
       const float bv = tf32_value(s[col * 4 + k % 4].b[k >= 4]);
-      acc = std::fmaf(av, bv, acc);
+      acc += static_cast<double>(av) * bv;  // exact: two 11-bit significands
     }
-    out[r] = acc;
+    float f = static_cast<float>(acc);
+    if (std::fabs(static_cast<double>(f)) > std::fabs(acc)) f = std::nextafterf(f, 0.f);
+    out[r] = f;
   }
   host_t.warp_bar->arrive_and_wait();
   for (int r = 0; r < 4; ++r) d[r] = out[r];

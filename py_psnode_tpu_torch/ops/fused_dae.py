@@ -250,9 +250,12 @@ def default_launch(batch: int, n_sms: int) -> Tuple[int, int]:
     return (1, 4) if batch <= n_sms else (4, 2)
 
 
-def _check_kernel_inputs(streams, weights, x0, i0, aux):
+def _check_kernel_inputs(streams, weights, x0, i0, aux, device_type: str = "cuda"):
+    """Raise unless the rollout's inputs are float32, contiguous, on one
+    CUDA device (or, for a host build of the kernels, ``device_type``
+    "cpu") and shaped as the kernels take them."""
     s_de = streams["s_de"]
-    if s_de.device.type != "cuda":
+    if s_de.device.type != device_type:
         raise ValueError(f"the CUDA rollout kernel takes CUDA tensors, got {s_de.device}")
     Tm1, B, h = s_de.shape
     xd, idim = x0.shape[-1], i0.shape[-1]

@@ -17,10 +17,14 @@ re-evaluated and its VJP routes the ``i_in`` cotangent of event rows into
 the ``x_t``/stream/weight gradients instead of the ``i_t`` carry. ``dt``
 and ``ev`` get no gradient.
 
-:func:`fused_dae_rollout_bwd` runs the hand-written CUDA kernel
+:func:`fused_dae_rollout_bwd` runs the hand-written CUDA backward
 ``csrc/fused_dae_rollout_bwd.cu`` on CUDA tensors and
 :func:`fused_dae_rollout_bwd_plain`, the same walk as an eager PyTorch
-loop, on CPU tensors. :class:`FusedDaeRollout` is the
+loop, on CPU tensors. The CUDA backward is three kernels
+(``ops/noencode_bwd.py``): the recompute of every evaluation at every
+row-step at once (:func:`recompute_plain` is its plain version), the
+reverse walk of the cotangents, and the contraction of the weight
+gradients (:func:`contract_plain`). :class:`FusedDaeRollout` is the
 ``torch.autograd.Function`` around the forward kernel and this backward.
 
 Not ported: teacher forcing (``tf_x``, the ``g_xt/g_xt1`` outputs), the
@@ -33,7 +37,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -48,7 +52,9 @@ from py_psnode_tpu_torch.ops.fused_dae import (
     pack_aux,
     unpack_solution,
 )
+from py_psnode_tpu_torch.ops.noencode_bwd import STAGES, check_widths, launch, net_grads_plain, pad_net
 from py_psnode_tpu_torch.utils import cuda_build
+
 
 
 def delu(p: torch.Tensor) -> torch.Tensor:
@@ -230,6 +236,62 @@ def fused_dae_rollout_bwd_plain(
     return g_s, g_w, gx_c, gi_c
 
 
+@torch.no_grad()
+def recompute_plain(streams: Dict, weights: Dict, x0, i0, aux, packed, solver: str = "rk4"):
+    """The recompute kernel's buffers as plain PyTorch, in the inputs' dtype:
+    ``(res [E, L, R, h], xin [E, R, xd+id])`` for every row-step ``r = t B +
+    b``, the ``E = S + 2`` slots the DE stages in evaluation order, the AE at
+    t+1, the AE at the event (its pre-activations zero on rows without an
+    event); ``L`` the longer tail. A stage's input is ``(x, i_in)``, an AE's
+    ``x`` (the rest zero). The arguments of :func:`fused_dae_rollout_bwd_plain`."""
+    solver = normalize_solver(solver)
+    s_de, s_ae, s_ae_ev = streams["s_de"], streams["s_ae"], streams["s_ae_ev"]
+    wx, wi, gx = weights["wx_de"], weights["wi_de"], weights["gx_ae"]
+    de_tail, ae_tail = weights["de_tail"], weights["ae_tail"]
+    Tm1, B, h = s_de.shape
+    xd, idim = x0.shape[-1], i0.shape[-1]
+    R, S = Tm1 * B, STAGES[solver]
+    rows = lambda a: a.reshape(R, -1)
+    x_t = rows(torch.cat([x0[None], packed[:-1, :, :xd]]))
+    i_t = rows(torch.cat([i0[None], packed[:-1, :, xd:]]))
+    dt = rows(aux[..., 0:1]).to(s_de.dtype)
+    ev = aux[..., 1].reshape(R) > 0
+    res = s_de.new_zeros(S + 2, max(len(de_tail), len(ae_tail)), R, h)
+    xin = s_de.new_zeros(S + 2, R, xd + idim)
+
+    def net(q, first_in, stream, first_w, tail, keep=None):
+        xin[q, :, : first_in.shape[1]] = first_in
+        y, (pres, _) = _tail_fwd_res(rows(stream) + first_in @ first_w, tail)
+        for l, p in enumerate(pres):
+            res[q, l] = p if keep is None else torch.where(keep[:, None], p, 0.0)
+        return y
+
+    i_in = torch.where(ev[:, None], net(S + 1, x_t, s_ae_ev, gx, ae_tail, keep=ev), i_t)
+    net(S, rows(packed[:, :, :xd]), s_ae, gx, ae_tail)
+    w_first = torch.cat([wx, wi])
+    f = lambda q, xq: net(q, torch.cat([xq, i_in], dim=1), s_de, w_first, de_tail)
+    k1 = f(0, x_t)
+    if solver == "midpoint":
+        f(1, x_t + k1 * (0.5 * dt))
+    elif solver == "rk4":
+        k2 = f(1, x_t + dt * k1 * _ONE_THIRD)
+        k3 = f(2, x_t + dt * (k2 - k1 * _ONE_THIRD))
+        f(3, x_t + dt * (k1 - k2 + k3))
+    return res, xin
+
+
+def contract_plain(res, gres, gy, xin, ev, n_tails: Tuple[int, int], xd: int, idim: int) -> Dict:
+    """The contraction kernel's plain version: the weight gradients, in the
+    layout of ``weights``, from the buffers ``res/gres [E, L, R, h]``, ``gy
+    [E, R, max(xd, id)]``, ``xin [E, R, xd+id]`` and the event flags ``ev
+    [R]`` (bool; the AE at the event counts only there)."""
+    n_de, n_ae = n_tails
+    S = res.shape[0] - 2
+    first, de_tail = net_grads_plain(res, gres, gy, xin, range(S), xd + idim, n_de, xd)
+    gx, ae_tail = net_grads_plain(res, gres, gy, xin, (S, S + 1), xd, n_ae, idim, keep=ev)
+    return dict(wx_de=first[:xd], wi_de=first[xd:], gx_ae=gx, de_tail=de_tail, ae_tail=ae_tail)
+
+
 def grad_layout(weights: Dict) -> Tuple[List[Tuple[int, Tuple[int, ...]]], int]:
     """``([(offset, shape), ...], total)``: where each gradient lies in the
     kernel's flat gradient row, in :func:`flatten_weights` order."""
@@ -240,49 +302,83 @@ def grad_layout(weights: Dict) -> Tuple[List[Tuple[int, Tuple[int, ...]]], int]:
     return out, off
 
 
-@functools.lru_cache(maxsize=None)
-def _launcher():
-    """The C launcher of ``csrc/fused_dae_rollout_bwd.cu`` with its
-    signature."""
-    lib = cuda_build.load("fused_dae_rollout_bwd")
+def bind_rollout_bwd(lib: ctypes.CDLL):
+    """``(backward, sizes, error string)``: the C functions of a build of
+    ``csrc/fused_dae_rollout_bwd.cu`` (for the card or, in
+    ``utils/host_build.py``, the host) with their signatures."""
     fn = lib.psn_fused_dae_rollout_bwd_f32
     P, I = ctypes.c_void_p, ctypes.c_int
-    PP = ctypes.POINTER(ctypes.c_void_p)
     fn.argtypes = [
         P, P, P, P,  # s_de, s_ae, s_ae_ev, aux
         P, P, P, P,  # x0, i0, sol, cot
-        P, P, P,  # wx_de, wi_de, gx_ae
-        P, P, P,  # their transposes
-        PP, PP, PP, I,  # de tail W, W^T, b, count
-        PP, PP, PP, I,  # ae tail W, W^T, b, count
+        P, P, I,  # DE padded weights, biases, tail layers
+        P, P, I,  # AE padded weights, biases, tail layers
         P, P, P,  # g_s_de, g_s_ae, g_s_ae_ev
-        P, P, P, P,  # partial, g_w, g_x0, g_i0
+        P, P, P,  # g_w, g_x0, g_i0
+        P, P, P, P, P,  # res, gres, gy, xin, parts (scratch)
         I, I, I, I, I,  # Tm1, B, h, xd, id
-        I,  # solver
+        I, I, I,  # solver, stages, resident weight slots (-1: the DE's hidden weights)
         P,  # stream
     ]
     fn.restype = ctypes.c_int
-    size = lib.psn_fused_dae_bwd_grad_size
-    size.argtypes = [I, I, I, I, I]
-    size.restype = ctypes.c_int
+    sizes = lib.psn_fused_dae_bwd_sizes
+    sizes.argtypes = [I] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+    sizes.restype = None
     err = lib.psn_cuda_error_string
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
-    return fn, size, err
+    return fn, sizes, err
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    """The C launcher of ``csrc/fused_dae_rollout_bwd.cu`` (:func:`bind_rollout_bwd`)."""
+    return bind_rollout_bwd(cuda_build.load("fused_dae_rollout_bwd"))
+
+
+def bwd_sizes(sizes, Tm1, B, h, xd, idim, n_tails, solver) -> Tuple[int, ...]:
+    """``(g_w, res, gy, xin, parts)`` floats at these shapes, from the C
+    function ``sizes`` of :func:`bind_rollout_bwd`."""
+    got = (ctypes.c_longlong * 5)()
+    sizes(Tm1, B, h, xd, idim, *n_tails, _SOLVER_CODE[solver], got)
+    return tuple(got)
 
 
 def fused_dae_rollout_bwd_cuda(
     streams: Dict, weights: Dict, x0, i0, aux, packed, cot, solver: str = "rk4",
 ):
-    """Launch the CUDA backward (one launch walks all steps, one block per
-    batch row; a second small kernel sums the blocks' partial weight grads
-    in a fixed order). Same contract as :func:`fused_dae_rollout_bwd_plain`,
-    float32."""
+    """Launch the CUDA backward: the recompute of every evaluation of every
+    row-step, the reverse walk (one block per batch row), and the
+    contraction of the weight gradients (in a fixed order: bit-identical on
+    relaunch). Same contract as :func:`fused_dae_rollout_bwd_plain`,
+    float32, h and xd + id <= 128. Scratch: the residual and cotangent
+    buffers, ``2 (S + 2) L (T-1) B h`` floats and a little more (1.2 GB at
+    B=64, T=1001, RK4, h=128), live until the call returns."""
+    out, _ = _launch_bwd(streams, weights, x0, i0, aux, packed, cot, solver)
+    fused_dae_rollout_bwd.launches += 1
+    return out
+
+
+def _launch_bwd(streams: Dict, weights: Dict, x0, i0, aux, packed, cot, solver: str, launcher=None,
+                stages: int = 7, bufs: Optional[Dict] = None, host: bool = False, slots: int = -1):
+    """Launch the backward's kernels ``stages`` (1 the recompute, 2 the
+    walk, 4 the contraction) through ``launcher`` (of
+    :func:`bind_rollout_bwd`; the default build when None), on the buffers
+    ``bufs`` (flat ``res``, ``gres``, ``gy``, ``xin``, ``parts``; new ones
+    when None); ``host``: a host build on CPU tensors
+    (``utils/host_build.py``); ``slots``: how many of the walk's hidden
+    weights (the DE's, then the AE's) are resident in shared memory (-1:
+    the DE's). Returns ``((g_streams, g_weights, g_x0, g_i0), bufs)``; the
+    outputs of kernels not launched are left unset. Counts nothing:
+    :func:`fused_dae_rollout_bwd_cuda` is the entry; the smoke times one
+    kernel at a time, the tests run the contraction on given buffers, the
+    phase clock its own build."""
     solver = normalize_solver(solver)
-    _check_kernel_inputs(streams, weights, x0, i0, aux)
+    _check_kernel_inputs(streams, weights, x0, i0, aux, "cpu" if host else "cuda")
     s_de = streams["s_de"]
     Tm1, B, h = s_de.shape
     xd, idim = x0.shape[-1], i0.shape[-1]
+    check_widths(h=h, **{"xd + id": xd + idim})
     for name, a, shape in (("packed", packed, (Tm1, B, xd + idim)),
                            ("cot", cot, (Tm1 + 1, B, xd + idim))):
         if a.device != s_de.device or a.dtype != torch.float32:
@@ -291,47 +387,38 @@ def fused_dae_rollout_bwd_cuda(
             raise ValueError(f"{name} must have shape {shape}, got {tuple(a.shape)}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    fn, size, err = _launcher()
+    fn, sizes, err = launcher or _launcher()
     layout, total = grad_layout(weights)
     n_tails = (len(weights["de_tail"]), len(weights["ae_tail"]))
-    if size(h, xd, idim, *n_tails) != total:
+    n_w, n_res, n_gy, n_xin, n_parts = bwd_sizes(sizes, Tm1, B, h, xd, idim, n_tails, solver)
+    if n_w != total:
         raise RuntimeError("gradient layout of the CUDA backward and of its wrapper disagree")
-    dev = s_de.device
-    f32 = dict(dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=s_de.device)
+    if bufs is None:
+        bufs = dict(res=torch.empty(n_res, **f32), gres=torch.empty(n_res, **f32),
+                    gy=torch.empty(n_gy, **f32), xin=torch.empty(n_xin, **f32))
+    bufs.setdefault("parts", torch.empty(n_parts, **f32))
     g_s = {k: torch.empty(Tm1, B, h, **f32) for k in ("s_de", "s_ae", "s_ae_ev")}
-    partial = torch.zeros(B, total, **f32)  # one row per block
     g_flat = torch.empty(total, **f32)
     g_x0, g_i0 = torch.empty(B, xd, **f32), torch.empty(B, idim, **f32)
-    tr = lambda a: a.t().contiguous()
-    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
-    keep = []  # transposes must outlive the launch
-
-    def tail_args(net):
-        Ws = [W for W, _ in weights[net]]
-        WTs = [tr(W) for W in Ws]
-        keep.extend(WTs)
-        return ptrs(Ws), ptrs(WTs), ptrs([b for _, b in weights[net]]), len(Ws)
-
-    wxt, wit, gxt = tr(weights["wx_de"]), tr(weights["wi_de"]), tr(weights["gx_ae"])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(
-            s_de.data_ptr(), streams["s_ae"].data_ptr(), streams["s_ae_ev"].data_ptr(),
-            aux.data_ptr(), x0.data_ptr(), i0.data_ptr(), packed.data_ptr(), cot.data_ptr(),
-            weights["wx_de"].data_ptr(), weights["wi_de"].data_ptr(), weights["gx_ae"].data_ptr(),
-            wxt.data_ptr(), wit.data_ptr(), gxt.data_ptr(),
-            *tail_args("de_tail"), *tail_args("ae_tail"),
-            g_s["s_de"].data_ptr(), g_s["s_ae"].data_ptr(), g_s["s_ae_ev"].data_ptr(),
-            partial.data_ptr(), g_flat.data_ptr(), g_x0.data_ptr(), g_i0.data_ptr(),
-            Tm1, B, h, xd, idim, _SOLVER_CODE[solver], stream,
-        )
+    # the padded weights must outlive the launch
+    w_de, b_de = pad_net(torch.cat([weights["wx_de"], weights["wi_de"]]), weights["de_tail"])
+    w_ae, b_ae = pad_net(weights["gx_ae"], weights["ae_tail"])
+    rc = launch(
+        fn, s_de.device, s_de.data_ptr(), streams["s_ae"].data_ptr(), streams["s_ae_ev"].data_ptr(),
+        aux.data_ptr(), x0.data_ptr(), i0.data_ptr(), packed.data_ptr(), cot.data_ptr(),
+        w_de.data_ptr(), b_de.data_ptr(), n_tails[0], w_ae.data_ptr(), b_ae.data_ptr(), n_tails[1],
+        g_s["s_de"].data_ptr(), g_s["s_ae"].data_ptr(), g_s["s_ae_ev"].data_ptr(),
+        g_flat.data_ptr(), g_x0.data_ptr(), g_i0.data_ptr(),
+        *(bufs[k].data_ptr() for k in ("res", "gres", "gy", "xin", "parts")),
+        Tm1, B, h, xd, idim, _SOLVER_CODE[solver], stages, slots,
+    )
     if rc != 0:
         raise RuntimeError(
             f"fused_dae_rollout_bwd kernel launch failed: CUDA error {rc} ({err(rc).decode()})"
         )
-    fused_dae_rollout_bwd.launches += 1
     g_list = [g_flat[off : off + math.prod(shape)].view(shape) for off, shape in layout]
-    return g_s, unflatten_weights(g_list, n_tails), g_x0, g_i0
+    return (g_s, unflatten_weights(g_list, n_tails), g_x0, g_i0), bufs
 
 
 def fused_dae_rollout_bwd(streams, weights, x0, i0, aux, packed, cot, solver="rk4"):

@@ -104,10 +104,11 @@ def fused_ode_rollout_plain(s_de, weights: Dict, x0, dt, solver: str = "euler") 
     return torch.stack(xs)
 
 
-def check_inputs(s_de, weights: Dict, x0, dt):
+def check_inputs(s_de, weights: Dict, x0, dt, device_type: str = "cuda"):
     """Raise unless the rollout's inputs are float32, contiguous, on one
-    CUDA device and shaped as the kernels take them."""
-    if s_de.device.type != "cuda":
+    CUDA device (or, for a host build of the kernels, ``device_type``
+    "cpu") and shaped as the kernels take them."""
+    if s_de.device.type != device_type:
         raise ValueError(f"the CUDA ODE kernels take CUDA tensors, got {s_de.device}")
     Tm1, B, h = s_de.shape
     xd = x0.shape[-1]

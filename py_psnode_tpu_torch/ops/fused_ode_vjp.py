@@ -15,10 +15,14 @@ step, and accumulates:
 
 ``dt`` gets no gradient.
 
-:func:`fused_ode_rollout_bwd` runs the hand-written CUDA kernel
+:func:`fused_ode_rollout_bwd` runs the hand-written CUDA backward
 ``csrc/fused_ode_rollout_bwd.cu`` on CUDA tensors and
 :func:`fused_ode_rollout_bwd_plain`, the same walk as an eager PyTorch
-loop, on CPU tensors. :class:`FusedOdeRollout` is the
+loop, on CPU tensors. The CUDA backward is three kernels
+(``ops/noencode_bwd.py``): the recompute of every stage at every row-step
+at once (:func:`recompute_plain` is its plain version), the reverse walk of
+the cotangents, and the contraction of the weight gradients
+(:func:`contract_plain`). :class:`FusedOdeRollout` is the
 ``torch.autograd.Function`` around the forward kernel and this backward.
 
 Not ported: the bf16 compute mode and the TPU's time padding and time
@@ -30,14 +34,16 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from py_psnode_tpu_torch.ops.fused_dae import _ONE_THIRD, _SOLVER_CODE, normalize_solver
 from py_psnode_tpu_torch.ops.fused_dae_vjp import _tail_bwd, _tail_fwd_res
-from py_psnode_tpu_torch.ops.fused_ode import check_inputs, fused_ode_rollout, pointer_array
+from py_psnode_tpu_torch.ops.fused_ode import check_inputs, fused_ode_rollout
+from py_psnode_tpu_torch.ops.noencode_bwd import STAGES, check_widths, launch, net_grads_plain, pad_net
 from py_psnode_tpu_torch.utils import cuda_build
+
 
 
 def flatten_weights(weights: Dict) -> List[torch.Tensor]:
@@ -133,6 +139,46 @@ def fused_ode_rollout_bwd_plain(s_de, weights: Dict, dt, sol, cot, solver: str =
     return g_s, g_w, gx
 
 
+@torch.no_grad()
+def recompute_plain(s_de, weights: Dict, dt, sol, solver: str = "euler"):
+    """The recompute kernel's buffers as plain PyTorch, in the inputs' dtype:
+    ``(res [S, n, R, h], xin [S, R, xd])``, every stage's layer
+    pre-activations and input at every row-step ``r = t B + b`` (stages in
+    evaluation order; the arguments of :func:`fused_ode_rollout_bwd_plain`)."""
+    solver = normalize_solver(solver)
+    wx, tail = weights["wx_de"], weights["de_tail"]
+    Tm1, B, h = s_de.shape
+    xd, R, S = sol.shape[-1], Tm1 * B, STAGES[solver]
+    x, s = sol[:-1].reshape(R, xd), s_de.reshape(R, h)
+    dtr = dt.reshape(R, 1).to(s_de.dtype)
+    res = s_de.new_zeros(S, len(tail), R, h)
+    xin = s_de.new_zeros(S, R, xd)
+
+    def f(q, xq):
+        xin[q] = xq
+        y, (pres, _) = _tail_fwd_res(s + xq @ wx, tail)
+        for l, p in enumerate(pres):
+            res[q, l] = p
+        return y
+
+    k1 = f(0, x)
+    if solver == "midpoint":
+        f(1, x + k1 * (0.5 * dtr))
+    elif solver == "rk4":
+        k2 = f(1, x + dtr * k1 * _ONE_THIRD)
+        k3 = f(2, x + dtr * (k2 - k1 * _ONE_THIRD))
+        f(3, x + dtr * (k1 - k2 + k3))
+    return res, xin
+
+
+def contract_plain(res, gres, gy, xin, n_tail: int, xd: int) -> Dict:
+    """The contraction kernel's plain version: the weight gradients, in the
+    layout of ``weights``, from the buffers ``res/gres [S, n, R, h]``, ``gy
+    [S, R, xd]`` and ``xin [S, R, xd]``."""
+    first, tail = net_grads_plain(res, gres, gy, xin, range(res.shape[0]), xd, n_tail, xd)
+    return dict(wx_de=first, de_tail=tail)
+
+
 def grad_layout(weights: Dict) -> Tuple[List[Tuple[int, Tuple[int, ...]]], int]:
     """``([(offset, shape), ...], total)``: where each gradient lies in the
     kernel's flat gradient row, in :func:`flatten_weights` order."""
@@ -143,42 +189,77 @@ def grad_layout(weights: Dict) -> Tuple[List[Tuple[int, Tuple[int, ...]]], int]:
     return out, off
 
 
-@functools.lru_cache(maxsize=None)
-def _launcher():
-    """The C launcher of ``csrc/fused_ode_rollout_bwd.cu`` with its
-    signature."""
-    lib = cuda_build.load("fused_ode_rollout_bwd")
+def bind_rollout_bwd(lib: ctypes.CDLL):
+    """``(backward, sizes, error string)``: the C functions of a build of
+    ``csrc/fused_ode_rollout_bwd.cu`` (for the card or, in
+    ``utils/host_build.py``, the host) with their signatures."""
     fn = lib.psn_fused_ode_rollout_bwd_f32
     P, I = ctypes.c_void_p, ctypes.c_int
-    PP = ctypes.POINTER(ctypes.c_void_p)
     fn.argtypes = [
         P, P, P, P,  # s_de, dt, sol, cot
-        P, P,  # wx_de, its transpose
-        PP, PP, PP, I,  # tail W, W^T, b, count
-        P, P, P, P,  # g_s_de, partial, g_w, g_x0
+        P, P, I,  # padded weights, padded biases, tail layers
+        P, P, P,  # g_s_de, g_w, g_x0
+        P, P, P, P, P,  # res, gres, gy, xin, parts (scratch)
         I, I, I, I,  # Tm1, B, h, xd
-        I,  # solver
+        I, I, I,  # solver, stages, resident weight slots (-1: as many as fit)
         P,  # stream
     ]
     fn.restype = ctypes.c_int
-    size = lib.psn_fused_ode_bwd_grad_size
-    size.argtypes = [I, I, I]
-    size.restype = ctypes.c_int
+    sizes = lib.psn_fused_ode_bwd_sizes
+    sizes.argtypes = [I] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+    sizes.restype = None
     err = lib.psn_cuda_error_string
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
-    return fn, size, err
+    return fn, sizes, err
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    """The C launcher of ``csrc/fused_ode_rollout_bwd.cu`` (:func:`bind_rollout_bwd`)."""
+    return bind_rollout_bwd(cuda_build.load("fused_ode_rollout_bwd"))
+
+
+def bwd_sizes(sizes, Tm1, B, h, xd, n_tail, solver) -> Tuple[int, ...]:
+    """``(g_w, res, gy, xin, parts)`` floats at these shapes, from the C
+    function ``sizes`` of :func:`bind_rollout_bwd`."""
+    got = (ctypes.c_longlong * 5)()
+    sizes(Tm1, B, h, xd, n_tail, _SOLVER_CODE[solver], got)
+    return tuple(got)
 
 
 def fused_ode_rollout_bwd_cuda(s_de, weights: Dict, dt, sol, cot, solver: str = "euler"):
-    """Launch the CUDA backward (one launch walks all steps, one block per
-    batch row; a second small kernel sums the blocks' partial weight grads
-    in a fixed order). Same contract as :func:`fused_ode_rollout_bwd_plain`,
-    float32."""
+    """Launch the CUDA backward: the recompute of every stage of every
+    row-step, the reverse walk (one block per batch row), and the
+    contraction of the weight gradients (in a fixed order: bit-identical on
+    relaunch). Same contract as :func:`fused_ode_rollout_bwd_plain`,
+    float32, h and xd <= 128. Scratch: the residual and cotangent buffers,
+    ``2 S n (T-1) B h`` floats and a little more (0.8 GB at B=64, T=1001,
+    RK4, h=128), live until the call returns."""
+    out, _ = _launch_bwd(s_de, weights, dt, sol, cot, solver)
+    fused_ode_rollout_bwd.launches += 1
+    return out
+
+
+def _launch_bwd(s_de, weights: Dict, dt, sol, cot, solver: str, launcher=None, stages: int = 7,
+                bufs: Optional[Dict] = None, host: bool = False, slots: int = -1):
+    """Launch the backward's kernels ``stages`` (1 the recompute, 2 the
+    walk, 4 the contraction) through ``launcher`` (of
+    :func:`bind_rollout_bwd`; the default build when None), on the buffers
+    ``bufs`` (flat ``res``, ``gres``, ``gy``, ``xin``, ``parts``; new ones
+    when None); ``host``: a host build on CPU tensors
+    (``utils/host_build.py``); ``slots``: at most this many of the walk's
+    hidden weights resident in shared memory (-1: as many as fit). Returns
+    ``((g_s_de, g_weights, g_x0), bufs)``; the outputs of kernels not
+    launched are left unset. Counts nothing:
+    :func:`fused_ode_rollout_bwd_cuda` is the entry; the smoke times one
+    kernel at a time, the tests run the contraction on given buffers, the
+    phase clock its own build."""
     solver = normalize_solver(solver)
-    check_inputs(s_de, weights, sol[0], dt)
+    check_inputs(s_de, weights, sol[0], dt, "cpu" if host else "cuda")
     Tm1, B, h = s_de.shape
     xd = sol.shape[-1]
+    check_widths(h=h, xd=xd)
     for name, a in (("sol", sol), ("cot", cot)):
         if a.device != s_de.device or a.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 on {s_de.device}, got {a.dtype} on {a.device}")
@@ -186,35 +267,33 @@ def fused_ode_rollout_bwd_cuda(s_de, weights: Dict, dt, sol, cot, solver: str = 
             raise ValueError(f"{name} must have shape {(Tm1 + 1, B, xd)}, got {tuple(a.shape)}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    fn, size, err = _launcher()
+    fn, sizes, err = launcher or _launcher()
     layout, total = grad_layout(weights)
     tail = weights["de_tail"]
-    if size(h, xd, len(tail)) != total:
+    n_w, n_res, n_gy, n_xin, n_parts = bwd_sizes(sizes, Tm1, B, h, xd, len(tail), solver)
+    if n_w != total:
         raise RuntimeError("gradient layout of the CUDA backward and of its wrapper disagree")
     f32 = dict(dtype=torch.float32, device=s_de.device)
+    if bufs is None:
+        bufs = dict(res=torch.empty(n_res, **f32), gres=torch.empty(n_res, **f32),
+                    gy=torch.empty(n_gy, **f32), xin=torch.empty(n_xin, **f32))
+    bufs.setdefault("parts", torch.empty(n_parts, **f32))
     g_s = torch.empty(Tm1, B, h, **f32)
-    partial = torch.zeros(B, total, **f32)  # one row per block
     g_flat = torch.empty(total, **f32)
     g_x0 = torch.empty(B, xd, **f32)
-    wxt = weights["wx_de"].t().contiguous()  # transposes must outlive the launch
-    wts = [W.t().contiguous() for W, _ in tail]
-    with torch.cuda.device(s_de.device):
-        stream = torch.cuda.current_stream(s_de.device).cuda_stream
-        rc = fn(
-            s_de.data_ptr(), dt.data_ptr(), sol.data_ptr(), cot.data_ptr(),
-            weights["wx_de"].data_ptr(), wxt.data_ptr(),
-            pointer_array([W for W, _ in tail]), pointer_array(wts),
-            pointer_array([b for _, b in tail]), len(tail),
-            g_s.data_ptr(), partial.data_ptr(), g_flat.data_ptr(), g_x0.data_ptr(),
-            Tm1, B, h, xd, _SOLVER_CODE[solver], stream,
-        )
+    w, b = pad_net(weights["wx_de"], tail)  # must outlive the launch
+    rc = launch(
+        fn, s_de.device, s_de.data_ptr(), dt.data_ptr(), sol.data_ptr(), cot.data_ptr(),
+        w.data_ptr(), b.data_ptr(), len(tail), g_s.data_ptr(), g_flat.data_ptr(), g_x0.data_ptr(),
+        *(bufs[k].data_ptr() for k in ("res", "gres", "gy", "xin", "parts")),
+        Tm1, B, h, xd, _SOLVER_CODE[solver], stages, slots,
+    )
     if rc != 0:
         raise RuntimeError(
             f"fused_ode_rollout_bwd kernel launch failed: CUDA error {rc} ({err(rc).decode()})"
         )
-    fused_ode_rollout_bwd.launches += 1
     g_list = [g_flat[off : off + math.prod(shape)].view(shape) for off, shape in layout]
-    return g_s, unflatten_weights(g_list), g_x0
+    return (g_s, unflatten_weights(g_list), g_x0), bufs
 
 
 def fused_ode_rollout_bwd(s_de, weights: Dict, dt, sol, cot, solver: str = "euler"):

@@ -1,17 +1,22 @@
-"""Build the channel-wise CUDA kernels for the host and run them on CPU tensors.
+"""Build the port's tensor-core CUDA kernels for the host and run them on CPU tensors.
 
 A CUDA kernel has no CPU mode, and this package's CPU runs never reach the
 kernels. To check a kernel's source before it meets the card, this module
 compiles ``csrc/<name>.cu`` with ``g++ -std=c++20`` against a host model of
 the CUDA subset it uses (``csrc/host/cuda_host.h``: one OS thread per CUDA
-thread, barriers, clusters run a cluster at a time, NaN-poisoned shared
-memory; ``csrc/host/hopper_ops.cuh``: TF32 rounding, the mma.sync fragment
-layout, cp.async made at its wait, the cluster barrier and shared-memory
-map) and calls its C launchers through ``ctypes`` with CPU pointers. The
-model runs every block's 512 threads as OS threads and every mma through a
-barrier of its warp, so it takes seconds an evaluation: keep shapes small.
+thread, barriers, warp shuffles, clusters run a cluster at a time,
+NaN-poisoned shared memory; ``csrc/host/hopper_ops.cuh``: TF32 rounding,
+the mma.sync fragment layout, cp.async made at its wait, the cluster
+barrier and shared-memory map) and calls its C launchers through ``ctypes``
+with CPU pointers. The model runs every block's 512 threads as OS threads
+and every mma through a barrier of its warp, so it takes seconds an
+evaluation: keep shapes small. It builds the channel-wise pair
+(``fused_cw_rollout{,_bwd}.cu``) and the no-encode backward pair
+(``fused_dae_rollout_bwd.cu``, ``fused_ode_rollout_bwd.cu``).
 
     python -m py_psnode_tpu_torch.utils.host_build fwd|bwd|contract B Tm1 h xd zd solver [cluster]
+    python -m py_psnode_tpu_torch.utils.host_build dae-bwd B Tm1 h solver
+    python -m py_psnode_tpu_torch.utils.host_build ode-bwd B Tm1 h xd n_tail solver
 
 holds the host build against the plain PyTorch version on seeded inputs
 (the card tests' kind) and prints the distance. Builds land in
@@ -35,21 +40,31 @@ import torch
 
 from py_psnode_tpu_torch.ops import fused_channelwise as FC
 from py_psnode_tpu_torch.ops import fused_channelwise_vjp as VC
+from py_psnode_tpu_torch.ops import fused_dae as F
+from py_psnode_tpu_torch.ops import fused_dae_vjp as V
+from py_psnode_tpu_torch.ops import fused_ode as FO
+from py_psnode_tpu_torch.ops import fused_ode_vjp as VO
 from py_psnode_tpu_torch.ops.fused_dae import _SOLVER_CODE
 from py_psnode_tpu_torch.ops.fused_ode import pointer_array
 from py_psnode_tpu_torch.utils.cuda_build import BUILD_DIR, SOURCE_DIR
 from py_psnode_tpu_torch.utils.cw_inputs import seeded_inputs
+from py_psnode_tpu_torch.utils.noencode_inputs import dae_inputs, ode_inputs
 
 HOST_DIR = SOURCE_DIR / "host"
 _LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)<<<([^,]+),([^,]+),([^,]+),([^>]+)>>>\(")
 
 
-def host_source(name: str) -> str:
-    """``csrc/<name>.cu`` as g++ takes it: every ``<<<...>>>`` launch a call
+def host_text(text: str) -> str:
+    """A source or header as g++ takes it: every ``<<<...>>>`` launch a call
     of ``host_launch_plain`` and the dynamic shared memory the block's
     buffer."""
-    src = _LAUNCH.sub(r"host_launch_plain(\1, \2, \3, \4, \5, ", (SOURCE_DIR / f"{name}.cu").read_text())
-    return src.replace("extern __shared__ __align__(16) float smem[];", "float* smem = host_t.smem;")
+    text = _LAUNCH.sub(r"host_launch_plain(\1, \2, \3, \4, \5, ", text)
+    return text.replace("extern __shared__ __align__(16) float smem[];", "float* smem = host_t.smem;")
+
+
+def host_source(name: str) -> str:
+    """``csrc/<name>.cu`` as g++ takes it (:func:`host_text`)."""
+    return host_text((SOURCE_DIR / f"{name}.cu").read_text())
 
 
 def find_gxx() -> str:
@@ -66,7 +81,7 @@ def load(name: str) -> ctypes.CDLL:
     model)."""
     source = host_source(name)
     h = hashlib.sha256(source.encode())
-    headers = {f.name: f.read_text() for f in sorted(SOURCE_DIR.glob("*.cuh"))}
+    headers = {f.name: host_text(f.read_text()) for f in sorted(SOURCE_DIR.glob("*.cuh"))}
     headers.update({f.name: f.read_text() for f in sorted(HOST_DIR.glob("*"))})  # the models win
     for key in sorted(headers):
         h.update(key.encode() + headers[key].encode())
@@ -160,6 +175,79 @@ def contract_pairs(pairs):
     return out[:n].view(4, xd, h, h), out[n:].view(4, xd, h)
 
 
+def _nan_bufs(n_res, n_gy, n_xin, n_parts) -> Dict:
+    return dict(res=_nan(n_res), gres=_nan(n_res), gy=_nan(n_gy), xin=_nan(n_xin), parts=_nan(n_parts))
+
+
+def dae_rollout_bwd(streams: Dict, weights: Dict, x0, i0, aux, packed, cot, solver: str = "rk4",
+                    stages: int = 7, bufs=None):
+    """Kernel 2's host build on CPU tensors (the arguments of
+    ``fused_dae_rollout_bwd_cuda``), on NaN-poisoned buffers unless
+    ``bufs`` are given; returns ``((g_streams, g_weights, g_x0, g_i0),
+    bufs)`` as ``fused_dae_vjp._launch_bwd`` does."""
+    launcher = V.bind_rollout_bwd(load("fused_dae_rollout_bwd"))
+    if bufs is None:
+        Tm1, B, h = streams["s_de"].shape
+        n_tails = (len(weights["de_tail"]), len(weights["ae_tail"]))
+        sizes = V.bwd_sizes(launcher[1], Tm1, B, h, x0.shape[-1], i0.shape[-1], n_tails, solver)
+        bufs = _nan_bufs(*sizes[1:])
+    return V._launch_bwd(streams, weights, x0, i0, aux, packed, cot, solver, launcher, stages, bufs, host=True)
+
+
+def ode_rollout_bwd(s_de, weights: Dict, dt, sol, cot, solver: str = "euler", stages: int = 7, bufs=None):
+    """Kernel 4's host build on CPU tensors (the arguments of
+    ``fused_ode_rollout_bwd_cuda``), on NaN-poisoned buffers unless
+    ``bufs`` are given; returns ``((g_s_de, g_weights, g_x0), bufs)`` as
+    ``fused_ode_vjp._launch_bwd`` does."""
+    launcher = VO.bind_rollout_bwd(load("fused_ode_rollout_bwd"))
+    if bufs is None:
+        Tm1, B, h = s_de.shape
+        sizes = VO.bwd_sizes(launcher[1], Tm1, B, h, sol.shape[-1], len(weights["de_tail"]), solver)
+        bufs = _nan_bufs(*sizes[1:])
+    return VO._launch_bwd(s_de, weights, dt, sol, cot, solver, launcher, stages, bufs, host=True)
+
+
+def _f64(tree):
+    if isinstance(tree, dict):
+        return {k: _f64(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tuple(_f64(a) for a in pair) for pair in tree]
+    return tree.double()
+
+
+def noencode_bwd_check(family: str, B: int, Tm1: int, h: int, solver: str, xd: int = 2,
+                       n_tail: int = 3) -> Dict[str, float]:
+    """Kernel 2 (``family`` "dae", the motor shape xd=3, id=2) or 4 ("ode",
+    ``xd`` and ``n_tail``) built for the host, on seeded inputs with
+    unit-scale cotangents, against the float64 plain walk: ``worst``, the
+    largest max|d| / max|plain| of any output tensor (the float32 plain
+    walk's beside it as ``float32``), and ``identical``, 1.0 when a relaunch
+    gave the same bits."""
+    rng = np.random.default_rng(B + Tm1 + h)
+    if family == "dae":
+        args = dae_inputs(B, Tm1, h, seed=h)
+        packed = F.fused_dae_rollout_packed_plain(*args, solver)
+        cot = torch.tensor(rng.standard_normal((Tm1 + 1, B, 5)).astype(np.float32))
+        flat = lambda g: [*g[0].values(), g[2], g[3]] + V.flatten_weights(g[1])[0]
+        run = lambda: flat(dae_rollout_bwd(*args, packed, cot, solver)[0])
+        streams, weights, x0, i0, aux = args
+        ref = flat(V.fused_dae_rollout_bwd_plain(_f64(streams), _f64(weights), x0.double(), i0.double(),
+                                                 aux, packed.double(), cot.double(), solver))
+        f32 = flat(V.fused_dae_rollout_bwd_plain(*args, packed, cot, solver))
+    else:
+        s_de, weights, x0, dt = ode_inputs(B, Tm1, h, xd, n_tail, seed=h)
+        sol = torch.cat([x0[None], FO.fused_ode_rollout_plain(s_de, weights, x0, dt, solver)])
+        cot = torch.tensor(rng.standard_normal(tuple(sol.shape)).astype(np.float32))
+        flat = lambda g: [g[0], g[2]] + VO.flatten_weights(g[1])
+        run = lambda: flat(ode_rollout_bwd(s_de, weights, dt, sol, cot, solver)[0])
+        ref = flat(VO.fused_ode_rollout_bwd_plain(s_de.double(), _f64(weights), dt, sol.double(),
+                                                  cot.double(), solver))
+        f32 = flat(VO.fused_ode_rollout_bwd_plain(s_de, weights, dt, sol, cot, solver))
+    got, again = run(), run()
+    return dict(worst=_worst(got, ref), float32=_worst(f32, ref),
+                identical=float(all(torch.equal(g, g2) for g, g2 in zip(got, again))))
+
+
 def _worst(got: List[torch.Tensor], ref: List[torch.Tensor]) -> float:
     return max(((g.double() - r.double()).abs().max() / r.double().abs().max()).item()
                for g, r in zip(got, ref))
@@ -167,6 +255,13 @@ def _worst(got: List[torch.Tensor], ref: List[torch.Tensor]) -> float:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    if argv[0] in ("dae-bwd", "ode-bwd"):
+        family = argv[0][:3]
+        dims = list(map(int, argv[1:-1]))
+        got = noencode_bwd_check(family, *dims[:3], argv[-1], *dims[3:])
+        print(f"{argv[0]}: worst max|d|/max|float64 walk| {got['worst']:.2e} (the float32 plain walk "
+              f"{got['float32']:.2e}); bit-identical on relaunch: {bool(got['identical'])}")
+        return 0 if got["worst"] <= 1e-4 and got["identical"] else 1
     what, (B, Tm1, h, xd, zd), solver = argv[0], map(int, argv[1:6]), argv[6]
     cluster = int(argv[7]) if len(argv) > 7 else 0
     streams, weights, x0, dt = seeded_inputs(B, Tm1, h, xd, zd)

@@ -27,22 +27,23 @@ from py_psnode_tpu_torch.ops import fused_dae_vjp as V
 from py_psnode_tpu_torch.ops import fused_ode as FO
 from py_psnode_tpu_torch.ops import fused_ode_vjp as VO
 from py_psnode_tpu_torch.utils.cw_inputs import seeded_inputs
+from py_psnode_tpu_torch.utils.noencode_inputs import dae_inputs
+from py_psnode_tpu_torch.utils.noencode_inputs import ode_inputs as noencode_ode_inputs
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(a, dev) for a in tree)
+    return tree.to(dev)
 
 
 def rollout_inputs(B, Tm1, h, xd=3, idim=2, seed=0, dev="cpu"):
     """Seeded rollout inputs in the flax layout, with per-row step sizes
-    and events in some rows."""
-    rng = np.random.default_rng(seed)
-    t = lambda *s, sc=1.0: torch.tensor((rng.standard_normal(s) * sc).astype(np.float32), device=dev)
-    streams = {k: t(Tm1, B, h, sc=0.5) for k in ("s_de", "s_ae", "s_ae_ev")}
-    tail = lambda out: [(t(h, o, sc=h ** -0.5), t(o, sc=0.1)) for o in (h, h, out)]
-    weights = dict(wx_de=t(xd, h, sc=0.5), wi_de=t(idim, h, sc=0.5), gx_ae=t(xd, h, sc=0.5),
-                   de_tail=tail(xd), ae_tail=tail(idim))
-    dt = torch.full((Tm1, B, 1), 0.05, device=dev)
-    dt[:, 1] = 0.02
-    ev = torch.zeros(Tm1, B, dtype=torch.bool, device=dev)
-    ev[2, 1] = ev[2, 3] = ev[9, :] = ev[Tm1 - 1, 0] = True
-    return streams, weights, t(B, xd), t(B, idim), F.pack_aux(dt, ev)
+    and events in some rows (``utils.noencode_inputs.dae_inputs``) on
+    ``dev``."""
+    return _to(dae_inputs(B, Tm1, h, xd, idim, seed), dev)
 
 
 @pytest.mark.parametrize("batch", [1, 32, 132, 133, 1024, 5000])
@@ -136,16 +137,10 @@ def test_bwd_kernel_refuses_bad_inputs_on_card():
 
 
 def ode_inputs(B, Tm1, h, xd, n_tail, seed=0, dev="cpu"):
-    """Seeded ODE rollout inputs in the flax layout, per-row step sizes."""
-    rng = np.random.default_rng(seed)
-    t = lambda *s, sc=1.0: torch.tensor((rng.standard_normal(s) * sc).astype(np.float32), device=dev)
-    s_de = t(Tm1, B, h, sc=0.5)
-    outs = [h] * (n_tail - 1) + [xd]
-    weights = dict(wx_de=t(xd, h, sc=xd ** -0.5),
-                   de_tail=[(t(h, o, sc=h ** -0.5), t(o, sc=0.1)) for o in outs])
-    dt = torch.full((Tm1, B, 1), 0.05, device=dev)
-    dt[:, 1] = 0.02
-    return s_de, weights, t(B, xd), dt
+    """Seeded ODE rollout inputs in the flax layout, per-row step sizes
+    (``utils.noencode_inputs.ode_inputs`` with the readout at lecun
+    scale), on ``dev``."""
+    return _to(noencode_ode_inputs(B, Tm1, h, xd, n_tail, seed, readout=1.0), dev)
 
 
 # (xd, n_tail): the no-encode dynamics and the direct-encode latent shape
@@ -207,6 +202,156 @@ def test_ode_kernels_refuse_bad_inputs_on_card():
     sol = torch.cat([x0[None], FO.fused_ode_rollout(s_de, weights, x0, dt)])
     with pytest.raises(ValueError, match="shape"):
         VO.fused_ode_rollout_bwd_cuda(s_de, weights, dt, sol, sol[:12].contiguous())
+
+
+def dae_bwd_against_float64(args, solver, seed=1):
+    """Kernel 2 twice and the float64 plain walk on the same inputs (the
+    solution from the plain forward, unit-scale cotangents): the kernel's
+    outputs, the relaunch's and the walk's, as flat lists."""
+    packed = F.fused_dae_rollout_packed_plain(*args, solver)
+    Tm1, B, _ = args[0]["s_de"].shape
+    rng = np.random.default_rng(seed)
+    cot = torch.tensor(rng.standard_normal((Tm1 + 1, B, 5)).astype(np.float32), device="cuda")
+    streams, weights, x0, i0, aux = args
+    ref = _bwd_flat(V.fused_dae_rollout_bwd_plain(
+        _double(streams), _double(weights), x0.double(), i0.double(), aux, packed.double(),
+        cot.double(), solver))
+    got = _bwd_flat(V.fused_dae_rollout_bwd_cuda(*args, packed, cot, solver))
+    again = _bwd_flat(V.fused_dae_rollout_bwd_cuda(*args, packed, cot, solver))
+    torch.cuda.synchronize()
+    return got, again, ref
+
+
+def ode_bwd_against_float64(args, solver, seed=1):
+    """Kernel 4 twice and the float64 plain walk, as
+    :func:`dae_bwd_against_float64`."""
+    s_de, weights, x0, dt = args
+    sol = torch.cat([x0[None], FO.fused_ode_rollout_plain(s_de, weights, x0, dt, solver)])
+    rng = np.random.default_rng(seed)
+    cot = torch.tensor(rng.standard_normal(tuple(sol.shape)).astype(np.float32), device="cuda")
+    flat = lambda g_s, g_w, g_x0: [g_s, g_x0] + VO.flatten_weights(g_w)
+    ref = flat(*VO.fused_ode_rollout_bwd_plain(s_de.double(), _double(weights), dt, sol.double(),
+                                               cot.double(), solver))
+    got = flat(*VO.fused_ode_rollout_bwd_cuda(s_de, weights, dt, sol, cot, solver))
+    again = flat(*VO.fused_ode_rollout_bwd_cuda(s_de, weights, dt, sol, cot, solver))
+    torch.cuda.synchronize()
+    return got, again, ref
+
+
+def _hold(got, again, ref):
+    for k, (g, g2, r) in enumerate(zip(got, again, ref)):
+        scale = r.abs().max().item()
+        assert scale > 0, k
+        assert torch.equal(g, g2), k
+        assert (g.double() - r).abs().max() <= 1e-4 * scale, k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["euler", "midpoint", "rk4"])
+@pytest.mark.parametrize("h", [40, 128])
+@pytest.mark.parametrize("batch", [1, 5, 64, 67, 133])  # one row to more rows than a 132-SM card has SMs
+def test_noencode_bwd_kernels_match_plain_across_batches_on_card(batch, h, solver):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    # events in rows 1 and 3 at step 2, in every row at step 9, in row 0 at
+    # the walk's first step (rollout_inputs)
+    _hold(*dae_bwd_against_float64(rollout_inputs(batch, 16, h, seed=batch, dev="cuda"), solver))
+    _hold(*ode_bwd_against_float64(ode_inputs(batch, 16, h, 2, 3, seed=batch, dev="cuda"), solver))
+
+
+@pytest.mark.gpu
+def test_noencode_bwd_kernels_take_a_fleet_batch_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    # B=1024 in one launch of each kernel (the walk's 1024 blocks run one an SM at a
+    # time, about eight waves)
+    _hold(*dae_bwd_against_float64(rollout_inputs(1024, 12, 128, seed=11, dev="cuda"), "rk4"))
+    _hold(*ode_bwd_against_float64(ode_inputs(1024, 12, 128, 2, 3, seed=11, dev="cuda"), "rk4"))
+
+
+@pytest.mark.gpu
+def test_noencode_bwd_kernels_are_bit_identical_on_relaunch_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    for got, again in (dae_bwd_against_float64(rollout_inputs(64, 100, 128, seed=3, dev="cuda"), "rk4")[:2],
+                       ode_bwd_against_float64(ode_inputs(64, 100, 128, 2, 3, seed=3, dev="cuda"), "rk4")[:2]):
+        for k, (g, g2) in enumerate(zip(got, again)):
+            assert torch.equal(g, g2), k
+
+
+def _seeded_like(bufs, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {k: torch.randn(v.shape, generator=gen, device="cuda") if k != "parts" else v
+            for k, v in bufs.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["euler", "rk4"])
+def test_noencode_contractions_match_plain_on_card(solver):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    args = rollout_inputs(67, 40, 128, seed=4, dev="cuda")
+    packed = F.fused_dae_rollout_packed_plain(*args, solver)
+    cot = torch.zeros(41, 67, 5, device="cuda")
+    bufs = _seeded_like(V._launch_bwd(*args, packed, cot, solver, stages=0)[1], 5)
+    g_w = V._launch_bwd(*args, packed, cot, solver, stages=4, bufs=bufs)[0][1]
+    again = V._launch_bwd(*args, packed, cot, solver, stages=4, bufs=bufs)[0][1]
+    R, E = 40 * 67, {"euler": 1, "rk4": 4}[solver] + 2
+    ev = args[4][..., 1].reshape(R) > 0
+    ref = V.contract_plain(bufs["res"].view(E, 3, R, 128).double(), bufs["gres"].view(E, 3, R, 128).double(),
+                           bufs["gy"].view(E, R, 3).double(), bufs["xin"].view(E, R, 5).double(), ev,
+                           (3, 3), 3, 2)
+    torch.cuda.synchronize()
+    for g, g2, r in zip(V.flatten_weights(g_w)[0], V.flatten_weights(again)[0], V.flatten_weights(ref)[0]):
+        assert torch.equal(g, g2)
+        assert (g.double() - r).abs().max() <= 1e-5 * r.abs().max()
+    s_de, weights, x0, dt = ode_inputs(67, 40, 128, 2, 3, seed=6, dev="cuda")
+    sol = torch.zeros(41, 67, 2, device="cuda")
+    bufs = _seeded_like(VO._launch_bwd(s_de, weights, dt, sol, sol, solver, stages=0)[1], 7)
+    g_w = VO._launch_bwd(s_de, weights, dt, sol, sol, solver, stages=4, bufs=bufs)[0][1]
+    S = E - 2
+    ref = VO.contract_plain(bufs["res"].view(S, 3, R, 128).double(), bufs["gres"].view(S, 3, R, 128).double(),
+                            bufs["gy"].view(S, R, 2).double(), bufs["xin"].view(S, R, 2).double(), 3, 2)
+    torch.cuda.synchronize()
+    for g, r in zip(VO.flatten_weights(g_w), VO.flatten_weights(ref)):
+        assert (g.double() - r).abs().max() <= 1e-5 * r.abs().max()
+
+
+@pytest.mark.gpu
+def test_noencode_recompute_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    args = rollout_inputs(67, 16, 128, seed=8, dev="cuda")
+    packed = F.fused_dae_rollout_packed_plain(*args, "rk4")
+    cot = torch.zeros(17, 67, 5, device="cuda")
+    bufs = V._launch_bwd(*args, packed, cot, "rk4", stages=1)[1]
+    res, xin = V.recompute_plain(*args, packed, "rk4")
+    torch.cuda.synchronize()
+    got = bufs["res"].view(res.shape)
+    assert torch.all((got[:-1] - res[:-1]).abs() <= 1e-4 * res[:-1].abs().clamp(min=1.0))
+    ev = args[4][..., 1].reshape(-1) > 0
+    assert torch.all((got[-1][:, ev] - res[-1][:, ev]).abs() <= 1e-4 * res[-1][:, ev].abs().clamp(min=1.0))
+    s_de, weights, x0, dt = ode_inputs(67, 16, 128, 2, 3, seed=9, dev="cuda")
+    sol = torch.cat([x0[None], FO.fused_ode_rollout_plain(s_de, weights, x0, dt, "rk4")])
+    bufs = VO._launch_bwd(s_de, weights, dt, sol, sol, "rk4", stages=1)[1]
+    res, xin = VO.recompute_plain(s_de, weights, dt, sol, "rk4")
+    torch.cuda.synchronize()
+    assert torch.all((bufs["res"].view(res.shape) - res).abs() <= 1e-4 * res.abs().clamp(min=1.0))
+    assert torch.all((bufs["xin"].view(xin.shape) - xin).abs() <= 1e-4 * xin.abs().clamp(min=1.0))
+
+
+@pytest.mark.gpu
+def test_noencode_bwd_kernels_refuse_wide_hidden_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    args = rollout_inputs(2, 12, 136, dev="cuda")
+    with pytest.raises(ValueError, match="h <= 128"):
+        V.fused_dae_rollout_bwd_cuda(*args, torch.zeros(12, 2, 5, device="cuda"),
+                                     torch.zeros(13, 2, 5, device="cuda"))
+    s_de, weights, x0, dt = ode_inputs(2, 4, 136, 2, 3, dev="cuda")
+    sol = torch.zeros(5, 2, 2, device="cuda")
+    with pytest.raises(ValueError, match="h <= 128"):
+        VO.fused_ode_rollout_bwd_cuda(s_de, weights, dt, sol, sol)
 
 
 def cw_inputs(B, Tm1, h, xd, zd, seed=0, dev="cpu"):
