@@ -42,6 +42,44 @@
 
 namespace {
 
+// The phase clock (utils/phase_clock.py): built with -DNE_PHASE_CLOCK,
+// thread 0 of block 0 notes clock64() and a phase number at each phase
+// boundary of the middle step (marks in g_ne_fwd, their phases in
+// g_ne_fwd_bin, the count in g_ne_fwd_n); otherwise the marks compile to
+// nothing. Phases: 0 the step's loads, 1 the AE at the event, 2 + 3 q +
+// {0, 1, 2} stage q's first layer, hidden layers and readout, 14 the stage
+// updates, 15 the AE at t+1, 16 the solution's write.
+#ifdef NE_PHASE_CLOCK
+__device__ long long g_ne_fwd[64];
+__device__ int g_ne_fwd_bin[64];
+__device__ int g_ne_fwd_n;
+__shared__ int s_ne_clk[2];  // on (the middle step), marks so far
+#define NE_FWD_START(t, tm1)                                             \
+  do {                                                                   \
+    if (threadIdx.x == 0 && blockIdx.x == 0) {                           \
+      s_ne_clk[0] = (t) == (tm1) / 2;                                    \
+      s_ne_clk[1] = 0;                                                   \
+    }                                                                    \
+    NE_FWD_MARK(-1);                                                     \
+  } while (0)
+#define NE_FWD_MARK(bin)                                                 \
+  do {                                                                   \
+    if (threadIdx.x == 0 && blockIdx.x == 0 && s_ne_clk[0] && s_ne_clk[1] < 64) { \
+      const int i_ = s_ne_clk[1]++;                                      \
+      g_ne_fwd[i_] = clock64();                                          \
+      g_ne_fwd_bin[i_] = (bin);                                          \
+      g_ne_fwd_n = i_ + 1;                                               \
+    }                                                                    \
+  } while (0)
+#else
+#define NE_FWD_START(t, tm1) \
+  do {                       \
+  } while (0)
+#define NE_FWD_MARK(bin) \
+  do {                   \
+  } while (0)
+#endif
+
 constexpr int kMaxTail = 8;        // tail layers per net
 constexpr int kColThreads = 128;   // output columns a block covers at once
 constexpr float kOneThird = 1.0f / 3.0f;
@@ -162,7 +200,8 @@ __device__ __forceinline__ void dense(const float* in, int k_in, const float* w,
 // inlined: the solvers reach it from nine places, and inlining all nine
 // copies in every launch-shape instantiation made the build take a minute.
 template <int R, int KS>
-__device__ __noinline__ void mlp_tail(const Tail& tl, float* a, float* scratch, float* res, int h) {
+__device__ __noinline__ void mlp_tail(const Tail& tl, float* a, float* scratch, float* res, int h,
+                                      int bin_hidden, int bin_readout) {
   for (int e = threadIdx.x; e < R * h; e += blockDim.x) a[e] = elu(a[e]);
   __syncthreads();
   float* cur = a;
@@ -174,14 +213,16 @@ __device__ __noinline__ void mlp_tail(const Tail& tl, float* a, float* scratch, 
     cur = nxt;
     nxt = tmp;
   }
+  NE_FWD_MARK(bin_hidden);
   dense<R, KS>(cur, h, tl.w[tl.n - 1], tl.b[tl.n - 1], res, tl.out, false);
   __syncthreads();
+  NE_FWD_MARK(bin_readout);
 }
 
 // AE(x, s) for the block's rows: pre = s[row] + x @ gx_ae, then the AE tail.
 template <int R, int KS>
 __device__ void ae_eval(const Args& a, const float* s_t, const float* x, float* pre,
-                        float* scratch, float* res, int row0) {
+                        float* scratch, float* res, int row0, int bin) {
   const int h = a.h, xd = a.xd;
   for (int e = threadIdx.x; e < R * h; e += blockDim.x) {
     const int r = e / h, j = e - r * h, g = row0 + r;
@@ -191,14 +232,14 @@ __device__ void ae_eval(const Args& a, const float* s_t, const float* x, float* 
     pre[e] = s + xp;
   }
   __syncthreads();
-  mlp_tail<R, KS>(a.ae, pre, scratch, res, h);
+  mlp_tail<R, KS>(a.ae, pre, scratch, res, h, bin, bin);
 }
 
 // f(x) for the block's rows: pre = s_de[row] + x @ wx_de + i_in @ wi_de,
 // then the DE tail.
 template <int R, int KS>
 __device__ void de_eval(const Args& a, const float* s_t, const float* x, const float* i_in,
-                        float* pre, float* scratch, float* res, int row0) {
+                        float* pre, float* scratch, float* res, int row0, int q) {
   const int h = a.h, xd = a.xd, id = a.id;
   for (int e = threadIdx.x; e < R * h; e += blockDim.x) {
     const int r = e / h, j = e - r * h, g = row0 + r;
@@ -210,7 +251,8 @@ __device__ void de_eval(const Args& a, const float* s_t, const float* x, const f
     pre[e] = (s + xp) + ip;
   }
   __syncthreads();
-  mlp_tail<R, KS>(a.de, pre, scratch, res, h);
+  NE_FWD_MARK(2 + 3 * q);
+  mlp_tail<R, KS>(a.de, pre, scratch, res, h, 3 + 3 * q, 4 + 3 * q);
 }
 
 template <int R, int KS>
@@ -249,6 +291,7 @@ __global__ void __launch_bounds__(kColThreads * KS)
   for (int t = 0; t < a.tm1; ++t) {
     const size_t step = static_cast<size_t>(t) * B;
     const float* s_de_t = a.s_de + step * h;
+    NE_FWD_START(t, a.tm1);
     int my_ev = 0;
     if (tid < R) {
       const int g = row0 + tid;
@@ -263,38 +306,46 @@ __global__ void __launch_bounds__(kColThreads * KS)
     }
     for (int e = tid; e < ni; e += nt) iin[e] = ic[e];
     // publishes dts, evs and iin as well
-    if (__syncthreads_or(my_ev)) {
-      ae_eval<R, KS>(a, a.s_ae_ev + step * h, xc, pre, scratch, iv, row0);
+    const int any_ev = __syncthreads_or(my_ev);
+    NE_FWD_MARK(0);
+    if (any_ev) {
+      ae_eval<R, KS>(a, a.s_ae_ev + step * h, xc, pre, scratch, iv, row0, 1);
       for (int e = tid; e < ni; e += nt)
         if (evs[e / id] > 0.f) iin[e] = iv[e];
       __syncthreads();
     }
+    NE_FWD_MARK(1);
 
-    de_eval<R, KS>(a, s_de_t, xc, iin, pre, scratch, k1, row0);
+    de_eval<R, KS>(a, s_de_t, xc, iin, pre, scratch, k1, row0, 0);
     if (a.solver == 0) {  // Euler
       for (int e = tid; e < nx; e += nt) xn[e] = xc[e] + dts[e / xd] * k1[e];
     } else if (a.solver == 1) {  // Midpoint
       for (int e = tid; e < nx; e += nt) xs[e] = xc[e] + k1[e] * (0.5f * dts[e / xd]);
       __syncthreads();
-      de_eval<R, KS>(a, s_de_t, xs, iin, pre, scratch, k2, row0);
+      NE_FWD_MARK(14);
+      de_eval<R, KS>(a, s_de_t, xs, iin, pre, scratch, k2, row0, 1);
       for (int e = tid; e < nx; e += nt) xn[e] = xc[e] + dts[e / xd] * k2[e];
     } else {  // RK4, Kutta's 3/8 rule
       for (int e = tid; e < nx; e += nt) xs[e] = xc[e] + dts[e / xd] * k1[e] * kOneThird;
       __syncthreads();
-      de_eval<R, KS>(a, s_de_t, xs, iin, pre, scratch, k2, row0);
+      NE_FWD_MARK(14);
+      de_eval<R, KS>(a, s_de_t, xs, iin, pre, scratch, k2, row0, 1);
       for (int e = tid; e < nx; e += nt)
         xs[e] = xc[e] + dts[e / xd] * (k2[e] - k1[e] * kOneThird);
       __syncthreads();
-      de_eval<R, KS>(a, s_de_t, xs, iin, pre, scratch, k3, row0);
+      NE_FWD_MARK(14);
+      de_eval<R, KS>(a, s_de_t, xs, iin, pre, scratch, k3, row0, 2);
       for (int e = tid; e < nx; e += nt) xs[e] = xc[e] + dts[e / xd] * (k1[e] - k2[e] + k3[e]);
       __syncthreads();
-      de_eval<R, KS>(a, s_de_t, xs, iin, pre, scratch, k4, row0);
+      NE_FWD_MARK(14);
+      de_eval<R, KS>(a, s_de_t, xs, iin, pre, scratch, k4, row0, 3);
       for (int e = tid; e < nx; e += nt)
         xn[e] = xc[e] + (k1[e] + 3.0f * (k2[e] + k3[e]) + k4[e]) * dts[e / xd] * 0.125f;
     }
     __syncthreads();
+    NE_FWD_MARK(14);
 
-    ae_eval<R, KS>(a, a.s_ae + step * h, xn, pre, scratch, iv, row0);
+    ae_eval<R, KS>(a, a.s_ae + step * h, xn, pre, scratch, iv, row0, 15);
     const int w = xd + id;
     for (int e = tid; e < R * w; e += nt) {
       const int r = e / w, c = e - r * w, g = row0 + r;
@@ -304,6 +355,7 @@ __global__ void __launch_bounds__(kColThreads * KS)
     for (int e = tid; e < nx; e += nt) xc[e] = xn[e];
     for (int e = tid; e < ni; e += nt) ic[e] = iv[e];
     __syncthreads();
+    NE_FWD_MARK(16);
   }
 }
 
@@ -388,6 +440,19 @@ extern "C" int psn_fused_dae_rollout_f32(
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+#ifdef NE_PHASE_CLOCK
+// The phase clock's marks of the last launch (at most 64), their phases and
+// their count, copied out after the device is synchronised; returns the
+// error.
+extern "C" int psn_ne_fwd_clock(long long* marks, int* bins, int* n) {
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(marks, g_ne_fwd, sizeof(long long) * 64);
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(bins, g_ne_fwd_bin, sizeof(int) * 64);
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(n, g_ne_fwd_n, sizeof(int));
+  return static_cast<int>(e);
+}
+#endif
 
 extern "C" const char* psn_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

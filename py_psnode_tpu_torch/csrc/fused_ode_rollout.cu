@@ -46,6 +46,44 @@
 
 namespace {
 
+// The phase clock (utils/phase_clock.py): built with -DNE_PHASE_CLOCK,
+// thread 0 of block 0 notes clock64() and a phase number at each phase
+// boundary of the middle step (marks in g_ne_fwd, their phases in
+// g_ne_fwd_bin, the count in g_ne_fwd_n); otherwise the marks compile to
+// nothing. Phases: 0 the step's loads, 1 the AE at the event, 2 + 3 q +
+// {0, 1, 2} stage q's first layer, hidden layers and readout, 14 the stage
+// updates, 15 the AE at t+1, 16 the solution's write.
+#ifdef NE_PHASE_CLOCK
+__device__ long long g_ne_fwd[64];
+__device__ int g_ne_fwd_bin[64];
+__device__ int g_ne_fwd_n;
+__shared__ int s_ne_clk[2];  // on (the middle step), marks so far
+#define NE_FWD_START(t, tm1)                                             \
+  do {                                                                   \
+    if (threadIdx.x == 0 && blockIdx.x == 0) {                           \
+      s_ne_clk[0] = (t) == (tm1) / 2;                                    \
+      s_ne_clk[1] = 0;                                                   \
+    }                                                                    \
+    NE_FWD_MARK(-1);                                                     \
+  } while (0)
+#define NE_FWD_MARK(bin)                                                 \
+  do {                                                                   \
+    if (threadIdx.x == 0 && blockIdx.x == 0 && s_ne_clk[0] && s_ne_clk[1] < 64) { \
+      const int i_ = s_ne_clk[1]++;                                      \
+      g_ne_fwd[i_] = clock64();                                          \
+      g_ne_fwd_bin[i_] = (bin);                                          \
+      g_ne_fwd_n = i_ + 1;                                               \
+    }                                                                    \
+  } while (0)
+#else
+#define NE_FWD_START(t, tm1) \
+  do {                       \
+  } while (0)
+#define NE_FWD_MARK(bin) \
+  do {                   \
+  } while (0)
+#endif
+
 constexpr int kMaxTail = 8;       // tail layers
 constexpr int kColThreads = 128;  // output columns a block covers at once
 constexpr int kSplit = 4;         // threads per output column of a wide layer
@@ -134,10 +172,11 @@ __device__ __forceinline__ void dense(const float* in, int k_in, const float* w,
 // bufb [h]. Starts after a barrier that published x, ends with one.
 // Not inlined: the solvers reach it from four places.
 __device__ __noinline__ void eval_f(const Args& a, const float* s_t, const float* x, float* bufa,
-                                    float* bufb, float* res) {
+                                    float* bufb, float* res, int q) {
   const int h = a.h;
   dense(x, a.xd, a.wx, nullptr, s_t, bufa, h, true);
   __syncthreads();
+  NE_FWD_MARK(2 + 3 * q);
   float* cur = bufa;
   float* nxt = bufb;
   for (int l = 0; l + 1 < a.n_tail; ++l) {
@@ -147,8 +186,10 @@ __device__ __noinline__ void eval_f(const Args& a, const float* s_t, const float
     cur = nxt;
     nxt = tmp;
   }
+  NE_FWD_MARK(3 + 3 * q);
   dense(cur, h, a.w[a.n_tail - 1], a.b[a.n_tail - 1], nullptr, res, a.xd, false);
   __syncthreads();
+  NE_FWD_MARK(4 + 3 * q);
 }
 
 __global__ void __launch_bounds__(kThreads) fused_ode_rollout_kernel(const __grid_constant__ Args a) {
@@ -169,32 +210,40 @@ __global__ void __launch_bounds__(kThreads) fused_ode_rollout_kernel(const __gri
 
   for (int t = 0; t < a.tm1; ++t) {
     const size_t step = static_cast<size_t>(t) * B + row;
+    NE_FWD_START(t, a.tm1);
     const float dt = __ldg(a.dt + step);
     __syncthreads();  // publishes xc
+    NE_FWD_MARK(0);
     const float* s_t = a.s_de + step * h;
-    eval_f(a, s_t, xc, bufa, bufb, k1);
+    eval_f(a, s_t, xc, bufa, bufb, k1, 0);
     if (a.solver == 0) {  // Euler
       for (int e = tid; e < xd; e += kThreads) xc[e] = xc[e] + dt * k1[e];
     } else if (a.solver == 1) {  // Midpoint
       for (int e = tid; e < xd; e += kThreads) xs[e] = xc[e] + k1[e] * (0.5f * dt);
       __syncthreads();
-      eval_f(a, s_t, xs, bufa, bufb, k2);
+      NE_FWD_MARK(14);
+      eval_f(a, s_t, xs, bufa, bufb, k2, 1);
       for (int e = tid; e < xd; e += kThreads) xc[e] = xc[e] + dt * k2[e];
     } else {  // RK4, Kutta's 3/8 rule
       for (int e = tid; e < xd; e += kThreads) xs[e] = xc[e] + dt * k1[e] * kOneThird;
       __syncthreads();
-      eval_f(a, s_t, xs, bufa, bufb, k2);
+      NE_FWD_MARK(14);
+      eval_f(a, s_t, xs, bufa, bufb, k2, 1);
       for (int e = tid; e < xd; e += kThreads) xs[e] = xc[e] + dt * (k2[e] - k1[e] * kOneThird);
       __syncthreads();
-      eval_f(a, s_t, xs, bufa, bufb, k3);
+      NE_FWD_MARK(14);
+      eval_f(a, s_t, xs, bufa, bufb, k3, 2);
       for (int e = tid; e < xd; e += kThreads) xs[e] = xc[e] + dt * (k1[e] - k2[e] + k3[e]);
       __syncthreads();
-      eval_f(a, s_t, xs, bufa, bufb, k4);
+      NE_FWD_MARK(14);
+      eval_f(a, s_t, xs, bufa, bufb, k4, 3);
       for (int e = tid; e < xd; e += kThreads)
         xc[e] = xc[e] + (k1[e] + 3.0f * (k2[e] + k3[e]) + k4[e]) * dt * 0.125f;
     }
+    NE_FWD_MARK(14);
     // the thread that updated xc[e] writes it out
     for (int e = tid; e < xd; e += kThreads) a.sol[step * xd + e] = xc[e];
+    NE_FWD_MARK(16);
   }
 }
 
@@ -240,6 +289,19 @@ extern "C" int psn_fused_ode_rollout_f32(const void* s_de, const void* dt, const
   fused_ode_rollout_kernel<<<batch, kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef NE_PHASE_CLOCK
+// The phase clock's marks of the last launch (at most 64), their phases and
+// their count, copied out after the device is synchronised; returns the
+// error.
+extern "C" int psn_ne_fwd_clock(long long* marks, int* bins, int* n) {
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(marks, g_ne_fwd, sizeof(long long) * 64);
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(bins, g_ne_fwd_bin, sizeof(int) * 64);
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(n, g_ne_fwd_n, sizeof(int));
+  return static_cast<int>(e);
+}
+#endif
 
 extern "C" const char* psn_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -210,10 +210,9 @@ def fused_dae_rollout_packed_plain(
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _launcher():
-    """The C launcher of ``csrc/fused_dae_rollout.cu`` with its signature."""
-    lib = cuda_build.load("fused_dae_rollout")
+def bind_rollout(lib: ctypes.CDLL):
+    """``(launcher, error string)``: the C functions of a build of
+    ``csrc/fused_dae_rollout.cu`` with their signatures."""
     fn = lib.psn_fused_dae_rollout_f32
     P, I = ctypes.c_void_p, ctypes.c_int
     PP = ctypes.POINTER(ctypes.c_void_p)
@@ -233,6 +232,12 @@ def _launcher():
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     return fn, err
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    """The C launcher of ``csrc/fused_dae_rollout.cu`` (:func:`bind_rollout`)."""
+    return bind_rollout(cuda_build.load("fused_dae_rollout"))
 
 
 def default_launch(batch: int, n_sms: int) -> Tuple[int, int]:
@@ -298,6 +303,7 @@ def fused_dae_rollout_packed_cuda(
     solver: str = "rk4",
     rows_per_block=None,
     k_split=None,
+    launcher=None,
 ) -> torch.Tensor:
     """Launch the CUDA kernel once for the whole rollout; returns the packed
     ``[T-1, B, xd+id]`` solution. ``rows_per_block`` (1, 2, 4, 8) and
@@ -316,7 +322,7 @@ def fused_dae_rollout_packed_cuda(
         raise ValueError(f"rows_per_block must be one of {ROWS_PER_BLOCK}, got {rows}")
     if k_split not in K_SPLITS:
         raise ValueError(f"k_split must be one of {K_SPLITS}, got {k_split}")
-    fn, err = _launcher()
+    fn, err = launcher or _launcher()
     sol = torch.empty(Tm1, B, xd + idim, dtype=torch.float32, device=s_de.device)
     ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
     de_w, de_b = ptrs([W for W, _ in weights["de_tail"]]), ptrs([b for _, b in weights["de_tail"]])

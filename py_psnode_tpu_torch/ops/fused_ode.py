@@ -137,10 +137,9 @@ def pointer_array(tensors):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
-@functools.lru_cache(maxsize=None)
-def _launcher():
-    """The C launcher of ``csrc/fused_ode_rollout.cu`` with its signature."""
-    lib = cuda_build.load("fused_ode_rollout")
+def bind_rollout(lib: ctypes.CDLL):
+    """``(launcher, error string)``: the C functions of a build of
+    ``csrc/fused_ode_rollout.cu`` with their signatures."""
     fn = lib.psn_fused_ode_rollout_f32
     P, I = ctypes.c_void_p, ctypes.c_int
     PP = ctypes.POINTER(ctypes.c_void_p)
@@ -159,14 +158,20 @@ def _launcher():
     return fn, err
 
 
-def fused_ode_rollout_cuda(s_de, weights: Dict, x0, dt, solver: str = "euler") -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    """The C launcher of ``csrc/fused_ode_rollout.cu`` (:func:`bind_rollout`)."""
+    return bind_rollout(cuda_build.load("fused_ode_rollout"))
+
+
+def fused_ode_rollout_cuda(s_de, weights: Dict, x0, dt, solver: str = "euler", launcher=None) -> torch.Tensor:
     """Launch the CUDA kernel once for the whole rollout, one block per
     batch row; returns the rows ``[T-1, B, xd]``."""
     solver = normalize_solver(solver)
     check_inputs(s_de, weights, x0, dt)
     Tm1, B, h = s_de.shape
     xd = x0.shape[-1]
-    fn, err = _launcher()
+    fn, err = launcher or _launcher()
     sol = torch.empty(Tm1, B, xd, dtype=torch.float32, device=s_de.device)
     tail = weights["de_tail"]
     with torch.cuda.device(s_de.device):

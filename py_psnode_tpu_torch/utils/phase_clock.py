@@ -60,6 +60,10 @@ NE_PHASES = {
     "ode": ("stages VJP",),
 }
 NE_KERNELS = ((1, "recompute"), (2, "walk"), (4, "contraction"))
+# the phases the no-encode forward kernels mark (csrc/fused_{dae,ode}_rollout.cu)
+NE_FWD_PHASES = (("step loads", "AE at the event")
+                 + tuple(f"stage {q + 1} {p}" for q in range(4) for p in ("first layer", "hidden layers", "readout"))
+                 + ("stage updates", "AE at t+1", "solution write"))
 
 
 def build(name: str, define: str = "CW_PHASE_CLOCK") -> ctypes.CDLL:
@@ -102,6 +106,44 @@ def ms_per_launch(fn, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def fwd_cycles(lib: ctypes.CDLL) -> List[int]:
+    """The cycles of each of :data:`NE_FWD_PHASES` in the middle step of
+    the last launch of a forward built with the phase clock; synchronises
+    the device."""
+    marks, bins, n = (ctypes.c_longlong * 64)(), (ctypes.c_int * 64)(), ctypes.c_int()
+    rc = lib.psn_ne_fwd_clock(marks, bins, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"reading the phase clock failed: CUDA error {rc}")
+    got = [0] * len(NE_FWD_PHASES)
+    for i in range(1, n.value):
+        got[bins[i]] += marks[i] - marks[i - 1]
+    return got
+
+
+def noencode_fwd(B: int, Tm1: int, solver: str, cuda) -> None:
+    """The ``[ne-fwd-split]`` of both no-encode forward kernels."""
+    from py_psnode_tpu_torch.ops import fused_dae as F
+    from py_psnode_tpu_torch.ops import fused_ode as FO
+    from py_psnode_tpu_torch.utils.noencode_inputs import dae_inputs, ode_inputs
+
+    names = ("fused_dae_rollout", "fused_ode_rollout")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        libs = dict(zip(names, pool.map(lambda n: build(n, "NE_PHASE_CLOCK"), names)))
+    dae_args = [cuda(a) for a in dae_inputs(B, Tm1, 128)]
+    ode_args = [cuda(a) for a in ode_inputs(B, Tm1, 128)]
+    dae = F.bind_rollout(libs[names[0]])
+    ode = FO.bind_rollout(libs[names[1]])
+    runs = (("dae", libs[names[0]], lambda: F.fused_dae_rollout_packed_cuda(*dae_args, solver, launcher=dae)),
+            ("ode", libs[names[1]], lambda: FO.fused_ode_rollout_cuda(*ode_args, solver, launcher=ode)))
+    for family, lib, launch in runs:
+        ms = ms_per_launch(launch)
+        got = fwd_cycles(lib)
+        total = sum(got)
+        print(f"[ne-fwd-split] {family} forward B={B} T-1={Tm1} h=128 {solver}: {ms:.3f} ms a launch; "
+              f"step {Tm1 // 2} of row 0: {total} cycles; "
+              + ", ".join(f"{n} {c} ({c / total:.0%})" for n, c in zip(NE_FWD_PHASES, got) if c), flush=True)
+
+
 def noencode(B: int, Tm1: int, solver: str) -> int:
     """The ``[ne-split]`` of both no-encode backward kernels."""
     from py_psnode_tpu_torch.ops import fused_dae as F
@@ -117,6 +159,7 @@ def noencode(B: int, Tm1: int, solver: str) -> int:
     cuda = lambda tree: (tree.cuda() if isinstance(tree, torch.Tensor) else
                          {k: cuda(v) for k, v in tree.items()} if isinstance(tree, dict) else
                          [tuple(cuda(a) for a in pair) for pair in tree])
+    noencode_fwd(B, Tm1, solver, cuda)
     args = [cuda(a) for a in dae_inputs(B, Tm1, 128)]
     packed = F.fused_dae_rollout_packed(*args, solver)
     cot = torch.full((Tm1 + 1, B, 5), 0.01, device="cuda")
