@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``py_psnode_tpu_torch``) on one card.
 
     python3 chip_smoke.py            # the smoke run, needs one CUDA card
-    python3 chip_smoke.py --sweep    # also time every DAE forward launch shape
+    python3 chip_smoke.py --sweep    # also time both forwards at every launch shape
 
 Phases, each printed as it ends; any failure exits non-zero:
   1. card: name, device count, and nvidia-smi's name and power limit;
@@ -11,7 +11,8 @@ Phases, each printed as it ends; any failure exits non-zero:
   3. forward kernel against plain: the kernel and its eager PyTorch version
      on the same seeded random inputs at the motor evaluation shape (B=32,
      T=1001, h=128, xd=3, id=2, events in some rows), for Euler, Midpoint
-     and RK4, within |kernel - plain| <= 1e-4 * max(1, |plain|);
+     and RK4 (RK4 at every rows-a-block the wrapper can choose), within
+     |kernel - plain| <= 1e-4 * max(1, |plain|), bit-identical on relaunch;
   4. backward kernel against plain: seeded random inputs at the training
      shape (B=64, T=1001, h=128, events in some rows, unit-scale
      cotangents), the plain reverse walk in float64, for each solver and
@@ -26,7 +27,8 @@ Phases, each printed as it ends; any failure exits non-zero:
      training set, Euler then RK4, against the JAX package's float32
      anchors: step 1 and the Euler epoch-1 eval at rtol 1e-3; both
      kernels' launches counted;
-  7. times (CUDA events): the forward at B=32, 64 and 1024, the backward at
+  7. times (CUDA events): the forward at B=32, 64 and 1024 (each solver;
+     with --sweep at every rows-a-block), the backward at
      B=64 for each solver beside two bounds (the h x h layers on the
      tensor cores in three TF32 passes, and all of it in float32 on the
      CUDA cores), its three kernels (recompute, walk, contraction) timed
@@ -53,8 +55,8 @@ Phases, each printed as it ends; any failure exits non-zero:
      ``--testing --fused`` (Euler and RK4), each with both ODE kernels'
      launches counted; every loss must also lie nearer its own solver's
      anchor than the other's;
- 11. ODE times (CUDA events): the forward at B=32 Euler, B=64 RK4 and
-     B=1024 Euler, the backward as in phase 7 (B=64 each solver, its three
+ 11. ODE times (CUDA events): the forward at B=32 Euler, B=64 Euler and
+     RK4 and B=1024 Euler (with --sweep at every rows-a-block), the backward as in phase 7 (B=64 each solver, its three
      kernels apart at RK4 beside torch.matmul, B=256 RK4), and one whole
      training step (B=64, T=1001, h=128, RK4) against the plain route,
      with its peak memory;
@@ -431,23 +433,26 @@ def phase_kernel_vs_plain(dev):
     args = random_inputs(32, 1000, 128, 3, 2, seed=0, dev=dev)
     for solver in SOLVERS:
         ref = F.fused_dae_rollout_packed_plain(*args, solver)
-        shapes = [(None, None)]
+        shapes = [None]
         if solver == "rk4":  # every launch shape once
-            shapes = [(r, k) for r in F.ROWS_PER_BLOCK for k in F.K_SPLITS]
-        for rows, ks in shapes:
-            got = F.fused_dae_rollout_packed_cuda(*args, solver, rows_per_block=rows, k_split=ks)
+            shapes = list(F.ROWS_PER_BLOCK)
+        for rows in shapes:
+            got = F.fused_dae_rollout_packed_cuda(*args, solver, rows_per_block=rows)
+            again = F.fused_dae_rollout_packed_cuda(*args, solver, rows_per_block=rows)
             torch.cuda.synchronize()
             if got.shape != ref.shape or not torch.isfinite(got).all():
-                fail(f"kernel {solver} rows={rows} k_split={ks}: shape {tuple(got.shape)} or non-finite values")
+                fail(f"kernel {solver} rows={rows}: shape {tuple(got.shape)} or non-finite values")
+            if not torch.equal(got, again):
+                fail(f"kernel {solver} rows={rows}: a relaunch gave other bits")
             d = (got - ref).abs()
             bound = KERNEL_TOL * torch.clamp(ref.abs(), min=1.0)
             max_abs = d.max().item()
             max_rel = (d / torch.clamp(ref.abs(), min=1e-30)).max().item()
             ok = bool((d <= bound).all())
-            say(f"[kernel] {solver:8s} rows={rows} k_split={ks}: max|d| {max_abs:.3e} "
+            say(f"[kernel] {solver:8s} rows={rows}: max|d| {max_abs:.3e} "
                 f"max rel {max_rel:.3e} max|ref| {ref.abs().max().item():.3f} {'ok' if ok else 'FAIL'}")
             if not ok:
-                fail(f"kernel {solver} rows={rows} k_split={ks} disagrees with plain beyond {KERNEL_TOL}")
+                fail(f"kernel {solver} rows={rows} disagrees with plain beyond {KERNEL_TOL}")
             worst_abs = max(worst_abs, max_abs)
     return worst_abs
 
@@ -614,16 +619,14 @@ def phase_times(dev, sweep):
             bound_ms = max(n_bytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS) * 1e3
             bound_by = "bytes" if n_bytes / PEAK_BYTES_PER_S > flops / PEAK_F32_FLOPS else "operations"
             times[(B, solver)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
-            rows, ks = F.default_launch(B, torch.cuda.get_device_properties(dev).multi_processor_count)
-            say(f"[times] B={B} {solver:8s}: kernel {k_ms:.4f} ms (rows={rows}, "
-                f"k_split={ks}), plain {p_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}; "
-                f"{n_bytes} B, {flops} FLOP), kernel/bound {k_ms / bound_ms:.1f}x, library n/a")
+            rows = F.default_launch(B, torch.cuda.get_device_properties(dev).multi_processor_count)
+            say(f"[times] B={B} {solver:8s}: kernel {k_ms:.4f} ms (rows={rows}), plain {p_ms:.3f} ms, "
+                f"bound {bound_ms:.5f} ms ({bound_by}; {n_bytes} B, {flops} FLOP), kernel/bound "
+                f"{k_ms / bound_ms:.1f}x, library n/a")
             if sweep:
                 for rows in F.ROWS_PER_BLOCK:
-                    for ks in F.K_SPLITS:
-                        ms = cuda_ms(lambda: F.fused_dae_rollout_packed_cuda(
-                            *args, solver, rows_per_block=rows, k_split=ks), 1, 5)
-                        say(f"[sweep] B={B} {solver:8s} rows={rows} k_split={ks}: {ms:.4f} ms")
+                    ms = cuda_ms(lambda: F.fused_dae_rollout_packed_cuda(*args, solver, rows_per_block=rows), 1, 5)
+                    say(f"[sweep] dae forward B={B} {solver:8s} rows={rows}: {ms:.4f} ms")
 
     # the backward at the training batch: checkpoint 200 on the test set
     # twice (B=64), the forward kernel's solution, random cotangents
@@ -786,18 +789,22 @@ def phase_ode_kernel_vs_plain(dev):
         args = ode_random_inputs(32, 1000, 128, xd, n_tail, seed=4, dev=dev)
         for solver in solvers:
             ref = FO.fused_ode_rollout_plain(*args, solver)
-            got = FO.fused_ode_rollout_cuda(*args, solver)
-            torch.cuda.synchronize()
-            if got.shape != ref.shape or not torch.isfinite(got).all():
-                fail(f"ODE kernel {solver} xd={xd}: shape {tuple(got.shape)} or non-finite values")
-            d = (got - ref).abs()
-            max_abs = d.max().item()
-            ok = bool((d <= KERNEL_TOL * torch.clamp(ref.abs(), min=1.0)).all())
-            say(f"[ode-kernel] {solver:8s} xd={xd} n_tail={n_tail}: max|d| {max_abs:.3e} "
-                f"max|ref| {ref.abs().max().item():.3f} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"ODE kernel {solver} xd={xd} disagrees with plain beyond {KERNEL_TOL}")
-            worst_abs = max(worst_abs, max_abs)
+            for rows in F.ROWS_PER_BLOCK if solver == "rk4" else (None,):  # RK4: every launch shape
+                got = FO.fused_ode_rollout_cuda(*args, solver, rows_per_block=rows)
+                again = FO.fused_ode_rollout_cuda(*args, solver, rows_per_block=rows)
+                torch.cuda.synchronize()
+                if got.shape != ref.shape or not torch.isfinite(got).all():
+                    fail(f"ODE kernel {solver} xd={xd} rows={rows}: shape {tuple(got.shape)} or non-finite values")
+                if not torch.equal(got, again):
+                    fail(f"ODE kernel {solver} xd={xd} rows={rows}: a relaunch gave other bits")
+                d = (got - ref).abs()
+                max_abs = d.max().item()
+                ok = bool((d <= KERNEL_TOL * torch.clamp(ref.abs(), min=1.0)).all())
+                say(f"[ode-kernel] {solver:8s} xd={xd} n_tail={n_tail} rows={rows}: max|d| {max_abs:.3e} "
+                    f"max|ref| {ref.abs().max().item():.3f} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"ODE kernel {solver} xd={xd} rows={rows} disagrees with plain beyond {KERNEL_TOL}")
+                worst_abs = max(worst_abs, max_abs)
 
     s_de, weights, x0, dt = ode_random_inputs(32, 1000, 128, 128, 1, seed=4, dev=dev, readout=1.0)
     ref64 = FO.fused_ode_rollout_plain(s_de.double(), double(weights), x0.double(), dt, "euler")
@@ -978,9 +985,10 @@ def ode_model(start, dev, solver):
     return load_params(model, load_checkpoint_params(start), device=dev)
 
 
-def phase_ode_times(dev, files):
+def phase_ode_times(dev, files, sweep):
     """CUDA-event times of both ODE kernels at the slice's shapes (the
-    starting checkpoint on the AVR sets) and of one whole training step."""
+    starting checkpoint on the AVR sets) and of one whole training step;
+    with ``sweep`` the forward at every rows-a-block too."""
     train_f, test_f, start = files
     test_ds, train_ds = OdeSamples.load(str(test_f)), OdeSamples.load(str(train_f))
     keys = ("t", "x", "z", "event_t", "z_jump")
@@ -1002,9 +1010,14 @@ def phase_ode_times(dev, files):
         n_bytes, flops = ode_work(args[0], args[1], args[2], solver)[:2]
         bound_ms, bound_by = bound(n_bytes, flops)
         times[("fwd", B, solver)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
-        say(f"[ode-times] forward B={B} {solver:8s}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+        rows = F.default_launch(B, torch.cuda.get_device_properties(dev).multi_processor_count)
+        say(f"[ode-times] forward B={B} {solver:8s}: kernel {k_ms:.4f} ms (rows={rows}), plain {p_ms:.3f} ms, "
             f"bound {bound_ms:.5f} ms ({bound_by}; {n_bytes} B, {flops} FLOP), kernel/bound "
             f"{k_ms / bound_ms:.1f}x, library n/a: no single PyTorch call computes this rollout")
+        if sweep:
+            for rows in F.ROWS_PER_BLOCK:
+                ms = cuda_ms(lambda: FO.fused_ode_rollout_cuda(*args, solver, rows_per_block=rows), 1, 5)
+                say(f"[sweep] ode forward B={B} {solver:8s} rows={rows}: {ms:.4f} ms")
 
     s_de, weights, x0, dt = inputs(train_ds, 64)
     cot = torch.tensor(np.random.default_rng(7).standard_normal((1001, 64, 2)).astype(np.float32)
@@ -1573,7 +1586,7 @@ def check_cw_step(variant, fused, plain):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--sweep", action="store_true", help="time every DAE forward launch shape")
+    ap.add_argument("--sweep", action="store_true", help="time both forwards at every launch shape")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     name, count, smi = phase_card()
@@ -1590,7 +1603,7 @@ def main(argv=None):
     ode_bwd_err = phase_ode_bwd_vs_plain(dev)
     with tempfile.TemporaryDirectory(prefix="psnode_ode_") as tmp:
         ode_launches, ode_files = phase_ode_slice(dev, pathlib.Path(tmp))
-        ode_times = phase_ode_times(dev, ode_files)
+        ode_times = phase_ode_times(dev, ode_files, args.sweep)
     with tempfile.TemporaryDirectory(prefix="psnode_cw_") as tmp:
         cw_files = cw_setup(pathlib.Path(tmp))
         cw_fwd_err = phase_cw_kernel_vs_plain(dev, cw_files)

@@ -15,81 +15,40 @@
 // where *_tail applies ELU to the lifted first layer, then Dense->ELU
 // layers and a last Dense without activation.
 //
-// Bound on an H100 SXM at the motor evaluation shape (B=32, T=1001, h=128,
-// xd=3, id=2): a row-step costs about 1.3e5 FLOP with Euler (one DE and one
-// AE evaluation, two 128x128 layers each) and 3.3e5 with RK4 (four DE
-// evaluations), so a rollout is 4e9 / 1.1e10 FLOP: 0.06 / 0.16 ms at the
-// card's 67 TFLOP/s of float32 on the CUDA cores. The three h-wide streams
-// are 3 x 1000 x 32 x 128 x 4 B = 49 MB of reads, 15 us at 3.35 TB/s. So the
-// kernel is compute-bound on paper and latency-bound in practice: each step
-// is a serial chain of dependent 128-wide layers (6 with Euler, 15 with
-// RK4), each closed by a block barrier, and B=32 gives little parallelism.
+// Bound on an H100 SXM at the motor training shape (B=64, T=1001, h=128,
+// xd=3, id=2, three-layer tails, RK4): a row-step evaluates the DE four
+// times and the AE once, two 128 x 128 layers each, 3.4e5 FLOP, so the
+// rollout is 2.1e10 FLOP: 0.32 ms at the card's 67 TFLOP/s of float32 on
+// the CUDA cores (no product runs on the tensor cores). The three h-wide
+// streams are 98 MB of reads, 0.03 ms at 3.35 TB/s. So the kernel is
+// compute-bound on paper and latency-bound in practice: a step is a serial
+// chain of 15 dependent 128-wide layers at RK4, and B=64 rows fill half the
+// card's 132 SMs with one block each.
 //
-// Design: blocks own disjoint tiles of R batch rows (rows are independent,
-// so no reduction crosses blocks) and run the whole T-1-step loop inside
-// the block. Carries, stage values and activations live in shared memory.
-// Weights are read from global memory through the read-only cache: the four
-// 128x128 float32 tail matrices are 256 KB, more than a block's 227 KB of
-// shared memory, and they stay in L2. Each weight a thread loads serves all
-// R rows of its block. A wide layer gives each output column KS threads
-// that split the reduction and combine it with warp shuffles, which
-// shortens the dependent chain of each layer; a narrow layer (the xd- or
-// id-wide readout) gives each output a warp.
+// What the design does about the chain (csrc/noencode_bwd.cuh, forward
+// section): a layer is one pass and one barrier (the parent kernel took a
+// separate ELU pass, about 30 barriers an RK4 step, and read every weight
+// by scalar loads from L2, 3 700 cycles a hidden layer: phase_clock's
+// [ne-fwd-split]); the narrow readouts (the DE's xd outputs, the AE's id)
+// fold into the next evaluation's first layer in 4 warps, so an
+// evaluation takes three barriers and an RK4 step 15; with one row a block
+// all four hidden weights stay on chip, the DE's first in registers, its
+// second and the AE's in shared memory (a second in registers makes the
+// kernel spill; [ne-fwd-slots]); the first layers, the readouts and the
+// biases sit in shared memory for the whole launch, and cp.async brings
+// step t+1's stream rows and (dt, ev) while step t runs. With more rows
+// than SMs a block takes a tile of R rows that share each weight load (the
+// DE's in shared memory, the AE's from L2; R = 8 at B = 1024, chip_smoke.py
+// --sweep). Wider h runs as 128-wide chunks with its weights from L2. Rows
+// are independent: no atomics, the same bits on every launch.
 
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "noencode_bwd.cuh"
 
 namespace {
 
-// The phase clock (utils/phase_clock.py): built with -DNE_PHASE_CLOCK,
-// thread 0 of block 0 notes clock64() and a phase number at each phase
-// boundary of the middle step (marks in g_ne_fwd, their phases in
-// g_ne_fwd_bin, the count in g_ne_fwd_n); otherwise the marks compile to
-// nothing. Phases: 0 the step's loads, 1 the AE at the event, 2 + 3 q +
-// {0, 1, 2} stage q's first layer, hidden layers and readout, 14 the stage
-// updates, 15 the AE at t+1, 16 the solution's write.
-#ifdef NE_PHASE_CLOCK
-__device__ long long g_ne_fwd[64];
-__device__ int g_ne_fwd_bin[64];
-__device__ int g_ne_fwd_n;
-__shared__ int s_ne_clk[2];  // on (the middle step), marks so far
-#define NE_FWD_START(t, tm1)                                             \
-  do {                                                                   \
-    if (threadIdx.x == 0 && blockIdx.x == 0) {                           \
-      s_ne_clk[0] = (t) == (tm1) / 2;                                    \
-      s_ne_clk[1] = 0;                                                   \
-    }                                                                    \
-    NE_FWD_MARK(-1);                                                     \
-  } while (0)
-#define NE_FWD_MARK(bin)                                                 \
-  do {                                                                   \
-    if (threadIdx.x == 0 && blockIdx.x == 0 && s_ne_clk[0] && s_ne_clk[1] < 64) { \
-      const int i_ = s_ne_clk[1]++;                                      \
-      g_ne_fwd[i_] = clock64();                                          \
-      g_ne_fwd_bin[i_] = (bin);                                          \
-      g_ne_fwd_n = i_ + 1;                                               \
-    }                                                                    \
-  } while (0)
-#else
-#define NE_FWD_START(t, tm1) \
-  do {                       \
-  } while (0)
-#define NE_FWD_MARK(bin) \
-  do {                   \
-  } while (0)
-#endif
-
-constexpr int kMaxTail = 8;        // tail layers per net
-constexpr int kColThreads = 128;   // output columns a block covers at once
-constexpr float kOneThird = 1.0f / 3.0f;
-
-struct Tail {
-  const float* w[kMaxTail];  // [in, out] row-major (flax kernel layout)
-  const float* b[kMaxTail];  // [out]
-  int n;                     // number of tail layers
-  int out;                   // width of the last layer
-};
+// The DE's hidden weights a folding block holds in registers: one (with two
+// the kernel spills; phase_clock's [ne-fwd-slots] sweep).
+constexpr int kRegBanks = 1;
 
 struct Args {
   const float* s_de;     // [tm1, batch, h]
@@ -98,318 +57,318 @@ struct Args {
   const float* aux;      // [tm1, batch, 2]: (dt, ev)
   const float* x0;       // [batch, xd]
   const float* i0;       // [batch, id]
-  const float* wx_de;    // [xd, h]
-  const float* wi_de;    // [id, h]
-  const float* gx_ae;    // [xd, h]
-  Tail de;               // hidden layers [h, h], last [h, xd]
-  Tail ae;               // hidden layers [h, h], last [h, id]
+  Net de;                // first layer [wx_de; wi_de] (kin = xd + id), out = xd
+  Net ae;                // first layer gx_ae (kin = xd), out = id
   float* sol;            // [tm1, batch, xd + id]
   int tm1, batch, h, xd, id, solver;
 };
 
-__device__ __forceinline__ float elu(float v) {
-  return v > 0.f ? v : expf(fminf(v, 0.f)) - 1.f;
+// Floats of one prefetched step of R rows: the three stream rows, then
+// (dt, ev) of each row in 4 floats.
+__host__ __device__ inline int step_floats(int R, int H) { return 3 * R * H + 4 * R; }
+
+// Shared memory of a block of R rows, in floats.
+__host__ inline size_t smem_floats(int slots, const Net& de, const Net& ae, int R) {
+  const size_t RH = static_cast<size_t>(R) * de.ld;
+  // resident weights, tables, activations (2), prefetched steps (2), the
+  // readout, the inputs (DE, AE), the carries x (2), the stages (4), i_c, i_in
+  return static_cast<size_t>(slots) * kMat + fwd_net_floats(de) + fwd_net_floats(ae) + 2 * RH +
+         2 * static_cast<size_t>(step_floats(R, de.ld)) + RH + 2 * RH + 8 * RH;
 }
 
-// out[r, j] = act(sum_k in[r, k] * w[k, j] + b[j]) for r < R, j < n_out;
-// KS threads per output column, in/out in shared memory.
-template <int R, int KS>
-__device__ void dense_wide(const float* in, int k_in, const float* __restrict__ w,
-                           const float* __restrict__ b, float* out, int n_out, bool act) {
-  const int ks = threadIdx.x % KS;
-  const int col = threadIdx.x / KS;
-  const int ncol = blockDim.x / KS;
-  // every thread runs the same trip count, so the shuffles below see full warps
-  for (int j0 = 0; j0 < n_out; j0 += ncol) {
-    const int j = j0 + col;
-    const bool live = j < n_out;
-    float acc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = 0.f;
-    if (live) {
-#pragma unroll 8
-      for (int k = ks; k < k_in; k += KS) {
-        const float wk = __ldg(w + static_cast<size_t>(k) * n_out + j);
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(in[r * k_in + k], wk, acc[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-#pragma unroll
-      for (int off = KS / 2; off > 0; off >>= 1)
-        acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
-    }
-    if (live && ks == 0) {
-      const float bj = __ldg(b + j);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float v = acc[r] + bj;
-        out[r * n_out + j] = act ? elu(v) : v;
-      }
-    }
+// kFoldPath: one row a block (R = 1) and narrow nets, the readouts folded
+// into the next first layer by the first fw warps; else the tile path.
+template <int R, bool kFoldPath>
+__global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant__ Args a, int slots, int fw) {
+  extern __shared__ __align__(16) float smem[];
+  const int H = a.de.ld, B = a.batch, h = a.h, xd = a.xd, id = a.id, S = n_stages(a.solver);
+  const int tid = threadIdx.x, row0 = blockIdx.x * R, RH = R * H, SF = step_floats(R, H);
+  const bool folder = tid < 32 * fw;  // a warp that folds
+  float* p = smem;
+  float* wres = p;
+  p += static_cast<size_t>(slots) * kMat;
+  const FwdNet tde = carve_net(a.de, p);
+  const FwdNet tae = carve_net(a.ae, p);
+  float* vec = p;  // every vector below starts at zero
+  float* act_a = p;
+  float* act_b = act_a + RH;
+  float* pf = act_b + RH;   // [2][SF]
+  float* y = pf + 2 * SF;   // [R][H] the readout
+  float* xde = y + RH;      // [R][H] the DE's next input (x, i_in)
+  float* xae = xde + RH;    // [R][H] the AE's next input
+  float* xc = xae + RH;     // [2][R][H] the x carry of even and odd steps
+  float* kq = xc + 2 * RH;  // [4][R][H] the stages' derivatives
+  float* ic = kq + 4 * RH;  // [R][H] the i carry
+  float* iin = ic + RH;     // [R][H] the step's i_in
+  for (int e = tid; e < iin + RH - vec; e += kThreads) vec[e] = 0.f;
+  __syncthreads();
+  constexpr int NB = kFoldPath ? kRegBanks : 0;  // the register banks this kernel uses
+  float4 wr[kRegBanks][8];  // the DE's hidden weights held in registers (kFoldPath)
+  load_m16<NB>(a.de, wres, wr);
+  load_m16<NB>(a.ae, wres, wr);
+  load_tables(a.de, tde);
+  load_tables(a.ae, tae);
+  for (int e = tid; e < R * xd; e += kThreads) {
+    const int r = e / xd, c = e - r * xd, g = row0 + r;
+    xc[r * H + c] = g < B ? __ldg(a.x0 + static_cast<size_t>(g) * xd + c) : 0.f;
   }
-}
-
-// Narrow layer (n_out < 32): one warp per output, lanes split the reduction.
-template <int R>
-__device__ void dense_narrow(const float* in, int k_in, const float* __restrict__ w,
-                             const float* __restrict__ b, float* out, int n_out, bool act) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarp = blockDim.x >> 5;
-  for (int j = warp; j < n_out; j += nwarp) {
-    float acc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = 0.f;
-    for (int k = lane; k < k_in; k += 32) {
-      const float wk = __ldg(w + static_cast<size_t>(k) * n_out + j);
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = fmaf(in[r * k_in + k], wk, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
-    }
-    if (lane == 0) {
-      const float bj = __ldg(b + j);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float v = acc[r] + bj;
-        out[r * n_out + j] = act ? elu(v) : v;
-      }
-    }
+  for (int e = tid; e < R * id; e += kThreads) {
+    const int r = e / id, c = e - r * id, g = row0 + r;
+    ic[r * H + c] = g < B ? __ldg(a.i0 + static_cast<size_t>(g) * id + c) : 0.f;
   }
-}
 
-template <int R, int KS>
-__device__ __forceinline__ void dense(const float* in, int k_in, const float* w,
-                                      const float* b, float* out, int n_out, bool act) {
-  if (n_out >= 32) {
-    dense_wide<R, KS>(in, k_in, w, b, out, n_out, act);
+  // step t's stream rows and (dt, ev) into buffer t & 1
+  auto stream = [&](int q) { return q == 0 ? a.s_de : (q == 1 ? a.s_ae : a.s_ae_ev); };
+  const RowCopy rc = row_copy(3, R, h, H, row0, B, stream);
+  const int ea = kThreads - 1 - tid;  // the threads from the top copy (dt, ev)
+  const float* aux_src = ea < 2 * R && row0 + (ea >> 1) < B ? a.aux + (row0 + (ea >> 1)) * 2 + (ea & 1) : nullptr;
+  auto prefetch = [&](int t) {
+    float* dst = pf + (t & 1) * SF;
+    prefetch_rows(rc, dst, t, 3, R, h, H, row0, B, a.aux, stream);
+    if (ea < 2 * R)
+      cp_async_f32(dst + 3 * RH + 4 * (ea >> 1) + (ea & 1),
+                   aux_src ? aux_src + static_cast<size_t>(t) * B * 2 : a.aux, aux_src != nullptr);
+    cp_async_commit();
+  };
+  auto s_de = [&](int t) { return pf + (t & 1) * SF; };
+  auto s_ae = [&](int t) { return pf + (t & 1) * SF + RH; };
+  auto s_ev = [&](int t) { return pf + (t & 1) * SF + 2 * RH; };
+  auto dt_of = [&](int t, int r) { return pf[(t & 1) * SF + 3 * RH + 4 * r]; };
+  auto ev_of = [&](int t, int r) { return pf[(t & 1) * SF + 3 * RH + 4 * r + 1] > 0.f; };
+  auto any_ev = [&](int t) {  // the same in every thread: one branch for the block
+    bool v = false;
+    for (int r = 0; r < R; ++r) v = v || ev_of(t, r);
+    return v;
+  };
+  auto other = [&](const float* q) { return q == act_a ? act_b : act_a; };
+  auto sol_at = [&](int t, int r) { return a.sol + (static_cast<size_t>(t) * B + row0 + r) * (xd + id); };
+
+  prefetch(0);
+  cp_async_wait<0>();
+  __syncthreads();
+  // the first evaluation's input: (x0, i0) for the DE, x0 for the AE at an event
+  for (int e = tid; e < R * xd; e += kThreads) {
+    const int r = e / xd, c = e - r * xd;
+    xde[r * H + c] = xae[r * H + c] = xc[r * H + c];
+  }
+  for (int e = tid; e < R * id; e += kThreads) {
+    const int r = e / id, c = e - r * id;
+    xde[r * H + xd + c] = iin[r * H + c] = ic[r * H + c];
+  }
+  __syncthreads();
+  float* cur = act_a;
+  if (any_ev(0)) {
+    first_layer<R>(a.ae, tae, xae, s_ev(0), cur);
   } else {
-    dense_narrow<R>(in, k_in, w, b, out, n_out, act);
+    first_layer<R>(a.de, tde, xde, s_de(0), cur);
   }
-}
 
-// Tail of a net: `a` holds the first layer's pre-activations [R, h] (it is
-// overwritten), `scratch` is [R, h], the result [R, tl.out] goes to `res`.
-// Starts after a barrier that published `a`, ends with a barrier. Not
-// inlined: the solvers reach it from nine places, and inlining all nine
-// copies in every launch-shape instantiation made the build take a minute.
-template <int R, int KS>
-__device__ __noinline__ void mlp_tail(const Tail& tl, float* a, float* scratch, float* res, int h,
-                                      int bin_hidden, int bin_readout) {
-  for (int e = threadIdx.x; e < R * h; e += blockDim.x) a[e] = elu(a[e]);
-  __syncthreads();
-  float* cur = a;
-  float* nxt = scratch;
-  for (int l = 0; l + 1 < tl.n; ++l) {
-    dense<R, KS>(cur, h, tl.w[l], tl.b[l], nxt, h, true);
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-  }
-  NE_FWD_MARK(bin_hidden);
-  dense<R, KS>(cur, h, tl.w[tl.n - 1], tl.b[tl.n - 1], res, tl.out, false);
-  __syncthreads();
-  NE_FWD_MARK(bin_readout);
-}
-
-// AE(x, s) for the block's rows: pre = s[row] + x @ gx_ae, then the AE tail.
-template <int R, int KS>
-__device__ void ae_eval(const Args& a, const float* s_t, const float* x, float* pre,
-                        float* scratch, float* res, int row0, int bin) {
-  const int h = a.h, xd = a.xd;
-  for (int e = threadIdx.x; e < R * h; e += blockDim.x) {
-    const int r = e / h, j = e - r * h, g = row0 + r;
-    float xp = 0.f;
-    for (int k = 0; k < xd; ++k) xp = fmaf(x[r * xd + k], __ldg(a.gx_ae + k * h + j), xp);
-    const float s = g < a.batch ? __ldg(s_t + static_cast<size_t>(g) * h + j) : 0.f;
-    pre[e] = s + xp;
-  }
-  __syncthreads();
-  mlp_tail<R, KS>(a.ae, pre, scratch, res, h, bin, bin);
-}
-
-// f(x) for the block's rows: pre = s_de[row] + x @ wx_de + i_in @ wi_de,
-// then the DE tail.
-template <int R, int KS>
-__device__ void de_eval(const Args& a, const float* s_t, const float* x, const float* i_in,
-                        float* pre, float* scratch, float* res, int row0, int q) {
-  const int h = a.h, xd = a.xd, id = a.id;
-  for (int e = threadIdx.x; e < R * h; e += blockDim.x) {
-    const int r = e / h, j = e - r * h, g = row0 + r;
-    float xp = 0.f;
-    for (int k = 0; k < xd; ++k) xp = fmaf(x[r * xd + k], __ldg(a.wx_de + k * h + j), xp);
-    float ip = 0.f;
-    for (int k = 0; k < id; ++k) ip = fmaf(i_in[r * id + k], __ldg(a.wi_de + k * h + j), ip);
-    const float s = g < a.batch ? __ldg(s_t + static_cast<size_t>(g) * h + j) : 0.f;
-    pre[e] = (s + xp) + ip;
-  }
-  __syncthreads();
-  NE_FWD_MARK(2 + 3 * q);
-  mlp_tail<R, KS>(a.de, pre, scratch, res, h, 3 + 3 * q, 4 + 3 * q);
-}
-
-template <int R, int KS>
-__global__ void __launch_bounds__(kColThreads * KS)
-    fused_dae_rollout_kernel(const __grid_constant__ Args a) {
-  extern __shared__ float smem[];
-  const int h = a.h, xd = a.xd, id = a.id, B = a.batch;
-  const int nx = R * xd, ni = R * id;
-  float* pre = smem;            // [R, h]
-  float* scratch = pre + R * h; // [R, h]
-  float* xc = scratch + R * h;  // [R, xd] rolled state
-  float* xs = xc + nx;          // [R, xd] stage input
-  float* k1 = xs + nx;          // [R, xd] stage derivatives
-  float* k2 = k1 + nx;
-  float* k3 = k2 + nx;
-  float* k4 = k3 + nx;
-  float* xn = k4 + nx;          // [R, xd] next state
-  float* ic = xn + nx;          // [R, id] lagged algebraic output
-  float* iin = ic + ni;         // [R, id] algebraic input of this step
-  float* iv = iin + ni;         // [R, id] AE result
-  float* dts = iv + ni;         // [R] step sizes
-  float* evs = dts + R;         // [R] event flags
-
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int row0 = blockIdx.x * R;
-  for (int e = tid; e < nx; e += nt) {
-    const int g = row0 + e / xd;
-    xc[e] = g < B ? a.x0[static_cast<size_t>(g) * xd + e % xd] : 0.f;
-  }
-  for (int e = tid; e < ni; e += nt) {
-    const int g = row0 + e / id;
-    ic[e] = g < B ? a.i0[static_cast<size_t>(g) * id + e % id] : 0.f;
-  }
-  __syncthreads();
-
+  int par = 0;  // xc + par RH holds x_t
   for (int t = 0; t < a.tm1; ++t) {
-    const size_t step = static_cast<size_t>(t) * B;
-    const float* s_de_t = a.s_de + step * h;
     NE_FWD_START(t, a.tm1);
-    int my_ev = 0;
-    if (tid < R) {
-      const int g = row0 + tid;
-      float dtv = 0.f, evv = 0.f;
-      if (g < B) {
-        dtv = a.aux[(step + g) * 2];
-        evv = a.aux[(step + g) * 2 + 1];
-      }
-      dts[tid] = dtv;
-      evs[tid] = evv;
-      my_ev = evv > 0.f;
-    }
-    for (int e = tid; e < ni; e += nt) iin[e] = ic[e];
-    // publishes dts, evs and iin as well
-    const int any_ev = __syncthreads_or(my_ev);
+    if (t + 1 < a.tm1) prefetch(t + 1);  // into the buffer step t - 1 used
+    float* x_t = xc + par * RH;
+    float* x_n = xc + (par ^ 1) * RH;
     NE_FWD_MARK(0);
-    if (any_ev) {
-      ae_eval<R, KS>(a, a.s_ae_ev + step * h, xc, pre, scratch, iv, row0, 1);
-      for (int e = tid; e < ni; e += nt)
-        if (evs[e / id] > 0.f) iin[e] = iv[e];
-      __syncthreads();
+
+    // ---- the AE at the event: i_in of the event rows ----
+    if (any_ev(t)) {
+      cur = fwd_hidden<R, NB>(a.ae, tae, cur, other(cur), wres, wr, false);
+      float* nxt = other(cur);
+      if constexpr (kFoldPath) {
+        if (folder) {
+          float yr[kFold], in[kFold];
+          fold_readout(a.ae, tae, cur, yr);
+#pragma unroll
+          for (int c = 0; c < kFold; ++c) {
+            in[c] = c < xd ? x_t[c] : pick(yr, c - xd);
+            if (tid == c && c < id) iin[c] = yr[c];
+          }
+          fold_first_layer(a.de, tde, in, s_de(t), nxt, fw);
+        }
+        __syncthreads();
+      } else {
+        tile_readout<R>(a.ae, tae, cur, y);
+        for (int e = tid; e < R * id; e += kThreads) {
+          const int r = e / id, c = e - r * id;
+          if (ev_of(t, r)) xde[r * H + xd + c] = iin[r * H + c] = y[r * H + c];
+        }
+        __syncthreads();
+        first_layer<R>(a.de, tde, xde, s_de(t), nxt);
+      }
+      cur = nxt;
     }
     NE_FWD_MARK(1);
 
-    de_eval<R, KS>(a, s_de_t, xc, iin, pre, scratch, k1, row0, 0);
-    if (a.solver == 0) {  // Euler
-      for (int e = tid; e < nx; e += nt) xn[e] = xc[e] + dts[e / xd] * k1[e];
-    } else if (a.solver == 1) {  // Midpoint
-      for (int e = tid; e < nx; e += nt) xs[e] = xc[e] + k1[e] * (0.5f * dts[e / xd]);
-      __syncthreads();
-      NE_FWD_MARK(14);
-      de_eval<R, KS>(a, s_de_t, xs, iin, pre, scratch, k2, row0, 1);
-      for (int e = tid; e < nx; e += nt) xn[e] = xc[e] + dts[e / xd] * k2[e];
-    } else {  // RK4, Kutta's 3/8 rule
-      for (int e = tid; e < nx; e += nt) xs[e] = xc[e] + dts[e / xd] * k1[e] * kOneThird;
-      __syncthreads();
-      NE_FWD_MARK(14);
-      de_eval<R, KS>(a, s_de_t, xs, iin, pre, scratch, k2, row0, 1);
-      for (int e = tid; e < nx; e += nt)
-        xs[e] = xc[e] + dts[e / xd] * (k2[e] - k1[e] * kOneThird);
-      __syncthreads();
-      NE_FWD_MARK(14);
-      de_eval<R, KS>(a, s_de_t, xs, iin, pre, scratch, k3, row0, 2);
-      for (int e = tid; e < nx; e += nt) xs[e] = xc[e] + dts[e / xd] * (k1[e] - k2[e] + k3[e]);
-      __syncthreads();
-      NE_FWD_MARK(14);
-      de_eval<R, KS>(a, s_de_t, xs, iin, pre, scratch, k4, row0, 3);
-      for (int e = tid; e < nx; e += nt)
-        xn[e] = xc[e] + (k1[e] + 3.0f * (k2[e] + k3[e]) + k4[e]) * dts[e / xd] * 0.125f;
+    // ---- the DE stages; the last one's fold starts the AE at t+1 ----
+    for (int q = 0; q < S; ++q) {
+      const bool last = q + 1 == S;
+      cur = fwd_hidden<R, NB>(a.de, tde, cur, other(cur), wres, wr, false);
+      NE_FWD_MARK(3 + 3 * q);
+      float* nxt = other(cur);
+      if constexpr (kFoldPath) {
+        if (folder) {
+          float yr[kFold], in[kFold];
+          fold_readout(a.de, tde, cur, yr);
+          NE_FWD_MARK(4 + 3 * q);
+          const float dt = dt_of(t, 0);
+#pragma unroll
+          for (int c = 0; c < kFold; ++c) {
+            if (c < xd) {  // stage q + 1's input, or x_{t+1} at the last stage
+              in[c] = stage_next(a.solver, q, x_t[c], dt, yr[c], [&](int i) { return kq[i * H + c]; });
+              if (tid == c) {
+                if (!last) {
+                  kq[q * H + c] = yr[c];
+                } else {
+                  x_n[c] = in[c];
+                  sol_at(t, 0)[c] = in[c];
+                }
+              }
+            } else {
+              in[c] = last ? 0.f : iin[c - xd];
+            }
+          }
+          NE_FWD_MARK(14);
+          if (last) {
+            fold_first_layer(a.ae, tae, in, s_ae(t), nxt, fw);
+          } else {
+            fold_first_layer(a.de, tde, in, s_de(t), nxt, fw);
+          }
+        }
+        __syncthreads();
+      } else {
+        tile_readout<R>(a.de, tde, cur, y);
+        NE_FWD_MARK(4 + 3 * q);
+        for (int e = tid; e < R * xd; e += kThreads) {
+          const int r = e / xd, c = e - r * xd, o = r * H + c;
+          const float v = y[o];
+          const float xn = stage_next(a.solver, q, x_t[o], dt_of(t, r), v, [&](int i) { return kq[i * RH + o]; });
+          if (!last) {
+            kq[q * RH + o] = v;
+            xde[o] = xn;
+          } else {
+            x_n[o] = xae[o] = xn;
+            if (row0 + r < B) sol_at(t, r)[c] = xn;
+          }
+        }
+        __syncthreads();
+        NE_FWD_MARK(14);
+        if (last) {
+          first_layer<R>(a.ae, tae, xae, s_ae(t), nxt);
+        } else {
+          first_layer<R>(a.de, tde, xde, s_de(t), nxt);
+        }
+      }
+      cur = nxt;
+      NE_FWD_MARK(last ? 15 : 2 + 3 * (q + 1));
     }
-    __syncthreads();
-    NE_FWD_MARK(14);
 
-    ae_eval<R, KS>(a, a.s_ae + step * h, xn, pre, scratch, iv, row0, 15);
-    const int w = xd + id;
-    for (int e = tid; e < R * w; e += nt) {
-      const int r = e / w, c = e - r * w, g = row0 + r;
-      const float val = c < xd ? xn[r * xd + c] : iv[r * id + (c - xd)];
-      if (g < B) a.sol[(step + g) * w + c] = val;
+    // ---- the AE at t+1: i1; its fold starts step t + 1 ----
+    // step t + 1's rows land before the readout's barrier
+    cur = fwd_hidden<R, NB>(a.ae, tae, cur, other(cur), wres, wr, true);
+    if (a.ae.n == 1) {
+      cp_async_wait<0>();
+      __syncthreads();
     }
-    for (int e = tid; e < nx; e += nt) xc[e] = xn[e];
-    for (int e = tid; e < ni; e += nt) ic[e] = iv[e];
-    __syncthreads();
-    NE_FWD_MARK(16);
+    const bool more = t + 1 < a.tm1;
+    const bool ev_n = more && any_ev(t + 1);
+    float* nxt = other(cur);
+    if constexpr (kFoldPath) {
+      if (folder) {
+        float yr[kFold];
+        fold_readout(a.ae, tae, cur, yr);
+        NE_FWD_MARK(15);
+#pragma unroll
+        for (int c = 0; c < kFold; ++c)
+          if (tid == c && c < id) {
+            ic[c] = iin[c] = yr[c];
+            sol_at(t, 0)[xd + c] = yr[c];
+          }
+        NE_FWD_MARK(16);
+        float in[kFold];  // x_{t+1} was kept by warp 0 in the last stage's fold
+#pragma unroll
+        for (int c = 0; c < kFold; ++c) in[c] = c < xd ? x_n[c] : pick(yr, c - xd);
+        if (more) {
+          if (ev_n) {
+            fold_first_layer(a.ae, tae, in, s_ev(t + 1), nxt, fw);
+          } else {
+            fold_first_layer(a.de, tde, in, s_de(t + 1), nxt, fw);
+          }
+        }
+      }
+      __syncthreads();
+    } else {
+      tile_readout<R>(a.ae, tae, cur, y);
+      NE_FWD_MARK(15);
+      const int w = xd > id ? xd : id;
+      for (int e = tid; e < R * w; e += kThreads) {
+        const int r = e / w, c = e - r * w, o = r * H + c;
+        if (c < xd) xde[o] = x_n[o];
+        if (c < id) {
+          const float v = y[o];
+          ic[o] = iin[o] = xde[r * H + xd + c] = v;
+          if (row0 + r < B) sol_at(t, r)[xd + c] = v;
+        }
+      }
+      __syncthreads();
+      NE_FWD_MARK(16);
+      if (more) {
+        if (ev_n) {
+          first_layer<R>(a.ae, tae, xae, s_ev(t + 1), nxt);
+        } else {
+          first_layer<R>(a.de, tde, xde, s_de(t + 1), nxt);
+        }
+      }
+    }
+    cur = nxt;
+    par ^= 1;
   }
 }
 
-template <int R, int KS>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t floats = 2 * static_cast<size_t>(R) * a.h +
-                        static_cast<size_t>(R) * (7 * a.xd + 3 * a.id + 2);
-  const size_t smem = floats * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_dae_rollout_kernel<R, KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const int blocks = (a.batch + R - 1) / R;
-  fused_dae_rollout_kernel<R, KS><<<blocks, kColThreads * KS, smem, stream>>>(a);
+template <int R, bool kFoldPath>
+cudaError_t launch(const Args& a, int max_regs, int max_slots, int fw, cudaStream_t st) {
+  Args b = a;
+  Net* nets[2] = {&b.de, &b.ae};
+  // by default, one row a block: the DE's first hidden weight (used S times
+  // a step) in registers, its second and the AE's in shared memory; a tile
+  // of rows: the DE's in shared memory, the AE's through L1 and L2
+  // (phase_clock's [ne-fwd-slots] sweep)
+  const int regs = kFoldPath ? (max_regs >= 0 && max_regs < kRegBanks ? max_regs : kRegBanks) : 0;
+  const int cap = max_slots >= 0 ? max_slots : (kFoldPath ? 2 * kMaxTail : b.de.n - 1);
+  const int slots = fwd_place(nets, 2, regs, cap, smem_floats(0, b.de, b.ae, R));
+  const size_t smem = smem_floats(slots, b.de, b.ae, R) * sizeof(float);
+  if (smem > kSmemMax || fw < 1 || fw > kThreads / 32 || b.de.ld % fw) return cudaErrorInvalidValue;
+  const cudaError_t e = allow_smem(dae_forward<R, kFoldPath>, smem);
+  if (e != cudaSuccess) return e;
+  const int blocks = (b.batch + R - 1) / R;
+  dae_forward<R, kFoldPath><<<blocks, kThreads, smem, st>>>(b, slots, fw);
   return cudaGetLastError();
-}
-
-template <int R>
-cudaError_t launch_rows(const Args& a, int k_split, cudaStream_t stream) {
-  switch (k_split) {
-    case 2: return launch<R, 2>(a, stream);
-    case 4: return launch<R, 4>(a, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-bool fill_tail(Tail* tl, const void* const* w, const void* const* b, int n, int out) {
-  if (n < 1 || n > kMaxTail || out < 1) return false;
-  for (int l = 0; l < kMaxTail; ++l) {
-    tl->w[l] = l < n ? static_cast<const float*>(w[l]) : nullptr;
-    tl->b[l] = l < n ? static_cast<const float*>(b[l]) : nullptr;
-  }
-  tl->n = n;
-  tl->out = out;
-  return true;
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes. Pointers are device pointers to
-// contiguous float32 arrays; de_w/de_b/ae_w/ae_b are host arrays of them.
-// solver: 0 Euler, 1 Midpoint, 2 RK4 (3/8 rule). rows_per_block: 1, 2, 4
-// or 8; k_split: 2 or 4. Launches on `stream` without synchronising and
-// returns cudaGetLastError() of the launch (0 on success).
-extern "C" int psn_fused_dae_rollout_f32(
-    const void* s_de, const void* s_ae, const void* s_ae_ev, const void* aux,
-    const void* x0, const void* i0, const void* wx_de, const void* wi_de, const void* gx_ae,
-    const void* const* de_w, const void* const* de_b, int n_de,
-    const void* const* ae_w, const void* const* ae_b, int n_ae,
-    void* sol, int tm1, int batch, int h, int xd, int id,
-    int solver, int rows_per_block, int k_split, void* stream) {
-  if (tm1 < 0 || batch < 1 || h < 1 || xd < 1 || id < 1 || solver < 0 || solver > 2)
+// contiguous float32 arrays: w_de the DE's weights transposed and padded
+// [n_de + 1][H][H] (H = h rounded up to a multiple of 128; [wx_de; wi_de]
+// first, then the tail layers, each [out][in]), b_de its biases [n_de][H],
+// w_ae / b_ae the AE's (gx_ae first). solver: 0 Euler, 1 Midpoint, 2 RK4
+// (3/8 rule). rows_per_block: 1, 2, 4 or 8. max_regs: the DE's hidden
+// weights held in registers (one row a block only; at most kRegBanks, and
+// negative: kRegBanks);
+// max_slots: the hidden weights resident in shared memory after them, in
+// the order DE, AE (negative: with one row a block all that fit, else the
+// DE's); fold_warps: the warps that fold a readout (0: kFoldWarps). Launches
+// on `stream` without synchronising and returns the launch's error (0 on
+// success).
+extern "C" int psn_fused_dae_rollout_f32(const void* s_de, const void* s_ae, const void* s_ae_ev,
+                                         const void* aux, const void* x0, const void* i0, const void* w_de,
+                                         const void* b_de, int n_de, const void* w_ae, const void* b_ae,
+                                         int n_ae, void* sol, int tm1, int batch, int h, int xd, int id,
+                                         int solver, int rows_per_block, int max_regs, int max_slots,
+                                         int fold_warps, void* stream) {
+  const int H = (h + kMaxH - 1) / kMaxH * kMaxH;  // the padded width
+  if (tm1 < 0 || batch < 1 || h < 1 || xd < 1 || id < 1 || xd + id > H || solver < 0 || solver > 2 ||
+      n_de < 1 || n_de > kMaxTail || n_ae < 1 || n_ae > kMaxTail)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.s_de = static_cast<const float*>(s_de);
@@ -418,11 +377,8 @@ extern "C" int psn_fused_dae_rollout_f32(
   a.aux = static_cast<const float*>(aux);
   a.x0 = static_cast<const float*>(x0);
   a.i0 = static_cast<const float*>(i0);
-  a.wx_de = static_cast<const float*>(wx_de);
-  a.wi_de = static_cast<const float*>(wi_de);
-  a.gx_ae = static_cast<const float*>(gx_ae);
-  if (!fill_tail(&a.de, de_w, de_b, n_de, xd) || !fill_tail(&a.ae, ae_w, ae_b, n_ae, id))
-    return static_cast<int>(cudaErrorInvalidValue);
+  a.de = make_net(static_cast<const float*>(w_de), static_cast<const float*>(b_de), n_de, xd + id, xd, H);
+  a.ae = make_net(static_cast<const float*>(w_ae), static_cast<const float*>(b_ae), n_ae, xd, id, H);
   a.sol = static_cast<float*>(sol);
   a.tm1 = tm1;
   a.batch = batch;
@@ -432,27 +388,18 @@ extern "C" int psn_fused_dae_rollout_f32(
   a.solver = solver;
   if (tm1 == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int fw = fold_warps > 0 ? fold_warps : kFoldWarps;
+  const bool fold = narrow_in(a.de) && narrow_out(a.de) && narrow_in(a.ae) && narrow_out(a.ae);
   switch (rows_per_block) {
-    case 1: return static_cast<int>(launch_rows<1>(a, k_split, st));
-    case 2: return static_cast<int>(launch_rows<2>(a, k_split, st));
-    case 4: return static_cast<int>(launch_rows<4>(a, k_split, st));
-    case 8: return static_cast<int>(launch_rows<8>(a, k_split, st));
+    case 1:
+      return static_cast<int>(fold ? launch<1, true>(a, max_regs, max_slots, fw, st)
+                                   : launch<1, false>(a, max_regs, max_slots, fw, st));
+    case 2: return static_cast<int>(launch<2, false>(a, max_regs, max_slots, fw, st));
+    case 4: return static_cast<int>(launch<4, false>(a, max_regs, max_slots, fw, st));
+    case 8: return static_cast<int>(launch<8, false>(a, max_regs, max_slots, fw, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
-
-#ifdef NE_PHASE_CLOCK
-// The phase clock's marks of the last launch (at most 64), their phases and
-// their count, copied out after the device is synchronised; returns the
-// error.
-extern "C" int psn_ne_fwd_clock(long long* marks, int* bins, int* n) {
-  cudaError_t e = cudaDeviceSynchronize();
-  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(marks, g_ne_fwd, sizeof(long long) * 64);
-  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(bins, g_ne_fwd_bin, sizeof(int) * 64);
-  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(n, g_ne_fwd_n, sizeof(int));
-  return static_cast<int>(e);
-}
-#endif
 
 extern "C" const char* psn_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

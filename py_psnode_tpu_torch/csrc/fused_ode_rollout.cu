@@ -20,258 +20,221 @@
 // h=128, xd=2, RK4): an evaluation of f costs 2 (xd h + 2 h^2 + h xd) =
 // 66.6 kFLOP, four per step, so the rollout is 64 x 1000 x 4 x 66.6 k =
 // 17 GFLOP: 0.25 ms at the card's 67 TFLOP/s of float32 on the CUDA
-// cores. Its bytes (s_de in, 33 MB, the solution out) take 0.01 ms at
-// 3.35 TB/s. So it is compute-bound on paper and latency-bound in
-// practice: each step is a serial chain of dependent layers (3 per
-// evaluation, 12 with RK4), each closed by a block barrier, and B=64 gives
-// few blocks.
+// cores (no product runs on the tensor cores). Its bytes (s_de in, 33 MB,
+// the solution out) take 0.01 ms at 3.35 TB/s. So it is compute-bound on
+// paper and latency-bound in practice: a step is a serial chain of 12
+// dependent layers at RK4, and B=64 rows fill half the card's SMs with one
+// block each.
 //
-// Design: one block per batch row (rows are independent, so no reduction
-// crosses blocks) runs the whole T-1-step loop. The carry, the stage
-// values and the activations live in shared memory. Weights are read from
-// global memory through the read-only cache, as in
-// csrc/fused_dae_rollout.cu, not staged in shared memory: the no-encode
-// tail at h=128 (two 128x128 matrices and 128x2, 129 KB) would fit in a
-// block's 227 KB, but staging would cap h and n_tail at what fits, and
-// with the block's shared memory at a few KB the SM gives the rest of its
-// 256 KB to L1, which can hold the same weights. A wide layer gives each
-// output column kSplit threads that split the reduction and combine it
-// with warp shuffles; a narrow layer (the xd-wide readout) gives each
-// output a warp. The first layer's input projection x @ wx runs as a
-// dense layer too, so xd = h costs no more than a tail layer.
+// What the design does about the chain (csrc/noencode_bwd.cuh, forward
+// section, shared with csrc/fused_dae_rollout.cu): a layer is one pass and
+// one barrier; the narrow readout (the xd outputs) folds into the next
+// stage's first layer in 4 warps, so an evaluation takes three barriers and
+// an RK4 step 12 (the parent kernel: 20, its weights by scalar loads from
+// L2); with one row a block both hidden weights sit in registers (32 a
+// thread each), the first layer, the readout and the biases in shared
+// memory, and cp.async brings step t+1's stream row and dt while step t
+// runs. The encode shape (xd = h) keeps a wide readout with its own
+// barrier. With more rows than SMs a block takes a tile of R rows that
+// share each weight load from shared memory (R = 8 at B = 1024); wider h
+// runs as 128-wide chunks from L2. Rows are independent: no atomics.
 
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "noencode_bwd.cuh"
 
 namespace {
 
-// The phase clock (utils/phase_clock.py): built with -DNE_PHASE_CLOCK,
-// thread 0 of block 0 notes clock64() and a phase number at each phase
-// boundary of the middle step (marks in g_ne_fwd, their phases in
-// g_ne_fwd_bin, the count in g_ne_fwd_n); otherwise the marks compile to
-// nothing. Phases: 0 the step's loads, 1 the AE at the event, 2 + 3 q +
-// {0, 1, 2} stage q's first layer, hidden layers and readout, 14 the stage
-// updates, 15 the AE at t+1, 16 the solution's write.
-#ifdef NE_PHASE_CLOCK
-__device__ long long g_ne_fwd[64];
-__device__ int g_ne_fwd_bin[64];
-__device__ int g_ne_fwd_n;
-__shared__ int s_ne_clk[2];  // on (the middle step), marks so far
-#define NE_FWD_START(t, tm1)                                             \
-  do {                                                                   \
-    if (threadIdx.x == 0 && blockIdx.x == 0) {                           \
-      s_ne_clk[0] = (t) == (tm1) / 2;                                    \
-      s_ne_clk[1] = 0;                                                   \
-    }                                                                    \
-    NE_FWD_MARK(-1);                                                     \
-  } while (0)
-#define NE_FWD_MARK(bin)                                                 \
-  do {                                                                   \
-    if (threadIdx.x == 0 && blockIdx.x == 0 && s_ne_clk[0] && s_ne_clk[1] < 64) { \
-      const int i_ = s_ne_clk[1]++;                                      \
-      g_ne_fwd[i_] = clock64();                                          \
-      g_ne_fwd_bin[i_] = (bin);                                          \
-      g_ne_fwd_n = i_ + 1;                                               \
-    }                                                                    \
-  } while (0)
-#else
-#define NE_FWD_START(t, tm1) \
-  do {                       \
-  } while (0)
-#define NE_FWD_MARK(bin) \
-  do {                   \
-  } while (0)
-#endif
-
-constexpr int kMaxTail = 8;       // tail layers
-constexpr int kColThreads = 128;  // output columns a block covers at once
-constexpr int kSplit = 4;         // threads per output column of a wide layer
-constexpr int kThreads = kColThreads * kSplit;
-constexpr float kOneThird = 1.0f / 3.0f;
+// The hidden weights a folding block holds in registers: both (32 a thread
+// each; phase_clock's [ne-fwd-slots] sweep).
+constexpr int kRegBanks = 2;
 
 struct Args {
-  const float* s_de;         // [tm1, batch, h]
-  const float* dt;           // [tm1, batch]
-  const float* x0;           // [batch, xd]
-  const float* wx;           // [xd, h]
-  const float* w[kMaxTail];  // tail [in, out] row-major (flax kernel layout)
-  const float* b[kMaxTail];  // [out]
-  int n_tail;
-  float* sol;                // [tm1, batch, xd]
+  const float* s_de;  // [tm1, batch, h]
+  const float* dt;    // [tm1, batch]
+  const float* x0;    // [batch, xd]
+  Net de;             // first layer wx (kin = xd), out = xd
+  float* sol;         // [tm1, batch, xd]
   int tm1, batch, h, xd, solver;
 };
 
-__device__ __forceinline__ float elu(float v) {
-  return v > 0.f ? v : expf(fminf(v, 0.f)) - 1.f;
+// Floats of one prefetched step of R rows: the stream rows, then dt of each
+// row in 4 floats.
+__host__ __device__ inline int step_floats(int R, int H) { return R * H + 4 * R; }
+
+// Shared memory of a block of R rows, in floats.
+__host__ inline size_t smem_floats(int slots, const Net& de, int R) {
+  const size_t RH = static_cast<size_t>(R) * de.ld;
+  // resident weights, tables, activations (2), prefetched steps (2), the
+  // readout, the next input, the carries (2), the stages (4)
+  return static_cast<size_t>(slots) * kMat + fwd_net_floats(de) + 2 * RH +
+         2 * static_cast<size_t>(step_floats(R, de.ld)) + RH + RH + 6 * RH;
 }
 
-// The term added to output j after the reduction: the bias b[j] or, for the
-// first layer, the stream row s[j].
-__device__ __forceinline__ float addend(const float* __restrict__ b, const float* __restrict__ s,
-                                        int j) {
-  return b ? __ldg(b + j) : __ldg(s + j);
-}
-
-// out[j] = act(sum_k in[k] * w[k, j] + addend) for j < n_out; kSplit
-// threads per output column, in/out in shared memory.
-__device__ void dense_wide(const float* in, int k_in, const float* __restrict__ w,
-                           const float* b, const float* s, float* out, int n_out, bool act) {
-  const int ks = threadIdx.x % kSplit;
-  const int col = threadIdx.x / kSplit;
-  constexpr int ncol = kThreads / kSplit;
-  // every thread runs the same trip count, so the shuffles below see full warps
-  for (int j0 = 0; j0 < n_out; j0 += ncol) {
-    const int j = j0 + col;
-    const bool live = j < n_out;
-    float acc = 0.f;
-    if (live) {
-#pragma unroll 8
-      for (int k = ks; k < k_in; k += kSplit)
-        acc = fmaf(in[k], __ldg(w + static_cast<size_t>(k) * n_out + j), acc);
-    }
-#pragma unroll
-    for (int off = kSplit / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (live && ks == 0) {
-      const float v = acc + addend(b, s, j);
-      out[j] = act ? elu(v) : v;
-    }
-  }
-}
-
-// Narrow layer (n_out < 32): one warp per output, lanes split the reduction.
-__device__ void dense_narrow(const float* in, int k_in, const float* __restrict__ w,
-                             const float* b, const float* s, float* out, int n_out, bool act) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  constexpr int nwarp = kThreads >> 5;
-  for (int j = warp; j < n_out; j += nwarp) {
-    float acc = 0.f;
-    for (int k = lane; k < k_in; k += 32)
-      acc = fmaf(in[k], __ldg(w + static_cast<size_t>(k) * n_out + j), acc);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      const float v = acc + addend(b, s, j);
-      out[j] = act ? elu(v) : v;
-    }
-  }
-}
-
-__device__ __forceinline__ void dense(const float* in, int k_in, const float* w, const float* b,
-                                      const float* s, float* out, int n_out, bool act) {
-  if (n_out >= 32) {
-    dense_wide(in, k_in, w, b, s, out, n_out, act);
-  } else {
-    dense_narrow(in, k_in, w, b, s, out, n_out, act);
-  }
-}
-
-// f(x) for the block's row into res [xd]: the lifted first layer
-// elu(s + x @ wx) into bufa, then the tail, ping-ponging between bufa and
-// bufb [h]. Starts after a barrier that published x, ends with one.
-// Not inlined: the solvers reach it from four places.
-__device__ __noinline__ void eval_f(const Args& a, const float* s_t, const float* x, float* bufa,
-                                    float* bufb, float* res, int q) {
-  const int h = a.h;
-  dense(x, a.xd, a.wx, nullptr, s_t, bufa, h, true);
+// kFoldPath: one row a block (R = 1) and a narrow net, the readout folded
+// into the next first layer by the first fw warps; else the tile path.
+template <int R, bool kFoldPath>
+__global__ void __launch_bounds__(kThreads, 1) ode_forward(const __grid_constant__ Args a, int slots, int fw) {
+  extern __shared__ __align__(16) float smem[];
+  const int H = a.de.ld, B = a.batch, h = a.h, xd = a.xd, S = n_stages(a.solver);
+  const int tid = threadIdx.x, row0 = blockIdx.x * R, RH = R * H, SF = step_floats(R, H);
+  float* p = smem;
+  float* wres = p;
+  p += static_cast<size_t>(slots) * kMat;
+  const FwdNet tde = carve_net(a.de, p);
+  float* vec = p;  // every vector below starts at zero
+  float* act_a = p;
+  float* act_b = act_a + RH;
+  float* pf = act_b + RH;   // [2][SF]
+  float* y = pf + 2 * SF;   // [R][H] the readout
+  float* xin = y + RH;      // [R][H] the next input
+  float* xc = xin + RH;     // [2][R][H] the carry of even and odd steps
+  float* kq = xc + 2 * RH;  // [4][R][H] the stages' derivatives
+  for (int e = tid; e < kq + 4 * RH - vec; e += kThreads) vec[e] = 0.f;
   __syncthreads();
-  NE_FWD_MARK(2 + 3 * q);
-  float* cur = bufa;
-  float* nxt = bufb;
-  for (int l = 0; l + 1 < a.n_tail; ++l) {
-    dense(cur, h, a.w[l], a.b[l], nullptr, nxt, h, true);
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
+  constexpr int NB = kFoldPath ? kRegBanks : 0;  // the register banks this kernel uses
+  float4 wr[kRegBanks][8];  // hidden weights held in registers (kFoldPath)
+  load_m16<NB>(a.de, wres, wr);
+  load_tables(a.de, tde);
+  for (int e = tid; e < R * xd; e += kThreads) {
+    const int r = e / xd, c = e - r * xd, g = row0 + r;
+    xc[r * H + c] = xin[r * H + c] = g < B ? __ldg(a.x0 + static_cast<size_t>(g) * xd + c) : 0.f;
   }
-  NE_FWD_MARK(3 + 3 * q);
-  dense(cur, h, a.w[a.n_tail - 1], a.b[a.n_tail - 1], nullptr, res, a.xd, false);
+
+  // step t's stream rows and step sizes into buffer t & 1
+  auto stream = [&](int) { return a.s_de; };
+  const RowCopy rc = row_copy(1, R, h, H, row0, B, stream);
+  const int ea = kThreads - 1 - tid;  // the threads from the top copy dt
+  const float* dt_src = ea < R && row0 + ea < B ? a.dt + row0 + ea : nullptr;
+  auto prefetch = [&](int t) {
+    float* dst = pf + (t & 1) * SF;
+    prefetch_rows(rc, dst, t, 1, R, h, H, row0, B, a.dt, stream);
+    if (ea < R)
+      cp_async_f32(dst + RH + 4 * ea, dt_src ? dt_src + static_cast<size_t>(t) * B : a.dt, dt_src != nullptr);
+    cp_async_commit();
+  };
+  auto s_de = [&](int t) { return pf + (t & 1) * SF; };
+  auto dt_of = [&](int t, int r) { return pf[(t & 1) * SF + RH + 4 * r]; };
+  auto other = [&](const float* q) { return q == act_a ? act_b : act_a; };
+  auto sol_at = [&](int t, int r) { return a.sol + (static_cast<size_t>(t) * B + row0 + r) * xd; };
+
+  prefetch(0);
+  cp_async_wait<0>();
   __syncthreads();
-  NE_FWD_MARK(4 + 3 * q);
-}
+  float* cur = act_a;
+  first_layer<R>(a.de, tde, xin, s_de(0), cur);
 
-__global__ void __launch_bounds__(kThreads) fused_ode_rollout_kernel(const __grid_constant__ Args a) {
-  extern __shared__ float smem[];
-  const int h = a.h, xd = a.xd, B = a.batch;
-  float* bufa = smem;      // [h]
-  float* bufb = bufa + h;  // [h]
-  float* xc = bufb + h;    // [xd] rolled state
-  float* xs = xc + xd;     // [xd] stage input
-  float* k1 = xs + xd;     // [xd] stage derivatives
-  float* k2 = k1 + xd;
-  float* k3 = k2 + xd;
-  float* k4 = k3 + xd;
-
-  const int tid = threadIdx.x;
-  const int row = blockIdx.x;
-  for (int e = tid; e < xd; e += kThreads) xc[e] = a.x0[static_cast<size_t>(row) * xd + e];
-
+  int par = 0;  // xc + par RH holds x_t
   for (int t = 0; t < a.tm1; ++t) {
-    const size_t step = static_cast<size_t>(t) * B + row;
     NE_FWD_START(t, a.tm1);
-    const float dt = __ldg(a.dt + step);
-    __syncthreads();  // publishes xc
+    if (t + 1 < a.tm1) prefetch(t + 1);  // into the buffer step t - 1 used
+    const float* x_t = xc + par * RH;
+    float* x_n = xc + (par ^ 1) * RH;
+    const bool more = t + 1 < a.tm1;
     NE_FWD_MARK(0);
-    const float* s_t = a.s_de + step * h;
-    eval_f(a, s_t, xc, bufa, bufb, k1, 0);
-    if (a.solver == 0) {  // Euler
-      for (int e = tid; e < xd; e += kThreads) xc[e] = xc[e] + dt * k1[e];
-    } else if (a.solver == 1) {  // Midpoint
-      for (int e = tid; e < xd; e += kThreads) xs[e] = xc[e] + k1[e] * (0.5f * dt);
-      __syncthreads();
-      NE_FWD_MARK(14);
-      eval_f(a, s_t, xs, bufa, bufb, k2, 1);
-      for (int e = tid; e < xd; e += kThreads) xc[e] = xc[e] + dt * k2[e];
-    } else {  // RK4, Kutta's 3/8 rule
-      for (int e = tid; e < xd; e += kThreads) xs[e] = xc[e] + dt * k1[e] * kOneThird;
-      __syncthreads();
-      NE_FWD_MARK(14);
-      eval_f(a, s_t, xs, bufa, bufb, k2, 1);
-      for (int e = tid; e < xd; e += kThreads) xs[e] = xc[e] + dt * (k2[e] - k1[e] * kOneThird);
-      __syncthreads();
-      NE_FWD_MARK(14);
-      eval_f(a, s_t, xs, bufa, bufb, k3, 2);
-      for (int e = tid; e < xd; e += kThreads) xs[e] = xc[e] + dt * (k1[e] - k2[e] + k3[e]);
-      __syncthreads();
-      NE_FWD_MARK(14);
-      eval_f(a, s_t, xs, bufa, bufb, k4, 3);
-      for (int e = tid; e < xd; e += kThreads)
-        xc[e] = xc[e] + (k1[e] + 3.0f * (k2[e] + k3[e]) + k4[e]) * dt * 0.125f;
+    for (int q = 0; q < S; ++q) {
+      const bool last = q + 1 == S;
+      // at the last stage, step t + 1's rows land before the readout's barrier
+      cur = fwd_hidden<R, NB>(a.de, tde, cur, other(cur), wres, wr, last);
+      if (last && a.de.n == 1) {
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      NE_FWD_MARK(3 + 3 * q);
+      float* nxt = other(cur);
+      // the next first layer: stage q + 1 of this step, or stage 1 of the next
+      const float* s_next = last ? s_de(t + 1) : s_de(t);
+      if constexpr (kFoldPath) {
+        if (tid < 32 * fw) {
+          float yr[kFold], in[kFold];
+          fold_readout(a.de, tde, cur, yr);
+          NE_FWD_MARK(4 + 3 * q);
+          const float dt = dt_of(t, 0);
+#pragma unroll
+          for (int c = 0; c < kFold; ++c) {
+            in[c] = 0.f;
+            if (c < xd) {  // stage q + 1's input, or x_{t+1} at the last stage
+              in[c] = stage_next(a.solver, q, x_t[c], dt, yr[c], [&](int i) { return kq[i * H + c]; });
+              if (tid == c) {
+                if (!last) {
+                  kq[q * H + c] = yr[c];
+                } else {
+                  x_n[c] = in[c];
+                  sol_at(t, 0)[c] = in[c];
+                }
+              }
+            }
+          }
+          NE_FWD_MARK(14);
+          if (!last || more) fold_first_layer(a.de, tde, in, s_next, nxt, fw);
+        }
+        __syncthreads();
+      } else {
+        tile_readout<R>(a.de, tde, cur, y);
+        NE_FWD_MARK(4 + 3 * q);
+        for (int e = tid; e < R * xd; e += kThreads) {
+          const int r = e / xd, c = e - r * xd, o = r * H + c;
+          const float v = y[o];
+          const float xn = stage_next(a.solver, q, x_t[o], dt_of(t, r), v, [&](int i) { return kq[i * RH + o]; });
+          xin[o] = xn;
+          if (!last) {
+            kq[q * RH + o] = v;
+          } else {
+            x_n[o] = xn;
+            if (row0 + r < B) sol_at(t, r)[c] = xn;
+          }
+        }
+        __syncthreads();
+        NE_FWD_MARK(14);
+        if (!last || more) first_layer<R>(a.de, tde, xin, s_next, nxt);
+      }
+      cur = nxt;
+      NE_FWD_MARK(last ? 16 : 2 + 3 * (q + 1));
     }
-    NE_FWD_MARK(14);
-    // the thread that updated xc[e] writes it out
-    for (int e = tid; e < xd; e += kThreads) a.sol[step * xd + e] = xc[e];
-    NE_FWD_MARK(16);
+    par ^= 1;
   }
+}
+
+template <int R, bool kFoldPath>
+cudaError_t launch(const Args& a, int max_regs, int max_slots, int fw, cudaStream_t st) {
+  Args b = a;
+  Net* nets[1] = {&b.de};
+  // by default, one row a block: the two hidden weights in registers; a
+  // tile of rows: in shared memory (phase_clock's [ne-fwd-slots] sweep)
+  const int regs = kFoldPath ? (max_regs >= 0 && max_regs < kRegBanks ? max_regs : kRegBanks) : 0;
+  const int slots = fwd_place(nets, 1, regs, max_slots >= 0 ? max_slots : kMaxTail, smem_floats(0, b.de, R));
+  const size_t smem = smem_floats(slots, b.de, R) * sizeof(float);
+  if (smem > kSmemMax || fw < 1 || fw > kThreads / 32 || b.de.ld % fw) return cudaErrorInvalidValue;
+  const cudaError_t e = allow_smem(ode_forward<R, kFoldPath>, smem);
+  if (e != cudaSuccess) return e;
+  const int blocks = (b.batch + R - 1) / R;
+  ode_forward<R, kFoldPath><<<blocks, kThreads, smem, st>>>(b, slots, fw);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes. Pointers are device pointers to
-// contiguous float32 arrays; tail_w/tail_b are host arrays of them. solver:
-// 0 Euler, 1 Midpoint, 2 RK4 (3/8 rule). Launches one block per batch row
-// on `stream` without synchronising and returns cudaGetLastError() of the
-// launch (0 on success).
-extern "C" int psn_fused_ode_rollout_f32(const void* s_de, const void* dt, const void* x0,
-                                         const void* wx, const void* const* tail_w,
-                                         const void* const* tail_b, int n_tail, void* sol,
-                                         int tm1, int batch, int h, int xd, int solver,
-                                         void* stream) {
-  if (tm1 < 0 || batch < 1 || h < 1 || xd < 1 || solver < 0 || solver > 2 || n_tail < 1 ||
+// contiguous float32 arrays: w the net's weights transposed and padded
+// [n_tail + 1][H][H] (H = h rounded up to a multiple of 128; wx first, then
+// the tail layers, each [out][in]), b its biases [n_tail][H]. solver: 0
+// Euler, 1 Midpoint, 2 RK4 (3/8 rule). rows_per_block: 1, 2, 4 or 8.
+// max_regs: the hidden weights held in registers (one row a block only; at
+// most kRegBanks, and negative: kRegBanks); max_slots: those resident in shared memory after them
+// (negative: all that fit); fold_warps: the warps that fold the readout (0:
+// kFoldWarps). Launches on `stream` without synchronising and returns the
+// launch's error (0 on success).
+extern "C" int psn_fused_ode_rollout_f32(const void* s_de, const void* dt, const void* x0, const void* w,
+                                         const void* b, int n_tail, void* sol, int tm1, int batch, int h,
+                                         int xd, int solver, int rows_per_block, int max_regs,
+                                         int max_slots, int fold_warps, void* stream) {
+  const int H = (h + kMaxH - 1) / kMaxH * kMaxH;  // the padded width
+  if (tm1 < 0 || batch < 1 || h < 1 || xd < 1 || xd > H || solver < 0 || solver > 2 || n_tail < 1 ||
       n_tail > kMaxTail)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.s_de = static_cast<const float*>(s_de);
   a.dt = static_cast<const float*>(dt);
   a.x0 = static_cast<const float*>(x0);
-  a.wx = static_cast<const float*>(wx);
-  for (int l = 0; l < kMaxTail; ++l) {
-    a.w[l] = l < n_tail ? static_cast<const float*>(tail_w[l]) : nullptr;
-    a.b[l] = l < n_tail ? static_cast<const float*>(tail_b[l]) : nullptr;
-  }
-  a.n_tail = n_tail;
+  a.de = make_net(static_cast<const float*>(w), static_cast<const float*>(b), n_tail, xd, xd, H);
   a.sol = static_cast<float*>(sol);
   a.tm1 = tm1;
   a.batch = batch;
@@ -279,29 +242,18 @@ extern "C" int psn_fused_ode_rollout_f32(const void* s_de, const void* dt, const
   a.xd = xd;
   a.solver = solver;
   if (tm1 == 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = (2 * static_cast<size_t>(h) + 6 * static_cast<size_t>(xd)) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_ode_rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  fused_ode_rollout_kernel<<<batch, kThreads, smem, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const int fw = fold_warps > 0 ? fold_warps : kFoldWarps;
+  switch (rows_per_block) {
+    case 1:
+      return static_cast<int>(narrow_in(a.de) && narrow_out(a.de) ? launch<1, true>(a, max_regs, max_slots, fw, st)
+                                                                  : launch<1, false>(a, max_regs, max_slots, fw, st));
+    case 2: return static_cast<int>(launch<2, false>(a, max_regs, max_slots, fw, st));
+    case 4: return static_cast<int>(launch<4, false>(a, max_regs, max_slots, fw, st));
+    case 8: return static_cast<int>(launch<8, false>(a, max_regs, max_slots, fw, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
-
-#ifdef NE_PHASE_CLOCK
-// The phase clock's marks of the last launch (at most 64), their phases and
-// their count, copied out after the device is synchronised; returns the
-// error.
-extern "C" int psn_ne_fwd_clock(long long* marks, int* bins, int* n) {
-  cudaError_t e = cudaDeviceSynchronize();
-  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(marks, g_ne_fwd, sizeof(long long) * 64);
-  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(bins, g_ne_fwd_bin, sizeof(int) * 64);
-  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(n, g_ne_fwd_n, sizeof(int));
-  return static_cast<int>(e);
-}
-#endif
 
 extern "C" const char* psn_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,5 +1,5 @@
-// A host model of the CUDA subset the port's tensor-core kernels use (the
-// channel-wise pair and the no-encode backward pair), so that their
+// A host model of the CUDA subset the port's hand-written kernels use (the
+// channel-wise pair and the no-encode forward and backward pairs), so that their
 // sources build with g++ and run on a CPU at small shapes
 // (py_psnode_tpu_torch/utils/host_build.py): one OS thread per CUDA thread;
 // __syncthreads as a std::barrier of the block; a cluster's blocks run at
@@ -77,6 +77,15 @@ inline float __shfl_xor_sync(unsigned, float v, int m) {
   host_t.slots[lane].f = v;
   host_t.warp_bar->arrive_and_wait();
   const float o = host_t.slots[lane ^ m].f;
+  host_t.warp_bar->arrive_and_wait();
+  return o;
+}
+// the value of lane src of the warp, likewise
+inline float __shfl_sync(unsigned, float v, int src) {
+  const int lane = threadIdx.x & 31;
+  host_t.slots[lane].f = v;
+  host_t.warp_bar->arrive_and_wait();
+  const float o = host_t.slots[src & 31].f;
   host_t.warp_bar->arrive_and_wait();
   return o;
 }

@@ -1,5 +1,8 @@
-// Building blocks of the no-encode backward pair (csrc/fused_dae_rollout_bwd.cu
-// and csrc/fused_ode_rollout_bwd.cu). Each backward is three kernels in
+// Building blocks of the no-encode kernels: the backward pair
+// (csrc/fused_dae_rollout_bwd.cu and csrc/fused_ode_rollout_bwd.cu) and,
+// in the forward section below, the forward pair (csrc/fused_dae_rollout.cu
+// and csrc/fused_ode_rollout.cu), which share the walk's matrix-vector
+// product, quad sum and cp.async. Each backward is three kernels in
 // order, over R = (T-1) B row-steps r = t B + b:
 //
 // 1. The recompute, time-parallel. A block takes a tile of kRows row-steps
@@ -29,9 +32,9 @@
 //    cores, and a second kernel adds the ranges' partial sums in range
 //    order: the gradients are bit-identical on relaunch, with no atomics.
 //
-// h <= kMaxH. The weights arrive zero-padded to [kMaxH][kMaxH] (row =
-// input, column = output, the flax layout) and the biases to [kMaxH], so
-// every vector is kMaxH long with zeros beyond h.
+// The backward takes h <= kMaxH. Its weights arrive zero-padded to
+// [kMaxH][kMaxH] (row = input, column = output, the flax layout) and the
+// biases to [kMaxH], so every vector is kMaxH long with zeros beyond h.
 
 #pragma once
 
@@ -59,9 +62,9 @@ __host__ __device__ inline int n_stages(int solver) { return solver == 0 ? 1 : (
 __host__ __device__ inline int round8(int k) { return (k + 7) / 8 * 8; }
 
 // One net as the kernels read it: w[0] the first layer (its kin inputs),
-// w[1 + l] tail layer l, each [kMaxH][kMaxH]; b[l] tail layer l's bias,
-// [kMaxH]; res_slot[l] the shared-memory slot of tail layer l < n - 1 in
-// the walk (-1: read from L2).
+// w[1 + l] tail layer l, each [ld][ld] (ld = kMaxH but in the forward's
+// wide path); b[l] tail layer l's bias, [ld]; res_slot[l] the shared-memory
+// slot of tail layer l < n - 1 (-1: read from L2).
 struct Net {
   const float* w[kMaxTail + 1];
   const float* b[kMaxTail];
@@ -69,6 +72,7 @@ struct Net {
   int n;    // tail layers
   int kin;  // the first layer's inputs
   int out;  // the last layer's outputs
+  int ld;   // the row stride of a weight, the length of a bias
 };
 
 // The buffers between the kernels, for E evaluation slots (the S stages,
@@ -113,18 +117,20 @@ __host__ inline Bufs make_bufs(float* res, float* gres, float* gy, float* xin, l
   return b;
 }
 
-// The net of a padded weight block w [n + 1][kMaxH][kMaxH] and bias block b
-// [n][kMaxH].
-__host__ inline Net make_net(const float* w, const float* b, int n, int kin, int out) {
+// The net of a padded weight block w [n + 1][ld][ld] and bias block b
+// [n][ld].
+__host__ inline Net make_net(const float* w, const float* b, int n, int kin, int out, int ld = kMaxH) {
   Net net{};
-  for (int l = 0; l <= kMaxTail; ++l) net.w[l] = l <= n ? w + static_cast<size_t>(l) * kMat : nullptr;
+  const size_t mat = static_cast<size_t>(ld) * ld;
+  for (int l = 0; l <= kMaxTail; ++l) net.w[l] = l <= n ? w + l * mat : nullptr;
   for (int l = 0; l < kMaxTail; ++l) {
-    net.b[l] = l < n ? b + static_cast<size_t>(l) * kMaxH : nullptr;
+    net.b[l] = l < n ? b + static_cast<size_t>(l) * ld : nullptr;
     net.res_slot[l] = -1;
   }
   net.n = n;
   net.kin = kin;
   net.out = out;
+  net.ld = ld;
   return net;
 }
 
@@ -314,26 +320,40 @@ __device__ __forceinline__ void load_resident(const Net& net, float* wres) {
   }
 }
 
-// sum_j W[k][j] v[j] for the thread's output k, summed over its quad: W a
-// weight [kMaxH][kMaxH], resident (swizzled) or in global memory; v in
-// shared memory.
-template <bool kResident>
-__device__ __forceinline__ float matvec(const float* W, const float* v) {
+// out[r] += sum_j W[k][j] v[r][j] for the thread's output k and rows r < R
+// (v row r at v + r ldv, in shared memory), summed over its quad: W a
+// [kMaxH][kMaxH] block of a weight, resident (swizzled) or in global memory
+// with row stride ldw floats. Each weight load serves the R rows.
+template <bool kResident, int R>
+__device__ __forceinline__ void matvec_rows(const float* W, int ldw, const float* v, int ldv, float (&out)[R]) {
   const int k = walk_k(), ks = walk_ks();
-  const float4* v4 = reinterpret_cast<const float4*>(v);
   const float4* w4 = reinterpret_cast<const float4*>(W);
-  float a0 = 0.f, a1 = 0.f;
+  float a0[R], a1[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) a0[r] = a1[r] = 0.f;
 #pragma unroll
   for (int i = 0; i < kMaxH / 16; ++i) {
     const int j4 = ks + 4 * i;
-    const float4 w = kResident ? w4[swz(k, j4)] : __ldg(w4 + k * (kMaxH / 4) + j4);
-    const float4 x = v4[j4];
-    a0 = fmaf(w.x, x.x, a0);
-    a1 = fmaf(w.y, x.y, a1);
-    a0 = fmaf(w.z, x.z, a0);
-    a1 = fmaf(w.w, x.w, a1);
+    const float4 w = kResident ? w4[swz(k, j4)] : __ldg(w4 + k * (ldw / 4) + j4);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float4 x = reinterpret_cast<const float4*>(v + r * ldv)[j4];
+      a0[r] = fmaf(w.x, x.x, a0[r]);
+      a1[r] = fmaf(w.y, x.y, a1[r]);
+      a0[r] = fmaf(w.z, x.z, a0[r]);
+      a1[r] = fmaf(w.w, x.w, a1[r]);
+    }
   }
-  return quad_sum(a0 + a1);
+#pragma unroll
+  for (int r = 0; r < R; ++r) out[r] += quad_sum(a0[r] + a1[r]);
+}
+
+// sum_j W[k][j] v[j] for the thread's output k (one row of matvec_rows).
+template <bool kResident>
+__device__ __forceinline__ float matvec(const float* W, const float* v) {
+  float out[1] = {0.f};
+  matvec_rows<kResident, 1>(W, kMaxH, v, 0, out);
+  return out[0];
 }
 
 // The VJP of evaluation slot e of `net` at row-step r, from its output
@@ -425,6 +445,444 @@ __device__ __forceinline__ void walk_prefetch(const Bufs& bf, float* dst, long l
   float* tail = dst + n * kMaxH;
   for (int c = threadIdx.x; c < kMaxH; c += kThreads) cp_async_f32(tail + c, c < d ? cot_row + c : cot_row, c < d);
   for (int c = threadIdx.x; c < na; c += kThreads) cp_async_f32(tail + kMaxH + c, aux + c, true);
+}
+
+// ------------------------------------------------------------------ forward
+//
+// The forward pair (csrc/fused_dae_rollout.cu, csrc/fused_ode_rollout.cu): a
+// block takes R batch rows and runs the whole rollout. The weights arrive
+// transposed (row = output) and zero-padded to [H][H], H = 128 nc (nc > 1
+// only for h > 128). A layer is one pass (product, bias, ELU, store) and
+// one barrier. A 128 x 128 hidden layer held in registers or in shared
+// memory runs in the M16 mapping: thread t sums outputs 4 (t / 16) + m, m <
+// 4, over inputs 8 (t % 16) + i, i < 8, from its 8 float4s of the weight
+// (w_i = W[4 (t / 16) + 0..3][8 (t % 16) + i]; in shared memory at i kThreads
+// + t, conflict-free), reading 8 inputs a row, and 16 lanes reduce by
+// halving (5 shuffles); each weight load serves the R rows. A weight read
+// from L2 (or a wider one) runs through matvec_rows. With one row a block
+// and nets whose first-layer input and readout are at most kFold wide, the
+// readout folds into the next evaluation's first layer: each of the first
+// fold_warps warps computes the readout itself, lane l summing inputs 4 l +
+// 128 m and a butterfly over the warp (the same instructions in the same
+// order, so every copy has the same bits), then in registers the stage
+// update or the step's carries, then its share of the next first layer,
+// with no barrier until that layer is published; warp 0 keeps the carries
+// in shared memory for the later steps. Otherwise (R > 1, or a wide net)
+// the readout, the carries and the first layer take a barrier each.
+
+constexpr int kFold = 5;      // the widest first-layer input and readout that fold: x and i
+                              // of every DAE family of the repo (xd + id <= 5), the AVR ODE's x
+constexpr int kFoldWarps = 4;  // warps that fold, unless the launch says otherwise
+
+// The phase clock of the forwards (utils/phase_clock.py): built with
+// -DNE_PHASE_CLOCK, thread 0 of block 0 notes clock64() and a phase number
+// at each phase boundary of the middle step (marks in g_ne_fwd, phases in
+// g_ne_fwd_bin, the count in g_ne_fwd_n); otherwise the marks compile to
+// nothing. Phases: 0 the step's loads, 1 the AE at the event, 2 + 3 q +
+// {0, 1, 2} stage q's first layer, hidden layers and readout, 14 the stage
+// updates, 15 the AE at t+1, 16 the solution's write.
+#ifdef NE_PHASE_CLOCK
+__device__ long long g_ne_fwd[64];
+__device__ int g_ne_fwd_bin[64];
+__device__ int g_ne_fwd_n;
+__shared__ int s_ne_clk[2];  // on (the middle step), marks so far
+#define NE_FWD_START(t, tm1)                   \
+  do {                                         \
+    if (threadIdx.x == 0 && blockIdx.x == 0) { \
+      s_ne_clk[0] = (t) == (tm1) / 2;          \
+      s_ne_clk[1] = 0;                         \
+    }                                          \
+    NE_FWD_MARK(-1);                           \
+  } while (0)
+#define NE_FWD_MARK(bin)                                                              \
+  do {                                                                                \
+    if (threadIdx.x == 0 && blockIdx.x == 0 && s_ne_clk[0] && s_ne_clk[1] < 64) {     \
+      const int i_ = s_ne_clk[1]++;                                                   \
+      g_ne_fwd[i_] = clock64();                                                       \
+      g_ne_fwd_bin[i_] = (bin);                                                       \
+      g_ne_fwd_n = i_ + 1;                                                            \
+    }                                                                                 \
+  } while (0)
+#else
+#define NE_FWD_START(t, tm1) \
+  do {                       \
+  } while (0)
+#define NE_FWD_MARK(bin) \
+  do {                   \
+  } while (0)
+#endif
+
+__host__ __device__ inline bool narrow_in(const Net& n) { return n.kin <= kFold; }
+__host__ __device__ inline bool narrow_out(const Net& n) { return n.out <= kFold; }
+__host__ __device__ inline int reg_bank(int slot) { return -2 - slot; }  // res_slot of a weight in registers
+
+// What a forward keeps of one net in shared memory for the whole launch:
+// w0 [kin][H] the first layer by input (narrow kin), wl [out][H] the
+// readout by output (narrow out), b [n][H] every bias.
+struct FwdNet {
+  float* w0;
+  float* wl;
+  float* b;
+};
+
+__host__ __device__ inline size_t fwd_net_floats(const Net& n) {
+  const size_t H = n.ld;
+  return ((narrow_in(n) ? n.kin : 0) + (narrow_out(n) ? n.out : 0) + n.n) * H;
+}
+
+__device__ inline FwdNet carve_net(const Net& n, float*& p) {
+  FwdNet t;
+  t.w0 = p;
+  p += narrow_in(n) ? n.kin * n.ld : 0;
+  t.wl = p;
+  p += narrow_out(n) ? n.out * n.ld : 0;
+  t.b = p;
+  p += n.n * n.ld;
+  return t;
+}
+
+// Copies a net's tables from its padded transposed weights (the caller
+// publishes them).
+__device__ inline void load_tables(const Net& net, const FwdNet& t) {
+  const int H = net.ld;
+  if (narrow_in(net))
+    for (int e = threadIdx.x; e < net.kin * H; e += kThreads) {
+      const int c = e / H, j = e - c * H;
+      t.w0[e] = __ldg(net.w[0] + static_cast<size_t>(j) * H + c);
+    }
+  if (narrow_out(net))
+    for (int e = threadIdx.x; e < net.out * H; e += kThreads) t.wl[e] = __ldg(net.w[net.n] + e);
+  for (int e = threadIdx.x; e < net.n * H; e += kThreads) t.b[e] = __ldg(net.b[0] + e);
+}
+
+// Thread tt's float4 i of the M16 mapping of a transposed 128 x 128 weight.
+__device__ __forceinline__ float4 m16_gather(const float* wt, int tt, int i) {
+  const float* w = wt + 4 * (tt >> 4) * kMaxH + 8 * (tt & 15) + i;
+  return float4{__ldg(w), __ldg(w + kMaxH), __ldg(w + 2 * kMaxH), __ldg(w + 3 * kMaxH)};
+}
+
+// The M16 copies of the net's hidden weights: those with a shared-memory
+// slot into it, those with one of the first NB register banks into wr (the
+// caller publishes).
+template <int NB, int NA>
+__device__ __forceinline__ void load_m16(const Net& net, float* wres, float4 (&wr)[NA][8]) {
+  for (int l = 0; l + 1 < net.n; ++l) {
+    const int q = net.res_slot[l];
+    if (q >= 0) {
+      float4* dst = reinterpret_cast<float4*>(wres + static_cast<size_t>(q) * kMat);
+      for (int e = threadIdx.x; e < 8 * kThreads; e += kThreads) dst[e] = m16_gather(net.w[1 + l], e % kThreads, e / kThreads);
+    }
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      if (q == reg_bank(b))
+#pragma unroll
+        for (int i = 0; i < 8; ++i) wr[b][i] = m16_gather(net.w[1 + l], threadIdx.x, i);
+  }
+}
+
+__device__ __forceinline__ float pick4(const float4& a, const float4& b, int i) {
+  const float4& v = i < 4 ? a : b;
+  const int k = i & 3;
+  return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
+}
+
+// The lane's output of the M16 mapping, and whether it writes it.
+__device__ __forceinline__ int m16_out() { return 4 * (threadIdx.x >> 4) + ((threadIdx.x >> 2) & 3); }
+__device__ __forceinline__ bool m16_writer() { return (threadIdx.x & 3) == 0; }
+
+// q[r] = the full sum of the lane's output (m16_out) for rows r < R of x
+// (row r at x + r ldx), the weight's float4 i from w(i).
+template <int R, class W>
+__device__ __forceinline__ void m16_sums(W w, const float* x, int ldx, float (&q)[R]) {
+  const int ks = threadIdx.x & 15;
+  float4 xa[R], xb[R];
+  float acc[R][4];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float4* x4 = reinterpret_cast<const float4*>(x + r * ldx);
+    xa[r] = x4[2 * ks];
+    xb[r] = x4[2 * ks + 1];
+    acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float4 wi = w(i);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float xi = pick4(xa[r], xb[r], i);
+      acc[r][0] = fmaf(wi.x, xi, acc[r][0]);
+      acc[r][1] = fmaf(wi.y, xi, acc[r][1]);
+      acc[r][2] = fmaf(wi.z, xi, acc[r][2]);
+      acc[r][3] = fmaf(wi.w, xi, acc[r][3]);
+    }
+  }
+  // halve the four outputs over lanes ks ^ 8 and ks ^ 4, then sum over ks ^ 2, ks ^ 1
+  const bool b3 = ks & 8, b2 = ks & 4;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float p0 = (b3 ? acc[r][2] : acc[r][0]) + __shfl_xor_sync(0xffffffffu, b3 ? acc[r][0] : acc[r][2], 8);
+    const float p1 = (b3 ? acc[r][3] : acc[r][1]) + __shfl_xor_sync(0xffffffffu, b3 ? acc[r][1] : acc[r][3], 8);
+    float v = (b2 ? p1 : p0) + __shfl_xor_sync(0xffffffffu, b2 ? p0 : p1, 4);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    q[r] = v;
+  }
+}
+
+// The hidden layers of `net` for R rows (row r of an activation at r H):
+// from cur, each layer's elu(W a + b) into the other buffer, then a barrier;
+// returns the buffer of the last (cur when the net has none). Each weight
+// from its place: one of the first NB register banks of wr, a
+// shared-memory slot of wres (both M16), or L2. With `wait`, the thread's
+// cp.async copies complete before the last barrier.
+template <int R, int NB, int NA>
+__device__ __forceinline__ float* fwd_hidden(const Net& net, const FwdNet& t, float* cur, float* nxt,
+                                             const float* wres, const float4 (&wr)[NA][8], bool wait) {
+  const int H = net.ld, nc = H / kMaxH;
+  for (int l = 0; l + 1 < net.n; ++l) {
+    const int q = net.res_slot[l];
+    const float* bl = t.b + l * H;
+    if (q != -1) {  // M16 (nc == 1)
+      float v[R];
+      if (NB > 0 && q == reg_bank(0)) {
+        m16_sums<R>([&](int i) { return wr[0][i]; }, cur, H, v);
+      } else if (NB > 1 && q == reg_bank(1)) {
+        m16_sums<R>([&](int i) { return wr[NA > 1][i]; }, cur, H, v);
+      } else {
+        const float4* ws = reinterpret_cast<const float4*>(wres + static_cast<size_t>(q) * kMat);
+        m16_sums<R>([&](int i) { return ws[i * kThreads + threadIdx.x]; }, cur, H, v);
+      }
+      const int j = m16_out();
+      if (m16_writer())
+#pragma unroll
+        for (int r = 0; r < R; ++r) nxt[r * H + j] = elu(v[r] + bl[j]);
+    } else {
+      const int k = walk_k();
+      for (int oc = 0; oc < nc; ++oc) {
+        float acc[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r] = 0.f;
+        for (int ic = 0; ic < nc; ++ic)
+          matvec_rows<false, R>(net.w[1 + l] + static_cast<size_t>(oc) * kMaxH * H + ic * kMaxH, H,
+                                cur + ic * kMaxH, H, acc);
+        const int j = oc * kMaxH + k;
+        if (walk_ks() == 0)
+#pragma unroll
+          for (int r = 0; r < R; ++r) nxt[r * H + j] = elu(acc[r] + bl[j]);
+      }
+    }
+    if (wait && l + 2 == net.n) cp_async_wait<0>();
+    __syncthreads();
+    float* tmp = cur;
+    cur = nxt;
+    nxt = tmp;
+  }
+  return cur;
+}
+
+// y[i] for a runtime i < kFold, without indexing the registers by it.
+__device__ __forceinline__ float pick(const float (&y)[kFold], int i) {
+  float v = 0.f;
+#pragma unroll
+  for (int c = 0; c < kFold; ++c) v = c == i ? y[c] : v;
+  return v;
+}
+
+// The readout of a narrow net for one row in a fold warp: y[c] = sum_j
+// wl[c][j] a[j] + b[c] for c < out (0 beyond); lane l sums j = 4 l + 128 m
+// and a butterfly gives every lane the same bits.
+__device__ __forceinline__ void fold_readout(const Net& net, const FwdNet& t, const float* a, float (&y)[kFold]) {
+  const int H = net.ld, lane = threadIdx.x & 31;
+  float p[kFold];
+#pragma unroll
+  for (int c = 0; c < kFold; ++c) p[c] = 0.f;
+  for (int m = lane; m < H / 4; m += 32) {
+    const float4 x = reinterpret_cast<const float4*>(a)[m];
+#pragma unroll
+    for (int c = 0; c < kFold; ++c)
+      if (c < net.out) {
+        const float4 w = reinterpret_cast<const float4*>(t.wl + c * H)[m];
+        p[c] = fmaf(w.x, x.x, p[c]);
+        p[c] = fmaf(w.y, x.y, p[c]);
+        p[c] = fmaf(w.z, x.z, p[c]);
+        p[c] = fmaf(w.w, x.w, p[c]);
+      }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int c = 0; c < kFold; ++c)
+      if (c < net.out) p[c] += __shfl_xor_sync(0xffffffffu, p[c], o);
+#pragma unroll
+  for (int c = 0; c < kFold; ++c) y[c] = c < net.out ? p[c] + t.b[(net.n - 1) * H + c] : 0.f;
+}
+
+// Fold warp w's share of one row's first layer: act[j] = elu(s[j] + sum_c
+// in[c] w0[c][j]) for j in [w H / fw, (w + 1) H / fw) (no barrier).
+__device__ __forceinline__ void fold_first_layer(const Net& net, const FwdNet& t, const float (&in)[kFold],
+                                                 const float* s, float* act, int fw) {
+  const int H = net.ld, per = H / fw, j0 = (threadIdx.x >> 5) * per;
+  for (int j = j0 + (threadIdx.x & 31); j < j0 + per; j += 32) {
+    float acc = 0.f;
+#pragma unroll
+    for (int c = 0; c < kFold; ++c)
+      if (c < net.kin) acc = fmaf(in[c], t.w0[c * H + j], acc);
+    act[j] = elu(s[j] + acc);
+  }
+}
+
+// The readout of `net` for R rows into y (y[r H + c], c < out), then a
+// barrier: a narrow one by groups of 4 lanes, one (row, output) a group; a
+// wide one as a layer (from L2).
+template <int R>
+__device__ void tile_readout(const Net& net, const FwdNet& t, const float* a, float* y) {
+  const int H = net.ld, nc = H / kMaxH, ks = walk_ks();
+  const float* bl = t.b + (net.n - 1) * H;
+  if (narrow_out(net)) {
+    const int n = R * net.out, g = threadIdx.x >> 2;
+    for (int p0 = 0; p0 < n; p0 += kThreads / 4) {  // the same trip count in every lane
+      const int p = p0 + g;
+      const bool live = p < n;
+      const int r = live ? p / net.out : 0, c = live ? p - r * net.out : 0;
+      float part = 0.f;
+      if (live) {
+        const float4* w4 = reinterpret_cast<const float4*>(t.wl + c * H);
+        const float4* a4 = reinterpret_cast<const float4*>(a + r * H);
+        float a0 = 0.f, a1 = 0.f;
+        for (int m = ks; m < H / 4; m += 4) {
+          const float4 u = w4[m], x = a4[m];
+          a0 = fmaf(u.x, x.x, a0);
+          a1 = fmaf(u.y, x.y, a1);
+          a0 = fmaf(u.z, x.z, a0);
+          a1 = fmaf(u.w, x.w, a1);
+        }
+        part = a0 + a1;
+      }
+      const float v = quad_sum(part);
+      if (live && ks == 0) y[r * H + c] = v + bl[c];
+    }
+  } else {
+    for (int oc = 0; oc < nc; ++oc) {
+      float acc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = 0.f;
+      for (int ic = 0; ic < nc; ++ic)
+        matvec_rows<false, R>(net.w[net.n] + static_cast<size_t>(oc) * kMaxH * H + ic * kMaxH, H,
+                              a + ic * kMaxH, H, acc);
+      const int j = oc * kMaxH + walk_k();
+      if (ks == 0 && j < net.out)
+#pragma unroll
+        for (int r = 0; r < R; ++r) y[r * H + j] = acc[r] + bl[j];
+    }
+  }
+  __syncthreads();
+}
+
+// The first layer of `net` for R rows: act[r][j] = elu(s[r][j] + sum_c
+// x[r][c] w0[c][j]) from the inputs x and the stream rows s (rows of H
+// floats in shared memory; x zero beyond kin), then a barrier.
+template <int R>
+__device__ void first_layer(const Net& net, const FwdNet& t, const float* x, const float* s, float* act) {
+  const int H = net.ld, nc = H / kMaxH, ks = walk_ks();
+  for (int oc = 0; oc < nc; ++oc) {
+    const int j = oc * kMaxH + walk_k();
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = 0.f;
+    if (narrow_in(net)) {
+      if (ks == 0)
+        for (int c = 0; c < net.kin; ++c) {
+          const float w = t.w0[c * H + j];
+#pragma unroll
+          for (int r = 0; r < R; ++r) acc[r] = fmaf(x[r * H + c], w, acc[r]);
+        }
+    } else {
+      for (int ic = 0; ic < nc; ++ic)
+        matvec_rows<false, R>(net.w[0] + static_cast<size_t>(oc) * kMaxH * H + ic * kMaxH, H, x + ic * kMaxH, H,
+                              acc);
+    }
+    if (ks == 0)
+#pragma unroll
+      for (int r = 0; r < R; ++r) act[r * H + j] = elu(s[r * H + j] + acc[r]);
+  }
+  __syncthreads();
+}
+
+// Stage q's derivative y done: the input of stage q + 1 or, at the last
+// stage, the step's result, from the carry xc, the step size and the
+// earlier stages' derivatives kq(i), i < q (the plain loop's arithmetic).
+template <class K>
+__device__ __forceinline__ float stage_next(int solver, int q, float xc, float dt, float y, K kq) {
+  if (solver == 0) return xc + dt * y;                                  // Euler
+  if (solver == 1) return q == 0 ? xc + y * (0.5f * dt) : xc + dt * y;  // Midpoint
+  switch (q) {                                                          // RK4, Kutta's 3/8 rule
+    case 0: return xc + dt * y * kOneThird;
+    case 1: return xc + dt * (y - kq(0) * kOneThird);
+    case 2: return xc + dt * (kq(0) - kq(1) + y);
+    default: return xc + (kq(0) + 3.0f * (kq(1) + kq(2)) + y) * dt * 0.125f;
+  }
+}
+
+// A thread's share of a step's prefetch of ns stream rows (stream q's base
+// from base(q)) for the block's R rows, h floats each into rows of H: its
+// one 16-byte copy, found once, when the step has at most kThreads of them
+// (h % 4 == 0); else every step runs the general loop. src is the copy's
+// source at step 0 (null: zero fill); a step adds t B h.
+struct RowCopy {
+  const float* src;
+  int dst;  // its offset in a step's buffer; -1: no copy of its own
+  bool fast;
+};
+
+template <class Base>
+__device__ inline RowCopy row_copy(int ns, int R, int h, int H, int row0, int B, Base base) {
+  RowCopy c{nullptr, -1, h % 4 == 0 && ns * R * (H / 4) <= kThreads};
+  const int o = threadIdx.x, per = H / 4;
+  if (c.fast && o < ns * R * per) {
+    const int q = o / (R * per), rest = o - q * R * per, r = rest / per, j = 4 * (rest - r * per);
+    c.dst = (q * R + r) * H + j;
+    if (row0 + r < B && j < h) c.src = base(q) + static_cast<size_t>(row0 + r) * h + j;
+  }
+  return c;
+}
+
+// Starts the copies of step t's stream rows into dst (the caller commits);
+// zero is any 16-byte aligned global address.
+template <class Base>
+__device__ __forceinline__ void prefetch_rows(const RowCopy& c, float* dst, int t, int ns, int R, int h, int H,
+                                              int row0, int B, const float* zero, Base base) {
+  const size_t step = static_cast<size_t>(t) * B * h;
+  if (c.fast) {
+    if (c.dst >= 0) cp_async_f32x4(dst + c.dst, c.src ? c.src + step : zero, c.src != nullptr);
+    return;
+  }
+  for (int o = threadIdx.x; o < ns * R * H; o += kThreads) {
+    const int q = o / (R * H), rest = o - q * R * H, r = rest / H, j = rest - r * H;
+    const bool ok = row0 + r < B && j < h;
+    cp_async_f32(dst + o, ok ? base(q) + step + static_cast<size_t>(row0 + r) * h + j : zero, ok);
+  }
+}
+
+// Places the nets' hidden weights: the first regs of the first net's in
+// register banks (M16; regs at most the kernel's banks), then, in order, as
+// many as fit beside `rest` floats of shared memory (at most max_slots;
+// M16), the others in L2. Only kMaxH wide weights stay on chip. Returns the
+// shared-memory slots taken.
+__host__ inline int fwd_place(Net* const* nets, int count, int regs, int max_slots, size_t rest) {
+  for (int i = 0; i < count; ++i)
+    for (int l = 0; l < kMaxTail; ++l) nets[i]->res_slot[l] = -1;
+  if (nets[0]->ld != kMaxH) return 0;
+  const long long room = (static_cast<long long>(kSmemMax / sizeof(float)) - static_cast<long long>(rest)) / kMat;
+  int q = 0, b = 0;
+  for (int i = 0; i < count; ++i)
+    for (int l = 0; l + 1 < nets[i]->n; ++l) {
+      if (i == 0 && b < regs) {
+        nets[i]->res_slot[l] = reg_bank(b++);
+      } else if (q < max_slots && q < room) {
+        nets[i]->res_slot[l] = q++;
+      }
+    }
+  return q;
 }
 
 // ------------------------------------------------------------- contraction
@@ -648,6 +1106,19 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 extern "C" int psn_ne_phase_clock(long long* out) {
   cudaError_t e = cudaDeviceSynchronize();
   if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out, g_ne_phase, sizeof(long long) * 16);
+  return static_cast<int>(e);
+}
+#endif
+
+#ifdef NE_PHASE_CLOCK
+// The forward phase clock's marks of the last launch (at most 64), their
+// phases and their count, copied out after the device is synchronised;
+// returns the error.
+extern "C" int psn_ne_fwd_clock(long long* marks, int* bins, int* n) {
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(marks, g_ne_fwd, sizeof(long long) * 64);
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(bins, g_ne_fwd_bin, sizeof(int) * 64);
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(n, g_ne_fwd_n, sizeof(int));
   return static_cast<int>(e);
 }
 #endif

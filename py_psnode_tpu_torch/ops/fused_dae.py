@@ -10,7 +10,8 @@ projections and the tail layers in the sequential loop.
 
 The loop itself runs in :func:`fused_dae_rollout`: on CUDA tensors it
 launches the hand-written kernel ``csrc/fused_dae_rollout.cu`` (one launch
-for the whole rollout), on CPU tensors it runs
+for the whole rollout, the weights transposed and zero-padded by
+``noencode_bwd.pad_net``), on CPU tensors it runs
 :func:`fused_dae_rollout_packed_plain`, the same function as an eager
 PyTorch loop. There is no fallback from the kernel to the plain version.
 
@@ -28,6 +29,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from py_psnode_tpu_torch.models.funcs import elu
+from py_psnode_tpu_torch.ops.noencode_bwd import launch, pad_net, padded_width
 from py_psnode_tpu_torch.utils import cuda_build
 
 _ONE_THIRD = 1.0 / 3.0
@@ -36,11 +38,10 @@ _SOLVER_ALIASES = {"rk4_38": "rk4"}  # the plain registry's RK4 is the 3/8 rule
 _FUSED_SOLVERS = ("euler", "midpoint", "rk4")
 # solver codes of the CUDA launcher
 _SOLVER_CODE = {"euler": 0, "midpoint": 1, "rk4": 2}
-# kernel limits (csrc/fused_dae_rollout.cu: kMaxTail, rows and k-split
-# instantiations)
+# kernel limits (csrc/noencode_bwd.cuh: kMaxTail; the forward kernels'
+# rows-per-block instantiations)
 MAX_TAIL = 8
 ROWS_PER_BLOCK = (1, 2, 4, 8)
-K_SPLITS = (2, 4)
 
 
 def normalize_solver(name) -> str:
@@ -212,19 +213,18 @@ def fused_dae_rollout_packed_plain(
 
 def bind_rollout(lib: ctypes.CDLL):
     """``(launcher, error string)``: the C functions of a build of
-    ``csrc/fused_dae_rollout.cu`` with their signatures."""
+    ``csrc/fused_dae_rollout.cu`` (for the card or, in
+    ``utils/host_build.py``, the host) with their signatures."""
     fn = lib.psn_fused_dae_rollout_f32
     P, I = ctypes.c_void_p, ctypes.c_int
-    PP = ctypes.POINTER(ctypes.c_void_p)
     fn.argtypes = [
         P, P, P, P,  # s_de, s_ae, s_ae_ev, aux
         P, P,  # x0, i0
-        P, P, P,  # wx_de, wi_de, gx_ae
-        PP, PP, I,  # de tail W, b, count
-        PP, PP, I,  # ae tail W, b, count
+        P, P, I,  # DE padded transposed weights, biases, tail layers
+        P, P, I,  # AE padded transposed weights, biases, tail layers
         P,  # sol
         I, I, I, I, I,  # Tm1, B, h, xd, id
-        I, I, I,  # solver, rows per block, k-split
+        I, I, I, I, I,  # solver, rows per block, register and shared-memory weights, fold warps
         P,  # stream
     ]
     fn.restype = ctypes.c_int
@@ -240,19 +240,30 @@ def _launcher():
     return bind_rollout(cuda_build.load("fused_dae_rollout"))
 
 
-def default_launch(batch: int, n_sms: int) -> Tuple[int, int]:
-    """``(rows_per_block, k_split)`` for ``batch`` rows on a card with
-    ``n_sms`` multiprocessors.
+def default_launch(batch: int, n_sms: int) -> int:
+    """Rows per block for ``batch`` rows on a card with ``n_sms``
+    multiprocessors (both forward kernels): the fewest of
+    :data:`ROWS_PER_BLOCK` that keep the grid in one wave of one block an SM
+    (the kernels' shared memory holds one block an SM), else the most. One
+    row a block runs the folded chain, the fastest a row; a tile of rows
+    shares each weight load, which pays once rows outnumber SMs (the B=1024
+    sweep of ``chip_smoke.py --sweep``, PERF.md)."""
+    for rows in ROWS_PER_BLOCK:
+        if -(-batch // rows) <= n_sms:
+            return rows
+    return ROWS_PER_BLOCK[-1]
 
-    A block reads each weight once per layer for all its rows, so more rows
-    per block save weight traffic, while fewer rows give more blocks; more
-    threads per output column shorten each layer's dependent chain. The
-    launch-shape sweep of ``chip_smoke.py --sweep`` on an H100 (PERF.md)
-    puts the best shape at 1 row and 4 threads per column while there are
-    no more rows than SMs (B=32 on 132 SMs), and at 4 rows and 2 threads
-    beyond (B=1024).
-    """
-    return (1, 4) if batch <= n_sms else (4, 2)
+
+def launch_rows(dev: torch.device, B: int, rows_per_block=None) -> int:
+    """This call's rows per block: ``rows_per_block``, or
+    :func:`default_launch` for ``dev``'s card (a 132-SM card's for a host
+    build); raises unless it is one of :data:`ROWS_PER_BLOCK`."""
+    if rows_per_block is None:
+        n_sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 132
+        return default_launch(B, n_sms)
+    if rows_per_block not in ROWS_PER_BLOCK:
+        raise ValueError(f"rows_per_block must be one of {ROWS_PER_BLOCK}, got {rows_per_block}")
+    return int(rows_per_block)
 
 
 def _check_kernel_inputs(streams, weights, x0, i0, aux, device_type: str = "cuda"):
@@ -295,59 +306,51 @@ def _check_kernel_inputs(streams, weights, x0, i0, aux, device_type: str = "cuda
 
 
 def fused_dae_rollout_packed_cuda(
-    streams: Dict,
-    weights: Dict,
-    x0,
-    i0,
-    aux,
-    solver: str = "rk4",
-    rows_per_block=None,
-    k_split=None,
-    launcher=None,
+    streams: Dict, weights: Dict, x0, i0, aux, solver: str = "rk4", rows_per_block=None,
 ) -> torch.Tensor:
     """Launch the CUDA kernel once for the whole rollout; returns the packed
-    ``[T-1, B, xd+id]`` solution. ``rows_per_block`` (1, 2, 4, 8) and
-    ``k_split`` (2, 4 threads per output column) are this call's launch
-    shape, by default :func:`default_launch`; neither changes the result
-    beyond float summation order."""
+    ``[T-1, B, xd+id]`` solution. ``rows_per_block`` (1, 2, 4, 8) is this
+    call's launch shape, by default :func:`default_launch`; it does not
+    change the result beyond float summation order."""
+    sol = _launch(streams, weights, x0, i0, aux, solver, rows_per_block)
+    fused_dae_rollout.launches += 1
+    return sol
+
+
+def _launch(streams: Dict, weights: Dict, x0, i0, aux, solver: str, rows_per_block=None, place=(-1, -1, 0),
+            launcher=None, host: bool = False) -> torch.Tensor:
+    """Launch the forward through ``launcher`` (of :func:`bind_rollout`;
+    the default build when None); ``place = (regs, slots, fold_warps)``:
+    how many of the DE's hidden weights sit in registers (one row a block
+    only), how many hidden weights after them in shared memory (the DE's,
+    then the AE's), and how many warps fold a readout (-1, -1, 0: the
+    kernel's choice); ``host``: a host build on CPU tensors
+    (``utils/host_build.py``). Counts nothing:
+    :func:`fused_dae_rollout_packed_cuda` is the entry; the phase clock and
+    the host build launch their own builds."""
     solver = normalize_solver(solver)
-    _check_kernel_inputs(streams, weights, x0, i0, aux)
+    _check_kernel_inputs(streams, weights, x0, i0, aux, "cpu" if host else "cuda")
     s_de = streams["s_de"]
     Tm1, B, h = s_de.shape
     xd, idim = x0.shape[-1], i0.shape[-1]
-    rows, ks = default_launch(B, torch.cuda.get_device_properties(s_de.device).multi_processor_count)
-    rows = rows if rows_per_block is None else int(rows_per_block)
-    k_split = ks if k_split is None else int(k_split)
-    if rows not in ROWS_PER_BLOCK:
-        raise ValueError(f"rows_per_block must be one of {ROWS_PER_BLOCK}, got {rows}")
-    if k_split not in K_SPLITS:
-        raise ValueError(f"k_split must be one of {K_SPLITS}, got {k_split}")
+    rows = launch_rows(s_de.device, B, rows_per_block)
     fn, err = launcher or _launcher()
+    H = padded_width(h)
+    # the padded weights must outlive the launch
+    w_de, b_de = pad_net(torch.cat([weights["wx_de"], weights["wi_de"]]), weights["de_tail"], True, H)
+    w_ae, b_ae = pad_net(weights["gx_ae"], weights["ae_tail"], True, H)
     sol = torch.empty(Tm1, B, xd + idim, dtype=torch.float32, device=s_de.device)
-    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
-    de_w, de_b = ptrs([W for W, _ in weights["de_tail"]]), ptrs([b for _, b in weights["de_tail"]])
-    ae_w, ae_b = ptrs([W for W, _ in weights["ae_tail"]]), ptrs([b for _, b in weights["ae_tail"]])
-    with torch.cuda.device(s_de.device):
-        stream = torch.cuda.current_stream(s_de.device).cuda_stream
-        rc = fn(
-            streams["s_de"].data_ptr(), streams["s_ae"].data_ptr(),
-            streams["s_ae_ev"].data_ptr(), aux.data_ptr(),
-            x0.data_ptr(), i0.data_ptr(),
-            weights["wx_de"].data_ptr(), weights["wi_de"].data_ptr(),
-            weights["gx_ae"].data_ptr(),
-            de_w, de_b, len(weights["de_tail"]),
-            ae_w, ae_b, len(weights["ae_tail"]),
-            sol.data_ptr(),
-            Tm1, B, h, xd, idim,
-            _SOLVER_CODE[solver], rows, k_split,
-            stream,
-        )
+    rc = launch(
+        fn, s_de.device, s_de.data_ptr(), streams["s_ae"].data_ptr(), streams["s_ae_ev"].data_ptr(),
+        aux.data_ptr(), x0.data_ptr(), i0.data_ptr(),
+        w_de.data_ptr(), b_de.data_ptr(), len(weights["de_tail"]),
+        w_ae.data_ptr(), b_ae.data_ptr(), len(weights["ae_tail"]),
+        sol.data_ptr(), Tm1, B, h, xd, idim, _SOLVER_CODE[solver], rows, *place,
+    )
     if rc != 0:
         raise RuntimeError(
-            f"fused_dae_rollout kernel launch failed: CUDA error {rc} "
-            f"({err(rc).decode()})"
+            f"fused_dae_rollout kernel launch failed: CUDA error {rc} ({err(rc).decode()})"
         )
-    fused_dae_rollout.launches += 1
     return sol
 
 

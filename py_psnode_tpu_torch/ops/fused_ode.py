@@ -13,7 +13,8 @@ or RK4-3/8 step. Any tail depth runs: the no-encode dynamics (``n_tail`` 3,
 
 The loop runs in :func:`fused_ode_rollout`: on CUDA tensors it
 launches the hand-written kernel ``csrc/fused_ode_rollout.cu`` (one launch
-for the whole rollout), on CPU tensors it runs
+for the whole rollout, the weights transposed and zero-padded by
+``noencode_bwd.pad_net``), on CPU tensors it runs
 :func:`fused_ode_rollout_plain`, the same function as an eager PyTorch
 loop. There is no fallback from the kernel to the plain version.
 
@@ -34,11 +35,13 @@ from py_psnode_tpu_torch.ops.fused_dae import (
     _ONE_THIRD,
     _SOLVER_CODE,
     MAX_TAIL,
+    launch_rows,
     mlp_tail_fwd,
     mlp_tail_layers,
     normalize_solver,
     split_de_layer1,
 )
+from py_psnode_tpu_torch.ops.noencode_bwd import launch, pad_net, padded_width
 from py_psnode_tpu_torch.utils import cuda_build
 
 
@@ -139,16 +142,16 @@ def pointer_array(tensors):
 
 def bind_rollout(lib: ctypes.CDLL):
     """``(launcher, error string)``: the C functions of a build of
-    ``csrc/fused_ode_rollout.cu`` with their signatures."""
+    ``csrc/fused_ode_rollout.cu`` (for the card or, in
+    ``utils/host_build.py``, the host) with their signatures."""
     fn = lib.psn_fused_ode_rollout_f32
     P, I = ctypes.c_void_p, ctypes.c_int
-    PP = ctypes.POINTER(ctypes.c_void_p)
     fn.argtypes = [
-        P, P, P, P,  # s_de, dt, x0, wx_de
-        PP, PP, I,  # tail W, b, count
+        P, P, P,  # s_de, dt, x0
+        P, P, I,  # padded transposed weights ([wx; tail]), biases, tail layers
         P,  # sol
         I, I, I, I,  # Tm1, B, h, xd
-        I,  # solver
+        I, I, I, I, I,  # solver, rows per block, register and shared-memory weights, fold warps
         P,  # stream
     ]
     fn.restype = ctypes.c_int
@@ -164,28 +167,38 @@ def _launcher():
     return bind_rollout(cuda_build.load("fused_ode_rollout"))
 
 
-def fused_ode_rollout_cuda(s_de, weights: Dict, x0, dt, solver: str = "euler", launcher=None) -> torch.Tensor:
-    """Launch the CUDA kernel once for the whole rollout, one block per
-    batch row; returns the rows ``[T-1, B, xd]``."""
+def fused_ode_rollout_cuda(s_de, weights: Dict, x0, dt, solver: str = "euler", rows_per_block=None) -> torch.Tensor:
+    """Launch the CUDA kernel once for the whole rollout; returns the rows
+    ``[T-1, B, xd]``. ``rows_per_block`` (1, 2, 4, 8) is this call's
+    launch shape, by default ``fused_dae.default_launch``."""
+    sol = _launch(s_de, weights, x0, dt, solver, rows_per_block)
+    fused_ode_rollout.launches += 1
+    return sol
+
+
+def _launch(s_de, weights: Dict, x0, dt, solver: str, rows_per_block=None, place=(-1, -1, 0), launcher=None,
+            host: bool = False) -> torch.Tensor:
+    """Launch the forward through ``launcher`` (of :func:`bind_rollout`;
+    the default build when None); ``place = (regs, slots, fold_warps)`` as
+    ``fused_dae._launch`` takes it (-1, -1, 0: the kernel's choice);
+    ``host``: a host build on CPU tensors. Counts nothing
+    (:func:`fused_ode_rollout_cuda` is the entry)."""
     solver = normalize_solver(solver)
-    check_inputs(s_de, weights, x0, dt)
+    check_inputs(s_de, weights, x0, dt, "cpu" if host else "cuda")
     Tm1, B, h = s_de.shape
     xd = x0.shape[-1]
+    rows = launch_rows(s_de.device, B, rows_per_block)
     fn, err = launcher or _launcher()
-    sol = torch.empty(Tm1, B, xd, dtype=torch.float32, device=s_de.device)
     tail = weights["de_tail"]
-    with torch.cuda.device(s_de.device):
-        stream = torch.cuda.current_stream(s_de.device).cuda_stream
-        rc = fn(
-            s_de.data_ptr(), dt.data_ptr(), x0.data_ptr(), weights["wx_de"].data_ptr(),
-            pointer_array([W for W, _ in tail]), pointer_array([b for _, b in tail]), len(tail),
-            sol.data_ptr(), Tm1, B, h, xd, _SOLVER_CODE[solver], stream,
-        )
+    # the padded weights must outlive the launch
+    w, b = pad_net(weights["wx_de"], tail, True, padded_width(h))
+    sol = torch.empty(Tm1, B, xd, dtype=torch.float32, device=s_de.device)
+    rc = launch(fn, s_de.device, s_de.data_ptr(), dt.data_ptr(), x0.data_ptr(), w.data_ptr(), b.data_ptr(),
+                len(tail), sol.data_ptr(), Tm1, B, h, xd, _SOLVER_CODE[solver], rows, *place)
     if rc != 0:
         raise RuntimeError(
             f"fused_ode_rollout kernel launch failed: CUDA error {rc} ({err(rc).decode()})"
         )
-    fused_ode_rollout.launches += 1
     return sol
 
 

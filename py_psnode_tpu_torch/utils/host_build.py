@@ -1,4 +1,4 @@
-"""Build the port's tensor-core CUDA kernels for the host and run them on CPU tensors.
+"""Build the port's CUDA kernels for the host and run them on CPU tensors.
 
 A CUDA kernel has no CPU mode, and this package's CPU runs never reach the
 kernels. To check a kernel's source before it meets the card, this module
@@ -11,12 +11,14 @@ barrier and shared-memory map) and calls its C launchers through ``ctypes``
 with CPU pointers. The model runs every block's 512 threads as OS threads
 and every mma through a barrier of its warp, so it takes seconds an
 evaluation: keep shapes small. It builds the channel-wise pair
-(``fused_cw_rollout{,_bwd}.cu``) and the no-encode backward pair
-(``fused_dae_rollout_bwd.cu``, ``fused_ode_rollout_bwd.cu``).
+(``fused_cw_rollout{,_bwd}.cu``) and the no-encode forward and backward
+pairs (``fused_{dae,ode}_rollout{,_bwd}.cu``).
 
     python -m py_psnode_tpu_torch.utils.host_build fwd|bwd|contract B Tm1 h xd zd solver [cluster]
     python -m py_psnode_tpu_torch.utils.host_build dae-bwd B Tm1 h solver
     python -m py_psnode_tpu_torch.utils.host_build ode-bwd B Tm1 h xd n_tail solver
+    python -m py_psnode_tpu_torch.utils.host_build dae-fwd B Tm1 h solver [rows]
+    python -m py_psnode_tpu_torch.utils.host_build ode-fwd B Tm1 h xd n_tail solver [rows]
 
 holds the host build against the plain PyTorch version on seeded inputs
 (the card tests' kind) and prints the distance. Builds land in
@@ -207,6 +209,42 @@ def ode_rollout_bwd(s_de, weights: Dict, dt, sol, cot, solver: str = "euler", st
     return VO._launch_bwd(s_de, weights, dt, sol, cot, solver, launcher, stages, bufs, host=True)
 
 
+def dae_rollout(streams: Dict, weights: Dict, x0, i0, aux, solver: str = "rk4", rows=None, place=(-1, -1, 0)):
+    """Kernel 1's host build on CPU tensors (the arguments of
+    ``fused_dae_rollout_packed_cuda``, ``rows`` rows a block, ``place`` as
+    ``fused_dae._launch`` takes it); returns the packed rows ``[T-1, B, xd +
+    id]``."""
+    launcher = F.bind_rollout(load("fused_dae_rollout"))
+    return F._launch(streams, weights, x0, i0, aux, solver, rows, place, launcher, host=True)
+
+
+def ode_rollout(s_de, weights: Dict, x0, dt, solver: str = "euler", rows=None, place=(-1, -1, 0)):
+    """Kernel 3's host build on CPU tensors (the arguments of
+    ``fused_ode_rollout_cuda``); returns the rows ``[T-1, B, xd]``."""
+    launcher = FO.bind_rollout(load("fused_ode_rollout"))
+    return FO._launch(s_de, weights, x0, dt, solver, rows, place, launcher, host=True)
+
+
+def noencode_fwd_check(family: str, B: int, Tm1: int, h: int, solver: str, rows=None, xd: int = 2,
+                       n_tail: int = 3, place=(-1, -1, 0)) -> Dict[str, float]:
+    """Kernel 1 (``family`` "dae": the motor shape xd=3, id=2, events in
+    some rows) or 3 ("ode", ``xd`` and ``n_tail``, the readout at lecun
+    scale) built for the host, on seeded inputs, against its plain version: ``worst``, the largest
+    |kernel - plain| / max(1, |plain|), and ``identical``, 1.0 when a
+    relaunch gave the same bits."""
+    if family == "dae":
+        args = dae_inputs(B, Tm1, h, seed=h)
+        ref = F.fused_dae_rollout_packed_plain(*args, solver)
+        run = lambda: dae_rollout(*args, solver, rows, place)
+    else:
+        args = ode_inputs(B, Tm1, h, xd, n_tail, seed=h, readout=1.0)
+        ref = FO.fused_ode_rollout_plain(*args, solver)
+        run = lambda: ode_rollout(*args, solver, rows, place)
+    got, again = run(), run()
+    worst = ((got.double() - ref.double()).abs() / ref.double().abs().clamp(min=1.0)).max().item()
+    return dict(worst=worst, identical=float(torch.equal(got, again)))
+
+
 def _f64(tree):
     if isinstance(tree, dict):
         return {k: _f64(v) for k, v in tree.items()}
@@ -255,6 +293,14 @@ def _worst(got: List[torch.Tensor], ref: List[torch.Tensor]) -> float:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    if argv[0] in ("dae-fwd", "ode-fwd"):
+        family, n_dims = argv[0][:3], 3 if argv[0] == "dae-fwd" else 5
+        dims = list(map(int, argv[1:1 + n_dims]))
+        solver, rows = argv[1 + n_dims], int(argv[2 + n_dims]) if len(argv) > 2 + n_dims else None
+        got = noencode_fwd_check(family, *dims[:3], solver, rows, *dims[3:])
+        print(f"{argv[0]}: worst |d| / max(1, |plain|) {got['worst']:.2e}; bit-identical on relaunch: "
+              f"{bool(got['identical'])}")
+        return 0 if got["worst"] <= 1e-4 and got["identical"] else 1
     if argv[0] in ("dae-bwd", "ode-bwd"):
         family = argv[0][:3]
         dims = list(map(int, argv[1:-1]))

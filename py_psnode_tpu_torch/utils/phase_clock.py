@@ -21,7 +21,14 @@ the phases of the middle step of batch row 0 the same way:
     python -m py_psnode_tpu_torch.utils.phase_clock noencode [B Tm1 solver]
 
 (defaults 64 100 rk4: the training batch and solver, h=128, the motor DAE's
-xd=3, id=2 and the AVR ODE's xd=2) prints ``[ne-split]``: each family's
+xd=3, id=2 and the AVR ODE's xd=2) prints, for the forward kernels
+(``csrc/fused_{dae,ode}_rollout.cu``), ``[ne-fwd-split]``: the cycles of
+the middle step of row 0 by phase (the step's loads, the AE at the event,
+each stage's first layer, hidden layers and readout, the stage updates, the
+AE at t+1, the solution's write), ``[ne-fwd-slots]``: the forward's
+time by where its hidden weights sit (registers, shared memory, or L1 and
+L2), and ``[ne-fwd-fold]``: by the warps that fold a readout; then,
+for the backward walks, ``[ne-split]``: each family's
 cycles per phase of that step of the walk, beside the times by CUDA events
 of the whole backward and of each of its three kernels (the recompute, the
 walk, the contraction) launched alone, and ``[ne-slots]``: the walk's time
@@ -60,6 +67,10 @@ NE_PHASES = {
     "ode": ("stages VJP",),
 }
 NE_KERNELS = ((1, "recompute"), (2, "walk"), (4, "contraction"))
+# (registers, shared-memory slots) of the forward sweep: the DAE's four
+# hidden weights (two DE, two AE), the ODE's two
+NE_FWD_PLACES = {"dae": ((0, 0), (0, 1), (0, 2), (0, 3), (1, 0), (1, 1), (1, 2), (1, 3)),
+                 "ode": ((0, 0), (0, 1), (0, 2), (1, 0), (1, 1), (2, 0))}
 # the phases the no-encode forward kernels mark (csrc/fused_{dae,ode}_rollout.cu)
 NE_FWD_PHASES = (("step loads", "AE at the event")
                  + tuple(f"stage {q + 1} {p}" for q in range(4) for p in ("first layer", "hidden layers", "readout"))
@@ -133,8 +144,8 @@ def noencode_fwd(B: int, Tm1: int, solver: str, cuda) -> None:
     ode_args = [cuda(a) for a in ode_inputs(B, Tm1, 128)]
     dae = F.bind_rollout(libs[names[0]])
     ode = FO.bind_rollout(libs[names[1]])
-    runs = (("dae", libs[names[0]], lambda: F.fused_dae_rollout_packed_cuda(*dae_args, solver, launcher=dae)),
-            ("ode", libs[names[1]], lambda: FO.fused_ode_rollout_cuda(*ode_args, solver, launcher=ode)))
+    runs = (("dae", libs[names[0]], lambda place=(-1, -1, 0): F._launch(*dae_args, solver, None, place, dae)),
+            ("ode", libs[names[1]], lambda place=(-1, -1, 0): FO._launch(*ode_args, solver, None, place, ode)))
     for family, lib, launch in runs:
         ms = ms_per_launch(launch)
         got = fwd_cycles(lib)
@@ -142,6 +153,16 @@ def noencode_fwd(B: int, Tm1: int, solver: str, cuda) -> None:
         print(f"[ne-fwd-split] {family} forward B={B} T-1={Tm1} h=128 {solver}: {ms:.3f} ms a launch; "
               f"step {Tm1 // 2} of row 0: {total} cycles; "
               + ", ".join(f"{n} {c} ({c / total:.0%})" for n, c in zip(NE_FWD_PHASES, got) if c), flush=True)
+        # the hidden weights in registers, in shared memory or through L1 and
+        # L2, and the warps that fold a readout: the evidence for the
+        # launchers' choice (the DAE's registers 1 and shared memory 3, the
+        # ODE's registers 2; 4 warps)
+        sweep = ", ".join(f"regs {r} smem {q} {ms_per_launch(lambda: launch((r, q, 0))):.3f} ms"
+                          for r, q in NE_FWD_PLACES[family])
+        print(f"[ne-fwd-slots] {family} forward B={B} T-1={Tm1} {solver}, by where the hidden weights sit: {sweep}",
+              flush=True)
+        sweep = ", ".join(f"{w} {ms_per_launch(lambda: launch((-1, -1, w))):.3f} ms" for w in (1, 2, 4, 8, 16))
+        print(f"[ne-fwd-fold] {family} forward B={B} T-1={Tm1} {solver}, by warps that fold: {sweep}", flush=True)
 
 
 def noencode(B: int, Tm1: int, solver: str) -> int:

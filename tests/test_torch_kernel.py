@@ -48,9 +48,12 @@ def rollout_inputs(B, Tm1, h, xd=3, idim=2, seed=0, dev="cpu"):
 
 @pytest.mark.parametrize("batch", [1, 32, 132, 133, 1024, 5000])
 def test_default_launch_is_an_instantiated_shape(batch):
-    rows, ks = F.default_launch(batch, 132)
-    assert rows in F.ROWS_PER_BLOCK and ks in F.K_SPLITS
-    assert (rows, ks) == ((1, 4) if batch <= 132 else (4, 2))
+    rows = F.default_launch(batch, 132)
+    assert rows in F.ROWS_PER_BLOCK
+    # one row a block while the rows fit in one wave, then the fewest rows a
+    # block that do, at most 8
+    assert rows == {1: 1, 32: 1, 132: 1, 133: 2, 1024: 8, 5000: 8}[batch]
+    assert -(-batch // rows) <= 132 or rows == F.ROWS_PER_BLOCK[-1]
 
 
 @pytest.mark.gpu
@@ -62,11 +65,10 @@ def test_kernel_matches_plain_on_card(solver):
     ref = F.fused_dae_rollout_packed_plain(*args, solver)
     before = F.fused_dae_rollout.launches
     for rows in F.ROWS_PER_BLOCK:
-        for ks in F.K_SPLITS:
-            got = F.fused_dae_rollout_packed_cuda(*args, solver, rows_per_block=rows, k_split=ks)
-            torch.cuda.synchronize()
-            assert torch.all((got - ref).abs() <= 1e-4 * ref.abs().clamp(min=1.0)), (rows, ks)
-    assert F.fused_dae_rollout.launches == before + len(F.ROWS_PER_BLOCK) * len(F.K_SPLITS)
+        got = F.fused_dae_rollout_packed_cuda(*args, solver, rows_per_block=rows)
+        torch.cuda.synchronize()
+        assert torch.all((got - ref).abs() <= 1e-4 * ref.abs().clamp(min=1.0)), rows
+    assert F.fused_dae_rollout.launches == before + len(F.ROWS_PER_BLOCK)
 
 
 @pytest.mark.gpu
@@ -157,10 +159,11 @@ def test_ode_kernel_matches_plain_on_card(solver, xd, n_tail, batch):
     args = ode_inputs(batch, 64, 128, xd, n_tail, dev="cuda")
     ref = FO.fused_ode_rollout_plain(*args, solver)
     before = FO.fused_ode_rollout.launches
-    got = FO.fused_ode_rollout_cuda(*args, solver)
-    torch.cuda.synchronize()
-    assert torch.all((got - ref).abs() <= 1e-4 * ref.abs().clamp(min=1.0))
-    assert FO.fused_ode_rollout.launches == before + 1
+    for rows in F.ROWS_PER_BLOCK:  # every launch shape
+        got = FO.fused_ode_rollout_cuda(*args, solver, rows_per_block=rows)
+        torch.cuda.synchronize()
+        assert torch.all((got - ref).abs() <= 1e-4 * ref.abs().clamp(min=1.0)), rows
+    assert FO.fused_ode_rollout.launches == before + len(F.ROWS_PER_BLOCK)
 
 
 @pytest.mark.gpu
@@ -202,6 +205,59 @@ def test_ode_kernels_refuse_bad_inputs_on_card():
     sol = torch.cat([x0[None], FO.fused_ode_rollout(s_de, weights, x0, dt)])
     with pytest.raises(ValueError, match="shape"):
         VO.fused_ode_rollout_bwd_cuda(s_de, weights, dt, sol, sol[:12].contiguous())
+
+
+def _hold_fwd(got, again, ref):
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    assert torch.all((got - ref).abs() <= 1e-4 * ref.abs().clamp(min=1.0))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["euler", "midpoint", "rk4"])
+@pytest.mark.parametrize("h", [40, 128, 200])  # 200: two 128-wide chunks, weights from L2
+@pytest.mark.parametrize("batch", [1, 5, 64, 67, 133, 1024])  # one row to a fleet (8 rows a block)
+def test_noencode_fwd_kernels_match_plain_across_batches_on_card(batch, h, solver):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    # events in rows 1 and 3 at step 2, in every row at step 9, in row 0 at
+    # the last step (rollout_inputs); the launch shape the wrappers choose
+    args = rollout_inputs(batch, 16, h, seed=batch, dev="cuda")
+    ref = F.fused_dae_rollout_packed_plain(*args, solver)
+    _hold_fwd(F.fused_dae_rollout_packed_cuda(*args, solver), F.fused_dae_rollout_packed_cuda(*args, solver), ref)
+    args = ode_inputs(batch, 16, h, 2, 3, seed=batch, dev="cuda")
+    ref = FO.fused_ode_rollout_plain(*args, solver)
+    _hold_fwd(FO.fused_ode_rollout_cuda(*args, solver), FO.fused_ode_rollout_cuda(*args, solver), ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 2, 4, 8])
+def test_noencode_fwd_kernels_match_plain_at_each_launch_shape_on_card(rows):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    # every rows-a-block the wrappers can choose, at h=200 and at the ODE
+    # encode shape (the wide readout), rows past the batch in the last tile
+    args = rollout_inputs(13, 16, 200, seed=rows, dev="cuda")
+    ref = F.fused_dae_rollout_packed_plain(*args, "rk4")
+    got = F.fused_dae_rollout_packed_cuda(*args, "rk4", rows_per_block=rows)
+    _hold_fwd(got, F.fused_dae_rollout_packed_cuda(*args, "rk4", rows_per_block=rows), ref)
+    for h, xd, n_tail in ((200, 2, 3), (128, 128, 1)):
+        args = ode_inputs(13, 16, h, xd, n_tail, seed=rows, dev="cuda")
+        ref = FO.fused_ode_rollout_plain(*args, "midpoint")
+        got = FO.fused_ode_rollout_cuda(*args, "midpoint", rows_per_block=rows)
+        _hold_fwd(got, FO.fused_ode_rollout_cuda(*args, "midpoint", rows_per_block=rows), ref)
+
+
+@pytest.mark.gpu
+def test_noencode_fwd_kernels_are_bit_identical_on_relaunch_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    args = rollout_inputs(64, 100, 128, seed=3, dev="cuda")
+    got = F.fused_dae_rollout_packed_cuda(*args, "rk4")
+    assert torch.isfinite(got).all() and torch.equal(got, F.fused_dae_rollout_packed_cuda(*args, "rk4"))
+    args = ode_inputs(64, 100, 128, 2, 3, seed=3, dev="cuda")
+    got = FO.fused_ode_rollout_cuda(*args, "rk4")
+    assert torch.isfinite(got).all() and torch.equal(got, FO.fused_ode_rollout_cuda(*args, "rk4"))
 
 
 def dae_bwd_against_float64(args, solver, seed=1):

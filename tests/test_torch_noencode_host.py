@@ -1,13 +1,15 @@
-"""The no-encode backward kernels' own sources (kernels 2 and 4), built for
-the host, against their plain PyTorch versions on the CPU.
+"""The no-encode kernels' own sources (the forward pair, kernels 1 and 3, and
+the backward pair, kernels 2 and 4), built for the host, against their plain
+PyTorch versions on the CPU.
 
 ``py_psnode_tpu_torch.utils.host_build`` compiles
-``csrc/fused_dae_rollout_bwd.cu`` and ``csrc/fused_ode_rollout_bwd.cu``
-(with ``csrc/noencode_bwd.cuh`` and ``csrc/mma_tile.cuh``) with g++ against a
-host model of the CUDA subset and of the Hopper instructions they use (the
-mma.sync fragment layout, TF32 rounding, cp.async, warp shuffles), on
-NaN-poisoned buffers. The card's tolerances (``tests/test_torch_kernel.py``):
-the whole backward per output tensor within ``1e-4 * max|plain|`` of the
+``csrc/fused_{dae,ode}_rollout{,_bwd}.cu`` (with ``csrc/noencode_bwd.cuh``
+and ``csrc/mma_tile.cuh``) with g++ against a host model of the CUDA subset
+and of the Hopper instructions they use (the mma.sync fragment layout, TF32
+rounding, cp.async, warp shuffles), on NaN-poisoned shared memory and
+buffers. The card's tolerances (``tests/test_torch_kernel.py``): the
+forward within ``1e-4 * max(1, |plain|)`` per element, bit-identical on
+relaunch; the whole backward per output tensor within ``1e-4 * max|plain|`` of the
 float64 plain walk, bit-identical on relaunch; the recompute's buffers
 within ``1e-4 * max(1, |plain|)`` of :func:`recompute_plain`; the
 contraction within ``1e-5 * max|plain|`` of :func:`contract_plain` in
@@ -31,6 +33,51 @@ from py_psnode_tpu_torch.utils.noencode_inputs import dae_inputs, ode_inputs
 def need_gxx():
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the kernels for the host")
+
+
+# (B, Tm1, h, solver, rows a block): one row and three; h=19 (rows not
+# 16-byte aligned), 40 and 136 (two 128-wide chunks, weights from L2); each
+# solver; one row a block (the folded readout) and tiles of 2, 4 and 8 rows
+# (the tile path, rows past the batch among them); dae_inputs puts events
+# in rows 1 and 3 (modulo B) at step 2 and in row 0 at the last step
+DAE_FWD_CASES = [(1, 3, 19, "euler", None), (3, 4, 40, "rk4", None), (3, 3, 136, "midpoint", None),
+                 (3, 4, 40, "midpoint", 2), (3, 3, 19, "rk4", 4), (1, 3, 136, "euler", 8)]
+
+
+@pytest.mark.parametrize("B,Tm1,h,solver,rows", DAE_FWD_CASES)
+def test_host_dae_forward_matches_plain(B, Tm1, h, solver, rows):
+    need_gxx()
+    got = host_build.noencode_fwd_check("dae", B, Tm1, h, solver, rows)
+    assert got["worst"] <= 1e-4, got
+    assert got["identical"] == 1.0
+
+
+# (B, Tm1, h, xd, n_tail, solver, rows a block): the AVR no-encode shape
+# and the direct-encode latent shape (xd = h, one tail layer: the wide
+# first layer and readout), as above
+ODE_FWD_CASES = [(1, 3, 19, 2, 3, "midpoint", None), (3, 4, 40, 2, 3, "rk4", None),
+                 (3, 3, 136, 2, 3, "euler", None), (3, 4, 40, 2, 3, "rk4", 8),
+                 (3, 3, 40, 40, 1, "rk4", None), (2, 3, 19, 19, 1, "euler", 2)]
+
+
+@pytest.mark.parametrize("B,Tm1,h,xd,n_tail,solver,rows", ODE_FWD_CASES)
+def test_host_ode_forward_matches_plain(B, Tm1, h, xd, n_tail, solver, rows):
+    need_gxx()
+    got = host_build.noencode_fwd_check("ode", B, Tm1, h, solver, rows, xd, n_tail)
+    assert got["worst"] <= 1e-4, got
+    assert got["identical"] == 1.0
+
+
+# (regs, slots, fold warps): every hidden weight from L2 with every warp
+# folding; one of the DE's in registers, one in shared memory, one warp; the
+# DE's both in shared memory and the AE's first, two warps (the placements
+# phase_clock's [ne-fwd-slots] sweep times)
+@pytest.mark.parametrize("place", [(0, 0, 16), (1, 1, 1), (0, 3, 2)])
+def test_host_dae_forward_at_each_weight_placement(place):
+    need_gxx()
+    got = host_build.noencode_fwd_check("dae", 2, 3, 40, "rk4", None, place=place)
+    assert got["worst"] <= 1e-4, got
+    assert got["identical"] == 1.0
 
 
 # (B, Tm1, h, solver): one row and three, h=40 and an odd h=19 (rows not
