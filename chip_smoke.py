@@ -28,7 +28,8 @@ Phases, each printed as it ends; any failure exits non-zero:
      anchors: step 1 and the Euler epoch-1 eval at rtol 1e-3; both
      kernels' launches counted;
   7. times (CUDA events): the forward at B=32, 64 and 1024 (each solver;
-     with --sweep at every rows-a-block), the backward at
+     with --sweep at every rows-a-block, and at B=256 and 512 Euler, the
+     evaluation batches of 256- and 512-trajectory test sets), the backward at
      B=64 for each solver beside two bounds (the h x h layers on the
      tensor cores in three TF32 passes, and all of it in float32 on the
      CUDA cores), its three kernels (recompute, walk, contraction) timed
@@ -56,7 +57,8 @@ Phases, each printed as it ends; any failure exits non-zero:
      launches counted; every loss must also lie nearer its own solver's
      anchor than the other's;
  11. ODE times (CUDA events): the forward at B=32 Euler, B=64 Euler and
-     RK4 and B=1024 Euler (with --sweep at every rows-a-block), the backward as in phase 7 (B=64 each solver, its three
+     RK4 and B=1024 Euler (with --sweep at every rows-a-block, and at
+     B=256 and 512), the backward as in phase 7 (B=64 each solver, its three
      kernels apart at RK4 beside torch.matmul, B=256 RK4), and one whole
      training step (B=64, T=1001, h=128, RK4) against the plain route,
      with its peak memory;
@@ -627,6 +629,13 @@ def phase_times(dev, sweep):
                 for rows in F.ROWS_PER_BLOCK:
                     ms = cuda_ms(lambda: F.fused_dae_rollout_packed_cuda(*args, solver, rows_per_block=rows), 1, 5)
                     say(f"[sweep] dae forward B={B} {solver:8s} rows={rows}: {ms:.4f} ms")
+    # with --sweep, the evaluation batch of a 256- and a 512-trajectory test
+    # set (Trainer._eval_batch_size: a set of at most 512 runs as one batch)
+    for rep in (8, 16) if sweep else ():
+        args = model_inputs(rep, dev)
+        for rows in F.ROWS_PER_BLOCK:
+            ms = cuda_ms(lambda: F.fused_dae_rollout_packed_cuda(*args, "euler", rows_per_block=rows), 1, 5)
+            say(f"[sweep] dae forward B={32 * rep} euler    rows={rows}: {ms:.4f} ms")
 
     # the backward at the training batch: checkpoint 200 on the test set
     # twice (B=64), the forward kernel's solution, random cotangents
@@ -1018,6 +1027,11 @@ def phase_ode_times(dev, files, sweep):
             for rows in F.ROWS_PER_BLOCK:
                 ms = cuda_ms(lambda: FO.fused_ode_rollout_cuda(*args, solver, rows_per_block=rows), 1, 5)
                 say(f"[sweep] ode forward B={B} {solver:8s} rows={rows}: {ms:.4f} ms")
+    for B in (256, 512) if sweep else ():  # evaluation batches, as in phase 7
+        args = inputs(test_ds, B)
+        for rows in F.ROWS_PER_BLOCK:
+            ms = cuda_ms(lambda: FO.fused_ode_rollout_cuda(*args, "euler", rows_per_block=rows), 1, 5)
+            say(f"[sweep] ode forward B={B} euler    rows={rows}: {ms:.4f} ms")
 
     s_de, weights, x0, dt = inputs(train_ds, 64)
     cot = torch.tensor(np.random.default_rng(7).standard_normal((1001, 64, 2)).astype(np.float32)

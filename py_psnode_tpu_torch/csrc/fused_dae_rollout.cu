@@ -26,7 +26,7 @@
 // card's 132 SMs with one block each.
 //
 // What the design does about the chain (csrc/noencode_bwd.cuh, forward
-// section): a layer is one pass and one barrier (the parent kernel took a
+// section): a layer is one pass and one barrier (the earlier kernel took a
 // separate ELU pass, about 30 barriers an RK4 step, and read every weight
 // by scalar loads from L2, 3 700 cycles a hidden layer: phase_clock's
 // [ne-fwd-split]); the narrow readouts (the DE's xd outputs, the AE's id)
@@ -39,16 +39,31 @@
 // step t+1's stream rows and (dt, ev) while step t runs. With more rows
 // than SMs a block takes a tile of R rows that share each weight load (the
 // DE's in shared memory, the AE's from L2; R = 8 at B = 1024, chip_smoke.py
-// --sweep). Wider h runs as 128-wide chunks with its weights from L2. Rows
-// are independent: no atomics, the same bits on every launch.
+// --sweep). The weights arrive as the wrapper holds them and pack_nets pads
+// them on the card. Wider h runs as 128-wide chunks with its weights from
+// L2, with fewer rows a block where R rows' buffers do not fit shared
+// memory, and with one row's buffers in global memory where even those do
+// not (h above about 1 400). Rows are independent: no atomics, the same
+// bits on every launch.
 
 #include "noencode_bwd.cuh"
 
 namespace {
 
-// The DE's hidden weights a folding block holds in registers: one (with two
-// the kernel spills; phase_clock's [ne-fwd-slots] sweep).
-constexpr int kRegBanks = 1;
+// Where a block keeps the hidden weights; phase_clock's [ne-fwd-slots] sweep
+// builds other placements with -D. NE_FWD_REGS: the DE's hidden weights a
+// folding block holds in registers (one; with two the kernel spills).
+// NE_FWD_SLOTS: at most this many hidden weights in shared memory after
+// them, the DE's then the AE's (-1: with one row a block all that fit, with
+// a tile the DE's).
+#ifndef NE_FWD_REGS
+#define NE_FWD_REGS 1
+#endif
+#ifndef NE_FWD_SLOTS
+#define NE_FWD_SLOTS -1
+#endif
+constexpr int kRegBanks = NE_FWD_REGS;
+constexpr int kSlotCap = NE_FWD_SLOTS;
 
 struct Args {
   const float* s_de;     // [tm1, batch, h]
@@ -60,35 +75,42 @@ struct Args {
   Net de;                // first layer [wx_de; wi_de] (kin = xd + id), out = xd
   Net ae;                // first layer gx_ae (kin = xd), out = id
   float* sol;            // [tm1, batch, xd + id]
-  int tm1, batch, h, xd, id, solver;
+  float* gmem;           // the blocks' buffers in global memory (null: in shared memory)
+  size_t gmem_block;     // floats of a block's buffers there
+  int tm1, batch, h, H, xd, id, solver;
 };
 
 // Floats of one prefetched step of R rows: the three stream rows, then
 // (dt, ev) of each row in 4 floats.
 __host__ __device__ inline int step_floats(int R, int H) { return 3 * R * H + 4 * R; }
 
-// Shared memory of a block of R rows, in floats.
-__host__ inline size_t smem_floats(int slots, const Net& de, const Net& ae, int R) {
-  const size_t RH = static_cast<size_t>(R) * de.ld;
+// The buffers of a block of R rows, in floats.
+__host__ inline size_t smem_floats(int slots, const Net& de, const Net& ae, int R, int H) {
+  const size_t RH = static_cast<size_t>(R) * H;
   // resident weights, tables, activations (2), prefetched steps (2), the
   // readout, the inputs (DE, AE), the carries x (2), the stages (4), i_c, i_in
-  return static_cast<size_t>(slots) * kMat + fwd_net_floats(de) + fwd_net_floats(ae) + 2 * RH +
-         2 * static_cast<size_t>(step_floats(R, de.ld)) + RH + 2 * RH + 8 * RH;
+  return static_cast<size_t>(slots) * kMat + fwd_net_floats(de, H) + fwd_net_floats(ae, H) + 2 * RH +
+         2 * static_cast<size_t>(step_floats(R, H)) + RH + 2 * RH + 8 * RH;
 }
 
 // kFoldPath: one row a block (R = 1) and narrow nets, the readouts folded
-// into the next first layer by the first fw warps; else the tile path.
-template <int R, bool kFoldPath>
-__global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant__ Args a, int slots, int fw) {
+// into the next first layer by the first kFoldWarps warps; else the tile
+// path. kGlobal: the block's buffers in global memory (one row a block, the
+// tile path), else in shared memory, which the compiler then addresses as
+// such.
+template <int R, bool kFoldPath, bool kGlobal>
+__global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant__ Args a, int slots) {
   extern __shared__ __align__(16) float smem[];
-  const int H = a.de.ld, B = a.batch, h = a.h, xd = a.xd, id = a.id, S = n_stages(a.solver);
+  const int H = a.H, B = a.batch, h = a.h, xd = a.xd, id = a.id, S = n_stages(a.solver);
   const int tid = threadIdx.x, row0 = blockIdx.x * R, RH = R * H, SF = step_floats(R, H);
-  const bool folder = tid < 32 * fw;  // a warp that folds
+  const bool folder = tid < 32 * kFoldWarps;  // a warp that folds
+  constexpr bool async = !kGlobal;            // the step's rows by cp.async
   float* p = smem;
+  if constexpr (kGlobal) p = a.gmem + blockIdx.x * a.gmem_block;
   float* wres = p;
   p += static_cast<size_t>(slots) * kMat;
-  const FwdNet tde = carve_net(a.de, p);
-  const FwdNet tae = carve_net(a.ae, p);
+  const FwdNet tde = carve_net(a.de, H, p);
+  const FwdNet tae = carve_net(a.ae, H, p);
   float* vec = p;  // every vector below starts at zero
   float* act_a = p;
   float* act_b = act_a + RH;
@@ -103,7 +125,7 @@ __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant
   for (int e = tid; e < iin + RH - vec; e += kThreads) vec[e] = 0.f;
   __syncthreads();
   constexpr int NB = kFoldPath ? kRegBanks : 0;  // the register banks this kernel uses
-  float4 wr[kRegBanks][8];  // the DE's hidden weights held in registers (kFoldPath)
+  float4 wr[NB > 0 ? NB : 1][8];                 // the DE's hidden weights held in registers
   load_m16<NB>(a.de, wres, wr);
   load_m16<NB>(a.ae, wres, wr);
   load_tables(a.de, tde);
@@ -119,15 +141,15 @@ __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant
 
   // step t's stream rows and (dt, ev) into buffer t & 1
   auto stream = [&](int q) { return q == 0 ? a.s_de : (q == 1 ? a.s_ae : a.s_ae_ev); };
-  const RowCopy rc = row_copy(3, R, h, H, row0, B, stream);
+  const RowCopy rc = row_copy(3, R, h, H, row0, B, async, stream);
   const int ea = kThreads - 1 - tid;  // the threads from the top copy (dt, ev)
   const float* aux_src = ea < 2 * R && row0 + (ea >> 1) < B ? a.aux + (row0 + (ea >> 1)) * 2 + (ea & 1) : nullptr;
   auto prefetch = [&](int t) {
     float* dst = pf + (t & 1) * SF;
     prefetch_rows(rc, dst, t, 3, R, h, H, row0, B, a.aux, stream);
     if (ea < 2 * R)
-      cp_async_f32(dst + 3 * RH + 4 * (ea >> 1) + (ea & 1),
-                   aux_src ? aux_src + static_cast<size_t>(t) * B * 2 : a.aux, aux_src != nullptr);
+      step_copy(dst + 3 * RH + 4 * (ea >> 1) + (ea & 1),
+                aux_src ? aux_src + static_cast<size_t>(t) * B * 2 : a.aux, aux_src != nullptr, async);
     cp_async_commit();
   };
   auto s_de = [&](int t) { return pf + (t & 1) * SF; };
@@ -184,7 +206,7 @@ __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant
             in[c] = c < xd ? x_t[c] : pick(yr, c - xd);
             if (tid == c && c < id) iin[c] = yr[c];
           }
-          fold_first_layer(a.de, tde, in, s_de(t), nxt, fw);
+          fold_first_layer(a.de, tde, in, s_de(t), nxt);
         }
         __syncthreads();
       } else {
@@ -230,9 +252,9 @@ __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant
           }
           NE_FWD_MARK(14);
           if (last) {
-            fold_first_layer(a.ae, tae, in, s_ae(t), nxt, fw);
+            fold_first_layer(a.ae, tae, in, s_ae(t), nxt);
           } else {
-            fold_first_layer(a.de, tde, in, s_de(t), nxt, fw);
+            fold_first_layer(a.de, tde, in, s_de(t), nxt);
           }
         }
         __syncthreads();
@@ -290,9 +312,9 @@ __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant
         for (int c = 0; c < kFold; ++c) in[c] = c < xd ? x_n[c] : pick(yr, c - xd);
         if (more) {
           if (ev_n) {
-            fold_first_layer(a.ae, tae, in, s_ev(t + 1), nxt, fw);
+            fold_first_layer(a.ae, tae, in, s_ev(t + 1), nxt);
           } else {
-            fold_first_layer(a.de, tde, in, s_de(t + 1), nxt, fw);
+            fold_first_layer(a.de, tde, in, s_de(t + 1), nxt);
           }
         }
       }
@@ -325,51 +347,110 @@ __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant
   }
 }
 
-template <int R, bool kFoldPath>
-cudaError_t launch(const Args& a, int max_regs, int max_slots, int fw, cudaStream_t st) {
-  Args b = a;
+template <int R, bool kFoldPath, bool kGlobal = false>
+cudaError_t launch(Args b, cudaStream_t st) {
   Net* nets[2] = {&b.de, &b.ae};
   // by default, one row a block: the DE's first hidden weight (used S times
   // a step) in registers, its second and the AE's in shared memory; a tile
   // of rows: the DE's in shared memory, the AE's through L1 and L2
-  // (phase_clock's [ne-fwd-slots] sweep)
-  const int regs = kFoldPath ? (max_regs >= 0 && max_regs < kRegBanks ? max_regs : kRegBanks) : 0;
-  const int cap = max_slots >= 0 ? max_slots : (kFoldPath ? 2 * kMaxTail : b.de.n - 1);
-  const int slots = fwd_place(nets, 2, regs, cap, smem_floats(0, b.de, b.ae, R));
-  const size_t smem = smem_floats(slots, b.de, b.ae, R) * sizeof(float);
-  if (smem > kSmemMax || fw < 1 || fw > kThreads / 32 || b.de.ld % fw) return cudaErrorInvalidValue;
-  const cudaError_t e = allow_smem(dae_forward<R, kFoldPath>, smem);
+  // (phase_clock's [ne-fwd-slots] sweep); buffers in global memory: all
+  // through L1 and L2
+  const int cap = kGlobal ? 0 : (kSlotCap >= 0 ? kSlotCap : (kFoldPath ? 2 * kMaxTail : b.de.n - 1));
+  const int slots = fwd_place(nets, 2, b.H, kFoldPath ? kRegBanks : 0, cap, smem_floats(0, b.de, b.ae, R, b.H));
+  const size_t smem = kGlobal ? 0 : smem_floats(slots, b.de, b.ae, R, b.H) * sizeof(float);
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  const cudaError_t e = allow_smem(dae_forward<R, kFoldPath, kGlobal>, smem);
   if (e != cudaSuccess) return e;
   const int blocks = (b.batch + R - 1) / R;
-  dae_forward<R, kFoldPath><<<blocks, kThreads, smem, st>>>(b, slots, fw);
+  dae_forward<R, kFoldPath, kGlobal><<<blocks, kThreads, smem, st>>>(b, slots);
   return cudaGetLastError();
+}
+
+// A call's plan: its nets, their padded blocks at the front of the scratch
+// (DE then AE, weights then biases; null scratch: the shapes alone), its
+// padded width, its rows a block, and the scratch's floats (the padded
+// weights, then, where a block's buffers do not fit shared memory, every
+// block's buffers).
+struct Plan {
+  Net de, ae;
+  int H;
+  FwdShape shape;
+  size_t weights, scratch;
+};
+
+bool plan(Plan& p, int batch, int h, int xd, int id, int n_de, int n_ae, int rows, float* scratch) {
+  if (batch < 1 || h < 1 || xd < 1 || id < 1 || n_de < 1 || n_de > kMaxTail || n_ae < 1 || n_ae > kMaxTail ||
+      (rows != 1 && rows != 2 && rows != 4 && rows != 8))
+    return false;
+  p.H = fwd_width(h > xd + id ? h : xd + id);
+  const size_t HH = static_cast<size_t>(p.H) * p.H, wd = (n_de + 1) * HH, wa = (n_ae + 1) * HH;
+  auto at = [&](size_t off) { return scratch ? scratch + off : nullptr; };
+  p.de = make_net(at(0), at(wd + wa), n_de, xd + id, xd, p.H);
+  p.ae = make_net(at(wd), at(wd + wa + static_cast<size_t>(n_de) * p.H), n_ae, xd, id, p.H);
+  p.weights = wd + wa + static_cast<size_t>(n_de + n_ae) * p.H;
+  p.shape = fwd_shape(rows, [&](int R) { return smem_floats(0, p.de, p.ae, R, p.H); });
+  const size_t blocks = (batch + p.shape.rows - 1) / p.shape.rows;
+  p.scratch = p.weights + (p.shape.gmem ? blocks * p.shape.floats : 0);
+  return true;
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes. Pointers are device pointers to
-// contiguous float32 arrays: w_de the DE's weights transposed and padded
-// [n_de + 1][H][H] (H = h rounded up to a multiple of 128; [wx_de; wi_de]
-// first, then the tail layers, each [out][in]), b_de its biases [n_de][H],
-// w_ae / b_ae the AE's (gx_ae first). solver: 0 Euler, 1 Midpoint, 2 RK4
-// (3/8 rule). rows_per_block: 1, 2, 4 or 8. max_regs: the DE's hidden
-// weights held in registers (one row a block only; at most kRegBanks, and
-// negative: kRegBanks);
-// max_slots: the hidden weights resident in shared memory after them, in
-// the order DE, AE (negative: with one row a block all that fit, else the
-// DE's); fold_warps: the warps that fold a readout (0: kFoldWarps). Launches
-// on `stream` without synchronising and returns the launch's error (0 on
+// C interface, loaded with ctypes. psn_fused_dae_rollout_scratch: the
+// floats of device scratch a launch of these sizes needs (-1: sizes it
+// refuses). psn_fused_dae_rollout_f32: pointers are device pointers to
+// contiguous float32 arrays in the wrapper's layout (row = input): wx_de
+// [xd][h], wi_de [id][h], gx_ae [xd][h]; de_w / de_b, ae_w / ae_b host
+// arrays of the tail layers' weights [in][out] and biases [out]; scratch
+// of psn_fused_dae_rollout_scratch floats. solver: 0 Euler, 1 Midpoint, 2
+// RK4 (3/8 rule). rows_per_block: 1, 2, 4 or 8, the most rows a block takes
+// (fewer where their buffers do not fit shared memory). Launches on
+// `stream` without synchronising and returns the launches' error (0 on
 // success).
+extern "C" long long psn_fused_dae_rollout_scratch(int batch, int h, int xd, int id, int n_de, int n_ae,
+                                                   int rows_per_block) {
+  Plan p;
+  return plan(p, batch, h, xd, id, n_de, n_ae, rows_per_block, nullptr) ? static_cast<long long>(p.scratch) : -1;
+}
+
 extern "C" int psn_fused_dae_rollout_f32(const void* s_de, const void* s_ae, const void* s_ae_ev,
-                                         const void* aux, const void* x0, const void* i0, const void* w_de,
-                                         const void* b_de, int n_de, const void* w_ae, const void* b_ae,
-                                         int n_ae, void* sol, int tm1, int batch, int h, int xd, int id,
-                                         int solver, int rows_per_block, int max_regs, int max_slots,
-                                         int fold_warps, void* stream) {
-  const int H = (h + kMaxH - 1) / kMaxH * kMaxH;  // the padded width
-  if (tm1 < 0 || batch < 1 || h < 1 || xd < 1 || id < 1 || xd + id > H || solver < 0 || solver > 2 ||
-      n_de < 1 || n_de > kMaxTail || n_ae < 1 || n_ae > kMaxTail)
+                                         const void* aux, const void* x0, const void* i0, const void* wx_de,
+                                         const void* wi_de, const void* const* de_w, const void* const* de_b,
+                                         int n_de, const void* gx_ae, const void* const* ae_w,
+                                         const void* const* ae_b, int n_ae, void* scratch, void* sol, int tm1,
+                                         int batch, int h, int xd, int id, int solver, int rows_per_block,
+                                         void* stream) {
+  Plan p;
+  float* base = static_cast<float*>(scratch);
+  if (tm1 < 0 || solver < 0 || solver > 2 || !base ||
+      !plan(p, batch, h, xd, id, n_de, n_ae, rows_per_block, base))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (tm1 == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  PackArgs pk{};
+  pk.src[0].w0[0] = static_cast<const float*>(wx_de);
+  pk.src[0].w0[1] = static_cast<const float*>(wi_de);
+  pk.src[0].k0[0] = xd;
+  pk.src[0].k0[1] = id;
+  pk.src[1].w0[0] = pk.src[1].w0[1] = static_cast<const float*>(gx_ae);
+  pk.src[1].k0[0] = xd;
+  for (int l = 0; l < n_de; ++l) {
+    pk.src[0].w[l] = static_cast<const float*>(de_w[l]);
+    pk.src[0].b[l] = static_cast<const float*>(de_b[l]);
+  }
+  for (int l = 0; l < n_ae; ++l) {
+    pk.src[1].w[l] = static_cast<const float*>(ae_w[l]);
+    pk.src[1].b[l] = static_cast<const float*>(ae_b[l]);
+  }
+  pk.dst[0] = p.de;
+  pk.dst[1] = p.ae;
+  pk.count = 2;
+  pk.h = h;
+  pk.H = p.H;
+  const int pb = pack_blocks(p.weights);
+  pack_nets<<<pb, kThreads, 0, st>>>(pk);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
   Args a;
   a.s_de = static_cast<const float*>(s_de);
   a.s_ae = static_cast<const float*>(s_ae);
@@ -377,27 +458,25 @@ extern "C" int psn_fused_dae_rollout_f32(const void* s_de, const void* s_ae, con
   a.aux = static_cast<const float*>(aux);
   a.x0 = static_cast<const float*>(x0);
   a.i0 = static_cast<const float*>(i0);
-  a.de = make_net(static_cast<const float*>(w_de), static_cast<const float*>(b_de), n_de, xd + id, xd, H);
-  a.ae = make_net(static_cast<const float*>(w_ae), static_cast<const float*>(b_ae), n_ae, xd, id, H);
+  a.de = p.de;
+  a.ae = p.ae;
   a.sol = static_cast<float*>(sol);
+  a.gmem = p.shape.gmem ? base + p.weights : nullptr;
+  a.gmem_block = p.shape.floats;
   a.tm1 = tm1;
   a.batch = batch;
   a.h = h;
+  a.H = p.H;
   a.xd = xd;
   a.id = id;
   a.solver = solver;
-  if (tm1 == 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int fw = fold_warps > 0 ? fold_warps : kFoldWarps;
   const bool fold = narrow_in(a.de) && narrow_out(a.de) && narrow_in(a.ae) && narrow_out(a.ae);
-  switch (rows_per_block) {
-    case 1:
-      return static_cast<int>(fold ? launch<1, true>(a, max_regs, max_slots, fw, st)
-                                   : launch<1, false>(a, max_regs, max_slots, fw, st));
-    case 2: return static_cast<int>(launch<2, false>(a, max_regs, max_slots, fw, st));
-    case 4: return static_cast<int>(launch<4, false>(a, max_regs, max_slots, fw, st));
-    case 8: return static_cast<int>(launch<8, false>(a, max_regs, max_slots, fw, st));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (p.shape.gmem) return static_cast<int>(launch<1, false, true>(a, st));
+  switch (p.shape.rows) {
+    case 1: return static_cast<int>(fold ? launch<1, true>(a, st) : launch<1, false>(a, st));
+    case 2: return static_cast<int>(launch<2, false>(a, st));
+    case 4: return static_cast<int>(launch<4, false>(a, st));
+    default: return static_cast<int>(launch<8, false>(a, st));
   }
 }
 

@@ -30,22 +30,35 @@
 // section, shared with csrc/fused_dae_rollout.cu): a layer is one pass and
 // one barrier; the narrow readout (the xd outputs) folds into the next
 // stage's first layer in 4 warps, so an evaluation takes three barriers and
-// an RK4 step 12 (the parent kernel: 20, its weights by scalar loads from
+// an RK4 step 12 (the earlier kernel: 20, its weights by scalar loads from
 // L2); with one row a block both hidden weights sit in registers (32 a
-// thread each), the first layer, the readout and the biases in shared
-// memory, and cp.async brings step t+1's stream row and dt while step t
-// runs. The encode shape (xd = h) keeps a wide readout with its own
+// thread each; [ne-fwd-slots], each solver), the first layer, the readout
+// and the biases in shared memory, and cp.async brings step t+1's stream
+// row and dt while step t runs. The encode shape (xd = h) keeps a wide readout with its own
 // barrier. With more rows than SMs a block takes a tile of R rows that
-// share each weight load from shared memory (R = 8 at B = 1024); wider h
-// runs as 128-wide chunks from L2. Rows are independent: no atomics.
+// share each weight load from shared memory (R = 8 at B = 1024). The
+// weights arrive as the wrapper holds them and pack_nets pads them on the
+// card. Wider h runs as 128-wide chunks from L2, with fewer rows a block
+// where R rows' buffers do not fit shared memory, and with one row's
+// buffers in global memory where even those do not (h above about 3 000).
+// Rows are independent: no atomics.
 
 #include "noencode_bwd.cuh"
 
 namespace {
 
-// The hidden weights a folding block holds in registers: both (32 a thread
-// each; phase_clock's [ne-fwd-slots] sweep).
-constexpr int kRegBanks = 2;
+// Where a block keeps the hidden weights; phase_clock's [ne-fwd-slots] sweep
+// builds other placements with -D. NE_FWD_REGS: the hidden weights a
+// folding block holds in registers (both). NE_FWD_SLOTS: at most this many
+// in shared memory after them (-1: all that fit).
+#ifndef NE_FWD_REGS
+#define NE_FWD_REGS 2
+#endif
+#ifndef NE_FWD_SLOTS
+#define NE_FWD_SLOTS -1
+#endif
+constexpr int kRegBanks = NE_FWD_REGS;
+constexpr int kSlotCap = NE_FWD_SLOTS;
 
 struct Args {
   const float* s_de;  // [tm1, batch, h]
@@ -53,33 +66,40 @@ struct Args {
   const float* x0;    // [batch, xd]
   Net de;             // first layer wx (kin = xd), out = xd
   float* sol;         // [tm1, batch, xd]
-  int tm1, batch, h, xd, solver;
+  float* gmem;        // the blocks' buffers in global memory (null: in shared memory)
+  size_t gmem_block;  // floats of a block's buffers there
+  int tm1, batch, h, H, xd, solver;
 };
 
 // Floats of one prefetched step of R rows: the stream rows, then dt of each
 // row in 4 floats.
 __host__ __device__ inline int step_floats(int R, int H) { return R * H + 4 * R; }
 
-// Shared memory of a block of R rows, in floats.
-__host__ inline size_t smem_floats(int slots, const Net& de, int R) {
-  const size_t RH = static_cast<size_t>(R) * de.ld;
+// The buffers of a block of R rows, in floats.
+__host__ inline size_t smem_floats(int slots, const Net& de, int R, int H) {
+  const size_t RH = static_cast<size_t>(R) * H;
   // resident weights, tables, activations (2), prefetched steps (2), the
   // readout, the next input, the carries (2), the stages (4)
-  return static_cast<size_t>(slots) * kMat + fwd_net_floats(de) + 2 * RH +
-         2 * static_cast<size_t>(step_floats(R, de.ld)) + RH + RH + 6 * RH;
+  return static_cast<size_t>(slots) * kMat + fwd_net_floats(de, H) + 2 * RH +
+         2 * static_cast<size_t>(step_floats(R, H)) + RH + RH + 6 * RH;
 }
 
 // kFoldPath: one row a block (R = 1) and a narrow net, the readout folded
-// into the next first layer by the first fw warps; else the tile path.
-template <int R, bool kFoldPath>
-__global__ void __launch_bounds__(kThreads, 1) ode_forward(const __grid_constant__ Args a, int slots, int fw) {
+// into the next first layer by the first kFoldWarps warps; else the tile
+// path. NB: the hidden weights held in registers. kGlobal: the block's
+// buffers in global memory (one row a block, the tile path), else in shared
+// memory, which the compiler then addresses as such.
+template <int R, bool kFoldPath, int NB, bool kGlobal>
+__global__ void __launch_bounds__(kThreads, 1) ode_forward(const __grid_constant__ Args a, int slots) {
   extern __shared__ __align__(16) float smem[];
-  const int H = a.de.ld, B = a.batch, h = a.h, xd = a.xd, S = n_stages(a.solver);
+  const int H = a.H, B = a.batch, h = a.h, xd = a.xd, S = n_stages(a.solver);
   const int tid = threadIdx.x, row0 = blockIdx.x * R, RH = R * H, SF = step_floats(R, H);
+  constexpr bool async = !kGlobal;  // the step's rows by cp.async
   float* p = smem;
+  if constexpr (kGlobal) p = a.gmem + blockIdx.x * a.gmem_block;
   float* wres = p;
   p += static_cast<size_t>(slots) * kMat;
-  const FwdNet tde = carve_net(a.de, p);
+  const FwdNet tde = carve_net(a.de, H, p);
   float* vec = p;  // every vector below starts at zero
   float* act_a = p;
   float* act_b = act_a + RH;
@@ -90,8 +110,7 @@ __global__ void __launch_bounds__(kThreads, 1) ode_forward(const __grid_constant
   float* kq = xc + 2 * RH;  // [4][R][H] the stages' derivatives
   for (int e = tid; e < kq + 4 * RH - vec; e += kThreads) vec[e] = 0.f;
   __syncthreads();
-  constexpr int NB = kFoldPath ? kRegBanks : 0;  // the register banks this kernel uses
-  float4 wr[kRegBanks][8];  // hidden weights held in registers (kFoldPath)
+  float4 wr[NB > 0 ? NB : 1][8];  // hidden weights held in registers
   load_m16<NB>(a.de, wres, wr);
   load_tables(a.de, tde);
   for (int e = tid; e < R * xd; e += kThreads) {
@@ -101,14 +120,14 @@ __global__ void __launch_bounds__(kThreads, 1) ode_forward(const __grid_constant
 
   // step t's stream rows and step sizes into buffer t & 1
   auto stream = [&](int) { return a.s_de; };
-  const RowCopy rc = row_copy(1, R, h, H, row0, B, stream);
+  const RowCopy rc = row_copy(1, R, h, H, row0, B, async, stream);
   const int ea = kThreads - 1 - tid;  // the threads from the top copy dt
   const float* dt_src = ea < R && row0 + ea < B ? a.dt + row0 + ea : nullptr;
   auto prefetch = [&](int t) {
     float* dst = pf + (t & 1) * SF;
     prefetch_rows(rc, dst, t, 1, R, h, H, row0, B, a.dt, stream);
     if (ea < R)
-      cp_async_f32(dst + RH + 4 * ea, dt_src ? dt_src + static_cast<size_t>(t) * B : a.dt, dt_src != nullptr);
+      step_copy(dst + RH + 4 * ea, dt_src ? dt_src + static_cast<size_t>(t) * B : a.dt, dt_src != nullptr, async);
     cp_async_commit();
   };
   auto s_de = [&](int t) { return pf + (t & 1) * SF; };
@@ -143,7 +162,7 @@ __global__ void __launch_bounds__(kThreads, 1) ode_forward(const __grid_constant
       // the next first layer: stage q + 1 of this step, or stage 1 of the next
       const float* s_next = last ? s_de(t + 1) : s_de(t);
       if constexpr (kFoldPath) {
-        if (tid < 32 * fw) {
+        if (tid < 32 * kFoldWarps) {
           float yr[kFold], in[kFold];
           fold_readout(a.de, tde, cur, yr);
           NE_FWD_MARK(4 + 3 * q);
@@ -164,7 +183,7 @@ __global__ void __launch_bounds__(kThreads, 1) ode_forward(const __grid_constant
             }
           }
           NE_FWD_MARK(14);
-          if (!last || more) fold_first_layer(a.de, tde, in, s_next, nxt, fw);
+          if (!last || more) fold_first_layer(a.de, tde, in, s_next, nxt);
         }
         __syncthreads();
       } else {
@@ -193,65 +212,113 @@ __global__ void __launch_bounds__(kThreads, 1) ode_forward(const __grid_constant
   }
 }
 
-template <int R, bool kFoldPath>
-cudaError_t launch(const Args& a, int max_regs, int max_slots, int fw, cudaStream_t st) {
-  Args b = a;
+template <int R, bool kFoldPath, int NB, bool kGlobal = false>
+cudaError_t launch(Args b, cudaStream_t st) {
   Net* nets[1] = {&b.de};
   // by default, one row a block: the two hidden weights in registers; a
-  // tile of rows: in shared memory (phase_clock's [ne-fwd-slots] sweep)
-  const int regs = kFoldPath ? (max_regs >= 0 && max_regs < kRegBanks ? max_regs : kRegBanks) : 0;
-  const int slots = fwd_place(nets, 1, regs, max_slots >= 0 ? max_slots : kMaxTail, smem_floats(0, b.de, R));
-  const size_t smem = smem_floats(slots, b.de, R) * sizeof(float);
-  if (smem > kSmemMax || fw < 1 || fw > kThreads / 32 || b.de.ld % fw) return cudaErrorInvalidValue;
-  const cudaError_t e = allow_smem(ode_forward<R, kFoldPath>, smem);
+  // tile of rows: in shared memory
+  // (phase_clock's [ne-fwd-slots] sweep); buffers in global memory: through
+  // L1 and L2
+  const int cap = kGlobal ? 0 : (kSlotCap >= 0 ? kSlotCap : kMaxTail);
+  const int slots = fwd_place(nets, 1, b.H, NB, cap, smem_floats(0, b.de, R, b.H));
+  const size_t smem = kGlobal ? 0 : smem_floats(slots, b.de, R, b.H) * sizeof(float);
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  const cudaError_t e = allow_smem(ode_forward<R, kFoldPath, NB, kGlobal>, smem);
   if (e != cudaSuccess) return e;
   const int blocks = (b.batch + R - 1) / R;
-  ode_forward<R, kFoldPath><<<blocks, kThreads, smem, st>>>(b, slots, fw);
+  ode_forward<R, kFoldPath, NB, kGlobal><<<blocks, kThreads, smem, st>>>(b, slots);
   return cudaGetLastError();
+}
+
+// A call's plan: its net, its padded block at the front of the scratch
+// (weights then biases; null scratch: the shape alone), its padded width,
+// its rows a block, and the scratch's floats (the padded weights, then,
+// where a block's buffers do not fit shared memory, every block's buffers).
+struct Plan {
+  Net de;
+  int H;
+  FwdShape shape;
+  size_t weights, scratch;
+};
+
+bool plan(Plan& p, int batch, int h, int xd, int n_tail, int rows, float* scratch) {
+  if (batch < 1 || h < 1 || xd < 1 || n_tail < 1 || n_tail > kMaxTail ||
+      (rows != 1 && rows != 2 && rows != 4 && rows != 8))
+    return false;
+  p.H = fwd_width(h > xd ? h : xd);
+  const size_t wd = (n_tail + 1) * static_cast<size_t>(p.H) * p.H;
+  p.de = make_net(scratch, scratch ? scratch + wd : nullptr, n_tail, xd, xd, p.H);
+  p.weights = wd + static_cast<size_t>(n_tail) * p.H;
+  p.shape = fwd_shape(rows, [&](int R) { return smem_floats(0, p.de, R, p.H); });
+  const size_t blocks = (batch + p.shape.rows - 1) / p.shape.rows;
+  p.scratch = p.weights + (p.shape.gmem ? blocks * p.shape.floats : 0);
+  return true;
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes. Pointers are device pointers to
-// contiguous float32 arrays: w the net's weights transposed and padded
-// [n_tail + 1][H][H] (H = h rounded up to a multiple of 128; wx first, then
-// the tail layers, each [out][in]), b its biases [n_tail][H]. solver: 0
-// Euler, 1 Midpoint, 2 RK4 (3/8 rule). rows_per_block: 1, 2, 4 or 8.
-// max_regs: the hidden weights held in registers (one row a block only; at
-// most kRegBanks, and negative: kRegBanks); max_slots: those resident in shared memory after them
-// (negative: all that fit); fold_warps: the warps that fold the readout (0:
-// kFoldWarps). Launches on `stream` without synchronising and returns the
-// launch's error (0 on success).
-extern "C" int psn_fused_ode_rollout_f32(const void* s_de, const void* dt, const void* x0, const void* w,
-                                         const void* b, int n_tail, void* sol, int tm1, int batch, int h,
-                                         int xd, int solver, int rows_per_block, int max_regs,
-                                         int max_slots, int fold_warps, void* stream) {
-  const int H = (h + kMaxH - 1) / kMaxH * kMaxH;  // the padded width
-  if (tm1 < 0 || batch < 1 || h < 1 || xd < 1 || xd > H || solver < 0 || solver > 2 || n_tail < 1 ||
-      n_tail > kMaxTail)
+// C interface, loaded with ctypes. psn_fused_ode_rollout_scratch: the floats
+// of device scratch a launch of these sizes needs (-1: sizes it refuses).
+// psn_fused_ode_rollout_f32: pointers are device pointers to contiguous
+// float32 arrays in the wrapper's layout (row = input): wx [xd][h]; w / b
+// host arrays of the tail layers' weights [in][out] and biases [out];
+// scratch of psn_fused_ode_rollout_scratch floats. solver: 0 Euler, 1
+// Midpoint, 2 RK4 (3/8 rule). rows_per_block: 1, 2, 4 or 8, the most rows
+// a block takes (fewer where their buffers do not fit shared memory).
+// Launches on `stream` without synchronising and returns the launches'
+// error (0 on success).
+extern "C" long long psn_fused_ode_rollout_scratch(int batch, int h, int xd, int n_tail, int rows_per_block) {
+  Plan p;
+  return plan(p, batch, h, xd, n_tail, rows_per_block, nullptr) ? static_cast<long long>(p.scratch) : -1;
+}
+
+extern "C" int psn_fused_ode_rollout_f32(const void* s_de, const void* dt, const void* x0, const void* wx,
+                                         const void* const* w, const void* const* b, int n_tail, void* scratch,
+                                         void* sol, int tm1, int batch, int h, int xd, int solver,
+                                         int rows_per_block, void* stream) {
+  Plan p;
+  float* base = static_cast<float*>(scratch);
+  if (tm1 < 0 || solver < 0 || solver > 2 || !base || !plan(p, batch, h, xd, n_tail, rows_per_block, base))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (tm1 == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  PackArgs pk{};
+  pk.src[0].w0[0] = pk.src[0].w0[1] = static_cast<const float*>(wx);
+  pk.src[0].k0[0] = xd;
+  for (int l = 0; l < n_tail; ++l) {
+    pk.src[0].w[l] = static_cast<const float*>(w[l]);
+    pk.src[0].b[l] = static_cast<const float*>(b[l]);
+  }
+  pk.dst[0] = p.de;
+  pk.count = 1;
+  pk.h = h;
+  pk.H = p.H;
+  const int pb = pack_blocks(p.weights);
+  pack_nets<<<pb, kThreads, 0, st>>>(pk);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
   Args a;
   a.s_de = static_cast<const float*>(s_de);
   a.dt = static_cast<const float*>(dt);
   a.x0 = static_cast<const float*>(x0);
-  a.de = make_net(static_cast<const float*>(w), static_cast<const float*>(b), n_tail, xd, xd, H);
+  a.de = p.de;
   a.sol = static_cast<float*>(sol);
+  a.gmem = p.shape.gmem ? base + p.weights : nullptr;
+  a.gmem_block = p.shape.floats;
   a.tm1 = tm1;
   a.batch = batch;
   a.h = h;
+  a.H = p.H;
   a.xd = xd;
   a.solver = solver;
-  if (tm1 == 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int fw = fold_warps > 0 ? fold_warps : kFoldWarps;
-  switch (rows_per_block) {
+  if (p.shape.gmem) return static_cast<int>(launch<1, false, 0, true>(a, st));
+  switch (p.shape.rows) {
     case 1:
-      return static_cast<int>(narrow_in(a.de) && narrow_out(a.de) ? launch<1, true>(a, max_regs, max_slots, fw, st)
-                                                                  : launch<1, false>(a, max_regs, max_slots, fw, st));
-    case 2: return static_cast<int>(launch<2, false>(a, max_regs, max_slots, fw, st));
-    case 4: return static_cast<int>(launch<4, false>(a, max_regs, max_slots, fw, st));
-    case 8: return static_cast<int>(launch<8, false>(a, max_regs, max_slots, fw, st));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+      return static_cast<int>(narrow_in(a.de) && narrow_out(a.de) ? launch<1, true, kRegBanks>(a, st)
+                                                                  : launch<1, false, 0>(a, st));
+    case 2: return static_cast<int>(launch<2, false, 0>(a, st));
+    case 4: return static_cast<int>(launch<4, false, 0>(a, st));
+    default: return static_cast<int>(launch<8, false, 0>(a, st));
   }
 }
 

@@ -62,9 +62,10 @@ __host__ __device__ inline int n_stages(int solver) { return solver == 0 ? 1 : (
 __host__ __device__ inline int round8(int k) { return (k + 7) / 8 * 8; }
 
 // One net as the kernels read it: w[0] the first layer (its kin inputs),
-// w[1 + l] tail layer l, each [ld][ld] (ld = kMaxH but in the forward's
-// wide path); b[l] tail layer l's bias, [ld]; res_slot[l] the shared-memory
-// slot of tail layer l < n - 1 (-1: read from L2).
+// w[1 + l] tail layer l, each [kMaxH][kMaxH] (in the forward, [H][H] with
+// H its padded width); b[l] tail layer l's bias, [kMaxH] (or [H]);
+// res_slot[l] the shared-memory slot of tail layer l < n - 1 (-1: read
+// from L2).
 struct Net {
   const float* w[kMaxTail + 1];
   const float* b[kMaxTail];
@@ -72,7 +73,6 @@ struct Net {
   int n;    // tail layers
   int kin;  // the first layer's inputs
   int out;  // the last layer's outputs
-  int ld;   // the row stride of a weight, the length of a bias
 };
 
 // The buffers between the kernels, for E evaluation slots (the S stages,
@@ -118,19 +118,18 @@ __host__ inline Bufs make_bufs(float* res, float* gres, float* gy, float* xin, l
 }
 
 // The net of a padded weight block w [n + 1][ld][ld] and bias block b
-// [n][ld].
+// [n][ld] (null blocks: the net's shape alone).
 __host__ inline Net make_net(const float* w, const float* b, int n, int kin, int out, int ld = kMaxH) {
   Net net{};
   const size_t mat = static_cast<size_t>(ld) * ld;
-  for (int l = 0; l <= kMaxTail; ++l) net.w[l] = l <= n ? w + l * mat : nullptr;
+  for (int l = 0; l <= kMaxTail; ++l) net.w[l] = w && l <= n ? w + l * mat : nullptr;
   for (int l = 0; l < kMaxTail; ++l) {
-    net.b[l] = l < n ? b + static_cast<size_t>(l) * ld : nullptr;
+    net.b[l] = b && l < n ? b + static_cast<size_t>(l) * ld : nullptr;
     net.res_slot[l] = -1;
   }
   net.n = n;
   net.kin = kin;
   net.out = out;
-  net.ld = ld;
   return net;
 }
 
@@ -320,7 +319,7 @@ __device__ __forceinline__ void load_resident(const Net& net, float* wres) {
   }
 }
 
-// out[r] += sum_j W[k][j] v[r][j] for the thread's output k and rows r < R
+// out[r] = sum_j W[k][j] v[r][j] for the thread's output k and rows r < R
 // (v row r at v + r ldv, in shared memory), summed over its quad: W a
 // [kMaxH][kMaxH] block of a weight, resident (swizzled) or in global memory
 // with row stride ldw floats. Each weight load serves the R rows.
@@ -345,13 +344,13 @@ __device__ __forceinline__ void matvec_rows(const float* W, int ldw, const float
     }
   }
 #pragma unroll
-  for (int r = 0; r < R; ++r) out[r] += quad_sum(a0[r] + a1[r]);
+  for (int r = 0; r < R; ++r) out[r] = quad_sum(a0[r] + a1[r]);
 }
 
 // sum_j W[k][j] v[j] for the thread's output k (one row of matvec_rows).
 template <bool kResident>
 __device__ __forceinline__ float matvec(const float* W, const float* v) {
-  float out[1] = {0.f};
+  float out[1];
   matvec_rows<kResident, 1>(W, kMaxH, v, 0, out);
   return out[0];
 }
@@ -450,29 +449,41 @@ __device__ __forceinline__ void walk_prefetch(const Bufs& bf, float* dst, long l
 // ------------------------------------------------------------------ forward
 //
 // The forward pair (csrc/fused_dae_rollout.cu, csrc/fused_ode_rollout.cu): a
-// block takes R batch rows and runs the whole rollout. The weights arrive
-// transposed (row = output) and zero-padded to [H][H], H = 128 nc (nc > 1
-// only for h > 128). A layer is one pass (product, bias, ELU, store) and
-// one barrier. A 128 x 128 hidden layer held in registers or in shared
-// memory runs in the M16 mapping: thread t sums outputs 4 (t / 16) + m, m <
-// 4, over inputs 8 (t % 16) + i, i < 8, from its 8 float4s of the weight
-// (w_i = W[4 (t / 16) + 0..3][8 (t % 16) + i]; in shared memory at i kThreads
-// + t, conflict-free), reading 8 inputs a row, and 16 lanes reduce by
-// halving (5 shuffles); each weight load serves the R rows. A weight read
-// from L2 (or a wider one) runs through matvec_rows. With one row a block
-// and nets whose first-layer input and readout are at most kFold wide, the
-// readout folds into the next evaluation's first layer: each of the first
-// fold_warps warps computes the readout itself, lane l summing inputs 4 l +
-// 128 m and a butterfly over the warp (the same instructions in the same
-// order, so every copy has the same bits), then in registers the stage
-// update or the step's carries, then its share of the next first layer,
-// with no barrier until that layer is published; warp 0 keeps the carries
-// in shared memory for the later steps. Otherwise (R > 1, or a wide net)
-// the readout, the carries and the first layer take a barrier each.
+// block takes R batch rows and runs the whole rollout. The wrappers pass the
+// weights as they hold them (row = input); pack_nets writes them on the
+// card, transposed (row = output) and zero-padded to [H][H], H = 128 nc
+// (nc > 1 only for a width above 128), into a scratch block the launch
+// reads. A layer is one pass (product, bias, ELU, store) and one barrier. A
+// 128 x 128 hidden layer held in registers or in shared memory runs in the
+// M16 mapping: thread t sums outputs 4 (t / 16) + m, m < 4, over inputs 8
+// (t % 16) + i, i < 8, from its 8 float4s of the weight (w_i = W[4 (t / 16)
+// + 0..3][8 (t % 16) + i]; in shared memory at i kThreads + t,
+// conflict-free), reading 8 inputs a row, and 16 lanes reduce by halving (5
+// shuffles); each weight load serves the R rows. A weight read from L2 (or
+// a wider one) runs through matvec_rows, 128-wide chunks at a time. With
+// one row a block and nets whose first-layer input and readout are at most
+// kFold wide, the readout folds into the next evaluation's first layer:
+// each of the first kFoldWarps warps computes the readout itself, lane l
+// summing inputs 4 l + 128 m and a butterfly over the warp (the same
+// instructions in the same order, so every copy has the same bits), then in
+// registers the stage update or the step's carries, then its share of the
+// next first layer, with no barrier until that layer is published; warp 0
+// keeps the carries in shared memory for the later steps. Otherwise (R > 1,
+// or a wide net) the readout, the carries and the first layer take a
+// barrier each. A block's buffers live in shared memory; where even one
+// row's do not fit (h above about 1 400 for the DAE, 3 000 for the ODE),
+// a kernel instantiated for it (one row, no fold) keeps them in the
+// scratch, in global memory, and copies the step's rows at once instead of
+// by cp.async.
 
-constexpr int kFold = 5;      // the widest first-layer input and readout that fold: x and i
-                              // of every DAE family of the repo (xd + id <= 5), the AVR ODE's x
-constexpr int kFoldWarps = 4;  // warps that fold, unless the launch says otherwise
+#ifndef NE_FWD_FOLD_WARPS
+#define NE_FWD_FOLD_WARPS 4  // phase_clock's [ne-fwd-fold] sweep builds others
+#endif
+constexpr int kFold = 5;  // the widest first-layer input and readout that fold: x and i
+                          // of every DAE family of the repo (xd + id <= 5), the AVR ODE's x
+constexpr int kFoldWarps = NE_FWD_FOLD_WARPS;  // warps that fold
+static_assert(kFoldWarps >= 1 && kFoldWarps <= kThreads / 32 && kMaxH % kFoldWarps == 0,
+              "the folding warps split a 128-wide layer evenly");
 
 // The phase clock of the forwards (utils/phase_clock.py): built with
 // -DNE_PHASE_CLOCK, thread 0 of block 0 notes clock64() and a phase number
@@ -516,35 +527,88 @@ __host__ __device__ inline bool narrow_in(const Net& n) { return n.kin <= kFold;
 __host__ __device__ inline bool narrow_out(const Net& n) { return n.out <= kFold; }
 __host__ __device__ inline int reg_bank(int slot) { return -2 - slot; }  // res_slot of a weight in registers
 
+// The forward's padded width: w rounded up to a multiple of kMaxH.
+__host__ inline int fwd_width(int w) { return (w + kMaxH - 1) / kMaxH * kMaxH; }
+
+// A net's weights as the wrappers hold them (row = input, the flax
+// layout): the first layer in two row blocks of k0[0] and k0[1] rows (the
+// DAE's DE takes [wx_de; wi_de]; k0[1] may be 0), tail layer l [in][out]
+// and its bias [out].
+struct SrcNet {
+  const float* w0[2];
+  int k0[2];
+  const float* w[kMaxTail];
+  const float* b[kMaxTail];
+};
+
+struct PackArgs {
+  SrcNet src[2];
+  Net dst[2];  // the padded blocks: dst.w[0] [n + 1][H][H], dst.b[0] [n][H]
+  int count, h, H;
+};
+
+// Writes each net's weights transposed (row = output) and zero-padded to
+// [H][H], and its biases zero-padded to [H], into its padded blocks.
+__global__ void __launch_bounds__(kThreads) pack_nets(const __grid_constant__ PackArgs a) {
+  const size_t H = a.H, HH = H * H, step = static_cast<size_t>(gridDim.x) * kThreads;
+  for (int i = 0; i < a.count; ++i) {
+    const SrcNet& s = a.src[i];
+    const Net& d = a.dst[i];
+    const size_t nw = (d.n + 1) * HH, total = nw + d.n * H;
+    for (size_t e = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x; e < total; e += step) {
+      float v = 0.f;
+      if (e < nw) {
+        const int l = static_cast<int>(e / HH), o = static_cast<int>(e % HH / H), c = static_cast<int>(e % H);
+        const int kin = l == 0 ? d.kin : a.h, out = l == d.n ? d.out : a.h;
+        if (o < out && c < kin) {
+          if (l > 0) {
+            v = s.w[l - 1][static_cast<size_t>(c) * out + o];
+          } else {
+            v = c < s.k0[0] ? s.w0[0][static_cast<size_t>(c) * out + o]
+                            : s.w0[1][static_cast<size_t>(c - s.k0[0]) * out + o];
+          }
+        }
+        const_cast<float*>(d.w[0])[e] = v;
+      } else {
+        const int l = static_cast<int>((e - nw) / H), j = static_cast<int>((e - nw) % H);
+        if (j < (l + 1 == d.n ? d.out : a.h)) v = s.b[l][j];
+        const_cast<float*>(d.b[0])[e - nw] = v;
+      }
+    }
+  }
+}
+
 // What a forward keeps of one net in shared memory for the whole launch:
 // w0 [kin][H] the first layer by input (narrow kin), wl [out][H] the
-// readout by output (narrow out), b [n][H] every bias.
+// readout by output (narrow out), b [n][H] every bias; ld = H, the row
+// stride of every vector and padded weight.
 struct FwdNet {
   float* w0;
   float* wl;
   float* b;
+  int ld;
 };
 
-__host__ __device__ inline size_t fwd_net_floats(const Net& n) {
-  const size_t H = n.ld;
-  return ((narrow_in(n) ? n.kin : 0) + (narrow_out(n) ? n.out : 0) + n.n) * H;
+__host__ __device__ inline size_t fwd_net_floats(const Net& n, int H) {
+  return static_cast<size_t>((narrow_in(n) ? n.kin : 0) + (narrow_out(n) ? n.out : 0) + n.n) * H;
 }
 
-__device__ inline FwdNet carve_net(const Net& n, float*& p) {
+__device__ inline FwdNet carve_net(const Net& n, int H, float*& p) {
   FwdNet t;
+  t.ld = H;
   t.w0 = p;
-  p += narrow_in(n) ? n.kin * n.ld : 0;
+  p += narrow_in(n) ? n.kin * H : 0;
   t.wl = p;
-  p += narrow_out(n) ? n.out * n.ld : 0;
+  p += narrow_out(n) ? n.out * H : 0;
   t.b = p;
-  p += n.n * n.ld;
+  p += n.n * H;
   return t;
 }
 
 // Copies a net's tables from its padded transposed weights (the caller
 // publishes them).
 __device__ inline void load_tables(const Net& net, const FwdNet& t) {
-  const int H = net.ld;
+  const int H = t.ld;
   if (narrow_in(net))
     for (int e = threadIdx.x; e < net.kin * H; e += kThreads) {
       const int c = e / H, j = e - c * H;
@@ -629,6 +693,20 @@ __device__ __forceinline__ void m16_sums(W w, const float* x, int ldx, float (&q
   }
 }
 
+// acc[r] = sum_j W[128 oc + k][j] v[r][j] for the thread's output k of
+// chunk oc (walk_k), over every 128-wide chunk of j, summed over its quad:
+// W a padded transposed weight [H][H] read from L2, v rows of H floats.
+template <int R>
+__device__ __forceinline__ void chunk_rows(const float* W, int H, int oc, const float* v, float (&acc)[R]) {
+  const int nc = H / kMaxH;
+  for (int ic = 0; ic < nc; ++ic) {
+    float part[R];
+    matvec_rows<false, R>(W + static_cast<size_t>(oc) * kMaxH * H + ic * kMaxH, H, v + ic * kMaxH, H, part);
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = ic == 0 ? part[r] : acc[r] + part[r];
+  }
+}
+
 // The hidden layers of `net` for R rows (row r of an activation at r H):
 // from cur, each layer's elu(W a + b) into the other buffer, then a barrier;
 // returns the buffer of the last (cur when the net has none). Each weight
@@ -638,7 +716,7 @@ __device__ __forceinline__ void m16_sums(W w, const float* x, int ldx, float (&q
 template <int R, int NB, int NA>
 __device__ __forceinline__ float* fwd_hidden(const Net& net, const FwdNet& t, float* cur, float* nxt,
                                              const float* wres, const float4 (&wr)[NA][8], bool wait) {
-  const int H = net.ld, nc = H / kMaxH;
+  const int H = t.ld, nc = H / kMaxH;
   for (int l = 0; l + 1 < net.n; ++l) {
     const int q = net.res_slot[l];
     const float* bl = t.b + l * H;
@@ -657,15 +735,10 @@ __device__ __forceinline__ float* fwd_hidden(const Net& net, const FwdNet& t, fl
 #pragma unroll
         for (int r = 0; r < R; ++r) nxt[r * H + j] = elu(v[r] + bl[j]);
     } else {
-      const int k = walk_k();
       for (int oc = 0; oc < nc; ++oc) {
         float acc[R];
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = 0.f;
-        for (int ic = 0; ic < nc; ++ic)
-          matvec_rows<false, R>(net.w[1 + l] + static_cast<size_t>(oc) * kMaxH * H + ic * kMaxH, H,
-                                cur + ic * kMaxH, H, acc);
-        const int j = oc * kMaxH + k;
+        chunk_rows<R>(net.w[1 + l], H, oc, cur, acc);
+        const int j = oc * kMaxH + walk_k();
         if (walk_ks() == 0)
 #pragma unroll
           for (int r = 0; r < R; ++r) nxt[r * H + j] = elu(acc[r] + bl[j]);
@@ -692,7 +765,7 @@ __device__ __forceinline__ float pick(const float (&y)[kFold], int i) {
 // wl[c][j] a[j] + b[c] for c < out (0 beyond); lane l sums j = 4 l + 128 m
 // and a butterfly gives every lane the same bits.
 __device__ __forceinline__ void fold_readout(const Net& net, const FwdNet& t, const float* a, float (&y)[kFold]) {
-  const int H = net.ld, lane = threadIdx.x & 31;
+  const int H = t.ld, lane = threadIdx.x & 31;
   float p[kFold];
 #pragma unroll
   for (int c = 0; c < kFold; ++c) p[c] = 0.f;
@@ -718,10 +791,11 @@ __device__ __forceinline__ void fold_readout(const Net& net, const FwdNet& t, co
 }
 
 // Fold warp w's share of one row's first layer: act[j] = elu(s[j] + sum_c
-// in[c] w0[c][j]) for j in [w H / fw, (w + 1) H / fw) (no barrier).
+// in[c] w0[c][j]) for j in [w H / kFoldWarps, (w + 1) H / kFoldWarps) (no
+// barrier).
 __device__ __forceinline__ void fold_first_layer(const Net& net, const FwdNet& t, const float (&in)[kFold],
-                                                 const float* s, float* act, int fw) {
-  const int H = net.ld, per = H / fw, j0 = (threadIdx.x >> 5) * per;
+                                                 const float* s, float* act) {
+  const int H = t.ld, per = H / kFoldWarps, j0 = (threadIdx.x >> 5) * per;
   for (int j = j0 + (threadIdx.x & 31); j < j0 + per; j += 32) {
     float acc = 0.f;
 #pragma unroll
@@ -736,7 +810,7 @@ __device__ __forceinline__ void fold_first_layer(const Net& net, const FwdNet& t
 // wide one as a layer (from L2).
 template <int R>
 __device__ void tile_readout(const Net& net, const FwdNet& t, const float* a, float* y) {
-  const int H = net.ld, nc = H / kMaxH, ks = walk_ks();
+  const int H = t.ld, nc = H / kMaxH, ks = walk_ks();
   const float* bl = t.b + (net.n - 1) * H;
   if (narrow_out(net)) {
     const int n = R * net.out, g = threadIdx.x >> 2;
@@ -764,11 +838,7 @@ __device__ void tile_readout(const Net& net, const FwdNet& t, const float* a, fl
   } else {
     for (int oc = 0; oc < nc; ++oc) {
       float acc[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = 0.f;
-      for (int ic = 0; ic < nc; ++ic)
-        matvec_rows<false, R>(net.w[net.n] + static_cast<size_t>(oc) * kMaxH * H + ic * kMaxH, H,
-                              a + ic * kMaxH, H, acc);
+      chunk_rows<R>(net.w[net.n], H, oc, a, acc);
       const int j = oc * kMaxH + walk_k();
       if (ks == 0 && j < net.out)
 #pragma unroll
@@ -780,10 +850,10 @@ __device__ void tile_readout(const Net& net, const FwdNet& t, const float* a, fl
 
 // The first layer of `net` for R rows: act[r][j] = elu(s[r][j] + sum_c
 // x[r][c] w0[c][j]) from the inputs x and the stream rows s (rows of H
-// floats in shared memory; x zero beyond kin), then a barrier.
+// floats; x zero beyond kin), then a barrier.
 template <int R>
 __device__ void first_layer(const Net& net, const FwdNet& t, const float* x, const float* s, float* act) {
-  const int H = net.ld, nc = H / kMaxH, ks = walk_ks();
+  const int H = t.ld, nc = H / kMaxH, ks = walk_ks();
   for (int oc = 0; oc < nc; ++oc) {
     const int j = oc * kMaxH + walk_k();
     float acc[R];
@@ -797,9 +867,7 @@ __device__ void first_layer(const Net& net, const FwdNet& t, const float* x, con
           for (int r = 0; r < R; ++r) acc[r] = fmaf(x[r * H + c], w, acc[r]);
         }
     } else {
-      for (int ic = 0; ic < nc; ++ic)
-        matvec_rows<false, R>(net.w[0] + static_cast<size_t>(oc) * kMaxH * H + ic * kMaxH, H, x + ic * kMaxH, H,
-                              acc);
+      chunk_rows<R>(net.w[0], H, oc, x, acc);
     }
     if (ks == 0)
 #pragma unroll
@@ -823,20 +891,31 @@ __device__ __forceinline__ float stage_next(int solver, int q, float xc, float d
   }
 }
 
+// A 4-byte copy into a step buffer: by cp.async into shared memory (the
+// caller commits and waits), or, where the buffers live in global memory
+// (`async` false), at once.
+__device__ __forceinline__ void step_copy(float* dst, const float* src, bool valid, bool async) {
+  if (async) {
+    cp_async_f32(dst, src, valid);
+  } else {
+    *dst = valid ? *src : 0.f;
+  }
+}
+
 // A thread's share of a step's prefetch of ns stream rows (stream q's base
 // from base(q)) for the block's R rows, h floats each into rows of H: its
 // one 16-byte copy, found once, when the step has at most kThreads of them
-// (h % 4 == 0); else every step runs the general loop. src is the copy's
-// source at step 0 (null: zero fill); a step adds t B h.
+// (h % 4 == 0, by cp.async); else every step runs the general loop. src is
+// the copy's source at step 0 (null: zero fill); a step adds t B h.
 struct RowCopy {
   const float* src;
   int dst;  // its offset in a step's buffer; -1: no copy of its own
-  bool fast;
+  bool fast, async;
 };
 
 template <class Base>
-__device__ inline RowCopy row_copy(int ns, int R, int h, int H, int row0, int B, Base base) {
-  RowCopy c{nullptr, -1, h % 4 == 0 && ns * R * (H / 4) <= kThreads};
+__device__ inline RowCopy row_copy(int ns, int R, int h, int H, int row0, int B, bool async, Base base) {
+  RowCopy c{nullptr, -1, async && h % 4 == 0 && ns * R * (H / 4) <= kThreads, async};
   const int o = threadIdx.x, per = H / 4;
   if (c.fast && o < ns * R * per) {
     const int q = o / (R * per), rest = o - q * R * per, r = rest / per, j = 4 * (rest - r * per);
@@ -859,19 +938,19 @@ __device__ __forceinline__ void prefetch_rows(const RowCopy& c, float* dst, int 
   for (int o = threadIdx.x; o < ns * R * H; o += kThreads) {
     const int q = o / (R * H), rest = o - q * R * H, r = rest / H, j = rest - r * H;
     const bool ok = row0 + r < B && j < h;
-    cp_async_f32(dst + o, ok ? base(q) + step + static_cast<size_t>(row0 + r) * h + j : zero, ok);
+    step_copy(dst + o, ok ? base(q) + step + static_cast<size_t>(row0 + r) * h + j : zero, ok, c.async);
   }
 }
 
 // Places the nets' hidden weights: the first regs of the first net's in
 // register banks (M16; regs at most the kernel's banks), then, in order, as
 // many as fit beside `rest` floats of shared memory (at most max_slots;
-// M16), the others in L2. Only kMaxH wide weights stay on chip. Returns the
+// M16), the others in L2. Only a width of kMaxH stays on chip. Returns the
 // shared-memory slots taken.
-__host__ inline int fwd_place(Net* const* nets, int count, int regs, int max_slots, size_t rest) {
+__host__ inline int fwd_place(Net* const* nets, int count, int H, int regs, int max_slots, size_t rest) {
   for (int i = 0; i < count; ++i)
     for (int l = 0; l < kMaxTail; ++l) nets[i]->res_slot[l] = -1;
-  if (nets[0]->ld != kMaxH) return 0;
+  if (H != kMaxH) return 0;
   const long long room = (static_cast<long long>(kSmemMax / sizeof(float)) - static_cast<long long>(rest)) / kMat;
   int q = 0, b = 0;
   for (int i = 0; i < count; ++i)
@@ -883,6 +962,30 @@ __host__ inline int fwd_place(Net* const* nets, int count, int regs, int max_slo
       }
     }
   return q;
+}
+
+// The rows a block takes and where its buffers live: the most rows, at most
+// `rows` (halving), whose buffers (floats(R) floats, no weight resident) fit
+// a block's shared memory; else one row with its buffers in global memory
+// (gmem), `floats` a block's share there, a multiple of 4.
+struct FwdShape {
+  int rows;
+  size_t floats;
+  bool gmem;
+};
+
+template <class F>
+__host__ inline FwdShape fwd_shape(int rows, F floats) {
+  for (int R = rows; R >= 1; R /= 2)
+    if (floats(R) * sizeof(float) <= kSmemMax) return {R, floats(R), false};
+  return {1, (floats(1) + 3) / 4 * 4, true};
+}
+
+// Blocks of pack_nets for `floats` outputs: enough that the copy takes a few
+// microseconds, few enough to start at once.
+__host__ inline int pack_blocks(size_t floats) {
+  const size_t b = (floats + kThreads - 1) / kThreads;
+  return static_cast<int>(b < 32 ? b : 32);
 }
 
 // ------------------------------------------------------------- contraction

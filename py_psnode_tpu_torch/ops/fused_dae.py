@@ -10,8 +10,8 @@ projections and the tail layers in the sequential loop.
 
 The loop itself runs in :func:`fused_dae_rollout`: on CUDA tensors it
 launches the hand-written kernel ``csrc/fused_dae_rollout.cu`` (one launch
-for the whole rollout, the weights transposed and zero-padded by
-``noencode_bwd.pad_net``), on CPU tensors it runs
+for the whole rollout, after a small one that pads the weights into a
+scratch block), on CPU tensors it runs
 :func:`fused_dae_rollout_packed_plain`, the same function as an eager
 PyTorch loop. There is no fallback from the kernel to the plain version.
 
@@ -29,7 +29,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from py_psnode_tpu_torch.models.funcs import elu
-from py_psnode_tpu_torch.ops.noencode_bwd import launch, pad_net, padded_width
+from py_psnode_tpu_torch.ops.noencode_bwd import launch, pointer_array
 from py_psnode_tpu_torch.utils import cuda_build
 
 _ONE_THIRD = 1.0 / 3.0
@@ -212,26 +212,30 @@ def fused_dae_rollout_packed_plain(
 
 
 def bind_rollout(lib: ctypes.CDLL):
-    """``(launcher, error string)``: the C functions of a build of
-    ``csrc/fused_dae_rollout.cu`` (for the card or, in
+    """``(launcher, scratch floats, error string)``: the C functions of a
+    build of ``csrc/fused_dae_rollout.cu`` (for the card or, in
     ``utils/host_build.py``, the host) with their signatures."""
     fn = lib.psn_fused_dae_rollout_f32
     P, I = ctypes.c_void_p, ctypes.c_int
+    PP = ctypes.POINTER(ctypes.c_void_p)
     fn.argtypes = [
         P, P, P, P,  # s_de, s_ae, s_ae_ev, aux
         P, P,  # x0, i0
-        P, P, I,  # DE padded transposed weights, biases, tail layers
-        P, P, I,  # AE padded transposed weights, biases, tail layers
-        P,  # sol
+        P, P, PP, PP, I,  # wx_de, wi_de, de tail W, b, count
+        P, PP, PP, I,  # gx_ae, ae tail W, b, count
+        P, P,  # scratch, sol
         I, I, I, I, I,  # Tm1, B, h, xd, id
-        I, I, I, I, I,  # solver, rows per block, register and shared-memory weights, fold warps
+        I, I,  # solver, rows per block
         P,  # stream
     ]
     fn.restype = ctypes.c_int
+    scratch = lib.psn_fused_dae_rollout_scratch
+    scratch.argtypes = [I] * 7  # B, h, xd, id, DE and AE tail layers, rows per block
+    scratch.restype = ctypes.c_longlong
     err = lib.psn_cuda_error_string
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
-    return fn, err
+    return fn, scratch, err
 
 
 @functools.lru_cache(maxsize=None)
@@ -309,22 +313,20 @@ def fused_dae_rollout_packed_cuda(
     streams: Dict, weights: Dict, x0, i0, aux, solver: str = "rk4", rows_per_block=None,
 ) -> torch.Tensor:
     """Launch the CUDA kernel once for the whole rollout; returns the packed
-    ``[T-1, B, xd+id]`` solution. ``rows_per_block`` (1, 2, 4, 8) is this
-    call's launch shape, by default :func:`default_launch`; it does not
-    change the result beyond float summation order."""
+    ``[T-1, B, xd+id]`` solution. ``rows_per_block`` (1, 2, 4, 8) is the
+    most rows a block of this call takes (the kernel halves it where the
+    rows' buffers do not fit shared memory), by default
+    :func:`default_launch`; it does not change the result beyond float
+    summation order."""
     sol = _launch(streams, weights, x0, i0, aux, solver, rows_per_block)
     fused_dae_rollout.launches += 1
     return sol
 
 
-def _launch(streams: Dict, weights: Dict, x0, i0, aux, solver: str, rows_per_block=None, place=(-1, -1, 0),
-            launcher=None, host: bool = False) -> torch.Tensor:
+def _launch(streams: Dict, weights: Dict, x0, i0, aux, solver: str, rows_per_block=None, launcher=None,
+            host: bool = False) -> torch.Tensor:
     """Launch the forward through ``launcher`` (of :func:`bind_rollout`;
-    the default build when None); ``place = (regs, slots, fold_warps)``:
-    how many of the DE's hidden weights sit in registers (one row a block
-    only), how many hidden weights after them in shared memory (the DE's,
-    then the AE's), and how many warps fold a readout (-1, -1, 0: the
-    kernel's choice); ``host``: a host build on CPU tensors
+    the default build when None); ``host``: a host build on CPU tensors
     (``utils/host_build.py``). Counts nothing:
     :func:`fused_dae_rollout_packed_cuda` is the entry; the phase clock and
     the host build launch their own builds."""
@@ -334,18 +336,18 @@ def _launch(streams: Dict, weights: Dict, x0, i0, aux, solver: str, rows_per_blo
     Tm1, B, h = s_de.shape
     xd, idim = x0.shape[-1], i0.shape[-1]
     rows = launch_rows(s_de.device, B, rows_per_block)
-    fn, err = launcher or _launcher()
-    H = padded_width(h)
-    # the padded weights must outlive the launch
-    w_de, b_de = pad_net(torch.cat([weights["wx_de"], weights["wi_de"]]), weights["de_tail"], True, H)
-    w_ae, b_ae = pad_net(weights["gx_ae"], weights["ae_tail"], True, H)
+    fn, scratch_floats, err = launcher or _launcher()
+    de, ae = weights["de_tail"], weights["ae_tail"]
+    n = scratch_floats(B, h, xd, idim, len(de), len(ae), rows)
+    # must outlive the launch; sizes it refuses (n < 0) raise below
+    scratch = torch.empty(max(n, 0), dtype=torch.float32, device=s_de.device)
     sol = torch.empty(Tm1, B, xd + idim, dtype=torch.float32, device=s_de.device)
     rc = launch(
         fn, s_de.device, s_de.data_ptr(), streams["s_ae"].data_ptr(), streams["s_ae_ev"].data_ptr(),
-        aux.data_ptr(), x0.data_ptr(), i0.data_ptr(),
-        w_de.data_ptr(), b_de.data_ptr(), len(weights["de_tail"]),
-        w_ae.data_ptr(), b_ae.data_ptr(), len(weights["ae_tail"]),
-        sol.data_ptr(), Tm1, B, h, xd, idim, _SOLVER_CODE[solver], rows, *place,
+        aux.data_ptr(), x0.data_ptr(), i0.data_ptr(), weights["wx_de"].data_ptr(), weights["wi_de"].data_ptr(),
+        pointer_array([W for W, _ in de]), pointer_array([b for _, b in de]), len(de),
+        weights["gx_ae"].data_ptr(), pointer_array([W for W, _ in ae]), pointer_array([b for _, b in ae]), len(ae),
+        scratch.data_ptr(), sol.data_ptr(), Tm1, B, h, xd, idim, _SOLVER_CODE[solver], rows,
     )
     if rc != 0:
         raise RuntimeError(

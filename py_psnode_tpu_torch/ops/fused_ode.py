@@ -13,8 +13,8 @@ or RK4-3/8 step. Any tail depth runs: the no-encode dynamics (``n_tail`` 3,
 
 The loop runs in :func:`fused_ode_rollout`: on CUDA tensors it
 launches the hand-written kernel ``csrc/fused_ode_rollout.cu`` (one launch
-for the whole rollout, the weights transposed and zero-padded by
-``noencode_bwd.pad_net``), on CPU tensors it runs
+for the whole rollout, after a small one that pads the weights into a
+scratch block), on CPU tensors it runs
 :func:`fused_ode_rollout_plain`, the same function as an eager PyTorch
 loop. There is no fallback from the kernel to the plain version.
 
@@ -41,7 +41,7 @@ from py_psnode_tpu_torch.ops.fused_dae import (
     normalize_solver,
     split_de_layer1,
 )
-from py_psnode_tpu_torch.ops.noencode_bwd import launch, pad_net, padded_width
+from py_psnode_tpu_torch.ops.noencode_bwd import launch, pointer_array
 from py_psnode_tpu_torch.utils import cuda_build
 
 
@@ -135,30 +135,29 @@ def check_inputs(s_de, weights: Dict, x0, dt, device_type: str = "cuda"):
             raise ValueError(f"{name} must be contiguous")
 
 
-def pointer_array(tensors):
-    """A ctypes array of the tensors' device pointers."""
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
-
-
 def bind_rollout(lib: ctypes.CDLL):
-    """``(launcher, error string)``: the C functions of a build of
-    ``csrc/fused_ode_rollout.cu`` (for the card or, in
+    """``(launcher, scratch floats, error string)``: the C functions of a
+    build of ``csrc/fused_ode_rollout.cu`` (for the card or, in
     ``utils/host_build.py``, the host) with their signatures."""
     fn = lib.psn_fused_ode_rollout_f32
     P, I = ctypes.c_void_p, ctypes.c_int
+    PP = ctypes.POINTER(ctypes.c_void_p)
     fn.argtypes = [
-        P, P, P,  # s_de, dt, x0
-        P, P, I,  # padded transposed weights ([wx; tail]), biases, tail layers
-        P,  # sol
+        P, P, P, P,  # s_de, dt, x0, wx_de
+        PP, PP, I,  # tail W, b, count
+        P, P,  # scratch, sol
         I, I, I, I,  # Tm1, B, h, xd
-        I, I, I, I, I,  # solver, rows per block, register and shared-memory weights, fold warps
+        I, I,  # solver, rows per block
         P,  # stream
     ]
     fn.restype = ctypes.c_int
+    scratch = lib.psn_fused_ode_rollout_scratch
+    scratch.argtypes = [I] * 5  # B, h, xd, tail layers, rows per block
+    scratch.restype = ctypes.c_longlong
     err = lib.psn_cuda_error_string
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
-    return fn, err
+    return fn, scratch, err
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,32 +168,32 @@ def _launcher():
 
 def fused_ode_rollout_cuda(s_de, weights: Dict, x0, dt, solver: str = "euler", rows_per_block=None) -> torch.Tensor:
     """Launch the CUDA kernel once for the whole rollout; returns the rows
-    ``[T-1, B, xd]``. ``rows_per_block`` (1, 2, 4, 8) is this call's
-    launch shape, by default ``fused_dae.default_launch``."""
+    ``[T-1, B, xd]``. ``rows_per_block`` (1, 2, 4, 8) is the most rows a
+    block of this call takes, by default ``fused_dae.default_launch``."""
     sol = _launch(s_de, weights, x0, dt, solver, rows_per_block)
     fused_ode_rollout.launches += 1
     return sol
 
 
-def _launch(s_de, weights: Dict, x0, dt, solver: str, rows_per_block=None, place=(-1, -1, 0), launcher=None,
+def _launch(s_de, weights: Dict, x0, dt, solver: str, rows_per_block=None, launcher=None,
             host: bool = False) -> torch.Tensor:
     """Launch the forward through ``launcher`` (of :func:`bind_rollout`;
-    the default build when None); ``place = (regs, slots, fold_warps)`` as
-    ``fused_dae._launch`` takes it (-1, -1, 0: the kernel's choice);
-    ``host``: a host build on CPU tensors. Counts nothing
-    (:func:`fused_ode_rollout_cuda` is the entry)."""
+    the default build when None); ``host``: a host build on CPU tensors.
+    Counts nothing (:func:`fused_ode_rollout_cuda` is the entry)."""
     solver = normalize_solver(solver)
     check_inputs(s_de, weights, x0, dt, "cpu" if host else "cuda")
     Tm1, B, h = s_de.shape
     xd = x0.shape[-1]
     rows = launch_rows(s_de.device, B, rows_per_block)
-    fn, err = launcher or _launcher()
+    fn, scratch_floats, err = launcher or _launcher()
     tail = weights["de_tail"]
-    # the padded weights must outlive the launch
-    w, b = pad_net(weights["wx_de"], tail, True, padded_width(h))
+    n = scratch_floats(B, h, xd, len(tail), rows)
+    # must outlive the launch; sizes it refuses (n < 0) raise below
+    scratch = torch.empty(max(n, 0), dtype=torch.float32, device=s_de.device)
     sol = torch.empty(Tm1, B, xd, dtype=torch.float32, device=s_de.device)
-    rc = launch(fn, s_de.device, s_de.data_ptr(), dt.data_ptr(), x0.data_ptr(), w.data_ptr(), b.data_ptr(),
-                len(tail), sol.data_ptr(), Tm1, B, h, xd, _SOLVER_CODE[solver], rows, *place)
+    rc = launch(fn, s_de.device, s_de.data_ptr(), dt.data_ptr(), x0.data_ptr(), weights["wx_de"].data_ptr(),
+                pointer_array([W for W, _ in tail]), pointer_array([b for _, b in tail]), len(tail),
+                scratch.data_ptr(), sol.data_ptr(), Tm1, B, h, xd, _SOLVER_CODE[solver], rows)
     if rc != 0:
         raise RuntimeError(
             f"fused_ode_rollout kernel launch failed: CUDA error {rc} ({err(rc).decode()})"

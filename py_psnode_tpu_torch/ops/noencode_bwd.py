@@ -1,6 +1,6 @@
 """What the no-encode kernels' wrappers share (the backward pair, kernels 2
 and 4: ``ops/fused_dae_vjp.py``, ``ops/fused_ode_vjp.py``; the forward pair,
-kernels 1 and 3, takes :func:`launch` and :func:`pad_net`).
+kernels 1 and 3, takes :func:`launch` and :func:`pointer_array`).
 
 Each CUDA backward is three kernels (``csrc/noencode_bwd.cuh``): a
 time-parallel recompute that writes every evaluation's layer
@@ -16,6 +16,7 @@ module has the recompute's.
 
 from __future__ import annotations
 
+import ctypes
 from typing import List, Sequence, Tuple
 
 import torch
@@ -42,25 +43,21 @@ def launch(fn, dev: torch.device, *args) -> int:
         return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
 
 
-def padded_width(h: int) -> int:
-    """The forward kernels' padded width: ``h`` rounded up to a multiple of
-    :data:`MAX_HIDDEN`."""
-    return -(-h // MAX_HIDDEN) * MAX_HIDDEN
+def pointer_array(tensors):
+    """A ctypes array of the tensors' device pointers."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
-def pad_net(first: torch.Tensor, tail: Sequence[Tuple[torch.Tensor, torch.Tensor]],
-            transpose: bool = False, width: int = MAX_HIDDEN):
-    """``(w [n + 1, width, width], b [n, width])``: a net's first-layer
-    weight ``[kin, h]`` and tail layers ``(W [in, out], b [out])``
-    zero-padded, as the kernels read them; with ``transpose`` each weight
-    as ``[out, in]`` (the forward kernels' layout: a row an output)."""
+def pad_net(first: torch.Tensor, tail: Sequence[Tuple[torch.Tensor, torch.Tensor]]):
+    """``(w [n + 1, 128, 128], b [n, 128])``: a net's first-layer weight
+    ``[kin, h]`` and tail layers ``(W [in, out], b [out])`` zero-padded, as
+    the kernels read them."""
     n = len(tail)
-    w = first.new_zeros(n + 1, width, width)
-    b = first.new_zeros(n, width)
-    for l, W in enumerate([first] + [W for W, _ in tail]):
-        W = W.T if transpose else W
-        w[l, : W.shape[0], : W.shape[1]] = W
-    for l, (_, bias) in enumerate(tail):
+    w = first.new_zeros(n + 1, MAX_HIDDEN, MAX_HIDDEN)
+    b = first.new_zeros(n, MAX_HIDDEN)
+    w[0, : first.shape[0], : first.shape[1]] = first
+    for l, (W, bias) in enumerate(tail):
+        w[l + 1, : W.shape[0], : W.shape[1]] = W
         b[l, : bias.shape[0]] = bias
     return w, b
 

@@ -35,7 +35,7 @@ import re
 import shutil
 import subprocess
 import sys
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -77,12 +77,13 @@ def find_gxx() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """The host build of ``csrc/<name>.cu``, compiled first unless the
-    current one exists (the key covers the source, the headers and the host
-    model)."""
+def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The host build of ``csrc/<name>.cu`` with ``-D`` of each of
+    ``defines`` (as ``"NAME=value"``), compiled first unless the current one
+    exists (the key covers the source, the headers, the host model and the
+    defines)."""
     source = host_source(name)
-    h = hashlib.sha256(source.encode())
+    h = hashlib.sha256(source.encode() + " ".join(defines).encode())
     headers = {f.name: host_text(f.read_text()) for f in sorted(SOURCE_DIR.glob("*.cuh"))}
     headers.update({f.name: f.read_text() for f in sorted(HOST_DIR.glob("*"))})  # the models win
     for key in sorted(headers):
@@ -97,7 +98,8 @@ def load(name: str) -> ctypes.CDLL:
         (out / f"{name}.cpp").write_text(source)
         tmp = lib.with_suffix(".tmp")
         cmd = [find_gxx(), "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-w", f"-I{out}",
-               "-include", str(out / "cuda_host.h"), "-o", str(tmp), str(out / f"{name}.cpp")]
+               *(f"-D{d}" for d in defines), "-include", str(out / "cuda_host.h"), "-o", str(tmp),
+               str(out / f"{name}.cpp")]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"g++ failed to build {name}.cu for the host:\n{res.stderr[-8000:]}")
@@ -209,37 +211,37 @@ def ode_rollout_bwd(s_de, weights: Dict, dt, sol, cot, solver: str = "euler", st
     return VO._launch_bwd(s_de, weights, dt, sol, cot, solver, launcher, stages, bufs, host=True)
 
 
-def dae_rollout(streams: Dict, weights: Dict, x0, i0, aux, solver: str = "rk4", rows=None, place=(-1, -1, 0)):
-    """Kernel 1's host build on CPU tensors (the arguments of
-    ``fused_dae_rollout_packed_cuda``, ``rows`` rows a block, ``place`` as
-    ``fused_dae._launch`` takes it); returns the packed rows ``[T-1, B, xd +
-    id]``."""
-    launcher = F.bind_rollout(load("fused_dae_rollout"))
-    return F._launch(streams, weights, x0, i0, aux, solver, rows, place, launcher, host=True)
+def dae_rollout(streams: Dict, weights: Dict, x0, i0, aux, solver: str = "rk4", rows=None,
+                defines: Tuple[str, ...] = ()):
+    """Kernel 1's host build (with ``defines``, :func:`load`) on CPU tensors
+    (the arguments of ``fused_dae_rollout_packed_cuda``, at most ``rows``
+    rows a block); returns the packed rows ``[T-1, B, xd + id]``."""
+    launcher = F.bind_rollout(load("fused_dae_rollout", defines))
+    return F._launch(streams, weights, x0, i0, aux, solver, rows, launcher, host=True)
 
 
-def ode_rollout(s_de, weights: Dict, x0, dt, solver: str = "euler", rows=None, place=(-1, -1, 0)):
+def ode_rollout(s_de, weights: Dict, x0, dt, solver: str = "euler", rows=None, defines: Tuple[str, ...] = ()):
     """Kernel 3's host build on CPU tensors (the arguments of
     ``fused_ode_rollout_cuda``); returns the rows ``[T-1, B, xd]``."""
-    launcher = FO.bind_rollout(load("fused_ode_rollout"))
-    return FO._launch(s_de, weights, x0, dt, solver, rows, place, launcher, host=True)
+    launcher = FO.bind_rollout(load("fused_ode_rollout", defines))
+    return FO._launch(s_de, weights, x0, dt, solver, rows, launcher, host=True)
 
 
 def noencode_fwd_check(family: str, B: int, Tm1: int, h: int, solver: str, rows=None, xd: int = 2,
-                       n_tail: int = 3, place=(-1, -1, 0)) -> Dict[str, float]:
+                       n_tail: int = 3, defines: Tuple[str, ...] = ()) -> Dict[str, float]:
     """Kernel 1 (``family`` "dae": the motor shape xd=3, id=2, events in
     some rows) or 3 ("ode", ``xd`` and ``n_tail``, the readout at lecun
-    scale) built for the host, on seeded inputs, against its plain version: ``worst``, the largest
-    |kernel - plain| / max(1, |plain|), and ``identical``, 1.0 when a
-    relaunch gave the same bits."""
+    scale) built for the host with ``defines``, on seeded inputs, against
+    its plain version: ``worst``, the largest |kernel - plain| / max(1,
+    |plain|), and ``identical``, 1.0 when a relaunch gave the same bits."""
     if family == "dae":
         args = dae_inputs(B, Tm1, h, seed=h)
         ref = F.fused_dae_rollout_packed_plain(*args, solver)
-        run = lambda: dae_rollout(*args, solver, rows, place)
+        run = lambda: dae_rollout(*args, solver, rows, defines)
     else:
         args = ode_inputs(B, Tm1, h, xd, n_tail, seed=h, readout=1.0)
         ref = FO.fused_ode_rollout_plain(*args, solver)
-        run = lambda: ode_rollout(*args, solver, rows, place)
+        run = lambda: ode_rollout(*args, solver, rows, defines)
     got, again = run(), run()
     worst = ((got.double() - ref.double()).abs() / ref.double().abs().clamp(min=1.0)).max().item()
     return dict(worst=worst, identical=float(torch.equal(got, again)))

@@ -249,6 +249,22 @@ def test_noencode_fwd_kernels_match_plain_at_each_launch_shape_on_card(rows):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("h,batch", [(300, 1024), (1500, 1), (3000, 1)])
+def test_noencode_fwd_kernels_run_widths_beyond_shared_memory_on_card(h, batch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    # h=300 at B=1024: 8 rows a block do not fit shared memory, the kernels
+    # take fewer; h=1500 (DAE) and 3000 (both): one row's buffers do not
+    # fit either and live in global memory
+    args = rollout_inputs(batch, 16, h, seed=h, dev="cuda")
+    ref = F.fused_dae_rollout_packed_plain(*args, "rk4")
+    _hold_fwd(F.fused_dae_rollout_packed_cuda(*args, "rk4"), F.fused_dae_rollout_packed_cuda(*args, "rk4"), ref)
+    args = ode_inputs(batch, 16, h, 2, 3, seed=h, dev="cuda")
+    ref = FO.fused_ode_rollout_plain(*args, "rk4")
+    _hold_fwd(FO.fused_ode_rollout_cuda(*args, "rk4"), FO.fused_ode_rollout_cuda(*args, "rk4"), ref)
+
+
+@pytest.mark.gpu
 def test_noencode_fwd_kernels_are_bit_identical_on_relaunch_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")

@@ -57,7 +57,8 @@ def test_host_dae_forward_matches_plain(B, Tm1, h, solver, rows):
 # first layer and readout), as above
 ODE_FWD_CASES = [(1, 3, 19, 2, 3, "midpoint", None), (3, 4, 40, 2, 3, "rk4", None),
                  (3, 3, 136, 2, 3, "euler", None), (3, 4, 40, 2, 3, "rk4", 8),
-                 (3, 3, 40, 40, 1, "rk4", None), (2, 3, 19, 19, 1, "euler", 2)]
+                 (3, 3, 40, 40, 1, "rk4", None), (2, 3, 19, 19, 1, "euler", 2),
+                 (2, 3, 40, 2, 3, "euler", None)]
 
 
 @pytest.mark.parametrize("B,Tm1,h,xd,n_tail,solver,rows", ODE_FWD_CASES)
@@ -68,14 +69,28 @@ def test_host_ode_forward_matches_plain(B, Tm1, h, xd, n_tail, solver, rows):
     assert got["identical"] == 1.0
 
 
-# (regs, slots, fold warps): every hidden weight from L2 with every warp
-# folding; one of the DE's in registers, one in shared memory, one warp; the
-# DE's both in shared memory and the AE's first, two warps (the placements
-# phase_clock's [ne-fwd-slots] sweep times)
+# (regs, slots, fold warps), each a build with -D: every hidden weight from
+# L2 with every warp folding; one of the DE's in registers, one in shared
+# memory, one warp; the DE's both in shared memory and the AE's first, two
+# warps (the placements phase_clock's [ne-fwd-slots] sweep times)
 @pytest.mark.parametrize("place", [(0, 0, 16), (1, 1, 1), (0, 3, 2)])
 def test_host_dae_forward_at_each_weight_placement(place):
     need_gxx()
-    got = host_build.noencode_fwd_check("dae", 2, 3, 40, "rk4", None, place=place)
+    defines = tuple(f"{k}={v}" for k, v in zip(("NE_FWD_REGS", "NE_FWD_SLOTS", "NE_FWD_FOLD_WARPS"), place))
+    got = host_build.noencode_fwd_check("dae", 2, 3, 40, "rk4", None, defines=defines)
+    assert got["worst"] <= 1e-4, got
+    assert got["identical"] == 1.0
+
+
+# widths whose buffers do not fit a block's shared memory at the rows asked
+# for: the DAE at h=300 with 8 rows a block asked (the kernel takes 4), at
+# h=1500 with one row (its buffers in global memory, the folded readout),
+# the ODE at h=3000 (likewise)
+@pytest.mark.parametrize("family,B,h,solver,rows", [("dae", 9, 300, "rk4", 8), ("dae", 1, 1500, "euler", 1),
+                                                    ("ode", 1, 3000, "midpoint", 1)])
+def test_host_forward_runs_widths_beyond_shared_memory(family, B, h, solver, rows):
+    need_gxx()
+    got = host_build.noencode_fwd_check(family, B, 2, h, solver, rows)
     assert got["worst"] <= 1e-4, got
     assert got["identical"] == 1.0
 
