@@ -117,12 +117,15 @@ from py_psnode_tpu_torch.bridge import load_params  # noqa: E402
 from py_psnode_tpu_torch.cli.common import main as cli_main  # noqa: E402
 from py_psnode_tpu_torch.data import DaeSamples, OdeSamples  # noqa: E402
 from py_psnode_tpu_torch.data.synthetic import write_avr_dataset  # noqa: E402
+from py_psnode_tpu_torch.export import flatten_channelwise, read_weights_bin  # noqa: E402
+from py_psnode_tpu_torch.export import native_runtime as NR  # noqa: E402
 from py_psnode_tpu_torch.models import (  # noqa: E402
     ChannelWiseDAEModel,
     ChannelWiseODEModel,
     DAEModel,
     ODEModel,
 )
+from py_psnode_tpu_torch.models.initializers import init_params  # noqa: E402
 from py_psnode_tpu_torch.ops import fused_channelwise as FC  # noqa: E402
 from py_psnode_tpu_torch.ops import fused_channelwise_vjp as VC  # noqa: E402
 from py_psnode_tpu_torch.ops import fused_dae as F  # noqa: E402
@@ -141,6 +144,7 @@ from py_psnode_tpu_torch.ops.fused_model import (  # noqa: E402
 )
 from py_psnode_tpu_torch.train import TrainConfig, Trainer  # noqa: E402
 from py_psnode_tpu_torch.train.checkpoints import load_checkpoint_params  # noqa: E402
+from py_psnode_tpu_torch.train.variants import VARIANTS, export_examples  # noqa: E402
 from py_psnode_tpu_torch.train.losses import (  # noqa: E402
     dae_channelwise_loss,
     dae_no_encode_loss,
@@ -280,7 +284,7 @@ def cuda_ms(fn, warmup, reps):
 
 def random_inputs(B, Tm1, h, xd, idim, seed, dev):
     """Seeded random rollout inputs: lecun-scaled weights, dt = 0.01, and
-    events at two steps in a quarter of the rows."""
+    events at two steps (303 and 333, modulo T-1) in a quarter of the rows."""
     rng = np.random.default_rng(seed)
     t = lambda shape, scale: torch.tensor(
         (rng.standard_normal(shape) * scale).astype(np.float32), device=dev
@@ -298,8 +302,8 @@ def random_inputs(B, Tm1, h, xd, idim, seed, dev):
     )
     x0, i0 = t((B, xd), 1.0), t((B, idim), 1.0)
     ev = torch.zeros(Tm1, B, dtype=torch.bool, device=dev)
-    ev[303, : B // 4] = True
-    ev[333, : B // 4] = True
+    ev[303 % Tm1, : B // 4] = True
+    ev[333 % Tm1, : B // 4] = True
     aux = F.pack_aux(torch.full((Tm1, B, 1), 0.01, device=dev), ev)
     return streams, weights, x0, i0, aux
 
@@ -459,14 +463,43 @@ def phase_kernel_vs_plain(dev):
     return worst_abs
 
 
+def hold_bwd(what, names, got, again, ref):
+    """Fail unless each output tensor of a backward kernel is finite, of the
+    plain one's shape, bit-identical on relaunch and within BWD_TOL of the
+    plain walk on its own scale; returns (worst max|d|, the per-tensor
+    report)."""
+    worst, parts = 0.0, []
+    for name, g, g2, r in zip(names, got, again, ref):
+        if g.shape != r.shape or not torch.isfinite(g).all():
+            fail(f"{what} {name}: shape {tuple(g.shape)} or non-finite values")
+        if not torch.equal(g, g2):
+            fail(f"{what} {name}: a relaunch gave other bits")
+        d = (g.double() - r).abs().max().item()
+        scale = r.abs().max().item()
+        parts.append(f"{name} {d:.2e}/{scale:.3e}")
+        if not scale > 0:
+            fail(f"{what} {name}: the plain gradient is 0, so the check holds nothing")
+        if d > BWD_TOL * scale:
+            fail(f"{what} {name}: max|d| {d} > {BWD_TOL} * max|plain| = {BWD_TOL * scale}")
+        worst = max(worst, d)
+    return worst, ", ".join(parts)
+
+
+# The wide backward kernels' cases, (h, T-1): B=64, RK4; T=201 at h=512,
+# where the float64 plain walk of T=1001 is slow
+WIDE_BWD = ((256, 1000), (512, 200))
+
+
 def phase_bwd_vs_plain(dev):
     """The backward kernel against the float64 plain walk at the training
-    shape, every solver; a relaunch must be bit-identical."""
+    shape, every solver, and at the wide widths (RK4); a relaunch must be
+    bit-identical."""
     worst_abs = 0.0
-    args = random_inputs(64, 1000, 128, 3, 2, seed=1, dev=dev)
-    cot = torch.tensor(np.random.default_rng(2).standard_normal((1001, 64, 5)).astype(np.float32),
-                       device=dev)
-    for solver in SOLVERS:
+    cases = [(128, 1000, solver) for solver in SOLVERS] + [(h, Tm1, "rk4") for h, Tm1 in WIDE_BWD]
+    for h, Tm1, solver in cases:
+        args = random_inputs(64, Tm1, h, 3, 2, seed=1, dev=dev)
+        cot = torch.tensor(np.random.default_rng(2).standard_normal((Tm1 + 1, 64, 5)).astype(np.float32),
+                           device=dev)
         packed = F.fused_dae_rollout_packed_cuda(*args, solver)
         got = V.fused_dae_rollout_bwd_cuda(*args, packed, cot, solver)
         again = V.fused_dae_rollout_bwd_cuda(*args, packed, cot, solver)
@@ -476,22 +509,13 @@ def phase_bwd_vs_plain(dev):
                                             aux, packed.double(), cot.double(), solver)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
-        parts = []
-        for (name, g), (_, r), (_, g2) in zip(bwd_outputs(got), bwd_outputs(ref), bwd_outputs(again)):
-            if g.shape != r.shape or not torch.isfinite(g).all():
-                fail(f"backward {solver} {name}: shape {tuple(g.shape)} or non-finite values")
-            if not torch.equal(g, g2):
-                fail(f"backward {solver} {name}: a relaunch gave other bits")
-            d = (g.double() - r).abs().max().item()
-            scale = r.abs().max().item()
-            parts.append(f"{name} {d:.2e}/{scale:.3e}")
-            if not scale > 0:
-                fail(f"backward {solver} {name}: the plain gradient is 0, so the check holds nothing")
-            if d > BWD_TOL * scale:
-                fail(f"backward {solver} {name}: max|d| {d} > {BWD_TOL} * max|plain| = {BWD_TOL * scale}")
-            worst_abs = max(worst_abs, d)
-        say(f"[bwd-kernel] {solver:8s}: ok, bit-identical on relaunch; plain float64 walk {plain_s:.1f} s; "
-            f"max|d| / max|plain| per tensor: {', '.join(parts)}")
+        names = [n for n, _ in bwd_outputs(got)]
+        flat = lambda g: [v for _, v in bwd_outputs(g)]
+        worst, report = hold_bwd(f"backward h={h} {solver}", names, flat(got), flat(again), flat(ref))
+        if h == 128:  # the record's max_abs_err: the main path's width
+            worst_abs = max(worst_abs, worst)
+        say(f"[bwd-kernel] h={h} T={Tm1 + 1} {solver:8s}: ok, bit-identical on relaunch; plain float64 walk "
+            f"{plain_s:.1f} s; max|d| / max|plain| per tensor: {report}")
     return worst_abs
 
 
@@ -609,6 +633,51 @@ def step_ms(dev, fused, reps):
     return cuda_ms(step, 1, reps), 64 * 1000, torch.cuda.max_memory_allocated(dev)
 
 
+def timed_steps(model, batch, apply, loss_fn, keys, dev, fused, reps):
+    """Training steps of ``model`` on ``batch`` (streams, rollout, loss,
+    backward and Adam; the fused route ``apply(model, batch)`` or the plain
+    ``model(*batch[keys])``), timed with CUDA events after one untimed
+    step; returns (ms, peak bytes allocated, the first step's loss, the
+    first step's gradient of each parameter)."""
+    opt = make_optimizer(model.parameters(), 5e-3, epochs=1, steps_per_epoch=1)
+    forward = (lambda: apply(model, batch)) if fused else (lambda: model(*[batch[k] for k in keys]))
+    first = {}
+
+    def step():
+        opt.adam.zero_grad()
+        loss, _ = loss_fn(forward(), batch)
+        loss.backward()
+        if not first:  # the untimed warm-up step, from the starting weights
+            first["loss"] = loss.item()
+            first["grads"] = {n: torch.zeros_like(q) if q.grad is None else q.grad.detach().clone()
+                              for n, q in model.named_parameters()}
+        opt.step()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = cuda_ms(step, 1, reps)
+    return ms, torch.cuda.max_memory_allocated(dev), first["loss"], first["grads"]
+
+
+def wide_step(tag, family, make_model, batch, apply, loss_fn, keys, dev):
+    """One fused RK4 training step at a wide width (fresh lecun weights,
+    seed 0) timed with its peak memory, and its first step's loss and
+    gradients held against the plain route's from the same weights and
+    batch (check_cw_step's bar); returns the fused ms."""
+    first = {}
+    for fused, reps in ((True, 3), (False, 1)):
+        model = init_params(make_model(), "lecun", 0)
+        ms, peak, loss, grads = timed_steps(model, batch, apply, loss_fn, keys, dev, fused, reps)
+        first[fused] = loss, grads
+        say(f"{tag} training step B=64 T=1001 h=256 rk4, {'fused' if fused else 'plain'} route: {ms:.3f} ms, "
+            f"{64 * 1000 / ms * 1e3:.1f} "
+            f"trajectory-steps/s, peak memory allocated {peak / 2**30:.2f} GiB")
+        if fused:
+            fused_ms = ms
+    check_cw_step(f"{family} h=256", first[True], first[False], tag="[step-check]")
+    return fused_ms
+
+
 def phase_times(dev, sweep):
     times = {}
     for rep in (1, 2, 32):  # B=32 (evaluation), 64 (training step), 1024 (fleet)
@@ -659,6 +728,29 @@ def phase_times(dev, sweep):
     n_bytes, flops, tc = bwd_work(*args256, "rk4")
     bwd_times_line("[times] backward B=256", "rk4", k_ms, None, n_bytes, flops, tc)
     del args256, cot256, packed
+
+    # the wide kernels: B=64 RK4 at h=256 (T=1001) and h=512 (T=201)
+    for h, Tm1 in WIDE_BWD:
+        wargs = random_inputs(64, Tm1, h, 3, 2, seed=1, dev=dev)
+        wcot = torch.tensor(np.random.default_rng(3).standard_normal((Tm1 + 1, 64, 5)).astype(np.float32)
+                            * 0.01, device=dev)
+        packed = F.fused_dae_rollout_packed_cuda(*wargs, "rk4")
+        k_ms = cuda_ms(lambda: V.fused_dae_rollout_bwd_cuda(*wargs, packed, wcot, "rk4"), 1, 3)
+        p_ms = cuda_ms(lambda: V.fused_dae_rollout_bwd_plain(*wargs, packed, wcot, "rk4"), 0, 1)
+        what = f"[times] backward B=64 T={Tm1 + 1} h={h}"
+        times[("bwd", h)] = bwd_times_line(what, "rk4", k_ms, p_ms, *bwd_work(*wargs, "rk4"))
+        times[("split", h)] = noencode_split(
+            f"{what} rk4", lambda st, bufs=None: V._launch_bwd(*wargs, packed, wcot, "rk4", stages=st, bufs=bufs),
+            lambda b: dae_contraction(b, wargs, "rk4"), lambda g: V.flatten_weights(g)[0])
+        del wargs, wcot, packed
+    ds = DaeSamples.load(str(TRAIN_DATA), cut_length=1001)
+    dims = (ds.x.shape[-1], ds.z.shape[-1], ds.v.shape[-1], ds.i.shape[-1])
+    keys = ("t", "x", "z", "v", "i", "event_t", "z_jump", "v_jump")
+    batch = {k: torch.as_tensor(getattr(ds, k)[:64], device=dev) for k in keys + ("mask",)}
+    times[("step", 256)] = wide_step(
+        "[times]", "dae_no_encode",
+        lambda: DAEModel(*dims, hidden_dim=256, solver="rk4", device=dev), batch, fused_dae_apply,
+        dae_no_encode_loss, keys, dev)
 
     for fused, reps in ((True, 5), (False, 1)):
         ms, traj_steps, peak = step_ms(dev, fused, reps)
@@ -833,16 +925,23 @@ def phase_ode_kernel_vs_plain(dev):
     return worst_abs
 
 
+# The wide ODE backward's cases, (h, xd, n_tail): B=64, T=1001, RK4; the
+# no-encode shape and the encode shape xd = h with one tail layer
+WIDE_ODE_BWD = ((256, 2, 3), (256, 256, 1))
+
+
 def phase_ode_bwd_vs_plain(dev):
     """The ODE backward kernel against the float64 plain walk at B=64,
-    every solver; a relaunch must be bit-identical."""
+    every solver, and at the wide widths (RK4); a relaunch must be
+    bit-identical."""
     worst_abs = 0.0
-    s_de, weights, x0, dt = ode_random_inputs(64, 1000, 128, 2, 3, seed=5, dev=dev)
-    cot = torch.tensor(np.random.default_rng(6).standard_normal((1001, 64, 2)).astype(np.float32),
-                       device=dev)
-    names = ["g_s_de", "g_x0", "wx_de"] + [f"de_tail[{k}].{p}" for k in range(3) for p in "Wb"]
     flat = lambda g: [g[0], g[2]] + VO.flatten_weights(g[1])
-    for solver in SOLVERS:
+    cases = [(128, 2, 3, solver) for solver in SOLVERS] + [(h, xd, n, "rk4") for h, xd, n in WIDE_ODE_BWD]
+    for h, xd, n_tail, solver in cases:
+        s_de, weights, x0, dt = ode_random_inputs(64, 1000, h, xd, n_tail, seed=5, dev=dev)
+        cot = torch.tensor(np.random.default_rng(6).standard_normal((1001, 64, xd)).astype(np.float32),
+                           device=dev)
+        names = ["g_s_de", "g_x0", "wx_de"] + [f"de_tail[{k}].{p}" for k in range(n_tail) for p in "Wb"]
         sol = torch.cat([x0[None], FO.fused_ode_rollout_cuda(s_de, weights, x0, dt, solver)])
         got = flat(VO.fused_ode_rollout_bwd_cuda(s_de, weights, dt, sol, cot, solver))
         again = flat(VO.fused_ode_rollout_bwd_cuda(s_de, weights, dt, sol, cot, solver))
@@ -851,22 +950,11 @@ def phase_ode_bwd_vs_plain(dev):
                                                   cot.double(), solver))
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
-        parts = []
-        for name, g, g2, r in zip(names, got, again, ref):
-            if g.shape != r.shape or not torch.isfinite(g).all():
-                fail(f"ODE backward {solver} {name}: shape {tuple(g.shape)} or non-finite values")
-            if not torch.equal(g, g2):
-                fail(f"ODE backward {solver} {name}: a relaunch gave other bits")
-            d = (g.double() - r).abs().max().item()
-            scale = r.abs().max().item()
-            parts.append(f"{name} {d:.2e}/{scale:.3e}")
-            if not scale > 0:
-                fail(f"ODE backward {solver} {name}: the plain gradient is 0, so the check holds nothing")
-            if d > BWD_TOL * scale:
-                fail(f"ODE backward {solver} {name}: max|d| {d} > {BWD_TOL} * max|plain| = {BWD_TOL * scale}")
-            worst_abs = max(worst_abs, d)
-        say(f"[ode-bwd-kernel] {solver:8s}: ok, bit-identical on relaunch; plain float64 walk "
-            f"{plain_s:.1f} s; max|d| / max|plain| per tensor: {', '.join(parts)}")
+        worst, report = hold_bwd(f"ODE backward h={h} xd={xd} {solver}", names, got, again, ref)
+        if h == 128:
+            worst_abs = max(worst_abs, worst)
+        say(f"[ode-bwd-kernel] h={h} xd={xd} n_tail={n_tail} {solver:8s}: ok, bit-identical on relaunch; plain "
+            f"float64 walk {plain_s:.1f} s; max|d| / max|plain| per tensor: {report}")
     return worst_abs
 
 
@@ -1054,6 +1142,23 @@ def phase_ode_times(dev, files, sweep):
     bwd_times_line("[ode-times] backward B=256", "rk4", k_ms, None, *ode_work(*args[:3], "rk4")[2:])
     del args, sol, cot256
 
+    # the wide kernels: B=64 RK4 at h=256, the no-encode shape and the
+    # encode shape xd = h (T=1001), and h=512 (T=201)
+    for h, xd, n_tail, Tm1 in ((256, 2, 3, 1000), (256, 256, 1, 1000), (512, 2, 3, 200)):
+        ws, ww, wx0, wdt = ode_random_inputs(64, Tm1, h, xd, n_tail, seed=5, dev=dev)
+        wcot = torch.tensor(np.random.default_rng(7).standard_normal((Tm1 + 1, 64, xd)).astype(np.float32)
+                            * 0.01, device=dev)
+        wsol = torch.cat([wx0[None], FO.fused_ode_rollout_cuda(ws, ww, wx0, wdt, "rk4")])
+        k_ms = cuda_ms(lambda: VO.fused_ode_rollout_bwd_cuda(ws, ww, wdt, wsol, wcot, "rk4"), 1, 3)
+        p_ms = cuda_ms(lambda: VO.fused_ode_rollout_bwd_plain(ws, ww, wdt, wsol, wcot, "rk4"), 0, 1)
+        what = f"[ode-times] backward B=64 T={Tm1 + 1} h={h} xd={xd}"
+        times[("bwd", h, xd)] = bwd_times_line(what, "rk4", k_ms, p_ms, *ode_work(ws, ww, wx0, "rk4")[2:])
+        times[("split", h, xd)] = noencode_split(
+            f"{what} rk4",
+            lambda st, bufs=None: VO._launch_bwd(ws, ww, wdt, wsol, wcot, "rk4", stages=st, bufs=bufs),
+            lambda b: ode_contraction(b, ww, wsol), VO.flatten_weights)
+        del ws, ww, wx0, wdt, wcot, wsol
+
     batch = {k: torch.as_tensor(getattr(train_ds, k)[:64], device=dev) for k in keys + ("mask",)}
     for fused, reps in ((True, 5), (False, 1)):
         m = ode_model(start, dev, "rk4")
@@ -1074,6 +1179,9 @@ def phase_ode_times(dev, files, sweep):
         say(f"[ode-times] training step B=64 T=1001 h=128 rk4, {'fused' if fused else 'plain'} "
             f"route: {ms:.3f} ms, {64 * 1000 / ms * 1e3:.1f} trajectory-steps/s, peak memory allocated "
             f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    times[("step", 256)] = wide_step(
+        "[ode-times]", "ode_no_encode", lambda: ODEModel(2, 2, 256, solver="rk4", device=dev),
+        batch, fused_ode_apply, ode_no_encode_loss, keys, dev)
     return times
 
 
@@ -1448,34 +1556,16 @@ def phase_cw_slice(dev, files, root):
 
 def cw_step(variant, files, dev, fused, reps):
     """One training step of the variant at B=64, T=1001, h=128, RK4 from
-    the starting checkpoint: streams, rollout, readout, loss, backward and
-    Adam, timed with CUDA events; returns (ms, peak bytes allocated, the
-    first step's loss, the first step's gradient of each parameter)."""
+    the starting checkpoint (timed_steps); returns (ms, peak bytes
+    allocated, the first step's loss, the first step's gradient of each
+    parameter)."""
     model = cw_model(variant, files[variant][2], dev, "rk4")
     batch = cw_batch(variant, files, 64, "train", dev)
-    opt = make_optimizer(model.parameters(), 5e-3, epochs=1, steps_per_epoch=1)
     if variant == "ode_channelwise":
         apply, loss_fn = fused_cw_ode_apply, ode_channelwise_loss
     else:
         apply, loss_fn = fused_cw_dae_apply, dae_channelwise_loss
-    args = [batch[k] for k in CW_KEYS[variant]]
-    forward = (lambda: apply(model, batch)) if fused else (lambda: model(*args))
-    first = {}
-
-    def step():
-        opt.adam.zero_grad()
-        loss, _ = loss_fn(forward(), batch)
-        loss.backward()
-        if not first:  # the untimed warm-up step, from the starting weights
-            first["loss"] = loss.item()
-            first["grads"] = {n: torch.zeros_like(q) if q.grad is None else q.grad.detach().clone()
-                              for n, q in model.named_parameters()}
-        opt.step()
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    ms = cuda_ms(step, 1, reps)
-    return ms, torch.cuda.max_memory_allocated(dev), first["loss"], first["grads"]
+    return timed_steps(model, batch, apply, loss_fn, CW_KEYS[variant], dev, fused, reps)
 
 
 def phase_cw_times(dev, files):
@@ -1577,7 +1667,7 @@ def cluster_times(variant, files, dev):
             f"{ms[4]:.3f} ms; the launcher's choice {kc}: {ms[0]:.3f} ms")
 
 
-def check_cw_step(variant, fused, plain):
+def check_cw_step(variant, fused, plain, tag="[cw-step-check]"):
     """The fused route's first training step at B=64, RK4 (the batch the
     anchors' DAE runs do not reach) against the plain route's from the
     same weights and batch: the loss, and each parameter's gradient on its
@@ -1592,10 +1682,181 @@ def check_cw_step(variant, fused, plain):
             fail(f"{variant} fused step's gradient of {name} lies {d} from the plain step's (max|plain| {scale})")
         if scale > 0 and d / scale >= worst:
             worst_name, worst = name, d / scale
-    say(f"[cw-step-check] {variant} B=64 rk4, fused against plain from the same weights and batch: loss {f_loss} "
+    say(f"{tag} {variant} B=64 rk4, fused against plain from the same weights and batch: loss {f_loss} "
         f"/ {p_loss} (rel. {d_loss:.2e}); worst gradient max|d|/max|plain| {worst:.2e} ({worst_name})")
     if not np.isfinite(f_loss) or d_loss > TRAIN_STEP1_RTOL:
         fail(f"{variant} fused step's loss {f_loss} misses the plain step's {p_loss} at rtol {TRAIN_STEP1_RTOL}")
+
+
+# ---------------------------------------------------------------- export
+
+EXPORT_ROWS, EXPORT_STEPS = 8, 101  # the native rollouts' test rows and steps
+# tests/test_native_runtime.py's bar: the C++ runtime's float32 loop sums
+# in its own order
+NATIVE_RTOL, NATIVE_ATOL = 2e-4, 2e-5
+# a .pt2 program on the CPU against the port's submodule on the CPU: the
+# same float32 operations, the kernels' transposes aside
+PROGRAM_RTOL = 1e-6
+
+
+def model_dims(model):
+    return {k: getattr(model, k) for k in ("x_dim", "z_dim", "v_dim", "i_dim") if hasattr(model, k)}
+
+
+def check_saved(what, variant, saved, ckpt, model):
+    """Hold ``saved`` (a ``saved model/`` directory of ``variant``) against
+    the checkpoint ``ckpt`` it was written from and the port's module
+    ``model`` (on the CPU, loaded from it): the file set; every
+    ``.weights.npz`` equal bit for bit to the checkpoint's arrays; every
+    ``.weights.bin`` read back equal to them (per channel for the
+    channel-wise family); every ``.pt2`` reloaded, fed the npz weights and
+    random arguments of its example shapes, within PROGRAM_RTOL of the
+    submodule."""
+    examples = export_examples(variant, model, model_dims(model))
+    want_files = {f"{s}.{ext}" for s in examples for ext in ("pt2", "weights.npz", "weights.bin")}
+    if VARIANTS[variant].channel_wise:
+        want_files.add("dim.txt")
+        if (saved / "dim.txt").read_text() != str(model.hidden_dim):
+            fail(f"{what}: dim.txt holds {(saved / 'dim.txt').read_text()!r}, not {model.hidden_dim}")
+    if {f.name for f in saved.iterdir()} != want_files:
+        fail(f"{what}: {sorted(f.name for f in saved.iterdir())} in {saved}, want {sorted(want_files)}")
+    with np.load(ckpt) as f:
+        flat = {k: f[k] for k in f.files}
+    rng = np.random.default_rng(17)
+    worst = 0.0
+    for sub, shapes in examples.items():
+        prefix = f"params/{sub}/"
+        want = {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
+        with np.load(saved / f"{sub}.weights.npz") as f:
+            got = {k: f[k] for k in f.files}
+        if sorted(got) != sorted(want) or not all(
+                got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]) for k in want):
+            fail(f"{what}: {sub}.weights.npz differs from the checkpoint's params/{sub}")
+        tree = {}
+        for key, a in want.items():
+            node = tree
+            *path, leaf = key.split("/")
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = a
+        want_bin = flatten_channelwise(tree) if VARIANTS[variant].channel_wise else want
+        got_bin = read_weights_bin(saved / f"{sub}.weights.bin")
+        if sorted(got_bin) != sorted(want_bin) or not all(np.array_equal(got_bin[k], want_bin[k]) for k in want_bin):
+            fail(f"{what}: {sub}.weights.bin does not read back as the checkpoint's arrays")
+        args = [torch.zeros(()) if a.ndim == 0 else torch.tensor(rng.standard_normal(a.shape).astype(np.float32))
+                for a in shapes]
+        program = torch.export.load(saved / f"{sub}.pt2").module()
+        with torch.no_grad():
+            out = program({k: torch.tensor(v) for k, v in got.items()}, *args)
+            ref = getattr(model, sub)(*args)
+        scale = ref.abs().max().item()
+        d = (out - ref).abs()
+        if out.shape != ref.shape or not bool((d <= PROGRAM_RTOL * (ref.abs() + scale)).all()):
+            fail(f"{what}: {sub}.pt2 lies {d.max().item()} from the port's submodule (max {scale})")
+        worst = max(worst, d.max().item() / scale)
+    return worst
+
+
+def check_native(what, variant, saved, model, data):
+    """The port's binding of the C++ runtime loads the ``.bin`` files of
+    ``saved`` and rolls the family out over the first EXPORT_ROWS rows and
+    EXPORT_STEPS steps of ``data`` (a test set; no events) as the port's
+    plain model on the CPU does, within NATIVE_RTOL / NATIVE_ATOL; returns
+    the largest |native - plain|."""
+    kind = VARIANTS[variant].kind
+    ds = (DaeSamples if kind == "dae" else OdeSamples).load(str(data), cut_length=EXPORT_STEPS)
+    keys = ("t", "x", "z", "v", "i") if kind == "dae" else ("t", "x", "z")
+    b = {k: np.ascontiguousarray(getattr(ds, k)[:EXPORT_ROWS], np.float32) for k in keys}
+    if not np.array_equal(b["t"], np.broadcast_to(b["t"][:1], b["t"].shape)):
+        fail(f"{what}: the test rows do not share one time grid, which the native rollouts take")
+    with torch.no_grad():
+        ref = model(*(torch.tensor(b[k]) for k in keys))
+    got = NR.rollout(variant, saved, b, model.solver)
+    want = (ref,) if isinstance(ref, torch.Tensor) else ref[: len(got)]
+    worst = 0.0
+    for g, w in zip(got, want):
+        w = w.numpy()
+        if g.shape != w.shape or not np.allclose(g, w, rtol=NATIVE_RTOL, atol=NATIVE_ATOL):
+            fail(f"{what}: the native rollout lies {np.abs(g - w).max()} from the port's plain rollout")
+        worst = max(worst, float(np.abs(g - w).max()))
+    return worst
+
+
+def port_model(variant, hidden, ckpt):
+    """The variant's module at the slice's widths on the CPU, loaded from
+    ``ckpt``."""
+    dims = {"ode_no_encode": (2, 2), "dae_no_encode": (3, 1, 2, 2)}.get(variant) or CW_DIMS[variant]
+    cls = {"ode_no_encode": ODEModel, "dae_no_encode": DAEModel, "ode_channelwise": ChannelWiseODEModel,
+           "dae_channelwise": ChannelWiseDAEModel}[variant]
+    model = cls(*dims, hidden_dim=hidden, device="meta")
+    return load_params(model, load_checkpoint_params(ckpt), device="cpu").requires_grad_(False)
+
+
+def export_seconds(run_dir):
+    """The export_s of each epoch_time record of a training run."""
+    recs = [json.loads(line) for line in (run_dir / "train_metrics.jsonl").read_text().splitlines()]
+    return [r["export_s"] for r in recs if r["kind"] == "epoch_time"]
+
+
+def phase_export(dev, root, ode_files, cw_files):
+    """Phase 16: ``saved model/`` as the port writes it. The CLI ``--saving
+    --device cuda`` on a copy of checkpoint 200; the CLI ``--training
+    --fused --hidden 256`` of both no-encode families (one epoch from
+    seed-0 weights: the wide backwards on the main path, the kernels'
+    launches counted); and the directories the ``--training --fused`` CLI
+    runs of phases 10 and 14 left. Each is held against its checkpoint and
+    module (check_saved) and rolled out in the C++ runtime (check_native);
+    each training run's export seconds per epoch are printed."""
+    save_dir = root / "save"
+    save_dir.mkdir()
+    ckpt = shutil.copy(CKPT, save_dir / CKPT.name)
+    t0 = time.perf_counter()
+    saved = cli_main("dae_no_encode", ["--saving", "--device", "cuda", "--model", str(ckpt),
+                                       "--test_data", str(TEST_DATA)])
+    wall = time.perf_counter() - t0
+    if saved != save_dir / "saved model":
+        fail(f"--saving exported into {saved}, not beside the checkpoint")
+    model = port_model("dae_no_encode", 128, ckpt)
+    e_prog = check_saved("--saving", "dae_no_encode", saved, ckpt, model)
+    e_nat = check_native("--saving", "dae_no_encode", saved, model, TEST_DATA)
+    say(f"[export] --saving --device cuda on checkpoint 200: {sorted(f.name for f in saved.iterdir())} in "
+        f"{wall:.2f} s; npz and bin equal to the checkpoint; .pt2 against the module max|d|/max {e_prog:.2e}; "
+        f"native dae_rollout ({EXPORT_ROWS} rows, {EXPORT_STEPS} steps) max|d| {e_nat:.2e}")
+
+    ode_train, ode_test, _ = ode_files
+    runs = []
+    for variant, train_f, test_f in (("dae_no_encode", TRAIN_DATA, TEST_DATA),
+                                     ("ode_no_encode", ode_train, ode_test)):
+        run = root / f"{variant}_h256"
+        argv = ["--training", "--fused", "--device", "cuda", "--hidden", "256", "--train_data", str(train_f),
+                "--test_data", str(test_f), "--model", str(run), "--num", "128", "--batch", "64",
+                "--epoch", "200", "--stop_after", "1", "--larger_than", "none", "--seed", "0"]
+        counts = (F.fused_dae_rollout, V.fused_dae_rollout_bwd) if variant == "dae_no_encode" else (
+            FO.fused_ode_rollout, VO.fused_ode_rollout_bwd)
+        for c in counts:
+            c.launches = 0
+        t0 = time.perf_counter()
+        cli_main(variant, argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = [c.launches for c in counts]
+        recs = [json.loads(line) for line in (run / "train_metrics.jsonl").read_text().splitlines()]
+        (ev,) = [r for r in recs if r["kind"] == "eval"]
+        say(f"[export] {variant} --training --fused --hidden 256: epoch-1 eval x_loss {ev['x_loss']:.8g}; "
+            f"launches: forward {n[0]}, backward {n[1]}; wall {wall:.2f} s")
+        if min(n) < 1 or not np.isfinite(ev["x_loss"]):
+            fail(f"{variant} at h=256 launched the kernels {n} times or gave the eval {ev['x_loss']}")
+        runs.append((variant, 256, run, test_f))
+    runs.append(("ode_no_encode", 128, root / "ode" / "run_cli", ode_test))
+    for variant in CW_VARIANTS:
+        runs.append((variant, 128, root / "cw" / f"{variant}_run_cli", cw_files[variant][1]))
+    for variant, hidden, run, test_f in runs:
+        what = f"{variant} h={hidden} --training"
+        model = port_model(variant, hidden, run / "model_checkpoint.1")
+        e_prog = check_saved(what, variant, run / "saved model", run / "model_checkpoint.1", model)
+        e_nat = check_native(what, variant, run / "saved model", model, test_f)
+        say(f"[export] {what}: saved model/ equal to model_checkpoint.1, .pt2 max|d|/max {e_prog:.2e}, native "
+            f"rollout max|d| {e_nat:.2e}; export_s per epoch {export_seconds(run)}")
 
 
 def main(argv=None):
@@ -1615,15 +1876,18 @@ def main(argv=None):
     times = phase_times(dev, args.sweep)
     ode_fwd_err = phase_ode_kernel_vs_plain(dev)
     ode_bwd_err = phase_ode_bwd_vs_plain(dev)
-    with tempfile.TemporaryDirectory(prefix="psnode_ode_") as tmp:
-        ode_launches, ode_files = phase_ode_slice(dev, pathlib.Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="psnode_smoke_") as tmp:
+        root = pathlib.Path(tmp)
+        (root / "ode").mkdir()
+        (root / "cw").mkdir()
+        ode_launches, ode_files = phase_ode_slice(dev, root / "ode")
         ode_times = phase_ode_times(dev, ode_files, args.sweep)
-    with tempfile.TemporaryDirectory(prefix="psnode_cw_") as tmp:
-        cw_files = cw_setup(pathlib.Path(tmp))
+        cw_files = cw_setup(root / "cw")
         cw_fwd_err = phase_cw_kernel_vs_plain(dev, cw_files)
         cw_bwd_err = phase_cw_bwd_vs_plain(dev, cw_files)
-        cw_launches = phase_cw_slice(dev, cw_files, pathlib.Path(tmp))
+        cw_launches = phase_cw_slice(dev, cw_files, root / "cw")
         cw_times = phase_cw_times(dev, cw_files)
+        phase_export(dev, root, ode_files, cw_files)
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all, nvcc "
         f"{', '.join(f'{k} {v:.2f} s' for k, v in nvcc_s.items())}; card {smi}")
     # the forward as the evaluation slice drives it (B=32, Euler); the

@@ -1,6 +1,7 @@
 """Shared CLI (counterpart of ``py_psnode_tpu/cli/common.py``): the
-reference CLI scripts' flags and the mode dispatch. ``--training`` and
-``--testing`` are ported; ``--saving`` raises "not ported yet".
+reference CLI scripts' flags and the mode dispatch: ``--training``,
+``--testing`` and ``--saving`` (export a checkpoint into ``saved model/``
+beside it; needs ``--model`` and ``--test_data``).
 
 Flags: --device --id --training --testing --saving --drawing --train_data
 --test_data --model --num --batch --hidden --epoch --step, plus the JAX
@@ -33,7 +34,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--testing", action="store_true",
                         help="Call testing process, --model and --test_data needed.")
     parser.add_argument("--saving", action="store_true",
-                        help="Call saving process (not ported yet).")
+                        help="Call saving process: export --model (a checkpoint "
+                             "file, or a run directory resolved to its best-eval "
+                             "epoch) into 'saved model/' beside it; --model and "
+                             "--test_data needed.")
     parser.add_argument("--drawing", action="store_true",
                         help="Draw true-vs-pred curves during testing.")
     parser.add_argument("--train_data", type=str,
@@ -151,8 +155,6 @@ def main(variant: str, argv=None):
     args = build_parser().parse_args(argv)
     use_full_float32()
     device = device_name(args.device, args.id)
-    if args.saving:
-        raise NotImplementedError("--saving (the model export) is not ported yet")
     _check_ported(args)
     cfg = TrainConfig(
         variant=variant,
@@ -187,4 +189,8 @@ def main(variant: str, argv=None):
         if not (args.model and args.test_data):
             raise SystemExit("Model or testing set missing! Please check.")
         return Trainer(cfg).test()
+    if args.saving:
+        if not (args.model and args.test_data):
+            raise SystemExit("Model or testing set missing! Please check.")
+        return Trainer(cfg).save()
     raise SystemExit('Unknown task. Set "--training" or "--testing".')

@@ -108,21 +108,34 @@ struct Args {
   float* g_x0;           // [batch, xd]
   float* g_i0;           // [batch, id]
   int tm1, batch, xd, id, solver;
+  int H;                 // the padded width (kMaxH: the 128-wide kernels)
+  float* scratch;        // the wide kernels' global scratch (the contraction's partial sums)
 };
 
+// The wide walk's vectors of H floats.
+constexpr int kDaeWalkVecs = 11;
+
 // ---- kernel 1: every evaluation of every row-step, a tile of kRows at a time ----
-__global__ void __launch_bounds__(kThreads, 1) dae_recompute(const __grid_constant__ Args a) {
-  extern __shared__ __align__(16) float smem[];
-  const RcSmem s = carve_rc(smem);
+template <bool kWide>
+__device__ __forceinline__ void dae_recompute_body(const Args& a, float* smem) {
+  const RcSmem s = kWide ? carve_rc_wide(smem, a.scratch + blockIdx.x * rc_wide_tile_floats(a.H), a.H)
+                         : carve_rc(smem);
   const Bufs& bf = a.bf;
   const long long r0 = static_cast<long long>(blockIdx.x) * kRows, B = a.batch;
   const int xd = a.xd, id = a.id, D = xd + id, S = n_stages(a.solver);
   const int eN = S, eV = S + 1;  // the AE at t+1, the AE at the event
   rc_begin(s, r0, bf.R, [&](long long r) { return __ldg(a.aux + 2 * r); },
-           [&](long long r) { return __ldg(a.aux + 2 * r + 1); });
+           [&](long long r) { return __ldg(a.aux + 2 * r + 1); }, kWide ? a.H * kLdt : kTile);
   __syncthreads();
   rc_any_event(s);
   __syncthreads();
+  auto eval = [&](const Net& net, int e, const float* st, auto keep, float* y) {
+    if constexpr (kWide) {
+      rc_eval_wide(net, bf, e, r0, st, s, keep, y, bf.ow, a.H);
+    } else {
+      rc_eval(net, bf, e, r0, st, s, keep, y, bf.ow);
+    }
+  };
   // x_t, i_t (row t-1 of the packed solution, x0 / i0 at t = 0), x_{t+1}
   auto x_t = [&](long long r, int c) {
     return r < B ? __ldg(a.x0 + r * xd + c) : __ldg(a.sol + (r - B) * D + c);
@@ -132,11 +145,10 @@ __global__ void __launch_bounds__(kThreads, 1) dae_recompute(const __grid_consta
   };
   if (s.flag[0] > 0.f) {  // i_in exactly as the forward computed it, on event rows
     rc_input(s, bf, eV, r0, xd, [&](int m, int c) { return x_t(r0 + m, c); });
-    rc_eval(a.ae, bf, eV, r0, a.s_ae_ev, s, [&](int m) { return s.ev[m] > 0.f; },
-            bf.gy_row(eV, 0), bf.ow);
+    eval(a.ae, eV, a.s_ae_ev, [&](int m) { return s.ev[m] > 0.f; }, bf.gy_row(eV, 0));
   }
   rc_input(s, bf, eN, r0, xd, [&](int m, int c) { return __ldg(a.sol + (r0 + m) * D + c); });
-  rc_eval(a.ae, bf, eN, r0, a.s_ae, s, [](int) { return true; }, nullptr, 0);
+  eval(a.ae, eN, a.s_ae, [](int) { return true; }, nullptr);
   // stage q's output k_q waits in gy slot q, the AE at the event's in slot
   // eV (the walk overwrites both)
   auto k = [&](int q, long long r, int c) { return bf.gy_row(q, r)[c]; };
@@ -151,35 +163,51 @@ __global__ void __launch_bounds__(kThreads, 1) dae_recompute(const __grid_consta
       if (q == 2) return x + dt * (k(1, r, c) - k(0, r, c) * kOneThird);
       return x + dt * (k(0, r, c) - k(1, r, c) + k(2, r, c));
     });
-    rc_eval(a.de, bf, q, r0, a.s_de, s, [](int) { return true; },
-            q + 1 < S ? bf.gy_row(q, 0) : nullptr, bf.ow);
+    eval(a.de, q, a.s_de, [](int) { return true; }, q + 1 < S ? bf.gy_row(q, 0) : nullptr);
   }
 }
 
-// ---- kernel 2: the reverse walk, one block per batch row ----
-__global__ void __launch_bounds__(kThreads, 1) dae_walk(const __grid_constant__ Args a, int slots) {
+__global__ void __launch_bounds__(kThreads, 1) dae_recompute(const __grid_constant__ Args a) {
   extern __shared__ __align__(16) float smem[];
+  dae_recompute_body<false>(a, smem);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) dae_recompute_wide(const __grid_constant__ Args a) {
+  extern __shared__ __align__(16) float smem[];
+  dae_recompute_body<true>(a, smem);
+}
+
+// ---- kernel 2: the reverse walk, one block per batch row ----
+// kWide: the walk at a padded width H > kMaxH (no resident weight, no
+// prefetch; the vectors H long, in shared memory or, without vec_smem, in
+// the block's share of the scratch).
+template <bool kWide>
+__device__ __forceinline__ void dae_walk_body(const Args& a, int slots, bool vec_smem, float* smem) {
   const Bufs& bf = a.bf;
   const int xd = a.xd, id = a.id, D = xd + id, B = a.batch, h = bf.h, tid = threadIdx.x;
   const int S = n_stages(a.solver), eN = S, eV = S + 1;
   const int row = blockIdx.x, k = walk_k();
   const int step_f = walk_step_floats(bf.E, bf.L), slot_f = bf.L * kMaxH;
+  const int V = kWide ? a.H : kMaxH;  // floats of a vector
   float* wres = smem;
   float* pf = wres + static_cast<size_t>(slots) * kMat;  // two steps
-  float* va = pf + 2 * step_f;
-  float* vb = va + kMaxH;
-  float* gyv = vb + kMaxH;   // the output cotangent of the next evaluation
-  float* gX1 = gyv + kMaxH;  // cotangent of x_{t+1}
-  float* gxc = gX1 + kMaxH;  // x carry, then dL/dx_t of the step
-  float* gic = gxc + kMaxH;  // i carry
-  float* gii = gic + kMaxH;  // cotangent of i_in
-  float* gk1 = gii + kMaxH;  // RK4 stage cotangents
-  float* gk2 = gk1 + kMaxH;
-  float* gk3 = gk2 + kMaxH;
+  float* va = kWide ? (vec_smem ? smem : a.scratch + static_cast<size_t>(row) * kDaeWalkVecs * V) : pf + 2 * step_f;
+  float* vb = va + V;
+  float* gyv = vb + V;   // the output cotangent of the next evaluation
+  float* gX1 = gyv + V;  // cotangent of x_{t+1}
+  float* gxc = gX1 + V;  // x carry, then dL/dx_t of the step
+  float* gic = gxc + V;  // i carry
+  float* gii = gic + V;  // cotangent of i_in
+  float* gk1 = gii + V;  // RK4 stage cotangents
+  float* gk2 = gk1 + V;
+  float* gk3 = gk2 + V;
+  float* gsv = gk3 + V;  // the wide walk's sum of the stages' first-layer cotangents
 
-  load_resident(a.de, wres);
-  load_resident(a.ae, wres);
-  for (int e = tid; e < kMaxH; e += kThreads) {
+  if constexpr (!kWide) {
+    load_resident(a.de, wres);
+    load_resident(a.ae, wres);
+  }
+  for (int e = tid; e < V; e += kThreads) {
     gxc[e] = 0.f;
     gic[e] = 0.f;
   }
@@ -188,16 +216,50 @@ __global__ void __launch_bounds__(kThreads, 1) dae_walk(const __grid_constant__ 
     walk_prefetch(bf, dst, r, a.cot + (r + B) * D, D, a.aux + 2 * r, 2);
     cp_async_commit();
   };
-  prefetch(a.tm1 - 1, pf + ((a.tm1 - 1) & 1) * step_f);
+  if constexpr (!kWide) prefetch(a.tm1 - 1, pf + ((a.tm1 - 1) & 1) * step_f);
   for (int t = a.tm1 - 1; t >= 0; --t) {
     const long long r = static_cast<long long>(t) * B + row;
-    cp_async_wait<0>();
-    __syncthreads();  // step t landed; every thread is done with the other buffer
-    if (t > 0) prefetch(t - 1, pf + ((t - 1) & 1) * step_f);
-    const float* P = pf + (t & 1) * step_f;  // slot q's layers at P + q slot_f
-    const float* cot = P + bf.E * slot_f;
-    const float dt = cot[kMaxH];
-    const bool ev = cot[kMaxH + 1] > 0.f;
+    const float* P = nullptr;  // slot q's layers at P + q slot_f (the 128-wide walk)
+    const float* cot;
+    float dt;
+    bool ev;
+    if constexpr (kWide) {
+      __syncthreads();  // the last step's carries visible to every thread
+      cot = a.cot + (r + B) * D;
+      dt = __ldg(a.aux + 2 * r);
+      ev = __ldg(a.aux + 2 * r + 1) > 0.f;
+    } else {
+      cp_async_wait<0>();
+      __syncthreads();  // step t landed; every thread is done with the other buffer
+      if (t > 0) prefetch(t - 1, pf + ((t - 1) & 1) * step_f);
+      P = pf + (t & 1) * step_f;
+      cot = P + bf.E * slot_f;
+      dt = cot[kMaxH];
+      ev = cot[kMaxH + 1] > 0.f;
+    }
+    auto eval = [&](const Net& net, int e) {
+      if constexpr (kWide) {
+        return walk_eval_wide(net, bf, e, r, gyv, va, vb, V);
+      } else {
+        return walk_eval(net, bf, e, r, P + e * slot_f, gyv, va, vb, wres);
+      }
+    };
+    auto inputs = [&](const Net& net, const float* v, auto fn) {
+      if constexpr (kWide) {
+        walk_inputs_wide(net, v, V, fn);
+      } else {
+        walk_inputs(net, v, fn);
+      }
+    };
+    // row r of a stream cotangent: fn(j) at each of the thread's outputs j < h
+    auto put = [&](float* dst, auto fn) {
+      if constexpr (kWide) {
+        if (walk_ks() == 0)
+          for (int j = k; j < h; j += kMaxH) dst[r * h + j] = fn(j);
+      } else {
+        if (walk_ks() == 0 && k < h) dst[r * h + k] = fn(k);
+      }
+    };
     NE_PHASE(0);
     for (int c = tid; c < xd; c += kThreads) gX1[c] = cot[c] + gxc[c];
     for (int c = tid; c < id; c += kThreads) {
@@ -207,19 +269,29 @@ __global__ void __launch_bounds__(kThreads, 1) dae_walk(const __grid_constant__ 
     __syncthreads();
 
     // ---- the AE at t+1, from gI1 ----
-    const float* v = walk_eval(a.ae, bf, eN, r, P + eN * slot_f, gyv, va, vb, wres);
-    if (walk_ks() == 0 && k < h) a.g_s_ae[r * h + k] = v[k];
-    walk_inputs(a.ae, v, [&](int c, float g) { gX1[c] += g; });
+    const float* v = eval(a.ae, eN);
+    put(a.g_s_ae, [&](int j) { return v[j]; });
+    inputs(a.ae, v, [&](int c, float g) { gX1[c] += g; });
     __syncthreads();
     NE_PHASE(1);
 
     // ---- the DE stages' VJPs, last stage first; gsde, the sum of their
-    // first layers' cotangents, is kept by the threads of output k ----
+    // first layers' cotangents, is kept by the threads of output k (wide:
+    // in gsv, each element by the thread of its output) ----
     float gsde = 0.f;
+    if constexpr (kWide) {
+      if (walk_ks() == 0)
+        for (int j = k; j < V; j += kMaxH) gsv[j] = 0.f;
+    }
     auto stage = [&](int q, auto glue) {
-      const float* u = walk_eval(a.de, bf, q, r, P + q * slot_f, gyv, va, vb, wres);
-      gsde += u[k];
-      walk_inputs(a.de, u, [&](int c, float g) {
+      const float* u = eval(a.de, q);
+      if constexpr (kWide) {
+        if (walk_ks() == 0)
+          for (int j = k; j < V; j += kMaxH) gsv[j] += u[j];
+      } else {
+        gsde += u[k];
+      }
+      inputs(a.de, u, [&](int c, float g) {
         if (c < xd) {
           glue(c, g);
         } else {
@@ -267,7 +339,11 @@ __global__ void __launch_bounds__(kThreads, 1) dae_walk(const __grid_constant__ 
       });
       stage(0, [&](int c, float g) { gxc[c] += g; });  // g_a1
     }
-    if (walk_ks() == 0 && k < h) a.g_s_de[r * h + k] = gsde;
+    if constexpr (kWide) {
+      put(a.g_s_de, [&](int j) { return gsv[j]; });
+    } else {
+      if (walk_ks() == 0 && k < h) a.g_s_de[r * h + k] = gsde;
+    }
     NE_PHASE(2);
 
     // ---- route the i_in cotangent: on an event through the AE_ev VJP
@@ -275,19 +351,29 @@ __global__ void __launch_bounds__(kThreads, 1) dae_walk(const __grid_constant__ 
     if (ev) {
       for (int c = tid; c < id; c += kThreads) gyv[c] = gii[c];
       __syncthreads();
-      const float* u = walk_eval(a.ae, bf, eV, r, P + eV * slot_f, gyv, va, vb, wres);
-      if (walk_ks() == 0 && k < h) a.g_s_ae_ev[r * h + k] = u[k];
-      walk_inputs(a.ae, u, [&](int c, float g) { gxc[c] += g; });
+      const float* u = eval(a.ae, eV);
+      put(a.g_s_ae_ev, [&](int j) { return u[j]; });
+      inputs(a.ae, u, [&](int c, float g) { gxc[c] += g; });
       for (int c = tid; c < id; c += kThreads) gic[c] = 0.f;
     } else {
       for (int c = tid; c < id; c += kThreads) gic[c] = gii[c];
-      if (walk_ks() == 0 && k < h) a.g_s_ae_ev[r * h + k] = 0.f;
+      put(a.g_s_ae_ev, [](int) { return 0.f; });
     }
     NE_PHASE(3);
   }
   __syncthreads();
   for (int c = tid; c < xd; c += kThreads) a.g_x0[static_cast<size_t>(row) * xd + c] = gxc[c];
   for (int c = tid; c < id; c += kThreads) a.g_i0[static_cast<size_t>(row) * id + c] = gic[c];
+}
+
+__global__ void __launch_bounds__(kThreads, 1) dae_walk(const __grid_constant__ Args a, int slots) {
+  extern __shared__ __align__(16) float smem[];
+  dae_walk_body<false>(a, slots, true, smem);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) dae_walk_wide(const __grid_constant__ Args a, int vec_smem) {
+  extern __shared__ __align__(16) float smem[];
+  dae_walk_body<true>(a, 0, vec_smem != 0, smem);
 }
 
 // The contraction's jobs: the DE over the stages' slots ([wx; wi] from
@@ -305,7 +391,8 @@ Jobs dae_jobs(const Net& de, const Net& ae, int h, int xd, int id, int S) {
 
 // sizes[0]: floats of the flat gradient row g_w; sizes[1]: of the residual
 // buffer (and of its cotangents); sizes[2]: of gy; sizes[3]: of xin;
-// sizes[4]: of the contraction's partial sums.
+// sizes[4]: of the contraction's partial sums; sizes[5]: the padded width H
+// of the weights the launcher takes (the one place its rule is kept).
 extern "C" void psn_fused_dae_bwd_sizes(int tm1, int batch, int h, int xd, int id, int n_de,
                                         int n_ae, int solver, long long* sizes) {
   const long long R = static_cast<long long>(tm1) * batch;
@@ -317,12 +404,24 @@ extern "C" void psn_fused_dae_bwd_sizes(int tm1, int batch, int h, int xd, int i
   sizes[2] = E * R * (xd > id ? xd : id);
   sizes[3] = E * R * (xd + id);
   sizes[4] = n_splits(max_rows(jobs, R)) * jobs.per_split;
+  const int H = fwd_width(h > xd + id ? h : xd + id);
+  sizes[5] = H;
+  if (H > kMaxH) {  // the wide kernels' scratch shares the partial sums' buffer
+    const long long tiles = (R + kRows - 1) / kRows;
+    long long wide = tiles * static_cast<long long>(rc_wide_tile_floats(H));
+    if (!walk_wide_in_smem(kDaeWalkVecs, H)) {
+      const long long vecs = static_cast<long long>(batch) * kDaeWalkVecs * H;
+      wide = wide > vecs ? wide : vecs;
+    }
+    sizes[4] = sizes[4] > wide ? sizes[4] : wide;
+  }
 }
 
 // C interface, loaded with ctypes. Pointers are device pointers to
-// contiguous float32 arrays: w_de the DE's padded weights [n_de + 1][128][128]
-// ([wx_de; wi_de], then the tail layers), b_de its padded biases
-// [n_de][128], w_ae / b_ae the AE's (gx_ae first); res, gres, gy, xin and
+// contiguous float32 arrays: w_de the DE's padded weights [n_de + 1][H][H]
+// in 128 x 128 blocks (csrc/noencode_bwd.cuh; [wx_de; wi_de], then the tail
+// layers), H the multiple of 128 at or above h and xd + id, b_de its padded
+// biases [n_de][H], w_ae / b_ae the AE's (gx_ae first); res, gres, gy, xin and
 // parts scratch of the sizes psn_fused_dae_bwd_sizes gives. solver: 0 Euler,
 // 1 Midpoint, 2 RK4 (3/8 rule). stages: the kernels to launch, 1 the
 // recompute, 2 the walk, 4 the contraction (7 for the backward; one alone
@@ -335,10 +434,11 @@ extern "C" int psn_fused_dae_rollout_bwd_f32(
     const void* w_ae, const void* b_ae, int n_ae, void* g_s_de, void* g_s_ae, void* g_s_ae_ev,
     void* g_w, void* g_x0, void* g_i0, void* res, void* gres, void* gy, void* xin, void* parts,
     int tm1, int batch, int h, int xd, int id, int solver, int stages, int max_slots, void* stream) {
-  if (tm1 < 1 || batch < 1 || h < 1 || h > kMaxH || xd < 1 || id < 1 || xd + id > kMaxH ||
-      solver < 0 || solver > 2 || n_de < 1 || n_de > kMaxTail || n_ae < 1 || n_ae > kMaxTail)
+  if (tm1 < 1 || batch < 1 || h < 1 || xd < 1 || id < 1 || solver < 0 || solver > 2 || n_de < 1 ||
+      n_de > kMaxTail || n_ae < 1 || n_ae > kMaxTail)
     return static_cast<int>(cudaErrorInvalidValue);
   const int S = n_stages(solver), E = S + 2, L = n_de > n_ae ? n_de : n_ae;
+  const int H = fwd_width(h > xd + id ? h : xd + id);
   const long long R = static_cast<long long>(tm1) * batch;
   Args a;
   a.s_de = static_cast<const float*>(s_de);
@@ -349,8 +449,8 @@ extern "C" int psn_fused_dae_rollout_bwd_f32(
   a.i0 = static_cast<const float*>(i0);
   a.sol = static_cast<const float*>(sol);
   a.cot = static_cast<const float*>(cot);
-  a.de = make_net(static_cast<const float*>(w_de), static_cast<const float*>(b_de), n_de, xd + id, xd);
-  a.ae = make_net(static_cast<const float*>(w_ae), static_cast<const float*>(b_ae), n_ae, xd, id);
+  a.de = make_net(static_cast<const float*>(w_de), static_cast<const float*>(b_de), n_de, xd + id, xd, H);
+  a.ae = make_net(static_cast<const float*>(w_ae), static_cast<const float*>(b_ae), n_ae, xd, id, H);
   a.bf = make_bufs(static_cast<float*>(res), static_cast<float*>(gres), static_cast<float*>(gy),
                    static_cast<float*>(xin), R, E, L, h, xd > id ? xd : id, xd + id);
   a.g_s_de = static_cast<float*>(g_s_de);
@@ -363,18 +463,35 @@ extern "C" int psn_fused_dae_rollout_bwd_f32(
   a.xd = xd;
   a.id = id;
   a.solver = solver;
+  a.H = H;
+  a.scratch = static_cast<float*>(parts);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaSuccess;
-  if (stages & 1) {
+  const int tiles = static_cast<int>((R + kRows - 1) / kRows);
+  if ((stages & 1) && H > kMaxH) {
+    const size_t smem = rc_wide_smem_bytes();
+    e = allow_smem(dae_recompute_wide, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    dae_recompute_wide<<<tiles, kThreads, smem, st>>>(a);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  } else if (stages & 1) {
     const size_t smem = rc_smem_bytes();
     e = allow_smem(dae_recompute, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    const int tiles = static_cast<int>((R + kRows - 1) / kRows);
     dae_recompute<<<tiles, kThreads, smem, st>>>(a);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  if (stages & 2) {
+  if ((stages & 2) && H > kMaxH) {
+    const int in_smem = walk_wide_in_smem(kDaeWalkVecs, H);
+    const size_t smem = in_smem ? static_cast<size_t>(kDaeWalkVecs) * H * sizeof(float) : 0;
+    e = allow_smem(dae_walk_wide, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    dae_walk_wide<<<batch, kThreads, smem, st>>>(a, in_smem);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  } else if (stages & 2) {
     Net* nets[2] = {&a.de, &a.ae};
     // by default the DE's hidden weights, used S times a step; the AE's,
     // used once, read through L1 and L2 (phase_clock's [ne-slots] sweep:
@@ -396,6 +513,7 @@ extern "C" int psn_fused_dae_rollout_bwd_f32(
     c.ev_stride = 2;
     c.parts = static_cast<float*>(parts);
     c.g_w = static_cast<float*>(g_w);
+    c.nt = H / kMaxH;
     e = launch_contraction(c, n_splits(max_rows(c.jobs, R)), st);
   }
   return static_cast<int>(e);

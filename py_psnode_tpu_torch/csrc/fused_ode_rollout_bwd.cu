@@ -75,16 +75,23 @@ struct Args {
   float* g_s_de;      // [tm1, batch, h]
   float* g_x0;        // [batch, xd]
   int tm1, batch, xd, solver;
+  int H;              // the padded width (kMaxH: the 128-wide kernels)
+  float* scratch;     // the wide kernels' global scratch (the contraction's partial sums)
 };
 
+// The wide walk's vectors of H floats.
+constexpr int kOdeWalkVecs = 9;
+
 // ---- kernel 1: the stages of every row-step, a tile of kRows at a time ----
-__global__ void __launch_bounds__(kThreads, 1) ode_recompute(const __grid_constant__ Args a) {
-  extern __shared__ __align__(16) float smem[];
-  const RcSmem s = carve_rc(smem);
+template <bool kWide>
+__device__ __forceinline__ void ode_recompute_body(const Args& a, float* smem) {
+  const RcSmem s = kWide ? carve_rc_wide(smem, a.scratch + blockIdx.x * rc_wide_tile_floats(a.H), a.H)
+                         : carve_rc(smem);
   const Bufs& bf = a.bf;
   const long long r0 = static_cast<long long>(blockIdx.x) * kRows;
   const int xd = a.xd, S = n_stages(a.solver);
-  rc_begin(s, r0, bf.R, [&](long long r) { return __ldg(a.dt + r); }, [](long long) { return 0.f; });
+  rc_begin(s, r0, bf.R, [&](long long r) { return __ldg(a.dt + r); }, [](long long) { return 0.f; },
+           kWide ? a.H * kLdt : kTile);
   __syncthreads();
   // stage q's output k_q waits in gy slot q (the walk overwrites it)
   auto k = [&](int q, long long r, int c) { return bf.gy_row(q, r)[c]; };
@@ -98,31 +105,50 @@ __global__ void __launch_bounds__(kThreads, 1) ode_recompute(const __grid_consta
       if (q == 2) return x + dt * (k(1, r, c) - k(0, r, c) * kOneThird);
       return x + dt * (k(0, r, c) - k(1, r, c) + k(2, r, c));
     });
-    rc_eval(a.net, bf, q, r0, a.s_de, s, [](int) { return true; },
-            q + 1 < S ? bf.gy_row(q, 0) : nullptr, bf.ow);
+    float* y = q + 1 < S ? bf.gy_row(q, 0) : nullptr;
+    if constexpr (kWide) {
+      rc_eval_wide(a.net, bf, q, r0, a.s_de, s, [](int) { return true; }, y, bf.ow, a.H);
+    } else {
+      rc_eval(a.net, bf, q, r0, a.s_de, s, [](int) { return true; }, y, bf.ow);
+    }
   }
 }
 
-// ---- kernel 2: the reverse walk, one block per batch row ----
-__global__ void __launch_bounds__(kThreads, 1) ode_walk(const __grid_constant__ Args a, int slots) {
+__global__ void __launch_bounds__(kThreads, 1) ode_recompute(const __grid_constant__ Args a) {
   extern __shared__ __align__(16) float smem[];
+  ode_recompute_body<false>(a, smem);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) ode_recompute_wide(const __grid_constant__ Args a) {
+  extern __shared__ __align__(16) float smem[];
+  ode_recompute_body<true>(a, smem);
+}
+
+// ---- kernel 2: the reverse walk, one block per batch row ----
+// kWide: the walk at a padded width H > kMaxH (no resident weight, no
+// prefetch; the vectors H long, in shared memory or, without vec_smem, in
+// the block's share of the scratch).
+template <bool kWide>
+__device__ __forceinline__ void ode_walk_body(const Args& a, int slots, bool vec_smem, float* smem) {
   const Bufs& bf = a.bf;
   const int xd = a.xd, B = a.batch, h = bf.h, tid = threadIdx.x;
   const int row = blockIdx.x, k = walk_k();
   const int step_f = walk_step_floats(bf.E, bf.L);
+  const int V = kWide ? a.H : kMaxH;  // floats of a vector
   float* wres = smem;
   float* pf = wres + static_cast<size_t>(slots) * kMat;  // two steps
-  float* va = pf + 2 * step_f;
-  float* vb = va + kMaxH;
-  float* gyv = vb + kMaxH;    // the output cotangent of the next evaluation
-  float* gX1 = gyv + kMaxH;   // cotangent of x_{t+1}
-  float* gxc = gX1 + kMaxH;   // x carry, then dL/dx_t of the step
-  float* gk1 = gxc + kMaxH;   // RK4 stage cotangents
-  float* gk2 = gk1 + kMaxH;
-  float* gk3 = gk2 + kMaxH;
+  float* va = kWide ? (vec_smem ? smem : a.scratch + static_cast<size_t>(row) * kOdeWalkVecs * V) : pf + 2 * step_f;
+  float* vb = va + V;
+  float* gyv = vb + V;    // the output cotangent of the next evaluation
+  float* gX1 = gyv + V;   // cotangent of x_{t+1}
+  float* gxc = gX1 + V;   // x carry, then dL/dx_t of the step
+  float* gk1 = gxc + V;   // RK4 stage cotangents
+  float* gk2 = gk1 + V;
+  float* gk3 = gk2 + V;
+  float* gsv = gk3 + V;   // the wide walk's sum of the stages' first-layer cotangents
 
-  load_resident(a.net, wres);
-  for (int e = tid; e < kMaxH; e += kThreads) {
+  if constexpr (!kWide) load_resident(a.net, wres);
+  for (int e = tid; e < V; e += kThreads) {
     gyv[e] = 0.f;  // beyond the evaluation's outputs it stays 0
     gxc[e] = 0.f;
   }
@@ -131,25 +157,46 @@ __global__ void __launch_bounds__(kThreads, 1) ode_walk(const __grid_constant__ 
     walk_prefetch(bf, dst, r, a.cot + (r + B) * xd, xd, a.dt + r, 1);
     cp_async_commit();
   };
-  prefetch(a.tm1 - 1, pf + ((a.tm1 - 1) & 1) * step_f);
+  if constexpr (!kWide) prefetch(a.tm1 - 1, pf + ((a.tm1 - 1) & 1) * step_f);
   for (int t = a.tm1 - 1; t >= 0; --t) {
     const long long r = static_cast<long long>(t) * B + row;
-    cp_async_wait<0>();
-    __syncthreads();  // step t landed; every thread is done with the other buffer
-    if (t > 0) prefetch(t - 1, pf + ((t - 1) & 1) * step_f);
-    const float* P = pf + (t & 1) * step_f;  // slot q's layers at P + q L kMaxH
-    const float* cot = P + bf.E * bf.L * kMaxH;
-    const float dt = cot[kMaxH];
+    const float* P = nullptr;  // slot q's layers at P + q L kMaxH (the 128-wide walk)
+    const float* cot;
+    float dt;
+    if constexpr (kWide) {
+      __syncthreads();  // the last step's carry visible to every thread
+      cot = a.cot + (r + B) * xd;
+      dt = __ldg(a.dt + r);
+    } else {
+      cp_async_wait<0>();
+      __syncthreads();  // step t landed; every thread is done with the other buffer
+      if (t > 0) prefetch(t - 1, pf + ((t - 1) & 1) * step_f);
+      P = pf + (t & 1) * step_f;
+      cot = P + bf.E * bf.L * kMaxH;
+      dt = cot[kMaxH];
+    }
     NE_PHASE(0);
     for (int c = tid; c < xd; c += kThreads) gX1[c] = cot[c] + gxc[c];
     __syncthreads();
     // the stages' VJPs, last stage first; gsde, the sum of their first
-    // layers' cotangents, is kept by the threads of output k
+    // layers' cotangents, is kept by the threads of output k (wide: in gsv,
+    // each element by the thread of its output)
     float gsde = 0.f;
+    if constexpr (kWide) {
+      if (walk_ks() == 0)
+        for (int j = k; j < V; j += kMaxH) gsv[j] = 0.f;
+    }
     auto stage = [&](int q, auto glue) {
-      const float* v = walk_eval(a.net, bf, q, r, P + q * bf.L * kMaxH, gyv, va, vb, wres);
-      gsde += v[k];
-      walk_inputs(a.net, v, glue);
+      if constexpr (kWide) {
+        const float* v = walk_eval_wide(a.net, bf, q, r, gyv, va, vb, V);
+        if (walk_ks() == 0)
+          for (int j = k; j < V; j += kMaxH) gsv[j] += v[j];
+        walk_inputs_wide(a.net, v, V, glue);
+      } else {
+        const float* v = walk_eval(a.net, bf, q, r, P + q * bf.L * kMaxH, gyv, va, vb, wres);
+        gsde += v[k];
+        walk_inputs(a.net, v, glue);
+      }
       __syncthreads();
     };
     if (a.solver == 0) {  // Euler: x1 = x + dt f(x)
@@ -191,10 +238,25 @@ __global__ void __launch_bounds__(kThreads, 1) ode_walk(const __grid_constant__ 
       });
       stage(0, [&](int c, float g) { gxc[c] += g; });  // g_a1
     }
-    if (walk_ks() == 0 && k < h) a.g_s_de[r * h + k] = gsde;
+    if constexpr (kWide) {
+      if (walk_ks() == 0)
+        for (int j = k; j < h; j += kMaxH) a.g_s_de[r * h + j] = gsv[j];
+    } else {
+      if (walk_ks() == 0 && k < h) a.g_s_de[r * h + k] = gsde;
+    }
     NE_PHASE(1);
   }
   for (int c = tid; c < xd; c += kThreads) a.g_x0[static_cast<size_t>(row) * xd + c] = gxc[c];
+}
+
+__global__ void __launch_bounds__(kThreads, 1) ode_walk(const __grid_constant__ Args a, int slots) {
+  extern __shared__ __align__(16) float smem[];
+  ode_walk_body<false>(a, slots, true, smem);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) ode_walk_wide(const __grid_constant__ Args a, int vec_smem) {
+  extern __shared__ __align__(16) float smem[];
+  ode_walk_body<true>(a, 0, vec_smem != 0, smem);
 }
 
 // The contraction's jobs: wx from the stage inputs, then each tail layer.
@@ -209,7 +271,8 @@ Jobs ode_jobs(const Net& net, int h, int xd, int S) {
 
 // sizes[0]: floats of the flat gradient row g_w; sizes[1]: of the residual
 // buffer (and of its cotangents); sizes[2]: of gy; sizes[3]: of xin;
-// sizes[4]: of the contraction's partial sums.
+// sizes[4]: of the contraction's partial sums; sizes[5]: the padded width H
+// of the weights the launcher takes (the one place its rule is kept).
 extern "C" void psn_fused_ode_bwd_sizes(int tm1, int batch, int h, int xd, int n_tail, int solver,
                                         long long* sizes) {
   const long long R = static_cast<long long>(tm1) * batch;
@@ -220,11 +283,23 @@ extern "C" void psn_fused_ode_bwd_sizes(int tm1, int batch, int h, int xd, int n
   sizes[2] = S * R * xd;
   sizes[3] = S * R * xd;
   sizes[4] = n_splits(max_rows(jobs, R)) * jobs.per_split;
+  const int H = fwd_width(h > xd ? h : xd);
+  sizes[5] = H;
+  if (H > kMaxH) {  // the wide kernels' scratch shares the partial sums' buffer
+    const long long tiles = (R + kRows - 1) / kRows;
+    long long wide = tiles * static_cast<long long>(rc_wide_tile_floats(H));
+    if (!walk_wide_in_smem(kOdeWalkVecs, H)) {
+      const long long vecs = static_cast<long long>(batch) * kOdeWalkVecs * H;
+      wide = wide > vecs ? wide : vecs;
+    }
+    sizes[4] = sizes[4] > wide ? sizes[4] : wide;
+  }
 }
 
 // C interface, loaded with ctypes. Pointers are device pointers to
-// contiguous float32 arrays: w the padded weights [n_tail + 1][128][128]
-// (wx, then the tail layers), b the padded biases [n_tail][128]; res, gres,
+// contiguous float32 arrays: w the padded weights [n_tail + 1][H][H] in 128
+// x 128 blocks (csrc/noencode_bwd.cuh; wx, then the tail layers), H the
+// multiple of 128 at or above h and xd, b the padded biases [n_tail][H]; res, gres,
 // gy, xin and parts scratch of the sizes psn_fused_ode_bwd_sizes gives.
 // solver: 0 Euler, 1 Midpoint, 2 RK4 (3/8 rule). stages: the kernels to
 // launch, 1 the recompute, 2 the walk, 4 the contraction (7 for the
@@ -237,17 +312,18 @@ extern "C" int psn_fused_ode_rollout_bwd_f32(
     const void* b, int n_tail, void* g_s_de, void* g_w, void* g_x0, void* res, void* gres, void* gy,
     void* xin, void* parts, int tm1, int batch, int h, int xd, int solver, int stages,
     int max_slots, void* stream) {
-  if (tm1 < 1 || batch < 1 || h < 1 || h > kMaxH || xd < 1 || xd > kMaxH || solver < 0 ||
-      solver > 2 || n_tail < 1 || n_tail > kMaxTail)
+  if (tm1 < 1 || batch < 1 || h < 1 || xd < 1 || solver < 0 || solver > 2 || n_tail < 1 ||
+      n_tail > kMaxTail)
     return static_cast<int>(cudaErrorInvalidValue);
   const int S = n_stages(solver);
+  const int H = fwd_width(h > xd ? h : xd);
   const long long R = static_cast<long long>(tm1) * batch;
   Args a;
   a.s_de = static_cast<const float*>(s_de);
   a.dt = static_cast<const float*>(dt);
   a.sol = static_cast<const float*>(sol);
   a.cot = static_cast<const float*>(cot);
-  a.net = make_net(static_cast<const float*>(w), static_cast<const float*>(b), n_tail, xd, xd);
+  a.net = make_net(static_cast<const float*>(w), static_cast<const float*>(b), n_tail, xd, xd, H);
   a.bf = make_bufs(static_cast<float*>(res), static_cast<float*>(gres), static_cast<float*>(gy),
                    static_cast<float*>(xin), R, S, n_tail, h, xd, xd);
   a.g_s_de = static_cast<float*>(g_s_de);
@@ -256,18 +332,35 @@ extern "C" int psn_fused_ode_rollout_bwd_f32(
   a.batch = batch;
   a.xd = xd;
   a.solver = solver;
+  a.H = H;
+  a.scratch = static_cast<float*>(parts);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaSuccess;
-  if (stages & 1) {
+  const int tiles = static_cast<int>((R + kRows - 1) / kRows);
+  if ((stages & 1) && H > kMaxH) {
+    const size_t smem = rc_wide_smem_bytes();
+    e = allow_smem(ode_recompute_wide, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ode_recompute_wide<<<tiles, kThreads, smem, st>>>(a);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  } else if (stages & 1) {
     const size_t smem = rc_smem_bytes();
     e = allow_smem(ode_recompute, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    const int tiles = static_cast<int>((R + kRows - 1) / kRows);
     ode_recompute<<<tiles, kThreads, smem, st>>>(a);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  if (stages & 2) {
+  if ((stages & 2) && H > kMaxH) {
+    const int in_smem = walk_wide_in_smem(kOdeWalkVecs, H);
+    const size_t smem = in_smem ? static_cast<size_t>(kOdeWalkVecs) * H * sizeof(float) : 0;
+    e = allow_smem(ode_walk_wide, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ode_walk_wide<<<batch, kThreads, smem, st>>>(a, in_smem);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  } else if (stages & 2) {
     Net* nets[1] = {&a.net};
     const int fit = walk_fit(S, n_tail);
     const int slots = place(nets, 1, max_slots >= 0 && max_slots < fit ? max_slots : fit);
@@ -284,6 +377,7 @@ extern "C" int psn_fused_ode_rollout_bwd_f32(
     c.bf = a.bf;
     c.parts = static_cast<float*>(parts);
     c.g_w = static_cast<float*>(g_w);
+    c.nt = H / kMaxH;
     e = launch_contraction(c, n_splits(max_rows(c.jobs, R)), st);
   }
   return static_cast<int>(e);

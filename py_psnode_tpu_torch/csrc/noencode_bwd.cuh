@@ -32,9 +32,24 @@
 //    cores, and a second kernel adds the ranges' partial sums in range
 //    order: the gradients are bit-identical on relaunch, with no atomics.
 //
-// The backward takes h <= kMaxH. Its weights arrive zero-padded to
-// [kMaxH][kMaxH] (row = input, column = output, the flax layout) and the
-// biases to [kMaxH], so every vector is kMaxH long with zeros beyond h.
+// The backward takes every width. Its weights arrive zero-padded to a width
+// H = kMaxH nc, H the multiple of kMaxH at or above h and the first layer's
+// inputs and the last layer's outputs (row = input, column = output, the
+// flax layout), in 128 x 128 blocks: block (kc, oc), rows 128 kc.. and
+// columns 128 oc.., at w + (kc nc + oc) kMaxH^2, row-major; the biases to
+// [H]. At H = kMaxH (nc = 1) that is the plain padded [kMaxH][kMaxH] layout,
+// and the kernels above run as described: every vector kMaxH long with zeros
+// beyond h. A wider H takes the wide kernels (`*_wide`), built from the same
+// blocks: the recompute sums each [kRows, H] x [H, H] product by 128 x 128
+// output chunks, each over 128-wide K chunks, every chunk's product summed
+// from zero and the chunk sums added in float32 (the tensor cores truncate
+// as they accumulate), its two activation tiles [H][kLdt] in global scratch;
+// the walk reads every weight from L2 by 128 x 128 blocks (a hidden weight
+// of H > kMaxH does not fit a block's shared memory) and each step's
+// residuals from `res` as it goes, its vectors H long in shared memory
+// (global scratch where they do not fit); the contraction splits each job
+// into 128 x 128 output tiles, each summed over the same row ranges in the
+// same order. Nothing wide changes the sums at H = kMaxH.
 
 #pragma once
 
@@ -62,8 +77,9 @@ __host__ __device__ inline int n_stages(int solver) { return solver == 0 ? 1 : (
 __host__ __device__ inline int round8(int k) { return (k + 7) / 8 * 8; }
 
 // One net as the kernels read it: w[0] the first layer (its kin inputs),
-// w[1 + l] tail layer l, each [kMaxH][kMaxH] (in the forward, [H][H] with
-// H its padded width); b[l] tail layer l's bias, [kMaxH] (or [H]);
+// w[1 + l] tail layer l, each [H][H] with H its padded width (kMaxH in the
+// 128-wide backward kernels; in 128 x 128 blocks in the wide ones); b[l]
+// tail layer l's bias, [H];
 // res_slot[l] the shared-memory slot of tail layer l < n - 1 (-1: read
 // from L2).
 struct Net {
@@ -174,8 +190,9 @@ __host__ inline size_t rc_smem_bytes() {
 // and loads the tile's step sizes (and, with ev_of, event flags). The
 // caller publishes them with a barrier.
 template <class Dt, class Ev>
-__device__ __forceinline__ void rc_begin(const RcSmem& s, long long r0, long long R, Dt dt_of, Ev ev_of) {
-  for (int e = threadIdx.x; e < 2 * kTile; e += kThreads) s.ta[e] = 0.f;  // tb follows ta
+__device__ __forceinline__ void rc_begin(const RcSmem& s, long long r0, long long R, Dt dt_of, Ev ev_of,
+                                         int tile = kTile) {
+  for (int e = threadIdx.x; e < 2 * tile; e += kThreads) s.ta[e] = 0.f;  // tb follows ta
   for (int m = threadIdx.x; m < kRows; m += kThreads) {
     const long long r = r0 + m;
     s.dt[m] = r < R ? dt_of(r) : 0.f;
@@ -266,6 +283,105 @@ __device__ __noinline__ void rc_eval(const Net& net, const Bufs& bf, int e, long
     for_acc_mn<1>(acc, kRows, net.out, [&](float& v, int m, int c) {
       if (r0 + m < R) y[(r0 + m) * ldy + c] = v + bl[c];
     });
+  }
+  __syncthreads();  // y (global) visible to the block
+}
+
+// A wide recompute block (padded width H > kMaxH): its two tiles, [H][kLdt]
+// each, at `tiles` in global scratch, tb after ta; the staging area and
+// the small arrays in shared memory.
+__device__ __forceinline__ RcSmem carve_rc_wide(float* p, float* tiles, int H) {
+  RcSmem s;
+  s.ta = tiles;
+  s.tb = tiles + static_cast<size_t>(H) * kLdt;
+  s.wbuf = p;  p += 2 * kChunk;
+  s.dt = p;    p += kRows;
+  s.ev = p;    p += kRows;
+  s.flag = p;
+  return s;
+}
+
+__host__ inline size_t rc_wide_smem_bytes() { return (2 * static_cast<size_t>(kChunk) + 2 * kRows + 4) * sizeof(float); }
+
+// Floats of a wide recompute block's tiles in the scratch.
+__host__ __device__ inline size_t rc_wide_tile_floats(int H) { return 2 * static_cast<size_t>(H) * kLdt; }
+
+// Block (kc, oc) of a padded weight of width H = kMaxH nc.
+__host__ __device__ __forceinline__ const float* wblock(const float* w, int nc, int kc, int oc) {
+  return w + (static_cast<size_t>(kc) * nc + oc) * kMat;
+}
+
+// acc = the output chunk oc (columns 128 oc..) of tin^T w over K inputs:
+// the tile tin (feature-major, rows beyond K zero) times the padded weight
+// w of width H, one K chunk of 128 at a time, each summed from zero into
+// part and the chunk sums added in float32. Ends with a barrier.
+__device__ __forceinline__ void rc_chunk_product(const float* tin, int K, const float* w, int H, int oc,
+                                                 float* wbuf, Acc<1>& acc, Acc<1>& part) {
+  const int nc = H / kMaxH;
+  for (int kc = 0; kc * kMaxH < K; ++kc) {
+    const int kr = K - kc * kMaxH;
+    mma_tile_weight<1>(tin + static_cast<size_t>(kc) * kMaxH * kLdt, kr < kMaxH ? kr : kMaxH,
+                       wblock(w, nc, kc, oc), kMaxH, wbuf, part);
+#pragma unroll
+    for (int i = 0; i < Tiling<1>::kMi; ++i)
+#pragma unroll
+      for (int j = 0; j < Tiling<1>::kNi; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][j][q] = kc == 0 ? part[i][j][q] : acc[i][j][q] + part[i][j][q];
+  }
+}
+
+// rc_eval at a padded width H > kMaxH (the wide layout; the tiles of
+// carve_rc_wide, their features beyond what a layer writes zero): each
+// layer by 128-wide output chunks, the first layer's K its kin inputs.
+template <class Keep>
+__device__ __noinline__ void rc_eval_wide(const Net& net, const Bufs& bf, int e, long long r0,
+                                          const float* __restrict__ st, const RcSmem& s, Keep keep,
+                                          float* y, int ldy, int H) {
+  const int h = bf.h, nc = H / kMaxH;
+  const long long R = bf.R;
+  Acc<1> acc, part;
+  float* cur = s.tb;
+  float* nxt = s.ta;
+  for (int l = 0; l < net.n; ++l) {
+    const float* bias = l == 0 ? nullptr : net.b[l - 1];
+    float* pre = bf.res + bf.at(e, l, 0);
+    for (int oc = 0; oc * kMaxH < h; ++oc) {
+      rc_chunk_product(cur, l == 0 ? net.kin : h, net.w[l], H, oc, s.wbuf, acc, part);
+      // beyond h, acc and the padded bias are 0: the tile keeps its zeros
+      for_acc_mn<1>(acc, kRows, kMaxH, [&](float& v, int m, int n) {
+        const long long r = r0 + m;
+        const int j = oc * kMaxH + n;
+        const bool live = j < h && r < R;
+        const float add = bias ? bias[j] : (live ? __ldg(st + r * h + j) : 0.f);
+        const float p = v + add;
+        nxt[static_cast<size_t>(j) * kLdt + m] = elu(p);
+        if (live && keep(m)) pre[r * h + j] = p;
+      });
+    }
+    __syncthreads();
+    float* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  if (y == nullptr) return;
+  const float* wl = net.w[net.n];
+  const float* bl = net.b[net.n - 1];
+  if (net.out <= kNarrow) {  // one thread an output, on the CUDA cores
+    for (int o = threadIdx.x; o < kRows * net.out; o += kThreads) {
+      const int c = o / kRows, m = o - c * kRows;
+      float v = 0.f;
+      for (int k = 0; k < h; ++k)
+        v = fmaf(cur[static_cast<size_t>(k) * kLdt + m], __ldg(wblock(wl, nc, k / kMaxH, 0) + (k % kMaxH) * kMaxH + c), v);
+      if (r0 + m < R) y[(r0 + m) * ldy + c] = v + bl[c];
+    }
+  } else {
+    for (int oc = 0; oc * kMaxH < net.out; ++oc) {
+      rc_chunk_product(cur, h, wl, H, oc, s.wbuf, acc, part);
+      for_acc_mn<1>(acc, kRows, net.out - oc * kMaxH, [&](float& v, int m, int c) {
+        if (r0 + m < R) y[(r0 + m) * ldy + oc * kMaxH + c] = v + bl[oc * kMaxH + c];
+      });
+    }
   }
   __syncthreads();  // y (global) visible to the block
 }
@@ -404,6 +520,77 @@ __device__ __forceinline__ void walk_inputs(const Net& net, const float* v, F fn
     for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
     if (lane == 0) fn(c, acc);
   }
+}
+
+// walk_eval at a padded width H > kMaxH (the wide layout): gyv, va and vb
+// H long; the step's pre-activations read from `res` as they are needed;
+// every weight read from L2 by 128 x 128 blocks, the thread's output k of
+// each 128-wide chunk of a layer's inputs summed over the output chunks
+// (each chunk's sum from matvec, the chunk sums added in order).
+__device__ __noinline__ const float* walk_eval_wide(const Net& net, const Bufs& bf, int e, long long r,
+                                                    const float* gyv, float* va, float* vb, int H) {
+  const int k = walk_k(), ks = walk_ks(), h = bf.h, nc = H / kMaxH;
+  for (int c = threadIdx.x; c < net.out; c += kThreads) bf.gy_row(e, r)[c] = gyv[c];
+  auto pre = [&](int l, int j) { return j < h ? bf.res[bf.at(e, l, r) + j] : 0.f; };
+  // the last layer: sum_c W[j][c] gy[c] over its outputs
+  const float* wl = net.w[net.n];
+  for (int kc = 0; kc < nc; ++kc) {
+    const int j = kc * kMaxH + k;
+    float acc = 0.f;
+    for (int c = ks; c < net.out; c += 4) acc = fmaf(__ldg(wblock(wl, nc, kc, c / kMaxH) + k * kMaxH + c % kMaxH), gyv[c], acc);
+    acc = quad_sum(acc);
+    const float g = acc * delu(pre(net.n - 1, j));
+    if (ks == 0) va[j] = g;
+    if (ks == 1 && j < h) bf.gres[bf.at(e, net.n - 1, r) + j] = g;
+  }
+  __syncthreads();
+  float* cur = va;
+  float* nxt = vb;
+  for (int l = net.n - 2; l >= 0; --l) {
+    for (int kc = 0; kc < nc; ++kc) {
+      const int j = kc * kMaxH + k;
+      float acc = 0.f;
+      for (int oc = 0; oc < nc; ++oc) {
+        const float part = matvec<false>(wblock(net.w[1 + l], nc, kc, oc), cur + oc * kMaxH);
+        acc = oc == 0 ? part : acc + part;
+      }
+      const float g = acc * delu(pre(l, j));
+      if (ks == 0) nxt[j] = g;
+      if (ks == 1 && j < h) bf.gres[bf.at(e, l, r) + j] = g;
+    }
+    __syncthreads();
+    float* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  return cur;
+}
+
+// walk_inputs at a padded width H > kMaxH: v H long, w0's row c read by
+// blocks.
+template <class F>
+__device__ __forceinline__ void walk_inputs_wide(const Net& net, const float* v, int H, F fn) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nc = H / kMaxH;
+  for (int c = warp; c < net.kin; c += kThreads / 32) {
+    float acc = 0.f;
+    for (int k = lane; k < H; k += 32)
+      acc = fmaf(__ldg(wblock(net.w[0], nc, c / kMaxH, k / kMaxH) + (c % kMaxH) * kMaxH + k % kMaxH), v[k], acc);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) fn(c, acc);
+  }
+}
+
+// Where a wide walk keeps its n vectors of H floats: shared memory when
+// they fit a block's (H up to about 5 000), else its share of the global
+// scratch (always, in a build with -DNE_WIDE_VEC_GMEM: the tests' way to
+// reach that path at a small width).
+__host__ inline bool walk_wide_in_smem(int n, int H) {
+#ifdef NE_WIDE_VEC_GMEM
+  return false;
+#else
+  return static_cast<size_t>(n) * H * sizeof(float) <= kSmemMax;
+#endif
 }
 
 // Floats of a walk's prefetched step: E L pre-activation rows of kMaxH,
@@ -1053,6 +1240,7 @@ struct CtArgs {
   int ev_stride;
   float* parts;     // [nsplit][jobs.per_split]
   float* g_w;
+  int nt;           // output tiles a side of the widest job (1 at H = kMaxH)
 };
 
 // Block (range blockIdx.x, job blockIdx.y): the job's sums over its range
@@ -1060,13 +1248,25 @@ struct CtArgs {
 // chunk's loads in flight in registers while the current one is
 // multiplied), into the range's partial sums. An h x h job runs on the
 // tensor cores; a narrow one (a first layer's few inputs, a last layer's
-// few outputs) on the CUDA cores, a thread an output.
-__global__ void __launch_bounds__(kThreads, 1) contract_jobs(const __grid_constant__ CtArgs a) {
-  extern __shared__ __align__(16) float smem[];
+// few outputs) on the CUDA cores, a thread an output. kWide: the job's
+// output tile blockIdx.z = (tu, tv) of nt x nt, its U columns 128 tu.. and
+// V columns 128 tv.. (a tile past the job's widths returns at once; the
+// bias sums come from the tiles with tu = 0).
+template <bool kWide>
+__device__ __forceinline__ void contract_body(const CtArgs& a, float* smem) {
   float* us = smem;           // [kKc][kLdt]: U, a row per summed row
   float* vs = smem + kChunk;  // [kKc][kLdt]: V
   const Job& jb = a.jobs.j[blockIdx.y];
   const Bufs& bf = a.bf;
+  int cu0 = 0, cv0 = 0, wu = jb.wu, wv = jb.wv;  // the tile's first columns and widths
+  if constexpr (kWide) {
+    const int tu = blockIdx.z / a.nt, tv = blockIdx.z - tu * a.nt;
+    cu0 = tu * kMaxH;
+    cv0 = tv * kMaxH;
+    if (cu0 >= jb.wu || cv0 >= jb.wv) return;
+    wu = jb.wu - cu0 < kMaxH ? jb.wu - cu0 : kMaxH;
+    wv = jb.wv - cv0 < kMaxH ? jb.wv - cv0 : kMaxH;
+  }
   const long long R = bf.R, N = jb.ne * R;
   const long long n0 = N * blockIdx.x / gridDim.x, n1 = N * (blockIdx.x + 1) / gridDim.x;
   constexpr int kPer = kKc * kMaxH / kThreads;  // elements a thread stages per chunk
@@ -1086,11 +1286,12 @@ __global__ void __launch_bounds__(kThreads, 1) contract_jobs(const __grid_consta
         ++e;
       }
       if (live && jb.masked && e == jb.e0 + jb.ne - 1) live = __ldg(a.ev + r * a.ev_stride) > 0.f;
-      ru[i] = live && col < jb.wu
-                  ? (jb.u_act ? __ldg(bf.res + bf.at(e, jb.lu, r) + col) : __ldg(bf.xin_row(e, r) + col))
+      ru[i] = live && col < wu
+                  ? (jb.u_act ? __ldg(bf.res + bf.at(e, jb.lu, r) + cu0 + col)
+                              : __ldg(bf.xin_row(e, r) + cu0 + col))
                   : 0.f;
-      rv[i] = live && col < jb.wv
-                  ? (jb.v_gy ? __ldg(bf.gy_row(e, r) + col) : __ldg(bf.gres + bf.at(e, jb.lv, r) + col))
+      rv[i] = live && col < wv
+                  ? (jb.v_gy ? __ldg(bf.gy_row(e, r) + cv0 + col) : __ldg(bf.gres + bf.at(e, jb.lv, r) + cv0 + col))
                   : 0.f;
     }
   };
@@ -1099,7 +1300,7 @@ __global__ void __launch_bounds__(kThreads, 1) contract_jobs(const __grid_consta
   Acc<1> acc, part;
   zero<1>(acc);
   const Frag f = frag<1>();
-  const int wv = jb.wv, n_out = jb.wu * wv;
+  const int n_out = wu * wv;
   const bool narrow = n_out <= kNarrowOut * kThreads;
   float nacc[kNarrowOut] = {};
   float bsum = 0.f;
@@ -1147,12 +1348,37 @@ __global__ void __launch_bounds__(kThreads, 1) contract_jobs(const __grid_consta
 #pragma unroll
     for (int q = 0; q < kNarrowOut; ++q) {
       const int o = threadIdx.x + q * kThreads;
-      if (o < n_out) out[o] = nacc[q];
+      if constexpr (kWide) {
+        if (o < n_out) out[static_cast<long long>(cu0 + o / wv) * jb.wv + cv0 + o % wv] = nacc[q];
+      } else {
+        if (o < n_out) out[o] = nacc[q];
+      }
     }
   } else {
-    for_acc_mn<1>(acc, jb.wu, wv, [&](float& v, int m, int n) { out[m * wv + n] = v; });
+    if constexpr (kWide) {
+      for_acc_mn<1>(acc, wu, wv, [&](float& v, int m, int n) {
+        out[static_cast<long long>(cu0 + m) * jb.wv + cv0 + n] = v;
+      });
+    } else {
+      for_acc_mn<1>(acc, wu, wv, [&](float& v, int m, int n) { out[m * wv + n] = v; });
+    }
   }
-  if (static_cast<int>(threadIdx.x) < wv) out[static_cast<long long>(jb.wu) * wv + threadIdx.x] = bsum;
+  if constexpr (kWide) {
+    if (cu0 == 0 && static_cast<int>(threadIdx.x) < wv)
+      out[static_cast<long long>(jb.wu) * jb.wv + cv0 + threadIdx.x] = bsum;
+  } else {
+    if (static_cast<int>(threadIdx.x) < wv) out[static_cast<long long>(jb.wu) * wv + threadIdx.x] = bsum;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1) contract_jobs(const __grid_constant__ CtArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  contract_body<false>(a, smem);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) contract_jobs_wide(const __grid_constant__ CtArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  contract_body<true>(a, smem);
 }
 
 // g_w at each job's places = the sum over the ranges, in order, of their
@@ -1173,11 +1399,17 @@ __global__ void reduce_parts(const __grid_constant__ CtArgs a, int nsplit) {
   }
 }
 
-// Launches the contraction's two kernels on st.
+// Launches the contraction's two kernels on st: the tiles of a wide
+// contraction (a.nt > 1) in the grid's third dimension.
 __host__ inline cudaError_t launch_contraction(const CtArgs& a, int nsplit, cudaStream_t st) {
   const size_t smem = 2 * kChunk * sizeof(float);
-  const dim3 grid(nsplit, a.jobs.n);
-  contract_jobs<<<grid, kThreads, smem, st>>>(a);
+  if (a.nt > 1) {
+    const dim3 grid(nsplit, a.jobs.n, a.nt * a.nt);
+    contract_jobs_wide<<<grid, kThreads, smem, st>>>(a);
+  } else {
+    const dim3 grid(nsplit, a.jobs.n);
+    contract_jobs<<<grid, kThreads, smem, st>>>(a);
+  }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int blocks = static_cast<int>((a.jobs.per_split + 255) / 256);

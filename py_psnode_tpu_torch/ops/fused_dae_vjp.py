@@ -52,7 +52,7 @@ from py_psnode_tpu_torch.ops.fused_dae import (
     pack_aux,
     unpack_solution,
 )
-from py_psnode_tpu_torch.ops.noencode_bwd import STAGES, check_widths, launch, net_grads_plain, pad_net
+from py_psnode_tpu_torch.ops.noencode_bwd import STAGES, launch, net_grads_plain, pad_net
 from py_psnode_tpu_torch.utils import cuda_build
 
 
@@ -337,9 +337,10 @@ def _launcher():
 
 
 def bwd_sizes(sizes, Tm1, B, h, xd, idim, n_tails, solver) -> Tuple[int, ...]:
-    """``(g_w, res, gy, xin, parts)`` floats at these shapes, from the C
+    """``(g_w, res, gy, xin, parts)`` floats at these shapes and the padded
+    width H of the weights (:func:`noencode_bwd.pad_net`), from the C
     function ``sizes`` of :func:`bind_rollout_bwd`."""
-    got = (ctypes.c_longlong * 5)()
+    got = (ctypes.c_longlong * 6)()
     sizes(Tm1, B, h, xd, idim, *n_tails, _SOLVER_CODE[solver], got)
     return tuple(got)
 
@@ -351,9 +352,10 @@ def fused_dae_rollout_bwd_cuda(
     row-step, the reverse walk (one block per batch row), and the
     contraction of the weight gradients (in a fixed order: bit-identical on
     relaunch). Same contract as :func:`fused_dae_rollout_bwd_plain`,
-    float32, h and xd + id <= 128. Scratch: the residual and cotangent
-    buffers, ``2 (S + 2) L (T-1) B h`` floats and a little more (1.2 GB at
-    B=64, T=1001, RK4, h=128), live until the call returns."""
+    float32, every width (above 128 the wide kernels). Scratch: the
+    residual and cotangent buffers, ``2 (S + 2) L (T-1) B h`` floats and a
+    little more (1.2 GB at B=64, T=1001, RK4, h=128; 4.7 GB at h=512), live
+    until the call returns."""
     out, _ = _launch_bwd(streams, weights, x0, i0, aux, packed, cot, solver)
     fused_dae_rollout_bwd.launches += 1
     return out
@@ -378,7 +380,6 @@ def _launch_bwd(streams: Dict, weights: Dict, x0, i0, aux, packed, cot, solver: 
     s_de = streams["s_de"]
     Tm1, B, h = s_de.shape
     xd, idim = x0.shape[-1], i0.shape[-1]
-    check_widths(h=h, **{"xd + id": xd + idim})
     for name, a, shape in (("packed", packed, (Tm1, B, xd + idim)),
                            ("cot", cot, (Tm1 + 1, B, xd + idim))):
         if a.device != s_de.device or a.dtype != torch.float32:
@@ -390,7 +391,7 @@ def _launch_bwd(streams: Dict, weights: Dict, x0, i0, aux, packed, cot, solver: 
     fn, sizes, err = launcher or _launcher()
     layout, total = grad_layout(weights)
     n_tails = (len(weights["de_tail"]), len(weights["ae_tail"]))
-    n_w, n_res, n_gy, n_xin, n_parts = bwd_sizes(sizes, Tm1, B, h, xd, idim, n_tails, solver)
+    n_w, n_res, n_gy, n_xin, n_parts, H = bwd_sizes(sizes, Tm1, B, h, xd, idim, n_tails, solver)
     if n_w != total:
         raise RuntimeError("gradient layout of the CUDA backward and of its wrapper disagree")
     f32 = dict(dtype=torch.float32, device=s_de.device)
@@ -402,8 +403,8 @@ def _launch_bwd(streams: Dict, weights: Dict, x0, i0, aux, packed, cot, solver: 
     g_flat = torch.empty(total, **f32)
     g_x0, g_i0 = torch.empty(B, xd, **f32), torch.empty(B, idim, **f32)
     # the padded weights must outlive the launch
-    w_de, b_de = pad_net(torch.cat([weights["wx_de"], weights["wi_de"]]), weights["de_tail"])
-    w_ae, b_ae = pad_net(weights["gx_ae"], weights["ae_tail"])
+    w_de, b_de = pad_net(torch.cat([weights["wx_de"], weights["wi_de"]]), weights["de_tail"], H)
+    w_ae, b_ae = pad_net(weights["gx_ae"], weights["ae_tail"], H)
     rc = launch(
         fn, s_de.device, s_de.data_ptr(), streams["s_ae"].data_ptr(), streams["s_ae_ev"].data_ptr(),
         aux.data_ptr(), x0.data_ptr(), i0.data_ptr(), packed.data_ptr(), cot.data_ptr(),

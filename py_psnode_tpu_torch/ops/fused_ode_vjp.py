@@ -41,7 +41,7 @@ import torch
 from py_psnode_tpu_torch.ops.fused_dae import _ONE_THIRD, _SOLVER_CODE, normalize_solver
 from py_psnode_tpu_torch.ops.fused_dae_vjp import _tail_bwd, _tail_fwd_res
 from py_psnode_tpu_torch.ops.fused_ode import check_inputs, fused_ode_rollout
-from py_psnode_tpu_torch.ops.noencode_bwd import STAGES, check_widths, launch, net_grads_plain, pad_net
+from py_psnode_tpu_torch.ops.noencode_bwd import STAGES, launch, net_grads_plain, pad_net
 from py_psnode_tpu_torch.utils import cuda_build
 
 
@@ -221,9 +221,10 @@ def _launcher():
 
 
 def bwd_sizes(sizes, Tm1, B, h, xd, n_tail, solver) -> Tuple[int, ...]:
-    """``(g_w, res, gy, xin, parts)`` floats at these shapes, from the C
+    """``(g_w, res, gy, xin, parts)`` floats at these shapes and the padded
+    width H of the weights (:func:`noencode_bwd.pad_net`), from the C
     function ``sizes`` of :func:`bind_rollout_bwd`."""
-    got = (ctypes.c_longlong * 5)()
+    got = (ctypes.c_longlong * 6)()
     sizes(Tm1, B, h, xd, n_tail, _SOLVER_CODE[solver], got)
     return tuple(got)
 
@@ -233,9 +234,10 @@ def fused_ode_rollout_bwd_cuda(s_de, weights: Dict, dt, sol, cot, solver: str = 
     row-step, the reverse walk (one block per batch row), and the
     contraction of the weight gradients (in a fixed order: bit-identical on
     relaunch). Same contract as :func:`fused_ode_rollout_bwd_plain`,
-    float32, h and xd <= 128. Scratch: the residual and cotangent buffers,
-    ``2 S n (T-1) B h`` floats and a little more (0.8 GB at B=64, T=1001,
-    RK4, h=128), live until the call returns."""
+    float32, every width (above 128 the wide kernels). Scratch: the
+    residual and cotangent buffers, ``2 S n (T-1) B h`` floats and a little
+    more (0.8 GB at B=64, T=1001, RK4, h=128), live until the call
+    returns."""
     out, _ = _launch_bwd(s_de, weights, dt, sol, cot, solver)
     fused_ode_rollout_bwd.launches += 1
     return out
@@ -259,7 +261,6 @@ def _launch_bwd(s_de, weights: Dict, dt, sol, cot, solver: str, launcher=None, s
     check_inputs(s_de, weights, sol[0], dt, "cpu" if host else "cuda")
     Tm1, B, h = s_de.shape
     xd = sol.shape[-1]
-    check_widths(h=h, xd=xd)
     for name, a in (("sol", sol), ("cot", cot)):
         if a.device != s_de.device or a.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 on {s_de.device}, got {a.dtype} on {a.device}")
@@ -270,7 +271,7 @@ def _launch_bwd(s_de, weights: Dict, dt, sol, cot, solver: str, launcher=None, s
     fn, sizes, err = launcher or _launcher()
     layout, total = grad_layout(weights)
     tail = weights["de_tail"]
-    n_w, n_res, n_gy, n_xin, n_parts = bwd_sizes(sizes, Tm1, B, h, xd, len(tail), solver)
+    n_w, n_res, n_gy, n_xin, n_parts, H = bwd_sizes(sizes, Tm1, B, h, xd, len(tail), solver)
     if n_w != total:
         raise RuntimeError("gradient layout of the CUDA backward and of its wrapper disagree")
     f32 = dict(dtype=torch.float32, device=s_de.device)
@@ -281,7 +282,7 @@ def _launch_bwd(s_de, weights: Dict, dt, sol, cot, solver: str, launcher=None, s
     g_s = torch.empty(Tm1, B, h, **f32)
     g_flat = torch.empty(total, **f32)
     g_x0 = torch.empty(B, xd, **f32)
-    w, b = pad_net(weights["wx_de"], tail)  # must outlive the launch
+    w, b = pad_net(weights["wx_de"], tail, H)  # must outlive the launch
     rc = launch(
         fn, s_de.device, s_de.data_ptr(), dt.data_ptr(), sol.data_ptr(), cot.data_ptr(),
         w.data_ptr(), b.data_ptr(), len(tail), g_s.data_ptr(), g_flat.data_ptr(), g_x0.data_ptr(),

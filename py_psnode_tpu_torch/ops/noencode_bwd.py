@@ -23,15 +23,8 @@ import torch
 
 from py_psnode_tpu_torch.models.funcs import elu
 
-MAX_HIDDEN = 128  # the kernels pad every vector and weight to 128
+BLOCK = 128  # the kernels cut the padded weights in 128 x 128 blocks
 STAGES = {"euler": 1, "midpoint": 2, "rk4": 4}  # evaluations of the dynamics a step
-
-
-def check_widths(**widths: int) -> None:
-    """Raise unless every width is at most :data:`MAX_HIDDEN`."""
-    for name, w in widths.items():
-        if w > MAX_HIDDEN:
-            raise ValueError(f"the no-encode backward kernels take {name} <= {MAX_HIDDEN}, got {w}")
 
 
 def launch(fn, dev: torch.device, *args) -> int:
@@ -48,18 +41,23 @@ def pointer_array(tensors):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
-def pad_net(first: torch.Tensor, tail: Sequence[Tuple[torch.Tensor, torch.Tensor]]):
-    """``(w [n + 1, 128, 128], b [n, 128])``: a net's first-layer weight
-    ``[kin, h]`` and tail layers ``(W [in, out], b [out])`` zero-padded, as
-    the kernels read them."""
-    n = len(tail)
-    w = first.new_zeros(n + 1, MAX_HIDDEN, MAX_HIDDEN)
-    b = first.new_zeros(n, MAX_HIDDEN)
+def pad_net(first: torch.Tensor, tail: Sequence[Tuple[torch.Tensor, torch.Tensor]], H: int):
+    """``(w [n + 1, H, H], b [n, H])``: a net's first-layer weight ``[kin,
+    h]`` and tail layers ``(W [in, out], b [out])`` zero-padded to width H
+    (a multiple of :data:`BLOCK`, the kernels' own: the last of the C
+    ``psn_fused_*_bwd_sizes``), each weight in ``H / 128`` x ``H / 128`` blocks
+    of 128 x 128, block ``(kc, oc)`` (rows ``128 kc..``, columns ``128
+    oc..``) the ``kc * H / 128 + oc``-th, row-major, as the kernels read
+    them; at ``H = 128`` the plain padded layout."""
+    n, nc = len(tail), H // BLOCK
+    w = first.new_zeros(n + 1, H, H)
+    b = first.new_zeros(n, H)
     w[0, : first.shape[0], : first.shape[1]] = first
     for l, (W, bias) in enumerate(tail):
         w[l + 1, : W.shape[0], : W.shape[1]] = W
         b[l, : bias.shape[0]] = bias
-    return w, b
+    blocks = w.view(n + 1, nc, BLOCK, nc, BLOCK).transpose(2, 3).contiguous()
+    return blocks.view(n + 1, H, H), b
 
 
 def net_operands(res, gres, gy, xin, slots: Sequence[int], kin: int, n: int, out: int, keep=None):

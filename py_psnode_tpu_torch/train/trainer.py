@@ -1,16 +1,18 @@
 """Trainer (counterpart of ``py_psnode_tpu/train/trainer.py``: ``TrainConfig``,
 ``build_model``, ``_make_train_step`` :577-680, ``_eval_batch_size`` :682,
-``_make_eval_apply`` :702, ``train`` :796-1129 and ``test`` :1131).
+``_make_eval_apply`` :702, ``train`` :796-1129, ``test`` :1131 and ``save`` :1178).
 
 ``Trainer.train`` trains the ODE or DAE no-encode or channel-wise variants
 on one device: Adam + StepLR, the zero-loss freeze and the optional robust-loss guard, the
 training set resident on the device and gathered by index, rolling
-record-window log lines, an npz checkpoint and an eval each epoch,
+record-window log lines, an npz checkpoint, an eval and the export of
+``saved model/`` each epoch (and once more after the last),
 ``train_and_eval.npz``, ``train_metrics.jsonl`` and the training-process
 summary. ``Trainer.test`` loads a ``model_checkpoint.{epoch}`` npz,
 evaluates it and writes ``Model_<ckpt>_Evaluation.log`` and
-``evaluation.npz`` next to the checkpoint. Not ported yet: the export of
-``saved model/``, orbax checkpoints, ``auto_resume``, multishoot (the
+``evaluation.npz`` next to the checkpoint; ``Trainer.save`` exports a
+checkpoint into ``saved model/`` beside it. Not ported yet: orbax
+checkpoints, ``auto_resume``, multishoot (the
 channel-wise one included), teacher forcing and data parallelism. The
 channel-wise family defines no teacher forcing and refuses it as the JAX
 package does.
@@ -297,6 +299,7 @@ class Trainer:
         test_ds = self.load_test_dataset()
         eval_batch = self._eval_batch_size(test_ds)
         model = self.build_model(train_ds)
+        dims = dataset_dims(variant, train_ds)
         steps_per_epoch = -(-len(train_ds) // cfg.batch)
 
         # --model <existing checkpoint file> resumes into <name>_branch/
@@ -429,6 +432,11 @@ class Trainer:
                 if variant.kind == "dae":
                     rec["i_loss"] = float(ev[1])
                 metrics.log(**rec)
+            # the run's first export rewrites the .pt2 programs: a directory
+            # reused at other widths keeps the earlier run's
+            variant.export_fn(model, dims, model_path / "saved model", epoch == 1)
+            if metrics is not None:
+                # export_s includes the train_and_eval.npz rewrite
                 metrics.log(
                     kind="epoch_time", epoch=epoch,
                     steps_s=round(t_steps, 4), ckpt_s=round(t_ckpt, 4),
@@ -436,9 +444,7 @@ class Trainer:
                     export_s=round(time.perf_counter() - t_phase, 4),
                 )
 
-        logger.training_log(
-            "export of the 'saved model' directory is not ported yet: nothing exported"
-        )
+        variant.export_fn(model, dims, model_path / "saved model", last_epoch < 1)
         summarize(logger, eval_error_list)
         logger.close()
         if metrics is not None:
@@ -483,3 +489,17 @@ class Trainer:
             eval=result, dtype=np.asarray(object),
         )
         return result
+
+    # ------------------------------------------------------------------- save
+
+    def save(self):
+        """--saving mode (ref :434-450): load the checkpoint ``model`` (a run
+        directory resolves to its best-eval epoch) and export it into
+        ``saved model/`` beside it; returns that directory."""
+        test_ds = self.load_test_dataset()
+        model = self.build_model(test_ds, init=False)
+        model_path = resolve_checkpoint(pathlib.Path(self.cfg.model))
+        load_params(model, load_checkpoint_params(model_path), device=self.device)
+        out = model_path.parent / "saved model"
+        self.variant.export_fn(model, dataset_dims(self.variant, test_ds), out, True)
+        return out

@@ -17,6 +17,8 @@ pairs (``fused_{dae,ode}_rollout{,_bwd}.cu``).
     python -m py_psnode_tpu_torch.utils.host_build fwd|bwd|contract B Tm1 h xd zd solver [cluster]
     python -m py_psnode_tpu_torch.utils.host_build dae-bwd B Tm1 h solver
     python -m py_psnode_tpu_torch.utils.host_build ode-bwd B Tm1 h xd n_tail solver
+
+(every width: above 128 the backward runs its wide kernels)
     python -m py_psnode_tpu_torch.utils.host_build dae-fwd B Tm1 h solver [rows]
     python -m py_psnode_tpu_torch.utils.host_build ode-fwd B Tm1 h xd n_tail solver [rows]
 
@@ -31,6 +33,7 @@ import ctypes
 import functools
 import hashlib
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -91,19 +94,23 @@ def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     out = BUILD_DIR / "host" / h.hexdigest()[:16]
     lib = out / f"lib{name}.so"
     if not lib.exists():
-        out.mkdir(parents=True, exist_ok=True)
+        # each process writes and compiles in a directory of its own, then
+        # moves the library into place: concurrent builds never share a file
+        work = out / f"work-{os.getpid()}"
+        work.mkdir(parents=True, exist_ok=True)
         for key, text in headers.items():
-            (out / key).write_text(text)
-        (out / "cuda_runtime.h").write_text("// cuda_host.h, included ahead of the source, stands in\n")
-        (out / f"{name}.cpp").write_text(source)
-        tmp = lib.with_suffix(".tmp")
-        cmd = [find_gxx(), "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-w", f"-I{out}",
-               *(f"-D{d}" for d in defines), "-include", str(out / "cuda_host.h"), "-o", str(tmp),
-               str(out / f"{name}.cpp")]
+            (work / key).write_text(text)
+        (work / "cuda_runtime.h").write_text("// cuda_host.h, included ahead of the source, stands in\n")
+        (work / f"{name}.cpp").write_text(source)
+        tmp = work / lib.name
+        cmd = [find_gxx(), "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-w", f"-I{work}",
+               *(f"-D{d}" for d in defines), "-include", str(work / "cuda_host.h"), "-o", str(tmp),
+               str(work / f"{name}.cpp")]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"g++ failed to build {name}.cu for the host:\n{res.stderr[-8000:]}")
         tmp.replace(lib)
+        shutil.rmtree(work, ignore_errors=True)
     return ctypes.CDLL(str(lib))
 
 
@@ -184,30 +191,31 @@ def _nan_bufs(n_res, n_gy, n_xin, n_parts) -> Dict:
 
 
 def dae_rollout_bwd(streams: Dict, weights: Dict, x0, i0, aux, packed, cot, solver: str = "rk4",
-                    stages: int = 7, bufs=None):
-    """Kernel 2's host build on CPU tensors (the arguments of
-    ``fused_dae_rollout_bwd_cuda``), on NaN-poisoned buffers unless
-    ``bufs`` are given; returns ``((g_streams, g_weights, g_x0, g_i0),
-    bufs)`` as ``fused_dae_vjp._launch_bwd`` does."""
-    launcher = V.bind_rollout_bwd(load("fused_dae_rollout_bwd"))
+                    stages: int = 7, bufs=None, defines: Tuple[str, ...] = ()):
+    """Kernel 2's host build (with ``defines``, :func:`load`) on CPU tensors
+    (the arguments of ``fused_dae_rollout_bwd_cuda``), on NaN-poisoned
+    buffers unless ``bufs`` are given; returns ``((g_streams, g_weights,
+    g_x0, g_i0), bufs)`` as ``fused_dae_vjp._launch_bwd`` does."""
+    launcher = V.bind_rollout_bwd(load("fused_dae_rollout_bwd", defines))
     if bufs is None:
         Tm1, B, h = streams["s_de"].shape
         n_tails = (len(weights["de_tail"]), len(weights["ae_tail"]))
         sizes = V.bwd_sizes(launcher[1], Tm1, B, h, x0.shape[-1], i0.shape[-1], n_tails, solver)
-        bufs = _nan_bufs(*sizes[1:])
+        bufs = _nan_bufs(*sizes[1:5])
     return V._launch_bwd(streams, weights, x0, i0, aux, packed, cot, solver, launcher, stages, bufs, host=True)
 
 
-def ode_rollout_bwd(s_de, weights: Dict, dt, sol, cot, solver: str = "euler", stages: int = 7, bufs=None):
-    """Kernel 4's host build on CPU tensors (the arguments of
-    ``fused_ode_rollout_bwd_cuda``), on NaN-poisoned buffers unless
-    ``bufs`` are given; returns ``((g_s_de, g_weights, g_x0), bufs)`` as
-    ``fused_ode_vjp._launch_bwd`` does."""
-    launcher = VO.bind_rollout_bwd(load("fused_ode_rollout_bwd"))
+def ode_rollout_bwd(s_de, weights: Dict, dt, sol, cot, solver: str = "euler", stages: int = 7, bufs=None,
+                    defines: Tuple[str, ...] = ()):
+    """Kernel 4's host build (with ``defines``) on CPU tensors (the
+    arguments of ``fused_ode_rollout_bwd_cuda``), on NaN-poisoned buffers
+    unless ``bufs`` are given; returns ``((g_s_de, g_weights, g_x0), bufs)``
+    as ``fused_ode_vjp._launch_bwd`` does."""
+    launcher = VO.bind_rollout_bwd(load("fused_ode_rollout_bwd", defines))
     if bufs is None:
         Tm1, B, h = s_de.shape
         sizes = VO.bwd_sizes(launcher[1], Tm1, B, h, sol.shape[-1], len(weights["de_tail"]), solver)
-        bufs = _nan_bufs(*sizes[1:])
+        bufs = _nan_bufs(*sizes[1:5])
     return VO._launch_bwd(s_de, weights, dt, sol, cot, solver, launcher, stages, bufs, host=True)
 
 
@@ -256,9 +264,9 @@ def _f64(tree):
 
 
 def noencode_bwd_check(family: str, B: int, Tm1: int, h: int, solver: str, xd: int = 2,
-                       n_tail: int = 3) -> Dict[str, float]:
+                       n_tail: int = 3, defines: Tuple[str, ...] = ()) -> Dict[str, float]:
     """Kernel 2 (``family`` "dae", the motor shape xd=3, id=2) or 4 ("ode",
-    ``xd`` and ``n_tail``) built for the host, on seeded inputs with
+    ``xd`` and ``n_tail``) built for the host with ``defines``, on seeded inputs with
     unit-scale cotangents, against the float64 plain walk: ``worst``, the
     largest max|d| / max|plain| of any output tensor (the float32 plain
     walk's beside it as ``float32``), and ``identical``, 1.0 when a relaunch
@@ -269,7 +277,7 @@ def noencode_bwd_check(family: str, B: int, Tm1: int, h: int, solver: str, xd: i
         packed = F.fused_dae_rollout_packed_plain(*args, solver)
         cot = torch.tensor(rng.standard_normal((Tm1 + 1, B, 5)).astype(np.float32))
         flat = lambda g: [*g[0].values(), g[2], g[3]] + V.flatten_weights(g[1])[0]
-        run = lambda: flat(dae_rollout_bwd(*args, packed, cot, solver)[0])
+        run = lambda: flat(dae_rollout_bwd(*args, packed, cot, solver, defines=defines)[0])
         streams, weights, x0, i0, aux = args
         ref = flat(V.fused_dae_rollout_bwd_plain(_f64(streams), _f64(weights), x0.double(), i0.double(),
                                                  aux, packed.double(), cot.double(), solver))
@@ -279,7 +287,7 @@ def noencode_bwd_check(family: str, B: int, Tm1: int, h: int, solver: str, xd: i
         sol = torch.cat([x0[None], FO.fused_ode_rollout_plain(s_de, weights, x0, dt, solver)])
         cot = torch.tensor(rng.standard_normal(tuple(sol.shape)).astype(np.float32))
         flat = lambda g: [g[0], g[2]] + VO.flatten_weights(g[1])
-        run = lambda: flat(ode_rollout_bwd(s_de, weights, dt, sol, cot, solver)[0])
+        run = lambda: flat(ode_rollout_bwd(s_de, weights, dt, sol, cot, solver, defines=defines)[0])
         ref = flat(VO.fused_ode_rollout_bwd_plain(s_de.double(), _f64(weights), dt, sol.double(),
                                                   cot.double(), solver))
         f32 = flat(VO.fused_ode_rollout_bwd_plain(s_de, weights, dt, sol, cot, solver))

@@ -412,18 +412,43 @@ def test_noencode_recompute_matches_plain_on_card():
     assert torch.all((bufs["xin"].view(xin.shape) - xin).abs() <= 1e-4 * xin.abs().clamp(min=1.0))
 
 
+# the wide kernels: h=136 and 200 (padded width 256), 512 (four 128-wide
+# chunks of every layer), the ODE's encode shape xd = h with one tail layer
 @pytest.mark.gpu
-def test_noencode_bwd_kernels_refuse_wide_hidden_on_card():
+@pytest.mark.parametrize("solver", ["euler", "midpoint", "rk4"])
+@pytest.mark.parametrize("h", [136, 200, 512])
+@pytest.mark.parametrize("batch", [1, 67, 133])
+def test_noencode_bwd_kernels_match_plain_at_wide_widths_on_card(batch, h, solver):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
-    args = rollout_inputs(2, 12, 136, dev="cuda")
-    with pytest.raises(ValueError, match="h <= 128"):
-        V.fused_dae_rollout_bwd_cuda(*args, torch.zeros(12, 2, 5, device="cuda"),
-                                     torch.zeros(13, 2, 5, device="cuda"))
-    s_de, weights, x0, dt = ode_inputs(2, 4, 136, 2, 3, dev="cuda")
-    sol = torch.zeros(5, 2, 2, device="cuda")
-    with pytest.raises(ValueError, match="h <= 128"):
-        VO.fused_ode_rollout_bwd_cuda(s_de, weights, dt, sol, sol)
+    _hold(*dae_bwd_against_float64(rollout_inputs(batch, 12, h, seed=batch, dev="cuda"), solver))
+    _hold(*ode_bwd_against_float64(ode_inputs(batch, 12, h, 2, 3, seed=batch, dev="cuda"), solver))
+    _hold(*ode_bwd_against_float64(ode_inputs(batch, 12, h, h, 1, seed=batch, dev="cuda"), solver))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [136, 256])
+def test_noencode_wide_recompute_and_contraction_match_plain_on_card(h):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    args = rollout_inputs(67, 16, h, seed=8, dev="cuda")
+    packed = F.fused_dae_rollout_packed_plain(*args, "rk4")
+    cot = torch.zeros(17, 67, 5, device="cuda")
+    bufs = V._launch_bwd(*args, packed, cot, "rk4", stages=1)[1]
+    res, _ = V.recompute_plain(*args, packed, "rk4")
+    torch.cuda.synchronize()
+    got = bufs["res"].view(res.shape)
+    assert torch.all((got[:-1] - res[:-1]).abs() <= 1e-4 * res[:-1].abs().clamp(min=1.0))
+    bufs = _seeded_like(bufs, 3)
+    g_w = V._launch_bwd(*args, packed, cot, "rk4", stages=4, bufs=bufs)[0][1]
+    R, E = 16 * 67, 6
+    ev = args[4][..., 1].reshape(R) > 0
+    ref = V.contract_plain(bufs["res"].view(E, 3, R, h).double(), bufs["gres"].view(E, 3, R, h).double(),
+                           bufs["gy"].view(E, R, 3).double(), bufs["xin"].view(E, R, 5).double(), ev,
+                           (3, 3), 3, 2)
+    torch.cuda.synchronize()
+    for g, r in zip(V.flatten_weights(g_w)[0], V.flatten_weights(ref)[0]):
+        assert (g.double() - r).abs().max() <= 1e-5 * r.abs().max()
 
 
 def cw_inputs(B, Tm1, h, xd, zd, seed=0, dev="cpu"):

@@ -96,9 +96,12 @@ def test_host_forward_runs_widths_beyond_shared_memory(family, B, h, solver, row
 
 
 # (B, Tm1, h, solver): one row and three, h=40 and an odd h=19 (rows not
-# 16-byte aligned: 4-byte cp.async), each solver; dae_inputs puts events in
-# the walk's first step of row 0 and in step Tm1 // 3 of row 1
-DAE_CASES = [(3, 4, 40, "rk4"), (1, 3, 19, "midpoint"), (3, 3, 19, "euler"), (3, 11, 40, "midpoint")]
+# 16-byte aligned: 4-byte cp.async), each solver; h=136 and 200, the wide
+# kernels (padded width 256: two 128-wide chunks of every layer);
+# dae_inputs puts events in the walk's first step of row 0 and in step
+# Tm1 // 3 of row 1
+DAE_CASES = [(3, 4, 40, "rk4"), (1, 3, 19, "midpoint"), (3, 3, 19, "euler"), (3, 11, 40, "midpoint"),
+             (2, 3, 136, "rk4"), (1, 3, 200, "midpoint")]
 
 
 @pytest.mark.parametrize("B,Tm1,h,solver", DAE_CASES)
@@ -110,9 +113,11 @@ def test_host_dae_backward_matches_float64_walk(B, Tm1, h, solver):
 
 
 # (B, Tm1, h, xd, n_tail, solver): the AVR no-encode shape and the
-# direct-encode latent shape (xd = h, one tail layer)
+# direct-encode latent shape (xd = h, one tail layer), each also at h=136
+# (the wide kernels; the encode shape's first layer and readout 136 wide)
 ODE_CASES = [(3, 4, 40, 2, 3, "rk4"), (1, 3, 19, 2, 3, "midpoint"), (3, 3, 40, 2, 3, "euler"),
-             (3, 3, 40, 40, 1, "rk4"), (2, 3, 19, 19, 1, "euler")]
+             (3, 3, 40, 40, 1, "rk4"), (2, 3, 19, 19, 1, "euler"), (2, 3, 136, 2, 3, "euler"),
+             (2, 3, 136, 136, 1, "rk4")]
 
 
 @pytest.mark.parametrize("B,Tm1,h,xd,n_tail,solver", ODE_CASES)
@@ -123,16 +128,27 @@ def test_host_ode_backward_matches_float64_walk(B, Tm1, h, xd, n_tail, solver):
     assert got["identical"] == 1.0
 
 
+# the wide walk with its vectors in global memory (where H floats eleven
+# times over do not fit a block's shared memory, h above about 5 000),
+# reached at h=136 by a build that always takes that path
+@pytest.mark.parametrize("family,xd,n_tail,solver", [("dae", 2, 3, "euler"), ("ode", 136, 1, "midpoint")])
+def test_host_wide_backward_with_walk_vectors_in_global_memory(family, xd, n_tail, solver):
+    need_gxx()
+    got = host_build.noencode_bwd_check(family, 2, 3, 136, solver, xd, n_tail, defines=("NE_WIDE_VEC_GMEM=1",))
+    assert got["worst"] <= 1e-4, got
+    assert got["identical"] == 1.0
+
+
 def _close(got, ref, tol):
     """got within tol * max(1, |ref|) of ref wherever ref is defined."""
     assert got.shape == ref.shape
     assert torch.all((got.double() - ref.double()).abs() <= tol * ref.double().abs().clamp(min=1.0))
 
 
-@pytest.mark.parametrize("solver", ["euler", "rk4"])
-def test_host_dae_recompute_matches_plain(solver):
+@pytest.mark.parametrize("solver,h", [("euler", 40), ("rk4", 40), ("rk4", 136)])
+def test_host_dae_recompute_matches_plain(solver, h):
     need_gxx()
-    args = dae_inputs(3, 4, 40, seed=5)
+    args = dae_inputs(3, 4, h, seed=5)
     packed = F.fused_dae_rollout_packed_plain(*args, solver)
     cot = torch.zeros(5, 3, 5)
     _, bufs = host_build.dae_rollout_bwd(*args, packed, cot, solver, stages=1)
@@ -150,9 +166,11 @@ def test_host_dae_recompute_matches_plain(solver):
     _close(got_xin[-1][ev, :3], xin[-1][ev, :3], 1e-4)
 
 
-def test_host_ode_recompute_matches_plain():
+# the no-encode shape at h=40 and the wide encode shape (xd = h = 136)
+@pytest.mark.parametrize("h,xd,n_tail", [(40, 2, 3), (136, 136, 1)])
+def test_host_ode_recompute_matches_plain(h, xd, n_tail):
     need_gxx()
-    s_de, weights, x0, dt = ode_inputs(3, 4, 40, seed=6)
+    s_de, weights, x0, dt = ode_inputs(3, 4, h, xd, n_tail, seed=6)
     sol = torch.cat([x0[None], FO.fused_ode_rollout_plain(s_de, weights, x0, dt, "rk4")])
     _, bufs = host_build.ode_rollout_bwd(s_de, weights, dt, sol, torch.zeros_like(sol), "rk4", stages=1)
     res, xin = VO.recompute_plain(s_de, weights, dt, sol, "rk4")
@@ -172,15 +190,18 @@ def _worst(got, ref):
                for g, r in zip(got, ref))
 
 
-def test_host_dae_contraction_matches_plain():
+# h=40, and h=200: the wide contraction's 128 x 128 output tiles (two a
+# side of every h x h job, the narrow jobs' 128-wide column tiles)
+@pytest.mark.parametrize("h", [40, 200])
+def test_host_dae_contraction_matches_plain(h):
     need_gxx()
-    args = dae_inputs(3, 4, 40, seed=7)
+    args = dae_inputs(3, 4, h, seed=7)
     packed = F.fused_dae_rollout_packed_plain(*args, "midpoint")
     cot = torch.zeros(5, 3, 5)
     _, bufs = host_build.dae_rollout_bwd(*args, packed, cot, "midpoint", stages=0)
     bufs = _random_bufs(bufs, 8)
     (_, g_w, _, _), _ = host_build.dae_rollout_bwd(*args, packed, cot, "midpoint", stages=4, bufs=bufs)
-    R, h, E = 12, 40, 4
+    R, E = 12, 4
     ev = args[4][..., 1].reshape(R) > 0
     ref = V.contract_plain(bufs["res"].view(E, 3, R, h).double(), bufs["gres"].view(E, 3, R, h).double(),
                            bufs["gy"].view(E, R, 3).double(), bufs["xin"].view(E, R, 5).double(), ev,
@@ -188,14 +209,18 @@ def test_host_dae_contraction_matches_plain():
     assert _worst(V.flatten_weights(g_w)[0], V.flatten_weights(ref)[0]) <= 1e-5
 
 
-def test_host_ode_contraction_matches_plain():
+# h=19, and the wide encode shape xd = h = 136 (one tail layer: its first
+# layer and readout 136 x 136 jobs of four tiles)
+@pytest.mark.parametrize("h,xd,n_tail", [(19, 2, 3), (136, 136, 1)])
+def test_host_ode_contraction_matches_plain(h, xd, n_tail):
     need_gxx()
-    s_de, weights, x0, dt = ode_inputs(3, 4, 19, seed=9)
-    sol = torch.zeros(5, 3, 2)
+    s_de, weights, x0, dt = ode_inputs(3, 4, h, xd, n_tail, seed=9)
+    sol = torch.zeros(5, 3, xd)
     _, bufs = host_build.ode_rollout_bwd(s_de, weights, dt, sol, sol, "rk4", stages=0)
     bufs = _random_bufs(bufs, 10)
     (_, g_w, _), _ = host_build.ode_rollout_bwd(s_de, weights, dt, sol, sol, "rk4", stages=4, bufs=bufs)
-    R, h, S = 12, 19, 4
-    ref = VO.contract_plain(bufs["res"].view(S, 3, R, h).double(), bufs["gres"].view(S, 3, R, h).double(),
-                            bufs["gy"].view(S, R, 2).double(), bufs["xin"].view(S, R, 2).double(), 3, 2)
+    R, S = 12, 4
+    ref = VO.contract_plain(bufs["res"].view(S, n_tail, R, h).double(),
+                            bufs["gres"].view(S, n_tail, R, h).double(), bufs["gy"].view(S, R, xd).double(),
+                            bufs["xin"].view(S, R, xd).double(), n_tail, xd)
     assert _worst(VO.flatten_weights(g_w), VO.flatten_weights(ref)) <= 1e-5

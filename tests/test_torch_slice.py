@@ -92,7 +92,7 @@ def test_port_cli_refuses_what_is_not_ported(tmp_path):
             port_main("dae_no_encode", train + extra)
     assert not (tmp_path / "run").exists()
     with pytest.raises(NotImplementedError, match="not ported"):
-        port_main("dae_no_encode", ["--saving", "--device", "cpu"])
+        port_main("dae_no_encode", ["--saving", "--device", "cpu", "--checkpointer", "orbax"])
     with pytest.raises(NotImplementedError, match="not ported"):
         port_main("dae_encode", ["--testing", "--device", "cpu", "--model", str(CKPT),
                                  "--test_data", str(TEST_DATA)])

@@ -217,7 +217,9 @@ def test_cli_training_writes_its_artifacts(tmp_path, fused):
     recs = [json.loads(line) for line in (run / "train_metrics.jsonl").read_text().splitlines()]
     assert [r["kind"] for r in recs] == ["eval", "epoch_time"] * 2
     assert all(np.isfinite([recs[0]["x_loss"], recs[0]["i_loss"]]))
-    assert "not ported yet" in (run / "training.log").read_text()
+    assert "not ported yet" not in (run / "training.log").read_text()
+    assert {f.name for f in (run / "saved model").iterdir()} == {
+        f"{s}.{ext}" for s in ("init_func", "de_func", "ae_func") for ext in ("pt2", "weights.npz", "weights.bin")}
     assert "Output final testing loss per testing sample" in (run / "testing.log").read_text()
     # the last checkpoint holds the trained weights, readable by the JAX package
     ref = bridge.state_dict_from_params(
