@@ -87,7 +87,27 @@ Phases, each printed as it ends; any failure exits non-zero:
      beside the launcher's choice; and one whole training step per family
      (B=64, T=1001, h=128, RK4) fused and plain, with the step's peak
      memory; the fused step's loss and gradients from the starting weights
-     held against the plain step's at rtol 1e-3.
+     held against the plain step's at rtol 1e-3;
+ 16. export: ``saved model/`` of ``--saving`` on checkpoint 200, of the
+     no-encode CLIs' ``--training --fused --hidden 256`` epochs and of the
+     training CLI runs of phases 10 and 14, each held against its
+     checkpoint and module and rolled out in the C++ runtime;
+ 17. direct-encode DAE on the motor set from ``start_checkpoint`` of its
+     h=128 model (seed 0), at its latent shape xd = id = h = 128 with one
+     tail layer a net: kernel 1 against its plain loop on the 32 test rows
+     (each solver, RK4 at every rows-a-block, bit-identical on relaunch);
+     kernel 2 against the float64 plain walk on 64 training rows (Euler and
+     RK4, BWD_TOL per tensor, bit-identical on relaunch); the CLI
+     ``--testing --fused`` (Euler and RK4), the Trainer's ``--training
+     --fused`` epoch (batch 64, Euler, steps 1 and 2 and the epoch-1 eval)
+     and the CLI ``--saving`` (its nine ``.bin`` files rolled out in the
+     C++ runtime against the port's plain model), every loss against the
+     JAX package's anchors (``ENC_ANCHORS``) and kernels 1 and 2's launches
+     counted on each fused run; then the forward alone at B=32 Euler, both
+     kernels alone at B=64 RK4 and one training step (B=64, T=1001, RK4),
+     fused and plain, with its peak memory;
+ 18. direct-encode ODE on the AVR set of phase 10, the same from the CLI on
+     (kernels 3 and 4 at xd = h = 128, one tail layer).
 
 The line before the last two is the kernels' JSON record, then nvidia-smi's
 line, and the last line is ``{"ok": true, "device": {...}}``. Nothing is
@@ -122,7 +142,9 @@ from py_psnode_tpu_torch.export import native_runtime as NR  # noqa: E402
 from py_psnode_tpu_torch.models import (  # noqa: E402
     ChannelWiseDAEModel,
     ChannelWiseODEModel,
+    DAEEncodeModel,
     DAEModel,
+    ODEEncodeModel,
     ODEModel,
 )
 from py_psnode_tpu_torch.models.initializers import init_params  # noqa: E402
@@ -135,10 +157,14 @@ from py_psnode_tpu_torch.ops import fused_ode_vjp as VO  # noqa: E402
 from py_psnode_tpu_torch.ops.noencode_bwd import STAGES, net_operands  # noqa: E402
 from py_psnode_tpu_torch.ops.fused_model import (  # noqa: E402
     cw_rollout_inputs,
+    dae_encode_setup,
     fused_cw_dae_apply,
     fused_cw_ode_apply,
     fused_dae_apply,
+    fused_dae_encode_apply,
     fused_ode_apply,
+    fused_ode_encode_apply,
+    ode_encode_rollout_inputs,
     ode_rollout_inputs,
     rollout_inputs,
 )
@@ -147,8 +173,10 @@ from py_psnode_tpu_torch.train.checkpoints import load_checkpoint_params  # noqa
 from py_psnode_tpu_torch.train.variants import VARIANTS, export_examples  # noqa: E402
 from py_psnode_tpu_torch.train.losses import (  # noqa: E402
     dae_channelwise_loss,
+    dae_encode_loss,
     dae_no_encode_loss,
     ode_channelwise_loss,
+    ode_encode_loss,
     ode_no_encode_loss,
 )
 from py_psnode_tpu_torch.train.optim import make_optimizer  # noqa: E402
@@ -184,6 +212,28 @@ ODE_ANCHORS = {
                   eval1_x_loss=18.735991, test_x_loss=37.461788),
     "rk4": dict(step1=(42.720161, 115.87241), step2=(35.205109, 113.66186),
                 eval1_x_loss=18.748568, test_x_loss=37.491188),
+}
+# The direct-encode variants from start_checkpoint of their h=128 models
+# (seed 0): the ODE on the AVR data of ODE_ANCHORS, the DAE on the motor set
+# (128 training, 32 test samples); one epoch of training, batch 64, lr
+# 5e-3, seed 0. Step 1 and step 2 (loss, gradient norm), the epoch-1 eval
+# and the --testing losses (x_loss_total, and i_loss_total for the DAE) of
+# the JAX package on the CPU in float32; re-derived by `python
+# tests/test_torch_ode_encode.py` and `python tests/test_torch_dae_encode.py`
+# (need JAX).
+ENC_ANCHORS = {
+    "ode_encode": {
+        "euler": dict(step1=(101.31021, 242.83273), step2=(119222.38, 181.4782), eval1=(156.06993,),
+                      test=(45.469639,)),
+        "rk4": dict(step1=(101.33388, 242.71843), step2=(119507.25, 181.48962), eval1=(152.79103,),
+                    test=(45.487068,)),
+    },
+    "dae_encode": {
+        "euler": dict(step1=(14.658771, 380.28116), step2=(1181.8832, 300.48007), eval1=(126.44679, 21.019417),
+                      test=(5.0804763, 1.8751848)),
+        "rk4": dict(step1=(14.683273, 380.15518), step2=(1184.6495, 300.51721), eval1=(130.56729, 21.614664),
+                    test=(5.1164093, 1.8736318)),
+    },
 }
 # Per output tensor, on its own scale: max|kernel - plain| <= BWD_TOL *
 # max|plain|. Each weight gradient sums 64 x 1000 row-steps in another
@@ -223,17 +273,14 @@ def ode_start_checkpoint(path, dims, hidden, seed):
     return pathlib.Path(path)
 
 
-def cw_start_checkpoint(path, variant, dims, hidden, seed):
-    """Write a channel-wise model's starting weights as a flax-layout npz
-    checkpoint, drawn with numpy so that every machine gets the same bits:
-    in sorted key order, each dense kernel ``[in, out]`` and each
-    per-channel stack ``w_k [C, d_in, f]`` a standard normal clipped to +-2
-    and scaled by ``1/sqrt(fan_in)`` with flax's fan-in (``in``, and ``C *
-    d_in`` for a stack), each bias zero. ``variant`` is ``ode_channelwise``
-    with ``dims = (xd, zd)`` or ``dae_channelwise`` with ``(xd, zd, vd,
-    id)``."""
-    cls = ChannelWiseODEModel if variant == "ode_channelwise" else ChannelWiseDAEModel
-    model = cls(*dims, hidden_dim=hidden, device="meta")
+def start_checkpoint(path, model, seed):
+    """Write the starting weights of a port model (on any device, ``meta``
+    included) as a flax-layout npz checkpoint, drawn with numpy so that
+    every machine gets the same bits: in sorted key order, each dense
+    kernel ``[in, out]`` and each per-channel stack ``w_k [C, d_in, f]`` a
+    standard normal clipped to +-2 and scaled by ``1/sqrt(fan_in)`` with
+    flax's fan-in (``in``, and ``C * d_in`` for a stack), each bias
+    zero."""
     shapes = {}
     for name, prm in model.named_parameters():
         *mod, leaf = name.split(".")
@@ -255,6 +302,14 @@ def cw_start_checkpoint(path, variant, dims, hidden, seed):
     with open(path, "wb") as f:  # a file object: np.savez appends no ".npz"
         np.savez(f, **flat)
     return pathlib.Path(path)
+
+
+def cw_start_checkpoint(path, variant, dims, hidden, seed):
+    """:func:`start_checkpoint` of a channel-wise model: ``variant`` is
+    ``ode_channelwise`` with ``dims = (xd, zd)`` or ``dae_channelwise`` with
+    ``(xd, zd, vd, id)``."""
+    cls = ChannelWiseODEModel if variant == "ode_channelwise" else ChannelWiseDAEModel
+    return start_checkpoint(path, cls(*dims, hidden_dim=hidden, device="meta"), seed)
 
 
 def say(*parts):
@@ -446,21 +501,26 @@ def phase_kernel_vs_plain(dev):
             got = F.fused_dae_rollout_packed_cuda(*args, solver, rows_per_block=rows)
             again = F.fused_dae_rollout_packed_cuda(*args, solver, rows_per_block=rows)
             torch.cuda.synchronize()
-            if got.shape != ref.shape or not torch.isfinite(got).all():
-                fail(f"kernel {solver} rows={rows}: shape {tuple(got.shape)} or non-finite values")
-            if not torch.equal(got, again):
-                fail(f"kernel {solver} rows={rows}: a relaunch gave other bits")
-            d = (got - ref).abs()
-            bound = KERNEL_TOL * torch.clamp(ref.abs(), min=1.0)
-            max_abs = d.max().item()
-            max_rel = (d / torch.clamp(ref.abs(), min=1e-30)).max().item()
-            ok = bool((d <= bound).all())
+            max_abs = hold_fwd(f"kernel {solver} rows={rows}", got, again, ref)
+            max_rel = ((got - ref).abs() / torch.clamp(ref.abs(), min=1e-30)).max().item()
             say(f"[kernel] {solver:8s} rows={rows}: max|d| {max_abs:.3e} "
-                f"max rel {max_rel:.3e} max|ref| {ref.abs().max().item():.3f} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"kernel {solver} rows={rows} disagrees with plain beyond {KERNEL_TOL}")
+                f"max rel {max_rel:.3e} max|ref| {ref.abs().max().item():.3f} ok")
             worst_abs = max(worst_abs, max_abs)
     return worst_abs
+
+
+def hold_fwd(what, got, again, ref):
+    """Fail unless a forward kernel's result is finite, of the plain one's
+    shape, bit-identical on relaunch and within KERNEL_TOL * max(1,
+    |plain|) of it; returns max|d|."""
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        fail(f"{what}: shape {tuple(got.shape)} or non-finite values")
+    if not torch.equal(got, again):
+        fail(f"{what}: a relaunch gave other bits")
+    d = (got - ref).abs()
+    if not bool((d <= KERNEL_TOL * ref.abs().clamp(min=1.0)).all()):
+        fail(f"{what} disagrees with plain beyond {KERNEL_TOL}: max|d| {d.max().item()}")
+    return d.max().item()
 
 
 def hold_bwd(what, names, got, again, ref):
@@ -894,17 +954,9 @@ def phase_ode_kernel_vs_plain(dev):
                 got = FO.fused_ode_rollout_cuda(*args, solver, rows_per_block=rows)
                 again = FO.fused_ode_rollout_cuda(*args, solver, rows_per_block=rows)
                 torch.cuda.synchronize()
-                if got.shape != ref.shape or not torch.isfinite(got).all():
-                    fail(f"ODE kernel {solver} xd={xd} rows={rows}: shape {tuple(got.shape)} or non-finite values")
-                if not torch.equal(got, again):
-                    fail(f"ODE kernel {solver} xd={xd} rows={rows}: a relaunch gave other bits")
-                d = (got - ref).abs()
-                max_abs = d.max().item()
-                ok = bool((d <= KERNEL_TOL * torch.clamp(ref.abs(), min=1.0)).all())
+                max_abs = hold_fwd(f"ODE kernel {solver} xd={xd} rows={rows}", got, again, ref)
                 say(f"[ode-kernel] {solver:8s} xd={xd} n_tail={n_tail} rows={rows}: max|d| {max_abs:.3e} "
-                    f"max|ref| {ref.abs().max().item():.3f} {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    fail(f"ODE kernel {solver} xd={xd} rows={rows} disagrees with plain beyond {KERNEL_TOL}")
+                    f"max|ref| {ref.abs().max().item():.3f} ok")
                 worst_abs = max(worst_abs, max_abs)
 
     s_de, weights, x0, dt = ode_random_inputs(32, 1000, 128, 128, 1, seed=4, dev=dev, readout=1.0)
@@ -1449,8 +1501,9 @@ def check_cw_anchor(what, value, variant, solver, key, i, rtol):
     the two solvers' anchors differ by less than 1e-3 but more than
     CW_SOLVER_RESOLVED (relative), nearer its own solver's anchor than the
     other's. Returns the relative error."""
-    own = CW_ANCHORS[variant][solver][key][i]
-    other = CW_ANCHORS[variant]["rk4" if solver == "euler" else "euler"][key][i]
+    table = {**CW_ANCHORS, **ENC_ANCHORS}[variant]
+    own = table[solver][key][i]
+    other = table["rk4" if solver == "euler" else "euler"][key][i]
     if not (np.isfinite(value) and near(value, own, rtol)):
         fail(f"{variant} {what} {value} misses the {solver} anchor {own} at rtol {rtol}")
     gap = abs(own - other) / abs(own)
@@ -1714,7 +1767,7 @@ def check_saved(what, variant, saved, ckpt, model):
     submodule."""
     examples = export_examples(variant, model, model_dims(model))
     want_files = {f"{s}.{ext}" for s in examples for ext in ("pt2", "weights.npz", "weights.bin")}
-    if VARIANTS[variant].channel_wise:
+    if VARIANTS[variant].encode:  # the direct-encode and channel-wise recipes
         want_files.add("dim.txt")
         if (saved / "dim.txt").read_text() != str(model.hidden_dim):
             fail(f"{what}: dim.txt holds {(saved / 'dim.txt').read_text()!r}, not {model.hidden_dim}")
@@ -1785,9 +1838,10 @@ def check_native(what, variant, saved, model, data):
 def port_model(variant, hidden, ckpt):
     """The variant's module at the slice's widths on the CPU, loaded from
     ``ckpt``."""
-    dims = {"ode_no_encode": (2, 2), "dae_no_encode": (3, 1, 2, 2)}.get(variant) or CW_DIMS[variant]
+    dims = {"ode_no_encode": (2, 2), "dae_no_encode": (3, 1, 2, 2)}.get(variant) or {**CW_DIMS, **ENC_DIMS}[variant]
     cls = {"ode_no_encode": ODEModel, "dae_no_encode": DAEModel, "ode_channelwise": ChannelWiseODEModel,
-           "dae_channelwise": ChannelWiseDAEModel}[variant]
+           "dae_channelwise": ChannelWiseDAEModel, "ode_encode": ODEEncodeModel,
+           "dae_encode": DAEEncodeModel}[variant]
     model = cls(*dims, hidden_dim=hidden, device="meta")
     return load_params(model, load_checkpoint_params(ckpt), device="cpu").requires_grad_(False)
 
@@ -1859,6 +1913,257 @@ def phase_export(dev, root, ode_files, cw_files):
             f"rollout max|d| {e_nat:.2e}; export_s per epoch {export_seconds(run)}")
 
 
+# ------------------------------------------------------------ direct-encode
+
+
+ENC_VARIANTS = ("dae_encode", "ode_encode")
+ENC_DIMS = {"ode_encode": (2, 2), "dae_encode": (3, 1, 2, 2)}
+ENC_KEYS = {"ode_encode": CW_KEYS["ode_channelwise"], "dae_encode": CW_KEYS["dae_channelwise"]}
+ENC_LOSS = {"ode_encode": ode_encode_loss, "dae_encode": dae_encode_loss}
+ENC_APPLY = {"ode_encode": fused_ode_encode_apply, "dae_encode": fused_dae_encode_apply}
+
+
+def enc_model(variant, start, dev, solver="euler"):
+    cls = ODEEncodeModel if variant == "ode_encode" else DAEEncodeModel
+    model = cls(*ENC_DIMS[variant], hidden_dim=128, solver=solver, device="meta")
+    return load_params(model, load_checkpoint_params(start), device=dev)
+
+
+def enc_batch(variant, data, B, dev):
+    """``B`` rows of the data set ``data`` (repeated as needed), with the
+    mask, on ``dev``."""
+    ds = OdeSamples.load(str(data)) if variant == "ode_encode" else DaeSamples.load(str(data), cut_length=1001)
+    idx = np.arange(B) % len(ds)
+    return {k: torch.as_tensor(getattr(ds, k)[idx], device=dev) for k in ENC_KEYS[variant] + ("mask",)}
+
+
+def enc_dae_args(model, batch):
+    """Kernel 1's arguments for the direct-encode DAE on ``batch``, as
+    ``fused_dae_encode_apply`` builds them: ``(streams, weights, xh0, i0,
+    aux)`` at xd = id = h, one tail layer a net."""
+    with torch.no_grad():
+        s = dae_encode_setup(model, batch)
+    return s["streams"], s["weights"], s["xh0"].contiguous(), s["i0"].contiguous(), F.pack_aux(s["dt"], s["ev"])
+
+
+def enc_ode_args(model, batch):
+    """Kernel 3's arguments for the direct-encode ODE on ``batch``:
+    ``(s_de, weights, xh0, dt)`` at xd = h, one tail layer."""
+    with torch.no_grad():
+        s_de, weights, xh0, dt, _ = ode_encode_rollout_inputs(model, batch)
+    return s_de, weights, xh0.contiguous(), dt.contiguous()
+
+
+def phase_enc_kernels(dev, start):
+    """Phase 17, part 1: kernels 1 and 2 at the direct-encode DAE's latent
+    shape (xd = id = h = 128, one tail layer a net: the DE's first layer
+    256 wide, the backward's wide kernels) on the starting checkpoint's
+    inputs from the motor set (events in some rows). Kernel 1 against its
+    plain loop on the 32 test rows, each solver (RK4 at every rows a
+    block), bit-identical on relaunch; kernel 2 against the float64 plain
+    walk on 64 training rows with unit-scale cotangents, Euler and RK4,
+    each output tensor within BWD_TOL of its own scale, bit-identical on
+    relaunch. Returns (forward max|d|, backward max|d|)."""
+    model = enc_model("dae_encode", start, dev).requires_grad_(False)
+    args = enc_dae_args(model, enc_batch("dae_encode", TEST_DATA, 32, dev))
+    fwd_worst = 0.0
+    for solver in SOLVERS:
+        t0 = time.perf_counter()
+        ref = F.fused_dae_rollout_packed_plain(*args, solver)
+        plain_s = time.perf_counter() - t0
+        for rows in F.ROWS_PER_BLOCK if solver == "rk4" else (None,):
+            got = F.fused_dae_rollout_packed_cuda(*args, solver, rows_per_block=rows)
+            again = F.fused_dae_rollout_packed_cuda(*args, solver, rows_per_block=rows)
+            torch.cuda.synchronize()
+            d = hold_fwd(f"encode kernel 1 {solver} rows={rows}", got, again, ref)
+            fwd_worst = max(fwd_worst, d)
+            say(f"[enc-kernel] dae forward B=32 T=1001 xd=id=h=128 n_tail=1 {solver:8s} rows={rows}: max|d| {d:.3e} "
+                f"max|plain| {ref.abs().max().item():.3f}, bit-identical on relaunch; plain loop {plain_s:.1f} s")
+    streams, weights, x0, i0, aux = args = enc_dae_args(model, enc_batch("dae_encode", TRAIN_DATA, 64, dev))
+    bwd_worst = 0.0
+    for solver in ("euler", "rk4"):
+        cot = torch.tensor(np.random.default_rng(2).standard_normal((1001, 64, 256)).astype(np.float32), device=dev)
+        packed = F.fused_dae_rollout_packed_cuda(*args, solver)
+        got = V.fused_dae_rollout_bwd_cuda(*args, packed, cot, solver)
+        again = V.fused_dae_rollout_bwd_cuda(*args, packed, cot, solver)
+        t0 = time.perf_counter()
+        ref = V.fused_dae_rollout_bwd_plain(double(streams), double(weights), x0.double(), i0.double(), aux,
+                                            packed.double(), cot.double(), solver)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        names = [n for n, _ in bwd_outputs(got)]
+        flat = lambda g: [v for _, v in bwd_outputs(g)]
+        worst, report = hold_bwd(f"encode backward {solver}", names, flat(got), flat(again), flat(ref))
+        bwd_worst = max(bwd_worst, worst)
+        say(f"[enc-kernel] dae backward B=64 T=1001 xd=id=h=128 n_tail=1 {solver:8s}: ok, bit-identical on "
+            f"relaunch; plain float64 walk {plain_s:.1f} s; max|d| / max|plain| per tensor: {report}")
+    return fwd_worst, bwd_worst
+
+
+def enc_counts(variant):
+    fwd, bwd = (F.fused_dae_rollout, V.fused_dae_rollout_bwd) if variant == "dae_encode" else (
+        FO.fused_ode_rollout, VO.fused_ode_rollout_bwd)
+    return fwd, bwd
+
+
+def reset_enc_counts(variant):
+    for c in enc_counts(variant):
+        c.launches = 0
+
+
+def read_enc_counts(variant):
+    return tuple(c.launches for c in enc_counts(variant))
+
+
+def phase_enc_slice(dev, variant, files, root):
+    """Phases 17-18: a direct-encode variant through its entry points from
+    its starting checkpoint: the CLI ``--testing --fused`` (Euler and RK4),
+    the Trainer's ``--training --fused`` epoch (batch 64, Euler, every step
+    logged), the CLI ``--saving`` of its checkpoint (held by check_saved
+    and rolled out in the C++ runtime by check_native), each loss held to
+    its JAX anchor (ENC_ANCHORS) at rtol 1e-3 and, where the two solvers'
+    anchors lie between CW_SOLVER_RESOLVED and 1e-3 apart, nearer its own;
+    each fused run's launches of the variant's kernel pair counted (set to
+    0 just before, read just after). Returns the training run's launches."""
+    train_f, test_f, start = files
+    n_loss = 2 if variant == "dae_encode" else 1
+    tag = "[enc-" + variant[:3] + "]"
+    for solver in ("euler", "rk4"):
+        (root / f"{variant}_test_{solver}").mkdir()
+        ckpt = shutil.copy(start, root / f"{variant}_test_{solver}" / "model_checkpoint.0")
+        reset_enc_counts(variant)
+        t0 = time.perf_counter()
+        res = cli_main(variant, ["--testing", "--fused", "--device", "cuda", "--solver", solver, "--model", str(ckpt),
+                                 "--test_data", str(test_f)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = read_enc_counts(variant)
+        losses = [float(v) for v in res[:n_loss]]
+        errs = [check_cw_anchor(f"CLI --testing {solver} loss {i}", v, variant, solver, "test", i, ANCHOR_RTOL)
+                for i, v in enumerate(losses)]
+        say(f"{tag} --testing --fused --solver {solver}: losses {losses} (JAX anchors "
+            f"{list(ENC_ANCHORS[variant][solver]['test'])}, rel. err. {', '.join(f'{e:.2e}' for e in errs)}); "
+            f"launches: forward {n[0]}, backward {n[1]}; wall {wall:.3f} s")
+        if n[0] < 1 or n[1]:
+            fail(f"{variant} CLI --testing launched the forward {n[0]} and the backward {n[1]} times")
+
+    shutil.copy(start, root / f"{variant}_ws")
+    cfg = TrainConfig(
+        variant=variant, train_data=str(train_f), test_data=str(test_f), model=str(root / f"{variant}_run"),
+        num=128, batch=64, epoch=200, hidden=128, larger_than=None, seed=0, warm_start=str(root / f"{variant}_ws"),
+        stop_after=1, loss_record_iter=1, solver="euler", fused=True, echo_logs=False, device="cuda",
+    )
+    reset_enc_counts(variant)
+    t0 = time.perf_counter()
+    _, run_dir = Trainer(cfg).train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_enc_counts(variant)
+    recs = [json.loads(line) for line in (run_dir / "train_metrics.jsonl").read_text().splitlines()]
+    steps = [r for r in recs if r["kind"] == "train"]
+    (ev,) = [r for r in recs if r["kind"] == "eval"]
+    if len(steps) != 2:
+        fail(f"{variant} fused training logged {len(steps)} steps, not 2")
+    errs = [check_cw_anchor(f"fused euler step-{k + 1} {name}", steps[k][name], variant, "euler", f"step{k + 1}", i,
+                            TRAIN_STEP1_RTOL if k == 0 else TRAIN_EVAL1_RTOL)
+            for k in range(2) for i, name in enumerate(("loss", "grad_norm"))]
+    errs += [check_cw_anchor(f"fused euler epoch-1 eval {k}", ev[k], variant, "euler", "eval1", i, TRAIN_EVAL1_RTOL)
+             for i, k in enumerate(("x_loss", "i_loss")[:n_loss])]
+    say(f"{tag} --training --fused (Trainer, batch 64, euler): steps (loss, gradient_norm) "
+        f"{[(r['loss'], r['grad_norm']) for r in steps]}; epoch-1 eval {[ev[k] for k in ('x_loss', 'i_loss')[:n_loss]]}; "
+        f"launches: forward {launches[0]}, backward {launches[1]}; wall {wall:.2f} s; export_s per epoch "
+        f"{export_seconds(run_dir)}; rel. err. to the JAX anchors {', '.join(f'{e:.2e}' for e in errs)}")
+    if min(launches) < 1 or not (run_dir / "model_checkpoint.1").exists():
+        fail(f"{variant} fused training launched the kernels {launches} times or wrote no checkpoint")
+
+    ckpt = run_dir / "model_checkpoint.1"
+    t0 = time.perf_counter()
+    saved = cli_main(variant, ["--saving", "--device", "cuda", "--model", str(ckpt), "--test_data", str(test_f)])
+    wall = time.perf_counter() - t0
+    model = port_model(variant, 128, ckpt)
+    e_prog = check_saved(f"{variant} --saving", variant, saved, ckpt, model)
+    e_nat = check_native(f"{variant} --saving", variant, saved, model, test_f)
+    say(f"{tag} --saving --device cuda on model_checkpoint.1: {len(list(saved.iterdir()))} files in {wall:.2f} s, "
+        f"npz and bin equal to the checkpoint; .pt2 against the module max|d|/max {e_prog:.2e}; native rollout of "
+        f"the .bin files ({EXPORT_ROWS} rows, {EXPORT_STEPS} steps) max|d| {e_nat:.2e}")
+    return launches
+
+
+def phase_enc_times(dev, variant, files):
+    """Phases 17-18, times (CUDA events): the forward kernel alone on the
+    starting checkpoint's inputs at B=32 Euler (the test set), the
+    variant's kernel pair alone at B=64 RK4 (the forward, and the backward
+    with unit-scale cotangents), each beside its bound, and one
+    whole training step (B=64, T=1001, h=128, RK4) fused and plain with its
+    peak memory; the fused step's loss and gradients from the starting
+    weights held against the plain step's at rtol 1e-3 (check_cw_step)."""
+    train_f, test_f, start = files
+    tag = "[enc-" + variant[:3] + "-times]"
+    batch = enc_batch(variant, train_f, 64, dev)
+    model = enc_model(variant, start, dev, "rk4").requires_grad_(False)
+    times = {}
+    # the forward as --testing --fused drives it: the 32 test rows, Euler
+    if variant == "dae_encode":
+        args = enc_dae_args(model, enc_batch(variant, test_f, 32, dev))
+        e_ms = cuda_ms(lambda: F.fused_dae_rollout_packed_cuda(*args, "euler"), 2, 10)
+    else:
+        args = enc_ode_args(model, enc_batch(variant, test_f, 32, dev))
+        e_ms = cuda_ms(lambda: FO.fused_ode_rollout_cuda(*args, "euler"), 2, 10)
+    times["eval_fwd"] = e_ms
+    say(f"{tag} forward kernel B=32 T=1001 euler (the --testing batch): {e_ms:.3f} ms")
+    if variant == "dae_encode":
+        args = enc_dae_args(model, batch)
+        cot = torch.tensor(np.random.default_rng(7).standard_normal((1001, 64, 256)).astype(np.float32), device=dev)
+        packed = F.fused_dae_rollout_packed_cuda(*args, "rk4")
+        f_ms = cuda_ms(lambda: F.fused_dae_rollout_packed_cuda(*args, "rk4"), 1, 5)
+        b_ms = cuda_ms(lambda: V.fused_dae_rollout_bwd_cuda(*args, packed, cot, "rk4"), 1, 3)
+        f_bound = bound(*rollout_work(*args, "rk4"))
+        b_bound = bound(*bwd_work(*args, "rk4"))
+        del args, cot, packed
+    else:
+        args = enc_ode_args(model, batch)
+        sol = torch.cat([args[2][None], FO.fused_ode_rollout_cuda(*args, "rk4")])
+        cot = torch.tensor(np.random.default_rng(7).standard_normal((1001, 64, 128)).astype(np.float32), device=dev)
+        f_ms = cuda_ms(lambda: FO.fused_ode_rollout_cuda(*args, "rk4"), 1, 5)
+        b_ms = cuda_ms(lambda: VO.fused_ode_rollout_bwd_cuda(args[0], args[1], args[3], sol, cot, "rk4"), 1, 3)
+        work = ode_work(args[0], args[1], args[2], "rk4")
+        f_bound, b_bound = bound(*work[:2]), bound(*work[2:])
+        del args, cot, sol
+    times["fwd"], times["bwd"] = f_ms, b_ms
+    say(f"{tag} forward kernel B=64 T=1001 rk4: {f_ms:.3f} ms, bound {f_bound[0]:.5f} ms ({f_bound[1]}); backward "
+        f"kernel: {b_ms:.3f} ms, bound {b_bound[0]:.5f} ms ({b_bound[1]}, the h x h products at 3xTF32)")
+    first = {}
+    for fused, reps in ((True, 3), (False, 1)):
+        m = enc_model(variant, start, dev, "rk4")
+        ms, peak, loss, grads = timed_steps(m, batch, ENC_APPLY[variant], ENC_LOSS[variant], ENC_KEYS[variant], dev,
+                                            fused, reps)
+        first[fused] = loss, grads
+        times[("step", fused)], times[("peak", fused)] = ms, peak
+        say(f"{tag} training step B=64 T=1001 h=128 rk4, {'fused' if fused else 'plain'} route: {ms:.3f} ms, "
+            f"{64 * 1000 / ms * 1e3:.1f} trajectory-steps/s, peak memory allocated {peak / 2**30:.2f} GiB")
+    check_cw_step(variant, first[True], first[False], tag=tag)
+    return times
+
+
+def phase_encode(dev, root, ode_files):
+    """Phases 17 (the direct-encode DAE on the motor set) and 18 (the
+    direct-encode ODE on the AVR set of phase 10), each from start_checkpoint
+    of its h=128 model (seed 0)."""
+    t0 = time.perf_counter()
+    files = {
+        "dae_encode": (TRAIN_DATA, TEST_DATA, start_checkpoint(
+            root / "dae_encode.start", DAEEncodeModel(3, 1, 2, 2, hidden_dim=128, device="meta"), seed=0)),
+        "ode_encode": (*ode_files[:2], start_checkpoint(
+            root / "ode_encode.start", ODEEncodeModel(2, 2, hidden_dim=128, device="meta"), seed=0)),
+    }
+    out = {"kernel_err": phase_enc_kernels(dev, files["dae_encode"][2])}
+    for variant in ENC_VARIANTS:
+        out[variant] = dict(launches=phase_enc_slice(dev, variant, files[variant], root),
+                            times=phase_enc_times(dev, variant, files[variant]))
+    say(f"[enc] phases 17-18 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", action="store_true", help="time both forwards at every launch shape")
@@ -1888,6 +2193,8 @@ def main(argv=None):
         cw_launches = phase_cw_slice(dev, cw_files, root / "cw")
         cw_times = phase_cw_times(dev, cw_files)
         phase_export(dev, root, ode_files, cw_files)
+        (root / "enc").mkdir()
+        phase_encode(dev, root / "enc", ode_files)
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all, nvcc "
         f"{', '.join(f'{k} {v:.2f} s' for k, v in nvcc_s.items())}; card {smi}")
     # the forward as the evaluation slice drives it (B=32, Euler); the

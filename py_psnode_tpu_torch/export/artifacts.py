@@ -114,7 +114,8 @@ def export_program(path, module: nn.Module, flat: Mapping[str, np.ndarray], exam
     weights = {k: torch.tensor(v) for k, v in flat.items()}
     args = tuple(torch.as_tensor(a, dtype=torch.float32) for a in example_args)
     program = torch.export.export(_WeightsAsInput(cpu), (weights, *args))
-    tmp = pathlib.Path(path).with_name(pathlib.Path(path).name + ".tmp")
+    # torch.export.save warns of a name that does not end in .pt2
+    tmp = pathlib.Path(path).with_name(pathlib.Path(path).stem + ".tmp.pt2")
     torch.export.save(program, tmp)
     tmp.replace(path)
 

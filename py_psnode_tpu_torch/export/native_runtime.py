@@ -1,6 +1,6 @@
 """ctypes binding of the C++ inference runtime (``native/psnode_infer.cpp``)
 for the port (counterpart of ``py_psnode_tpu/export/native_runtime.py``:
-``NativeModule`` and the rollouts of the four ported families).
+``NativeModule`` and the rollouts of the six variants).
 
 The runtime loads the ``<name>.weights.bin`` files of ``saved model/`` and
 evaluates the exported Dense/ELU submodules on the host: the embedding
@@ -74,6 +74,10 @@ def _get_lib():
     lib.psnode_ode_rollout.restype = I
     lib.psnode_dae_rollout.argtypes = [P, P, P, fp, fp, fp, fp, I, I, I, I, I, I, ctypes.c_char_p, fp, fp]
     lib.psnode_dae_rollout.restype = I
+    lib.psnode_ode_encode_rollout.argtypes = [P, P, P, P, fp, fp, fp, I, I, I, I, ctypes.c_char_p, fp]
+    lib.psnode_ode_encode_rollout.restype = I
+    lib.psnode_dae_encode_rollout.argtypes = [P] * 9 + [fp, fp, fp, fp] + [I] * 6 + [ctypes.c_char_p, fp, fp]
+    lib.psnode_dae_encode_rollout.restype = I
     lib.psnode_cw_ode_rollout.argtypes = [P, fp, fp, fp, I, I, I, I, ctypes.c_char_p, fp]
     lib.psnode_cw_ode_rollout.restype = I
     lib.psnode_cw_dae_rollout.argtypes = [P, P, fp, fp, fp, fp, I, I, I, I, I, I, ctypes.c_char_p, fp, fp]
@@ -165,6 +169,47 @@ def dae_rollout(de: NativeModule, ae: NativeModule, init: NativeModule, t, z, v,
     return x_out, i_out
 
 
+def ode_encode_rollout(de: NativeModule, x_encoder: NativeModule, x_decoder: NativeModule,
+                       z_encoder: NativeModule, t, x0, z, solver="euler"):
+    """The direct-encode ODE rollout in the C++ runtime: the encoded
+    initial state and ``z`` stream, the latent dynamics, every row decoded
+    (no events). ``t [T]``, ``x0 [B, xd]``, ``z [T, B, zd]``; returns ``x
+    [T, B, xd]``."""
+    t, x0, z = _f32(t).reshape(-1), _f32(x0), _f32(z)
+    T, (B, xd), zd = t.shape[0], x0.shape, z.shape[-1]
+    out = np.empty((T, B, xd), np.float32)
+    rc = _get_lib().psnode_ode_encode_rollout(de._handle, x_encoder._handle, x_decoder._handle, z_encoder._handle,
+                                              _fptr(t), _fptr(x0), _fptr(z), T, B, xd, zd, solver.encode(),
+                                              _fptr(out))
+    if rc != 0:
+        raise RuntimeError(f"psnode_ode_encode_rollout failed rc={rc}")
+    return out
+
+
+def dae_encode_rollout(de: NativeModule, ae: NativeModule, init: NativeModule, x_encoder: NativeModule,
+                       x_decoder: NativeModule, z_encoder, v_encoder: NativeModule, i_encoder: NativeModule,
+                       i_decoder: NativeModule, t, z, v, i0, solver="euler"):
+    """The direct-encode DAE rollout in the C++ runtime: the raw Init state,
+    the latent lagged-``i`` rollout, the decoded outputs with the first row
+    of ``x`` the raw Init output (no events). ``z_encoder`` is None where
+    ``z`` is zero-wide. ``t [T]``, ``z [T, B, zd]``, ``v [T, B, vd]``, ``i0
+    [B, id]``; returns ``(x [T, B, xd], i [T, B, id])``."""
+    t, z, v, i0 = _f32(t).reshape(-1), _f32(z), _f32(v), _f32(i0)
+    T, B = t.shape[0], i0.shape[0]
+    zd, vd, idim = z.shape[-1], v.shape[-1], i0.shape[-1]
+    xd = init.out_dim("init_fun/")
+    x_out = np.empty((T, B, xd), np.float32)
+    i_out = np.empty((T, B, idim), np.float32)
+    rc = _get_lib().psnode_dae_encode_rollout(
+        de._handle, ae._handle, init._handle, x_encoder._handle, x_decoder._handle,
+        None if z_encoder is None else z_encoder._handle, v_encoder._handle, i_encoder._handle,
+        i_decoder._handle, _fptr(t), _fptr(z), _fptr(v), _fptr(i0), T, B, xd, zd, vd, idim, solver.encode(),
+        _fptr(x_out), _fptr(i_out))
+    if rc != 0:
+        raise RuntimeError(f"psnode_dae_encode_rollout failed rc={rc}")
+    return x_out, i_out
+
+
 def cw_ode_rollout(de: NativeModule, t, x0, z, solver="euler"):
     """The channel-wise ODE rollout in the C++ runtime (``de`` the
     channel-wise ``de_func`` export, its per-channel-sliced bin; no
@@ -202,13 +247,22 @@ def rollout(variant: str, saved, batch, solver: str):
     a batch of the port's layout (``batch["t"|"x"|"z"|...] [B, T, d]``, the
     rows on one time grid; no events), as the port's model would give it:
     ``(x [B, T, xd],)`` for the ODE families, ``(x, i)`` for the DAE ones
-    (the first outputs of the model's forward)."""
+    (the first outputs of the model's forward). The direct-encode DAE takes
+    no z encoder where ``z`` is zero-wide."""
     saved = pathlib.Path(saved)
     mod = lambda sub: NativeModule(saved / f"{sub}.weights.bin")
     tm = lambda a: np.swapaxes(a, 0, 1)
     t0, x0 = batch["t"][0, :, 0], batch["x"][:, 0]
     if variant == "ode_no_encode":
         out = (ode_rollout(mod("de_func"), t0, x0, tm(batch["z"]), solver),)
+    elif variant == "ode_encode":
+        out = (ode_encode_rollout(mod("de_func"), mod("x_encoder"), mod("x_decoder"), mod("z_encoder"), t0, x0,
+                                  tm(batch["z"]), solver),)
+    elif variant == "dae_encode":
+        z_enc = mod("z_encoder") if batch["z"].shape[-1] else None
+        out = dae_encode_rollout(mod("de_func"), mod("ae_func"), mod("init_func"), mod("x_encoder"),
+                                 mod("x_decoder"), z_enc, mod("v_encoder"), mod("i_encoder"), mod("i_decoder"),
+                                 t0, tm(batch["z"]), tm(batch["v"]), batch["i"][:, 0], solver)
     elif variant == "dae_no_encode":
         out = dae_rollout(mod("de_func"), mod("ae_func"), mod("init_func"), t0, tm(batch["z"]), tm(batch["v"]),
                           batch["i"][:, 0], solver)

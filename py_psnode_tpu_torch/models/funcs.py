@@ -1,11 +1,11 @@
-"""Neural function blocks (counterpart of ``py_psnode_tpu/models/funcs.py:22-80``
+"""Neural function blocks (counterpart of ``py_psnode_tpu/models/funcs.py:22-90``
 and, for the channel-wise family, :109-257).
 
 Every dynamics net consumes the skip-augmented triple
 ``cat(all_initial, u - all_initial, u)``; the algebraic net concatenates the
 initial condition without differencing it. Submodules keep the flax names
-(``x_dot``, ``i_calculator``, ``init_fun``, ``dense_k``) so that the weight
-bridge maps checkpoints one to one.
+(``x_dot``, ``i_calculator``, ``init_fun``, ``net``, ``dense_k``) so that
+the weight bridge maps checkpoints one to one.
 
 The channel-wise blocks (:class:`PerChannelMLP`, :class:`ChannelWiseDEFunc`,
 :class:`ChannelWiseAEFunc`) hold per-channel nets as stacked weights
@@ -87,6 +87,19 @@ class InitFunc(nn.Module):
 
     def forward(self, z0, v0, i0):
         return self.init_fun(torch.cat([z0, v0, i0], dim=-1))
+
+
+class Codec(nn.Module):
+    """Two-layer ELU encoder or decoder of the direct-encode variants
+    (``features`` two widths), held as ``net``: its parameters are
+    ``net.dense_k``, the flax paths ``<codec>/net/dense_k/{kernel,bias}``."""
+
+    def __init__(self, in_features: int, features: Sequence[int], device=None):
+        super().__init__()
+        self.net = MLP(in_features, features, device=device)
+
+    def forward(self, x):
+        return self.net(x)
 
 
 class PerChannelMLP(nn.Module):

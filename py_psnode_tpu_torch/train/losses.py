@@ -1,7 +1,8 @@
-"""Training losses of the no-encode and channel-wise variants (counterpart of
-``py_psnode_tpu/train/losses.py``: ``mse`` :29, ``masked_sum_se`` :45,
-``ode_no_encode_loss`` :50, ``ode_encode_loss`` :61, ``dae_no_encode_loss``
-:78-93, ``ode_channelwise_loss`` and ``dae_channelwise_loss`` :123-143).
+"""Training losses of the no-encode, direct-encode and channel-wise variants
+(counterpart of ``py_psnode_tpu/train/losses.py``: ``mse`` :29,
+``masked_sum_se`` :45, ``ode_no_encode_loss`` :50, ``ode_encode_loss`` :61,
+``dae_no_encode_loss`` :78-93, ``dae_encode_loss`` :96,
+``ode_channelwise_loss`` and ``dae_channelwise_loss`` :123-143).
 
 Masked MSE compositions with the reference's quirks kept:
 
@@ -78,6 +79,23 @@ def ode_encode_loss(outputs, batch) -> Tuple[torch.Tensor, Dict]:
     recon = mse(x_re, x, w)
     loss = x0_loss + x_loss + recon
     return loss, {"x_loss": x_loss, "x0_loss": x0_loss, "recon_loss": recon, "loss": loss}
+
+
+def dae_encode_loss(outputs, batch) -> Tuple[torch.Tensor, Dict]:
+    """ref neural_01_DAE_02_direct_encode.py:359-365: masked x and i losses
+    (no ω weighting), the unmasked x0 and i0 terms and both
+    reconstructions. Returns ``(loss, {"x_loss", "i_loss", "recon_loss",
+    "loss"})``."""
+    x_pred, i_pred, x_re, i_re = outputs
+    x, i, mask = batch["x"], batch["i"], batch["mask"]
+    w = batch.get("sample_w")
+    x_loss = masked_sum_se(x_pred, x, mask)
+    i_loss = masked_sum_se(i_pred, i, mask)
+    recon = mse(x_re, x, w) + mse(i_re, i, w)
+    x0_loss = mse(x[:, 0, :], x_pred[:, 0, :], w)
+    i0_loss = mse(i[:, 0, :], i_pred[:, 0, :], w)
+    loss = x_loss + i_loss + x0_loss + i0_loss + recon
+    return loss, {"x_loss": x_loss, "i_loss": i_loss, "recon_loss": recon, "loss": loss}
 
 
 def ode_channelwise_loss(outputs, batch) -> Tuple[torch.Tensor, Dict]:

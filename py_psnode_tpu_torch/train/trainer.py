@@ -2,8 +2,8 @@
 ``build_model``, ``_make_train_step`` :577-680, ``_eval_batch_size`` :682,
 ``_make_eval_apply`` :702, ``train`` :796-1129, ``test`` :1131 and ``save`` :1178).
 
-``Trainer.train`` trains the ODE or DAE no-encode or channel-wise variants
-on one device: Adam + StepLR, the zero-loss freeze and the optional robust-loss guard, the
+``Trainer.train`` trains any of the six variants (the ODE and DAE
+no-encode, direct-encode and channel-wise models) on one device: Adam + StepLR, the zero-loss freeze and the optional robust-loss guard, the
 training set resident on the device and gathered by index, rolling
 record-window log lines, an npz checkpoint, an eval and the export of
 ``saved model/`` each epoch (and once more after the last),
@@ -265,7 +265,7 @@ class Trainer:
                 batch = {k: v[idx_t] for k, v in ddata.items()}
                 with torch.no_grad():
                     out = forward(batch)
-                    # a DAE gives (x, i[, x_re]); an ODE x or (x, x_re)
+                    # a DAE gives (x, i[, x_re[, i_re]]); an ODE x or (x, x_re)
                     if variant.kind == "dae":
                         x_pred, i_pred = out[0], out[1]
                     else:

@@ -15,11 +15,13 @@ evaluation: keep shapes small. It builds the channel-wise pair
 pairs (``fused_{dae,ode}_rollout{,_bwd}.cu``).
 
     python -m py_psnode_tpu_torch.utils.host_build fwd|bwd|contract B Tm1 h xd zd solver [cluster]
-    python -m py_psnode_tpu_torch.utils.host_build dae-bwd B Tm1 h solver
+    python -m py_psnode_tpu_torch.utils.host_build dae-bwd B Tm1 h [xd id n_tail] solver
     python -m py_psnode_tpu_torch.utils.host_build ode-bwd B Tm1 h xd n_tail solver
 
-(every width: above 128 the backward runs its wide kernels)
-    python -m py_psnode_tpu_torch.utils.host_build dae-fwd B Tm1 h solver [rows]
+(every width: above 128 the backward runs its wide kernels; the DAE's
+default shape is the motor model's, xd=3, id=2, three tail layers, and
+``xd id n_tail`` = ``h h 1`` the direct-encode latent shape)
+    python -m py_psnode_tpu_torch.utils.host_build dae-fwd B Tm1 h [xd id n_tail] solver [rows]
     python -m py_psnode_tpu_torch.utils.host_build ode-fwd B Tm1 h xd n_tail solver [rows]
 
 holds the host build against the plain PyTorch version on seeded inputs
@@ -235,19 +237,20 @@ def ode_rollout(s_de, weights: Dict, x0, dt, solver: str = "euler", rows=None, d
     return FO._launch(s_de, weights, x0, dt, solver, rows, launcher, host=True)
 
 
-def noencode_fwd_check(family: str, B: int, Tm1: int, h: int, solver: str, rows=None, xd: int = 2,
-                       n_tail: int = 3, defines: Tuple[str, ...] = ()) -> Dict[str, float]:
-    """Kernel 1 (``family`` "dae": the motor shape xd=3, id=2, events in
-    some rows) or 3 ("ode", ``xd`` and ``n_tail``, the readout at lecun
+def noencode_fwd_check(family: str, B: int, Tm1: int, h: int, solver: str, rows=None, xd=None,
+                       n_tail: int = 3, defines: Tuple[str, ...] = (), idim: int = 2) -> Dict[str, float]:
+    """Kernel 1 (``family`` "dae": ``xd`` (3 by default), ``idim`` and
+    ``n_tail``, by default the motor shape, events in some rows) or 3
+    ("ode", ``xd`` (2 by default) and ``n_tail``, the readout at lecun
     scale) built for the host with ``defines``, on seeded inputs, against
     its plain version: ``worst``, the largest |kernel - plain| / max(1,
     |plain|), and ``identical``, 1.0 when a relaunch gave the same bits."""
     if family == "dae":
-        args = dae_inputs(B, Tm1, h, seed=h)
+        args = dae_inputs(B, Tm1, h, xd or 3, idim, seed=h, n_tail=n_tail)
         ref = F.fused_dae_rollout_packed_plain(*args, solver)
         run = lambda: dae_rollout(*args, solver, rows, defines)
     else:
-        args = ode_inputs(B, Tm1, h, xd, n_tail, seed=h, readout=1.0)
+        args = ode_inputs(B, Tm1, h, xd or 2, n_tail, seed=h, readout=1.0)
         ref = FO.fused_ode_rollout_plain(*args, solver)
         run = lambda: ode_rollout(*args, solver, rows, defines)
     got, again = run(), run()
@@ -263,19 +266,21 @@ def _f64(tree):
     return tree.double()
 
 
-def noencode_bwd_check(family: str, B: int, Tm1: int, h: int, solver: str, xd: int = 2,
-                       n_tail: int = 3, defines: Tuple[str, ...] = ()) -> Dict[str, float]:
-    """Kernel 2 (``family`` "dae", the motor shape xd=3, id=2) or 4 ("ode",
-    ``xd`` and ``n_tail``) built for the host with ``defines``, on seeded inputs with
-    unit-scale cotangents, against the float64 plain walk: ``worst``, the
-    largest max|d| / max|plain| of any output tensor (the float32 plain
-    walk's beside it as ``float32``), and ``identical``, 1.0 when a relaunch
-    gave the same bits."""
+def noencode_bwd_check(family: str, B: int, Tm1: int, h: int, solver: str, xd=None,
+                       n_tail: int = 3, defines: Tuple[str, ...] = (), idim: int = 2) -> Dict[str, float]:
+    """Kernel 2 (``family`` "dae": ``xd`` (3 by default), ``idim`` and
+    ``n_tail``, by default the motor shape) or 4 ("ode", ``xd`` (2 by
+    default) and ``n_tail``) built for the host with ``defines``, on seeded
+    inputs with unit-scale cotangents, against the float64 plain walk:
+    ``worst``, the largest max|d| / max|plain| of any output tensor (the
+    float32 plain walk's beside it as ``float32``), and ``identical``, 1.0
+    when a relaunch gave the same bits."""
     rng = np.random.default_rng(B + Tm1 + h)
     if family == "dae":
-        args = dae_inputs(B, Tm1, h, seed=h)
+        xd = xd or 3
+        args = dae_inputs(B, Tm1, h, xd, idim, seed=h, n_tail=n_tail)
         packed = F.fused_dae_rollout_packed_plain(*args, solver)
-        cot = torch.tensor(rng.standard_normal((Tm1 + 1, B, 5)).astype(np.float32))
+        cot = torch.tensor(rng.standard_normal((Tm1 + 1, B, xd + idim)).astype(np.float32))
         flat = lambda g: [*g[0].values(), g[2], g[3]] + V.flatten_weights(g[1])[0]
         run = lambda: flat(dae_rollout_bwd(*args, packed, cot, solver, defines=defines)[0])
         streams, weights, x0, i0, aux = args
@@ -283,7 +288,7 @@ def noencode_bwd_check(family: str, B: int, Tm1: int, h: int, solver: str, xd: i
                                                  aux, packed.double(), cot.double(), solver))
         f32 = flat(V.fused_dae_rollout_bwd_plain(*args, packed, cot, solver))
     else:
-        s_de, weights, x0, dt = ode_inputs(B, Tm1, h, xd, n_tail, seed=h)
+        s_de, weights, x0, dt = ode_inputs(B, Tm1, h, xd or 2, n_tail, seed=h)
         sol = torch.cat([x0[None], FO.fused_ode_rollout_plain(s_de, weights, x0, dt, solver)])
         cot = torch.tensor(rng.standard_normal(tuple(sol.shape)).astype(np.float32))
         flat = lambda g: [g[0], g[2]] + VO.flatten_weights(g[1])
@@ -303,18 +308,21 @@ def _worst(got: List[torch.Tensor], ref: List[torch.Tensor]) -> float:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv[0] in ("dae-fwd", "ode-fwd"):
-        family, n_dims = argv[0][:3], 3 if argv[0] == "dae-fwd" else 5
+    if argv[0] in ("dae-fwd", "ode-fwd", "dae-bwd", "ode-bwd"):
+        family = argv[0][:3]
+        n_dims = next(k for k, a in enumerate(argv[1:]) if not a.isdigit())  # the solver ends the sizes
         dims = list(map(int, argv[1:1 + n_dims]))
-        solver, rows = argv[1 + n_dims], int(argv[2 + n_dims]) if len(argv) > 2 + n_dims else None
-        got = noencode_fwd_check(family, *dims[:3], solver, rows, *dims[3:])
+        solver, rest = argv[1 + n_dims], argv[2 + n_dims:]
+        # the DAE: B Tm1 h [xd id n_tail]; the ODE: B Tm1 h xd n_tail
+        shape = (dict(xd=dims[3], idim=dims[4], n_tail=dims[5]) if family == "dae" and len(dims) == 6
+                 else dict(xd=dims[3], n_tail=dims[4]) if family == "ode" else {})
+    if argv[0] in ("dae-fwd", "ode-fwd"):
+        got = noencode_fwd_check(family, *dims[:3], solver, int(rest[0]) if rest else None, **shape)
         print(f"{argv[0]}: worst |d| / max(1, |plain|) {got['worst']:.2e}; bit-identical on relaunch: "
               f"{bool(got['identical'])}")
         return 0 if got["worst"] <= 1e-4 and got["identical"] else 1
     if argv[0] in ("dae-bwd", "ode-bwd"):
-        family = argv[0][:3]
-        dims = list(map(int, argv[1:-1]))
-        got = noencode_bwd_check(family, *dims[:3], argv[-1], *dims[3:])
+        got = noencode_bwd_check(family, *dims[:3], solver, **shape)
         print(f"{argv[0]}: worst max|d|/max|float64 walk| {got['worst']:.2e} (the float32 plain walk "
               f"{got['float32']:.2e}); bit-identical on relaunch: {bool(got['identical'])}")
         return 0 if got["worst"] <= 1e-4 and got["identical"] else 1

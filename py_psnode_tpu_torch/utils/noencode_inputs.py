@@ -25,15 +25,19 @@ def _step_sizes(Tm1: int, B: int):
     return dt
 
 
-def dae_inputs(B: int, Tm1: int, h: int, xd: int = 3, idim: int = 2, seed: int = 0):
+def dae_inputs(B: int, Tm1: int, h: int, xd: int = 3, idim: int = 2, seed: int = 0, n_tail: int = 3):
     """``(streams, weights, x0, i0, aux)`` of a DAE rollout on the CPU, in
-    the flax layout: lecun-scaled three-layer tails, dt 0.05 (0.02 in
-    batch row 1), events in rows 1 and 3 (modulo B) at step 2, in every
-    row at step 9, and in row 0 at the walk's first step ``Tm1 - 1``."""
+    the flax layout: ``n_tail`` lecun-scaled tail layers a net (3, the
+    no-encode nets; 1, the direct-encode latent nets at ``xd = idim = h``),
+    the first-layer projections at scale ``min(0.5, 1/sqrt(width))``, dt
+    0.05 (0.02 in batch row 1), events in rows 1 and 3 (modulo B) at step
+    2, in every row at step 9, and in row 0 at the walk's first step
+    ``Tm1 - 1``."""
     t = _draw(seed)
     streams = {k: t(Tm1, B, h, sc=0.5) for k in ("s_de", "s_ae", "s_ae_ev")}
-    tail = lambda out: [(t(h, o, sc=h ** -0.5), t(o, sc=0.1)) for o in (h, h, out)]
-    weights = dict(wx_de=t(xd, h, sc=0.5), wi_de=t(idim, h, sc=0.5), gx_ae=t(xd, h, sc=0.5),
+    tail = lambda out: [(t(h, o, sc=h ** -0.5), t(o, sc=0.1)) for o in [h] * (n_tail - 1) + [out]]
+    sc = lambda width: min(0.5, width ** -0.5)
+    weights = dict(wx_de=t(xd, h, sc=sc(xd)), wi_de=t(idim, h, sc=sc(idim)), gx_ae=t(xd, h, sc=sc(xd)),
                    de_tail=tail(xd), ae_tail=tail(idim))
     x0, i0 = t(B, xd), t(B, idim)
     ev = torch.zeros(Tm1, B, dtype=torch.bool)

@@ -1,7 +1,7 @@
 """The port's export (``py_psnode_tpu_torch/export``, the variants' recipes,
 ``Trainer.save`` and ``--saving``) against the JAX package's.
 
-For each of the four ported variants at h=16, the same weights (seeded
+For each of the six variants at h=16, the same weights (seeded
 numpy in the flax layout, loaded into the port's module with
 ``bridge.load_params``) go through the JAX recipe and the port's into two
 ``saved model/`` directories. They must hold the same files (the JAX
@@ -26,7 +26,7 @@ import torch
 
 from py_psnode_tpu.cli.common import main as jax_main
 from py_psnode_tpu.export import binfmt as jax_binfmt
-from py_psnode_tpu.models import AEFunc, DEFunc, InitFunc
+from py_psnode_tpu.models import AEFunc, Codec, DEFunc, InitFunc
 from py_psnode_tpu.models.funcs import ChannelWiseAEFunc, ChannelWiseDEFunc
 from py_psnode_tpu.train.variants import VARIANTS as JAX_VARIANTS
 
@@ -44,7 +44,7 @@ TEST_DATA = RUN / "data_dae_motor/testing.npz"
 H = 16
 # the AVR ODE's channels and the motor DAE's
 DIMS = {"ode": dict(x_dim=2, z_dim=2), "dae": dict(x_dim=3, z_dim=1, v_dim=2, i_dim=2)}
-NAMES = ["ode_no_encode", "dae_no_encode", "ode_channelwise", "dae_channelwise"]
+NAMES = ["ode_no_encode", "dae_no_encode", "ode_channelwise", "dae_channelwise", "ode_encode", "dae_encode"]
 
 
 def _need_gxx():
@@ -124,6 +124,14 @@ def _flax_module(name, sub):
     if name == "ode_no_encode":
         return DEFunc((H, H, H, xd)), (np.float32(0.0), r(1, xd + zd), r(1, xd), r(1, zd))
     vd, idim = d.get("v_dim", 0), d.get("i_dim", 0)
+    if name in ("ode_encode", "dae_encode"):
+        n = 2 if name == "ode_encode" else 4  # the streams of all_initial
+        return {"x_encoder": (Codec((H, H)), (r(1, xd),)), "x_decoder": (Codec((H, xd)), (r(1, H),)),
+                "z_encoder": (Codec((H, H)), (r(1, zd),)), "v_encoder": (Codec((H, H)), (r(1, vd),)),
+                "i_encoder": (Codec((H, H)), (r(1, idim),)), "i_decoder": (Codec((H, idim)), (r(1, H),)),
+                "init_func": (InitFunc((H, H, xd)), (r(1, zd), r(1, vd), r(1, idim))),
+                "de_func": (DEFunc((H, H)), (np.float32(0.0), r(1, n * H), *(r(1, H) for _ in range(n)))),
+                "ae_func": (AEFunc((H, H)), (r(1, 4 * H), r(1, H), r(1, H), r(1, H)))}[sub]
     if name == "dae_no_encode":
         init = r(1, xd + zd + vd + idim)
         return {"init_func": (InitFunc((H, H, xd)), (r(1, zd), r(1, vd), r(1, idim))),
@@ -154,7 +162,9 @@ def test_port_bins_roll_out_in_the_native_runtime(exported, name):
     _need_gxx()
     _, pdir, _, pm = exported[name]
     kind = VARIANTS[name].kind
-    pm.solver = "rk4" if "no_encode" in name else "euler"  # both the model and the runtime
+    # both the model and the runtime
+    pm.solver = {"ode_no_encode": "rk4", "dae_no_encode": "rk4", "ode_encode": "midpoint",
+                 "dae_encode": "rk4"}.get(name, "euler")
     b = _batch(kind, 3, 9, np.random.default_rng(5))
     with torch.no_grad():
         ref = pm(*(torch.tensor(b[k]) for k in (("t", "x", "z") if kind == "ode" else ("t", "x", "z", "v", "i"))))

@@ -39,11 +39,11 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def rollout_inputs(B, Tm1, h, xd=3, idim=2, seed=0, dev="cpu"):
+def rollout_inputs(B, Tm1, h, xd=3, idim=2, seed=0, dev="cpu", n_tail=3):
     """Seeded rollout inputs in the flax layout, with per-row step sizes
     and events in some rows (``utils.noencode_inputs.dae_inputs``) on
     ``dev``."""
-    return _to(dae_inputs(B, Tm1, h, xd, idim, seed), dev)
+    return _to(dae_inputs(B, Tm1, h, xd, idim, seed, n_tail), dev)
 
 
 @pytest.mark.parametrize("batch", [1, 32, 132, 133, 1024, 5000])
@@ -281,9 +281,9 @@ def dae_bwd_against_float64(args, solver, seed=1):
     solution from the plain forward, unit-scale cotangents): the kernel's
     outputs, the relaunch's and the walk's, as flat lists."""
     packed = F.fused_dae_rollout_packed_plain(*args, solver)
-    Tm1, B, _ = args[0]["s_de"].shape
+    Tm1, B, n_out = packed.shape  # n_out = xd + id
     rng = np.random.default_rng(seed)
-    cot = torch.tensor(rng.standard_normal((Tm1 + 1, B, 5)).astype(np.float32), device="cuda")
+    cot = torch.tensor(rng.standard_normal((Tm1 + 1, B, n_out)).astype(np.float32), device="cuda")
     streams, weights, x0, i0, aux = args
     ref = _bwd_flat(V.fused_dae_rollout_bwd_plain(
         _double(streams), _double(weights), x0.double(), i0.double(), aux, packed.double(),
@@ -424,6 +424,22 @@ def test_noencode_bwd_kernels_match_plain_at_wide_widths_on_card(batch, h, solve
     _hold(*dae_bwd_against_float64(rollout_inputs(batch, 12, h, seed=batch, dev="cuda"), solver))
     _hold(*ode_bwd_against_float64(ode_inputs(batch, 12, h, 2, 3, seed=batch, dev="cuda"), solver))
     _hold(*ode_bwd_against_float64(ode_inputs(batch, 12, h, h, 1, seed=batch, dev="cuda"), solver))
+
+
+# the direct-encode DAE's latent shape: xd = id = h, one tail layer a net
+# (the DE's first layer 2h wide: the wide kernels, padded width 256 at
+# h=128, 512 at h=200; both readouts h wide, nothing folds)
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["euler", "rk4"])
+@pytest.mark.parametrize("h", [128, 200])
+@pytest.mark.parametrize("batch", [1, 67, 133])
+def test_dae_kernels_match_plain_at_the_encode_shape_on_card(batch, h, solver):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    args = rollout_inputs(batch, 16, h, h, h, seed=batch, dev="cuda", n_tail=1)
+    ref = F.fused_dae_rollout_packed_plain(*args, solver)
+    _hold_fwd(F.fused_dae_rollout_packed_cuda(*args, solver), F.fused_dae_rollout_packed_cuda(*args, solver), ref)
+    _hold(*dae_bwd_against_float64(args, solver))
 
 
 @pytest.mark.gpu

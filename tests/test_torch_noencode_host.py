@@ -52,6 +52,21 @@ def test_host_dae_forward_matches_plain(B, Tm1, h, solver, rows):
     assert got["identical"] == 1.0
 
 
+# (B, Tm1, h, solver, rows a block): the direct-encode DAE's latent shape,
+# xd = id = h with one tail layer a net (the DE's first layer 2h wide, both
+# readouts h wide: nothing folds), at h=16 in a tile of two rows and at
+# h=136 (the first layer three 128-wide chunks) with one row a block
+DAE_ENCODE_FWD_CASES = [(2, 3, 16, "rk4", 2), (1, 3, 136, "midpoint", None)]
+
+
+@pytest.mark.parametrize("B,Tm1,h,solver,rows", DAE_ENCODE_FWD_CASES)
+def test_host_dae_forward_matches_plain_at_the_encode_shape(B, Tm1, h, solver, rows):
+    need_gxx()
+    got = host_build.noencode_fwd_check("dae", B, Tm1, h, solver, rows, xd=h, n_tail=1, idim=h)
+    assert got["worst"] <= 1e-4, got
+    assert got["identical"] == 1.0
+
+
 # (B, Tm1, h, xd, n_tail, solver, rows a block): the AVR no-encode shape
 # and the direct-encode latent shape (xd = h, one tail layer: the wide
 # first layer and readout), as above
@@ -112,6 +127,20 @@ def test_host_dae_backward_matches_float64_walk(B, Tm1, h, solver):
     assert got["identical"] == 1.0
 
 
+# (B, Tm1, h, solver): the direct-encode DAE's latent shape (xd = id = h,
+# one tail layer a net; kin = 2h), at h=16 and at h=136 (the wide
+# kernels, padded width 384)
+DAE_ENCODE_CASES = [(3, 4, 16, "rk4"), (2, 3, 136, "euler")]
+
+
+@pytest.mark.parametrize("B,Tm1,h,solver", DAE_ENCODE_CASES)
+def test_host_dae_backward_matches_float64_walk_at_the_encode_shape(B, Tm1, h, solver):
+    need_gxx()
+    got = host_build.noencode_bwd_check("dae", B, Tm1, h, solver, xd=h, n_tail=1, idim=h)
+    assert got["worst"] <= 1e-4, got
+    assert got["identical"] == 1.0
+
+
 # (B, Tm1, h, xd, n_tail, solver): the AVR no-encode shape and the
 # direct-encode latent shape (xd = h, one tail layer), each also at h=136
 # (the wide kernels; the encode shape's first layer and readout 136 wide)
@@ -131,7 +160,7 @@ def test_host_ode_backward_matches_float64_walk(B, Tm1, h, xd, n_tail, solver):
 # the wide walk with its vectors in global memory (where H floats eleven
 # times over do not fit a block's shared memory, h above about 5 000),
 # reached at h=136 by a build that always takes that path
-@pytest.mark.parametrize("family,xd,n_tail,solver", [("dae", 2, 3, "euler"), ("ode", 136, 1, "midpoint")])
+@pytest.mark.parametrize("family,xd,n_tail,solver", [("dae", 3, 3, "euler"), ("ode", 136, 1, "midpoint")])
 def test_host_wide_backward_with_walk_vectors_in_global_memory(family, xd, n_tail, solver):
     need_gxx()
     got = host_build.noencode_bwd_check(family, 2, 3, 136, solver, xd, n_tail, defines=("NE_WIDE_VEC_GMEM=1",))

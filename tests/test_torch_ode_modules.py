@@ -26,7 +26,7 @@ from py_psnode_tpu_torch.data import OdeSamples, synthetic
 from py_psnode_tpu_torch.models import ODEModel
 from py_psnode_tpu_torch.train import evaluate as teval
 from py_psnode_tpu_torch.train import losses as tlosses
-from py_psnode_tpu_torch.train.variants import NOT_PORTED, dataset_dims, get_variant
+from py_psnode_tpu_torch.train.variants import VARIANTS, dataset_dims, get_variant
 from py_psnode_tpu_torch.utils.logging import Logger
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -196,12 +196,14 @@ def test_evaluate_ode_and_summary_match(tmp_path):
 
 
 def test_ode_no_encode_variant(tmp_path):
-    assert "ode_no_encode" not in NOT_PORTED
     v = get_variant("ode_no_encode")
     assert (v.kind, v.larger_than, v.loss_keys) == ("ode", 3.29, ("x_loss", "loss"))
     assert v.batch_args == ("t", "x", "z", "event_t", "z_jump")
     train, _ = synthetic.write_avr_dataset(tmp_path, n_train=2, n_test=1, n_steps=5, seed=0)
     assert dataset_dims(v, OdeSamples.load(str(train))) == dict(x_dim=2, z_dim=2)
     assert get_variant("dae_no_encode").loss_keys == ("x_loss", "i_loss", "loss")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_variant("ode_encode")
+    # every variant of the JAX package is served; an unknown name is refused
+    assert sorted(VARIANTS) == sorted(["ode_no_encode", "ode_encode", "dae_no_encode", "dae_encode",
+                                       "ode_channelwise", "dae_channelwise"])
+    with pytest.raises(ValueError, match="unknown variant"):
+        get_variant("ode_latent")

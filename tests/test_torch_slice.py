@@ -93,8 +93,8 @@ def test_port_cli_refuses_what_is_not_ported(tmp_path):
     assert not (tmp_path / "run").exists()
     with pytest.raises(NotImplementedError, match="not ported"):
         port_main("dae_no_encode", ["--saving", "--device", "cpu", "--checkpointer", "orbax"])
+    # the direct-encode variants are served, their teacher forcing is not
     with pytest.raises(NotImplementedError, match="not ported"):
-        port_main("dae_encode", ["--testing", "--device", "cpu", "--model", str(CKPT),
-                                 "--test_data", str(TEST_DATA)])
+        port_main("dae_encode", train + ["--input_true_x"])
     with pytest.raises(SystemExit):
         port_main("dae_no_encode", ["--testing", "--device", "tpu"])
