@@ -107,7 +107,27 @@ Phases, each printed as it ends; any failure exits non-zero:
      kernels alone at B=64 RK4 and one training step (B=64, T=1001, RK4),
      fused and plain, with its peak memory;
  18. direct-encode ODE on the AVR set of phase 10, the same from the CLI on
-     (kernels 3 and 4 at xd = h = 128, one tail layer).
+     (kernels 3 and 4 at xd = h = 128, one tail layer);
+ 19. teacher forcing (``--input_true_x`` / ``--input_true_i``): kernel 1 in
+     its TF-x mode against its plain loop on seeded true states (B=32,
+     T=1001, the motor shape with each solver, the direct-encode latent
+     shape with Euler and RK4; KERNEL_TOL, bit-identical on relaunch);
+     kernel 2 in its TF-x mode against the float64 plain walk (B=64, the
+     motor shape, Euler and RK4, with and without the true states'
+     cotangents g_xt / g_xt1, and the encode shape with Euler; BWD_TOL on
+     every tensor, bit-identical on relaunch); the Trainer (fused, one
+     epoch of two steps, Euler) for every combination the JAX package
+     dispatches (the motor DAE from checkpoint 200 and the direct-encode
+     DAE with TF-x, TF-i and both; both ODEs on the AVR set with TF-x),
+     steps 1 and 2 and the teacher-forced epoch-1 eval against the JAX
+     package's anchors (``TF_ANCHORS``) at rtol 1e-3, the TF-x DAE runs
+     launching kernels 1-2, the TF-i runs kernels 3-4 and the time-parallel
+     runs none of kernels 1-4; the CLI ``--training --fused --input_true_x``
+     of the motor DAE and ``--testing --fused --input_true_x`` on its
+     checkpoint; then at B=64, T=1001, RK4 both TF-x kernels alone beside
+     their bounds (and the forward at B=32 Euler) and one TF-x training
+     step of each DAE family, fused and plain, with its peak memory, the
+     fused step's loss and gradients held against the plain step's.
 
 The line before the last two is the kernels' JSON record, then nvidia-smi's
 line, and the last line is ``{"ok": true, "device": {...}}``. Nothing is
@@ -168,6 +188,7 @@ from py_psnode_tpu_torch.ops.fused_model import (  # noqa: E402
     ode_rollout_inputs,
     rollout_inputs,
 )
+from py_psnode_tpu_torch.ops import teacher_forcing as TF  # noqa: E402
 from py_psnode_tpu_torch.train import TrainConfig, Trainer  # noqa: E402
 from py_psnode_tpu_torch.train.checkpoints import load_checkpoint_params  # noqa: E402
 from py_psnode_tpu_torch.train.variants import VARIANTS, export_examples  # noqa: E402
@@ -182,6 +203,7 @@ from py_psnode_tpu_torch.train.losses import (  # noqa: E402
 from py_psnode_tpu_torch.train.optim import make_optimizer  # noqa: E402
 from py_psnode_tpu_torch.utils import cuda_build  # noqa: E402
 from py_psnode_tpu_torch.utils.device import use_full_float32  # noqa: E402
+from py_psnode_tpu_torch.utils.noencode_inputs import with_first_step_events  # noqa: E402
 
 RUN_DIR = REPO / "benchmarks" / "h2h_work_prod_s0"
 CKPT = RUN_DIR / "ours_dae_motor" / "model_checkpoint.200"
@@ -234,6 +256,30 @@ ENC_ANCHORS = {
         "rk4": dict(step1=(14.683273, 380.15518), step2=(1184.6495, 300.51721), eval1=(130.56729, 21.614664),
                     test=(5.1164093, 1.8736318)),
     },
+}
+# Teacher forcing (phase 19), every combination the JAX package dispatches,
+# one epoch of two steps (Euler, batch 64, lr 5e-3, seed 0): the motor DAE
+# from checkpoint 200 and the direct-encode DAE from its starting
+# checkpoint (the motor set), the ODEs from theirs on the AVR set of
+# ODE_ANCHORS; flags "x" (input_true_x), "i" (input_true_i), "xi" (both).
+# Step 1 and step 2 (loss, gradient norm) and the teacher-forced epoch-1
+# eval (x_loss, and i_loss for a DAE) of the JAX package on the CPU in
+# float32; re-derived by `python tests/test_torch_tf_slice.py anchors`
+# (needs JAX).
+TF_ANCHORS = {
+    "dae_no_encode": {
+        "x": dict(step1=(0.18992327, 28.449398), step2=(37.592972, 137.90556), eval1=(0.00021556679, 0.59756041)),
+        "i": dict(step1=(0.18652777, 84.542191), step2=(98.78833, 184.03008), eval1=(0.62142569, 9.8368073)),
+        "xi": dict(step1=(0.18993807, 28.450203), step2=(37.58601, 137.85074), eval1=(0.00024647237, 0.59774137)),
+    },
+    "dae_encode": {
+        "x": dict(step1=(13.127804, 306.38052), step2=(72.295761, 328.36536), eval1=(0.57797396, 23.298218)),
+        "i": dict(step1=(17.682583, 378.7027), step2=(786.80896, 273.40555), eval1=(639.07483, 46.74192)),
+        "xi": dict(step1=(13.126011, 305.29776), step2=(72.229874, 303.23047), eval1=(0.58926827, 23.261961)),
+    },
+    "ode_no_encode": {"x": dict(step1=(0.022299383, 0.44636983), step2=(0.021688376, 0.48730695),
+                                eval1=(0.015616274,))},
+    "ode_encode": {"x": dict(step1=(85.85289, 177.36066), step2=(155.08521, 170.27582), eval1=(9.3136806,))},
 }
 # Per output tensor, on its own scale: max|kernel - plain| <= BWD_TOL *
 # max|plain|. Each weight gradient sums 64 x 1000 row-steps in another
@@ -693,14 +739,15 @@ def step_ms(dev, fused, reps):
     return cuda_ms(step, 1, reps), 64 * 1000, torch.cuda.max_memory_allocated(dev)
 
 
-def timed_steps(model, batch, apply, loss_fn, keys, dev, fused, reps):
+def timed_steps(model, batch, apply, loss_fn, keys, dev, fused, reps, plain_kw=None):
     """Training steps of ``model`` on ``batch`` (streams, rollout, loss,
     backward and Adam; the fused route ``apply(model, batch)`` or the plain
-    ``model(*batch[keys])``), timed with CUDA events after one untimed
-    step; returns (ms, peak bytes allocated, the first step's loss, the
-    first step's gradient of each parameter)."""
+    ``model(*batch[keys], **plain_kw)``), timed with CUDA events after one
+    untimed step; returns (ms, peak bytes allocated, the first step's loss,
+    the first step's gradient of each parameter)."""
     opt = make_optimizer(model.parameters(), 5e-3, epochs=1, steps_per_epoch=1)
-    forward = (lambda: apply(model, batch)) if fused else (lambda: model(*[batch[k] for k in keys]))
+    plain = lambda: model(*[batch[k] for k in keys], **(plain_kw or {}))
+    forward = (lambda: apply(model, batch)) if fused else plain
     first = {}
 
     def step():
@@ -2164,6 +2211,296 @@ def phase_encode(dev, root, ode_files):
     return out
 
 
+# ------------------------------------------------------------ teacher forcing
+
+TF_FLAGS = {"x": dict(input_true_x=True), "i": dict(input_true_i=True),
+            "xi": dict(input_true_x=True, input_true_i=True)}
+TF_COMBOS = [("dae_no_encode", f) for f in ("x", "i", "xi")] + [("dae_encode", f) for f in ("x", "i", "xi")] + [
+    ("ode_no_encode", "x"), ("ode_encode", "x")]
+TF_KEYS = {"dae_no_encode": ENC_KEYS["dae_encode"], "dae_encode": ENC_KEYS["dae_encode"]}
+
+
+def true_states(Tm1, B, xd, seed, dev):
+    """Seeded unit-scale true states ``x_true [T, B, xd]`` for kernels 1-2
+    in their TF-x mode."""
+    rng = np.random.default_rng(seed + 1000)
+    return torch.tensor(rng.standard_normal((Tm1 + 1, B, xd)).astype(np.float32), device=dev)
+
+
+def tf_counts():
+    return (F.fused_dae_rollout.launches, V.fused_dae_rollout_bwd.launches, FO.fused_ode_rollout.launches,
+            VO.fused_ode_rollout_bwd.launches)
+
+
+def reset_tf_counts():
+    for c in (F.fused_dae_rollout, V.fused_dae_rollout_bwd, FO.fused_ode_rollout, VO.fused_ode_rollout_bwd):
+        c.launches = 0
+
+
+def tf_enc_args(model, batch):
+    """Kernel 1's TF-x arguments for the direct-encode DAE on ``batch``, as
+    ``fused_dae_encode_tf_x_apply`` builds them: ``((streams, weights, xh0,
+    i0, aux), x_true)``, the true states the encoded ``x``."""
+    with torch.no_grad():
+        s = dae_encode_setup(model, batch, tf_x=True)
+    args = (s["streams"], s["weights"], s["xh0"].contiguous(), s["i0"].contiguous(), F.pack_aux(s["dt"], s["ev"]))
+    return args, s["xhT"].contiguous()
+
+
+def tf_bwd_outputs(g, g_true):
+    """The TF-x backward's outputs as (name, tensor) pairs."""
+    out = bwd_outputs(g[:4])
+    return out + ([("g_xt", g[4][0]), ("g_xt1", g[4][1])] if g_true else [])
+
+
+def phase_tf_kernels(dev, enc_start):
+    """Phase 19, part 1: kernel 1 in its TF-x mode against its plain loop
+    (the motor shape at B=32, T=1001 on seeded inputs and true states, each
+    solver; the direct-encode shape on its starting checkpoint's 32 test
+    rows, the true states the encoded x, Euler and RK4); kernel 2 in its
+    TF-x mode against the float64 plain walk at B=64 (the motor shape,
+    Euler and RK4, with and without g_xt / g_xt1; the encode shape, Euler,
+    with them; events at step 0 in the even rows added: under TF-x only
+    they give the rolled x0 a cotangent), unit-scale cotangents. Returns (forward max|d|, backward
+    max|d|) of the motor shape."""
+    fwd_worst = 0.0
+    cases = [("motor", random_inputs(32, 1000, 128, 3, 2, seed=0, dev=dev), true_states(1000, 32, 3, 0, dev), SOLVERS)]
+    model = enc_model("dae_encode", enc_start, dev).requires_grad_(False)
+    cases.append(("encode", *tf_enc_args(model, enc_batch("dae_encode", TEST_DATA, 32, dev)), ("euler", "rk4")))
+    for shape, args, x_true, solvers in cases:
+        for solver in solvers:
+            t0 = time.perf_counter()
+            ref = F.fused_dae_rollout_packed_plain(*args, solver, x_true)
+            plain_s = time.perf_counter() - t0
+            got = F.fused_dae_rollout_packed_cuda(*args, solver, x_true=x_true)
+            again = F.fused_dae_rollout_packed_cuda(*args, solver, x_true=x_true)
+            torch.cuda.synchronize()
+            d = hold_fwd(f"TF-x kernel 1 {shape} {solver}", got, again, ref)
+            if shape == "motor":
+                fwd_worst = max(fwd_worst, d)
+            say(f"[tf-kernel] forward TF-x {shape} B=32 T=1001 {solver:8s}: max|d| {d:.3e} max|plain| "
+                f"{ref.abs().max().item():.3f}, bit-identical on relaunch; plain loop {plain_s:.1f} s")
+    bwd_worst = 0.0
+    cases = [("motor", random_inputs(64, 1000, 128, 3, 2, seed=1, dev=dev), true_states(1000, 64, 3, 1, dev),
+              ("euler", "rk4"), (True, False))]
+    cases.append(("encode", *tf_enc_args(model, enc_batch("dae_encode", TRAIN_DATA, 64, dev)), ("euler",), (True,)))
+    for shape, args, x_true, solvers, g_trues in cases:
+        args = (*args[:4], with_first_step_events(args[4]))
+        streams, weights, x0, i0, aux = args
+        width = x0.shape[-1] + i0.shape[-1]
+        cot = torch.tensor(np.random.default_rng(2).standard_normal((1001, 64, width)).astype(np.float32), device=dev)
+        for solver in solvers:
+            packed = F.fused_dae_rollout_packed_cuda(*args, solver, x_true=x_true)
+            t0 = time.perf_counter()
+            ref = V.fused_dae_rollout_bwd_plain(double(streams), double(weights), x0.double(), i0.double(), aux,
+                                                packed.double(), cot.double(), solver, x_true.double(), True)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            for g_true in g_trues:
+                got = V.fused_dae_rollout_bwd_cuda(*args, packed, cot, solver, x_true, g_true)
+                again = V.fused_dae_rollout_bwd_cuda(*args, packed, cot, solver, x_true, g_true)
+                flat = lambda g: [v for _, v in tf_bwd_outputs(g, g_true)]
+                names = [n for n, _ in tf_bwd_outputs(got, g_true)]
+                worst, report = hold_bwd(f"TF-x backward {shape} {solver} g_true={g_true}", names, flat(got),
+                                         flat(again), flat(ref))
+                if shape == "motor":
+                    bwd_worst = max(bwd_worst, worst)
+                say(f"[tf-kernel] backward TF-x {shape} B=64 T=1001 {solver:8s} true-state cotangents "
+                    f"{'written' if g_true else 'not asked'}: ok, bit-identical on relaunch; plain float64 walk "
+                    f"{plain_s:.1f} s; max|d| / max|plain| per tensor: {report}")
+    return fwd_worst, bwd_worst
+
+
+def tf_launches_ok(variant, flags, n):
+    """A TF-x DAE run launches kernels 1-2 and none of 3-4, a TF-i run
+    kernels 3-4 and none of 1-2, a time-parallel run none of 1-4."""
+    if variant.startswith("dae") and flags == "x":
+        return min(n[:2]) >= 1 and not any(n[2:])
+    if flags == "i":
+        return min(n[2:]) >= 1 and not any(n[:2])
+    return not any(n)
+
+
+def phase_tf_slice(dev, files):
+    """Phase 19, part 2: the Trainer (fused, one epoch of two steps, Euler,
+    every step logged) for each combination of TF_COMBOS, steps 1 and 2
+    and the teacher-forced epoch-1 eval against TF_ANCHORS at rtol 1e-3,
+    each run's launches of kernels 1-4 counted (set to 0 just before, read
+    just after); then the CLI ``--training --fused --input_true_x`` of the
+    motor DAE and ``--testing --fused --input_true_x`` on its checkpoint.
+    Returns the launches of the motor DAE's TF-x Trainer run."""
+    launches = None
+    root = files["root"]
+    for variant, flags in TF_COMBOS:
+        train_f, test_f, start = files[variant]
+        ws = shutil.copy(start, root / f"{variant}_{flags}_ws")
+        cfg = TrainConfig(
+            variant=variant, train_data=str(train_f), test_data=str(test_f), model=str(root / f"{variant}_{flags}"),
+            num=128, batch=64, epoch=200, hidden=128, larger_than=None, seed=0, warm_start=str(ws), stop_after=1,
+            loss_record_iter=1, solver="euler", fused=True, echo_logs=False, device="cuda", **TF_FLAGS[flags],
+        )
+        reset_tf_counts()
+        t0 = time.perf_counter()
+        _, run_dir = Trainer(cfg).train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = tf_counts()
+        recs = [json.loads(line) for line in (run_dir / "train_metrics.jsonl").read_text().splitlines()]
+        steps = [r for r in recs if r["kind"] == "train"]
+        (ev,) = [r for r in recs if r["kind"] == "eval"]
+        if len(steps) != 2:
+            fail(f"{variant} TF {flags} training logged {len(steps)} steps, not 2")
+        anchors = TF_ANCHORS[variant][flags]
+        got = dict(step1=(steps[0]["loss"], steps[0]["grad_norm"]), step2=(steps[1]["loss"], steps[1]["grad_norm"]),
+                   eval1=tuple(ev[k] for k in ("x_loss", "i_loss") if k in ev))
+        errs = []
+        for key, rtol in (("step1", TRAIN_STEP1_RTOL), ("step2", TRAIN_EVAL1_RTOL), ("eval1", TRAIN_EVAL1_RTOL)):
+            for v, a in zip(got[key], anchors[key]):
+                if not (np.isfinite(v) and near(v, a, rtol)):
+                    fail(f"{variant} TF {flags} {key} {got[key]} misses the JAX anchors {anchors[key]} at rtol {rtol}")
+                errs.append(abs(v - a) / abs(a))
+        say(f"[tf-train] {variant} {'+'.join(k for k in TF_FLAGS[flags])} --fused (Trainer, batch 64, euler): "
+            f"steps {got['step1']}, {got['step2']}; epoch-1 eval {got['eval1']}; worst rel. err. to the JAX anchors "
+            f"{max(errs):.2e}; launches of kernels 1-4: {n}; wall {wall:.2f} s")
+        if not tf_launches_ok(variant, flags, n):
+            fail(f"{variant} TF {flags} launched kernels 1-4 {n} times, not as its dispatch names them")
+        if (variant, flags) == ("dae_no_encode", "x"):
+            launches = n[:2]
+
+    train_f, test_f, start = files["dae_no_encode"]
+    ws = shutil.copy(start, root / "cli_ws")
+    reset_tf_counts()
+    t0 = time.perf_counter()
+    _, run_dir = cli_main("dae_no_encode", [
+        "--training", "--fused", "--input_true_x", "--device", "cuda", "--train_data", str(train_f), "--test_data",
+        str(test_f), "--model", str(root / "cli_run"), "--num", "128", "--batch", "64", "--epoch", "200",
+        "--stop_after", "1", "--larger_than", "none", "--warm_start", str(ws)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = tf_counts()
+    if not tf_launches_ok("dae_no_encode", "x", n) or not (run_dir / "model_checkpoint.1").exists():
+        fail(f"CLI --training --fused --input_true_x launched kernels 1-4 {n} times or wrote no checkpoint")
+    reset_tf_counts()
+    res = cli_main("dae_no_encode", ["--testing", "--fused", "--input_true_x", "--device", "cuda", "--model",
+                                     str(run_dir / "model_checkpoint.1"), "--test_data", str(test_f)])
+    torch.cuda.synchronize()
+    m = tf_counts()
+    losses, anchors = (float(res[0]), float(res[1])), TF_ANCHORS["dae_no_encode"]["x"]["eval1"]
+    if not all(np.isfinite(v) and near(v, a, ANCHOR_RTOL) for v, a in zip(losses, anchors)):
+        fail(f"CLI --testing --fused --input_true_x losses {losses} miss the anchors {anchors} at rtol {ANCHOR_RTOL}")
+    if m[0] < 1 or any(m[1:]):
+        fail(f"CLI --testing --fused --input_true_x launched kernels 1-4 {m} times")
+    say(f"[tf-cli] --training --fused --input_true_x (motor DAE, checkpoint 200, one epoch): launches of kernels "
+        f"1-4 {n}, wall {wall:.2f} s; --testing --fused --input_true_x on its model_checkpoint.1: x_loss_total "
+        f"{losses[0]:.10g} i_loss_total {losses[1]:.10g} (the JAX run's teacher-forced epoch-1 eval {anchors}), "
+        f"launches {m}")
+    return launches
+
+
+def motor_batch(B, dev):
+    """``B`` rows of the motor training set with the mask, on ``dev``."""
+    ds = DaeSamples.load(str(TRAIN_DATA), cut_length=1001)
+    return {k: torch.as_tensor(getattr(ds, k)[:B], device=dev) for k in TF_KEYS["dae_no_encode"] + ("mask",)}
+
+
+def motor_model(dev, solver):
+    model = DAEModel(3, 1, 2, 2, hidden_dim=128, solver=solver, device="meta")
+    return load_params(model, load_checkpoint_params(CKPT), device=dev)
+
+
+def phase_tf_times(dev, files):
+    """Phase 19, times (CUDA events): kernel 1 in its TF-x mode on
+    checkpoint 200's inputs (the true states the data's x) at B=32 Euler
+    (the test set) and B=64 RK4 (the training set), kernel 2 in its TF-x
+    mode at B=64 RK4 (no true-state cotangent, as the no-encode path asks
+    for none), each beside its bound and its plain version, and both at the
+    direct-encode shape (its starting checkpoint, the backward with the
+    true states' cotangents) beside their bounds; then one TF-x
+    training step (B=64, T=1001, RK4) of the motor DAE and of the
+    direct-encode DAE, fused and plain, with its peak memory, the fused
+    step's loss and gradients held against the plain step's."""
+    times = {}
+    model = motor_model(dev, "rk4").requires_grad_(False)
+    ds = DaeSamples.load(str(TEST_DATA), cut_length=1001)
+    test = {k: torch.as_tensor(getattr(ds, k), device=dev) for k in TF_KEYS["dae_no_encode"]}
+    for B, solver, batch in ((32, "euler", test), (64, "rk4", motor_batch(64, dev))):
+        with torch.no_grad():
+            s = TF._dae_tf_setup(model, batch, True)
+        args = (s["streams"], s["weights"], s["x0"].contiguous(), s["i0"].contiguous(), F.pack_aux(s["dt"], s["ev"]))
+        x_true = s["xT"].contiguous()
+        tf_bytes = 2 * x_true[1:].numel() * 4  # x_true[:-1] and x_true[1:], each read once
+        f_ms = cuda_ms(lambda: F.fused_dae_rollout_packed_cuda(*args, solver, x_true=x_true), 1, 5)
+        fp_ms = cuda_ms(lambda: F.fused_dae_rollout_packed_plain(*args, solver, x_true), 0, 1)
+        n_bytes, flops = rollout_work(*args, solver)
+        f_bound = bound(n_bytes + tf_bytes, flops)
+        times[("fwd", B, solver)] = dict(ms=f_ms, plain_ms=fp_ms, bound_ms=f_bound[0], bound_by=f_bound[1])
+        say(f"[tf-times] kernel 1 TF-x B={B} T=1001 {solver}: {f_ms:.3f} ms, plain {fp_ms:.1f} ms, bound "
+            f"{f_bound[0]:.5f} ms ({f_bound[1]}), kernel/bound {f_ms / f_bound[0]:.1f}x")
+    packed = F.fused_dae_rollout_packed_cuda(*args, "rk4", x_true=x_true)
+    cot = torch.tensor(np.random.default_rng(7).standard_normal((1001, 64, 5)).astype(np.float32), device=dev)
+    b_ms = cuda_ms(lambda: V.fused_dae_rollout_bwd_cuda(*args, packed, cot, "rk4", x_true), 1, 3)
+    bp_ms = cuda_ms(lambda: V.fused_dae_rollout_bwd_plain(*args, packed, cot, "rk4", x_true), 0, 1)
+    n_bytes, flops, tc = bwd_work(*args, "rk4")
+    b_bound = bound(n_bytes + tf_bytes, flops, tc)
+    times[("bwd", 64, "rk4")] = dict(ms=b_ms, plain_ms=bp_ms, bound_ms=b_bound[0], bound_by=b_bound[1])
+    say(f"[tf-times] kernel 2 TF-x B=64 T=1001 rk4 (no true-state cotangent): {b_ms:.3f} ms, plain {bp_ms:.1f} ms, "
+        f"bound {b_bound[0]:.5f} ms ({b_bound[1]}, the h x h products at 3xTF32), kernel/bound "
+        f"{b_ms / b_bound[0]:.1f}x")
+    # the direct-encode shape, as its TF-x training drives the pair: the
+    # true states the encoded x, their cotangents written
+    enc = enc_model("dae_encode", files["dae_encode"][2], dev, "rk4").requires_grad_(False)
+    args, x_true = tf_enc_args(enc, enc_batch("dae_encode", TRAIN_DATA, 64, dev))
+    tf_bytes = 2 * x_true[1:].numel() * 4
+    packed = F.fused_dae_rollout_packed_cuda(*args, "rk4", x_true=x_true)
+    cot = torch.tensor(np.random.default_rng(7).standard_normal((1001, 64, 256)).astype(np.float32), device=dev)
+    f_ms = cuda_ms(lambda: F.fused_dae_rollout_packed_cuda(*args, "rk4", x_true=x_true), 1, 5)
+    b_ms = cuda_ms(lambda: V.fused_dae_rollout_bwd_cuda(*args, packed, cot, "rk4", x_true, True), 1, 3)
+    n_bytes, flops = rollout_work(*args, "rk4")
+    f_bound = bound(n_bytes + tf_bytes, flops)
+    n_bytes, flops, tc = bwd_work(*args, "rk4")
+    b_bound = bound(n_bytes + 2 * tf_bytes, flops, tc)  # x_true's two views in, g_xt and g_xt1 out
+    times[("enc_fwd", 64, "rk4")], times[("enc_bwd", 64, "rk4")] = f_ms, b_ms
+    say(f"[tf-times] direct-encode shape (xd = id = h = 128, one tail layer) B=64 T=1001 rk4: kernel 1 TF-x "
+        f"{f_ms:.3f} ms, bound {f_bound[0]:.5f} ms ({f_bound[1]}); kernel 2 TF-x with g_xt / g_xt1 {b_ms:.3f} ms, "
+        f"bound {b_bound[0]:.5f} ms ({b_bound[1]}, 3xTF32)")
+    del args, packed, cot, enc
+    steps = (("dae_no_encode", lambda: motor_model(dev, "rk4"), motor_batch(64, dev), TF.fused_dae_tf_x_apply,
+              dae_no_encode_loss),
+             ("dae_encode", lambda: enc_model("dae_encode", files["dae_encode"][2], dev, "rk4"),
+              enc_batch("dae_encode", TRAIN_DATA, 64, dev), TF.fused_dae_encode_tf_x_apply, dae_encode_loss))
+    for variant, make, batch, apply, loss_fn in steps:
+        first = {}
+        for fused, reps in ((True, 3), (False, 1)):
+            ms, peak, loss, grads = timed_steps(make(), batch, apply, loss_fn, TF_KEYS[variant], dev, fused, reps,
+                                                plain_kw=dict(input_true_x=True))
+            first[fused] = loss, grads
+            times[(variant, "step", fused)], times[(variant, "peak", fused)] = ms, peak
+            say(f"[tf-times] {variant} TF-x training step B=64 T=1001 h=128 rk4, {'fused' if fused else 'plain'} "
+                f"route: {ms:.3f} ms, {64 * 1000 / ms * 1e3:.1f} trajectory-steps/s, peak memory allocated "
+                f"{peak / 2**30:.2f} GiB")
+        check_cw_step(f"{variant} TF-x", first[True], first[False], tag="[tf-step-check]")
+    return times
+
+
+def phase_tf(dev, root, ode_files):
+    """Phase 19: teacher forcing, from the checkpoints and data of phases
+    6, 10 and 17-18 (the direct-encode starting checkpoints drawn again)."""
+    t0 = time.perf_counter()
+    files = {
+        "root": root,
+        "dae_no_encode": (TRAIN_DATA, TEST_DATA, CKPT),
+        "dae_encode": (TRAIN_DATA, TEST_DATA, start_checkpoint(
+            root / "dae_encode.start", DAEEncodeModel(3, 1, 2, 2, hidden_dim=128, device="meta"), seed=0)),
+        "ode_no_encode": ode_files,
+        "ode_encode": (*ode_files[:2], start_checkpoint(
+            root / "ode_encode.start", ODEEncodeModel(2, 2, hidden_dim=128, device="meta"), seed=0)),
+    }
+    out = dict(kernel_err=phase_tf_kernels(dev, files["dae_encode"][2]), launches=phase_tf_slice(dev, files),
+               times=phase_tf_times(dev, files))
+    say(f"[tf] phase 19 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", action="store_true", help="time both forwards at every launch shape")
@@ -2195,6 +2532,8 @@ def main(argv=None):
         phase_export(dev, root, ode_files, cw_files)
         (root / "enc").mkdir()
         phase_encode(dev, root / "enc", ode_files)
+        (root / "tf").mkdir()
+        tf = phase_tf(dev, root / "tf", ode_files)
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all, nvcc "
         f"{', '.join(f'{k} {v:.2f} s' for k, v in nvcc_s.items())}; card {smi}")
     # the forward as the evaluation slice drives it (B=32, Euler); the
@@ -2206,11 +2545,19 @@ def main(argv=None):
         "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
     }
+    # rows 1-2 in their TF-x mode as phase 19's motor DAE drives them: the
+    # forward at B=32 Euler (the --testing batch), the backward at B=64 RK4;
+    # launches from the TF-x Trainer run
+    tfx = lambda k, t: {f"tfx_{key}": v for key, v in dict(
+        launches=tf["launches"][k], max_abs_err=tf["kernel_err"][k], ms=t["ms"], plain_ms=t["plain_ms"],
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"]).items()}
     record = {"kernels": [
-        entry("fused_dae_rollout", "py_psnode_tpu_torch/csrc/fused_dae_rollout.cu",
-              "py_psnode_tpu/ops/fused_dae.py:371", fwd_launches, fwd_err, fwd_t),
-        entry("fused_dae_rollout_bwd", "py_psnode_tpu_torch/csrc/fused_dae_rollout_bwd.cu",
-              "py_psnode_tpu/ops/fused_dae_vjp.py:147", train_launches["euler"][1], bwd_err, bwd_t),
+        {**entry("fused_dae_rollout", "py_psnode_tpu_torch/csrc/fused_dae_rollout.cu",
+                 "py_psnode_tpu/ops/fused_dae.py:371", fwd_launches, fwd_err, fwd_t),
+         **tfx(0, tf["times"][("fwd", 32, "euler")])},
+        {**entry("fused_dae_rollout_bwd", "py_psnode_tpu_torch/csrc/fused_dae_rollout_bwd.cu",
+                 "py_psnode_tpu/ops/fused_dae_vjp.py:147", train_launches["euler"][1], bwd_err, bwd_t),
+         **tfx(1, tf["times"][("bwd", 64, "rk4")])},
         # the ODE kernels as the CLI's --training --fused drives them (B=64,
         # Euler, the CLI's default solver)
         entry("fused_ode_rollout", "py_psnode_tpu_torch/csrc/fused_ode_rollout.cu",

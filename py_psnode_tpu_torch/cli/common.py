@@ -7,9 +7,9 @@ Flags: --device --id --training --testing --saving --drawing --train_data
 --test_data --model --num --batch --hidden --epoch --step, plus the JAX
 package's --warm_start --stop_after --solver --lr --seed --fused
 --robust_loss --robust_limit --gradient_clip --init_style --larger_than
---channel_impl, with its names and defaults. The JAX flags of paths that are
-not ported (--devices --dcn_size --checkpointer --auto_resume --input_true_x
---input_true_i --n_windows --gap_weight --remat) are
+--channel_impl --input_true_x --input_true_i, with its names and defaults.
+The JAX flags of paths that are not ported (--devices --dcn_size
+--checkpointer --auto_resume --n_windows --gap_weight --remat) are
 accepted at their defaults and raise "not ported yet" otherwise.
 ``--device`` defaults to ``cuda``; ``cpu`` must be asked for.
 """
@@ -98,6 +98,13 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Channel-wise variants: per-channel matmul form, "
                              "one grouped einsum per layer or one "
                              "block-diagonal product (same numbers).")
+    parser.add_argument("--input_true_x", action="store_true",
+                        help="Teacher forcing: feed the TRUE previous state "
+                             "to every solver step (ref my_solvers.py:74).")
+    parser.add_argument("--input_true_i", action="store_true",
+                        help="Teacher forcing (DAE only): feed the TRUE "
+                             "lagged algebraic output to every step "
+                             "(ref my_solvers.py:113,118).")
     # flags of the JAX package's paths that are not ported yet
     for flag, kw in _NOT_PORTED_FLAGS.items():
         parser.add_argument(flag, help="Not ported yet.", **kw)
@@ -110,8 +117,6 @@ _NOT_PORTED_FLAGS = {
     "--dcn_size": dict(type=int, default=0),
     "--checkpointer": dict(type=str, default="npz"),
     "--auto_resume": dict(action="store_true"),
-    "--input_true_x": dict(action="store_true"),
-    "--input_true_i": dict(action="store_true"),
     "--n_windows": dict(type=int, default=0),
     "--gap_weight": dict(type=float, default=1.0),
     "--remat": dict(type=str, default="true"),
@@ -179,6 +184,8 @@ def main(variant: str, argv=None):
         gradient_clip=args.gradient_clip,
         init_style=args.init_style,
         channel_impl=args.channel_impl,
+        input_true_x=args.input_true_x,
+        input_true_i=args.input_true_i,
         device=device,
     )
     if args.training:

@@ -3,17 +3,24 @@
 // Replaces the TPU kernel py_psnode_tpu/ops/fused_dae.py:_kernel (:371),
 // launched by fused_dae_rollout_packed (pallas_call at :588). It computes
 // the same function, in float32 with float32 accumulation (no TF32, no
-// tensor cores), without the TPU's grid, time blocking, lanes, bf16 mode or
-// teacher forcing. Per step t and batch row b:
+// tensor cores), without the TPU's grid, time blocking, lanes or bf16
+// mode. Per step t and batch row b:
 //
 //   i_in = ev[t,b] > 0 ? AE(x_c, s_ae_ev[t]) : i_c      (event recompute)
 //   f(x) = DE_tail(s_de[t] + x @ wx_de + i_in @ wi_de)
-//   x1   = Euler / Midpoint / RK4-3/8 step of f from x_c with dt[t,b]
-//   i1   = AE(x1, s_ae[t]),  AE(x, s) = AE_tail(s + x @ gx_ae)
+//   x1   = Euler / Midpoint / RK4-3/8 step of f from x_s with dt[t,b]
+//   i1   = AE(x_a, s_ae[t]),  AE(x, s) = AE_tail(s + x @ gx_ae)
 //   sol[t,b] = cat(x1, i1);  x_c, i_c = x1, i1
 //
 // where *_tail applies ELU to the lifted first layer, then Dense->ELU
-// layers and a last Dense without activation.
+// layers and a last Dense without activation; x_s = x_c and x_a = x1, or
+// in the TF-x mode (teacher forcing of x, the TPU kernel's tf_x) the true
+// states x_s = x_true[t] and x_a = x_true[t+1], while the event recompute
+// still reads the rolled carry x_c. The TF-x mode is a template flag of its
+// own instantiations: it runs the tile path (its true rows come with each
+// step's cp.async prefetch, and the folded readouts, which carry x1 from
+// the last stage into the AE and on into the next step, are not taken);
+// the other instantiations compile as without it.
 //
 // Bound on an H100 SXM at the motor training shape (B=64, T=1001, h=128,
 // xd=3, id=2, three-layer tails, RK4): a row-step evaluates the DE four
@@ -78,31 +85,41 @@ struct Args {
   float* gmem;           // the blocks' buffers in global memory (null: in shared memory)
   size_t gmem_block;     // floats of a block's buffers there
   int tm1, batch, h, H, xd, id, solver;
+  const float* xt;       // the TF-x mode: x_true[:-1] [tm1, batch, xd]
+  const float* xt1;      // and x_true[1:]
 };
 
-// Floats of one prefetched step of R rows: the three stream rows, then
-// (dt, ev) of each row in 4 floats.
-__host__ __device__ inline int step_floats(int R, int H) { return 3 * R * H + 4 * R; }
+// A true row's floats in a step buffer: xd rounded up to a multiple of 4
+// (0 without teacher forcing).
+__host__ __device__ inline int tf_stride(int xd) { return (xd + 3) / 4 * 4; }
 
-// The buffers of a block of R rows, in floats.
-__host__ inline size_t smem_floats(int slots, const Net& de, const Net& ae, int R, int H) {
+// Floats of one prefetched step of R rows: the three stream rows, then
+// (dt, ev) of each row in 4 floats, then in the TF-x mode the rows'
+// x_true[t] and x_true[t+1], X floats each.
+__host__ __device__ inline int step_floats(int R, int H, int X = 0) { return 3 * R * H + 4 * R + 2 * R * X; }
+
+// The buffers of a block of R rows, in floats (X: tf_stride in the TF-x
+// mode, else 0).
+__host__ inline size_t smem_floats(int slots, const Net& de, const Net& ae, int R, int H, int X = 0) {
   const size_t RH = static_cast<size_t>(R) * H;
   // resident weights, tables, activations (2), prefetched steps (2), the
   // readout, the inputs (DE, AE), the carries x (2), the stages (4), i_c, i_in
   return static_cast<size_t>(slots) * kMat + fwd_net_floats(de, H) + fwd_net_floats(ae, H) + 2 * RH +
-         2 * static_cast<size_t>(step_floats(R, H)) + RH + 2 * RH + 8 * RH;
+         2 * static_cast<size_t>(step_floats(R, H, X)) + RH + 2 * RH + 8 * RH;
 }
 
 // kFoldPath: one row a block (R = 1) and narrow nets, the readouts folded
 // into the next first layer by the first kFoldWarps warps; else the tile
 // path. kGlobal: the block's buffers in global memory (one row a block, the
 // tile path), else in shared memory, which the compiler then addresses as
-// such.
-template <int R, bool kFoldPath, bool kGlobal>
+// such. kTfx: the TF-x mode (the tile path).
+template <int R, bool kFoldPath, bool kGlobal, bool kTfx = false>
 __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant__ Args a, int slots) {
+  static_assert(!(kTfx && kFoldPath), "the TF-x mode runs the tile path");
   extern __shared__ __align__(16) float smem[];
   const int H = a.H, B = a.batch, h = a.h, xd = a.xd, id = a.id, S = n_stages(a.solver);
-  const int tid = threadIdx.x, row0 = blockIdx.x * R, RH = R * H, SF = step_floats(R, H);
+  const int X = kTfx ? tf_stride(xd) : 0;
+  const int tid = threadIdx.x, row0 = blockIdx.x * R, RH = R * H, SF = step_floats(R, H, X);
   const bool folder = tid < 32 * kFoldWarps;  // a warp that folds
   constexpr bool async = !kGlobal;            // the step's rows by cp.async
   float* p = smem;
@@ -150,6 +167,15 @@ __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant
     if (ea < 2 * R)
       step_copy(dst + 3 * RH + 4 * (ea >> 1) + (ea & 1),
                 aux_src ? aux_src + static_cast<size_t>(t) * B * 2 : a.aux, aux_src != nullptr, async);
+    if constexpr (kTfx) {  // the rows' x_true[t], then their x_true[t+1]
+      const size_t step = static_cast<size_t>(t) * B * xd;
+      for (int e = tid; e < 2 * R * xd; e += kThreads) {
+        const int w = e / (R * xd), rest = e - w * R * xd, r = rest / xd, c = rest - r * xd;
+        const bool ok = row0 + r < B;
+        const float* src = (w == 0 ? a.xt : a.xt1) + step + static_cast<size_t>(row0 + r) * xd + c;
+        step_copy(dst + 3 * RH + 4 * R + (w * R + r) * X + c, ok ? src : a.aux, ok, async);
+      }
+    }
     cp_async_commit();
   };
   auto s_de = [&](int t) { return pf + (t & 1) * SF; };
@@ -157,6 +183,8 @@ __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant
   auto s_ev = [&](int t) { return pf + (t & 1) * SF + 2 * RH; };
   auto dt_of = [&](int t, int r) { return pf[(t & 1) * SF + 3 * RH + 4 * r]; };
   auto ev_of = [&](int t, int r) { return pf[(t & 1) * SF + 3 * RH + 4 * r + 1] > 0.f; };
+  // x_true[t] (w = 0) or x_true[t+1] (w = 1) of row r, column c (TF-x)
+  auto x_true = [&](int t, int w, int r, int c) { return pf[(t & 1) * SF + 3 * RH + 4 * R + (w * R + r) * X + c]; };
   auto any_ev = [&](int t) {  // the same in every thread: one branch for the block
     bool v = false;
     for (int r = 0; r < R; ++r) v = v || ev_of(t, r);
@@ -168,10 +196,12 @@ __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant
   prefetch(0);
   cp_async_wait<0>();
   __syncthreads();
-  // the first evaluation's input: (x0, i0) for the DE, x0 for the AE at an event
+  // the first evaluation's input: (x0, i0) for the DE (x_true[0] in the
+  // TF-x mode), x0 for the AE at an event
   for (int e = tid; e < R * xd; e += kThreads) {
     const int r = e / xd, c = e - r * xd;
-    xde[r * H + c] = xae[r * H + c] = xc[r * H + c];
+    xae[r * H + c] = xc[r * H + c];
+    xde[r * H + c] = kTfx ? x_true(0, 0, r, c) : xc[r * H + c];
   }
   for (int e = tid; e < R * id; e += kThreads) {
     const int r = e / id, c = e - r * id;
@@ -264,12 +294,14 @@ __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant
         for (int e = tid; e < R * xd; e += kThreads) {
           const int r = e / xd, c = e - r * xd, o = r * H + c;
           const float v = y[o];
-          const float xn = stage_next(a.solver, q, x_t[o], dt_of(t, r), v, [&](int i) { return kq[i * RH + o]; });
+          const float xs = kTfx ? x_true(t, 0, r, c) : x_t[o];  // the step's start
+          const float xn = stage_next(a.solver, q, xs, dt_of(t, r), v, [&](int i) { return kq[i * RH + o]; });
           if (!last) {
             kq[q * RH + o] = v;
             xde[o] = xn;
           } else {
-            x_n[o] = xae[o] = xn;
+            x_n[o] = xn;
+            xae[o] = kTfx ? x_true(t, 1, r, c) : xn;  // the AE at t+1's input
             if (row0 + r < B) sol_at(t, r)[c] = xn;
           }
         }
@@ -325,7 +357,14 @@ __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant
       const int w = xd > id ? xd : id;
       for (int e = tid; e < R * w; e += kThreads) {
         const int r = e / w, c = e - r * w, o = r * H + c;
-        if (c < xd) xde[o] = x_n[o];
+        if (c < xd) {
+          if constexpr (kTfx) {  // step t + 1 starts from x_true[t+1]; an event there reads x_{t+1}
+            xde[o] = x_true(t + 1, 0, r, c);
+            xae[o] = x_n[o];
+          } else {
+            xde[o] = x_n[o];
+          }
+        }
         if (c < id) {
           const float v = y[o];
           ic[o] = iin[o] = xde[r * H + xd + c] = v;
@@ -347,8 +386,9 @@ __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant
   }
 }
 
-template <int R, bool kFoldPath, bool kGlobal = false>
+template <int R, bool kFoldPath, bool kGlobal = false, bool kTfx = false>
 cudaError_t launch(Args b, cudaStream_t st) {
+  const int X = kTfx ? tf_stride(b.xd) : 0;
   Net* nets[2] = {&b.de, &b.ae};
   // by default, one row a block: the DE's first hidden weight (used S times
   // a step) in registers, its second and the AE's in shared memory; a tile
@@ -356,13 +396,13 @@ cudaError_t launch(Args b, cudaStream_t st) {
   // (phase_clock's [ne-fwd-slots] sweep); buffers in global memory: all
   // through L1 and L2
   const int cap = kGlobal ? 0 : (kSlotCap >= 0 ? kSlotCap : (kFoldPath ? 2 * kMaxTail : b.de.n - 1));
-  const int slots = fwd_place(nets, 2, b.H, kFoldPath ? kRegBanks : 0, cap, smem_floats(0, b.de, b.ae, R, b.H));
-  const size_t smem = kGlobal ? 0 : smem_floats(slots, b.de, b.ae, R, b.H) * sizeof(float);
+  const int slots = fwd_place(nets, 2, b.H, kFoldPath ? kRegBanks : 0, cap, smem_floats(0, b.de, b.ae, R, b.H, X));
+  const size_t smem = kGlobal ? 0 : smem_floats(slots, b.de, b.ae, R, b.H, X) * sizeof(float);
   if (smem > kSmemMax) return cudaErrorInvalidValue;
-  const cudaError_t e = allow_smem(dae_forward<R, kFoldPath, kGlobal>, smem);
+  const cudaError_t e = allow_smem(dae_forward<R, kFoldPath, kGlobal, kTfx>, smem);
   if (e != cudaSuccess) return e;
   const int blocks = (b.batch + R - 1) / R;
-  dae_forward<R, kFoldPath, kGlobal><<<blocks, kThreads, smem, st>>>(b, slots);
+  dae_forward<R, kFoldPath, kGlobal, kTfx><<<blocks, kThreads, smem, st>>>(b, slots);
   return cudaGetLastError();
 }
 
@@ -378,7 +418,7 @@ struct Plan {
   size_t weights, scratch;
 };
 
-bool plan(Plan& p, int batch, int h, int xd, int id, int n_de, int n_ae, int rows, float* scratch) {
+bool plan(Plan& p, int batch, int h, int xd, int id, int n_de, int n_ae, int rows, float* scratch, bool tf) {
   if (batch < 1 || h < 1 || xd < 1 || id < 1 || n_de < 1 || n_de > kMaxTail || n_ae < 1 || n_ae > kMaxTail ||
       (rows != 1 && rows != 2 && rows != 4 && rows != 8))
     return false;
@@ -388,42 +428,24 @@ bool plan(Plan& p, int batch, int h, int xd, int id, int n_de, int n_ae, int row
   p.de = make_net(at(0), at(wd + wa), n_de, xd + id, xd, p.H);
   p.ae = make_net(at(wd), at(wd + wa + static_cast<size_t>(n_de) * p.H), n_ae, xd, id, p.H);
   p.weights = wd + wa + static_cast<size_t>(n_de + n_ae) * p.H;
-  p.shape = fwd_shape(rows, [&](int R) { return smem_floats(0, p.de, p.ae, R, p.H); });
+  p.shape = fwd_shape(rows, [&](int R) { return smem_floats(0, p.de, p.ae, R, p.H, tf ? tf_stride(xd) : 0); });
   const size_t blocks = (batch + p.shape.rows - 1) / p.shape.rows;
   p.scratch = p.weights + (p.shape.gmem ? blocks * p.shape.floats : 0);
   return true;
 }
 
-}  // namespace
-
-// C interface, loaded with ctypes. psn_fused_dae_rollout_scratch: the
-// floats of device scratch a launch of these sizes needs (-1: sizes it
-// refuses). psn_fused_dae_rollout_f32: pointers are device pointers to
-// contiguous float32 arrays in the wrapper's layout (row = input): wx_de
-// [xd][h], wi_de [id][h], gx_ae [xd][h]; de_w / de_b, ae_w / ae_b host
-// arrays of the tail layers' weights [in][out] and biases [out]; scratch
-// of psn_fused_dae_rollout_scratch floats. solver: 0 Euler, 1 Midpoint, 2
-// RK4 (3/8 rule). rows_per_block: 1, 2, 4 or 8, the most rows a block takes
-// (fewer where their buffers do not fit shared memory). Launches on
-// `stream` without synchronising and returns the launches' error (0 on
-// success).
-extern "C" long long psn_fused_dae_rollout_scratch(int batch, int h, int xd, int id, int n_de, int n_ae,
-                                                   int rows_per_block) {
-  Plan p;
-  return plan(p, batch, h, xd, id, n_de, n_ae, rows_per_block, nullptr) ? static_cast<long long>(p.scratch) : -1;
-}
-
-extern "C" int psn_fused_dae_rollout_f32(const void* s_de, const void* s_ae, const void* s_ae_ev,
-                                         const void* aux, const void* x0, const void* i0, const void* wx_de,
-                                         const void* wi_de, const void* const* de_w, const void* const* de_b,
-                                         int n_de, const void* gx_ae, const void* const* ae_w,
-                                         const void* const* ae_b, int n_ae, void* scratch, void* sol, int tm1,
-                                         int batch, int h, int xd, int id, int solver, int rows_per_block,
-                                         void* stream) {
+// A launch of these sizes: the weights packed, then the rollout (the TF-x
+// mode where xt is not null).
+int rollout(const void* s_de, const void* s_ae, const void* s_ae_ev, const void* aux, const void* x0, const void* i0,
+            const void* wx_de, const void* wi_de, const void* const* de_w, const void* const* de_b, int n_de,
+            const void* gx_ae, const void* const* ae_w, const void* const* ae_b, int n_ae, void* scratch, void* sol,
+            int tm1, int batch, int h, int xd, int id, int solver, int rows_per_block, const void* xt,
+            const void* xt1, void* stream) {
   Plan p;
   float* base = static_cast<float*>(scratch);
-  if (tm1 < 0 || solver < 0 || solver > 2 || !base ||
-      !plan(p, batch, h, xd, id, n_de, n_ae, rows_per_block, base))
+  const bool tf = xt != nullptr;
+  if (tm1 < 0 || solver < 0 || solver > 2 || !base || (tf && !xt1) ||
+      !plan(p, batch, h, xd, id, n_de, n_ae, rows_per_block, base, tf))
     return static_cast<int>(cudaErrorInvalidValue);
   if (tm1 == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -470,6 +492,17 @@ extern "C" int psn_fused_dae_rollout_f32(const void* s_de, const void* s_ae, con
   a.xd = xd;
   a.id = id;
   a.solver = solver;
+  a.xt = static_cast<const float*>(xt);
+  a.xt1 = static_cast<const float*>(xt1);
+  if (tf) {
+    if (p.shape.gmem) return static_cast<int>(launch<1, false, true, true>(a, st));
+    switch (p.shape.rows) {
+      case 1: return static_cast<int>(launch<1, false, false, true>(a, st));
+      case 2: return static_cast<int>(launch<2, false, false, true>(a, st));
+      case 4: return static_cast<int>(launch<4, false, false, true>(a, st));
+      default: return static_cast<int>(launch<8, false, false, true>(a, st));
+    }
+  }
   const bool fold = narrow_in(a.de) && narrow_out(a.de) && narrow_in(a.ae) && narrow_out(a.ae);
   if (p.shape.gmem) return static_cast<int>(launch<1, false, true>(a, st));
   switch (p.shape.rows) {
@@ -478,6 +511,58 @@ extern "C" int psn_fused_dae_rollout_f32(const void* s_de, const void* s_ae, con
     case 4: return static_cast<int>(launch<4, false>(a, st));
     default: return static_cast<int>(launch<8, false>(a, st));
   }
+}
+
+}  // namespace
+
+// C interface, loaded with ctypes. psn_fused_dae_rollout_scratch: the
+// floats of device scratch a launch of these sizes needs (-1: sizes it
+// refuses). psn_fused_dae_rollout_f32: pointers are device pointers to
+// contiguous float32 arrays in the wrapper's layout (row = input): wx_de
+// [xd][h], wi_de [id][h], gx_ae [xd][h]; de_w / de_b, ae_w / ae_b host
+// arrays of the tail layers' weights [in][out] and biases [out]; scratch
+// of psn_fused_dae_rollout_scratch floats. solver: 0 Euler, 1 Midpoint, 2
+// RK4 (3/8 rule). rows_per_block: 1, 2, 4 or 8, the most rows a block takes
+// (fewer where their buffers do not fit shared memory). Launches on
+// `stream` without synchronising and returns the launches' error (0 on
+// success). psn_fused_dae_rollout_tfx_scratch / _tfx_f32: the same in the
+// TF-x mode, with the true states xt = x_true[:-1] and xt1 = x_true[1:]
+// ([tm1][batch][xd] each).
+extern "C" long long psn_fused_dae_rollout_scratch(int batch, int h, int xd, int id, int n_de, int n_ae,
+                                                   int rows_per_block) {
+  Plan p;
+  return plan(p, batch, h, xd, id, n_de, n_ae, rows_per_block, nullptr, false) ? static_cast<long long>(p.scratch)
+                                                                                : -1;
+}
+
+extern "C" long long psn_fused_dae_rollout_tfx_scratch(int batch, int h, int xd, int id, int n_de, int n_ae,
+                                                       int rows_per_block) {
+  Plan p;
+  return plan(p, batch, h, xd, id, n_de, n_ae, rows_per_block, nullptr, true) ? static_cast<long long>(p.scratch)
+                                                                               : -1;
+}
+
+extern "C" int psn_fused_dae_rollout_f32(const void* s_de, const void* s_ae, const void* s_ae_ev,
+                                         const void* aux, const void* x0, const void* i0, const void* wx_de,
+                                         const void* wi_de, const void* const* de_w, const void* const* de_b,
+                                         int n_de, const void* gx_ae, const void* const* ae_w,
+                                         const void* const* ae_b, int n_ae, void* scratch, void* sol, int tm1,
+                                         int batch, int h, int xd, int id, int solver, int rows_per_block,
+                                         void* stream) {
+  return rollout(s_de, s_ae, s_ae_ev, aux, x0, i0, wx_de, wi_de, de_w, de_b, n_de, gx_ae, ae_w, ae_b, n_ae, scratch,
+                 sol, tm1, batch, h, xd, id, solver, rows_per_block, nullptr, nullptr, stream);
+}
+
+extern "C" int psn_fused_dae_rollout_tfx_f32(const void* s_de, const void* s_ae, const void* s_ae_ev,
+                                             const void* aux, const void* x0, const void* i0, const void* wx_de,
+                                             const void* wi_de, const void* const* de_w, const void* const* de_b,
+                                             int n_de, const void* gx_ae, const void* const* ae_w,
+                                             const void* const* ae_b, int n_ae, void* scratch, void* sol, int tm1,
+                                             int batch, int h, int xd, int id, int solver, int rows_per_block,
+                                             const void* xt, const void* xt1, void* stream) {
+  if (!xt) return static_cast<int>(cudaErrorInvalidValue);
+  return rollout(s_de, s_ae, s_ae_ev, aux, x0, i0, wx_de, wi_de, de_w, de_b, n_de, gx_ae, ae_w, ae_b, n_ae, scratch,
+                 sol, tm1, batch, h, xd, id, solver, rows_per_block, xt, xt1, stream);
 }
 
 extern "C" const char* psn_cuda_error_string(int code) {

@@ -5,7 +5,7 @@
 // Replaces the TPU kernel py_psnode_tpu/ops/fused_dae_vjp.py:_bwd_kernel
 // (:147), launched by _run_backward (pallas_call at :562). It computes the
 // same function at float32 accuracy, without the TPU's grid, time padding,
-// lanes, bf16 mode or teacher forcing. Per batch row, for t = T-2 down to 0,
+// lanes or bf16 mode. Per batch row, for t = T-2 down to 0,
 // with x_t, i_t, x_{t+1} from the saved packed solution and the carries
 // gx_c, gi_c (zero at the start):
 //
@@ -22,6 +22,14 @@
 //
 // and every weight and bias gradient summed over all rows and steps. g_x0 /
 // g_i0 are the carries after step 0 (the wrapper adds cot[0]).
+//
+// The TF-x mode (teacher forcing of x, the TPU kernel's tf_x; kernels of
+// their own, the template flag kTfx of the same bodies): the stages start
+// from x_true[t] and the AE at t+1 reads x_true[t+1] (the recompute takes
+// them, and the contraction's first-layer operand with them), so the
+// stages' x cotangent goes to g_xt[t] and the AE's to g_xt1[t], each
+// written only where the caller gives a buffer, and the x carry keeps only
+// the event route's part; the AE at the event still reads the rolled x_t.
 //
 // Bound on an H100 SXM at the main training shape (B=64, T=1001, h=128,
 // xd=3, id=2, three-layer tails, RK4): a row-step evaluates four DE stages
@@ -110,13 +118,17 @@ struct Args {
   int tm1, batch, xd, id, solver;
   int H;                 // the padded width (kMaxH: the 128-wide kernels)
   float* scratch;        // the wide kernels' global scratch (the contraction's partial sums)
+  const float* xt;       // the TF-x mode: x_true[:-1] [tm1, batch, xd]
+  const float* xt1;      // and x_true[1:]
+  float* g_xt;           // their cotangents [tm1, batch, xd] (null: not written)
+  float* g_xt1;
 };
 
 // The wide walk's vectors of H floats.
 constexpr int kDaeWalkVecs = 11;
 
 // ---- kernel 1: every evaluation of every row-step, a tile of kRows at a time ----
-template <bool kWide>
+template <bool kWide, bool kTfx = false>
 __device__ __forceinline__ void dae_recompute_body(const Args& a, float* smem) {
   const RcSmem s = kWide ? carve_rc_wide(smem, a.scratch + blockIdx.x * rc_wide_tile_floats(a.H), a.H)
                          : carve_rc(smem);
@@ -147,7 +159,9 @@ __device__ __forceinline__ void dae_recompute_body(const Args& a, float* smem) {
     rc_input(s, bf, eV, r0, xd, [&](int m, int c) { return x_t(r0 + m, c); });
     eval(a.ae, eV, a.s_ae_ev, [&](int m) { return s.ev[m] > 0.f; }, bf.gy_row(eV, 0));
   }
-  rc_input(s, bf, eN, r0, xd, [&](int m, int c) { return __ldg(a.sol + (r0 + m) * D + c); });
+  rc_input(s, bf, eN, r0, xd, [&](int m, int c) {  // x_{t+1}, or x_true[t+1]
+    return kTfx ? __ldg(a.xt1 + (r0 + m) * xd + c) : __ldg(a.sol + (r0 + m) * D + c);
+  });
   eval(a.ae, eN, a.s_ae, [](int) { return true; }, nullptr);
   // stage q's output k_q waits in gy slot q, the AE at the event's in slot
   // eV (the walk overwrites both)
@@ -156,7 +170,7 @@ __device__ __forceinline__ void dae_recompute_body(const Args& a, float* smem) {
     rc_input(s, bf, q, r0, D, [&](int m, int c) {
       const long long r = r0 + m;
       if (c >= xd) return s.ev[m] > 0.f ? bf.gy_row(eV, r)[c - xd] : i_t(r, c - xd);
-      const float x = x_t(r, c), dt = s.dt[m];
+      const float x = kTfx ? __ldg(a.xt + r * xd + c) : x_t(r, c), dt = s.dt[m];  // the step's start
       if (q == 0) return x;
       if (a.solver == 1) return x + k(0, r, c) * (0.5f * dt);  // Midpoint
       if (q == 1) return x + dt * k(0, r, c) * kOneThird;     // RK4, Kutta's 3/8 rule
@@ -177,11 +191,21 @@ __global__ void __launch_bounds__(kThreads, 1) dae_recompute_wide(const __grid_c
   dae_recompute_body<true>(a, smem);
 }
 
+__global__ void __launch_bounds__(kThreads, 1) dae_recompute_tfx(const __grid_constant__ Args a) {
+  extern __shared__ __align__(16) float smem[];
+  dae_recompute_body<false, true>(a, smem);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) dae_recompute_wide_tfx(const __grid_constant__ Args a) {
+  extern __shared__ __align__(16) float smem[];
+  dae_recompute_body<true, true>(a, smem);
+}
+
 // ---- kernel 2: the reverse walk, one block per batch row ----
 // kWide: the walk at a padded width H > kMaxH (no resident weight, no
 // prefetch; the vectors H long, in shared memory or, without vec_smem, in
-// the block's share of the scratch).
-template <bool kWide>
+// the block's share of the scratch). kTfx: the TF-x mode.
+template <bool kWide, bool kTfx = false>
 __device__ __forceinline__ void dae_walk_body(const Args& a, int slots, bool vec_smem, float* smem) {
   const Bufs& bf = a.bf;
   const int xd = a.xd, id = a.id, D = xd + id, B = a.batch, h = bf.h, tid = threadIdx.x;
@@ -268,10 +292,15 @@ __device__ __forceinline__ void dae_walk_body(const Args& a, int slots, bool vec
     }
     __syncthreads();
 
-    // ---- the AE at t+1, from gI1 ----
+    // ---- the AE at t+1, from gI1; its x cotangent to gX1, or in the
+    // TF-x mode to g_xt1 (x_true[t+1] was its input) ----
     const float* v = eval(a.ae, eN);
     put(a.g_s_ae, [&](int j) { return v[j]; });
-    inputs(a.ae, v, [&](int c, float g) { gX1[c] += g; });
+    if constexpr (kTfx) {
+      if (a.g_xt1) inputs(a.ae, v, [&](int c, float g) { a.g_xt1[r * xd + c] = g; });
+    } else {
+      inputs(a.ae, v, [&](int c, float g) { gX1[c] += g; });
+    }
     __syncthreads();
     NE_PHASE(1);
 
@@ -344,6 +373,12 @@ __device__ __forceinline__ void dae_walk_body(const Args& a, int slots, bool vec
     } else {
       if (walk_ks() == 0 && k < h) a.g_s_de[r * h + k] = gsde;
     }
+    if constexpr (kTfx) {  // the step started from x_true[t]: its cotangent leaves the x carry
+      for (int c = tid; c < xd; c += kThreads) {
+        if (a.g_xt) a.g_xt[r * xd + c] = gxc[c];
+        gxc[c] = 0.f;
+      }
+    }
     NE_PHASE(2);
 
     // ---- route the i_in cotangent: on an event through the AE_ev VJP
@@ -374,6 +409,16 @@ __global__ void __launch_bounds__(kThreads, 1) dae_walk(const __grid_constant__ 
 __global__ void __launch_bounds__(kThreads, 1) dae_walk_wide(const __grid_constant__ Args a, int vec_smem) {
   extern __shared__ __align__(16) float smem[];
   dae_walk_body<true>(a, 0, vec_smem != 0, smem);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) dae_walk_tfx(const __grid_constant__ Args a, int slots) {
+  extern __shared__ __align__(16) float smem[];
+  dae_walk_body<false, true>(a, slots, true, smem);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) dae_walk_wide_tfx(const __grid_constant__ Args a, int vec_smem) {
+  extern __shared__ __align__(16) float smem[];
+  dae_walk_body<true, true>(a, 0, vec_smem != 0, smem);
 }
 
 // The contraction's jobs: the DE over the stages' slots ([wx; wi] from
@@ -417,25 +462,18 @@ extern "C" void psn_fused_dae_bwd_sizes(int tm1, int batch, int h, int xd, int i
   }
 }
 
-// C interface, loaded with ctypes. Pointers are device pointers to
-// contiguous float32 arrays: w_de the DE's padded weights [n_de + 1][H][H]
-// in 128 x 128 blocks (csrc/noencode_bwd.cuh; [wx_de; wi_de], then the tail
-// layers), H the multiple of 128 at or above h and xd + id, b_de its padded
-// biases [n_de][H], w_ae / b_ae the AE's (gx_ae first); res, gres, gy, xin and
-// parts scratch of the sizes psn_fused_dae_bwd_sizes gives. solver: 0 Euler,
-// 1 Midpoint, 2 RK4 (3/8 rule). stages: the kernels to launch, 1 the
-// recompute, 2 the walk, 4 the contraction (7 for the backward; one alone
-// times it, or runs the contraction on given buffers). max_slots: the
-// walk's weights resident in shared memory, in the order DE, AE (negative:
-// the DE's hidden ones; the others come from L2). Launches on `stream` without synchronising and returns the first launch error (0 on success).
-extern "C" int psn_fused_dae_rollout_bwd_f32(
-    const void* s_de, const void* s_ae, const void* s_ae_ev, const void* aux, const void* x0,
-    const void* i0, const void* sol, const void* cot, const void* w_de, const void* b_de, int n_de,
-    const void* w_ae, const void* b_ae, int n_ae, void* g_s_de, void* g_s_ae, void* g_s_ae_ev,
-    void* g_w, void* g_x0, void* g_i0, void* res, void* gres, void* gy, void* xin, void* parts,
-    int tm1, int batch, int h, int xd, int id, int solver, int stages, int max_slots, void* stream) {
+namespace {
+
+// The backward's launches (the TF-x kernels where xt is not null).
+int backward(const void* s_de, const void* s_ae, const void* s_ae_ev, const void* aux, const void* x0,
+             const void* i0, const void* sol, const void* cot, const void* w_de, const void* b_de, int n_de,
+             const void* w_ae, const void* b_ae, int n_ae, void* g_s_de, void* g_s_ae, void* g_s_ae_ev,
+             void* g_w, void* g_x0, void* g_i0, void* res, void* gres, void* gy, void* xin, void* parts,
+             int tm1, int batch, int h, int xd, int id, int solver, int stages, int max_slots, const void* xt,
+             const void* xt1, void* g_xt, void* g_xt1, void* stream) {
+  const bool tf = xt != nullptr;
   if (tm1 < 1 || batch < 1 || h < 1 || xd < 1 || id < 1 || solver < 0 || solver > 2 || n_de < 1 ||
-      n_de > kMaxTail || n_ae < 1 || n_ae > kMaxTail)
+      n_de > kMaxTail || n_ae < 1 || n_ae > kMaxTail || (tf && !xt1))
     return static_cast<int>(cudaErrorInvalidValue);
   const int S = n_stages(solver), E = S + 2, L = n_de > n_ae ? n_de : n_ae;
   const int H = fwd_width(h > xd + id ? h : xd + id);
@@ -465,30 +503,37 @@ extern "C" int psn_fused_dae_rollout_bwd_f32(
   a.solver = solver;
   a.H = H;
   a.scratch = static_cast<float*>(parts);
+  a.xt = static_cast<const float*>(xt);
+  a.xt1 = static_cast<const float*>(xt1);
+  a.g_xt = static_cast<float*>(g_xt);
+  a.g_xt1 = static_cast<float*>(g_xt1);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaSuccess;
   const int tiles = static_cast<int>((R + kRows - 1) / kRows);
   if ((stages & 1) && H > kMaxH) {
     const size_t smem = rc_wide_smem_bytes();
-    e = allow_smem(dae_recompute_wide, smem);
+    auto kernel = tf ? dae_recompute_wide_tfx : dae_recompute_wide;
+    e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    dae_recompute_wide<<<tiles, kThreads, smem, st>>>(a);
+    kernel<<<tiles, kThreads, smem, st>>>(a);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   } else if (stages & 1) {
     const size_t smem = rc_smem_bytes();
-    e = allow_smem(dae_recompute, smem);
+    auto kernel = tf ? dae_recompute_tfx : dae_recompute;
+    e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    dae_recompute<<<tiles, kThreads, smem, st>>>(a);
+    kernel<<<tiles, kThreads, smem, st>>>(a);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if ((stages & 2) && H > kMaxH) {
     const int in_smem = walk_wide_in_smem(kDaeWalkVecs, H);
     const size_t smem = in_smem ? static_cast<size_t>(kDaeWalkVecs) * H * sizeof(float) : 0;
-    e = allow_smem(dae_walk_wide, smem);
+    auto kernel = tf ? dae_walk_wide_tfx : dae_walk_wide;
+    e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    dae_walk_wide<<<batch, kThreads, smem, st>>>(a, in_smem);
+    kernel<<<batch, kThreads, smem, st>>>(a, in_smem);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   } else if (stages & 2) {
@@ -499,9 +544,10 @@ extern "C" int psn_fused_dae_rollout_bwd_f32(
     const int fit = walk_fit(E, L), cap = max_slots >= 0 ? max_slots : n_de - 1;
     const int slots = place(nets, 2, cap < fit ? cap : fit);
     const size_t smem = walk_floats(slots, E, L) * sizeof(float);
-    e = allow_smem(dae_walk, smem);
+    auto kernel = tf ? dae_walk_tfx : dae_walk;
+    e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    dae_walk<<<batch, kThreads, smem, st>>>(a, slots);
+    kernel<<<batch, kThreads, smem, st>>>(a, slots);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -517,6 +563,46 @@ extern "C" int psn_fused_dae_rollout_bwd_f32(
     e = launch_contraction(c, n_splits(max_rows(c.jobs, R)), st);
   }
   return static_cast<int>(e);
+}
+
+}  // namespace
+
+// C interface, loaded with ctypes. Pointers are device pointers to
+// contiguous float32 arrays: w_de the DE's padded weights [n_de + 1][H][H]
+// in 128 x 128 blocks (csrc/noencode_bwd.cuh; [wx_de; wi_de], then the tail
+// layers), H the multiple of 128 at or above h and xd + id, b_de its padded
+// biases [n_de][H], w_ae / b_ae the AE's (gx_ae first); res, gres, gy, xin and
+// parts scratch of the sizes psn_fused_dae_bwd_sizes gives. solver: 0 Euler,
+// 1 Midpoint, 2 RK4 (3/8 rule). stages: the kernels to launch, 1 the
+// recompute, 2 the walk, 4 the contraction (7 for the backward; one alone
+// times it, or runs the contraction on given buffers). max_slots: the
+// walk's weights resident in shared memory, in the order DE, AE (negative:
+// the DE's hidden ones; the others come from L2). Launches on `stream` without synchronising and returns the first launch error (0 on success). psn_fused_dae_rollout_bwd_tfx_f32: the same in the
+// TF-x mode, with the true states xt = x_true[:-1] and xt1 = x_true[1:]
+// ([tm1][batch][xd] each) and their cotangents g_xt and g_xt1 (null: not
+// written).
+extern "C" int psn_fused_dae_rollout_bwd_f32(
+    const void* s_de, const void* s_ae, const void* s_ae_ev, const void* aux, const void* x0,
+    const void* i0, const void* sol, const void* cot, const void* w_de, const void* b_de, int n_de,
+    const void* w_ae, const void* b_ae, int n_ae, void* g_s_de, void* g_s_ae, void* g_s_ae_ev,
+    void* g_w, void* g_x0, void* g_i0, void* res, void* gres, void* gy, void* xin, void* parts,
+    int tm1, int batch, int h, int xd, int id, int solver, int stages, int max_slots, void* stream) {
+  return backward(s_de, s_ae, s_ae_ev, aux, x0, i0, sol, cot, w_de, b_de, n_de, w_ae, b_ae, n_ae, g_s_de, g_s_ae,
+                  g_s_ae_ev, g_w, g_x0, g_i0, res, gres, gy, xin, parts, tm1, batch, h, xd, id, solver, stages,
+                  max_slots, nullptr, nullptr, nullptr, nullptr, stream);
+}
+
+extern "C" int psn_fused_dae_rollout_bwd_tfx_f32(
+    const void* s_de, const void* s_ae, const void* s_ae_ev, const void* aux, const void* x0,
+    const void* i0, const void* sol, const void* cot, const void* w_de, const void* b_de, int n_de,
+    const void* w_ae, const void* b_ae, int n_ae, void* g_s_de, void* g_s_ae, void* g_s_ae_ev,
+    void* g_w, void* g_x0, void* g_i0, void* res, void* gres, void* gy, void* xin, void* parts,
+    int tm1, int batch, int h, int xd, int id, int solver, int stages, int max_slots, const void* xt,
+    const void* xt1, void* g_xt, void* g_xt1, void* stream) {
+  if (!xt) return static_cast<int>(cudaErrorInvalidValue);
+  return backward(s_de, s_ae, s_ae_ev, aux, x0, i0, sol, cot, w_de, b_de, n_de, w_ae, b_ae, n_ae, g_s_de, g_s_ae,
+                  g_s_ae_ev, g_w, g_x0, g_i0, res, gres, gy, xin, parts, tm1, batch, h, xd, id, solver, stages,
+                  max_slots, xt, xt1, g_xt, g_xt1, stream);
 }
 
 extern "C" const char* psn_cuda_error_string(int code) {

@@ -5,7 +5,10 @@
 initialization ``x0 = Init(z0, v0, i0)``; the algebraic output enters the
 differential step lagged by one step. The direct-encode model runs the same
 rollout in a latent space of width ``h`` (five codecs, 2-layer nets, events
-jumping the encoded inputs). These modules run the plain rollout
+jumping the encoded inputs). ``input_true_x`` / ``input_true_i``
+teacher-force the rollout, the direct-encode one in latent space
+(``x_true = x_encoder(x)``, ``i_true = i_encoder(i)``). These modules run
+the plain rollout
 (:func:`~py_psnode_tpu_torch.solvers.integrate_dae`); the fused paths are
 :func:`py_psnode_tpu_torch.ops.fused_model.fused_dae_apply` and
 :func:`~py_psnode_tpu_torch.ops.fused_model.fused_dae_encode_apply`.
@@ -68,12 +71,14 @@ class DAEModel(nn.Module):
         event_t: Optional[torch.Tensor] = None,
         z_jump: Optional[torch.Tensor] = None,
         v_jump: Optional[torch.Tensor] = None,
+        input_true_x: bool = False,
+        input_true_i: bool = False,
     ):
         is_event, e_idx = event_match(t, event_t)
         z_used = jumped_stream(z, z_jump, is_event, e_idx)
         v_used = jumped_stream(v, v_jump, is_event, e_idx)
 
-        tT, zT, vT, iT = _tm(t), _tm(z), _tm(v), _tm(i)
+        tT, xT, zT, vT, iT = _tm(t), _tm(x), _tm(z), _tm(v), _tm(i)
         x0 = self.init_func(zT[0], vT[0], iT[0])
         all_initial = torch.cat([x0, zT[0], vT[0], iT[0]], dim=-1)
         de_fn = lambda tt, xx, zz, vv, ii: self.de_func(tt, all_initial, xx, zz, vv, ii)
@@ -89,6 +94,10 @@ class DAEModel(nn.Module):
             _tm(z_used)[:-1],
             _tm(v_used)[:-1],
             is_event=_tm(is_event)[:-1],
+            x_true=xT,
+            i_true=iT,
+            input_true_x=input_true_x,
+            input_true_i=input_true_i,
         )
         return _tm(x_sol), _tm(i_sol)
 
@@ -152,6 +161,8 @@ class DAEEncodeModel(nn.Module):
         event_t: Optional[torch.Tensor] = None,
         z_jump: Optional[torch.Tensor] = None,
         v_jump: Optional[torch.Tensor] = None,
+        input_true_x: bool = False,
+        input_true_i: bool = False,
     ):
         tT, zT, vT, iT = _tm(t), _tm(z), _tm(v), _tm(i)
         x0 = self.init_func(zT[0], vT[0], iT[0])
@@ -163,7 +174,7 @@ class DAEEncodeModel(nn.Module):
         zh_used = jumped_stream(zh, zh_jump, is_event, e_idx)
         vh_used = jumped_stream(vh, vh_jump, is_event, e_idx)
 
-        zhT, vhT, ihT = _tm(zh), _tm(vh), _tm(ih)
+        xhT, zhT, vhT, ihT = _tm(xh), _tm(zh), _tm(vh), _tm(ih)
         all_initial = torch.cat([xh0, zhT[0], vhT[0], ihT[0]], dim=-1)
         de_fn = lambda tt, xx, zz, vv, ii: self.de_func(tt, all_initial, xx, zz, vv, ii)
         ae_fn = lambda xx, zz, vv: self.ae_func(all_initial, xx, zz, vv)
@@ -178,6 +189,10 @@ class DAEEncodeModel(nn.Module):
             _tm(zh_used)[:-1],
             _tm(vh_used)[:-1],
             is_event=_tm(is_event)[:-1],
+            x_true=xhT,
+            i_true=ihT,
+            input_true_x=input_true_x,
+            input_true_i=input_true_i,
         )
         x_pred = torch.cat([x0[None], self.x_decoder(xh_sol[1:])])  # ref :150
         return (_tm(x_pred), _tm(self.i_decoder(ih_sol)), self.x_decoder(xh),

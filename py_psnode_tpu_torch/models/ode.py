@@ -6,7 +6,9 @@ on the raw states, conditioned on ``all_initial = cat(x[0], z[0])`` (the
 un-jumped ``z``); at an event step the exogenous input is the stored
 post-jump value. Direct-encode: the same rollout in a latent space of width
 ``h``, with codecs for ``x`` and ``z``, a 2-layer dynamics net, and events
-jumping the encoded ``z``. These modules run the plain rollout
+jumping the encoded ``z``. ``input_true_x`` teacher-forces the rollout,
+the direct-encode one in latent space (``x_true = x_encoder(x)``). These
+modules run the plain rollout
 (:func:`~py_psnode_tpu_torch.solvers.integrate_ode`); the fused paths are
 :func:`py_psnode_tpu_torch.ops.fused_model.fused_ode_apply` and
 :func:`~py_psnode_tpu_torch.ops.fused_model.fused_ode_encode_apply`.
@@ -49,13 +51,14 @@ class ODEModel(nn.Module):
         z,
         event_t: Optional[torch.Tensor] = None,
         z_jump: Optional[torch.Tensor] = None,
+        input_true_x: bool = False,
     ):
         is_event, e_idx = event_match(t, event_t)
         z_used = jumped_stream(z, z_jump, is_event, e_idx)
         tT, xT = _tm(t), _tm(x)
         all_initial = torch.cat([xT[0], _tm(z)[0]], dim=-1)
         de_fn = lambda tt, xx, zz: self.de_func(tt, all_initial, xx, zz)
-        sol = integrate_ode(self.solver, de_fn, tT, xT[0], _tm(z_used)[:-1])
+        sol = integrate_ode(self.solver, de_fn, tT, xT[0], _tm(z_used)[:-1], xT, input_true_x=input_true_x)
         return _tm(sol)
 
 
@@ -87,6 +90,7 @@ class ODEEncodeModel(nn.Module):
         z,
         event_t: Optional[torch.Tensor] = None,
         z_jump: Optional[torch.Tensor] = None,
+        input_true_x: bool = False,
     ):
         xh, zh = self.x_encoder(x), self.z_encoder(z)
         zh_jump = self.z_encoder(z_jump) if z_jump is not None else None
@@ -95,5 +99,6 @@ class ODEEncodeModel(nn.Module):
         tT, xhT = _tm(t), _tm(xh)
         all_initial = torch.cat([xhT[0], _tm(zh)[0]], dim=-1)
         de_fn = lambda tt, xx, zz: self.de_func(tt, all_initial, xx, zz)
-        xh_sol = integrate_ode(self.solver, de_fn, tT, xhT[0], _tm(zh_used)[:-1])
+        xh_sol = integrate_ode(self.solver, de_fn, tT, xhT[0], _tm(zh_used)[:-1], xhT,
+                               input_true_x=input_true_x)
         return self.x_decoder(_tm(xh_sol)), self.x_decoder(xh)

@@ -14,10 +14,12 @@ for the whole rollout, after a small one that pads the weights into a
 scratch block), on CPU tensors it runs
 :func:`fused_dae_rollout_packed_plain`, the same function as an eager
 PyTorch loop. There is no fallback from the kernel to the plain version.
+Under teacher forcing of ``x`` (``x_true``, the JAX package's ``tf_x``)
+each step starts from the true state and the AE at t+1 reads the true
+``x[t+1]``, while the event recompute still reads the rolled state.
 
-Not ported: the bf16 compute mode, teacher forcing (``tf_x``), lanes, and
-the TPU's time blocking with ``dt == 0`` padding (scheduling that does not
-change the result).
+Not ported: the bf16 compute mode, lanes, and the TPU's time blocking with
+``dt == 0`` padding (scheduling that does not change the result).
 """
 
 from __future__ import annotations
@@ -169,11 +171,14 @@ def mlp_tail_fwd(h1: torch.Tensor, tail: Sequence[Tuple[torch.Tensor, torch.Tens
 
 
 def fused_dae_rollout_packed_plain(
-    streams: Dict, weights: Dict, x0, i0, aux, solver: str = "rk4"
+    streams: Dict, weights: Dict, x0, i0, aux, solver: str = "rk4", x_true=None
 ) -> torch.Tensor:
     """The rollout as an eager PyTorch loop on any device: the plain
     version of the CUDA kernel. Returns the packed ``[T-1, B, xd+id]``
-    rows ``cat(x, i)`` of steps 1..T-1."""
+    rows ``cat(x, i)`` of steps 1..T-1. With ``x_true [T, B, xd]`` (teacher
+    forcing of ``x``) step t starts from ``x_true[t]`` and the AE at t+1
+    reads ``x_true[t+1]``; the event recompute and the rows written stay
+    the rolled ones (JAX ``fused_dae.py:424-484``)."""
     solver = normalize_solver(solver)
     s_de, s_ae, s_ae_ev = streams["s_de"], streams["s_ae"], streams["s_ae_ev"]
     wx_de, wi_de, gx_ae = weights["wx_de"], weights["wi_de"], weights["gx_ae"]
@@ -193,18 +198,19 @@ def fused_dae_rollout_packed_plain(
         i_proj = i_in @ wi_de
         f = lambda x: mlp_tail_fwd(s_de[t] + x @ wx_de + i_proj, de_tail)
         dt = aux[t, :, 0:1]
+        xs = x_c if x_true is None else x_true[t]  # the step's start
         if solver == "euler":
-            x1 = x_c + dt * f(x_c)
+            x1 = xs + dt * f(xs)
         elif solver == "midpoint":
-            f0 = f(x_c)
-            x1 = x_c + dt * f(x_c + f0 * (0.5 * dt))
+            f0 = f(xs)
+            x1 = xs + dt * f(xs + f0 * (0.5 * dt))
         else:  # rk4, Kutta's 3/8 rule
-            k1 = f(x_c)
-            k2 = f(x_c + dt * k1 * _ONE_THIRD)
-            k3 = f(x_c + dt * (k2 - k1 * _ONE_THIRD))
-            k4 = f(x_c + dt * (k1 - k2 + k3))
-            x1 = x_c + (k1 + 3.0 * (k2 + k3) + k4) * dt * 0.125
-        i1 = ae_head(x1, s_ae[t])
+            k1 = f(xs)
+            k2 = f(xs + dt * k1 * _ONE_THIRD)
+            k3 = f(xs + dt * (k2 - k1 * _ONE_THIRD))
+            k4 = f(xs + dt * (k1 - k2 + k3))
+            x1 = xs + (k1 + 3.0 * (k2 + k3) + k4) * dt * 0.125
+        i1 = ae_head(x1 if x_true is None else x_true[t + 1], s_ae[t])
         out[t, :, :xd] = x1
         out[t, :, xd:] = i1
         x_c, i_c = x1, i1
@@ -212,13 +218,13 @@ def fused_dae_rollout_packed_plain(
 
 
 def bind_rollout(lib: ctypes.CDLL):
-    """``(launcher, scratch floats, error string)``: the C functions of a
-    build of ``csrc/fused_dae_rollout.cu`` (for the card or, in
+    """``(launcher, scratch floats, error string, TF-x launcher, TF-x
+    scratch floats)``: the C functions of a build of
+    ``csrc/fused_dae_rollout.cu`` (for the card or, in
     ``utils/host_build.py``, the host) with their signatures."""
-    fn = lib.psn_fused_dae_rollout_f32
     P, I = ctypes.c_void_p, ctypes.c_int
     PP = ctypes.POINTER(ctypes.c_void_p)
-    fn.argtypes = [
+    args = [
         P, P, P, P,  # s_de, s_ae, s_ae_ev, aux
         P, P,  # x0, i0
         P, P, PP, PP, I,  # wx_de, wi_de, de tail W, b, count
@@ -226,8 +232,9 @@ def bind_rollout(lib: ctypes.CDLL):
         P, P,  # scratch, sol
         I, I, I, I, I,  # Tm1, B, h, xd, id
         I, I,  # solver, rows per block
-        P,  # stream
     ]
+    fn = lib.psn_fused_dae_rollout_f32
+    fn.argtypes = args + [P]  # stream
     fn.restype = ctypes.c_int
     scratch = lib.psn_fused_dae_rollout_scratch
     scratch.argtypes = [I] * 7  # B, h, xd, id, DE and AE tail layers, rows per block
@@ -235,7 +242,13 @@ def bind_rollout(lib: ctypes.CDLL):
     err = lib.psn_cuda_error_string
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
-    return fn, scratch, err
+    tf = lib.psn_fused_dae_rollout_tfx_f32
+    tf.argtypes = args + [P, P, P]  # x_true[:-1], x_true[1:], stream
+    tf.restype = ctypes.c_int
+    tf_scratch = lib.psn_fused_dae_rollout_tfx_scratch
+    tf_scratch.argtypes = [I] * 7
+    tf_scratch.restype = ctypes.c_longlong
+    return fn, scratch, err, tf, tf_scratch
 
 
 @functools.lru_cache(maxsize=None)
@@ -270,10 +283,10 @@ def launch_rows(dev: torch.device, B: int, rows_per_block=None) -> int:
     return int(rows_per_block)
 
 
-def _check_kernel_inputs(streams, weights, x0, i0, aux, device_type: str = "cuda"):
-    """Raise unless the rollout's inputs are float32, contiguous, on one
-    CUDA device (or, for a host build of the kernels, ``device_type``
-    "cpu") and shaped as the kernels take them."""
+def _check_kernel_inputs(streams, weights, x0, i0, aux, device_type: str = "cuda", x_true=None):
+    """Raise unless the rollout's inputs (``x_true`` too, where given) are
+    float32, contiguous, on one CUDA device (or, for a host build of the
+    kernels, ``device_type`` "cpu") and shaped as the kernels take them."""
     s_de = streams["s_de"]
     if s_de.device.type != device_type:
         raise ValueError(f"the CUDA rollout kernel takes CUDA tensors, got {s_de.device}")
@@ -290,6 +303,8 @@ def _check_kernel_inputs(streams, weights, x0, i0, aux, device_type: str = "cuda
         "wi_de": (weights["wi_de"], (idim, h)),
         "gx_ae": (weights["gx_ae"], (xd, h)),
     }
+    if x_true is not None:
+        expect["x_true"] = (x_true, (Tm1 + 1, B, xd))
     for net, out_w in (("de_tail", xd), ("ae_tail", idim)):
         tail = weights[net]
         if not 1 <= len(tail) <= MAX_TAIL:
@@ -310,33 +325,39 @@ def _check_kernel_inputs(streams, weights, x0, i0, aux, device_type: str = "cuda
 
 
 def fused_dae_rollout_packed_cuda(
-    streams: Dict, weights: Dict, x0, i0, aux, solver: str = "rk4", rows_per_block=None,
+    streams: Dict, weights: Dict, x0, i0, aux, solver: str = "rk4", rows_per_block=None, x_true=None,
 ) -> torch.Tensor:
     """Launch the CUDA kernel once for the whole rollout; returns the packed
     ``[T-1, B, xd+id]`` solution. ``rows_per_block`` (1, 2, 4, 8) is the
     most rows a block of this call takes (the kernel halves it where the
     rows' buffers do not fit shared memory), by default
     :func:`default_launch`; it does not change the result beyond float
-    summation order."""
-    sol = _launch(streams, weights, x0, i0, aux, solver, rows_per_block)
+    summation order. ``x_true [T, B, xd]``: the kernel's TF-x mode (a
+    tile of rows even at one row a block: nothing folds)."""
+    sol = _launch(streams, weights, x0, i0, aux, solver, rows_per_block, x_true=x_true)
     fused_dae_rollout.launches += 1
     return sol
 
 
 def _launch(streams: Dict, weights: Dict, x0, i0, aux, solver: str, rows_per_block=None, launcher=None,
-            host: bool = False) -> torch.Tensor:
+            host: bool = False, x_true=None) -> torch.Tensor:
     """Launch the forward through ``launcher`` (of :func:`bind_rollout`;
-    the default build when None); ``host``: a host build on CPU tensors
+    the default build when None), in its TF-x mode where ``x_true`` is
+    given; ``host``: a host build on CPU tensors
     (``utils/host_build.py``). Counts nothing:
     :func:`fused_dae_rollout_packed_cuda` is the entry; the phase clock and
     the host build launch their own builds."""
     solver = normalize_solver(solver)
-    _check_kernel_inputs(streams, weights, x0, i0, aux, "cpu" if host else "cuda")
+    _check_kernel_inputs(streams, weights, x0, i0, aux, "cpu" if host else "cuda", x_true)
     s_de = streams["s_de"]
     Tm1, B, h = s_de.shape
     xd, idim = x0.shape[-1], i0.shape[-1]
     rows = launch_rows(s_de.device, B, rows_per_block)
-    fn, scratch_floats, err = launcher or _launcher()
+    fn, scratch_floats, err, fn_tf, scratch_tf = launcher or _launcher()
+    tf_args = ()
+    if x_true is not None:
+        fn, scratch_floats = fn_tf, scratch_tf
+        tf_args = (x_true.data_ptr(), x_true[1:].data_ptr())
     de, ae = weights["de_tail"], weights["ae_tail"]
     n = scratch_floats(B, h, xd, idim, len(de), len(ae), rows)
     # must outlive the launch; sizes it refuses (n < 0) raise below
@@ -347,7 +368,7 @@ def _launch(streams: Dict, weights: Dict, x0, i0, aux, solver: str, rows_per_blo
         aux.data_ptr(), x0.data_ptr(), i0.data_ptr(), weights["wx_de"].data_ptr(), weights["wi_de"].data_ptr(),
         pointer_array([W for W, _ in de]), pointer_array([b for _, b in de]), len(de),
         weights["gx_ae"].data_ptr(), pointer_array([W for W, _ in ae]), pointer_array([b for _, b in ae]), len(ae),
-        scratch.data_ptr(), sol.data_ptr(), Tm1, B, h, xd, idim, _SOLVER_CODE[solver], rows,
+        scratch.data_ptr(), sol.data_ptr(), Tm1, B, h, xd, idim, _SOLVER_CODE[solver], rows, *tf_args,
     )
     if rc != 0:
         raise RuntimeError(
@@ -356,14 +377,14 @@ def _launch(streams: Dict, weights: Dict, x0, i0, aux, solver: str, rows_per_blo
     return sol
 
 
-def fused_dae_rollout_packed(streams, weights, x0, i0, aux, solver="rk4"):
+def fused_dae_rollout_packed(streams, weights, x0, i0, aux, solver="rk4", x_true=None):
     """Packed rollout on the tensors' device: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors, an error otherwise."""
     dev = streams["s_de"].device
     if dev.type == "cuda":
-        return fused_dae_rollout_packed_cuda(streams, weights, x0, i0, aux, solver)
+        return fused_dae_rollout_packed_cuda(streams, weights, x0, i0, aux, solver, x_true=x_true)
     if dev.type == "cpu":
-        return fused_dae_rollout_packed_plain(streams, weights, x0, i0, aux, solver)
+        return fused_dae_rollout_packed_plain(streams, weights, x0, i0, aux, solver, x_true)
     raise ValueError(f"fused_dae_rollout runs on cuda or cpu tensors, got {dev}")
 
 
@@ -376,14 +397,19 @@ def fused_dae_rollout(
     ev: torch.Tensor,
     solver: str = "rk4",
     precision: str = "default",
+    x_true=None,
 ):
     """Run the fused rollout (forward only).
 
     Args:
       streams/weights: from :func:`precompute_streams`.
       x0: ``[B, xd]`` initial differential state (Init output).
-      i0: ``[B, id]`` initial algebraic output (AE at t=0).
+      i0: ``[B, id]`` initial algebraic output (AE at t=0; at ``x_true[0]``
+        under teacher forcing).
       dt: ``[T-1, B, 1]`` step sizes; ev: ``[T-1, B]`` event mask.
+      x_true: ``[T, B, xd]`` true states, teacher forcing of ``x``: the
+        step consumes ``x_true[t]`` and the AE at t+1 ``x_true[t+1]``,
+        events still recompute from the rolled state.
 
     Returns ``(x_solution [T, B, xd], i_solution [T, B, id])`` including
     the initial row. ``fused_dae_rollout.launches`` counts kernel launches.
@@ -392,7 +418,8 @@ def fused_dae_rollout(
     Tm1 = streams["s_de"].shape[0]
     aux = pack_aux(dt, ev)
     packed = fused_dae_rollout_packed(
-        streams, weights, x0.contiguous(), i0.contiguous(), aux, solver
+        streams, weights, x0.contiguous(), i0.contiguous(), aux, solver,
+        None if x_true is None else x_true.contiguous(),
     )
     return unpack_solution(packed, x0, i0, Tm1)
 

@@ -162,18 +162,21 @@ def fused_ode_encode_apply(model: ODEEncodeModel, batch: Dict[str, torch.Tensor]
         return model.x_decoder(xh_sol.transpose(0, 1)), model.x_decoder(xh)
 
 
-def dae_encode_setup(model: DAEEncodeModel, batch: Dict[str, torch.Tensor], tf_x: bool = False) -> Dict:
-    """The preamble shared by the direct-encode DAE's fused forwards: the
-    codecs and Init, the events jumped in latent space, the initial
-    algebraic evaluation, and the layer-1 stream precompute at ``dims =
-    (h, zl, h, h)``. ``i0`` is the AE at the encoded
-    Init state ``xh0``, or under ``tf_x`` at the encoded true initial state
-    (the ``integrate_dae`` rule of teacher forcing, which later paths take).
+def dae_encode_setup(model: DAEEncodeModel, batch: Dict[str, torch.Tensor], tf_x: bool = False,
+                     with_streams: bool = True) -> Dict:
+    """The preamble shared by the direct-encode DAE's fused and
+    teacher-forced forwards: the codecs and Init, the events jumped in
+    latent space, the initial algebraic evaluation, and the layer-1 stream
+    precompute at ``dims = (h, zl, h, h)`` (skipped where
+    ``with_streams`` is False: the time-parallel path evaluates the nets).
+    ``i0`` is the AE at the encoded Init state ``xh0``, or under ``tf_x``
+    at the encoded true initial state (the ``integrate_dae`` rule of
+    teacher forcing).
 
     Returns a dict: ``x0`` (the raw Init output), ``xh0``, ``xh`` and ``ih``
     (the encoded ``x`` and ``i``, batch-major), ``all_initial``, ``i0``,
-    ``streams``/``weights``, ``dt``, ``ev``, and the
-    time-major latent streams ``zhT``, ``vhT``, ``ihT``, ``xhT``,
+    ``streams``/``weights`` (None without streams), ``tT``, ``dt``, ``ev``,
+    and the time-major latent streams ``zhT``, ``vhT``, ``ihT``, ``xhT``,
     ``zh_used``, ``vh_used``.
     """
     tm = lambda a: a.transpose(0, 1)
@@ -192,11 +195,13 @@ def dae_encode_setup(model: DAEEncodeModel, batch: Dict[str, torch.Tensor], tf_x
     xhT, zhT, vhT, ihT = tm(xh), tm(zh), tm(vh), tm(ih)
     all_initial = torch.cat([xh0, zhT[0], vhT[0], ihT[0]], dim=-1)
     i0 = model.ae_func(all_initial, xhT[0] if tf_x else xh0, zhT[0], vhT[0])
-    p = {k: flax_params(getattr(model, k)) for k in ("de_func", "ae_func")}
-    streams, weights = precompute_streams(p, all_initial, zhT, vhT, zh_used, vh_used, model.latent_dims)
+    streams = weights = None
+    if with_streams:
+        p = {k: flax_params(getattr(model, k)) for k in ("de_func", "ae_func")}
+        streams, weights = precompute_streams(p, all_initial, zhT, vhT, zh_used, vh_used, model.latent_dims)
     return dict(x0=x0, xh0=xh0, xh=xh, ih=ih, xhT=xhT, zhT=zhT, vhT=vhT, ihT=ihT, zh_used=zh_used,
                 vh_used=vh_used, ev=tm(is_event)[:-1], all_initial=all_initial, i0=i0, streams=streams,
-                weights=weights, dt=tT[1:] - tT[:-1])
+                weights=weights, tT=tT, dt=tT[1:] - tT[:-1])
 
 
 def dae_encode_outputs(model: DAEEncodeModel, s: Dict, xh_sol, ih_sol):

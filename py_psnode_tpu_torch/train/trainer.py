@@ -11,11 +11,13 @@ record-window log lines, an npz checkpoint, an eval and the export of
 summary. ``Trainer.test`` loads a ``model_checkpoint.{epoch}`` npz,
 evaluates it and writes ``Model_<ckpt>_Evaluation.log`` and
 ``evaluation.npz`` next to the checkpoint; ``Trainer.save`` exports a
-checkpoint into ``saved model/`` beside it. Not ported yet: orbax
-checkpoints, ``auto_resume``, multishoot (the
-channel-wise one included), teacher forcing and data parallelism. The
-channel-wise family defines no teacher forcing and refuses it as the JAX
-package does.
+checkpoint into ``saved model/`` beside it. Teacher forcing
+(``input_true_x`` / ``input_true_i``) trains and evaluates the four
+non-channel-wise variants, the fused route by the JAX package's dispatch
+(``_teacher_forced_forward``); the channel-wise family defines none and
+refuses it as the JAX package does. Not ported yet: orbax checkpoints,
+``auto_resume``, multishoot (the channel-wise one included) and data
+parallelism.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 from py_psnode_tpu_torch.bridge import load_params
 from py_psnode_tpu_torch.data import DaeSamples, OdeSamples
 from py_psnode_tpu_torch.models.initializers import init_params
+from py_psnode_tpu_torch.ops import teacher_forcing as TF
 from py_psnode_tpu_torch.train import evaluate as E
 from py_psnode_tpu_torch.train.checkpoints import (
     load_checkpoint_params,
@@ -104,12 +107,14 @@ class TrainConfig:
     # keep the training set on the device and gather batches by index
     device_data: bool = True
     device_data_max_bytes: int = 2 << 30
+    # teacher forcing: the true previous state (input_true_x) and/or the
+    # true lagged algebraic output (input_true_i, DAE only) feed each step
+    input_true_x: bool = False
+    input_true_i: bool = False
     # fields of paths that are not ported yet; a non-default value raises
     n_devices: Optional[int] = None
     checkpointer: str = "npz"
     auto_resume: bool = False
-    input_true_x: bool = False
-    input_true_i: bool = False
     n_windows: Optional[int] = None
     # "cuda", "cuda:N" or "cpu"; nothing falls back from cuda to cpu
     device: str = "cuda"
@@ -122,22 +127,52 @@ def _not_ported(cfg: TrainConfig):
         return f"the {cfg.checkpointer!r} checkpointer"
     if cfg.auto_resume:
         return "auto_resume"
-    if cfg.input_true_x or cfg.input_true_i:
-        return "teacher forcing (input_true_x / input_true_i)"
     if cfg.n_windows:
         return "multishoot (n_windows)"
     return None
+
+
+def _check_teacher_forcing(cfg: TrainConfig, variant: Variant):
+    """The JAX package's refusals of teacher forcing, its messages in its
+    order (``Trainer._teacher_forced_forward``)."""
+    if not (cfg.input_true_x or cfg.input_true_i):
+        return
+    if variant.kind == "ode" and cfg.input_true_i:
+        raise ValueError(
+            "input_true_i applies to DAE variants only (ODEs have no "
+            "algebraic output)"
+        )
+    if variant.channel_wise:
+        raise ValueError(
+            "the channel-wise family defines no teacher forcing "
+            "(ref neural_base.py has none for it)"
+        )
+    if cfg.n_windows:
+        raise ValueError(
+            "teacher forcing and multi-shooting are mutually exclusive "
+            "(multi-shooting IS windowed teacher forcing)"
+        )
+
+
+# the fused teacher-forced forwards by (variant, input_true_x,
+# input_true_i): the JAX package's dispatch matrix
+_TF_FUSED = {
+    ("ode_no_encode", True, False): TF.tf_parallel_ode_apply,
+    ("ode_encode", True, False): TF.tf_parallel_ode_encode_apply,
+    ("dae_no_encode", True, True): TF.tf_parallel_dae_apply,
+    ("dae_no_encode", True, False): TF.fused_dae_tf_x_apply,
+    ("dae_no_encode", False, True): TF.fused_dae_tf_i_apply,
+    ("dae_encode", True, True): TF.tf_parallel_dae_encode_apply,
+    ("dae_encode", True, False): TF.fused_dae_encode_tf_x_apply,
+    ("dae_encode", False, True): TF.fused_dae_encode_tf_i_apply,
+}
 
 
 class Trainer:
     def __init__(self, cfg: TrainConfig):
         self.cfg = cfg
         self.variant: Variant = get_variant(cfg.variant)
-        if self.variant.channel_wise and (cfg.input_true_x or cfg.input_true_i):
-            raise ValueError(
-                "the channel-wise family defines no teacher forcing "
-                "(ref neural_base.py has none for it)"
-            )
+        _check_teacher_forcing(cfg, self.variant)
         missing = _not_ported(cfg)
         if missing:
             raise NotImplementedError(f"{missing} is not ported yet")
@@ -179,10 +214,27 @@ class Trainer:
         return init_params(model, cfg.init_style, cfg.seed) if init else model
 
     def _forward_fn(self, model):
+        """The forward of training and of every evaluation (teacher-forced
+        as well where a TF flag is set, as in the JAX package)."""
         cfg, variant = self.cfg, self.variant
+        if cfg.input_true_x or cfg.input_true_i:
+            return self._teacher_forced_forward(model)
         if cfg.fused:
             return lambda batch: variant.fused_apply(model, batch, solver=cfg.solver)
         return lambda batch: model(*[batch.get(k) for k in variant.batch_args])
+
+    def _teacher_forced_forward(self, model):
+        """The fused route through the dispatch matrix ``_TF_FUSED``, else
+        the model's plain rollout with the TF switches."""
+        cfg, variant = self.cfg, self.variant
+        tf_x, tf_i = cfg.input_true_x, cfg.input_true_i
+        if cfg.fused:
+            apply = _TF_FUSED[(variant.name, tf_x, tf_i)]
+            return lambda batch: apply(model, batch, solver=cfg.solver)
+        kwargs = {"input_true_x": tf_x}
+        if variant.kind == "dae":
+            kwargs["input_true_i"] = tf_i
+        return lambda batch: model(*[batch.get(k) for k in variant.batch_args], **kwargs)
 
     # ------------------------------------------------------------ train step
 

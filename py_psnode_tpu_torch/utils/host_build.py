@@ -25,7 +25,10 @@ default shape is the motor model's, xd=3, id=2, three tail layers, and
     python -m py_psnode_tpu_torch.utils.host_build ode-fwd B Tm1 h xd n_tail solver [rows]
 
 holds the host build against the plain PyTorch version on seeded inputs
-(the card tests' kind) and prints the distance. Builds land in
+(the card tests' kind) and prints the distance; ``dae-fwd-tfx`` and
+``dae-bwd-tfx`` (the same arguments as ``dae-fwd`` / ``dae-bwd``) hold
+kernels 1-2 in their TF-x mode on seeded true states, the backward with the
+true states' cotangents. Builds land in
 ``py_psnode_tpu_torch/_build/host/`` (ignored by git).
 """
 
@@ -55,7 +58,7 @@ from py_psnode_tpu_torch.ops.fused_dae import _SOLVER_CODE
 from py_psnode_tpu_torch.ops.fused_ode import pointer_array
 from py_psnode_tpu_torch.utils.cuda_build import BUILD_DIR, SOURCE_DIR
 from py_psnode_tpu_torch.utils.cw_inputs import seeded_inputs
-from py_psnode_tpu_torch.utils.noencode_inputs import dae_inputs, ode_inputs
+from py_psnode_tpu_torch.utils.noencode_inputs import dae_inputs, ode_inputs, true_states, with_first_step_events
 
 HOST_DIR = SOURCE_DIR / "host"
 _LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)<<<([^,]+),([^,]+),([^,]+),([^>]+)>>>\(")
@@ -193,18 +196,20 @@ def _nan_bufs(n_res, n_gy, n_xin, n_parts) -> Dict:
 
 
 def dae_rollout_bwd(streams: Dict, weights: Dict, x0, i0, aux, packed, cot, solver: str = "rk4",
-                    stages: int = 7, bufs=None, defines: Tuple[str, ...] = ()):
+                    stages: int = 7, bufs=None, defines: Tuple[str, ...] = (), x_true=None, g_true=False):
     """Kernel 2's host build (with ``defines``, :func:`load`) on CPU tensors
-    (the arguments of ``fused_dae_rollout_bwd_cuda``), on NaN-poisoned
-    buffers unless ``bufs`` are given; returns ``((g_streams, g_weights,
-    g_x0, g_i0), bufs)`` as ``fused_dae_vjp._launch_bwd`` does."""
+    (the arguments of ``fused_dae_rollout_bwd_cuda``, ``x_true`` its TF-x
+    mode), on NaN-poisoned buffers unless ``bufs`` are given; returns
+    ``((g_streams, g_weights, g_x0, g_i0[, (g_xt, g_xt1)]), bufs)`` as
+    ``fused_dae_vjp._launch_bwd`` does."""
     launcher = V.bind_rollout_bwd(load("fused_dae_rollout_bwd", defines))
     if bufs is None:
         Tm1, B, h = streams["s_de"].shape
         n_tails = (len(weights["de_tail"]), len(weights["ae_tail"]))
         sizes = V.bwd_sizes(launcher[1], Tm1, B, h, x0.shape[-1], i0.shape[-1], n_tails, solver)
         bufs = _nan_bufs(*sizes[1:5])
-    return V._launch_bwd(streams, weights, x0, i0, aux, packed, cot, solver, launcher, stages, bufs, host=True)
+    return V._launch_bwd(streams, weights, x0, i0, aux, packed, cot, solver, launcher, stages, bufs, host=True,
+                         x_true=x_true, g_true=g_true)
 
 
 def ode_rollout_bwd(s_de, weights: Dict, dt, sol, cot, solver: str = "euler", stages: int = 7, bufs=None,
@@ -222,12 +227,13 @@ def ode_rollout_bwd(s_de, weights: Dict, dt, sol, cot, solver: str = "euler", st
 
 
 def dae_rollout(streams: Dict, weights: Dict, x0, i0, aux, solver: str = "rk4", rows=None,
-                defines: Tuple[str, ...] = ()):
+                defines: Tuple[str, ...] = (), x_true=None):
     """Kernel 1's host build (with ``defines``, :func:`load`) on CPU tensors
     (the arguments of ``fused_dae_rollout_packed_cuda``, at most ``rows``
-    rows a block); returns the packed rows ``[T-1, B, xd + id]``."""
+    rows a block, ``x_true`` its TF-x mode); returns the packed rows ``[T-1,
+    B, xd + id]``."""
     launcher = F.bind_rollout(load("fused_dae_rollout", defines))
-    return F._launch(streams, weights, x0, i0, aux, solver, rows, launcher, host=True)
+    return F._launch(streams, weights, x0, i0, aux, solver, rows, launcher, host=True, x_true=x_true)
 
 
 def ode_rollout(s_de, weights: Dict, x0, dt, solver: str = "euler", rows=None, defines: Tuple[str, ...] = ()):
@@ -238,17 +244,20 @@ def ode_rollout(s_de, weights: Dict, x0, dt, solver: str = "euler", rows=None, d
 
 
 def noencode_fwd_check(family: str, B: int, Tm1: int, h: int, solver: str, rows=None, xd=None,
-                       n_tail: int = 3, defines: Tuple[str, ...] = (), idim: int = 2) -> Dict[str, float]:
+                       n_tail: int = 3, defines: Tuple[str, ...] = (), idim: int = 2,
+                       tfx: bool = False) -> Dict[str, float]:
     """Kernel 1 (``family`` "dae": ``xd`` (3 by default), ``idim`` and
-    ``n_tail``, by default the motor shape, events in some rows) or 3
-    ("ode", ``xd`` (2 by default) and ``n_tail``, the readout at lecun
-    scale) built for the host with ``defines``, on seeded inputs, against
-    its plain version: ``worst``, the largest |kernel - plain| / max(1,
-    |plain|), and ``identical``, 1.0 when a relaunch gave the same bits."""
+    ``n_tail``, by default the motor shape, events in some rows; ``tfx``
+    its TF-x mode on seeded true states) or 3 ("ode", ``xd`` (2 by default)
+    and ``n_tail``, the readout at lecun scale) built for the host with
+    ``defines``, on seeded inputs, against its plain version: ``worst``,
+    the largest |kernel - plain| / max(1, |plain|), and ``identical``, 1.0
+    when a relaunch gave the same bits."""
     if family == "dae":
         args = dae_inputs(B, Tm1, h, xd or 3, idim, seed=h, n_tail=n_tail)
-        ref = F.fused_dae_rollout_packed_plain(*args, solver)
-        run = lambda: dae_rollout(*args, solver, rows, defines)
+        x_true = true_states(Tm1, B, xd or 3, seed=h) if tfx else None
+        ref = F.fused_dae_rollout_packed_plain(*args, solver, x_true)
+        run = lambda: dae_rollout(*args, solver, rows, defines, x_true)
     else:
         args = ode_inputs(B, Tm1, h, xd or 2, n_tail, seed=h, readout=1.0)
         ref = FO.fused_ode_rollout_plain(*args, solver)
@@ -267,26 +276,36 @@ def _f64(tree):
 
 
 def noencode_bwd_check(family: str, B: int, Tm1: int, h: int, solver: str, xd=None,
-                       n_tail: int = 3, defines: Tuple[str, ...] = (), idim: int = 2) -> Dict[str, float]:
+                       n_tail: int = 3, defines: Tuple[str, ...] = (), idim: int = 2,
+                       tfx: bool = False, g_true: bool = True) -> Dict[str, float]:
     """Kernel 2 (``family`` "dae": ``xd`` (3 by default), ``idim`` and
-    ``n_tail``, by default the motor shape) or 4 ("ode", ``xd`` (2 by
-    default) and ``n_tail``) built for the host with ``defines``, on seeded
-    inputs with unit-scale cotangents, against the float64 plain walk:
-    ``worst``, the largest max|d| / max|plain| of any output tensor (the
-    float32 plain walk's beside it as ``float32``), and ``identical``, 1.0
-    when a relaunch gave the same bits."""
+    ``n_tail``, by default the motor shape; ``tfx`` its TF-x mode on seeded
+    true states, with their cotangents ``g_xt``/``g_xt1`` where
+    ``g_true``) or 4 ("ode", ``xd`` (2 by default) and ``n_tail``) built
+    for the host with ``defines``, on seeded inputs with unit-scale
+    cotangents, against the float64 plain walk: ``worst``, the largest
+    max|d| / max|plain| of any output tensor (the float32 plain walk's
+    beside it as ``float32``), and ``identical``, 1.0 when a relaunch gave
+    the same bits."""
     rng = np.random.default_rng(B + Tm1 + h)
     if family == "dae":
         xd = xd or 3
         args = dae_inputs(B, Tm1, h, xd, idim, seed=h, n_tail=n_tail)
-        packed = F.fused_dae_rollout_packed_plain(*args, solver)
+        x_true = None
+        if tfx:  # events at step 0 too, so that g_x0 holds the event route
+            x_true = true_states(Tm1, B, xd, seed=h)
+            args = (*args[:4], with_first_step_events(args[4]))
+        g_true = g_true and tfx
+        packed = F.fused_dae_rollout_packed_plain(*args, solver, x_true)
         cot = torch.tensor(rng.standard_normal((Tm1 + 1, B, xd + idim)).astype(np.float32))
-        flat = lambda g: [*g[0].values(), g[2], g[3]] + V.flatten_weights(g[1])[0]
-        run = lambda: flat(dae_rollout_bwd(*args, packed, cot, solver, defines=defines)[0])
+        flat = lambda g: [*g[0].values(), g[2], g[3]] + V.flatten_weights(g[1])[0] + (list(g[4]) if g_true else [])
+        run = lambda: flat(dae_rollout_bwd(*args, packed, cot, solver, defines=defines, x_true=x_true,
+                                           g_true=g_true)[0])
         streams, weights, x0, i0, aux = args
         ref = flat(V.fused_dae_rollout_bwd_plain(_f64(streams), _f64(weights), x0.double(), i0.double(),
-                                                 aux, packed.double(), cot.double(), solver))
-        f32 = flat(V.fused_dae_rollout_bwd_plain(*args, packed, cot, solver))
+                                                 aux, packed.double(), cot.double(), solver,
+                                                 None if x_true is None else x_true.double(), g_true))
+        f32 = flat(V.fused_dae_rollout_bwd_plain(*args, packed, cot, solver, x_true, g_true))
     else:
         s_de, weights, x0, dt = ode_inputs(B, Tm1, h, xd or 2, n_tail, seed=h)
         sol = torch.cat([x0[None], FO.fused_ode_rollout_plain(s_de, weights, x0, dt, solver)])
@@ -308,6 +327,9 @@ def _worst(got: List[torch.Tensor], ref: List[torch.Tensor]) -> float:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    tfx = argv[0].endswith("-tfx")
+    if tfx:
+        argv = [argv[0][:-4]] + argv[1:]
     if argv[0] in ("dae-fwd", "ode-fwd", "dae-bwd", "ode-bwd"):
         family = argv[0][:3]
         n_dims = next(k for k, a in enumerate(argv[1:]) if not a.isdigit())  # the solver ends the sizes
@@ -317,12 +339,12 @@ def main(argv=None) -> int:
         shape = (dict(xd=dims[3], idim=dims[4], n_tail=dims[5]) if family == "dae" and len(dims) == 6
                  else dict(xd=dims[3], n_tail=dims[4]) if family == "ode" else {})
     if argv[0] in ("dae-fwd", "ode-fwd"):
-        got = noencode_fwd_check(family, *dims[:3], solver, int(rest[0]) if rest else None, **shape)
+        got = noencode_fwd_check(family, *dims[:3], solver, int(rest[0]) if rest else None, tfx=tfx, **shape)
         print(f"{argv[0]}: worst |d| / max(1, |plain|) {got['worst']:.2e}; bit-identical on relaunch: "
               f"{bool(got['identical'])}")
         return 0 if got["worst"] <= 1e-4 and got["identical"] else 1
     if argv[0] in ("dae-bwd", "ode-bwd"):
-        got = noencode_bwd_check(family, *dims[:3], solver, **shape)
+        got = noencode_bwd_check(family, *dims[:3], solver, tfx=tfx, **shape)
         print(f"{argv[0]}: worst max|d|/max|float64 walk| {got['worst']:.2e} (the float32 plain walk "
               f"{got['float32']:.2e}); bit-identical on relaunch: {bool(got['identical'])}")
         return 0 if got["worst"] <= 1e-4 and got["identical"] else 1

@@ -1,7 +1,7 @@
 """Seeded inputs of the no-encode rollouts (DAE and ODE), for the kernel checks.
 
 The card tests (``tests/test_torch_kernel.py``), the host build of the
-backward kernels (``utils/host_build.py``) and its tests, and the phase
+kernels (``utils/host_build.py``) and its tests, and the phase
 clock (``utils/phase_clock.py``) draw the same inputs from a seed with
 numpy, so one case means the same numbers everywhere.
 """
@@ -45,6 +45,22 @@ def dae_inputs(B: int, Tm1: int, h: int, xd: int = 3, idim: int = 2, seed: int =
         if step < Tm1:
             ev[step, rows] = True
     return streams, weights, x0, i0, pack_aux(_step_sizes(Tm1, B), ev)
+
+
+def true_states(Tm1: int, B: int, xd: int, seed: int = 0) -> torch.Tensor:
+    """Seeded true states ``x_true [T, B, xd]`` (unit scale) for the
+    teacher-forced (TF-x) mode of the DAE kernels, beside
+    :func:`dae_inputs` of the same shape."""
+    return _draw(seed + 1000)(Tm1 + 1, B, xd)
+
+
+def with_first_step_events(aux: torch.Tensor) -> torch.Tensor:
+    """``aux`` with an event at step 0 in the even batch rows. Under TF-x
+    the rolled carry reaches ``x0`` only through the event recompute, so a
+    backward check needs one there to hold ``g_x0`` to anything."""
+    aux = aux.clone()
+    aux[0, ::2, 1] = 1.0
+    return aux
 
 
 def ode_inputs(B: int, Tm1: int, h: int, xd: int = 2, n_tail: int = 3, seed: int = 0,

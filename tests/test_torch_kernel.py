@@ -27,7 +27,7 @@ from py_psnode_tpu_torch.ops import fused_dae_vjp as V
 from py_psnode_tpu_torch.ops import fused_ode as FO
 from py_psnode_tpu_torch.ops import fused_ode_vjp as VO
 from py_psnode_tpu_torch.utils.cw_inputs import seeded_inputs
-from py_psnode_tpu_torch.utils.noencode_inputs import dae_inputs
+from py_psnode_tpu_torch.utils.noencode_inputs import dae_inputs, true_states, with_first_step_events
 from py_psnode_tpu_torch.utils.noencode_inputs import ode_inputs as noencode_ode_inputs
 
 
@@ -629,3 +629,43 @@ def test_cw_kernels_refuse_bad_inputs_on_card():
     sol = torch.cat([x0[None], FC.fused_cw_rollout(streams, weights, x0, dt)])
     with pytest.raises(ValueError, match="shape"):
         VC.fused_cw_rollout_bwd_cuda(streams, weights, dt, sol, sol[:6].contiguous())
+
+
+# ---------------------------------------------------------------- TF-x mode
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["euler", "rk4"])
+@pytest.mark.parametrize("h", [128, 200])  # 200: the forward's 128-wide chunks, the backward's wide kernels
+@pytest.mark.parametrize("batch", [1, 67, 133])  # 133: the forward takes two rows a block
+def test_tfx_kernels_match_plain_on_card(batch, h, solver):
+    """Kernels 1 and 2 in their TF-x mode (teacher forcing of x) against
+    the plain versions: the forward within 1e-4 * max(1, |plain|), the
+    backward against the float64 plain walk on every output tensor, with
+    the true states' cotangents and without them (events at step 0 in the
+    even rows: under TF-x only they carry the rolled x0's cotangent). At
+    B=1 the one row has that event, which takes its i carry, so g_i0 is 0
+    there: a tensor whose plain value is 0 must be 0 in the kernel too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    args = rollout_inputs(batch, 16, h, seed=batch + h, dev="cuda")
+    args = (*args[:4], with_first_step_events(args[4]))
+    x_true = true_states(16, batch, 3, seed=batch).cuda()
+    ref = F.fused_dae_rollout_packed_plain(*args, solver, x_true)
+    got = F.fused_dae_rollout_packed_cuda(*args, solver, x_true=x_true)
+    _hold_fwd(got, F.fused_dae_rollout_packed_cuda(*args, solver, x_true=x_true), ref)
+    rng = np.random.default_rng(batch)
+    cot = torch.tensor(rng.standard_normal((17, batch, 5)).astype(np.float32), device="cuda")
+    streams, weights, x0, i0, aux = args
+    for g_true in (True, False):
+        flat = lambda g: _bwd_flat(g[:4]) + (list(g[4]) if g_true else [])
+        want = flat(V.fused_dae_rollout_bwd_plain(_double(streams), _double(weights), x0.double(), i0.double(), aux,
+                                                  ref.double(), cot.double(), solver, x_true.double(), g_true))
+        run = lambda: flat(V.fused_dae_rollout_bwd_cuda(*args, ref, cot, solver, x_true, g_true))
+        got, again = run(), run()
+        zero = [k for k, r in enumerate(want) if not r.abs().max() > 0]
+        assert zero == ([4] if batch == 1 else [])  # g_i0 at B=1
+        for k in zero:
+            assert not got[k].any() and torch.equal(got[k], again[k])
+        keep = lambda gs: [g for k, g in enumerate(gs) if k not in zero]
+        _hold(keep(got), keep(again), keep(want))

@@ -13,7 +13,8 @@ relaunch; the whole backward per output tensor within ``1e-4 * max|plain|`` of t
 float64 plain walk, bit-identical on relaunch; the recompute's buffers
 within ``1e-4 * max(1, |plain|)`` of :func:`recompute_plain`; the
 contraction within ``1e-5 * max|plain|`` of :func:`contract_plain` in
-float64. Skips where no g++ is on the PATH.
+float64. The TF-x mode of kernels 1 and 2 (teacher forcing of x) is held
+the same way, on seeded true states. Skips where no g++ is on the PATH.
 """
 
 import shutil
@@ -27,7 +28,7 @@ from py_psnode_tpu_torch.ops import fused_dae_vjp as V
 from py_psnode_tpu_torch.ops import fused_ode as FO
 from py_psnode_tpu_torch.ops import fused_ode_vjp as VO
 from py_psnode_tpu_torch.utils import host_build
-from py_psnode_tpu_torch.utils.noencode_inputs import dae_inputs, ode_inputs
+from py_psnode_tpu_torch.utils.noencode_inputs import dae_inputs, ode_inputs, true_states
 
 
 def need_gxx():
@@ -253,3 +254,55 @@ def test_host_ode_contraction_matches_plain(h, xd, n_tail):
                             bufs["gres"].view(S, n_tail, R, h).double(), bufs["gy"].view(S, R, xd).double(),
                             bufs["xin"].view(S, R, xd).double(), n_tail, xd)
     assert _worst(VO.flatten_weights(g_w), VO.flatten_weights(ref)) <= 1e-5
+
+
+# The TF-x mode (teacher forcing of x, seeded true states, the events of
+# dae_inputs). (B, Tm1, h, solver, rows a block, shape): the motor shape at
+# h=16 with one row a block (the tile path: TF-x never folds) and at h=136
+# (two 128-wide chunks) in tiles of two rows, and the direct-encode latent
+# shape xd = id = h with one tail layer
+ENCODE = dict(xd=16, n_tail=1, idim=16)
+DAE_TFX_FWD_CASES = [(3, 4, 16, "rk4", None, {}), (3, 3, 136, "midpoint", 2, {}), (2, 3, 16, "euler", None, ENCODE)]
+
+
+@pytest.mark.parametrize("B,Tm1,h,solver,rows,shape", DAE_TFX_FWD_CASES)
+def test_host_dae_tfx_forward_matches_plain(B, Tm1, h, solver, rows, shape):
+    need_gxx()
+    got = host_build.noencode_fwd_check("dae", B, Tm1, h, solver, rows, tfx=True, **shape)
+    assert got["worst"] <= 1e-4, got
+    assert got["identical"] == 1.0
+
+
+# (B, Tm1, h, solver, the true states' cotangents, shape): with and without
+# g_xt / g_xt1; h=136 the wide kernels; the encode shape
+DAE_TFX_BWD_CASES = [(3, 4, 16, "rk4", True, {}), (3, 4, 16, "midpoint", False, {}), (2, 3, 136, "euler", True, {}),
+                     (2, 3, 16, "euler", True, ENCODE)]
+
+
+@pytest.mark.parametrize("B,Tm1,h,solver,g_true,shape", DAE_TFX_BWD_CASES)
+def test_host_dae_tfx_backward_matches_float64_walk(B, Tm1, h, solver, g_true, shape):
+    need_gxx()
+    got = host_build.noencode_bwd_check("dae", B, Tm1, h, solver, tfx=True, g_true=g_true, **shape)
+    assert got["worst"] <= 1e-4, got
+    assert got["identical"] == 1.0
+
+
+def test_host_dae_tfx_recompute_matches_plain():
+    """The TF-x recompute's buffers: the stages from x_true[t], the AE at
+    t+1 at x_true[t+1] (both into xin, the contraction's operand), the AE
+    at the event at the rolled x_t."""
+    need_gxx()
+    args = dae_inputs(3, 4, 40, seed=5)
+    x_true = true_states(4, 3, 3, seed=5)
+    packed = F.fused_dae_rollout_packed_plain(*args, "rk4", x_true)
+    _, bufs = host_build.dae_rollout_bwd(*args, packed, torch.zeros(5, 3, 5), "rk4", stages=1, x_true=x_true)
+    res, xin = V.recompute_plain(*args, packed, "rk4", x_true)
+    E, L, R, h = res.shape
+    got_res, got_xin = bufs["res"].view(E, L, R, h), bufs["xin"].view(E, R, -1)
+    ev = args[4][..., 1].reshape(R) > 0
+    _close(got_res[:-1], res[:-1], 1e-4)
+    _close(got_xin[:-2], xin[:-2], 1e-4)
+    _close(got_xin[-2, :, :3], xin[-2, :, :3], 1e-4)
+    assert torch.equal(xin[0, :, :3], x_true[:-1].reshape(R, 3))  # the plain version's own rule
+    _close(got_res[-1][:, ev], res[-1][:, ev], 1e-4)
+    _close(got_xin[-1][ev, :3], xin[-1][ev, :3], 1e-4)
