@@ -127,7 +127,29 @@ Phases, each printed as it ends; any failure exits non-zero:
      checkpoint; then at B=64, T=1001, RK4 both TF-x kernels alone beside
      their bounds (and the forward at B=32 Euler) and one TF-x training
      step of each DAE family, fused and plain, with its peak memory, the
-     fused step's loss and gradients held against the plain step's.
+     fused step's loss and gradients held against the plain step's;
+ 20. multiple shooting (``--n_windows`` / ``--gap_weight``, K=20 windows of
+     50 steps): kernels 1-4 at the folded batch (B = 20 x 64 = 1 280 rows,
+     T-1 = 50, h=128) on seeded inputs with events at step 0 (a window's
+     first step) among others, kernels 1 and 3 against their plain loops
+     (each solver, RK4 at every rows-a-block, KERNEL_TOL), kernels 2 and 4
+     against the float64 plain walk (Euler and RK4, BWD_TOL per tensor),
+     bit-identical on relaunch; the Trainer (fused, ``n_windows=20``,
+     ``gap_weight=0.3``, one epoch of two steps, Euler) of all six variants
+     from the starting weights of phases 6, 10, 14 and 17-18, steps 1 and 2
+     and the full-rollout epoch-1 eval against the JAX package's anchors
+     (``MS_ANCHORS``) at rtol 1e-3, the DAE runs launching kernels 1-2 and
+     the ODE runs kernels 3-4 at 1 280 rows in their training steps, the
+     channel-wise runs kernel 5 only in their evaluations and kernel 6
+     never; the CLI ``--training --fused --n_windows 20 --gap_weight 0.3``
+     of the motor DAE and ``--n_windows 7`` refused with the JAX package's
+     error; then, at B=64, T=1001, RK4, kernels 1-4 alone on the launches
+     of one fused multishoot step (beside their plain versions, bounds and
+     the 64 x 1000 times of phases 7 and 11) and one training step of the
+     motor DAE, the AVR ODE and the direct-encode DAE through the fused
+     multishoot, the plain multishoot and the non-windowed fused forward,
+     each with its peak memory, the fused multishoot step's loss and
+     gradients held against the plain one's.
 
 The line before the last two is the kernels' JSON record, then nvidia-smi's
 line, and the last line is ``{"ok": true, "device": {...}}``. Nothing is
@@ -139,6 +161,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import pathlib
 import shutil
@@ -190,6 +213,7 @@ from py_psnode_tpu_torch.ops.fused_model import (  # noqa: E402
 )
 from py_psnode_tpu_torch.ops import teacher_forcing as TF  # noqa: E402
 from py_psnode_tpu_torch.train import TrainConfig, Trainer  # noqa: E402
+from py_psnode_tpu_torch.train import multishoot_forward as MS  # noqa: E402
 from py_psnode_tpu_torch.train.checkpoints import load_checkpoint_params  # noqa: E402
 from py_psnode_tpu_torch.train.variants import VARIANTS, export_examples  # noqa: E402
 from py_psnode_tpu_torch.train.losses import (  # noqa: E402
@@ -280,6 +304,23 @@ TF_ANCHORS = {
     "ode_no_encode": {"x": dict(step1=(0.022299383, 0.44636983), step2=(0.021688376, 0.48730695),
                                 eval1=(0.015616274,))},
     "ode_encode": {"x": dict(step1=(85.85289, 177.36066), step2=(155.08521, 170.27582), eval1=(9.3136806,))},
+}
+# Multiple shooting (phase 20): K=20 windows of 50 steps, gap weight 0.3,
+# one epoch of two steps (Euler) of every variant from the starting weights
+# of phases 6, 10, 14 and 17-18 (batch 64; the DAE channel-wise batch 8 of
+# 16 samples). Step 1 and step 2 (loss with the gap term, gradient norm)
+# and the epoch-1 eval, a full rollout (x_loss, and i_loss for a DAE), of
+# the JAX package on the CPU in float32; re-derived by `python
+# tests/test_torch_ms_slice.py anchors` (needs JAX).
+MS_WINDOWS, MS_GAP_WEIGHT = 20, 0.3
+MS_ANCHORS = {
+    "dae_no_encode": dict(step1=(0.28123468, 45.82851), step2=(11.56814, 189.61459), eval1=(2.709034, 22.047993)),
+    "dae_encode": dict(step1=(12.908703, 384.24515), step2=(96.672607, 349.67581), eval1=(23.383722, 29.491858)),
+    "ode_no_encode": dict(step1=(13.308715, 90.516716), step2=(12.71443, 114.7192), eval1=(16.870262,)),
+    "ode_encode": dict(step1=(86.876167, 202.29056), step2=(229.62177, 183.03371), eval1=(37.526005,)),
+    "ode_channelwise": dict(step1=(58.874332, 168.33717), step2=(19.640543, 313.87024), eval1=(27.354507,)),
+    "dae_channelwise": dict(step1=(4.1592588, 219.6868), step2=(6.9422183, 406.82547),
+                            eval1=(6.0395126, 7.8608441)),
 }
 # Per output tensor, on its own scale: max|kernel - plain| <= BWD_TOL *
 # max|plain|. Each weight gradient sums 64 x 1000 row-steps in another
@@ -2501,6 +2542,352 @@ def phase_tf(dev, root, ode_files):
     return out
 
 
+# ------------------------------------------------------------- multishoot
+
+MS_VARIANTS = ("dae_no_encode", "dae_encode", "ode_no_encode", "ode_encode", "ode_channelwise", "dae_channelwise")
+MS_B, MS_L = MS_WINDOWS * 64, 1000 // MS_WINDOWS  # the folded batch and window length of B=64, T=1001
+MS_APPLY = {"dae_no_encode": (MS.fused_multishoot_dae_apply, MS.multishoot_dae_apply, fused_dae_apply,
+                              dae_no_encode_loss),
+            "ode_no_encode": (MS.fused_multishoot_ode_apply, MS.multishoot_ode_apply, fused_ode_apply,
+                              ode_no_encode_loss),
+            "dae_encode": (MS.fused_multishoot_dae_encode_apply, MS.multishoot_dae_encode_apply,
+                           fused_dae_encode_apply, dae_encode_loss)}
+
+
+@contextlib.contextmanager
+def kernel_calls():
+    """Records the arguments of every launch of kernels 1-4 through their
+    wrappers, by kernel number: ``{k: [(args, kwargs), ...]}``."""
+    calls = {k: [] for k in range(1, 5)}
+    wrappers = ((F, "fused_dae_rollout_packed_cuda", 1), (V, "fused_dae_rollout_bwd_cuda", 2),
+                (FO, "fused_ode_rollout_cuda", 3), (VO, "fused_ode_rollout_bwd_cuda", 4))
+    originals = [getattr(mod, name) for mod, name, _ in wrappers]
+    for (mod, name, k), orig in zip(wrappers, originals):
+        def record(*args, _orig=orig, _k=k, **kwargs):
+            calls[_k].append((args, kwargs))
+            return _orig(*args, **kwargs)
+        setattr(mod, name, record)
+    try:
+        yield calls
+    finally:
+        for (mod, name, _), orig in zip(wrappers, originals):
+            setattr(mod, name, orig)
+
+
+def call_rows(call):
+    """The batch rows of a recorded launch (its ``s_de [T-1, B, h]``)."""
+    first = call[0][0]
+    return (first["s_de"] if isinstance(first, dict) else first).shape[1]
+
+
+def all_counts():
+    """Launches of kernels 1-6."""
+    return tf_counts() + cw_counts()
+
+
+def reset_all_counts():
+    reset_tf_counts()
+    reset_cw_counts()
+
+
+def phase_ms_kernels(dev):
+    """Phase 20, part 1: kernels 1-4 at the folded shape (B = 20 x 64 = 1 280
+    rows, T-1 = 50, h=128) on seeded inputs: kernel 1 (the motor shape,
+    events at steps 3 and 33 in a quarter of the rows and at step 0 in the
+    even rows) against its plain loop, each solver, RK4 at every
+    rows-a-block; kernel 2 against the float64 plain walk (Euler and RK4,
+    unit-scale cotangents); kernels 3-4 the same at xd=2 with three tail
+    layers. KERNEL_TOL / BWD_TOL, bit-identical on relaunch. Returns
+    max|d| by kernel number."""
+    err = {}
+    args = random_inputs(MS_B, MS_L, 128, 3, 2, seed=20, dev=dev)
+    args = (*args[:4], with_first_step_events(args[4]))
+    n_ev0 = int(args[4][0, :, 1].sum().item())
+    for solver in SOLVERS:
+        ref = F.fused_dae_rollout_packed_plain(*args, solver)
+        for rows in F.ROWS_PER_BLOCK if solver == "rk4" else (None,):
+            got = F.fused_dae_rollout_packed_cuda(*args, solver, rows_per_block=rows)
+            again = F.fused_dae_rollout_packed_cuda(*args, solver, rows_per_block=rows)
+            torch.cuda.synchronize()
+            d = hold_fwd(f"folded kernel 1 {solver} rows={rows}", got, again, ref)
+            err[1] = max(err.get(1, 0.0), d)
+            say(f"[ms-kernel] kernel 1 B={MS_B} T={MS_L + 1} {solver:8s} rows={rows}: max|d| {d:.3e} max|plain| "
+                f"{ref.abs().max().item():.3f}, bit-identical on relaunch ({n_ev0} rows with a step-0 event)")
+    streams, weights, x0, i0, aux = args
+    cot = torch.tensor(np.random.default_rng(22).standard_normal((MS_L + 1, MS_B, 5)).astype(np.float32),
+                       device=dev)
+    for solver in ("euler", "rk4"):
+        packed = F.fused_dae_rollout_packed_cuda(*args, solver)
+        got = V.fused_dae_rollout_bwd_cuda(*args, packed, cot, solver)
+        again = V.fused_dae_rollout_bwd_cuda(*args, packed, cot, solver)
+        t0 = time.perf_counter()
+        ref = V.fused_dae_rollout_bwd_plain(double(streams), double(weights), x0.double(), i0.double(), aux,
+                                            packed.double(), cot.double(), solver)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        flat = lambda g: [v for _, v in bwd_outputs(g)]
+        worst, report = hold_bwd(f"folded kernel 2 {solver}", [n for n, _ in bwd_outputs(got)], flat(got),
+                                 flat(again), flat(ref))
+        err[2] = max(err.get(2, 0.0), worst)
+        say(f"[ms-kernel] kernel 2 B={MS_B} T={MS_L + 1} {solver:8s}: ok, bit-identical on relaunch; plain "
+            f"float64 walk {plain_s:.1f} s; max|d| / max|plain| per tensor: {report}")
+    del args, streams, packed, cot, got, again, ref
+
+    s_de, weights, x0, dt = ode_random_inputs(MS_B, MS_L, 128, 2, 3, seed=21, dev=dev)
+    for solver in SOLVERS:
+        ref = FO.fused_ode_rollout_plain(s_de, weights, x0, dt, solver)
+        for rows in F.ROWS_PER_BLOCK if solver == "rk4" else (None,):
+            got = FO.fused_ode_rollout_cuda(s_de, weights, x0, dt, solver, rows_per_block=rows)
+            again = FO.fused_ode_rollout_cuda(s_de, weights, x0, dt, solver, rows_per_block=rows)
+            torch.cuda.synchronize()
+            d = hold_fwd(f"folded kernel 3 {solver} rows={rows}", got, again, ref)
+            err[3] = max(err.get(3, 0.0), d)
+            say(f"[ms-kernel] kernel 3 B={MS_B} T={MS_L + 1} xd=2 {solver:8s} rows={rows}: max|d| {d:.3e} "
+                f"max|plain| {ref.abs().max().item():.3f}, bit-identical on relaunch")
+    cot = torch.tensor(np.random.default_rng(23).standard_normal((MS_L + 1, MS_B, 2)).astype(np.float32),
+                       device=dev)
+    names = ["g_s_de", "g_x0", "wx_de"] + [f"de_tail[{k}].{p}" for k in range(3) for p in "Wb"]
+    flat = lambda g: [g[0], g[2]] + VO.flatten_weights(g[1])
+    for solver in ("euler", "rk4"):
+        sol = torch.cat([x0[None], FO.fused_ode_rollout_cuda(s_de, weights, x0, dt, solver)])
+        got = flat(VO.fused_ode_rollout_bwd_cuda(s_de, weights, dt, sol, cot, solver))
+        again = flat(VO.fused_ode_rollout_bwd_cuda(s_de, weights, dt, sol, cot, solver))
+        t0 = time.perf_counter()
+        ref = flat(VO.fused_ode_rollout_bwd_plain(s_de.double(), double(weights), dt, sol.double(), cot.double(),
+                                                  solver))
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        worst, report = hold_bwd(f"folded kernel 4 {solver}", names, got, again, ref)
+        err[4] = max(err.get(4, 0.0), worst)
+        say(f"[ms-kernel] kernel 4 B={MS_B} T={MS_L + 1} xd=2 {solver:8s}: ok, bit-identical on relaunch; plain "
+            f"float64 walk {plain_s:.1f} s; max|d| / max|plain| per tensor: {report}")
+    return err
+
+
+def ms_launches_ok(variant, n, rows, eval_batches):
+    """A fused DAE multishoot run launches kernels 1-2, an ODE one kernels
+    3-4, each training step at the folded batch; a channel-wise one
+    launches kernel 5 once for each of its ``eval_batches`` evaluation
+    batches (two evaluations) and kernel 6 never. Returns (ok, the folded
+    launches of its kernel pair)."""
+    if "channelwise" in variant:
+        return not any(n[:4]) and n[5] == 0 and n[4] == 2 * eval_batches, (0, 0)
+    pair = {"dae": (1, 2), "ode": (3, 4)}[variant.split("_")[0]]
+    fwd, bwd = pair
+    folded = (sum(call_rows(c) == MS_B for c in rows[fwd]), sum(call_rows(c) == MS_B for c in rows[bwd]))
+    others = [n[k - 1] for k in range(1, 7) if k not in pair]
+    ok = folded == (2, 2) and len(rows[bwd]) == 2 and not any(others)
+    return ok, folded
+
+
+def phase_ms_slice(dev, files, root):
+    """Phase 20, part 2: the Trainer (fused, ``n_windows=20``,
+    ``gap_weight=0.3``, one epoch of two steps, Euler, every step logged)
+    for each variant, steps 1 and 2 and the full-rollout epoch-1 eval
+    against MS_ANCHORS at rtol 1e-3, the launches of kernels 1-6 counted
+    (set to 0 just before, read just after; the rows of each launch of
+    kernels 1-4 recorded); then the CLI ``--training --fused --n_windows
+    20 --gap_weight 0.3`` of the motor DAE, and ``--n_windows 7`` refused
+    with the JAX package's error. Returns the folded launches of kernels
+    1-2 (the motor DAE's run) and 3-4 (the ODE's), and kernel 5's launches
+    in the channel-wise ODE's run."""
+    out = {}
+    for variant in MS_VARIANTS:
+        train_f, test_f, start = files[variant]
+        size = CW_TRAIN.get(variant, dict(num=128, batch=64))
+        ws = shutil.copy(start, root / f"{variant}_ws")
+        cfg = TrainConfig(
+            variant=variant, train_data=str(train_f), test_data=str(test_f), model=str(root / variant), epoch=200,
+            hidden=128, larger_than=None, seed=0, warm_start=str(ws), stop_after=1, loss_record_iter=1,
+            solver="euler", fused=True, echo_logs=False, device="cuda", n_windows=MS_WINDOWS,
+            gap_weight=MS_GAP_WEIGHT, **size,
+        )
+        trainer = Trainer(cfg)
+        test_ds = trainer.load_test_dataset()
+        eval_batches = -(-len(test_ds) // trainer._eval_batch_size(test_ds))
+        reset_all_counts()
+        t0 = time.perf_counter()
+        with kernel_calls() as rows:
+            _, run_dir = trainer.train()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = all_counts()
+        recs = [json.loads(line) for line in (run_dir / "train_metrics.jsonl").read_text().splitlines()]
+        steps = [r for r in recs if r["kind"] == "train"]
+        (ev,) = [r for r in recs if r["kind"] == "eval"]
+        if len(steps) != 2:
+            fail(f"{variant} multishoot training logged {len(steps)} steps, not 2")
+        anchors = MS_ANCHORS[variant]
+        got = dict(step1=(steps[0]["loss"], steps[0]["grad_norm"]), step2=(steps[1]["loss"], steps[1]["grad_norm"]),
+                   eval1=tuple(ev[k] for k in ("x_loss", "i_loss") if k in ev))
+        errs = []
+        for key in ("step1", "step2", "eval1"):
+            for v, a in zip(got[key], anchors[key]):
+                if not (np.isfinite(v) and near(v, a, ANCHOR_RTOL)):
+                    fail(f"{variant} multishoot {key} {got[key]} misses the JAX anchors {anchors[key]} at rtol "
+                         f"{ANCHOR_RTOL}")
+                errs.append(abs(v - a) / abs(a))
+        ok, folded = ms_launches_ok(variant, n, rows, eval_batches)
+        say(f"[ms-train] {variant} --fused --n_windows {MS_WINDOWS} --gap_weight {MS_GAP_WEIGHT} (Trainer, batch "
+            f"{size['batch']}, euler): steps {got['step1']}, {got['step2']}; epoch-1 eval (full rollout) "
+            f"{got['eval1']}; worst rel. err. to the JAX anchors {max(errs):.2e}; launches of kernels 1-6: {n}, "
+            f"of its kernel pair at {MS_B if size['batch'] == 64 else '-'} rows: {folded}; rows of kernels 1-4: "
+            f"{ {k: [call_rows(c) for c in v] for k, v in rows.items() if v} }; wall {wall:.2f} s")
+        if not ok:
+            fail(f"{variant} multishoot launched kernels 1-6 {n} times ({folded} at {MS_B} rows), not as its "
+                 f"dispatch names them")
+        out[variant] = folded if "channelwise" not in variant else n[4]
+
+    train_f, test_f, start = files["dae_no_encode"]
+    common = ["--training", "--fused", "--device", "cuda", "--train_data", str(train_f), "--test_data", str(test_f),
+              "--num", "128", "--batch", "64", "--epoch", "200", "--stop_after", "1", "--larger_than", "none",
+              "--warm_start", str(shutil.copy(start, root / "cli_ws")), "--gap_weight", str(MS_GAP_WEIGHT)]
+    reset_all_counts()
+    t0 = time.perf_counter()
+    with kernel_calls() as rows:
+        _, run_dir = cli_main("dae_no_encode", common + ["--n_windows", str(MS_WINDOWS), "--model",
+                                                        str(root / "cli_run")])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = all_counts()
+    (ev,) = [json.loads(line) for line in (run_dir / "train_metrics.jsonl").read_text().splitlines()
+             if json.loads(line)["kind"] == "eval"]
+    losses, anchors = (ev["x_loss"], ev["i_loss"]), MS_ANCHORS["dae_no_encode"]["eval1"]
+    ok, folded = ms_launches_ok("dae_no_encode", n, rows, 1)
+    if not ok or not (run_dir / "model_checkpoint.1").exists():
+        fail(f"CLI --training --fused --n_windows launched kernels 1-6 {n} times or wrote no checkpoint")
+    if not all(np.isfinite(v) and near(v, a, ANCHOR_RTOL) for v, a in zip(losses, anchors)):
+        fail(f"CLI --training --fused --n_windows epoch-1 eval {losses} misses the anchors {anchors}")
+    want = "(T-1)=1000 not divisible by n_windows=7"
+    try:
+        cli_main("dae_no_encode", common + ["--n_windows", "7", "--model", str(root / "cli_run7")])
+    except ValueError as e:
+        if str(e) != want:
+            fail(f"CLI --n_windows 7 raised {e!r}, not the JAX package's {want!r}")
+    else:
+        fail("CLI --n_windows 7 trained, though 1000 % 7 != 0")
+    say(f"[ms-cli] --training --fused --n_windows {MS_WINDOWS} --gap_weight {MS_GAP_WEIGHT} (motor DAE, checkpoint "
+        f"200, one epoch): epoch-1 eval {losses} (anchors {anchors}); launches of kernels 1-6 {n}, {folded} at "
+        f"{MS_B} rows; wall {wall:.2f} s; --n_windows 7 raised ValueError({want!r})")
+    return out
+
+
+def ms_step(variant, make, batch, keys, dev):
+    """Phase 20, steps: one training step (B=64, T=1001, RK4, Adam) of
+    ``variant`` through the fused multishoot forward, the plain multishoot
+    forward and the non-windowed fused forward, each timed with its peak
+    memory; the fused multishoot step's loss and gradients held against the
+    plain one's. Returns {route: (ms, peak bytes)}."""
+    fused_ms, plain_ms, fused, loss_fn = MS_APPLY[variant]
+    ms_loss = lambda og, b: (loss_fn(og[0], b)[0] + MS_GAP_WEIGHT * torch.mean(og[1] ** 2), {})
+    routes = (("fused multishoot", lambda m, b: fused_ms(m, b, MS_WINDOWS), ms_loss, 3),
+              ("plain multishoot", lambda m, b: plain_ms(m, b, MS_WINDOWS), ms_loss, 1),
+              ("fused, no windows", fused, loss_fn, 3))
+    out, first = {}, {}
+    for route, apply, loss, reps in routes:
+        ms, peak, loss0, grads = timed_steps(make(), batch, apply, loss, keys, dev, True, reps)
+        out[route], first[route] = (ms, peak), (loss0, grads)
+        say(f"[ms-times] {variant} training step B=64 T=1001 h=128 rk4 K={MS_WINDOWS}, {route}: {ms:.3f} ms, "
+            f"{64 * 1000 / ms * 1e3:.1f} trajectory-steps/s, peak memory allocated {peak / 2**30:.2f} GiB")
+    check_cw_step(f"{variant} multishoot", first["fused multishoot"], first["plain multishoot"],
+                  tag="[ms-step-check]")
+    return out
+
+
+def phase_ms_times(dev, files, times, ode_times):
+    """Phase 20, times (CUDA events, RK4): kernels 1-4 alone at the folded
+    shape on the main path's own inputs (the launches of one fused
+    multishoot step, recorded: the motor DAE from checkpoint 200, the ODE
+    and the direct-encode DAE from their starting checkpoints, 64 training
+    rows each), each beside its plain version, its bound and the 64 x 1000
+    time of phases 7 and 11; the no-encode forwards at every rows-a-block
+    and the no-encode backwards' three kernels apart; then :func:`ms_step`
+    for the three variants. Returns the kernels' records by (variant,
+    kernel) and the steps' by variant."""
+    out = {}
+    enc = files["dae_encode"][2]
+    models = {"dae_no_encode": (motor_model, motor_batch(64, dev), TF_KEYS["dae_no_encode"]),
+              "ode_no_encode": (lambda d, s: ode_model(files["ode_no_encode"][2], d, s),
+                                enc_batch("ode_encode", files["ode_no_encode"][0], 64, dev), ENC_KEYS["ode_encode"]),
+              "dae_encode": (lambda d, s: enc_model("dae_encode", enc, d, s),
+                             enc_batch("dae_encode", TRAIN_DATA, 64, dev), ENC_KEYS["dae_encode"])}
+    full = {1: times[(64, "rk4")], 2: times[("bwd", "rk4")], 3: ode_times[("fwd", 64, "rk4")],
+            4: ode_times[("bwd", "rk4")]}
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for variant, (make, batch, _) in models.items():
+        fused_ms, _, _, loss_fn = MS_APPLY[variant]
+        model = make(dev, "rk4")
+        with kernel_calls() as calls:
+            out_g = fused_ms(model, batch, MS_WINDOWS)
+            loss = loss_fn(out_g[0], batch)[0] + MS_GAP_WEIGHT * torch.mean(out_g[1] ** 2)
+            loss.backward()
+            torch.cuda.synchronize()
+        for k, cuda_fn, plain_fn in ((1, F.fused_dae_rollout_packed_cuda, F.fused_dae_rollout_packed_plain),
+                                     (2, V.fused_dae_rollout_bwd_cuda, V.fused_dae_rollout_bwd_plain),
+                                     (3, FO.fused_ode_rollout_cuda, FO.fused_ode_rollout_plain),
+                                     (4, VO.fused_ode_rollout_bwd_cuda, VO.fused_ode_rollout_bwd_plain)):
+            if not calls[k]:
+                continue
+            (args, kw), = calls[k]
+            k_ms = cuda_ms(lambda: cuda_fn(*args, **kw), 1, 5)
+            p_ms = cuda_ms(lambda: plain_fn(*args, **kw), 0, 1)
+            if k == 1:
+                n_bytes, flops, tc = (*rollout_work(*args[:6]), 0)
+            elif k == 2:
+                n_bytes, flops, tc = bwd_work(*args[:5], args[7])
+            elif k == 3:
+                n_bytes, flops, tc = (*ode_work(*args[:3], args[4])[:2], 0)
+            else:
+                s_de, weights, dt, sol, cot, solver = args
+                n_bytes, flops, tc = ode_work(s_de, weights, sol[0], solver)[2:]
+            b_ms, b_by = bound(n_bytes, flops, tc)
+            out[(variant, k)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+            what = f"[ms-times] {variant} kernel {k} at {call_rows(calls[k][0])} x {MS_L}"
+            unfolded = ("" if variant == "dae_encode" else f"; at 64 x 1000 (phase {7 if k < 3 else 11}): "
+                        f"{full[k]['ms']:.4f} ms, bound {full[k]['bound_ms']:.5f} ms; folded/unfolded "
+                        f"{k_ms / full[k]['ms']:.3f}")
+            say(f"{what} (the multishoot step's launch, rk4): {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound "
+                f"{b_ms:.5f} ms ({b_by}{', 3xTF32' if tc else ''}; {n_bytes} B, {flops} FLOP), kernel/bound "
+                f"{k_ms / b_ms:.1f}x{unfolded}")
+            if variant == "dae_encode":
+                continue
+            if k in (1, 3):  # how the forward trades rows a block for waves at this batch
+                by_rows = {rows: cuda_ms(lambda: cuda_fn(*args, **kw, rows_per_block=rows), 1, 5)
+                           for rows in F.ROWS_PER_BLOCK}
+                say(f"{what} rk4 by rows a block (the launcher takes {F.default_launch(MS_B, n_sms)}): "
+                    + ", ".join(f"{rows}: {ms:.4f} ms" for rows, ms in by_rows.items()))
+            elif k == 2:
+                noencode_split(f"{what} rk4", lambda st, bufs=None: V._launch_bwd(*args[:8], stages=st, bufs=bufs),
+                               lambda b: dae_contraction(b, args[:5], "rk4"), lambda g: V.flatten_weights(g)[0])
+            else:
+                noencode_split(f"{what} rk4", lambda st, bufs=None: VO._launch_bwd(*args, stages=st, bufs=bufs),
+                               lambda b: ode_contraction(b, args[1], args[3]), VO.flatten_weights)
+        del calls, out_g, loss, model
+    for variant, (make, batch, keys) in models.items():
+        out[variant] = ms_step(variant, lambda: make(dev, "rk4"), batch, keys, dev)
+    return out
+
+
+def phase_ms(dev, root, ode_files, cw_files, times, ode_times):
+    """Phase 20: multiple shooting, from the checkpoints and data of phases
+    6, 10, 14 and 17-18 (the direct-encode starting checkpoints drawn
+    again)."""
+    t0 = time.perf_counter()
+    files = {
+        "dae_no_encode": (TRAIN_DATA, TEST_DATA, CKPT),
+        "dae_encode": (TRAIN_DATA, TEST_DATA, start_checkpoint(
+            root / "dae_encode.start", DAEEncodeModel(3, 1, 2, 2, hidden_dim=128, device="meta"), seed=0)),
+        "ode_no_encode": ode_files,
+        "ode_encode": (*ode_files[:2], start_checkpoint(
+            root / "ode_encode.start", ODEEncodeModel(2, 2, hidden_dim=128, device="meta"), seed=0)),
+        **cw_files,
+    }
+    out = dict(kernel_err=phase_ms_kernels(dev), launches=phase_ms_slice(dev, files, root),
+               times=phase_ms_times(dev, files, times, ode_times))
+    say(f"[ms] phase 20 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", action="store_true", help="time both forwards at every launch shape")
@@ -2534,6 +2921,8 @@ def main(argv=None):
         phase_encode(dev, root / "enc", ode_files)
         (root / "tf").mkdir()
         tf = phase_tf(dev, root / "tf", ode_files)
+        (root / "ms").mkdir()
+        ms = phase_ms(dev, root / "ms", ode_files, cw_files, times, ode_times)
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all, nvcc "
         f"{', '.join(f'{k} {v:.2f} s' for k, v in nvcc_s.items())}; card {smi}")
     # the forward as the evaluation slice drives it (B=32, Euler); the
@@ -2551,26 +2940,34 @@ def main(argv=None):
     tfx = lambda k, t: {f"tfx_{key}": v for key, v in dict(
         launches=tf["launches"][k], max_abs_err=tf["kernel_err"][k], ms=t["ms"], plain_ms=t["plain_ms"],
         bound_ms=t["bound_ms"], bound_by=t["bound_by"]).items()}
+    # rows 1-4 at phase 20's folded shape (K=20 windows of B=64: 1 280 rows,
+    # 50 steps, RK4): launches at that shape in the motor DAE's (rows 1-2)
+    # and the AVR ODE's (rows 3-4) fused multishoot Trainer run
+    folded = lambda k, variant, launches: {f"ms_{key}": v for key, v in dict(
+        launches=launches, max_abs_err=ms["kernel_err"][k], **ms["times"][(variant, k)]).items()}
     record = {"kernels": [
         {**entry("fused_dae_rollout", "py_psnode_tpu_torch/csrc/fused_dae_rollout.cu",
                  "py_psnode_tpu/ops/fused_dae.py:371", fwd_launches, fwd_err, fwd_t),
-         **tfx(0, tf["times"][("fwd", 32, "euler")])},
+         **tfx(0, tf["times"][("fwd", 32, "euler")]), **folded(1, "dae_no_encode", ms["launches"]["dae_no_encode"][0])},
         {**entry("fused_dae_rollout_bwd", "py_psnode_tpu_torch/csrc/fused_dae_rollout_bwd.cu",
                  "py_psnode_tpu/ops/fused_dae_vjp.py:147", train_launches["euler"][1], bwd_err, bwd_t),
-         **tfx(1, tf["times"][("bwd", 64, "rk4")])},
+         **tfx(1, tf["times"][("bwd", 64, "rk4")]), **folded(2, "dae_no_encode", ms["launches"]["dae_no_encode"][1])},
         # the ODE kernels as the CLI's --training --fused drives them (B=64,
         # Euler, the CLI's default solver)
-        entry("fused_ode_rollout", "py_psnode_tpu_torch/csrc/fused_ode_rollout.cu",
-              "py_psnode_tpu/ops/fused_ode.py:125", ode_launches[0], ode_fwd_err,
-              ode_times[("fwd", 64, "euler")]),
-        entry("fused_ode_rollout_bwd", "py_psnode_tpu_torch/csrc/fused_ode_rollout_bwd.cu",
-              "py_psnode_tpu/ops/fused_ode.py:171", ode_launches[1], ode_bwd_err,
-              ode_times[("bwd", "euler")]),
+        {**entry("fused_ode_rollout", "py_psnode_tpu_torch/csrc/fused_ode_rollout.cu",
+                 "py_psnode_tpu/ops/fused_ode.py:125", ode_launches[0], ode_fwd_err,
+                 ode_times[("fwd", 64, "euler")]), **folded(3, "ode_no_encode", ms["launches"]["ode_no_encode"][0])},
+        {**entry("fused_ode_rollout_bwd", "py_psnode_tpu_torch/csrc/fused_ode_rollout_bwd.cu",
+                 "py_psnode_tpu/ops/fused_ode.py:171", ode_launches[1], ode_bwd_err,
+                 ode_times[("bwd", "euler")]), **folded(4, "ode_no_encode", ms["launches"]["ode_no_encode"][1])},
         # the channel-wise kernels as the ODE channel-wise CLI's --training
         # --fused drives them (B=64, Euler)
-        entry("fused_cw_rollout", "py_psnode_tpu_torch/csrc/fused_cw_rollout.cu",
-              "py_psnode_tpu/ops/fused_channelwise.py:258", cw_launches["ode_channelwise"][0], cw_fwd_err,
-              cw_times[("ode_channelwise", "fwd", 64, "euler")]),
+        # ms_eval_launches: its launches in the channel-wise ODE's fused
+        # multishoot run, all in the full-rollout evaluations
+        {**entry("fused_cw_rollout", "py_psnode_tpu_torch/csrc/fused_cw_rollout.cu",
+                 "py_psnode_tpu/ops/fused_channelwise.py:258", cw_launches["ode_channelwise"][0], cw_fwd_err,
+                 cw_times[("ode_channelwise", "fwd", 64, "euler")]),
+         "ms_eval_launches": ms["launches"]["ode_channelwise"]},
         entry("fused_cw_rollout_bwd", "py_psnode_tpu_torch/csrc/fused_cw_rollout_bwd.cu",
               "py_psnode_tpu/ops/fused_channelwise.py:370", cw_launches["ode_channelwise"][1], cw_bwd_err,
               cw_times[("ode_channelwise", "bwd", "euler")]),

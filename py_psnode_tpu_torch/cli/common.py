@@ -7,10 +7,10 @@ Flags: --device --id --training --testing --saving --drawing --train_data
 --test_data --model --num --batch --hidden --epoch --step, plus the JAX
 package's --warm_start --stop_after --solver --lr --seed --fused
 --robust_loss --robust_limit --gradient_clip --init_style --larger_than
---channel_impl --input_true_x --input_true_i, with its names and defaults.
-The JAX flags of paths that are not ported (--devices --dcn_size
---checkpointer --auto_resume --n_windows --gap_weight --remat) are
-accepted at their defaults and raise "not ported yet" otherwise.
+--channel_impl --input_true_x --input_true_i --n_windows --gap_weight, with
+its names and defaults. The JAX flags of paths that are not ported
+(--devices --dcn_size --checkpointer --auto_resume --remat) are accepted at
+their defaults and raise "not ported yet" otherwise.
 ``--device`` defaults to ``cuda``; ``cpu`` must be asked for.
 """
 
@@ -105,6 +105,18 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Teacher forcing (DAE only): feed the TRUE "
                              "lagged algebraic output to every step "
                              "(ref my_solvers.py:113,118).")
+    parser.add_argument("--n_windows", type=int, default=0,
+                        help="Multiple-shooting window count K (0 = plain "
+                             "BPTT). (step-1) must be divisible by K. "
+                             "Decision rule: try --robust_loss BPTT first "
+                             "(converges ~10x lower at the full reference "
+                             "envelope, ACCURACY.md); use K=20 with "
+                             "--gap_weight 0.3 when the epoch/wall-clock "
+                             "budget is small or guarded BPTT still "
+                             "diverges.")
+    parser.add_argument("--gap_weight", type=float, default=1.0,
+                        help="Multiple-shooting continuity-gap penalty "
+                             "weight (with --n_windows).")
     # flags of the JAX package's paths that are not ported yet
     for flag, kw in _NOT_PORTED_FLAGS.items():
         parser.add_argument(flag, help="Not ported yet.", **kw)
@@ -117,8 +129,6 @@ _NOT_PORTED_FLAGS = {
     "--dcn_size": dict(type=int, default=0),
     "--checkpointer": dict(type=str, default="npz"),
     "--auto_resume": dict(action="store_true"),
-    "--n_windows": dict(type=int, default=0),
-    "--gap_weight": dict(type=float, default=1.0),
     "--remat": dict(type=str, default="true"),
 }
 
@@ -186,6 +196,8 @@ def main(variant: str, argv=None):
         channel_impl=args.channel_impl,
         input_true_x=args.input_true_x,
         input_true_i=args.input_true_i,
+        n_windows=args.n_windows or None,
+        gap_weight=args.gap_weight,
         device=device,
     )
     if args.training:

@@ -15,9 +15,11 @@ checkpoint into ``saved model/`` beside it. Teacher forcing
 (``input_true_x`` / ``input_true_i``) trains and evaluates the four
 non-channel-wise variants, the fused route by the JAX package's dispatch
 (``_teacher_forced_forward``); the channel-wise family defines none and
-refuses it as the JAX package does. Not ported yet: orbax checkpoints,
-``auto_resume``, multishoot (the channel-wise one included) and data
-parallelism.
+refuses it as the JAX package does. Multiple shooting (``n_windows``,
+``gap_weight``) trains all six variants, the four non-channel-wise ones
+through the fused kernels where ``fused`` (``_multishoot_forward``); the
+evaluations stay full rollouts. Not ported yet: orbax checkpoints,
+``auto_resume`` and data parallelism.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from py_psnode_tpu_torch.data import DaeSamples, OdeSamples
 from py_psnode_tpu_torch.models.initializers import init_params
 from py_psnode_tpu_torch.ops import teacher_forcing as TF
 from py_psnode_tpu_torch.train import evaluate as E
+from py_psnode_tpu_torch.train import multishoot_forward as MS
 from py_psnode_tpu_torch.train.checkpoints import (
     load_checkpoint_params,
     resolve_checkpoint,
@@ -111,11 +114,14 @@ class TrainConfig:
     # true lagged algebraic output (input_true_i, DAE only) feed each step
     input_true_x: bool = False
     input_true_i: bool = False
+    # multiple shooting: K windows trained at once ((step-1) divisible by
+    # K), the window-boundary continuity defects penalized by gap_weight
+    n_windows: Optional[int] = None
+    gap_weight: float = 1.0
     # fields of paths that are not ported yet; a non-default value raises
     n_devices: Optional[int] = None
     checkpointer: str = "npz"
     auto_resume: bool = False
-    n_windows: Optional[int] = None
     # "cuda", "cuda:N" or "cpu"; nothing falls back from cuda to cpu
     device: str = "cuda"
 
@@ -127,8 +133,6 @@ def _not_ported(cfg: TrainConfig):
         return f"the {cfg.checkpointer!r} checkpointer"
     if cfg.auto_resume:
         return "auto_resume"
-    if cfg.n_windows:
-        return "multishoot (n_windows)"
     return None
 
 
@@ -165,6 +169,23 @@ _TF_FUSED = {
     ("dae_encode", True, True): TF.tf_parallel_dae_encode_apply,
     ("dae_encode", True, False): TF.fused_dae_encode_tf_x_apply,
     ("dae_encode", False, True): TF.fused_dae_encode_tf_i_apply,
+}
+
+# the fused multishoot forwards; the channel-wise ones run plain under
+# either fused setting, as in the JAX package
+_MS_FUSED = {
+    "ode_no_encode": MS.fused_multishoot_ode_apply,
+    "dae_no_encode": MS.fused_multishoot_dae_apply,
+    "ode_encode": MS.fused_multishoot_ode_encode_apply,
+    "dae_encode": MS.fused_multishoot_dae_encode_apply,
+}
+_MS_PLAIN = {
+    "ode_no_encode": MS.multishoot_ode_apply,
+    "dae_no_encode": MS.multishoot_dae_apply,
+    "ode_encode": MS.multishoot_ode_encode_apply,
+    "dae_encode": MS.multishoot_dae_encode_apply,
+    "ode_channelwise": MS.multishoot_cw_ode_apply,
+    "dae_channelwise": MS.multishoot_cw_dae_apply,
 }
 
 
@@ -236,6 +257,15 @@ class Trainer:
             kwargs["input_true_i"] = tf_i
         return lambda batch: model(*[batch.get(k) for k in variant.batch_args], **kwargs)
 
+    def _multishoot_forward(self, model):
+        """The training forward under ``n_windows``: ``batch -> (out,
+        gaps)`` by the JAX package's dispatch."""
+        cfg, name = self.cfg, self.variant.name
+        apply = (_MS_FUSED if cfg.fused else {}).get(name) or _MS_PLAIN.get(name)
+        if apply is None:
+            raise ValueError(f"multi-shooting has no forward for variant {name}")
+        return lambda batch: apply(model, batch, cfg.n_windows, solver=cfg.solver)
+
     # ------------------------------------------------------------ train step
 
     def _make_train_step(self, model, opt, device_data=None):
@@ -245,14 +275,27 @@ class Trainer:
         from ``device_data``; each returns ``(aux, grad_norm)`` as device
         scalars."""
         cfg, variant = self.cfg, self.variant
-        forward = self._forward_fn(model)
         params = opt.params
         robust_limit = 1.0 if cfg.robust_limit is None else float(cfg.robust_limit)
+        if cfg.n_windows:
+            ms_forward = self._multishoot_forward(model)
+
+            def loss_of(batch):
+                out, gaps = ms_forward(batch)
+                loss, aux = variant.loss_fn(out, batch)
+                gap_loss = cfg.gap_weight * torch.mean(gaps**2) if gaps.shape[0] else loss.new_zeros(())
+                return loss + gap_loss, dict(aux, gap_loss=gap_loss, loss=aux["loss"] + gap_loss)
+
+        else:
+            forward = self._forward_fn(model)
+
+            def loss_of(batch):
+                return variant.loss_fn(forward(batch), batch)
 
         def step(batch):
             for p in params:
                 p.grad = None
-            loss, aux = variant.loss_fn(forward(batch), batch)
+            loss, aux = loss_of(batch)
             if cfg.robust_loss:
                 loss, tripped = robust_scalar_guard(loss, robust_limit)
                 aux = dict(aux, robust_tripped=tripped.float())

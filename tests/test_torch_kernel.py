@@ -341,6 +341,30 @@ def test_noencode_bwd_kernels_take_a_fleet_batch_on_card():
     _hold(*ode_bwd_against_float64(ode_inputs(1024, 12, 128, 2, 3, seed=11, dev="cuda"), "rk4"))
 
 
+# the folded batch of multiple shooting, K=20 windows of B=64: 1 280 rows
+# (the forwards' 8-row tiles in two waves of a 132-SM card, the walks in
+# about ten), events at a window's first step (step 0 in the even rows)
+# beside rollout_inputs' own; the motor and AVR shapes and the
+# direct-encode shapes (xd = h, one tail layer)
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["euler", "rk4"])
+@pytest.mark.parametrize("shape", ["raw", "encode"])
+def test_noencode_kernels_match_plain_at_the_folded_multishoot_batch_on_card(shape, solver):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    dae_shape, ode_shape = ((3, 2, 3), (2, 3)) if shape == "raw" else ((128, 128, 1), (128, 1))
+    xd, idim, n_tail = dae_shape
+    streams, weights, x0, i0, aux = rollout_inputs(1280, 6, 128, xd, idim, seed=20, dev="cuda", n_tail=n_tail)
+    args = (streams, weights, x0, i0, with_first_step_events(aux))
+    ref = F.fused_dae_rollout_packed_plain(*args, solver)
+    _hold_fwd(F.fused_dae_rollout_packed_cuda(*args, solver), F.fused_dae_rollout_packed_cuda(*args, solver), ref)
+    _hold(*dae_bwd_against_float64(args, solver))
+    args = ode_inputs(1280, 6, 128, *ode_shape, seed=20, dev="cuda")
+    ref = FO.fused_ode_rollout_plain(*args, solver)
+    _hold_fwd(FO.fused_ode_rollout_cuda(*args, solver), FO.fused_ode_rollout_cuda(*args, solver), ref)
+    _hold(*ode_bwd_against_float64(args, solver))
+
+
 @pytest.mark.gpu
 def test_noencode_bwd_kernels_are_bit_identical_on_relaunch_on_card():
     if not torch.cuda.is_available():

@@ -86,15 +86,15 @@ def test_port_cli_refuses_what_is_not_ported(tmp_path):
     train = ["--training", "--device", "cpu", "--train_data", str(TEST_DATA), "--test_data",
              str(TEST_DATA), "--model", str(tmp_path / "run")]
     for extra in (["--checkpointer", "orbax"], ["--auto_resume"], ["--devices", "2"],
-                  ["--n_windows", "20"], ["--remat", "sqrt"], ["--input_true_x", "--remat", "sqrt"]):
+                  ["--n_windows", "20", "--remat", "sqrt"], ["--remat", "sqrt"], ["--input_true_x", "--remat", "sqrt"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             port_main("dae_no_encode", train + extra)
     assert not (tmp_path / "run").exists()
     with pytest.raises(NotImplementedError, match="not ported"):
         port_main("dae_no_encode", ["--saving", "--device", "cpu", "--checkpointer", "orbax"])
-    # the direct-encode variants and their teacher forcing are served, their
-    # multishoot is not
+    # the direct-encode variants, their teacher forcing and their
+    # multishoot are served, their remat is not
     with pytest.raises(NotImplementedError, match="not ported"):
-        port_main("dae_encode", train + ["--n_windows", "20"])
+        port_main("dae_encode", train + ["--n_windows", "20", "--remat", "sqrt"])
     with pytest.raises(SystemExit):
         port_main("dae_no_encode", ["--testing", "--device", "tpu"])

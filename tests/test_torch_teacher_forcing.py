@@ -327,7 +327,8 @@ def test_tf_validation_errors():
     with pytest.raises(ValueError, match="mutually exclusive"):
         Trainer(TrainConfig(variant="dae_no_encode", input_true_x=True, n_windows=4, device="cpu"))
     with pytest.raises(NotImplementedError, match="not ported"):
-        Trainer(TrainConfig(variant="dae_encode", n_windows=4, device="cpu"))
+        Trainer(TrainConfig(variant="dae_encode", n_windows=4, auto_resume=True, device="cpu"))
+    Trainer(TrainConfig(variant="dae_encode", n_windows=4, device="cpu"))  # multishoot is served
     for variant, kw in (("dae_no_encode", dict(input_true_x=True)), ("dae_encode", dict(input_true_i=True)),
                         ("ode_encode", dict(input_true_x=True))):
         Trainer(TrainConfig(variant=variant, device="cpu", **kw))  # accepted

@@ -188,7 +188,7 @@ def test_port_checkpoint_is_read_by_jax(tmp_path):
 
 def test_trainer_refuses_what_is_not_ported():
     for kw in (dict(checkpointer="orbax"), dict(auto_resume=True), dict(n_devices=2),
-               dict(n_windows=20), dict(input_true_i=True, auto_resume=True)):
+               dict(n_windows=20, auto_resume=True), dict(input_true_i=True, auto_resume=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             Trainer(TrainConfig(variant="dae_no_encode", device="cpu", **kw))
 
