@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # the smoke run, needs one CUDA card
     python3 chip_smoke.py --sweep    # also time both forwards at every launch shape
+    python3 chip_smoke.py --bf16-probe  # only where kernel 2's bf16 mode parts from its plain version
 
 Phases, each printed as it ends; any failure exits non-zero:
   1. card: name, device count, and nvidia-smi's name and power limit;
@@ -149,8 +150,31 @@ Phases, each printed as it ends; any failure exits non-zero:
      motor DAE, the AVR ODE and the direct-encode DAE through the fused
      multishoot, the plain multishoot and the non-windowed fused forward,
      each with its peak memory, the fused multishoot step's loss and
-     gradients held against the plain one's.
-
+     gradients held against the plain one's;
+ 21. the bf16 compute mode of kernels 1-4 (``matmul_precision="bfloat16"``
+     with ``fused``): kernels 1-4 against their plain bf16 versions at B=64,
+     T=1001, h=128, RK4 on the main path's inputs (the motor DAE from
+     checkpoint 200, the AVR ODE, the direct-encode DAE and ODE from their
+     starting checkpoints) and kernels 1-2 on seeded inputs at h=256 (T=201),
+     by the ratio rel-L2(kernel - plain bf16) / rel-L2(plain bf16 - float32)
+     per tensor: at most 0.1 one product or step from the kernel's own
+     values (every forward step, every recompute and walk layer, every
+     weight gradient of the contraction), and over the whole rollout at most
+     0.1, or else at most max(0.25, 2 x that tensor's floor: the plain bf16
+     version in float64 arithmetic between the same rounding points), with
+     the tensors' ratios by step printed; the backward bit-identical on
+     relaunch and its gradients float32; the fused bf16 route against the
+     fused float32 one (the loss, the gradients' rel-L2) at the JAX
+     package's bars or 1.25 x the JAX package's own distance at this shape
+     (``BF16_JAX_GAPS``); the Trainer (fused, bf16, one epoch of two steps,
+     Euler) of the four variants and of the motor DAE with ``n_windows=20``,
+     each step-1 loss and eval within a tenth of the distance between the
+     JAX package's bf16 and float32 anchors (``BF16_ANCHORS``) of the bf16
+     one and nearer it, the DAE runs launching kernels 1-2 and the ODE runs
+     3-4, every launch in the bf16 mode, kernels 5-6 never; then kernels 1-4
+     alone in bf16 beside the float32 kernel on the same inputs and their
+     bounds, and one fused training step of the motor DAE and the AVR ODE in
+     bf16 and in float32 with its peak memory.
 The line before the last two is the kernels' JSON record, then nvidia-smi's
 line, and the last line is ``{"ok": true, "device": {...}}``. Nothing is
 written into the repository except the kernel builds under
@@ -570,6 +594,8 @@ def phase_build():
         nvcc_s = dict(zip(names, pool.map(cuda_build.build, names)))
     for mod in (F, V, FO, VO, FC, VC):
         mod._launcher()
+    for mod in (F, V, FO, VO):  # the bf16 compute mode's launchers
+        mod._launcher(True)
     for name, t in nvcc_s.items():
         say(f"[build] {name}: nvcc {t:.2f} s")
     say(f"[build] all built and loaded in {time.perf_counter() - t0:.2f} s")
@@ -1711,7 +1737,8 @@ def cw_step(variant, files, dev, fused, reps):
 
 def phase_cw_times(dev, files):
     """CUDA-event times of kernels 5 and 6 on the starting checkpoints and
-    of one whole training step per family, fused and plain."""
+    of one whole training step per family, fused and plain; each kernel's
+    plain version at the shape the kernels' record reads (B=64, Euler)."""
     times = {}
     for variant in CW_VARIANTS:
         for B, solver, split in ((32, "euler", "test"), (64, "euler", "train"), (64, "rk4", "train")):
@@ -1719,13 +1746,14 @@ def phase_cw_times(dev, files):
             k_ms = cuda_ms(lambda: FC.fused_cw_rollout_cuda(*args, solver), 1, 3)
             one_ms = cuda_ms(lambda: FC._launch(*args, solver, 1), 1, 3)
             kc = FC.chosen_cluster(B, args[2].shape[2], args[2].shape[1], args[0]["fz"].shape[2])
-            p_ms = cuda_ms(lambda: FC.fused_cw_rollout_plain(*args, solver), 0, 1)
+            p_ms = cuda_ms(lambda: FC.fused_cw_rollout_plain(*args, solver), 0, 1) if (B, solver) == (64, "euler") \
+                else None
             n_bytes, flops, _, _, tc, _ = cw_work(*args[:3], solver)
             bound_ms, bound_by = bound(n_bytes, flops, tc)
             cuda_core_ms = bound(n_bytes, flops)[0]
             times[(variant, "fwd", B, solver)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
             say(f"[cw-times] {variant} forward B={B} {solver:8s}: kernel {k_ms:.3f} ms ({kc} blocks a row; one block a "
-                f"row {one_ms:.3f} ms), plain {p_ms:.3f} ms, "
+                f"row {one_ms:.3f} ms), plain {'not timed' if p_ms is None else f'{p_ms:.3f} ms'}, "
                 f"bound {bound_ms:.4f} ms (3xTF32 tensor cores for the {tc} FLOP of the h^3 products, the rest "
                 f"float32; {bound_by}; {n_bytes} B, {flops} FLOP), kernel/bound {k_ms / bound_ms:.2f}x; "
                 f"CUDA-core float32 bound {cuda_core_ms:.4f} ms, kernel/that {k_ms / cuda_core_ms:.2f}x; "
@@ -1740,13 +1768,15 @@ def phase_cw_times(dev, files):
             one_ms = cuda_ms(lambda: VC._launch_bwd(streams, weights, dt, sol, cot, solver, 1),
                              1, 2)
             kc = FC.chosen_cluster(64, x0.shape[2], x0.shape[1], streams["fz"].shape[2], backward=True)
-            p_ms = cuda_ms(lambda: VC.fused_cw_rollout_bwd_plain(streams, weights, dt, sol, cot, solver), 0, 1)
+            p_ms = cuda_ms(lambda: VC.fused_cw_rollout_bwd_plain(streams, weights, dt, sol, cot, solver), 0, 1) \
+                if solver == "euler" else None
             _, _, n_bytes, flops, _, tc = cw_work(streams, weights, x0, solver)
             bound_ms, bound_by = bound(n_bytes, flops, tc)
             cuda_core_ms = bound(n_bytes, flops)[0]
             times[(variant, "bwd", solver)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
             say(f"[cw-times] {variant} backward B=64 {solver:8s}: kernel {k_ms:.3f} ms (the walk, {kc} blocks a row, "
-                f"and the contraction; one block a row {one_ms:.3f} ms), plain {p_ms:.3f} ms, bound {bound_ms:.4f} "
+                f"and the contraction; one block a row {one_ms:.3f} ms), plain "
+                f"{'not timed' if p_ms is None else f'{p_ms:.3f} ms'}, bound {bound_ms:.4f} "
                 f"ms (3xTF32 tensor cores for the {tc} FLOP of the h^3 products, the rest float32; {bound_by}; "
                 f"{n_bytes} B, {flops} FLOP), kernel/bound "
                 f"{k_ms / bound_ms:.2f}x; CUDA-core float32 bound {cuda_core_ms:.4f} ms, kernel/that "
@@ -2887,10 +2917,619 @@ def phase_ms(dev, root, ode_files, cw_files, times, ode_times):
     say(f"[ms] phase 20 in {time.perf_counter() - t0:.1f} s")
     return out
 
+# ------------------------------------------------------------------- bf16
+
+BF16 = "bfloat16"
+BF16_VARIANTS = ("dae_no_encode", "ode_no_encode", "dae_encode", "ode_encode", "ms")
+# The bf16 compute mode of kernels 1-4 (phase 21): the JAX package's Trainer
+# on the CPU (fused=True, matmul_precision="bfloat16", the Pallas kernels in
+# interpret mode), Euler, one epoch of two steps (batch 64, lr 5e-3, seed
+# 0), in the settings of the float32 anchors above: the motor DAE from
+# checkpoint 200 (TRAIN_STEP1, TRAIN_EVAL1_EULER), the ODEs on the AVR set
+# (ODE_ANCHORS, ENC_ANCHORS) and the direct-encode DAE on the motor set from
+# their starting checkpoints, and the motor DAE with K=20 windows ("ms",
+# MS_ANCHORS). Step 1 and step 2 (loss, gradient norm) and the epoch-1 eval;
+# re-derived by `python tests/test_torch_bf16.py anchors` (needs JAX; about
+# three minutes at T=1001), which prints the port's own CPU runs beside them.
+BF16_ANCHORS = {
+    "dae_no_encode": dict(step1=(0.20521139, 73.134872), step2=(195.8243, 178.00339),
+                          eval1=(0.39559755, 12.215106)),
+    "ode_no_encode": dict(step1=(42.635941, 115.86367), step2=(35.128021, 113.61927), eval1=(18.706442,)),
+    "dae_encode": dict(step1=(14.660554, 380.272), step2=(1162.0198, 300.20154), eval1=(134.09709, 17.655704)),
+    "ode_encode": dict(step1=(101.38614, 242.87334), step2=(116897.41, 181.4639), eval1=(144.93913,)),
+    "ms": dict(step1=(0.28124908, 45.731667), step2=(19.120504, 186.2424), eval1=(8.7115183, 40.360119)),
+}
+# the float32 anchors of the same runs: (step-1 loss, epoch-1 eval)
+BF16_F32 = {
+    "dae_no_encode": (TRAIN_STEP1["euler"][0], TRAIN_EVAL1_EULER),
+    "ode_no_encode": (ODE_ANCHORS["euler"]["step1"][0], (ODE_ANCHORS["euler"]["eval1_x_loss"],)),
+    "dae_encode": (ENC_ANCHORS["dae_encode"]["euler"]["step1"][0], ENC_ANCHORS["dae_encode"]["euler"]["eval1"]),
+    "ode_encode": (ENC_ANCHORS["ode_encode"]["euler"]["step1"][0], ENC_ANCHORS["ode_encode"]["euler"]["eval1"]),
+    "ms": (MS_ANCHORS["dae_no_encode"]["step1"][0], MS_ANCHORS["dae_no_encode"]["eval1"]),
+}
+# The kernels against their plain bf16 versions, by the ratio
+# rel-L2(kernel - plain bf16) / rel-L2(plain bf16 - float32) per tensor
+# (host_build.bf16_ratios): the kernel rounds where the plain version
+# rounds, not merely lands near float32. BF16_BAR holds it one product or
+# one step from the kernel's own values (bf16_hold's local checks) and over
+# the whole rollout. Over a rollout of 1 000 steps a bf16 rounding that a
+# summation order flips is carried and amplified, so a tensor above
+# BF16_BAR there is held to max(BF16_FULL_BAR, 2 x its floor): the same
+# ratio of the plain bf16 version in float64 arithmetic between the same
+# rounding points (two float32 implementations as far from it as each
+# other lie about 1.4 x that floor apart). PERF.md section 6 has the
+# readings behind both (the ratios by step: a flip at the rollout's start,
+# carried).
+BF16_BAR = 0.1
+BF16_FULL_BAR = 0.25
+# the bf16 mode against float32, the JAX package's own bars
+# (tests/test_fused_bf16.py:62-63, at B=3, T=9, h=8): the loss, the
+# gradients' rel-L2. At phase 21's shape (B=64, T=1001, h=128, RK4) the
+# JAX package's own bf16 mode lies further than that from its float32 mode
+# for the motor DAE: (loss rel, gradients rel-L2) below, on the CPU with the
+# Pallas kernels in interpret mode (`python tests/test_torch_bf16.py gaps`,
+# needs JAX); the card is held to max(the JAX bar, 1.25 x JAX's own).
+BF16_LOSS_RTOL, BF16_GRAD_RL2 = 5e-3, 0.05
+BF16_JAX_GAPS = {"dae_no_encode": (1.471e-3, 1.403e-1), "ode_no_encode": (1.298e-3, 6.062e-3),
+                 "dae_encode": (3.661e-5, 7.780e-3), "ode_encode": (7.335e-4, 6.716e-3)}
+# bf16 dense tensor-core peak of the card (NVIDIA data sheet)
+PEAK_BF16_FLOPS = 989e12
+
+
+def bound_bf16(n_bytes, flops):
+    """(bound ms, what bounds it) of a bf16-mode kernel: the bytes at the
+    memory rate, or the FLOP at the card's bf16 tensor-core rate (every
+    product of the mode has bf16 operands and a float32 sum)."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def bf16_work(k, args):
+    """(bytes, FLOP) of kernel ``k`` in the bf16 mode on its recorded
+    arguments: the float32 work's, the streams and 2-D weights read at 2 B
+    (their cotangents and the gradients written at 4 B)."""
+    if k == 1:
+        return rollout_work(*args[:6])  # rollout_work reads each tensor's own element size
+    if k == 2:
+        n_bytes, flops, _ = bwd_work(*args[:5], args[7])
+        streams, weights = args[0], args[1]
+        Tm1, B, h = streams["s_de"].shape
+        w2 = sum(a.numel() for a in [weights["wx_de"], weights["wi_de"], weights["gx_ae"]]
+                 + [W for W, _ in weights["de_tail"] + weights["ae_tail"]])
+        return n_bytes - 3 * Tm1 * B * h * 2 - 2 * w2, flops
+    s_de, weights = args[0], args[1]
+    x0 = args[2] if k == 3 else args[3][0]
+    fb, ff, bb, bf, _ = ode_work(s_de, weights, x0, args[4] if k == 3 else args[5])
+    Tm1, B, h = s_de.shape
+    w2 = weights["wx_de"].numel() + sum(W.numel() for W, _ in weights["de_tail"])
+    n_bytes, flops = (fb, ff) if k == 3 else (bb, bf)
+    return n_bytes - Tm1 * B * h * 2 - 2 * w2, flops
+
+
+def timed_once(fn):
+    """(``fn()``, its milliseconds by CUDA events), one run."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def f64(tree):
+    """Streams, carries or cotangents in float64 (the bf16 weights kept):
+    a plain version run on them computes in float64 between the bf16
+    rounding points (``noencode_bwd.dot``)."""
+    if isinstance(tree, dict):
+        return {k: f64(v) for k, v in tree.items()}
+    return tree.double()
+
+
+def bf16_local_dae(cs, cw, streams, weights, x0, i0, aux, packed, solver):
+    """Kernel 1's rows against one step of the plain versions from the
+    kernel's own states, all row-steps at once: row (t, b) starts from the
+    kernel's x_t and i_t (the event recompute at its x_t), the AE at t+1
+    reads its x_{t+1}. Per tensor (x, i): ([plain bf16], [plain float32])."""
+    Tm1, B, _ = cs["s_de"].shape
+    xd = x0.shape[-1]
+    sol = torch.cat([torch.cat([x0, i0], -1)[None], packed])
+    rows = lambda a: a.reshape(1, Tm1 * B, -1)
+    x_s, i_s = sol[:-1, :, :xd].reshape(Tm1 * B, xd), sol[:-1, :, xd:].reshape(Tm1 * B, -1)
+    x_true = torch.stack([x_s, sol[1:, :, :xd].reshape(Tm1 * B, xd)])
+    one = lambda s, w: F.fused_dae_rollout_packed_plain(
+        {k: rows(v) for k, v in s.items()}, w, x_s, i_s, rows(aux), solver, x_true).reshape(Tm1, B, -1)
+    split = lambda q: [q[..., :xd], q[..., xd:]]
+    return split(one(cs, cw)), split(one(streams, weights))
+
+
+def bf16_local_ode(cs, cw, s_de, weights, x0, dt, rows, solver):
+    """Kernel 3's rows against one step of the plain versions from each of
+    the kernel's own states, all steps at once: ([plain bf16], [plain
+    float32])."""
+    Tm1, B, h = cs.shape
+    xs = torch.cat([x0[None], rows[:-1]]).reshape(Tm1 * B, -1)
+    one = lambda s, w: FO.fused_ode_rollout_plain(s.reshape(1, Tm1 * B, h), w, xs, dt.reshape(1, Tm1 * B, 1),
+                                                  solver)[0].reshape(Tm1, B, -1)
+    return [one(cs, cw)], [one(s_de, weights)]
+
+
+def bf16_local_bwd(slots, bufs, shape):
+    """The backward's buffers against their plain versions computed from the
+    kernel's own neighbouring buffers, one product each: every layer's
+    pre-activation (the recompute: from the layer below), every layer's
+    cotangent (the walk: from the layer above, or the output cotangent).
+    ``slots``: per evaluation slot (first weight, tail, stream, row mask or
+    None), each as a (bf16, float32) pair; ``shape`` (E, L, R, h, ow, kx).
+    Returns ([kernel], [plain bf16], [plain float32]) tensors, one a layer
+    of each slot and buffer."""
+    from py_psnode_tpu_torch.models.funcs import elu
+    from py_psnode_tpu_torch.ops.fused_dae_vjp import delu
+    from py_psnode_tpu_torch.ops.noencode_bwd import dot
+
+    E, L, R, h, ow, kx = shape
+    res, gres = bufs["res"].view(E, L, R, h), bufs["gres"].view(E, L, R, h)
+    gy, xin = bufs["gy"].view(E, R, ow), bufs["xin"].view(E, R, kx)
+    got, bf, f32 = [], [], []
+    for e, ((w0, w0f), (tail, tail_f), (st, st_f), rows) in enumerate(slots):
+        pick = (lambda a: a) if rows is None else (lambda a: a[rows])
+        n, kin = len(tail), w0.shape[0]
+        for W, Wf, out in ((w0, w0f, None), *((tail[l - 1][0], tail_f[l - 1][0], l) for l in range(1, n))):
+            l = 0 if out is None else out
+            if l == 0:
+                x, add, add_f = xin[e, :, :kin], st.reshape(R, h).float(), st_f.reshape(R, h)
+            else:
+                x, add, add_f = elu(res[e, l - 1]), tail[l - 1][1], tail_f[l - 1][1]
+            got.append(pick(res[e, l]))
+            bf.append(pick(add + dot(x, W)))
+            f32.append(pick(add_f + x @ Wf))
+        for l in range(n - 1, -1, -1):
+            up = gy[e, :, : tail[-1][0].shape[1]] if l == n - 1 else gres[e, l + 1]
+            d = delu(res[e, l])
+            got.append(pick(gres[e, l]))
+            bf.append(pick(dot(up, tail[l][0].T) * d))
+            f32.append(pick((up @ tail_f[l][0].T) * d))
+    return got, bf, f32
+
+
+def bf16_by_step(g, r, f, n=6):
+    """A [T-1, ...] tensor's ratio rel-L2(kernel - plain bf16) / rel-L2(plain
+    bf16 - float32) step by step, at ``n`` steps spread over those where the
+    plain version is not zero: [(step, ratio), ...]."""
+    from py_psnode_tpu_torch.utils.host_build import bf16_ratios
+
+    steps = (r.flatten(1).abs().sum(1) > 0).nonzero().flatten().tolist()
+    pick = sorted({steps[round(j * (len(steps) - 1) / (n - 1))] for j in range(n)}) if steps else []
+    return [(t, bf16_ratios([g[t]], [r[t]], [f[t]])[0]) for t in pick]
+
+
+def bf16_hold(what, got, again, ref, ref_f32, floor_fn, local):
+    """The bf16 kernel ``got`` (a list of output tensors) against its plain
+    bf16 version ``ref`` over the whole rollout, by the ratio
+    rel-L2(kernel - plain bf16) / rel-L2(plain bf16 - float32) per tensor
+    (``ref_f32`` the float32 kernel: phases 3-4, 8-9 hold it to its plain
+    version far inside this gap): at most BF16_BAR, or, where a tensor of
+    this kernel lies above it, each tensor at most max(BF16_FULL_BAR, 2 x
+    its floor), the same ratio of ``floor_fn()`` (the plain bf16 version in
+    float64 arithmetic), with every tensor's ratio by step printed (the
+    ones with a time axis). ``local`` ([kernel], [plain bf16], [plain
+    float32]), one product or step from the kernel's own values, free of
+    the rollout's amplification: every tensor at most BF16_BAR (a bias
+    gradient, which no rounding touches, within BWD_TOL of the plain
+    version's largest element, as in float32). A relaunch ``again``
+    bit-identical.
+    Returns (the worst whole-rollout ratio, that tensor's bar, the worst
+    local ratio, the largest max|kernel - plain bf16|)."""
+    from py_psnode_tpu_torch.utils.host_build import bf16_ratios, rel_l2
+
+    ratios = bf16_ratios(got, ref, ref_f32)
+    bars, floors = [BF16_BAR] * len(ratios), None
+    if max(ratios) > BF16_BAR:
+        floors = bf16_ratios(floor_fn(), ref, ref_f32)
+        bars = [max(BF16_FULL_BAR, 2 * f) for f in floors]
+    exact = [rel_l2(b, f) == 0 for _, b, f in zip(*local)]
+    loc = bf16_ratios(*([t for t, e in zip(ts, exact) if not e] for ts in local))
+    if not all((g - b).abs().max() <= BWD_TOL * b.abs().max() for g, b, _, e in zip(*local, exact) if e):
+        fail(f"{what}: a tensor that no bf16 rounding touches lies further than BWD_TOL from the plain version")
+    worst_loc = max(loc)
+    say(f"[bf16-hold] {what}: whole rollout, per tensor rel-L2(kernel - plain bf16) / rel-L2(plain bf16 - "
+        f"float32) {[f'{r:.4f}' for r in ratios]}"
+        + ("" if floors is None else f", floor (plain bf16 in float64 arithmetic) {[f'{f:.4f}' for f in floors]}")
+        + f"; one product or step from the kernel's own values, worst of {len(loc)} tensors {worst_loc:.4f}")
+    if floors is not None:
+        for n, (g, r, f) in enumerate(zip(got, ref, ref_f32)):
+            if g.dim() == 3:
+                say(f"[bf16-hold] {what}: tensor {n} by step " + ", ".join(
+                    f"t={t} {q:.4f}" for t, q in bf16_by_step(g, r, f)))
+    if not all(np.isfinite(g.double().sum().item()) for g in got):
+        fail(f"{what}: the kernel's output is not finite")
+    over = [(n, r, b) for n, (r, b) in enumerate(zip(ratios, bars)) if r > b]
+    if worst_loc > BF16_BAR or over:
+        fail(f"{what}: local worst {worst_loc:.4f} (bar {BF16_BAR}); whole rollout (tensor, ratio, bar) over the "
+             f"bar: {over}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"{what}: a relaunch gave other bits")
+    n = max(range(len(ratios)), key=ratios.__getitem__)
+    return ratios[n], bars[n], worst_loc, max((g - r).abs().max().item() for g, r in zip(got, ref))
+
+
+def bf16_kernel_pair(what, family, args, solver, cot_seed):
+    """Kernels 1-2 (``family`` "dae": ``args`` = (streams, weights, x0, i0,
+    aux)) or 3-4 ("ode": (s_de, weights, x0, dt)) in the bf16 mode on the
+    rounded ``args`` (bf16_hold): the forward against the plain versions
+    over the whole rollout and one step from its own states; the backward,
+    on the bf16 forward's solution with unit-scale cotangents, over the
+    whole walk and one product from its own buffers (the recompute's
+    pre-activations, the walk's cotangents, the contraction's gradients),
+    bit-identical on relaunch. Returns ({kernel: bf16_hold's tuple},
+    {kernel: the plain bf16 version's ms, CUDA events, one run})."""
+    out, plain_ms = {}, {}
+    t0 = time.perf_counter()
+    if family == "dae":
+        streams, weights, x0, i0, aux = args
+        cs, cw = F.cast_compute(streams, weights, BF16)
+        xd, idim = x0.shape[-1], i0.shape[-1]
+        split = lambda p: [p[..., :xd], p[..., xd:]]
+        fwd = lambda: F.fused_dae_rollout_packed_cuda(cs, cw, x0, i0, aux, solver)
+        packed, again = fwd(), fwd()
+        ref, plain_ms[1] = timed_once(lambda: F.fused_dae_rollout_packed_plain(cs, cw, x0, i0, aux, solver))
+        packed_f = F.fused_dae_rollout_packed_cuda(streams, weights, x0, i0, aux, solver)
+        floor = lambda: split(F.fused_dae_rollout_packed_plain(f64(cs), cw, x0.double(), i0.double(), aux.double(),
+                                                               solver))
+        local = (split(packed), *bf16_local_dae(cs, cw, streams, weights, x0, i0, aux, packed, solver))
+        out[1] = bf16_hold(f"{what} kernel 1", split(packed), split(again), split(ref), split(packed_f), floor, local)
+        Tm1, B, h = cs["s_de"].shape
+        cot = torch.tensor(np.random.default_rng(cot_seed).standard_normal((Tm1 + 1, B, xd + idim))
+                           .astype(np.float32), device=x0.device)
+        flat = lambda g: [v for _, v in bwd_outputs(g)]
+        g, bufs = V._launch_bwd(cs, cw, x0, i0, aux, packed, cot, solver)
+        got, again = flat(g), flat(V._launch_bwd(cs, cw, x0, i0, aux, packed, cot, solver)[0])
+        ref, plain_ms[2] = timed_once(lambda: flat(V.fused_dae_rollout_bwd_plain(cs, cw, x0, i0, aux, packed, cot,
+                                                                                  solver)))
+        ref_f32 = flat(V._launch_bwd(streams, weights, x0, i0, aux, packed_f, cot, solver)[0])
+        floor = lambda: [t.float() for t in flat(V.fused_dae_rollout_bwd_plain(
+            f64(cs), cw, x0.double(), i0.double(), aux.double(), packed.double(), cot.double(), solver))]
+        if not all(t.dtype == torch.float32 for t in got):
+            fail(f"{what} kernel 2 returned a gradient that is not float32")
+        S, L = STAGES[solver], max(len(cw["de_tail"]), len(cw["ae_tail"]))
+        R, ev = Tm1 * B, aux[..., 1].reshape(-1) > 0
+        pair = lambda name, k=None: (cw[name], weights[name]) if k is None else (cs[k], streams[k])
+        de0 = (torch.cat([cw["wx_de"], cw["wi_de"]]), torch.cat([weights["wx_de"], weights["wi_de"]]))
+        de, ae = (cw["de_tail"], weights["de_tail"]), (cw["ae_tail"], weights["ae_tail"])
+        slots = [(de0, de, pair(None, "s_de"), None)] * S + [
+            (pair("gx_ae"), ae, pair(None, "s_ae"), None), (pair("gx_ae"), ae, pair(None, "s_ae_ev"), ev)]
+        lg, lb, lf = bf16_local_bwd(slots, bufs, (S + 2, L, R, h, max(xd, idim), xd + idim))
+        n_tails = (len(cw["de_tail"]), len(cw["ae_tail"]))
+        ct = lambda cd: V.flatten_weights(V.contract_plain(
+            bufs["res"].view(S + 2, L, R, h), bufs["gres"].view(S + 2, L, R, h), bufs["gy"].view(S + 2, R, -1),
+            bufs["xin"].view(S + 2, R, -1), ev, n_tails, xd, idim, cdtype=cd))[0]
+        local = (lg + V.flatten_weights(g[1])[0], lb + ct(torch.bfloat16), lf + ct(torch.float32))
+        out[2] = bf16_hold(f"{what} kernel 2", got, again, ref, ref_f32, floor, local)
+    else:
+        s_de, weights, x0, dt = args
+        cs, cw = FO.cast_ode(s_de, weights, BF16)
+        fwd = lambda: FO.fused_ode_rollout_cuda(cs, cw, x0, dt, solver)
+        rows, again = fwd(), fwd()
+        ref, plain_ms[3] = timed_once(lambda: FO.fused_ode_rollout_plain(cs, cw, x0, dt, solver))
+        rows_f = FO.fused_ode_rollout_cuda(s_de, weights, x0, dt, solver)
+        floor = lambda: [FO.fused_ode_rollout_plain(cs.double(), cw, x0.double(), dt.double(), solver)]
+        local = ([rows], *bf16_local_ode(cs, cw, s_de, weights, x0, dt, rows, solver))
+        out[3] = bf16_hold(f"{what} kernel 3", [rows], [again], [ref], [rows_f], floor, local)
+        sol = torch.cat([x0[None], rows])
+        cot = torch.tensor(np.random.default_rng(cot_seed).standard_normal(tuple(sol.shape)).astype(np.float32),
+                           device=x0.device)
+        flat = lambda g: [g[0], g[2]] + VO.flatten_weights(g[1])
+        g, bufs = VO._launch_bwd(cs, cw, dt, sol, cot, solver)
+        got, again = flat(g), flat(VO._launch_bwd(cs, cw, dt, sol, cot, solver)[0])
+        ref, plain_ms[4] = timed_once(lambda: flat(VO.fused_ode_rollout_bwd_plain(cs, cw, dt, sol, cot, solver)))
+        sol_f = torch.cat([x0[None], rows_f])
+        ref_f32 = flat(VO._launch_bwd(s_de, weights, dt, sol_f, cot, solver)[0])
+        floor = lambda: [t.float() for t in flat(VO.fused_ode_rollout_bwd_plain(
+            cs.double(), cw, dt.double(), sol.double(), cot.double(), solver))]
+        if not all(t.dtype == torch.float32 for t in got):
+            fail(f"{what} kernel 4 returned a gradient that is not float32")
+        Tm1, B, h = cs.shape
+        S, n, xd = STAGES[solver], len(cw["de_tail"]), x0.shape[-1]
+        slots = [((cw["wx_de"], weights["wx_de"]), (cw["de_tail"], weights["de_tail"]), (cs, s_de), None)] * S
+        lg, lb, lf = bf16_local_bwd(slots, bufs, (S, n, Tm1 * B, h, xd, xd))
+        ct = lambda cd: VO.flatten_weights(VO.contract_plain(
+            bufs["res"].view(S, n, -1, h), bufs["gres"].view(S, n, -1, h), bufs["gy"].view(S, Tm1 * B, -1),
+            bufs["xin"].view(S, Tm1 * B, -1), n, xd, cdtype=cd))
+        local = (lg + VO.flatten_weights(g[1]), lb + ct(torch.bfloat16), lf + ct(torch.float32))
+        out[4] = bf16_hold(f"{what} kernel 4", got, again, ref, ref_f32, floor, local)
+    torch.cuda.synchronize()
+    say(f"[bf16-kernel] {what} {solver}: " + "; ".join(
+        f"kernel {k}: whole rollout worst {r:.4f} (its bar {b:.4f}), one product or step {lo:.4f}, "
+        f"max|d| {d:.3e}, plain bf16 {plain_ms[k]:.1f} ms" for k, (r, b, lo, d) in out.items())
+        + f"; both bit-identical on relaunch; {time.perf_counter() - t0:.1f} s")
+    return out, plain_ms
+
+
+def phase_bf16_kernels(dev, files):
+    """Phase 21, part 1: kernels 1-4 in the bf16 mode against their plain
+    bf16 versions (bf16_kernel_pair; B=64, T=1001, h=128, RK4) on the main
+    path's inputs: the motor DAE (checkpoint 200), the AVR ODE, the
+    direct-encode DAE (its backward at padded width 256: the wide kernels)
+    and ODE (from their starting checkpoints), 64 training rows each; and
+    kernels 1-2 on seeded inputs at h=256 (B=64, T=201: the wide forward
+    path and the wide backward). Returns {kernel: bf16_hold's tuple of the
+    case with the worst whole-rollout ratio} and {kernel: its plain bf16
+    version's ms on the motor DAE (kernels 1-2) and the AVR ODE (3-4)}."""
+    torch.manual_seed(0)
+    worst, plain_ms = {}, {}
+    motor = motor_model(dev, "rk4").requires_grad_(False)
+    ode = ode_model(files["ode_no_encode"][2], dev, "rk4").requires_grad_(False)
+    enc = {v: enc_model(v, files[v][2], dev, "rk4").requires_grad_(False) for v in ("dae_encode", "ode_encode")}
+    with torch.no_grad():
+        s, w, x0, i0, dt, ev = rollout_inputs(motor, motor_batch(64, dev))
+        cases = [("motor DAE B=64 T=1001 h=128", "dae", (s, w, x0.contiguous(), i0.contiguous(), F.pack_aux(dt, ev))),
+                 ("AVR ODE B=64 T=1001 h=128", "ode",
+                  tuple(a.contiguous() if torch.is_tensor(a) else a for a in ode_rollout_inputs(
+                      ode, enc_batch("ode_encode", files["ode_no_encode"][0], 64, dev)))),
+                 ("direct-encode DAE B=64 T=1001 xd=id=h=128", "dae",
+                  enc_dae_args(enc["dae_encode"], enc_batch("dae_encode", TRAIN_DATA, 64, dev))),
+                 ("direct-encode ODE B=64 T=1001 xd=h=128", "ode",
+                  enc_ode_args(enc["ode_encode"], enc_batch("ode_encode", files["ode_encode"][0], 64, dev))),
+                 ("seeded DAE B=64 T=201 h=256", "dae", random_inputs(64, 200, 256, 3, 2, seed=21, dev=dev))]
+    for n, (what, family, args) in enumerate(cases):
+        held, ms = bf16_kernel_pair(what, family, args, "rk4", 30 + n)
+        for k, got in held.items():
+            prev = worst.get(k, got)
+            worst[k] = (*max(prev[:2], got[:2]), max(prev[2], got[2]), max(prev[3], got[3]))
+        if n < 2:
+            plain_ms.update(ms)
+    return worst, plain_ms
+
+
+def bf16_models(files, dev):
+    """The four variants' fused entries for phase 21's step checks: name ->
+    (model, batch, the fused apply (model, batch, precision), the loss)."""
+    out = {"dae_no_encode": (motor_model(dev, "rk4"), motor_batch(64, dev), fused_dae_apply, dae_no_encode_loss),
+           "ode_no_encode": (ode_model(files["ode_no_encode"][2], dev, "rk4"),
+                             enc_batch("ode_encode", files["ode_no_encode"][0], 64, dev), fused_ode_apply,
+                             ode_no_encode_loss)}
+    for v, apply, loss in (("dae_encode", fused_dae_encode_apply, dae_encode_loss),
+                           ("ode_encode", fused_ode_encode_apply, ode_encode_loss)):
+        out[v] = (enc_model(v, files[v][2], dev, "rk4"), enc_batch(v, files[v][0], 64, dev), apply, loss)
+    return out
+
+
+def phase_bf16_vs_f32(dev, files):
+    """Phase 21, part 2: the fused bf16 route against the fused float32 one
+    from the same weights and batch (B=64, T=1001, h=128, RK4), each
+    variant: the loss's relative difference below max(BF16_LOSS_RTOL, 1.25
+    x JAX's own), the gradients' rel-L2 (all parameters as one vector)
+    below max(BF16_GRAD_RL2, 1.25 x JAX's own) (BF16_JAX_GAPS), every
+    gradient float32."""
+    for variant, (model, batch, apply, loss_fn) in bf16_models(files, dev).items():
+        res = {}
+        for precision in ("default", BF16):
+            model.zero_grad(set_to_none=True)
+            loss, _ = loss_fn(apply(model, batch, precision=precision), batch)
+            loss.backward()
+            res[precision] = loss.item(), [p.grad.detach().clone() for p in model.parameters()]
+        (l32, g32), (lbf, gbf) = res["default"], res[BF16]
+        if not all(g.dtype == torch.float32 for g in gbf):
+            fail(f"{variant}: a bf16 gradient is not float32")
+        v32, vbf = torch.cat([g.flatten() for g in g32]), torch.cat([g.flatten() for g in gbf])
+        d_loss, d_grad = abs(lbf - l32) / abs(l32), ((vbf - v32).norm() / v32.norm()).item()
+        j_loss, j_grad = BF16_JAX_GAPS[variant]
+        bar_loss, bar_grad = max(BF16_LOSS_RTOL, 1.25 * j_loss), max(BF16_GRAD_RL2, 1.25 * j_grad)
+        say(f"[bf16-vs-f32] {variant} B=64 T=1001 rk4, fused bf16 against fused float32 from the same weights: "
+            f"loss {lbf} / {l32} (rel. {d_loss:.3e}; JAX's own {j_loss:.3e}; bar {bar_loss:.3e}); gradients rel-L2 "
+            f"{d_grad:.3e} (JAX's own {j_grad:.3e}; bar {bar_grad:.3e}); every gradient float32")
+        if not (np.isfinite(lbf) and d_loss < bar_loss and d_grad < bar_grad):
+            fail(f"{variant}: the bf16 mode misses the bars against float32")
+
+
+def bf16_anchor(name, key, value, bf_anchor, f32_anchor):
+    """Fail unless ``value`` lies within 0.1 x |bf16 - float32| of the JAX
+    bf16 anchor and nearer it than the float32 one. Returns |value - bf16|
+    / |bf16 - float32|."""
+    gap = abs(bf_anchor - f32_anchor)
+    d = abs(value - bf_anchor)
+    if not (np.isfinite(value) and d < abs(value - f32_anchor) and d <= 0.1 * gap):
+        fail(f"{name} bf16 {key} {value}: {d:.3e} from the JAX bf16 anchor {bf_anchor}, {abs(value - f32_anchor):.3e}"
+             f" from the float32 anchor {f32_anchor}; needs within 0.1 x {gap:.3e} and nearer the bf16 one")
+    return d / gap
+
+
+def phase_bf16_slice(dev, files, root):
+    """Phase 21, part 3: the Trainer (``fused=True``,
+    ``matmul_precision="bfloat16"``, one epoch of two steps, Euler, every
+    step logged) of the four variants and of the motor DAE with
+    ``n_windows=20``, the launches of kernels 1-6 counted (set to 0 just
+    before, read just after; every launch of kernels 1-4 recorded, and each
+    must be in the bf16 mode): the DAE runs launch kernels 1-2, the ODE
+    runs 3-4, kernels 5-6 never; the step-1 loss and the epoch-1 eval
+    against BF16_ANCHORS (bf16_anchor). Returns each run's (kernel 1-4
+    launches, the worst |value - bf16| / |bf16 - float32|)."""
+    out = {}
+    for name in BF16_VARIANTS:
+        variant = "dae_no_encode" if name == "ms" else name
+        train_f, test_f, start = files[variant]
+        extra = dict(n_windows=MS_WINDOWS, gap_weight=MS_GAP_WEIGHT) if name == "ms" else {}
+        cfg = TrainConfig(
+            variant=variant, train_data=str(train_f), test_data=str(test_f), model=str(root / name), epoch=200,
+            hidden=128, larger_than=None, seed=0, warm_start=str(shutil.copy(start, root / f"{name}_ws")),
+            stop_after=1, loss_record_iter=1, solver="euler", fused=True, echo_logs=False, device="cuda", num=128,
+            batch=64, matmul_precision=BF16, **extra)
+        trainer = Trainer(cfg)
+        reset_all_counts()
+        t0 = time.perf_counter()
+        with kernel_calls() as calls:
+            _, run_dir = trainer.train()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = all_counts()
+        pair = (1, 2) if variant.startswith("dae") else (3, 4)
+        dtypes = {c[0][0]["s_de"].dtype if isinstance(c[0][0], dict) else c[0][0].dtype
+                  for k in calls for c in calls[k]}
+        if (not all(n[k - 1] > 0 for k in pair) or any(n[k - 1] for k in range(1, 7) if k not in pair)
+                or dtypes != {torch.bfloat16} or n[pair[1] - 1] != 2):
+            fail(f"{name} bf16 Trainer launched kernels 1-6 {n} times (stream dtypes {dtypes}), not kernels {pair} "
+                 f"alone in the bf16 mode")
+        recs = [json.loads(line) for line in (run_dir / "train_metrics.jsonl").read_text().splitlines()]
+        steps = [r for r in recs if r["kind"] == "train"]
+        (ev,) = [r for r in recs if r["kind"] == "eval"]
+        got_eval = tuple(ev[k] for k in ("x_loss", "i_loss") if k in ev)
+        bf, (f_step1, f_eval) = BF16_ANCHORS[name], BF16_F32[name]
+        ratios = [bf16_anchor(name, "step-1 loss", steps[0]["loss"], bf["step1"][0], f_step1)]
+        ratios += [bf16_anchor(name, f"eval {i}", v, a, f) for i, (v, a, f) in enumerate(zip(got_eval, bf["eval1"], f_eval))]
+        say(f"[bf16-train] {name} --fused bf16 (Trainer, batch 64, euler{', K=20 windows' if name == 'ms' else ''}): "
+            f"step 1 {steps[0]['loss']} (JAX bf16 {bf['step1'][0]}, float32 {f_step1}); epoch-1 eval {got_eval} "
+            f"(JAX bf16 {bf['eval1']}, float32 {f_eval}); worst |port - bf16| / |bf16 - float32| {max(ratios):.3f}; "
+            f"launches of kernels 1-6 {n}, all in the bf16 mode; wall {wall:.2f} s")
+        out[name] = (n[:4], max(ratios))
+    return out
+
+
+def phase_bf16_times(dev, files, plain_ms):
+    """Phase 21, times (CUDA events, RK4, B=64, T=1001): kernels 1-4 alone
+    in the bf16 mode on the launches of one fused bf16 training step (the
+    motor DAE, the AVR ODE), each beside the float32 kernel on the same
+    inputs and its bound, with ``plain_ms`` its plain bf16 version's time
+    at this shape (phase_bf16_kernels); then one fused training step of
+    each in bf16 and in float32, with its peak memory. Returns {kernel:
+    record} and {variant: (bf16 ms, bf16 peak, f32 ms, f32 peak)}."""
+    out, steps = {}, {}
+    models = bf16_models(files, dev)
+    for variant in ("dae_no_encode", "ode_no_encode"):
+        model, batch, apply, loss_fn = models[variant]
+        with kernel_calls() as calls:
+            loss_fn(apply(model, batch, precision=BF16), batch)[0].backward()
+            torch.cuda.synchronize()
+        pairs = ((1, F.fused_dae_rollout_packed_cuda), (2, V.fused_dae_rollout_bwd_cuda),
+                 (3, FO.fused_ode_rollout_cuda), (4, VO.fused_ode_rollout_bwd_cuda))
+        for k, cuda_fn in pairs:
+            if not calls[k]:
+                continue
+            (args, kw), = calls[k]
+            f32_args = list(args)
+            if k <= 2:  # the float32 inputs of the same call
+                f32_args[0] = {n: t.float() for n, t in args[0].items()}
+            else:
+                f32_args[0] = args[0].float()
+            f32_args[1] = {n: ([(W.float(), b) for W, b in t] if isinstance(t, list) else t.float())
+                           for n, t in args[1].items()}
+            k_ms = cuda_ms(lambda: cuda_fn(*args, **kw), 1, 5)
+            f_ms = cuda_ms(lambda: cuda_fn(*f32_args, **kw), 1, 5)
+            p_ms = plain_ms[k]
+            n_bytes, flops = bf16_work(k, args)
+            b_ms, b_by = bound_bf16(n_bytes, flops)
+            out[k] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, f32_ms=f_ms)
+            say(f"[bf16-times] {variant} kernel {k} B=64 T=1001 rk4 (the fused bf16 step's launch): bf16 {k_ms:.4f} ms, "
+                f"float32 {f_ms:.4f} ms on the same inputs (bf16/float32 {k_ms / f_ms:.3f}); plain bf16 {p_ms:.3f} ms (phase 21's kernel check); "
+                f"bound {b_ms:.5f} ms ({b_by}; {n_bytes} B, {flops} FLOP at the bf16 tensor-core rate), "
+                f"kernel/bound {k_ms / b_ms:.1f}x")
+        del calls
+        row = {}
+        for precision in (BF16, "default"):
+            m = models[variant][0] if precision == BF16 else (
+                motor_model(dev, "rk4") if variant == "dae_no_encode" else ode_model(files[variant][2], dev, "rk4"))
+            ms, peak, _, _ = timed_steps(m, batch, lambda mm, b: apply(mm, b, precision=precision), loss_fn, (), dev,
+                                         True, 3)
+            row[precision] = (ms, peak)
+            say(f"[bf16-times] {variant} fused training step B=64 T=1001 h=128 rk4, {precision}: {ms:.3f} ms, "
+                f"{64 * 1000 / ms * 1e3:.1f} trajectory-steps/s, peak memory allocated {peak / 2**30:.2f} GiB")
+        steps[variant] = (*row[BF16], *row["default"])
+    return out, steps
+
+
+def phase_bf16(dev, root, ode_files):
+    """Phase 21: the bf16 compute mode of kernels 1-4, from the checkpoints
+    and data of phases 6, 10 and 17-18 (the direct-encode starting
+    checkpoints drawn again)."""
+    t0 = time.perf_counter()
+    files = {
+        "dae_no_encode": (TRAIN_DATA, TEST_DATA, CKPT),
+        "dae_encode": (TRAIN_DATA, TEST_DATA, start_checkpoint(
+            root / "dae_encode.start", DAEEncodeModel(3, 1, 2, 2, hidden_dim=128, device="meta"), seed=0)),
+        "ode_no_encode": ode_files,
+        "ode_encode": (*ode_files[:2], start_checkpoint(
+            root / "ode_encode.start", ODEEncodeModel(2, 2, hidden_dim=128, device="meta"), seed=0)),
+    }
+    kernel_err, plain_ms = phase_bf16_kernels(dev, files)
+    phase_bf16_vs_f32(dev, files)
+    launches = phase_bf16_slice(dev, files, root)
+    times, steps = phase_bf16_times(dev, files, plain_ms)
+    say(f"[bf16] phase 21 in {time.perf_counter() - t0:.1f} s")
+    return dict(kernel_err=kernel_err, launches=launches, times=times, steps=steps)
+
+
+def probe_bf16_recompute(dev, root):
+    """``--bf16-probe``: where kernel 2's bf16 mode parts from its plain
+    version at the direct-encode DAE (phase 21's case, B=64, T=1001, RK4,
+    its cotangents). Kernel 2 built with each way its tensor-core products
+    sum (``NE_BF16_ACC`` 0, 1, 2: ``csrc/mma_tile.cuh``): the recompute's
+    pre-activations against the plain version's in float64 arithmetic
+    (rel-L2, and the mean of the error times the exact value's sign over
+    the error's RMS: -1 where every error points toward zero, about 0 for
+    rounding to nearest; the plain version in float32 beside), and every
+    output tensor's rel-L2(x - plain bf16) / rel-L2(plain bf16 - float32)
+    and rel-L2(x - float64 plain) in the same unit; then the default
+    build's walk and contraction on the plain recompute's buffers."""
+    import concurrent.futures
+
+    from py_psnode_tpu_torch.utils import phase_clock
+    from py_psnode_tpu_torch.utils.host_build import bf16_ratios, rel_l2
+
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        libs = dict(zip((0, 1, 2), pool.map(
+            lambda k: phase_clock.build("fused_dae_rollout_bwd", "", (f"NE_BF16_ACC={k}",)), (0, 1, 2))))
+    start = start_checkpoint(root / "dae_encode.start", DAEEncodeModel(3, 1, 2, 2, hidden_dim=128, device="meta"),
+                             seed=0)
+    model = enc_model("dae_encode", start, dev, "rk4").requires_grad_(False)
+    with torch.no_grad():
+        streams, weights, x0, i0, aux = enc_dae_args(model, enc_batch("dae_encode", TRAIN_DATA, 64, dev))
+        cs, cw = F.cast_compute(streams, weights, BF16)
+        packed = F.fused_dae_rollout_packed_cuda(cs, cw, x0, i0, aux, "rk4")
+        Tm1, B, h = cs["s_de"].shape
+        cot = torch.tensor(np.random.default_rng(32).standard_normal((Tm1 + 1, B, packed.shape[-1]))
+                           .astype(np.float32), device=dev)
+        flat = lambda g: [v for _, v in bwd_outputs(g)]
+        ref = flat(V.fused_dae_rollout_bwd_plain(cs, cw, x0, i0, aux, packed, cot, "rk4"))
+        packed_f = F.fused_dae_rollout_packed_cuda(streams, weights, x0, i0, aux, "rk4")
+        ref_f32 = flat(V._launch_bwd(streams, weights, x0, i0, aux, packed_f, cot, "rk4")[0])
+        args64 = (f64(cs), cw, x0.double(), i0.double(), aux.double(), packed.double())
+        exact = [t.float() for t in flat(V.fused_dae_rollout_bwd_plain(*args64, cot.double(), "rk4"))]
+        res_p, xin_p = V.recompute_plain(cs, cw, x0, i0, aux, packed, "rk4")
+        res_e, _ = V.recompute_plain(*args64, "rk4")
+        E, L = res_p.shape[:2]
+        ev = aux[..., 1].reshape(-1) > 0
+        rows = lambda r: torch.cat([r[q, l][ev] if q == E - 1 else r[q, l] for q in range(E) for l in range(L)])
+
+        def recompute(name, r):
+            d, e = rows(r).double() - rows(res_e), rows(res_e)
+            say(f"[bf16-probe] recompute {name}: rel-L2 to the float64 plain version {rel_l2(rows(r), e):.3e}, "
+                f"mean(error x sign) / RMS(error) {((d * e.sign()).mean() / d.square().mean().sqrt()).item():+.3f}")
+
+        gaps = [rel_l2(r, f) for r, f in zip(ref, ref_f32)]
+
+        def outputs(name, x):
+            say(f"[bf16-probe] {name}: to the plain bf16 version {[f'{r:.4f}' for r in bf16_ratios(x, ref, ref_f32)]}"
+                f"; to the float64 plain version "
+                f"{[f'{rel_l2(a, e) / q:.4f}' if q > 0 else '-' for a, e, q in zip(x, exact, gaps)]}")
+
+        recompute("plain", res_p)
+        outputs("float64 plain", exact)
+        for k, lib in libs.items():
+            g, bufs = V._launch_bwd(cs, cw, x0, i0, aux, packed, cot, "rk4", launcher=V.bind_rollout_bwd(lib, True))
+            recompute(f"kernel NE_BF16_ACC={k}", bufs["res"].view(E, L, Tm1 * B, h))
+            outputs(f"kernel NE_BF16_ACC={k}", flat(g))
+        g, bufs = V._launch_bwd(cs, cw, x0, i0, aux, packed, cot, "rk4")
+        bufs["res"].copy_(res_p.reshape(-1))
+        bufs["xin"].copy_(xin_p.reshape(-1))
+        outputs("plain recompute, the default build's walk and contraction",
+                flat(V._launch_bwd(cs, cw, x0, i0, aux, packed, cot, "rk4", stages=6, bufs=bufs)[0]))
+        torch.cuda.synchronize()
+    return 0
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", action="store_true", help="time both forwards at every launch shape")
+    ap.add_argument("--bf16-probe", action="store_true",
+                    help="only where kernel 2's bf16 mode parts from its plain version (probe_bf16_recompute)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     name, count, smi = phase_card()
@@ -2898,6 +3537,9 @@ def main(argv=None):
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
     nvcc_s = phase_build()
+    if args.bf16_probe:
+        with tempfile.TemporaryDirectory(prefix="psnode_probe_") as tmp:
+            return probe_bf16_recompute(dev, pathlib.Path(tmp))
     fwd_err = phase_kernel_vs_plain(dev)
     bwd_err = phase_bwd_vs_plain(dev)
     fwd_launches = phase_slice(dev)
@@ -2923,6 +3565,8 @@ def main(argv=None):
         tf = phase_tf(dev, root / "tf", ode_files)
         (root / "ms").mkdir()
         ms = phase_ms(dev, root / "ms", ode_files, cw_files, times, ode_times)
+        (root / "bf16").mkdir()
+        bf16 = phase_bf16(dev, root / "bf16", ode_files)
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all, nvcc "
         f"{', '.join(f'{k} {v:.2f} s' for k, v in nvcc_s.items())}; card {smi}")
     # the forward as the evaluation slice drives it (B=32, Euler); the
@@ -2945,21 +3589,37 @@ def main(argv=None):
     # and the AVR ODE's (rows 3-4) fused multishoot Trainer run
     folded = lambda k, variant, launches: {f"ms_{key}": v for key, v in dict(
         launches=launches, max_abs_err=ms["kernel_err"][k], **ms["times"][(variant, k)]).items()}
+    # rows 1-4 in their bf16 compute mode: launches in the bf16 Trainer run of
+    # the motor DAE (rows 1-2) and the AVR ODE (rows 3-4); max_abs_err the
+    # largest |kernel - plain bf16| of phase 21's cases (rel_l2_ratio: the
+    # worst tensor's rel-L2(kernel - plain bf16) / rel-L2(plain bf16 -
+    # float32) over a whole rollout, rel_l2_bar that tensor's bar,
+    # local_ratio the worst one product or step from the kernel's own
+    # values); times at B=64, T=1001, RK4 (f32_ms: the float32 kernel on the
+    # same inputs)
+    bf = lambda k, variant: {f"bf16_{key}": v for key, v in dict(
+        launches=bf16["launches"][variant][0][k - 1], max_abs_err=bf16["kernel_err"][k][3],
+        rel_l2_ratio=bf16["kernel_err"][k][0], rel_l2_bar=bf16["kernel_err"][k][1],
+        local_ratio=bf16["kernel_err"][k][2], **bf16["times"][k]).items()}
     record = {"kernels": [
         {**entry("fused_dae_rollout", "py_psnode_tpu_torch/csrc/fused_dae_rollout.cu",
                  "py_psnode_tpu/ops/fused_dae.py:371", fwd_launches, fwd_err, fwd_t),
-         **tfx(0, tf["times"][("fwd", 32, "euler")]), **folded(1, "dae_no_encode", ms["launches"]["dae_no_encode"][0])},
+         **tfx(0, tf["times"][("fwd", 32, "euler")]), **folded(1, "dae_no_encode", ms["launches"]["dae_no_encode"][0]),
+         **bf(1, "dae_no_encode")},
         {**entry("fused_dae_rollout_bwd", "py_psnode_tpu_torch/csrc/fused_dae_rollout_bwd.cu",
                  "py_psnode_tpu/ops/fused_dae_vjp.py:147", train_launches["euler"][1], bwd_err, bwd_t),
-         **tfx(1, tf["times"][("bwd", 64, "rk4")]), **folded(2, "dae_no_encode", ms["launches"]["dae_no_encode"][1])},
+         **tfx(1, tf["times"][("bwd", 64, "rk4")]), **folded(2, "dae_no_encode", ms["launches"]["dae_no_encode"][1]),
+         **bf(2, "dae_no_encode")},
         # the ODE kernels as the CLI's --training --fused drives them (B=64,
         # Euler, the CLI's default solver)
         {**entry("fused_ode_rollout", "py_psnode_tpu_torch/csrc/fused_ode_rollout.cu",
                  "py_psnode_tpu/ops/fused_ode.py:125", ode_launches[0], ode_fwd_err,
-                 ode_times[("fwd", 64, "euler")]), **folded(3, "ode_no_encode", ms["launches"]["ode_no_encode"][0])},
+                 ode_times[("fwd", 64, "euler")]), **folded(3, "ode_no_encode", ms["launches"]["ode_no_encode"][0]),
+         **bf(3, "ode_no_encode")},
         {**entry("fused_ode_rollout_bwd", "py_psnode_tpu_torch/csrc/fused_ode_rollout_bwd.cu",
                  "py_psnode_tpu/ops/fused_ode.py:171", ode_launches[1], ode_bwd_err,
-                 ode_times[("bwd", "euler")]), **folded(4, "ode_no_encode", ms["launches"]["ode_no_encode"][1])},
+                 ode_times[("bwd", "euler")]), **folded(4, "ode_no_encode", ms["launches"]["ode_no_encode"][1]),
+         **bf(4, "ode_no_encode")},
         # the channel-wise kernels as the ODE channel-wise CLI's --training
         # --fused drives them (B=64, Euler)
         # ms_eval_launches: its launches in the channel-wise ODE's fused

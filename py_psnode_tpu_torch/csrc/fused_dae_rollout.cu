@@ -3,8 +3,9 @@
 // Replaces the TPU kernel py_psnode_tpu/ops/fused_dae.py:_kernel (:371),
 // launched by fused_dae_rollout_packed (pallas_call at :588). It computes
 // the same function, in float32 with float32 accumulation (no TF32, no
-// tensor cores), without the TPU's grid, time blocking, lanes or bf16
-// mode. Per step t and batch row b:
+// tensor cores), without the TPU's grid, time blocking or lanes; its bf16
+// compute mode (below) is the TPU kernel's precision="bfloat16". Per step
+// t and batch row b:
 //
 //   i_in = ev[t,b] > 0 ? AE(x_c, s_ae_ev[t]) : i_c      (event recompute)
 //   f(x) = DE_tail(s_de[t] + x @ wx_de + i_in @ wi_de)
@@ -21,6 +22,21 @@
 // step's cp.async prefetch, and the folded readouts, which carry x1 from
 // the last stage into the AE and on into the next step, are not taken);
 // the other instantiations compile as without it.
+//
+// The bf16 compute mode (the TPU kernel's cast_compute :487 and _dot :143;
+// the template flag kBf16 of instantiations of its own, every path but the
+// TF-x one): the three streams arrive as bfloat16 and are widened to
+// float32 (exact) as a step's rows are copied into shared memory, at once
+// (not by cp.async: a 2-byte element has no copy of its own); the weights
+// arrive as bfloat16 and pack_nets widens them into the padded float32
+// blocks (exact), so every weight path reads as in float32; every product
+// rounds its activation operand (a first layer's inputs, a hidden layer's
+// or readout's activations) to bf16 with __float2bfloat16_rn as it reads
+// it and sums in float32, as the TPU kernel's _dot does. Biases, the
+// carries, dt and the stage updates stay float32. A simple mode that is
+// right: the padded weights stay float32 (the 128 KB of all four hidden
+// weights in bf16 would fit one block's shared memory; not used), and the
+// streams' copy waits for its loads.
 //
 // Bound on an H100 SXM at the motor training shape (B=64, T=1001, h=128,
 // xd=3, id=2, three-layer tails, RK4): a row-step evaluates the DE four
@@ -113,9 +129,10 @@ __host__ inline size_t smem_floats(int slots, const Net& de, const Net& ae, int 
 // path. kGlobal: the block's buffers in global memory (one row a block, the
 // tile path), else in shared memory, which the compiler then addresses as
 // such. kTfx: the TF-x mode (the tile path).
-template <int R, bool kFoldPath, bool kGlobal, bool kTfx = false>
+template <int R, bool kFoldPath, bool kGlobal, bool kTfx = false, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant__ Args a, int slots) {
   static_assert(!(kTfx && kFoldPath), "the TF-x mode runs the tile path");
+  static_assert(!(kTfx && kBf16), "the bf16 mode has no TF-x path");
   extern __shared__ __align__(16) float smem[];
   const int H = a.H, B = a.batch, h = a.h, xd = a.xd, id = a.id, S = n_stages(a.solver);
   const int X = kTfx ? tf_stride(xd) : 0;
@@ -158,12 +175,17 @@ __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant
 
   // step t's stream rows and (dt, ev) into buffer t & 1
   auto stream = [&](int q) { return q == 0 ? a.s_de : (q == 1 ? a.s_ae : a.s_ae_ev); };
-  const RowCopy rc = row_copy(3, R, h, H, row0, B, async, stream);
+  auto stream_bf16 = [&](int q) { return reinterpret_cast<const __nv_bfloat16*>(stream(q)); };
+  const RowCopy rc = row_copy(3, R, h, H, row0, B, async && !kBf16, stream);
   const int ea = kThreads - 1 - tid;  // the threads from the top copy (dt, ev)
   const float* aux_src = ea < 2 * R && row0 + (ea >> 1) < B ? a.aux + (row0 + (ea >> 1)) * 2 + (ea & 1) : nullptr;
   auto prefetch = [&](int t) {
     float* dst = pf + (t & 1) * SF;
-    prefetch_rows(rc, dst, t, 3, R, h, H, row0, B, a.aux, stream);
+    if constexpr (kBf16) {
+      prefetch_rows_bf16(dst, t, 3, R, h, H, row0, B, stream_bf16);
+    } else {
+      prefetch_rows(rc, dst, t, 3, R, h, H, row0, B, a.aux, stream);
+    }
     if (ea < 2 * R)
       step_copy(dst + 3 * RH + 4 * (ea >> 1) + (ea & 1),
                 aux_src ? aux_src + static_cast<size_t>(t) * B * 2 : a.aux, aux_src != nullptr, async);
@@ -210,9 +232,9 @@ __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant
   __syncthreads();
   float* cur = act_a;
   if (any_ev(0)) {
-    first_layer<R>(a.ae, tae, xae, s_ev(0), cur);
+    first_layer<R, kBf16>(a.ae, tae, xae, s_ev(0), cur);
   } else {
-    first_layer<R>(a.de, tde, xde, s_de(0), cur);
+    first_layer<R, kBf16>(a.de, tde, xde, s_de(0), cur);
   }
 
   int par = 0;  // xc + par RH holds x_t
@@ -225,28 +247,28 @@ __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant
 
     // ---- the AE at the event: i_in of the event rows ----
     if (any_ev(t)) {
-      cur = fwd_hidden<R, NB>(a.ae, tae, cur, other(cur), wres, wr, false);
+      cur = fwd_hidden<R, NB, kBf16>(a.ae, tae, cur, other(cur), wres, wr, false);
       float* nxt = other(cur);
       if constexpr (kFoldPath) {
         if (folder) {
           float yr[kFold], in[kFold];
-          fold_readout(a.ae, tae, cur, yr);
+          fold_readout<kBf16>(a.ae, tae, cur, yr);
 #pragma unroll
           for (int c = 0; c < kFold; ++c) {
             in[c] = c < xd ? x_t[c] : pick(yr, c - xd);
             if (tid == c && c < id) iin[c] = yr[c];
           }
-          fold_first_layer(a.de, tde, in, s_de(t), nxt);
+          fold_first_layer<kBf16>(a.de, tde, in, s_de(t), nxt);
         }
         __syncthreads();
       } else {
-        tile_readout<R>(a.ae, tae, cur, y);
+        tile_readout<R, kBf16>(a.ae, tae, cur, y);
         for (int e = tid; e < R * id; e += kThreads) {
           const int r = e / id, c = e - r * id;
           if (ev_of(t, r)) xde[r * H + xd + c] = iin[r * H + c] = y[r * H + c];
         }
         __syncthreads();
-        first_layer<R>(a.de, tde, xde, s_de(t), nxt);
+        first_layer<R, kBf16>(a.de, tde, xde, s_de(t), nxt);
       }
       cur = nxt;
     }
@@ -255,13 +277,13 @@ __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant
     // ---- the DE stages; the last one's fold starts the AE at t+1 ----
     for (int q = 0; q < S; ++q) {
       const bool last = q + 1 == S;
-      cur = fwd_hidden<R, NB>(a.de, tde, cur, other(cur), wres, wr, false);
+      cur = fwd_hidden<R, NB, kBf16>(a.de, tde, cur, other(cur), wres, wr, false);
       NE_FWD_MARK(3 + 3 * q);
       float* nxt = other(cur);
       if constexpr (kFoldPath) {
         if (folder) {
           float yr[kFold], in[kFold];
-          fold_readout(a.de, tde, cur, yr);
+          fold_readout<kBf16>(a.de, tde, cur, yr);
           NE_FWD_MARK(4 + 3 * q);
           const float dt = dt_of(t, 0);
 #pragma unroll
@@ -282,14 +304,14 @@ __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant
           }
           NE_FWD_MARK(14);
           if (last) {
-            fold_first_layer(a.ae, tae, in, s_ae(t), nxt);
+            fold_first_layer<kBf16>(a.ae, tae, in, s_ae(t), nxt);
           } else {
-            fold_first_layer(a.de, tde, in, s_de(t), nxt);
+            fold_first_layer<kBf16>(a.de, tde, in, s_de(t), nxt);
           }
         }
         __syncthreads();
       } else {
-        tile_readout<R>(a.de, tde, cur, y);
+        tile_readout<R, kBf16>(a.de, tde, cur, y);
         NE_FWD_MARK(4 + 3 * q);
         for (int e = tid; e < R * xd; e += kThreads) {
           const int r = e / xd, c = e - r * xd, o = r * H + c;
@@ -308,9 +330,9 @@ __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant
         __syncthreads();
         NE_FWD_MARK(14);
         if (last) {
-          first_layer<R>(a.ae, tae, xae, s_ae(t), nxt);
+          first_layer<R, kBf16>(a.ae, tae, xae, s_ae(t), nxt);
         } else {
-          first_layer<R>(a.de, tde, xde, s_de(t), nxt);
+          first_layer<R, kBf16>(a.de, tde, xde, s_de(t), nxt);
         }
       }
       cur = nxt;
@@ -319,7 +341,7 @@ __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant
 
     // ---- the AE at t+1: i1; its fold starts step t + 1 ----
     // step t + 1's rows land before the readout's barrier
-    cur = fwd_hidden<R, NB>(a.ae, tae, cur, other(cur), wres, wr, true);
+    cur = fwd_hidden<R, NB, kBf16>(a.ae, tae, cur, other(cur), wres, wr, true);
     if (a.ae.n == 1) {
       cp_async_wait<0>();
       __syncthreads();
@@ -330,7 +352,7 @@ __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant
     if constexpr (kFoldPath) {
       if (folder) {
         float yr[kFold];
-        fold_readout(a.ae, tae, cur, yr);
+        fold_readout<kBf16>(a.ae, tae, cur, yr);
         NE_FWD_MARK(15);
 #pragma unroll
         for (int c = 0; c < kFold; ++c)
@@ -344,15 +366,15 @@ __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant
         for (int c = 0; c < kFold; ++c) in[c] = c < xd ? x_n[c] : pick(yr, c - xd);
         if (more) {
           if (ev_n) {
-            fold_first_layer(a.ae, tae, in, s_ev(t + 1), nxt);
+            fold_first_layer<kBf16>(a.ae, tae, in, s_ev(t + 1), nxt);
           } else {
-            fold_first_layer(a.de, tde, in, s_de(t + 1), nxt);
+            fold_first_layer<kBf16>(a.de, tde, in, s_de(t + 1), nxt);
           }
         }
       }
       __syncthreads();
     } else {
-      tile_readout<R>(a.ae, tae, cur, y);
+      tile_readout<R, kBf16>(a.ae, tae, cur, y);
       NE_FWD_MARK(15);
       const int w = xd > id ? xd : id;
       for (int e = tid; e < R * w; e += kThreads) {
@@ -375,9 +397,9 @@ __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant
       NE_FWD_MARK(16);
       if (more) {
         if (ev_n) {
-          first_layer<R>(a.ae, tae, xae, s_ev(t + 1), nxt);
+          first_layer<R, kBf16>(a.ae, tae, xae, s_ev(t + 1), nxt);
         } else {
-          first_layer<R>(a.de, tde, xde, s_de(t + 1), nxt);
+          first_layer<R, kBf16>(a.de, tde, xde, s_de(t + 1), nxt);
         }
       }
     }
@@ -386,7 +408,7 @@ __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant
   }
 }
 
-template <int R, bool kFoldPath, bool kGlobal = false, bool kTfx = false>
+template <int R, bool kFoldPath, bool kGlobal = false, bool kTfx = false, bool kBf16 = false>
 cudaError_t launch(Args b, cudaStream_t st) {
   const int X = kTfx ? tf_stride(b.xd) : 0;
   Net* nets[2] = {&b.de, &b.ae};
@@ -399,10 +421,10 @@ cudaError_t launch(Args b, cudaStream_t st) {
   const int slots = fwd_place(nets, 2, b.H, kFoldPath ? kRegBanks : 0, cap, smem_floats(0, b.de, b.ae, R, b.H, X));
   const size_t smem = kGlobal ? 0 : smem_floats(slots, b.de, b.ae, R, b.H, X) * sizeof(float);
   if (smem > kSmemMax) return cudaErrorInvalidValue;
-  const cudaError_t e = allow_smem(dae_forward<R, kFoldPath, kGlobal, kTfx>, smem);
+  const cudaError_t e = allow_smem(dae_forward<R, kFoldPath, kGlobal, kTfx, kBf16>, smem);
   if (e != cudaSuccess) return e;
   const int blocks = (b.batch + R - 1) / R;
-  dae_forward<R, kFoldPath, kGlobal, kTfx><<<blocks, kThreads, smem, st>>>(b, slots);
+  dae_forward<R, kFoldPath, kGlobal, kTfx, kBf16><<<blocks, kThreads, smem, st>>>(b, slots);
   return cudaGetLastError();
 }
 
@@ -435,33 +457,33 @@ bool plan(Plan& p, int batch, int h, int xd, int id, int n_de, int n_ae, int row
 }
 
 // A launch of these sizes: the weights packed, then the rollout (the TF-x
-// mode where xt is not null).
+// mode where xt is not null; the bf16 mode where bf16, not with xt).
 int rollout(const void* s_de, const void* s_ae, const void* s_ae_ev, const void* aux, const void* x0, const void* i0,
             const void* wx_de, const void* wi_de, const void* const* de_w, const void* const* de_b, int n_de,
             const void* gx_ae, const void* const* ae_w, const void* const* ae_b, int n_ae, void* scratch, void* sol,
             int tm1, int batch, int h, int xd, int id, int solver, int rows_per_block, const void* xt,
-            const void* xt1, void* stream) {
+            const void* xt1, bool bf16, void* stream) {
   Plan p;
   float* base = static_cast<float*>(scratch);
   const bool tf = xt != nullptr;
-  if (tm1 < 0 || solver < 0 || solver > 2 || !base || (tf && !xt1) ||
+  if (tm1 < 0 || solver < 0 || solver > 2 || !base || (tf && !xt1) || (tf && bf16) ||
       !plan(p, batch, h, xd, id, n_de, n_ae, rows_per_block, base, tf))
     return static_cast<int>(cudaErrorInvalidValue);
   if (tm1 == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   PackArgs pk{};
-  pk.src[0].w0[0] = static_cast<const float*>(wx_de);
-  pk.src[0].w0[1] = static_cast<const float*>(wi_de);
+  pk.src[0].w0[0] = wx_de;
+  pk.src[0].w0[1] = wi_de;
   pk.src[0].k0[0] = xd;
   pk.src[0].k0[1] = id;
-  pk.src[1].w0[0] = pk.src[1].w0[1] = static_cast<const float*>(gx_ae);
+  pk.src[1].w0[0] = pk.src[1].w0[1] = gx_ae;
   pk.src[1].k0[0] = xd;
   for (int l = 0; l < n_de; ++l) {
-    pk.src[0].w[l] = static_cast<const float*>(de_w[l]);
+    pk.src[0].w[l] = de_w[l];
     pk.src[0].b[l] = static_cast<const float*>(de_b[l]);
   }
   for (int l = 0; l < n_ae; ++l) {
-    pk.src[1].w[l] = static_cast<const float*>(ae_w[l]);
+    pk.src[1].w[l] = ae_w[l];
     pk.src[1].b[l] = static_cast<const float*>(ae_b[l]);
   }
   pk.dst[0] = p.de;
@@ -470,7 +492,11 @@ int rollout(const void* s_de, const void* s_ae, const void* s_ae_ev, const void*
   pk.h = h;
   pk.H = p.H;
   const int pb = pack_blocks(p.weights);
-  pack_nets<<<pb, kThreads, 0, st>>>(pk);
+  if (bf16) {
+    pack_nets<__nv_bfloat16><<<pb, kThreads, 0, st>>>(pk);
+  } else {
+    pack_nets<float><<<pb, kThreads, 0, st>>>(pk);
+  }
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   Args a;
@@ -504,6 +530,16 @@ int rollout(const void* s_de, const void* s_ae, const void* s_ae_ev, const void*
     }
   }
   const bool fold = narrow_in(a.de) && narrow_out(a.de) && narrow_in(a.ae) && narrow_out(a.ae);
+  if (bf16) {
+    if (p.shape.gmem) return static_cast<int>(launch<1, false, true, false, true>(a, st));
+    switch (p.shape.rows) {
+      case 1: return static_cast<int>(fold ? launch<1, true, false, false, true>(a, st)
+                                           : launch<1, false, false, false, true>(a, st));
+      case 2: return static_cast<int>(launch<2, false, false, false, true>(a, st));
+      case 4: return static_cast<int>(launch<4, false, false, false, true>(a, st));
+      default: return static_cast<int>(launch<8, false, false, false, true>(a, st));
+    }
+  }
   if (p.shape.gmem) return static_cast<int>(launch<1, false, true>(a, st));
   switch (p.shape.rows) {
     case 1: return static_cast<int>(fold ? launch<1, true>(a, st) : launch<1, false>(a, st));
@@ -527,7 +563,10 @@ int rollout(const void* s_de, const void* s_ae, const void* s_ae_ev, const void*
 // `stream` without synchronising and returns the launches' error (0 on
 // success). psn_fused_dae_rollout_tfx_scratch / _tfx_f32: the same in the
 // TF-x mode, with the true states xt = x_true[:-1] and xt1 = x_true[1:]
-// ([tm1][batch][xd] each).
+// ([tm1][batch][xd] each). psn_fused_dae_rollout_bf16: the bf16 compute
+// mode, the f32 function's arguments with s_de, s_ae, s_ae_ev and the
+// weights (wx_de, wi_de, gx_ae, de_w, ae_w) bfloat16 arrays; the biases,
+// aux, x0 and i0 float32; scratch of psn_fused_dae_rollout_scratch floats.
 extern "C" long long psn_fused_dae_rollout_scratch(int batch, int h, int xd, int id, int n_de, int n_ae,
                                                    int rows_per_block) {
   Plan p;
@@ -550,7 +589,18 @@ extern "C" int psn_fused_dae_rollout_f32(const void* s_de, const void* s_ae, con
                                          int batch, int h, int xd, int id, int solver, int rows_per_block,
                                          void* stream) {
   return rollout(s_de, s_ae, s_ae_ev, aux, x0, i0, wx_de, wi_de, de_w, de_b, n_de, gx_ae, ae_w, ae_b, n_ae, scratch,
-                 sol, tm1, batch, h, xd, id, solver, rows_per_block, nullptr, nullptr, stream);
+                 sol, tm1, batch, h, xd, id, solver, rows_per_block, nullptr, nullptr, false, stream);
+}
+
+extern "C" int psn_fused_dae_rollout_bf16(const void* s_de, const void* s_ae, const void* s_ae_ev,
+                                          const void* aux, const void* x0, const void* i0, const void* wx_de,
+                                          const void* wi_de, const void* const* de_w, const void* const* de_b,
+                                          int n_de, const void* gx_ae, const void* const* ae_w,
+                                          const void* const* ae_b, int n_ae, void* scratch, void* sol, int tm1,
+                                          int batch, int h, int xd, int id, int solver, int rows_per_block,
+                                          void* stream) {
+  return rollout(s_de, s_ae, s_ae_ev, aux, x0, i0, wx_de, wi_de, de_w, de_b, n_de, gx_ae, ae_w, ae_b, n_ae, scratch,
+                 sol, tm1, batch, h, xd, id, solver, rows_per_block, nullptr, nullptr, true, stream);
 }
 
 extern "C" int psn_fused_dae_rollout_tfx_f32(const void* s_de, const void* s_ae, const void* s_ae_ev,
@@ -562,7 +612,7 @@ extern "C" int psn_fused_dae_rollout_tfx_f32(const void* s_de, const void* s_ae,
                                              const void* xt, const void* xt1, void* stream) {
   if (!xt) return static_cast<int>(cudaErrorInvalidValue);
   return rollout(s_de, s_ae, s_ae_ev, aux, x0, i0, wx_de, wi_de, de_w, de_b, n_de, gx_ae, ae_w, ae_b, n_ae, scratch,
-                 sol, tm1, batch, h, xd, id, solver, rows_per_block, xt, xt1, stream);
+                 sol, tm1, batch, h, xd, id, solver, rows_per_block, xt, xt1, false, stream);
 }
 
 extern "C" const char* psn_cuda_error_string(int code) {

@@ -4,8 +4,9 @@
 //
 // Replaces the TPU kernel py_psnode_tpu/ops/fused_dae_vjp.py:_bwd_kernel
 // (:147), launched by _run_backward (pallas_call at :562). It computes the
-// same function at float32 accuracy, without the TPU's grid, time padding,
-// lanes or bf16 mode. Per batch row, for t = T-2 down to 0,
+// same function at float32 accuracy, without the TPU's grid, time padding
+// or lanes; its bf16 compute mode (below) is the TPU kernel's
+// precision="bfloat16". Per batch row, for t = T-2 down to 0,
 // with x_t, i_t, x_{t+1} from the saved packed solution and the carries
 // gx_c, gi_c (zero at the start):
 //
@@ -30,6 +31,17 @@
 // stages' x cotangent goes to g_xt[t] and the AE's to g_xt1[t], each
 // written only where the caller gives a buffer, and the x carry keeps only
 // the event route's part; the AE at the event still reads the rolled x_t.
+//
+// The bf16 compute mode (the TPU kernel's cdtype :187 and _dot_t :52 on the
+// cast residuals of _vjp_forward :596-625; kernels of their own, the
+// template flag kBf16 of the same bodies, not with TF-x): the streams arrive
+// as bfloat16 (the forward's cast ones), the padded weights hold the bf16
+// weights' values; the recompute rounds each layer's input tile and the
+// walk each cotangent to bf16 as a product reads them, the contraction both
+// operands of every weight-gradient product; the recompute's and the
+// contraction's products run in one TF32 pass (exact for bf16 operands),
+// not three. The stream cotangents, the carries and every gradient stay
+// float32; the backward is bit-identical on relaunch as in float32.
 //
 // Bound on an H100 SXM at the main training shape (B=64, T=1001, h=128,
 // xd=3, id=2, three-layer tails, RK4): a row-step evaluates four DE stages
@@ -128,8 +140,13 @@ struct Args {
 constexpr int kDaeWalkVecs = 11;
 
 // ---- kernel 1: every evaluation of every row-step, a tile of kRows at a time ----
-template <bool kWide, bool kTfx = false>
+template <bool kWide, bool kTfx = false, bool kBf16 = false>
 __device__ __forceinline__ void dae_recompute_body(const Args& a, float* smem) {
+  static_assert(!(kTfx && kBf16), "the bf16 mode has no TF-x kernels");
+  using ST = Stream<kBf16>;
+  const ST* s_de = reinterpret_cast<const ST*>(a.s_de);
+  const ST* s_ae = reinterpret_cast<const ST*>(a.s_ae);
+  const ST* s_ae_ev = reinterpret_cast<const ST*>(a.s_ae_ev);
   const RcSmem s = kWide ? carve_rc_wide(smem, a.scratch + blockIdx.x * rc_wide_tile_floats(a.H), a.H)
                          : carve_rc(smem);
   const Bufs& bf = a.bf;
@@ -141,11 +158,11 @@ __device__ __forceinline__ void dae_recompute_body(const Args& a, float* smem) {
   __syncthreads();
   rc_any_event(s);
   __syncthreads();
-  auto eval = [&](const Net& net, int e, const float* st, auto keep, float* y) {
+  auto eval = [&](const Net& net, int e, const ST* st, auto keep, float* y) {
     if constexpr (kWide) {
-      rc_eval_wide(net, bf, e, r0, st, s, keep, y, bf.ow, a.H);
+      rc_eval_wide<kBf16>(net, bf, e, r0, st, s, keep, y, bf.ow, a.H);
     } else {
-      rc_eval(net, bf, e, r0, st, s, keep, y, bf.ow);
+      rc_eval<kBf16>(net, bf, e, r0, st, s, keep, y, bf.ow);
     }
   };
   // x_t, i_t (row t-1 of the packed solution, x0 / i0 at t = 0), x_{t+1}
@@ -157,12 +174,12 @@ __device__ __forceinline__ void dae_recompute_body(const Args& a, float* smem) {
   };
   if (s.flag[0] > 0.f) {  // i_in exactly as the forward computed it, on event rows
     rc_input(s, bf, eV, r0, xd, [&](int m, int c) { return x_t(r0 + m, c); });
-    eval(a.ae, eV, a.s_ae_ev, [&](int m) { return s.ev[m] > 0.f; }, bf.gy_row(eV, 0));
+    eval(a.ae, eV, s_ae_ev, [&](int m) { return s.ev[m] > 0.f; }, bf.gy_row(eV, 0));
   }
   rc_input(s, bf, eN, r0, xd, [&](int m, int c) {  // x_{t+1}, or x_true[t+1]
     return kTfx ? __ldg(a.xt1 + (r0 + m) * xd + c) : __ldg(a.sol + (r0 + m) * D + c);
   });
-  eval(a.ae, eN, a.s_ae, [](int) { return true; }, nullptr);
+  eval(a.ae, eN, s_ae, [](int) { return true; }, nullptr);
   // stage q's output k_q waits in gy slot q, the AE at the event's in slot
   // eV (the walk overwrites both)
   auto k = [&](int q, long long r, int c) { return bf.gy_row(q, r)[c]; };
@@ -177,7 +194,7 @@ __device__ __forceinline__ void dae_recompute_body(const Args& a, float* smem) {
       if (q == 2) return x + dt * (k(1, r, c) - k(0, r, c) * kOneThird);
       return x + dt * (k(0, r, c) - k(1, r, c) + k(2, r, c));
     });
-    eval(a.de, q, a.s_de, [](int) { return true; }, q + 1 < S ? bf.gy_row(q, 0) : nullptr);
+    eval(a.de, q, s_de, [](int) { return true; }, q + 1 < S ? bf.gy_row(q, 0) : nullptr);
   }
 }
 
@@ -201,11 +218,22 @@ __global__ void __launch_bounds__(kThreads, 1) dae_recompute_wide_tfx(const __gr
   dae_recompute_body<true, true>(a, smem);
 }
 
+__global__ void __launch_bounds__(kThreads, 1) dae_recompute_bf16(const __grid_constant__ Args a) {
+  extern __shared__ __align__(16) float smem[];
+  dae_recompute_body<false, false, true>(a, smem);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) dae_recompute_wide_bf16(const __grid_constant__ Args a) {
+  extern __shared__ __align__(16) float smem[];
+  dae_recompute_body<true, false, true>(a, smem);
+}
+
 // ---- kernel 2: the reverse walk, one block per batch row ----
 // kWide: the walk at a padded width H > kMaxH (no resident weight, no
 // prefetch; the vectors H long, in shared memory or, without vec_smem, in
-// the block's share of the scratch). kTfx: the TF-x mode.
-template <bool kWide, bool kTfx = false>
+// the block's share of the scratch). kTfx: the TF-x mode. kBf16: the bf16
+// mode.
+template <bool kWide, bool kTfx = false, bool kBf16 = false>
 __device__ __forceinline__ void dae_walk_body(const Args& a, int slots, bool vec_smem, float* smem) {
   const Bufs& bf = a.bf;
   const int xd = a.xd, id = a.id, D = xd + id, B = a.batch, h = bf.h, tid = threadIdx.x;
@@ -263,16 +291,16 @@ __device__ __forceinline__ void dae_walk_body(const Args& a, int slots, bool vec
     }
     auto eval = [&](const Net& net, int e) {
       if constexpr (kWide) {
-        return walk_eval_wide(net, bf, e, r, gyv, va, vb, V);
+        return walk_eval_wide<kBf16>(net, bf, e, r, gyv, va, vb, V);
       } else {
-        return walk_eval(net, bf, e, r, P + e * slot_f, gyv, va, vb, wres);
+        return walk_eval<kBf16>(net, bf, e, r, P + e * slot_f, gyv, va, vb, wres);
       }
     };
     auto inputs = [&](const Net& net, const float* v, auto fn) {
       if constexpr (kWide) {
-        walk_inputs_wide(net, v, V, fn);
+        walk_inputs_wide<kBf16>(net, v, V, fn);
       } else {
-        walk_inputs(net, v, fn);
+        walk_inputs<kBf16>(net, v, fn);
       }
     };
     // row r of a stream cotangent: fn(j) at each of the thread's outputs j < h
@@ -421,6 +449,16 @@ __global__ void __launch_bounds__(kThreads, 1) dae_walk_wide_tfx(const __grid_co
   dae_walk_body<true, true>(a, 0, vec_smem != 0, smem);
 }
 
+__global__ void __launch_bounds__(kThreads, 1) dae_walk_bf16(const __grid_constant__ Args a, int slots) {
+  extern __shared__ __align__(16) float smem[];
+  dae_walk_body<false, false, true>(a, slots, true, smem);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) dae_walk_wide_bf16(const __grid_constant__ Args a, int vec_smem) {
+  extern __shared__ __align__(16) float smem[];
+  dae_walk_body<true, false, true>(a, 0, vec_smem != 0, smem);
+}
+
 // The contraction's jobs: the DE over the stages' slots ([wx; wi] from
 // their inputs, then the tail), the AE over the AE slots, the event slot's
 // rows counted only on events.
@@ -464,16 +502,17 @@ extern "C" void psn_fused_dae_bwd_sizes(int tm1, int batch, int h, int xd, int i
 
 namespace {
 
-// The backward's launches (the TF-x kernels where xt is not null).
+// The backward's launches (the TF-x kernels where xt is not null, the bf16
+// ones where bf16; not both).
 int backward(const void* s_de, const void* s_ae, const void* s_ae_ev, const void* aux, const void* x0,
              const void* i0, const void* sol, const void* cot, const void* w_de, const void* b_de, int n_de,
              const void* w_ae, const void* b_ae, int n_ae, void* g_s_de, void* g_s_ae, void* g_s_ae_ev,
              void* g_w, void* g_x0, void* g_i0, void* res, void* gres, void* gy, void* xin, void* parts,
              int tm1, int batch, int h, int xd, int id, int solver, int stages, int max_slots, const void* xt,
-             const void* xt1, void* g_xt, void* g_xt1, void* stream) {
+             const void* xt1, void* g_xt, void* g_xt1, bool bf16, void* stream) {
   const bool tf = xt != nullptr;
   if (tm1 < 1 || batch < 1 || h < 1 || xd < 1 || id < 1 || solver < 0 || solver > 2 || n_de < 1 ||
-      n_de > kMaxTail || n_ae < 1 || n_ae > kMaxTail || (tf && !xt1))
+      n_de > kMaxTail || n_ae < 1 || n_ae > kMaxTail || (tf && !xt1) || (tf && bf16))
     return static_cast<int>(cudaErrorInvalidValue);
   const int S = n_stages(solver), E = S + 2, L = n_de > n_ae ? n_de : n_ae;
   const int H = fwd_width(h > xd + id ? h : xd + id);
@@ -512,7 +551,7 @@ int backward(const void* s_de, const void* s_ae, const void* s_ae_ev, const void
   const int tiles = static_cast<int>((R + kRows - 1) / kRows);
   if ((stages & 1) && H > kMaxH) {
     const size_t smem = rc_wide_smem_bytes();
-    auto kernel = tf ? dae_recompute_wide_tfx : dae_recompute_wide;
+    auto kernel = tf ? dae_recompute_wide_tfx : (bf16 ? dae_recompute_wide_bf16 : dae_recompute_wide);
     e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     kernel<<<tiles, kThreads, smem, st>>>(a);
@@ -520,7 +559,7 @@ int backward(const void* s_de, const void* s_ae, const void* s_ae_ev, const void
     if (e != cudaSuccess) return static_cast<int>(e);
   } else if (stages & 1) {
     const size_t smem = rc_smem_bytes();
-    auto kernel = tf ? dae_recompute_tfx : dae_recompute;
+    auto kernel = tf ? dae_recompute_tfx : (bf16 ? dae_recompute_bf16 : dae_recompute);
     e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     kernel<<<tiles, kThreads, smem, st>>>(a);
@@ -530,7 +569,7 @@ int backward(const void* s_de, const void* s_ae, const void* s_ae_ev, const void
   if ((stages & 2) && H > kMaxH) {
     const int in_smem = walk_wide_in_smem(kDaeWalkVecs, H);
     const size_t smem = in_smem ? static_cast<size_t>(kDaeWalkVecs) * H * sizeof(float) : 0;
-    auto kernel = tf ? dae_walk_wide_tfx : dae_walk_wide;
+    auto kernel = tf ? dae_walk_wide_tfx : (bf16 ? dae_walk_wide_bf16 : dae_walk_wide);
     e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     kernel<<<batch, kThreads, smem, st>>>(a, in_smem);
@@ -544,7 +583,7 @@ int backward(const void* s_de, const void* s_ae, const void* s_ae_ev, const void
     const int fit = walk_fit(E, L), cap = max_slots >= 0 ? max_slots : n_de - 1;
     const int slots = place(nets, 2, cap < fit ? cap : fit);
     const size_t smem = walk_floats(slots, E, L) * sizeof(float);
-    auto kernel = tf ? dae_walk_tfx : dae_walk;
+    auto kernel = tf ? dae_walk_tfx : (bf16 ? dae_walk_bf16 : dae_walk);
     e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     kernel<<<batch, kThreads, smem, st>>>(a, slots);
@@ -560,7 +599,7 @@ int backward(const void* s_de, const void* s_ae, const void* s_ae_ev, const void
     c.parts = static_cast<float*>(parts);
     c.g_w = static_cast<float*>(g_w);
     c.nt = H / kMaxH;
-    e = launch_contraction(c, n_splits(max_rows(c.jobs, R)), st);
+    e = launch_contraction(c, n_splits(max_rows(c.jobs, R)), st, bf16);
   }
   return static_cast<int>(e);
 }
@@ -580,7 +619,9 @@ int backward(const void* s_de, const void* s_ae, const void* s_ae_ev, const void
 // the DE's hidden ones; the others come from L2). Launches on `stream` without synchronising and returns the first launch error (0 on success). psn_fused_dae_rollout_bwd_tfx_f32: the same in the
 // TF-x mode, with the true states xt = x_true[:-1] and xt1 = x_true[1:]
 // ([tm1][batch][xd] each) and their cotangents g_xt and g_xt1 (null: not
-// written).
+// written). psn_fused_dae_rollout_bwd_bf16: the bf16 compute mode, the f32
+// function's arguments with s_de, s_ae and s_ae_ev bfloat16 arrays and the
+// padded weights holding bf16 values (every output float32).
 extern "C" int psn_fused_dae_rollout_bwd_f32(
     const void* s_de, const void* s_ae, const void* s_ae_ev, const void* aux, const void* x0,
     const void* i0, const void* sol, const void* cot, const void* w_de, const void* b_de, int n_de,
@@ -589,7 +630,18 @@ extern "C" int psn_fused_dae_rollout_bwd_f32(
     int tm1, int batch, int h, int xd, int id, int solver, int stages, int max_slots, void* stream) {
   return backward(s_de, s_ae, s_ae_ev, aux, x0, i0, sol, cot, w_de, b_de, n_de, w_ae, b_ae, n_ae, g_s_de, g_s_ae,
                   g_s_ae_ev, g_w, g_x0, g_i0, res, gres, gy, xin, parts, tm1, batch, h, xd, id, solver, stages,
-                  max_slots, nullptr, nullptr, nullptr, nullptr, stream);
+                  max_slots, nullptr, nullptr, nullptr, nullptr, false, stream);
+}
+
+extern "C" int psn_fused_dae_rollout_bwd_bf16(
+    const void* s_de, const void* s_ae, const void* s_ae_ev, const void* aux, const void* x0,
+    const void* i0, const void* sol, const void* cot, const void* w_de, const void* b_de, int n_de,
+    const void* w_ae, const void* b_ae, int n_ae, void* g_s_de, void* g_s_ae, void* g_s_ae_ev,
+    void* g_w, void* g_x0, void* g_i0, void* res, void* gres, void* gy, void* xin, void* parts,
+    int tm1, int batch, int h, int xd, int id, int solver, int stages, int max_slots, void* stream) {
+  return backward(s_de, s_ae, s_ae_ev, aux, x0, i0, sol, cot, w_de, b_de, n_de, w_ae, b_ae, n_ae, g_s_de, g_s_ae,
+                  g_s_ae_ev, g_w, g_x0, g_i0, res, gres, gy, xin, parts, tm1, batch, h, xd, id, solver, stages,
+                  max_slots, nullptr, nullptr, nullptr, nullptr, true, stream);
 }
 
 extern "C" int psn_fused_dae_rollout_bwd_tfx_f32(
@@ -602,7 +654,7 @@ extern "C" int psn_fused_dae_rollout_bwd_tfx_f32(
   if (!xt) return static_cast<int>(cudaErrorInvalidValue);
   return backward(s_de, s_ae, s_ae_ev, aux, x0, i0, sol, cot, w_de, b_de, n_de, w_ae, b_ae, n_ae, g_s_de, g_s_ae,
                   g_s_ae_ev, g_w, g_x0, g_i0, res, gres, gy, xin, parts, tm1, batch, h, xd, id, solver, stages,
-                  max_slots, xt, xt1, g_xt, g_xt1, stream);
+                  max_slots, xt, xt1, g_xt, g_xt1, false, stream);
 }
 
 extern "C" const char* psn_cuda_error_string(int code) {

@@ -3,8 +3,9 @@
 // Replaces the TPU kernel py_psnode_tpu/ops/fused_ode.py:_fwd_kernel (:125),
 // launched by _forward (pallas_call at :307). It computes the same function,
 // in float32 with float32 accumulation (no TF32, no tensor cores), without
-// the TPU's grid, time blocking, dt == 0 padding, lanes or bf16 mode. Per
-// step t and batch row b, with the layer-1 stream s_de (the initial-state
+// the TPU's grid, time blocking, dt == 0 padding or lanes; its bf16 compute
+// mode (below) is the TPU kernel's precision="bfloat16". Per step t and
+// batch row b, with the layer-1 stream s_de (the initial-state
 // contribution and the event-adjusted z projection, lifted out of the loop):
 //
 //   f(x) = tail(elu(s_de[t,b] + x @ wx))
@@ -15,6 +16,16 @@
 // [h, xd] without activation. n_tail (1..kMaxTail) and xd are runtime
 // values: the no-encode dynamics run with n_tail = 3 and xd the state
 // width, the direct-encode latent dynamics with n_tail = 1 and xd = h.
+//
+// The bf16 compute mode (the TPU kernel's _cast_ode :58 and _dot; the
+// template flag kBf16 of instantiations of its own, every path): s_de
+// arrives as bfloat16, widened to float32 (exact) as a step's rows are
+// copied into shared memory, at once; the weights arrive as bfloat16 and
+// pack_nets widens them into the padded float32 blocks (exact); every
+// product rounds its activation operand to bf16 with __float2bfloat16_rn as
+// it reads it and sums in float32. Biases, the carry, dt and the stage
+// updates stay float32 (csrc/fused_dae_rollout.cu says what this simple
+// mode leaves for later).
 //
 // Bound on an H100 SXM at the no-encode training shape (B=64, T=1001,
 // h=128, xd=2, RK4): an evaluation of f costs 2 (xd h + 2 h^2 + h xd) =
@@ -89,7 +100,7 @@ __host__ inline size_t smem_floats(int slots, const Net& de, int R, int H) {
 // path. NB: the hidden weights held in registers. kGlobal: the block's
 // buffers in global memory (one row a block, the tile path), else in shared
 // memory, which the compiler then addresses as such.
-template <int R, bool kFoldPath, int NB, bool kGlobal>
+template <int R, bool kFoldPath, int NB, bool kGlobal, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1) ode_forward(const __grid_constant__ Args a, int slots) {
   extern __shared__ __align__(16) float smem[];
   const int H = a.H, B = a.batch, h = a.h, xd = a.xd, S = n_stages(a.solver);
@@ -120,12 +131,17 @@ __global__ void __launch_bounds__(kThreads, 1) ode_forward(const __grid_constant
 
   // step t's stream rows and step sizes into buffer t & 1
   auto stream = [&](int) { return a.s_de; };
-  const RowCopy rc = row_copy(1, R, h, H, row0, B, async, stream);
+  auto stream_bf16 = [&](int) { return reinterpret_cast<const __nv_bfloat16*>(a.s_de); };
+  const RowCopy rc = row_copy(1, R, h, H, row0, B, async && !kBf16, stream);
   const int ea = kThreads - 1 - tid;  // the threads from the top copy dt
   const float* dt_src = ea < R && row0 + ea < B ? a.dt + row0 + ea : nullptr;
   auto prefetch = [&](int t) {
     float* dst = pf + (t & 1) * SF;
-    prefetch_rows(rc, dst, t, 1, R, h, H, row0, B, a.dt, stream);
+    if constexpr (kBf16) {
+      prefetch_rows_bf16(dst, t, 1, R, h, H, row0, B, stream_bf16);
+    } else {
+      prefetch_rows(rc, dst, t, 1, R, h, H, row0, B, a.dt, stream);
+    }
     if (ea < R)
       step_copy(dst + RH + 4 * ea, dt_src ? dt_src + static_cast<size_t>(t) * B : a.dt, dt_src != nullptr, async);
     cp_async_commit();
@@ -139,7 +155,7 @@ __global__ void __launch_bounds__(kThreads, 1) ode_forward(const __grid_constant
   cp_async_wait<0>();
   __syncthreads();
   float* cur = act_a;
-  first_layer<R>(a.de, tde, xin, s_de(0), cur);
+  first_layer<R, kBf16>(a.de, tde, xin, s_de(0), cur);
 
   int par = 0;  // xc + par RH holds x_t
   for (int t = 0; t < a.tm1; ++t) {
@@ -152,7 +168,7 @@ __global__ void __launch_bounds__(kThreads, 1) ode_forward(const __grid_constant
     for (int q = 0; q < S; ++q) {
       const bool last = q + 1 == S;
       // at the last stage, step t + 1's rows land before the readout's barrier
-      cur = fwd_hidden<R, NB>(a.de, tde, cur, other(cur), wres, wr, last);
+      cur = fwd_hidden<R, NB, kBf16>(a.de, tde, cur, other(cur), wres, wr, last);
       if (last && a.de.n == 1) {
         cp_async_wait<0>();
         __syncthreads();
@@ -164,7 +180,7 @@ __global__ void __launch_bounds__(kThreads, 1) ode_forward(const __grid_constant
       if constexpr (kFoldPath) {
         if (tid < 32 * kFoldWarps) {
           float yr[kFold], in[kFold];
-          fold_readout(a.de, tde, cur, yr);
+          fold_readout<kBf16>(a.de, tde, cur, yr);
           NE_FWD_MARK(4 + 3 * q);
           const float dt = dt_of(t, 0);
 #pragma unroll
@@ -183,11 +199,11 @@ __global__ void __launch_bounds__(kThreads, 1) ode_forward(const __grid_constant
             }
           }
           NE_FWD_MARK(14);
-          if (!last || more) fold_first_layer(a.de, tde, in, s_next, nxt);
+          if (!last || more) fold_first_layer<kBf16>(a.de, tde, in, s_next, nxt);
         }
         __syncthreads();
       } else {
-        tile_readout<R>(a.de, tde, cur, y);
+        tile_readout<R, kBf16>(a.de, tde, cur, y);
         NE_FWD_MARK(4 + 3 * q);
         for (int e = tid; e < R * xd; e += kThreads) {
           const int r = e / xd, c = e - r * xd, o = r * H + c;
@@ -203,7 +219,7 @@ __global__ void __launch_bounds__(kThreads, 1) ode_forward(const __grid_constant
         }
         __syncthreads();
         NE_FWD_MARK(14);
-        if (!last || more) first_layer<R>(a.de, tde, xin, s_next, nxt);
+        if (!last || more) first_layer<R, kBf16>(a.de, tde, xin, s_next, nxt);
       }
       cur = nxt;
       NE_FWD_MARK(last ? 16 : 2 + 3 * (q + 1));
@@ -212,7 +228,7 @@ __global__ void __launch_bounds__(kThreads, 1) ode_forward(const __grid_constant
   }
 }
 
-template <int R, bool kFoldPath, int NB, bool kGlobal = false>
+template <int R, bool kFoldPath, int NB, bool kGlobal = false, bool kBf16 = false>
 cudaError_t launch(Args b, cudaStream_t st) {
   Net* nets[1] = {&b.de};
   // by default, one row a block: the two hidden weights in registers; a
@@ -223,10 +239,10 @@ cudaError_t launch(Args b, cudaStream_t st) {
   const int slots = fwd_place(nets, 1, b.H, NB, cap, smem_floats(0, b.de, R, b.H));
   const size_t smem = kGlobal ? 0 : smem_floats(slots, b.de, R, b.H) * sizeof(float);
   if (smem > kSmemMax) return cudaErrorInvalidValue;
-  const cudaError_t e = allow_smem(ode_forward<R, kFoldPath, NB, kGlobal>, smem);
+  const cudaError_t e = allow_smem(ode_forward<R, kFoldPath, NB, kGlobal, kBf16>, smem);
   if (e != cudaSuccess) return e;
   const int blocks = (b.batch + R - 1) / R;
-  ode_forward<R, kFoldPath, NB, kGlobal><<<blocks, kThreads, smem, st>>>(b, slots);
+  ode_forward<R, kFoldPath, NB, kGlobal, kBf16><<<blocks, kThreads, smem, st>>>(b, slots);
   return cudaGetLastError();
 }
 
@@ -255,27 +271,11 @@ bool plan(Plan& p, int batch, int h, int xd, int n_tail, int rows, float* scratc
   return true;
 }
 
-}  // namespace
-
-// C interface, loaded with ctypes. psn_fused_ode_rollout_scratch: the floats
-// of device scratch a launch of these sizes needs (-1: sizes it refuses).
-// psn_fused_ode_rollout_f32: pointers are device pointers to contiguous
-// float32 arrays in the wrapper's layout (row = input): wx [xd][h]; w / b
-// host arrays of the tail layers' weights [in][out] and biases [out];
-// scratch of psn_fused_ode_rollout_scratch floats. solver: 0 Euler, 1
-// Midpoint, 2 RK4 (3/8 rule). rows_per_block: 1, 2, 4 or 8, the most rows
-// a block takes (fewer where their buffers do not fit shared memory).
-// Launches on `stream` without synchronising and returns the launches'
-// error (0 on success).
-extern "C" long long psn_fused_ode_rollout_scratch(int batch, int h, int xd, int n_tail, int rows_per_block) {
-  Plan p;
-  return plan(p, batch, h, xd, n_tail, rows_per_block, nullptr) ? static_cast<long long>(p.scratch) : -1;
-}
-
-extern "C" int psn_fused_ode_rollout_f32(const void* s_de, const void* dt, const void* x0, const void* wx,
-                                         const void* const* w, const void* const* b, int n_tail, void* scratch,
-                                         void* sol, int tm1, int batch, int h, int xd, int solver,
-                                         int rows_per_block, void* stream) {
+// A launch of these sizes: the weights packed, then the rollout (the bf16
+// mode where bf16).
+int rollout(const void* s_de, const void* dt, const void* x0, const void* wx, const void* const* w,
+            const void* const* b, int n_tail, void* scratch, void* sol, int tm1, int batch, int h, int xd,
+            int solver, int rows_per_block, bool bf16, void* stream) {
   Plan p;
   float* base = static_cast<float*>(scratch);
   if (tm1 < 0 || solver < 0 || solver > 2 || !base || !plan(p, batch, h, xd, n_tail, rows_per_block, base))
@@ -283,10 +283,10 @@ extern "C" int psn_fused_ode_rollout_f32(const void* s_de, const void* dt, const
   if (tm1 == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   PackArgs pk{};
-  pk.src[0].w0[0] = pk.src[0].w0[1] = static_cast<const float*>(wx);
+  pk.src[0].w0[0] = pk.src[0].w0[1] = wx;
   pk.src[0].k0[0] = xd;
   for (int l = 0; l < n_tail; ++l) {
-    pk.src[0].w[l] = static_cast<const float*>(w[l]);
+    pk.src[0].w[l] = w[l];
     pk.src[0].b[l] = static_cast<const float*>(b[l]);
   }
   pk.dst[0] = p.de;
@@ -294,7 +294,11 @@ extern "C" int psn_fused_ode_rollout_f32(const void* s_de, const void* dt, const
   pk.h = h;
   pk.H = p.H;
   const int pb = pack_blocks(p.weights);
-  pack_nets<<<pb, kThreads, 0, st>>>(pk);
+  if (bf16) {
+    pack_nets<__nv_bfloat16><<<pb, kThreads, 0, st>>>(pk);
+  } else {
+    pack_nets<float><<<pb, kThreads, 0, st>>>(pk);
+  }
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   Args a;
@@ -311,6 +315,17 @@ extern "C" int psn_fused_ode_rollout_f32(const void* s_de, const void* dt, const
   a.H = p.H;
   a.xd = xd;
   a.solver = solver;
+  if (bf16) {
+    if (p.shape.gmem) return static_cast<int>(launch<1, false, 0, true, true>(a, st));
+    switch (p.shape.rows) {
+      case 1:
+        return static_cast<int>(narrow_in(a.de) && narrow_out(a.de) ? launch<1, true, kRegBanks, false, true>(a, st)
+                                                                    : launch<1, false, 0, false, true>(a, st));
+      case 2: return static_cast<int>(launch<2, false, 0, false, true>(a, st));
+      case 4: return static_cast<int>(launch<4, false, 0, false, true>(a, st));
+      default: return static_cast<int>(launch<8, false, 0, false, true>(a, st));
+    }
+  }
   if (p.shape.gmem) return static_cast<int>(launch<1, false, 0, true>(a, st));
   switch (p.shape.rows) {
     case 1:
@@ -320,6 +335,41 @@ extern "C" int psn_fused_ode_rollout_f32(const void* s_de, const void* dt, const
     case 4: return static_cast<int>(launch<4, false, 0>(a, st));
     default: return static_cast<int>(launch<8, false, 0>(a, st));
   }
+}
+
+}  // namespace
+
+// C interface, loaded with ctypes. psn_fused_ode_rollout_scratch: the floats
+// of device scratch a launch of these sizes needs (-1: sizes it refuses).
+// psn_fused_ode_rollout_f32: pointers are device pointers to contiguous
+// float32 arrays in the wrapper's layout (row = input): wx [xd][h]; w / b
+// host arrays of the tail layers' weights [in][out] and biases [out];
+// scratch of psn_fused_ode_rollout_scratch floats. solver: 0 Euler, 1
+// Midpoint, 2 RK4 (3/8 rule). rows_per_block: 1, 2, 4 or 8, the most rows
+// a block takes (fewer where their buffers do not fit shared memory).
+// Launches on `stream` without synchronising and returns the launches'
+// error (0 on success). psn_fused_ode_rollout_bf16: the bf16 compute mode,
+// the same arguments with s_de, wx and the tail weights w bfloat16 arrays
+// (the biases, dt and x0 float32).
+extern "C" long long psn_fused_ode_rollout_scratch(int batch, int h, int xd, int n_tail, int rows_per_block) {
+  Plan p;
+  return plan(p, batch, h, xd, n_tail, rows_per_block, nullptr) ? static_cast<long long>(p.scratch) : -1;
+}
+
+extern "C" int psn_fused_ode_rollout_f32(const void* s_de, const void* dt, const void* x0, const void* wx,
+                                         const void* const* w, const void* const* b, int n_tail, void* scratch,
+                                         void* sol, int tm1, int batch, int h, int xd, int solver,
+                                         int rows_per_block, void* stream) {
+  return rollout(s_de, dt, x0, wx, w, b, n_tail, scratch, sol, tm1, batch, h, xd, solver, rows_per_block, false,
+                 stream);
+}
+
+extern "C" int psn_fused_ode_rollout_bf16(const void* s_de, const void* dt, const void* x0, const void* wx,
+                                          const void* const* w, const void* const* b, int n_tail, void* scratch,
+                                          void* sol, int tm1, int batch, int h, int xd, int solver,
+                                          int rows_per_block, void* stream) {
+  return rollout(s_de, dt, x0, wx, w, b, n_tail, scratch, sol, tm1, batch, h, xd, solver, rows_per_block, true,
+                 stream);
 }
 
 extern "C" const char* psn_cuda_error_string(int code) {

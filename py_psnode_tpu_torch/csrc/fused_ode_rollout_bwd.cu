@@ -4,9 +4,10 @@
 //
 // Replaces the TPU kernel py_psnode_tpu/ops/fused_ode.py:_bwd_kernel (:171),
 // launched by _bwd (pallas_call at :356). It computes the same function at
-// float32 accuracy, without the TPU's grid, time blocking, dt == 0 padding or
-// bf16 mode. Per batch row, for t = T-2 down to 0, with x_t = sol[t] and the
-// carry gx_c (zero at the start):
+// float32 accuracy, without the TPU's grid, time blocking or dt == 0
+// padding; its bf16 compute mode (below) is the TPU kernel's
+// precision="bfloat16". Per batch row, for t = T-2 down to 0, with x_t =
+// sol[t] and the carry gx_c (zero at the start):
 //
 //   gX1 = cot[t+1] + gx_c
 //   the Euler / Midpoint / RK4-3/8 stages of f(x) = tail(elu(s_de[t] +
@@ -16,6 +17,15 @@
 //
 // and the gradients of wx and of every tail weight and bias summed over all
 // rows and steps. g_x0 is the carry after step 0 (the wrapper adds cot[0]).
+//
+// The bf16 compute mode (the TPU kernel's cdtype :175 on the cast residuals
+// of _fwd :335-343; kernels of their own, the template flag kBf16 of the
+// same bodies): s_de arrives as bfloat16 (the forward's cast one), the
+// padded weights hold the bf16 weights' values; every product rounds its
+// activation or cotangent operand to bf16 as it reads it, a weight gradient
+// both operands; the recompute's and the contraction's products run in one
+// TF32 pass (exact for bf16 operands). g_s_de, the carry and every gradient
+// stay float32 (csrc/fused_dae_rollout_bwd.cu has the same mode).
 //
 // Bound on an H100 SXM at the no-encode training shape (B=64, T=1001,
 // h=128, xd=2, three tail layers, RK4): a row-step evaluates f at four
@@ -83,8 +93,9 @@ struct Args {
 constexpr int kOdeWalkVecs = 9;
 
 // ---- kernel 1: the stages of every row-step, a tile of kRows at a time ----
-template <bool kWide>
+template <bool kWide, bool kBf16 = false>
 __device__ __forceinline__ void ode_recompute_body(const Args& a, float* smem) {
+  const Stream<kBf16>* s_de = reinterpret_cast<const Stream<kBf16>*>(a.s_de);
   const RcSmem s = kWide ? carve_rc_wide(smem, a.scratch + blockIdx.x * rc_wide_tile_floats(a.H), a.H)
                          : carve_rc(smem);
   const Bufs& bf = a.bf;
@@ -107,9 +118,9 @@ __device__ __forceinline__ void ode_recompute_body(const Args& a, float* smem) {
     });
     float* y = q + 1 < S ? bf.gy_row(q, 0) : nullptr;
     if constexpr (kWide) {
-      rc_eval_wide(a.net, bf, q, r0, a.s_de, s, [](int) { return true; }, y, bf.ow, a.H);
+      rc_eval_wide<kBf16>(a.net, bf, q, r0, s_de, s, [](int) { return true; }, y, bf.ow, a.H);
     } else {
-      rc_eval(a.net, bf, q, r0, a.s_de, s, [](int) { return true; }, y, bf.ow);
+      rc_eval<kBf16>(a.net, bf, q, r0, s_de, s, [](int) { return true; }, y, bf.ow);
     }
   }
 }
@@ -124,11 +135,21 @@ __global__ void __launch_bounds__(kThreads, 1) ode_recompute_wide(const __grid_c
   ode_recompute_body<true>(a, smem);
 }
 
+__global__ void __launch_bounds__(kThreads, 1) ode_recompute_bf16(const __grid_constant__ Args a) {
+  extern __shared__ __align__(16) float smem[];
+  ode_recompute_body<false, true>(a, smem);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) ode_recompute_wide_bf16(const __grid_constant__ Args a) {
+  extern __shared__ __align__(16) float smem[];
+  ode_recompute_body<true, true>(a, smem);
+}
+
 // ---- kernel 2: the reverse walk, one block per batch row ----
 // kWide: the walk at a padded width H > kMaxH (no resident weight, no
 // prefetch; the vectors H long, in shared memory or, without vec_smem, in
-// the block's share of the scratch).
-template <bool kWide>
+// the block's share of the scratch). kBf16: the bf16 mode.
+template <bool kWide, bool kBf16 = false>
 __device__ __forceinline__ void ode_walk_body(const Args& a, int slots, bool vec_smem, float* smem) {
   const Bufs& bf = a.bf;
   const int xd = a.xd, B = a.batch, h = bf.h, tid = threadIdx.x;
@@ -188,14 +209,14 @@ __device__ __forceinline__ void ode_walk_body(const Args& a, int slots, bool vec
     }
     auto stage = [&](int q, auto glue) {
       if constexpr (kWide) {
-        const float* v = walk_eval_wide(a.net, bf, q, r, gyv, va, vb, V);
+        const float* v = walk_eval_wide<kBf16>(a.net, bf, q, r, gyv, va, vb, V);
         if (walk_ks() == 0)
           for (int j = k; j < V; j += kMaxH) gsv[j] += v[j];
-        walk_inputs_wide(a.net, v, V, glue);
+        walk_inputs_wide<kBf16>(a.net, v, V, glue);
       } else {
-        const float* v = walk_eval(a.net, bf, q, r, P + q * bf.L * kMaxH, gyv, va, vb, wres);
+        const float* v = walk_eval<kBf16>(a.net, bf, q, r, P + q * bf.L * kMaxH, gyv, va, vb, wres);
         gsde += v[k];
-        walk_inputs(a.net, v, glue);
+        walk_inputs<kBf16>(a.net, v, glue);
       }
       __syncthreads();
     };
@@ -259,6 +280,16 @@ __global__ void __launch_bounds__(kThreads, 1) ode_walk_wide(const __grid_consta
   ode_walk_body<true>(a, 0, vec_smem != 0, smem);
 }
 
+__global__ void __launch_bounds__(kThreads, 1) ode_walk_bf16(const __grid_constant__ Args a, int slots) {
+  extern __shared__ __align__(16) float smem[];
+  ode_walk_body<false, true>(a, slots, true, smem);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) ode_walk_wide_bf16(const __grid_constant__ Args a, int vec_smem) {
+  extern __shared__ __align__(16) float smem[];
+  ode_walk_body<true, true>(a, 0, vec_smem != 0, smem);
+}
+
 // The contraction's jobs: wx from the stage inputs, then each tail layer.
 Jobs ode_jobs(const Net& net, int h, int xd, int S) {
   const GradOffsets o = grad_offsets(h, xd, net.n);
@@ -296,22 +327,13 @@ extern "C" void psn_fused_ode_bwd_sizes(int tm1, int batch, int h, int xd, int n
   }
 }
 
-// C interface, loaded with ctypes. Pointers are device pointers to
-// contiguous float32 arrays: w the padded weights [n_tail + 1][H][H] in 128
-// x 128 blocks (csrc/noencode_bwd.cuh; wx, then the tail layers), H the
-// multiple of 128 at or above h and xd, b the padded biases [n_tail][H]; res, gres,
-// gy, xin and parts scratch of the sizes psn_fused_ode_bwd_sizes gives.
-// solver: 0 Euler, 1 Midpoint, 2 RK4 (3/8 rule). stages: the kernels to
-// launch, 1 the recompute, 2 the walk, 4 the contraction (7 for the
-// backward; one alone times it, or runs the contraction on given buffers).
-// max_slots caps the walk's weights resident in shared memory (negative: as
-// many as fit; the others come from L2). Launches on `stream` without synchronising and returns the first launch
-// error (0 on success).
-extern "C" int psn_fused_ode_rollout_bwd_f32(
-    const void* s_de, const void* dt, const void* sol, const void* cot, const void* w,
-    const void* b, int n_tail, void* g_s_de, void* g_w, void* g_x0, void* res, void* gres, void* gy,
-    void* xin, void* parts, int tm1, int batch, int h, int xd, int solver, int stages,
-    int max_slots, void* stream) {
+namespace {
+
+// The backward's launches (the bf16 kernels where bf16).
+int backward(const void* s_de, const void* dt, const void* sol, const void* cot, const void* w, const void* b,
+             int n_tail, void* g_s_de, void* g_w, void* g_x0, void* res, void* gres, void* gy, void* xin,
+             void* parts, int tm1, int batch, int h, int xd, int solver, int stages, int max_slots, bool bf16,
+             void* stream) {
   if (tm1 < 1 || batch < 1 || h < 1 || xd < 1 || solver < 0 || solver > 2 || n_tail < 1 ||
       n_tail > kMaxTail)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -339,25 +361,28 @@ extern "C" int psn_fused_ode_rollout_bwd_f32(
   const int tiles = static_cast<int>((R + kRows - 1) / kRows);
   if ((stages & 1) && H > kMaxH) {
     const size_t smem = rc_wide_smem_bytes();
-    e = allow_smem(ode_recompute_wide, smem);
+    auto kernel = bf16 ? ode_recompute_wide_bf16 : ode_recompute_wide;
+    e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    ode_recompute_wide<<<tiles, kThreads, smem, st>>>(a);
+    kernel<<<tiles, kThreads, smem, st>>>(a);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   } else if (stages & 1) {
     const size_t smem = rc_smem_bytes();
-    e = allow_smem(ode_recompute, smem);
+    auto kernel = bf16 ? ode_recompute_bf16 : ode_recompute;
+    e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    ode_recompute<<<tiles, kThreads, smem, st>>>(a);
+    kernel<<<tiles, kThreads, smem, st>>>(a);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if ((stages & 2) && H > kMaxH) {
     const int in_smem = walk_wide_in_smem(kOdeWalkVecs, H);
     const size_t smem = in_smem ? static_cast<size_t>(kOdeWalkVecs) * H * sizeof(float) : 0;
-    e = allow_smem(ode_walk_wide, smem);
+    auto kernel = bf16 ? ode_walk_wide_bf16 : ode_walk_wide;
+    e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    ode_walk_wide<<<batch, kThreads, smem, st>>>(a, in_smem);
+    kernel<<<batch, kThreads, smem, st>>>(a, in_smem);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   } else if (stages & 2) {
@@ -365,9 +390,10 @@ extern "C" int psn_fused_ode_rollout_bwd_f32(
     const int fit = walk_fit(S, n_tail);
     const int slots = place(nets, 1, max_slots >= 0 && max_slots < fit ? max_slots : fit);
     const size_t smem = walk_floats(slots, S, n_tail) * sizeof(float);
-    e = allow_smem(ode_walk, smem);
+    auto kernel = bf16 ? ode_walk_bf16 : ode_walk;
+    e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    ode_walk<<<batch, kThreads, smem, st>>>(a, slots);
+    kernel<<<batch, kThreads, smem, st>>>(a, slots);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -378,9 +404,42 @@ extern "C" int psn_fused_ode_rollout_bwd_f32(
     c.parts = static_cast<float*>(parts);
     c.g_w = static_cast<float*>(g_w);
     c.nt = H / kMaxH;
-    e = launch_contraction(c, n_splits(max_rows(c.jobs, R)), st);
+    e = launch_contraction(c, n_splits(max_rows(c.jobs, R)), st, bf16);
   }
   return static_cast<int>(e);
+}
+
+}  // namespace
+
+// C interface, loaded with ctypes. Pointers are device pointers to
+// contiguous float32 arrays: w the padded weights [n_tail + 1][H][H] in 128
+// x 128 blocks (csrc/noencode_bwd.cuh; wx, then the tail layers), H the
+// multiple of 128 at or above h and xd, b the padded biases [n_tail][H]; res, gres,
+// gy, xin and parts scratch of the sizes psn_fused_ode_bwd_sizes gives.
+// solver: 0 Euler, 1 Midpoint, 2 RK4 (3/8 rule). stages: the kernels to
+// launch, 1 the recompute, 2 the walk, 4 the contraction (7 for the
+// backward; one alone times it, or runs the contraction on given buffers).
+// max_slots caps the walk's weights resident in shared memory (negative: as
+// many as fit; the others come from L2). Launches on `stream` without synchronising and returns the first launch
+// error (0 on success). psn_fused_ode_rollout_bwd_bf16: the bf16 compute
+// mode, the same arguments with s_de a bfloat16 array and the padded
+// weights holding bf16 values (every output float32).
+extern "C" int psn_fused_ode_rollout_bwd_f32(
+    const void* s_de, const void* dt, const void* sol, const void* cot, const void* w,
+    const void* b, int n_tail, void* g_s_de, void* g_w, void* g_x0, void* res, void* gres, void* gy,
+    void* xin, void* parts, int tm1, int batch, int h, int xd, int solver, int stages,
+    int max_slots, void* stream) {
+  return backward(s_de, dt, sol, cot, w, b, n_tail, g_s_de, g_w, g_x0, res, gres, gy, xin, parts, tm1, batch, h,
+                  xd, solver, stages, max_slots, false, stream);
+}
+
+extern "C" int psn_fused_ode_rollout_bwd_bf16(
+    const void* s_de, const void* dt, const void* sol, const void* cot, const void* w,
+    const void* b, int n_tail, void* g_s_de, void* g_w, void* g_x0, void* res, void* gres, void* gy,
+    void* xin, void* parts, int tm1, int batch, int h, int xd, int solver, int stages,
+    int max_slots, void* stream) {
+  return backward(s_de, dt, sol, cot, w, b, n_tail, g_s_de, g_w, g_x0, res, gres, gy, xin, parts, tm1, batch, h,
+                  xd, solver, stages, max_slots, true, stream);
 }
 
 extern "C" const char* psn_cuda_error_string(int code) {

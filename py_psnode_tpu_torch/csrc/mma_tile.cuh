@@ -10,7 +10,19 @@
 // 2^-22 below a b. One TF32 pass alone keeps about 11 bits. mma_k8 is the
 // one routine: it reads each operand element through a function of the
 // caller, so one routine serves every layout (a tile times a weight staged
-// from global memory, a tile times a tile, staged row chunks).
+// from global memory, a tile times a tile, staged row chunks). The bf16
+// compute mode of the no-encode kernels (kOne) runs one TF32 pass: its
+// operands hold bf16 values (8 significant bits), which TF32's 11 hold
+// exactly, so the one pass gives their exact products, on the same
+// fragments. The tensor cores round a sum toward zero: accumulated in the
+// mma over K, that leaves the recompute's pre-activations a small bias
+// toward zero, which a 1 000-step walk carries into every cotangent and
+// gradient (PERF.md section 6). So with kBf16Acc 2, the default, each k8
+// step's sum comes alone from a zero accumulator, a second mma of the same
+// operands onto its negation gives back what the truncation dropped, and
+// both are added to the accumulator in float32, to nearest; kBf16Acc 1
+// takes the first mma alone, 0 accumulates in the mma
+// (``chip_smoke.py --bf16-probe`` compares the three).
 //
 // A tile is feature-major, T[f][l] (f the feature, l the position), of
 // stride kLdt = 136: 8 mod 32, so the A fragment of a forward product (8
@@ -26,6 +38,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -41,6 +54,13 @@ constexpr int kLdt = kMaxH + 8;       // tile stride: 8 mod 32, see above
 constexpr int kTile = kMaxH * kLdt;   // floats in one [h, h] tile
 constexpr int kKc = 32;               // weight rows staged at once
 constexpr int kChunk = kKc * kLdt;    // floats in one staged chunk
+
+#ifndef NE_BF16_ACC
+#define NE_BF16_ACC 2
+#endif
+// how the bf16 mode's one TF32 pass sums (see above; chip_smoke.py
+// --bf16-probe builds each)
+constexpr int kBf16Acc = NE_BF16_ACC;
 
 // How the 16 warps of a block of a KC-block cluster tile its column slice
 // [kMaxH, kSlice] of an [h, h] product: kAlongM warps along the rows, each
@@ -66,6 +86,25 @@ __device__ __forceinline__ float elu(float v) {
 
 // elu'(p) from the activation a = elu(p): 1 above 0, else exp(p) = a + 1.
 __device__ __forceinline__ float delu_act(float a) { return a > 0.f ? 1.f : a + 1.f; }
+
+// The bf16 compute mode's rounding of a product's operand: v rounded to
+// bf16 (to nearest, ties to even: XLA's astype) where kBf16, else v.
+template <bool kBf16>
+__device__ __forceinline__ float rnd(float v) {
+  if constexpr (kBf16) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  } else {
+    return v;
+  }
+}
+
+template <bool kBf16>
+__device__ __forceinline__ float4 rnd4(float4 v) {
+  return float4{rnd<kBf16>(v.x), rnd<kBf16>(v.y), rnd<kBf16>(v.z), rnd<kBf16>(v.w)};
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <int KC>
 __device__ __forceinline__ unsigned block_rank() {
@@ -133,30 +172,64 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
 }
 
 // acc += A[m][kb + k] B[kb + k][n] over k < 8 and the warp's slice, in the
-// three TF32 passes; ga(m, k) and gb(k, n) read one operand element.
-template <int KC, class GA, class GB>
+// three TF32 passes (kOne: in one, for operands that TF32 holds exactly);
+// ga(m, k) and gb(k, n) read one operand element.
+template <int KC, bool kOne = false, class GA, class GB>
 __device__ __forceinline__ void mma_k8(const Frag& f, int kb, GA ga, GB gb, Acc<KC>& acc) {
   using T = Tiling<KC>;
-  uint32_t bh[T::kNi][2], bl[T::kNi][2];
+  if constexpr (kOne) {
+    uint32_t b[T::kNi][2];
 #pragma unroll
-  for (int j = 0; j < T::kNi; ++j) {
-    const int n = f.n0 + 8 * j + f.g;
-    split_tf32(gb(kb + f.q, n), bh[j][0], bl[j][0]);
-    split_tf32(gb(kb + f.q + 4, n), bh[j][1], bl[j][1]);
-  }
+    for (int j = 0; j < T::kNi; ++j) {
+      const int n = f.n0 + 8 * j + f.g;
+      b[j][0] = to_tf32(gb(kb + f.q, n));
+      b[j][1] = to_tf32(gb(kb + f.q + 4, n));
+    }
 #pragma unroll
-  for (int i = 0; i < T::kMi; ++i) {
-    const int m = f.m0 + 16 * i + f.g;
-    uint32_t ah[4], al[4];
-    split_tf32(ga(m, kb + f.q), ah[0], al[0]);
-    split_tf32(ga(m + 8, kb + f.q), ah[1], al[1]);
-    split_tf32(ga(m, kb + f.q + 4), ah[2], al[2]);
-    split_tf32(ga(m + 8, kb + f.q + 4), ah[3], al[3]);
+    for (int i = 0; i < T::kMi; ++i) {
+      const int m = f.m0 + 16 * i + f.g;
+      const uint32_t a[4] = {to_tf32(ga(m, kb + f.q)), to_tf32(ga(m + 8, kb + f.q)), to_tf32(ga(m, kb + f.q + 4)),
+                             to_tf32(ga(m + 8, kb + f.q + 4))};
 #pragma unroll
-    for (int j = 0; j < T::kNi; ++j) {  // the small terms first
-      mma_tf32(acc[i][j], al, bh[j]);
-      mma_tf32(acc[i][j], ah, bl[j]);
-      mma_tf32(acc[i][j], ah, bh[j]);
+      for (int j = 0; j < T::kNi; ++j) {
+        if constexpr (kBf16Acc == 0) {
+          mma_tf32(acc[i][j], a, b[j]);
+        } else {
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(d, a, b[j]);
+          if constexpr (kBf16Acc == 2) {
+            float e[4] = {-d[0], -d[1], -d[2], -d[3]};
+            mma_tf32(e, a, b[j]);  // the step's sum less its truncated value
+#pragma unroll
+            for (int r = 0; r < 4; ++r) d[r] += e[r];
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[i][j][r] += d[r];
+        }
+      }
+    }
+  } else {
+    uint32_t bh[T::kNi][2], bl[T::kNi][2];
+#pragma unroll
+    for (int j = 0; j < T::kNi; ++j) {
+      const int n = f.n0 + 8 * j + f.g;
+      split_tf32(gb(kb + f.q, n), bh[j][0], bl[j][0]);
+      split_tf32(gb(kb + f.q + 4, n), bh[j][1], bl[j][1]);
+    }
+#pragma unroll
+    for (int i = 0; i < T::kMi; ++i) {
+      const int m = f.m0 + 16 * i + f.g;
+      uint32_t ah[4], al[4];
+      split_tf32(ga(m, kb + f.q), ah[0], al[0]);
+      split_tf32(ga(m + 8, kb + f.q), ah[1], al[1]);
+      split_tf32(ga(m, kb + f.q + 4), ah[2], al[2]);
+      split_tf32(ga(m + 8, kb + f.q + 4), ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < T::kNi; ++j) {  // the small terms first
+        mma_tf32(acc[i][j], al, bh[j]);
+        mma_tf32(acc[i][j], ah, bl[j]);
+        mma_tf32(acc[i][j], ah, bh[j]);
+      }
     }
   }
 }
@@ -165,8 +238,10 @@ __device__ __forceinline__ void mma_k8(const Frag& f, int kb, GA ga, GB gb, Acc<
 // (feature-major) times a weight [K, n] row-major in global memory (K, n <=
 // kMaxH), the slice's columns staged kKc rows at a time by cp.async. The
 // tile's rows beyond K must be zero. Starts by writing wbuf (no thread of
-// the block may read it then) and ends with a barrier of the block.
-template <int KC>
+// the block may read it then) and ends with a barrier of the block. kBf16:
+// the bf16 compute mode, each tile element rounded to bf16 as it is read
+// (the weight holds bf16 values already), in one TF32 pass.
+template <int KC, bool kBf16 = false>
 __device__ __forceinline__ void mma_tile_weight(const float* tin, int K,
                                                 const float* __restrict__ w, int n, float* wbuf,
                                                 Acc<KC>& acc) {
@@ -209,8 +284,8 @@ __device__ __forceinline__ void mma_tile_weight(const float* tin, int K,
 #pragma unroll
     for (int s = 0; s < kKc / 8; ++s)
       if (8 * s < kr)
-        mma_k8<KC>(
-            f, 8 * s, [&](int m, int k) { return ta[k * kLdt + m]; },
+        mma_k8<KC, kBf16>(
+            f, 8 * s, [&](int m, int k) { return rnd<kBf16>(ta[k * kLdt + m]); },
             [&](int k, int nn) { return bw[k * kLdt + nn]; }, acc);
     __syncthreads();  // done with buffer c & 1 before chunk c + 2 lands there
   }

@@ -50,12 +50,30 @@
 // (global scratch where they do not fit); the contraction splits each job
 // into 128 x 128 output tiles, each summed over the same row ranges in the
 // same order. Nothing wide changes the sums at H = kMaxH.
+//
+// The bf16 compute mode (the TPU kernels' precision="bfloat16"; a template
+// flag kBf16 of every kernel of both pairs, its own instantiations, the
+// float32 ones compiled as without it): the streams arrive as bfloat16
+// (read as such, widened to float32 exactly), the weights hold bf16 values
+// (the padded float32 blocks of the wrappers and of pack_nets), and every
+// product rounds its activation or cotangent operand to bf16 as it reads
+// it (rnd, csrc/mma_tile.cuh), a weight gradient both operands, and sums in
+// float32: the tensor-core products (the recompute, the contraction) in one
+// TF32 pass, exact for bf16 operands; the CUDA-core ones (the forwards, the
+// walk) by fmaf. Biases, carries, dt, the stage updates and every output
+// stay float32.
 
 #pragma once
+
+#include <type_traits>
 
 #include "mma_tile.cuh"
 
 namespace {
+
+// A stream's element type: float, or __nv_bfloat16 in the bf16 mode.
+template <bool kBf16>
+using Stream = std::conditional_t<kBf16, __nv_bfloat16, float>;
 
 constexpr int kMaxTail = 8;         // tail layers a net may have
 constexpr int kRows = kMaxH;        // row-steps a recompute tile holds (the M of its products)
@@ -236,12 +254,13 @@ __device__ __forceinline__ void rc_input(const RcSmem& s, const Bufs& bf, int e,
 
 // One evaluation of `net` for the tile's row-steps r0 + m, m < kRows: the
 // first-layer input in s.tb (rc_input), the first layer's added stream st
-// ([R][h]). Writes layer l's pre-activation to res slot e (rows r < R with
-// keep(m)) and, unless y is null, the last layer's output to y (row r at
-// y + r ldy). Starts after rc_input's barrier; ends with a barrier.
-template <class Keep>
+// ([R][h], float32 or, in the bf16 mode, bfloat16). Writes layer l's
+// pre-activation to res slot e (rows r < R with keep(m)) and, unless y is
+// null, the last layer's output to y (row r at y + r ldy). Starts after
+// rc_input's barrier; ends with a barrier.
+template <bool kBf16, class Keep, class ST>
 __device__ __noinline__ void rc_eval(const Net& net, const Bufs& bf, int e, long long r0,
-                                     const float* __restrict__ st, const RcSmem& s, Keep keep,
+                                     const ST* __restrict__ st, const RcSmem& s, Keep keep,
                                      float* y, int ldy) {
   const int h = bf.h;
   const long long R = bf.R;
@@ -249,7 +268,7 @@ __device__ __noinline__ void rc_eval(const Net& net, const Bufs& bf, int e, long
   float* cur = s.tb;
   float* nxt = s.ta;
   for (int l = 0; l < net.n; ++l) {
-    mma_tile_weight<1>(cur, l == 0 ? net.kin : h, net.w[l], kMaxH, s.wbuf, acc);
+    mma_tile_weight<1, kBf16>(cur, l == 0 ? net.kin : h, net.w[l], kMaxH, s.wbuf, acc);
     const float* bias = l == 0 ? nullptr : net.b[l - 1];
     float* pre = bf.res + bf.at(e, l, 0);
     // every feature n < kMaxH is written: beyond h, acc and the padded bias
@@ -257,7 +276,7 @@ __device__ __noinline__ void rc_eval(const Net& net, const Bufs& bf, int e, long
     for_acc_mn<1>(acc, kRows, kMaxH, [&](float& v, int m, int n) {
       const long long r = r0 + m;
       const bool live = n < h && r < R;
-      const float add = bias ? bias[n] : (live ? __ldg(st + r * h + n) : 0.f);
+      const float add = bias ? bias[n] : (live ? to_f(__ldg(st + r * h + n)) : 0.f);
       const float p = v + add;
       nxt[n * kLdt + m] = elu(p);
       if (live && keep(m)) pre[r * h + n] = p;
@@ -275,11 +294,11 @@ __device__ __noinline__ void rc_eval(const Net& net, const Bufs& bf, int e, long
       const int c = o / kRows, m = o - c * kRows;
       float v = 0.f;
 #pragma unroll 8
-      for (int k = 0; k < h; ++k) v = fmaf(cur[k * kLdt + m], __ldg(wl + k * kMaxH + c), v);
+      for (int k = 0; k < h; ++k) v = fmaf(rnd<kBf16>(cur[k * kLdt + m]), __ldg(wl + k * kMaxH + c), v);
       if (r0 + m < R) y[(r0 + m) * ldy + c] = v + bl[c];
     }
   } else {
-    mma_tile_weight<1>(cur, h, wl, kMaxH, s.wbuf, acc);
+    mma_tile_weight<1, kBf16>(cur, h, wl, kMaxH, s.wbuf, acc);
     for_acc_mn<1>(acc, kRows, net.out, [&](float& v, int m, int c) {
       if (r0 + m < R) y[(r0 + m) * ldy + c] = v + bl[c];
     });
@@ -315,12 +334,13 @@ __host__ __device__ __forceinline__ const float* wblock(const float* w, int nc, 
 // the tile tin (feature-major, rows beyond K zero) times the padded weight
 // w of width H, one K chunk of 128 at a time, each summed from zero into
 // part and the chunk sums added in float32. Ends with a barrier.
+template <bool kBf16>
 __device__ __forceinline__ void rc_chunk_product(const float* tin, int K, const float* w, int H, int oc,
                                                  float* wbuf, Acc<1>& acc, Acc<1>& part) {
   const int nc = H / kMaxH;
   for (int kc = 0; kc * kMaxH < K; ++kc) {
     const int kr = K - kc * kMaxH;
-    mma_tile_weight<1>(tin + static_cast<size_t>(kc) * kMaxH * kLdt, kr < kMaxH ? kr : kMaxH,
+    mma_tile_weight<1, kBf16>(tin + static_cast<size_t>(kc) * kMaxH * kLdt, kr < kMaxH ? kr : kMaxH,
                        wblock(w, nc, kc, oc), kMaxH, wbuf, part);
 #pragma unroll
     for (int i = 0; i < Tiling<1>::kMi; ++i)
@@ -334,9 +354,9 @@ __device__ __forceinline__ void rc_chunk_product(const float* tin, int K, const 
 // rc_eval at a padded width H > kMaxH (the wide layout; the tiles of
 // carve_rc_wide, their features beyond what a layer writes zero): each
 // layer by 128-wide output chunks, the first layer's K its kin inputs.
-template <class Keep>
+template <bool kBf16, class Keep, class ST>
 __device__ __noinline__ void rc_eval_wide(const Net& net, const Bufs& bf, int e, long long r0,
-                                          const float* __restrict__ st, const RcSmem& s, Keep keep,
+                                          const ST* __restrict__ st, const RcSmem& s, Keep keep,
                                           float* y, int ldy, int H) {
   const int h = bf.h, nc = H / kMaxH;
   const long long R = bf.R;
@@ -347,13 +367,13 @@ __device__ __noinline__ void rc_eval_wide(const Net& net, const Bufs& bf, int e,
     const float* bias = l == 0 ? nullptr : net.b[l - 1];
     float* pre = bf.res + bf.at(e, l, 0);
     for (int oc = 0; oc * kMaxH < h; ++oc) {
-      rc_chunk_product(cur, l == 0 ? net.kin : h, net.w[l], H, oc, s.wbuf, acc, part);
+      rc_chunk_product<kBf16>(cur, l == 0 ? net.kin : h, net.w[l], H, oc, s.wbuf, acc, part);
       // beyond h, acc and the padded bias are 0: the tile keeps its zeros
       for_acc_mn<1>(acc, kRows, kMaxH, [&](float& v, int m, int n) {
         const long long r = r0 + m;
         const int j = oc * kMaxH + n;
         const bool live = j < h && r < R;
-        const float add = bias ? bias[j] : (live ? __ldg(st + r * h + j) : 0.f);
+        const float add = bias ? bias[j] : (live ? to_f(__ldg(st + r * h + j)) : 0.f);
         const float p = v + add;
         nxt[static_cast<size_t>(j) * kLdt + m] = elu(p);
         if (live && keep(m)) pre[r * h + j] = p;
@@ -372,12 +392,13 @@ __device__ __noinline__ void rc_eval_wide(const Net& net, const Bufs& bf, int e,
       const int c = o / kRows, m = o - c * kRows;
       float v = 0.f;
       for (int k = 0; k < h; ++k)
-        v = fmaf(cur[static_cast<size_t>(k) * kLdt + m], __ldg(wblock(wl, nc, k / kMaxH, 0) + (k % kMaxH) * kMaxH + c), v);
+        v = fmaf(rnd<kBf16>(cur[static_cast<size_t>(k) * kLdt + m]),
+                 __ldg(wblock(wl, nc, k / kMaxH, 0) + (k % kMaxH) * kMaxH + c), v);
       if (r0 + m < R) y[(r0 + m) * ldy + c] = v + bl[c];
     }
   } else {
     for (int oc = 0; oc * kMaxH < net.out; ++oc) {
-      rc_chunk_product(cur, h, wl, H, oc, s.wbuf, acc, part);
+      rc_chunk_product<kBf16>(cur, h, wl, H, oc, s.wbuf, acc, part);
       for_acc_mn<1>(acc, kRows, net.out - oc * kMaxH, [&](float& v, int m, int c) {
         if (r0 + m < R) y[(r0 + m) * ldy + oc * kMaxH + c] = v + bl[oc * kMaxH + c];
       });
@@ -438,8 +459,9 @@ __device__ __forceinline__ void load_resident(const Net& net, float* wres) {
 // out[r] = sum_j W[k][j] v[r][j] for the thread's output k and rows r < R
 // (v row r at v + r ldv, in shared memory), summed over its quad: W a
 // [kMaxH][kMaxH] block of a weight, resident (swizzled) or in global memory
-// with row stride ldw floats. Each weight load serves the R rows.
-template <bool kResident, int R>
+// with row stride ldw floats. Each weight load serves the R rows. kBf16:
+// each v element rounded to bf16 as it is read.
+template <bool kResident, int R, bool kBf16 = false>
 __device__ __forceinline__ void matvec_rows(const float* W, int ldw, const float* v, int ldv, float (&out)[R]) {
   const int k = walk_k(), ks = walk_ks();
   const float4* w4 = reinterpret_cast<const float4*>(W);
@@ -452,7 +474,7 @@ __device__ __forceinline__ void matvec_rows(const float* W, int ldw, const float
     const float4 w = kResident ? w4[swz(k, j4)] : __ldg(w4 + k * (ldw / 4) + j4);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const float4 x = reinterpret_cast<const float4*>(v + r * ldv)[j4];
+      const float4 x = rnd4<kBf16>(reinterpret_cast<const float4*>(v + r * ldv)[j4]);
       a0[r] = fmaf(w.x, x.x, a0[r]);
       a1[r] = fmaf(w.y, x.y, a1[r]);
       a0[r] = fmaf(w.z, x.z, a0[r]);
@@ -464,10 +486,10 @@ __device__ __forceinline__ void matvec_rows(const float* W, int ldw, const float
 }
 
 // sum_j W[k][j] v[j] for the thread's output k (one row of matvec_rows).
-template <bool kResident>
+template <bool kResident, bool kBf16 = false>
 __device__ __forceinline__ float matvec(const float* W, const float* v) {
   float out[1];
-  matvec_rows<kResident, 1>(W, kMaxH, v, 0, out);
+  matvec_rows<kResident, 1, kBf16>(W, kMaxH, v, 0, out);
   return out[0];
 }
 
@@ -476,7 +498,9 @@ __device__ __forceinline__ float matvec(const float* W, const float* v) {
 // pre-activations of the slot ([L][kMaxH], zero beyond h), wres the
 // resident weights. Writes gy and each layer's pre-activation cotangent to
 // the buffers; leaves the first layer's in va or vb and returns it. Every
-// layer ends with a barrier.
+// layer ends with a barrier. kBf16: each cotangent rounded to bf16 as a
+// product reads it.
+template <bool kBf16>
 __device__ __noinline__ const float* walk_eval(const Net& net, const Bufs& bf, int e, long long r,
                                                const float* P, const float* gyv, float* va, float* vb,
                                                const float* wres) {
@@ -485,7 +509,7 @@ __device__ __noinline__ const float* walk_eval(const Net& net, const Bufs& bf, i
   // the last layer: sum_c W[k][c] gy[c] over its few (or, for xd = h, h) outputs
   const float* wl = net.w[net.n] + k * kMaxH;
   float acc = 0.f;
-  for (int c = ks; c < net.out; c += 4) acc = fmaf(__ldg(wl + c), gyv[c], acc);
+  for (int c = ks; c < net.out; c += 4) acc = fmaf(__ldg(wl + c), rnd<kBf16>(gyv[c]), acc);
   acc = quad_sum(acc);
   float* cur = va;
   float* nxt = vb;
@@ -498,8 +522,8 @@ __device__ __noinline__ const float* walk_eval(const Net& net, const Bufs& bf, i
     if (l == 0) return cur;
     --l;
     const int q = net.res_slot[l];
-    acc = q >= 0 ? matvec<true>(wres + static_cast<size_t>(q) * kMat, cur)
-                 : matvec<false>(net.w[1 + l], cur);
+    acc = q >= 0 ? matvec<true, kBf16>(wres + static_cast<size_t>(q) * kMat, cur)
+                 : matvec<false, kBf16>(net.w[1 + l], cur);
     float* t = cur;
     cur = nxt;
     nxt = t;
@@ -507,15 +531,16 @@ __device__ __noinline__ const float* walk_eval(const Net& net, const Bufs& bf, i
 }
 
 // fn(c, sum_k w0[c][k] v[k]) in lane 0 of a warp, for each first-layer
-// input c < kin: the cotangent of the evaluation's inputs.
-template <class F>
+// input c < kin: the cotangent of the evaluation's inputs (kBf16: v
+// rounded to bf16 as it is read).
+template <bool kBf16, class F>
 __device__ __forceinline__ void walk_inputs(const Net& net, const float* v, F fn) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int c = warp; c < net.kin; c += kThreads / 32) {
     const float* row = net.w[0] + c * kMaxH;
     float acc = 0.f;
 #pragma unroll
-    for (int k = lane; k < kMaxH; k += 32) acc = fmaf(__ldg(row + k), v[k], acc);
+    for (int k = lane; k < kMaxH; k += 32) acc = fmaf(__ldg(row + k), rnd<kBf16>(v[k]), acc);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
     if (lane == 0) fn(c, acc);
@@ -527,6 +552,7 @@ __device__ __forceinline__ void walk_inputs(const Net& net, const float* v, F fn
 // every weight read from L2 by 128 x 128 blocks, the thread's output k of
 // each 128-wide chunk of a layer's inputs summed over the output chunks
 // (each chunk's sum from matvec, the chunk sums added in order).
+template <bool kBf16>
 __device__ __noinline__ const float* walk_eval_wide(const Net& net, const Bufs& bf, int e, long long r,
                                                     const float* gyv, float* va, float* vb, int H) {
   const int k = walk_k(), ks = walk_ks(), h = bf.h, nc = H / kMaxH;
@@ -537,7 +563,8 @@ __device__ __noinline__ const float* walk_eval_wide(const Net& net, const Bufs& 
   for (int kc = 0; kc < nc; ++kc) {
     const int j = kc * kMaxH + k;
     float acc = 0.f;
-    for (int c = ks; c < net.out; c += 4) acc = fmaf(__ldg(wblock(wl, nc, kc, c / kMaxH) + k * kMaxH + c % kMaxH), gyv[c], acc);
+    for (int c = ks; c < net.out; c += 4)
+      acc = fmaf(__ldg(wblock(wl, nc, kc, c / kMaxH) + k * kMaxH + c % kMaxH), rnd<kBf16>(gyv[c]), acc);
     acc = quad_sum(acc);
     const float g = acc * delu(pre(net.n - 1, j));
     if (ks == 0) va[j] = g;
@@ -551,7 +578,7 @@ __device__ __noinline__ const float* walk_eval_wide(const Net& net, const Bufs& 
       const int j = kc * kMaxH + k;
       float acc = 0.f;
       for (int oc = 0; oc < nc; ++oc) {
-        const float part = matvec<false>(wblock(net.w[1 + l], nc, kc, oc), cur + oc * kMaxH);
+        const float part = matvec<false, kBf16>(wblock(net.w[1 + l], nc, kc, oc), cur + oc * kMaxH);
         acc = oc == 0 ? part : acc + part;
       }
       const float g = acc * delu(pre(l, j));
@@ -568,13 +595,14 @@ __device__ __noinline__ const float* walk_eval_wide(const Net& net, const Bufs& 
 
 // walk_inputs at a padded width H > kMaxH: v H long, w0's row c read by
 // blocks.
-template <class F>
+template <bool kBf16, class F>
 __device__ __forceinline__ void walk_inputs_wide(const Net& net, const float* v, int H, F fn) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nc = H / kMaxH;
   for (int c = warp; c < net.kin; c += kThreads / 32) {
     float acc = 0.f;
     for (int k = lane; k < H; k += 32)
-      acc = fmaf(__ldg(wblock(net.w[0], nc, c / kMaxH, k / kMaxH) + (c % kMaxH) * kMaxH + k % kMaxH), v[k], acc);
+      acc = fmaf(__ldg(wblock(net.w[0], nc, c / kMaxH, k / kMaxH) + (c % kMaxH) * kMaxH + k % kMaxH),
+                 rnd<kBf16>(v[k]), acc);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
     if (lane == 0) fn(c, acc);
@@ -720,11 +748,12 @@ __host__ inline int fwd_width(int w) { return (w + kMaxH - 1) / kMaxH * kMaxH; }
 // A net's weights as the wrappers hold them (row = input, the flax
 // layout): the first layer in two row blocks of k0[0] and k0[1] rows (the
 // DAE's DE takes [wx_de; wi_de]; k0[1] may be 0), tail layer l [in][out]
-// and its bias [out].
+// (float32, or bfloat16 in the bf16 mode: pack_nets' element type) and its
+// bias [out] (float32).
 struct SrcNet {
-  const float* w0[2];
+  const void* w0[2];
   int k0[2];
-  const float* w[kMaxTail];
+  const void* w[kMaxTail];
   const float* b[kMaxTail];
 };
 
@@ -734,8 +763,11 @@ struct PackArgs {
   int count, h, H;
 };
 
-// Writes each net's weights transposed (row = output) and zero-padded to
-// [H][H], and its biases zero-padded to [H], into its padded blocks.
+// Writes each net's weights (of element type WT: float, or __nv_bfloat16 in
+// the bf16 mode, widened exactly) transposed (row = output) and
+// zero-padded to [H][H] in float32, and its biases zero-padded to [H], into
+// its padded blocks.
+template <class WT>
 __global__ void __launch_bounds__(kThreads) pack_nets(const __grid_constant__ PackArgs a) {
   const size_t H = a.H, HH = H * H, step = static_cast<size_t>(gridDim.x) * kThreads;
   for (int i = 0; i < a.count; ++i) {
@@ -748,11 +780,12 @@ __global__ void __launch_bounds__(kThreads) pack_nets(const __grid_constant__ Pa
         const int l = static_cast<int>(e / HH), o = static_cast<int>(e % HH / H), c = static_cast<int>(e % H);
         const int kin = l == 0 ? d.kin : a.h, out = l == d.n ? d.out : a.h;
         if (o < out && c < kin) {
+          auto w = [](const void* p, size_t i) { return to_f(static_cast<const WT*>(p)[i]); };
           if (l > 0) {
-            v = s.w[l - 1][static_cast<size_t>(c) * out + o];
+            v = w(s.w[l - 1], static_cast<size_t>(c) * out + o);
           } else {
-            v = c < s.k0[0] ? s.w0[0][static_cast<size_t>(c) * out + o]
-                            : s.w0[1][static_cast<size_t>(c - s.k0[0]) * out + o];
+            v = c < s.k0[0] ? w(s.w0[0], static_cast<size_t>(c) * out + o)
+                            : w(s.w0[1], static_cast<size_t>(c - s.k0[0]) * out + o);
           }
         }
         const_cast<float*>(d.w[0])[e] = v;
@@ -842,8 +875,9 @@ __device__ __forceinline__ int m16_out() { return 4 * (threadIdx.x >> 4) + ((thr
 __device__ __forceinline__ bool m16_writer() { return (threadIdx.x & 3) == 0; }
 
 // q[r] = the full sum of the lane's output (m16_out) for rows r < R of x
-// (row r at x + r ldx), the weight's float4 i from w(i).
-template <int R, class W>
+// (row r at x + r ldx; kBf16: rounded to bf16 as it is read), the
+// weight's float4 i from w(i).
+template <int R, bool kBf16 = false, class W>
 __device__ __forceinline__ void m16_sums(W w, const float* x, int ldx, float (&q)[R]) {
   const int ks = threadIdx.x & 15;
   float4 xa[R], xb[R];
@@ -851,8 +885,8 @@ __device__ __forceinline__ void m16_sums(W w, const float* x, int ldx, float (&q
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const float4* x4 = reinterpret_cast<const float4*>(x + r * ldx);
-    xa[r] = x4[2 * ks];
-    xb[r] = x4[2 * ks + 1];
+    xa[r] = rnd4<kBf16>(x4[2 * ks]);
+    xb[r] = rnd4<kBf16>(x4[2 * ks + 1]);
     acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
   }
 #pragma unroll
@@ -882,13 +916,14 @@ __device__ __forceinline__ void m16_sums(W w, const float* x, int ldx, float (&q
 
 // acc[r] = sum_j W[128 oc + k][j] v[r][j] for the thread's output k of
 // chunk oc (walk_k), over every 128-wide chunk of j, summed over its quad:
-// W a padded transposed weight [H][H] read from L2, v rows of H floats.
-template <int R>
+// W a padded transposed weight [H][H] read from L2, v rows of H floats
+// (kBf16: rounded to bf16 as they are read).
+template <int R, bool kBf16 = false>
 __device__ __forceinline__ void chunk_rows(const float* W, int H, int oc, const float* v, float (&acc)[R]) {
   const int nc = H / kMaxH;
   for (int ic = 0; ic < nc; ++ic) {
     float part[R];
-    matvec_rows<false, R>(W + static_cast<size_t>(oc) * kMaxH * H + ic * kMaxH, H, v + ic * kMaxH, H, part);
+    matvec_rows<false, R, kBf16>(W + static_cast<size_t>(oc) * kMaxH * H + ic * kMaxH, H, v + ic * kMaxH, H, part);
 #pragma unroll
     for (int r = 0; r < R; ++r) acc[r] = ic == 0 ? part[r] : acc[r] + part[r];
   }
@@ -899,8 +934,9 @@ __device__ __forceinline__ void chunk_rows(const float* W, int H, int oc, const 
 // returns the buffer of the last (cur when the net has none). Each weight
 // from its place: one of the first NB register banks of wr, a
 // shared-memory slot of wres (both M16), or L2. With `wait`, the thread's
-// cp.async copies complete before the last barrier.
-template <int R, int NB, int NA>
+// cp.async copies complete before the last barrier. kBf16: each activation
+// rounded to bf16 as a product reads it.
+template <int R, int NB, bool kBf16 = false, int NA>
 __device__ __forceinline__ float* fwd_hidden(const Net& net, const FwdNet& t, float* cur, float* nxt,
                                              const float* wres, const float4 (&wr)[NA][8], bool wait) {
   const int H = t.ld, nc = H / kMaxH;
@@ -910,12 +946,12 @@ __device__ __forceinline__ float* fwd_hidden(const Net& net, const FwdNet& t, fl
     if (q != -1) {  // M16 (nc == 1)
       float v[R];
       if (NB > 0 && q == reg_bank(0)) {
-        m16_sums<R>([&](int i) { return wr[0][i]; }, cur, H, v);
+        m16_sums<R, kBf16>([&](int i) { return wr[0][i]; }, cur, H, v);
       } else if (NB > 1 && q == reg_bank(1)) {
-        m16_sums<R>([&](int i) { return wr[NA > 1][i]; }, cur, H, v);
+        m16_sums<R, kBf16>([&](int i) { return wr[NA > 1][i]; }, cur, H, v);
       } else {
         const float4* ws = reinterpret_cast<const float4*>(wres + static_cast<size_t>(q) * kMat);
-        m16_sums<R>([&](int i) { return ws[i * kThreads + threadIdx.x]; }, cur, H, v);
+        m16_sums<R, kBf16>([&](int i) { return ws[i * kThreads + threadIdx.x]; }, cur, H, v);
       }
       const int j = m16_out();
       if (m16_writer())
@@ -924,7 +960,7 @@ __device__ __forceinline__ float* fwd_hidden(const Net& net, const FwdNet& t, fl
     } else {
       for (int oc = 0; oc < nc; ++oc) {
         float acc[R];
-        chunk_rows<R>(net.w[1 + l], H, oc, cur, acc);
+        chunk_rows<R, kBf16>(net.w[1 + l], H, oc, cur, acc);
         const int j = oc * kMaxH + walk_k();
         if (walk_ks() == 0)
 #pragma unroll
@@ -950,14 +986,16 @@ __device__ __forceinline__ float pick(const float (&y)[kFold], int i) {
 
 // The readout of a narrow net for one row in a fold warp: y[c] = sum_j
 // wl[c][j] a[j] + b[c] for c < out (0 beyond); lane l sums j = 4 l + 128 m
-// and a butterfly gives every lane the same bits.
+// and a butterfly gives every lane the same bits (kBf16: a rounded to bf16
+// as it is read).
+template <bool kBf16 = false>
 __device__ __forceinline__ void fold_readout(const Net& net, const FwdNet& t, const float* a, float (&y)[kFold]) {
   const int H = t.ld, lane = threadIdx.x & 31;
   float p[kFold];
 #pragma unroll
   for (int c = 0; c < kFold; ++c) p[c] = 0.f;
   for (int m = lane; m < H / 4; m += 32) {
-    const float4 x = reinterpret_cast<const float4*>(a)[m];
+    const float4 x = rnd4<kBf16>(reinterpret_cast<const float4*>(a)[m]);
 #pragma unroll
     for (int c = 0; c < kFold; ++c)
       if (c < net.out) {
@@ -979,7 +1017,8 @@ __device__ __forceinline__ void fold_readout(const Net& net, const FwdNet& t, co
 
 // Fold warp w's share of one row's first layer: act[j] = elu(s[j] + sum_c
 // in[c] w0[c][j]) for j in [w H / kFoldWarps, (w + 1) H / kFoldWarps) (no
-// barrier).
+// barrier; kBf16: in[c] rounded to bf16 as it is read).
+template <bool kBf16 = false>
 __device__ __forceinline__ void fold_first_layer(const Net& net, const FwdNet& t, const float (&in)[kFold],
                                                  const float* s, float* act) {
   const int H = t.ld, per = H / kFoldWarps, j0 = (threadIdx.x >> 5) * per;
@@ -987,15 +1026,15 @@ __device__ __forceinline__ void fold_first_layer(const Net& net, const FwdNet& t
     float acc = 0.f;
 #pragma unroll
     for (int c = 0; c < kFold; ++c)
-      if (c < net.kin) acc = fmaf(in[c], t.w0[c * H + j], acc);
+      if (c < net.kin) acc = fmaf(rnd<kBf16>(in[c]), t.w0[c * H + j], acc);
     act[j] = elu(s[j] + acc);
   }
 }
 
 // The readout of `net` for R rows into y (y[r H + c], c < out), then a
 // barrier: a narrow one by groups of 4 lanes, one (row, output) a group; a
-// wide one as a layer (from L2).
-template <int R>
+// wide one as a layer (from L2). kBf16: a rounded to bf16 as it is read.
+template <int R, bool kBf16 = false>
 __device__ void tile_readout(const Net& net, const FwdNet& t, const float* a, float* y) {
   const int H = t.ld, nc = H / kMaxH, ks = walk_ks();
   const float* bl = t.b + (net.n - 1) * H;
@@ -1011,7 +1050,7 @@ __device__ void tile_readout(const Net& net, const FwdNet& t, const float* a, fl
         const float4* a4 = reinterpret_cast<const float4*>(a + r * H);
         float a0 = 0.f, a1 = 0.f;
         for (int m = ks; m < H / 4; m += 4) {
-          const float4 u = w4[m], x = a4[m];
+          const float4 u = w4[m], x = rnd4<kBf16>(a4[m]);
           a0 = fmaf(u.x, x.x, a0);
           a1 = fmaf(u.y, x.y, a1);
           a0 = fmaf(u.z, x.z, a0);
@@ -1025,7 +1064,7 @@ __device__ void tile_readout(const Net& net, const FwdNet& t, const float* a, fl
   } else {
     for (int oc = 0; oc < nc; ++oc) {
       float acc[R];
-      chunk_rows<R>(net.w[net.n], H, oc, a, acc);
+      chunk_rows<R, kBf16>(net.w[net.n], H, oc, a, acc);
       const int j = oc * kMaxH + walk_k();
       if (ks == 0 && j < net.out)
 #pragma unroll
@@ -1037,8 +1076,9 @@ __device__ void tile_readout(const Net& net, const FwdNet& t, const float* a, fl
 
 // The first layer of `net` for R rows: act[r][j] = elu(s[r][j] + sum_c
 // x[r][c] w0[c][j]) from the inputs x and the stream rows s (rows of H
-// floats; x zero beyond kin), then a barrier.
-template <int R>
+// floats; x zero beyond kin; kBf16: x rounded to bf16 as it is read), then
+// a barrier.
+template <int R, bool kBf16 = false>
 __device__ void first_layer(const Net& net, const FwdNet& t, const float* x, const float* s, float* act) {
   const int H = t.ld, nc = H / kMaxH, ks = walk_ks();
   for (int oc = 0; oc < nc; ++oc) {
@@ -1051,10 +1091,10 @@ __device__ void first_layer(const Net& net, const FwdNet& t, const float* x, con
         for (int c = 0; c < net.kin; ++c) {
           const float w = t.w0[c * H + j];
 #pragma unroll
-          for (int r = 0; r < R; ++r) acc[r] = fmaf(x[r * H + c], w, acc[r]);
+          for (int r = 0; r < R; ++r) acc[r] = fmaf(rnd<kBf16>(x[r * H + c]), w, acc[r]);
         }
     } else {
-      chunk_rows<R>(net.w[0], H, oc, x, acc);
+      chunk_rows<R, kBf16>(net.w[0], H, oc, x, acc);
     }
     if (ks == 0)
 #pragma unroll
@@ -1126,6 +1166,20 @@ __device__ __forceinline__ void prefetch_rows(const RowCopy& c, float* dst, int 
     const int q = o / (R * H), rest = o - q * R * H, r = rest / H, j = rest - r * H;
     const bool ok = row0 + r < B && j < h;
     step_copy(dst + o, ok ? base(q) + step + static_cast<size_t>(row0 + r) * h + j : zero, ok, c.async);
+  }
+}
+
+// The bf16 mode's copy of step t's stream rows (bfloat16 in global memory)
+// into dst, widened to float32 (exact), at once: prefetch_rows' general
+// loop with a load in place of the copy.
+template <class Base>
+__device__ __forceinline__ void prefetch_rows_bf16(float* dst, int t, int ns, int R, int h, int H, int row0, int B,
+                                                   Base base) {
+  const size_t step = static_cast<size_t>(t) * B * h;
+  for (int o = threadIdx.x; o < ns * R * H; o += kThreads) {
+    const int q = o / (R * H), rest = o - q * R * H, r = rest / H, j = rest - r * H;
+    const bool ok = row0 + r < B && j < h;
+    dst[o] = ok ? to_f(base(q)[step + static_cast<size_t>(row0 + r) * h + j]) : 0.f;
   }
 }
 
@@ -1251,8 +1305,10 @@ struct CtArgs {
 // few outputs) on the CUDA cores, a thread an output. kWide: the job's
 // output tile blockIdx.z = (tu, tv) of nt x nt, its U columns 128 tu.. and
 // V columns 128 tv.. (a tile past the job's widths returns at once; the
-// bias sums come from the tiles with tu = 0).
-template <bool kWide>
+// bias sums come from the tiles with tu = 0). kBf16: every product's U and
+// V elements rounded to bf16 as they are read (one TF32 pass on the tensor
+// cores); the bias sums from V as it is.
+template <bool kWide, bool kBf16 = false>
 __device__ __forceinline__ void contract_body(const CtArgs& a, float* smem) {
   float* us = smem;           // [kKc][kLdt]: U, a row per summed row
   float* vs = smem + kChunk;  // [kKc][kLdt]: V
@@ -1322,7 +1378,8 @@ __device__ __forceinline__ void contract_body(const CtArgs& a, float* smem) {
         if (o < n_out) {
           float sum = 0.f;
 #pragma unroll 8
-          for (int row = 0; row < kKc; ++row) sum = fmaf(us[row * kLdt + j], vs[row * kLdt + k], sum);
+          for (int row = 0; row < kKc; ++row)
+            sum = fmaf(rnd<kBf16>(us[row * kLdt + j]), rnd<kBf16>(vs[row * kLdt + k]), sum);
           nacc[q] += sum;
         }
       }
@@ -1330,9 +1387,9 @@ __device__ __forceinline__ void contract_body(const CtArgs& a, float* smem) {
       zero<1>(part);
 #pragma unroll
       for (int s = 0; s < kKc / 8; ++s)
-        mma_k8<1>(
-            f, 8 * s, [&](int m, int k) { return us[k * kLdt + m]; },
-            [&](int k, int nn) { return vs[k * kLdt + nn]; }, part);
+        mma_k8<1, kBf16>(
+            f, 8 * s, [&](int m, int k) { return rnd<kBf16>(us[k * kLdt + m]); },
+            [&](int k, int nn) { return rnd<kBf16>(vs[k * kLdt + nn]); }, part);
 #pragma unroll
       for (int i = 0; i < Tiling<1>::kMi; ++i)
 #pragma unroll
@@ -1381,6 +1438,16 @@ __global__ void __launch_bounds__(kThreads, 1) contract_jobs_wide(const __grid_c
   contract_body<true>(a, smem);
 }
 
+__global__ void __launch_bounds__(kThreads, 1) contract_jobs_bf16(const __grid_constant__ CtArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  contract_body<false, true>(a, smem);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) contract_jobs_wide_bf16(const __grid_constant__ CtArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  contract_body<true, true>(a, smem);
+}
+
 // g_w at each job's places = the sum over the ranges, in order, of their
 // partial sums.
 __global__ void reduce_parts(const __grid_constant__ CtArgs a, int nsplit) {
@@ -1399,16 +1466,18 @@ __global__ void reduce_parts(const __grid_constant__ CtArgs a, int nsplit) {
   }
 }
 
-// Launches the contraction's two kernels on st: the tiles of a wide
-// contraction (a.nt > 1) in the grid's third dimension.
-__host__ inline cudaError_t launch_contraction(const CtArgs& a, int nsplit, cudaStream_t st) {
+// Launches the contraction's two kernels on st (bf16: in the bf16 mode):
+// the tiles of a wide contraction (a.nt > 1) in the grid's third dimension.
+__host__ inline cudaError_t launch_contraction(const CtArgs& a, int nsplit, cudaStream_t st, bool bf16 = false) {
   const size_t smem = 2 * kChunk * sizeof(float);
   if (a.nt > 1) {
     const dim3 grid(nsplit, a.jobs.n, a.nt * a.nt);
-    contract_jobs_wide<<<grid, kThreads, smem, st>>>(a);
+    auto kernel = bf16 ? contract_jobs_wide_bf16 : contract_jobs_wide;
+    kernel<<<grid, kThreads, smem, st>>>(a);
   } else {
     const dim3 grid(nsplit, a.jobs.n);
-    contract_jobs<<<grid, kThreads, smem, st>>>(a);
+    auto kernel = bf16 ? contract_jobs_bf16 : contract_jobs;
+    kernel<<<grid, kThreads, smem, st>>>(a);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;

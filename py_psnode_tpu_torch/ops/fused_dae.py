@@ -18,8 +18,15 @@ Under teacher forcing of ``x`` (``x_true``, the JAX package's ``tf_x``)
 each step starts from the true state and the AE at t+1 reads the true
 ``x[t+1]``, while the event recompute still reads the rolled state.
 
-Not ported: the bf16 compute mode, lanes, and the TPU's time blocking with
-``dt == 0`` padding (scheduling that does not change the result).
+The bf16 compute mode (``precision="bfloat16"``, JAX ``cast_compute``
+:487): :func:`cast_compute` rounds the three streams and the 2-D weights to
+bfloat16; the kernel and the plain version then round each product's
+activation to bf16 and sum in float32 (:func:`~py_psnode_tpu_torch.ops.
+noencode_bwd.dot`), biases, carries and ``dt`` staying float32. The mode
+rides the streams' dtype. Not in the bf16 mode: teacher forcing of ``x``.
+
+Not ported: lanes, and the TPU's time blocking with ``dt == 0`` padding
+(scheduling that does not change the result).
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from py_psnode_tpu_torch.models.funcs import elu
-from py_psnode_tpu_torch.ops.noencode_bwd import launch, pointer_array
+from py_psnode_tpu_torch.ops.noencode_bwd import dot, launch, pointer_array
 from py_psnode_tpu_torch.utils import cuda_build
 
 _ONE_THIRD = 1.0 / 3.0
@@ -44,6 +51,9 @@ _SOLVER_CODE = {"euler": 0, "midpoint": 1, "rk4": 2}
 # rows-per-block instantiations)
 MAX_TAIL = 8
 ROWS_PER_BLOCK = (1, 2, 4, 8)
+# TrainConfig.matmul_precision's values (the JAX package's); "bf16" is
+# cast_compute's other name of "bfloat16"
+PRECISIONS = ("default", "float32", "highest", "bfloat16", "bf16")
 
 
 def normalize_solver(name) -> str:
@@ -134,16 +144,29 @@ def precompute_streams(
     return streams, weights
 
 
+def is_bf16(precision: str) -> bool:
+    """Whether ``precision`` selects the kernels' bf16 compute mode; raises
+    ``ValueError`` for a name outside :data:`PRECISIONS`."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    return precision in ("bfloat16", "bf16")
+
+
 def cast_compute(streams: Dict, weights: Dict, precision: str):
-    """The kernel's compute-precision mode. ``"default"``/``"float32"`` is
-    the identity; the bf16 mode of the JAX package is not ported yet."""
-    if precision in ("default", "float32"):
+    """The kernel's compute-precision mode (JAX ``fused_dae.py:487``):
+    ``"bfloat16"`` rounds the three streams and the 2-D weights (``wx_de``,
+    ``wi_de``, ``gx_ae``, both tails' ``W``) to bfloat16, the biases stay
+    float32; any other precision of :data:`PRECISIONS` is the identity."""
+    if not is_bf16(precision):
         return streams, weights
-    if precision in ("bfloat16", "bf16"):
-        raise NotImplementedError(
-            "the bfloat16 compute mode of the fused DAE rollout is not ported yet"
-        )
-    raise ValueError(f'precision must be "default" or "float32", got {precision!r}')
+    bf = lambda a: a.to(torch.bfloat16)
+    streams = {k: bf(v) for k, v in streams.items()}
+    weights = dict(
+        wx_de=bf(weights["wx_de"]), wi_de=bf(weights["wi_de"]), gx_ae=bf(weights["gx_ae"]),
+        de_tail=[(bf(W), b) for W, b in weights["de_tail"]],
+        ae_tail=[(bf(W), b) for W, b in weights["ae_tail"]],
+    )
+    return streams, weights
 
 
 def pack_aux(dt: torch.Tensor, ev: torch.Tensor) -> torch.Tensor:
@@ -162,12 +185,13 @@ def unpack_solution(packed, x0, i0, Tm1):
 
 
 def mlp_tail_fwd(h1: torch.Tensor, tail: Sequence[Tuple[torch.Tensor, torch.Tensor]]):
-    """Apply the tail layers to the (pre-activation) first hidden layer."""
+    """Apply the tail layers to the (pre-activation) first hidden layer
+    (each product by :func:`~py_psnode_tpu_torch.ops.noencode_bwd.dot`)."""
     h = elu(h1)
     for W, b in tail[:-1]:
-        h = elu(h @ W + b)
+        h = elu(dot(h, W) + b)
     W, b = tail[-1]
-    return h @ W + b
+    return dot(h, W) + b
 
 
 def fused_dae_rollout_packed_plain(
@@ -178,7 +202,8 @@ def fused_dae_rollout_packed_plain(
     rows ``cat(x, i)`` of steps 1..T-1. With ``x_true [T, B, xd]`` (teacher
     forcing of ``x``) step t starts from ``x_true[t]`` and the AE at t+1
     reads ``x_true[t+1]``; the event recompute and the rows written stay
-    the rolled ones (JAX ``fused_dae.py:424-484``)."""
+    the rolled ones (JAX ``fused_dae.py:424-484``). bfloat16 streams and
+    weights (:func:`cast_compute`): the bf16 compute mode."""
     solver = normalize_solver(solver)
     s_de, s_ae, s_ae_ev = streams["s_de"], streams["s_ae"], streams["s_ae_ev"]
     wx_de, wi_de, gx_ae = weights["wx_de"], weights["wi_de"], weights["gx_ae"]
@@ -188,15 +213,15 @@ def fused_dae_rollout_packed_plain(
     ev = aux[..., 1:2] > 0.0
     any_ev = ev.any(dim=1)[:, 0].tolist()  # one host read for all steps
     out = torch.empty(Tm1, B, xd + idim, dtype=torch.float32, device=s_de.device)
-    ae_head = lambda x, s: mlp_tail_fwd(s + x @ gx_ae, ae_tail)
+    ae_head = lambda x, s: mlp_tail_fwd(s + dot(x, gx_ae), ae_tail)
     x_c, i_c = x0, i0
     for t in range(Tm1):
         i_in = i_c
         if any_ev[t]:
             # event-step algebraic recompute at the rolled state, per row
             i_in = torch.where(ev[t], ae_head(x_c, s_ae_ev[t]), i_c)
-        i_proj = i_in @ wi_de
-        f = lambda x: mlp_tail_fwd(s_de[t] + x @ wx_de + i_proj, de_tail)
+        i_proj = dot(i_in, wi_de)
+        f = lambda x: mlp_tail_fwd(s_de[t] + dot(x, wx_de) + i_proj, de_tail)
         dt = aux[t, :, 0:1]
         xs = x_c if x_true is None else x_true[t]  # the step's start
         if solver == "euler":
@@ -217,11 +242,12 @@ def fused_dae_rollout_packed_plain(
     return out
 
 
-def bind_rollout(lib: ctypes.CDLL):
+def bind_rollout(lib: ctypes.CDLL, bf16: bool = False):
     """``(launcher, scratch floats, error string, TF-x launcher, TF-x
-    scratch floats)``: the C functions of a build of
+    scratch floats, bf16)``: the C functions of a build of
     ``csrc/fused_dae_rollout.cu`` (for the card or, in
-    ``utils/host_build.py``, the host) with their signatures."""
+    ``utils/host_build.py``, the host) with their signatures, the launcher
+    that of the bf16 compute mode where ``bf16``."""
     P, I = ctypes.c_void_p, ctypes.c_int
     PP = ctypes.POINTER(ctypes.c_void_p)
     args = [
@@ -233,7 +259,7 @@ def bind_rollout(lib: ctypes.CDLL):
         I, I, I, I, I,  # Tm1, B, h, xd, id
         I, I,  # solver, rows per block
     ]
-    fn = lib.psn_fused_dae_rollout_f32
+    fn = lib.psn_fused_dae_rollout_bf16 if bf16 else lib.psn_fused_dae_rollout_f32
     fn.argtypes = args + [P]  # stream
     fn.restype = ctypes.c_int
     scratch = lib.psn_fused_dae_rollout_scratch
@@ -248,13 +274,13 @@ def bind_rollout(lib: ctypes.CDLL):
     tf_scratch = lib.psn_fused_dae_rollout_tfx_scratch
     tf_scratch.argtypes = [I] * 7
     tf_scratch.restype = ctypes.c_longlong
-    return fn, scratch, err, tf, tf_scratch
+    return fn, scratch, err, tf, tf_scratch, bf16
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
+def _launcher(bf16: bool = False):
     """The C launcher of ``csrc/fused_dae_rollout.cu`` (:func:`bind_rollout`)."""
-    return bind_rollout(cuda_build.load("fused_dae_rollout"))
+    return bind_rollout(cuda_build.load("fused_dae_rollout"), bf16)
 
 
 def default_launch(batch: int, n_sms: int) -> int:
@@ -285,11 +311,18 @@ def launch_rows(dev: torch.device, B: int, rows_per_block=None) -> int:
 
 def _check_kernel_inputs(streams, weights, x0, i0, aux, device_type: str = "cuda", x_true=None):
     """Raise unless the rollout's inputs (``x_true`` too, where given) are
-    float32, contiguous, on one CUDA device (or, for a host build of the
-    kernels, ``device_type`` "cpu") and shaped as the kernels take them."""
+    contiguous, on one CUDA device (or, for a host build of the kernels,
+    ``device_type`` "cpu") and shaped as the kernels take them, and float32,
+    or in the bf16 compute mode (bfloat16 streams) the streams and the 2-D
+    weights bfloat16 and the rest float32. Returns whether the mode is
+    bf16."""
     s_de = streams["s_de"]
     if s_de.device.type != device_type:
         raise ValueError(f"the CUDA rollout kernel takes CUDA tensors, got {s_de.device}")
+    bf16 = s_de.dtype == torch.bfloat16
+    if bf16 and x_true is not None:
+        raise NotImplementedError("the bfloat16 compute mode of the TF-x rollout is not ported yet")
+    low = {"s_de", "s_ae", "s_ae_ev", "wx_de", "wi_de", "gx_ae"}  # bfloat16 in the bf16 mode
     Tm1, B, h = s_de.shape
     xd, idim = x0.shape[-1], i0.shape[-1]
     expect = {
@@ -313,15 +346,18 @@ def _check_kernel_inputs(streams, weights, x0, i0, aux, device_type: str = "cuda
             n_out = out_w if k == len(tail) - 1 else h
             expect[f"{net}[{k}].W"] = (W, (h, n_out))
             expect[f"{net}[{k}].b"] = (b, (n_out,))
+            low.add(f"{net}[{k}].W")
     for name, (a, shape) in expect.items():
         if a.device != s_de.device:
             raise ValueError(f"{name} is on {a.device}, the streams on {s_de.device}")
-        if a.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {a.dtype}")
+        want = torch.bfloat16 if bf16 and name in low else torch.float32
+        if a.dtype != want:
+            raise ValueError(f"{name} must be {want}, got {a.dtype}")
         if tuple(a.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(a.shape)}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return bf16
 
 
 def fused_dae_rollout_packed_cuda(
@@ -333,7 +369,8 @@ def fused_dae_rollout_packed_cuda(
     rows' buffers do not fit shared memory), by default
     :func:`default_launch`; it does not change the result beyond float
     summation order. ``x_true [T, B, xd]``: the kernel's TF-x mode (a
-    tile of rows even at one row a block: nothing folds)."""
+    tile of rows even at one row a block: nothing folds). bfloat16 streams
+    and weights (:func:`cast_compute`): the kernel's bf16 compute mode."""
     sol = _launch(streams, weights, x0, i0, aux, solver, rows_per_block, x_true=x_true)
     fused_dae_rollout.launches += 1
     return sol
@@ -348,12 +385,14 @@ def _launch(streams: Dict, weights: Dict, x0, i0, aux, solver: str, rows_per_blo
     :func:`fused_dae_rollout_packed_cuda` is the entry; the phase clock and
     the host build launch their own builds."""
     solver = normalize_solver(solver)
-    _check_kernel_inputs(streams, weights, x0, i0, aux, "cpu" if host else "cuda", x_true)
+    bf16 = _check_kernel_inputs(streams, weights, x0, i0, aux, "cpu" if host else "cuda", x_true)
     s_de = streams["s_de"]
     Tm1, B, h = s_de.shape
     xd, idim = x0.shape[-1], i0.shape[-1]
     rows = launch_rows(s_de.device, B, rows_per_block)
-    fn, scratch_floats, err, fn_tf, scratch_tf = launcher or _launcher()
+    fn, scratch_floats, err, fn_tf, scratch_tf, mode = launcher or _launcher(bf16)
+    if mode != bf16:
+        raise ValueError(f"a launcher bound for bf16={mode} got the {'bf16' if bf16 else 'float32'} mode's inputs")
     tf_args = ()
     if x_true is not None:
         fn, scratch_floats = fn_tf, scratch_tf
@@ -407,6 +446,8 @@ def fused_dae_rollout(
       i0: ``[B, id]`` initial algebraic output (AE at t=0; at ``x_true[0]``
         under teacher forcing).
       dt: ``[T-1, B, 1]`` step sizes; ev: ``[T-1, B]`` event mask.
+      precision: one of :data:`PRECISIONS`; ``"bfloat16"`` is the bf16
+        compute mode (:func:`cast_compute`), not with ``x_true``.
       x_true: ``[T, B, xd]`` true states, teacher forcing of ``x``: the
         step consumes ``x_true[t]`` and the AE at t+1 ``x_true[t+1]``,
         events still recompute from the rolled state.

@@ -36,9 +36,17 @@ contraction's first-layer operand is the true state except at the event.
 :class:`FusedDaeTfxRollout` wraps that mode; it computes ``g_xt``/``g_xt1``
 only where autograd asks for ``x_true``'s gradient.
 
-Not ported: the bf16 compute mode, and the TPU's time padding, time
-blocking, ``any_ev`` scalar prefetch and lanes (scheduling that does not
-change the result).
+The bf16 compute mode (``precision="bfloat16"``): :class:`FusedDaeRollout`
+rounds the streams and the 2-D weights to bfloat16 inside its forward and
+keeps those rounded tensors for the backward, which recomputes exactly what
+the forward computed (JAX ``_vjp_forward`` :596-625); every product rounds
+its activation or cotangent (``dot``), every weight-gradient product both
+operands (``dot_t``), and the stream cotangents and every gradient stay
+float32, flowing back to the float32 originals. Not in the bf16 mode:
+teacher forcing of ``x``.
+
+Not ported: the TPU's time padding, time blocking, ``any_ev`` scalar
+prefetch and lanes (scheduling that does not change the result).
 """
 
 from __future__ import annotations
@@ -57,11 +65,20 @@ from py_psnode_tpu_torch.ops.fused_dae import (
     _check_kernel_inputs,
     cast_compute,
     fused_dae_rollout_packed,
+    is_bf16,
     normalize_solver,
     pack_aux,
     unpack_solution,
 )
-from py_psnode_tpu_torch.ops.noencode_bwd import STAGES, launch, net_grads_plain, pad_net
+from py_psnode_tpu_torch.ops.noencode_bwd import (
+    STAGES,
+    dot,
+    dot_t,
+    launch,
+    net_grads_plain,
+    pad_net,
+    work_dtype,
+)
 from py_psnode_tpu_torch.utils import cuda_build
 
 
@@ -96,26 +113,29 @@ def _tail_fwd_res(h1pre, tail):
     pres, h = [h1pre], elu(h1pre)
     hs = [h]
     for W, b in tail[:-1]:
-        pre = h @ W + b
+        pre = dot(h, W) + b
         pres.append(pre)
         h = elu(pre)
         hs.append(h)
     W, b = tail[-1]
-    return h @ W + b, (pres, hs)
+    return dot(h, W) + b, (pres, hs)
 
 
 def _tail_bwd(res, gy, tail, d_tail):
     """Backprop the tail, adding the weight/bias grads into ``d_tail`` in
-    place; returns the cotangent of the first-layer pre-activation."""
+    place; returns the cotangent of the first-layer pre-activation. The
+    bf16 compute mode rides the weights' dtype (JAX ``_tail_bwd``
+    ``cdtype``)."""
     pres, hs = res
-    d_tail[-1][0].add_(hs[-1].T @ gy)
+    cd = tail[-1][0].dtype
+    d_tail[-1][0].add_(dot_t(hs[-1], gy, cd))
     d_tail[-1][1].add_(gy.sum(0))
-    g = gy @ tail[-1][0].T
+    g = dot(gy, tail[-1][0].T)
     for k in range(len(tail) - 2, -1, -1):
         gpre = g * delu(pres[k + 1])
-        d_tail[k][0].add_(hs[k].T @ gpre)
+        d_tail[k][0].add_(dot_t(hs[k], gpre, cd))
         d_tail[k][1].add_(gpre.sum(0))
-        g = gpre @ tail[k][0].T
+        g = dot(gpre, tail[k][0].T)
     return g * delu(pres[0])
 
 
@@ -125,7 +145,8 @@ def fused_dae_rollout_bwd_plain(
     g_true: bool = False,
 ):
     """The reverse walk as an eager PyTorch loop on any device, in the
-    inputs' dtype: the plain version of the CUDA kernel.
+    inputs' dtype (float32 for the bf16 compute mode's bfloat16 streams
+    and weights): the plain version of the CUDA kernel.
 
     Args:
       streams/weights/x0/i0/aux: the forward's inputs (``aux`` from
@@ -152,10 +173,11 @@ def fused_dae_rollout_bwd_plain(
     de_tail, ae_tail = weights["de_tail"], weights["ae_tail"]
     Tm1 = s_de.shape[0]
     xd = x0.shape[-1]
-    dt_all = aux[..., 0:1].to(s_de.dtype)
+    wd, cd = work_dtype(s_de), wx.dtype
+    dt_all = aux[..., 0:1].to(wd)
     ev_all = aux[..., 1:2] > 0.0
     any_ev = ev_all.any(dim=1)[:, 0].tolist()  # one host read for all steps
-    z = torch.zeros_like
+    z = lambda a: torch.zeros_like(a, dtype=wd)
     g_w = dict(
         wx_de=z(wx), wi_de=z(wi), gx_ae=z(gx),
         de_tail=[(z(W), z(b)) for W, b in de_tail],
@@ -179,31 +201,31 @@ def fused_dae_rollout_bwd_plain(
         # i_in exactly as the forward computed it
         i_in = i_t
         if any_ev[t]:
-            i_ev, res_ev = _tail_fwd_res(s_ae_ev[t] + x_t @ gx, ae_tail)
+            i_ev, res_ev = _tail_fwd_res(s_ae_ev[t] + dot(x_t, gx), ae_tail)
             i_in = torch.where(ev, i_ev, i_t)
-        i_proj = i_in @ wi
+        i_proj = dot(i_in, wi)
 
         # AE at t+1: i_{t+1} = AE(x_{t+1}; s_ae[t])
-        _, res_ae = _tail_fwd_res(s_ae[t] + x1 @ gx, ae_tail)
+        _, res_ae = _tail_fwd_res(s_ae[t] + dot(x1, gx), ae_tail)
         gp_ae = _tail_bwd(res_ae, gI1, ae_tail, g_w["ae_tail"])
-        g_w["gx_ae"] += x1.T @ gp_ae
+        g_w["gx_ae"] += dot_t(x1, gp_ae, cd)
         g_s["s_ae"][t] = gp_ae
         if not tf:
-            gX1 = gX1 + gp_ae @ gx.T
+            gX1 = gX1 + dot(gp_ae, gx.T)
         elif g_true:
-            g_xt1[t] = gp_ae @ gx.T
+            g_xt1[t] = dot(gp_ae, gx.T)
 
         def F_fwd(x, t=t, i_proj=i_proj):
-            out, res = _tail_fwd_res(s_de[t] + x @ wx + i_proj, de_tail)
+            out, res = _tail_fwd_res(s_de[t] + dot(x, wx) + i_proj, de_tail)
             return out, (x, res)
 
         def F_bwd(xres, gf, i_in=i_in):
             """Adds the DE weight grads; returns (g_x, g_i_in, g_s_de)."""
             x, res = xres
             gp = _tail_bwd(res, gf, de_tail, g_w["de_tail"])
-            g_w["wx_de"] += x.T @ gp
-            g_w["wi_de"] += i_in.T @ gp
-            return gp @ wx.T, gp @ wi.T, gp
+            g_w["wx_de"] += dot_t(x, gp, cd)
+            g_w["wi_de"] += dot_t(i_in, gp, cd)
+            return dot(gp, wx.T), dot(gp, wi.T), gp
 
         if solver == "euler":
             _, res = F_fwd(x_s)
@@ -258,9 +280,9 @@ def fused_dae_rollout_bwd_plain(
         # other rows to the i_t carry
         if any_ev[t]:
             gp_ev = _tail_bwd(res_ev, torch.where(ev, g_i_in, 0.0), ae_tail, g_w["ae_tail"])
-            g_w["gx_ae"] += x_t.T @ gp_ev
+            g_w["gx_ae"] += dot_t(x_t, gp_ev, cd)
             g_s["s_ae_ev"][t] = gp_ev
-            gx_c = g_x0 + gp_ev @ gx.T
+            gx_c = g_x0 + dot(gp_ev, gx.T)
             gi_c = torch.where(ev, 0.0, g_i_in)
         else:
             gx_c, gi_c = g_x0, g_i_in
@@ -271,7 +293,8 @@ def fused_dae_rollout_bwd_plain(
 
 @torch.no_grad()
 def recompute_plain(streams: Dict, weights: Dict, x0, i0, aux, packed, solver: str = "rk4", x_true=None):
-    """The recompute kernel's buffers as plain PyTorch, in the inputs' dtype:
+    """The recompute kernel's buffers as plain PyTorch, in the inputs' dtype
+    (float32 in the bf16 compute mode, its products by ``dot``):
     ``(res [E, L, R, h], xin [E, R, xd+id])`` for every row-step ``r = t B +
     b``, the ``E = S + 2`` slots the DE stages in evaluation order, the AE at
     t+1, the AE at the event (its pre-activations zero on rows without an
@@ -290,14 +313,15 @@ def recompute_plain(streams: Dict, weights: Dict, x0, i0, aux, packed, solver: s
     rows = lambda a: a.reshape(R, -1)
     x_t = rows(torch.cat([x0[None], packed[:-1, :, :xd]]))
     i_t = rows(torch.cat([i0[None], packed[:-1, :, xd:]]))
-    dt = rows(aux[..., 0:1]).to(s_de.dtype)
+    wd = work_dtype(s_de)
+    dt = rows(aux[..., 0:1]).to(wd)
     ev = aux[..., 1].reshape(R) > 0
-    res = s_de.new_zeros(S + 2, max(len(de_tail), len(ae_tail)), R, h)
-    xin = s_de.new_zeros(S + 2, R, xd + idim)
+    res = s_de.new_zeros(S + 2, max(len(de_tail), len(ae_tail)), R, h, dtype=wd)
+    xin = s_de.new_zeros(S + 2, R, xd + idim, dtype=wd)
 
     def net(q, first_in, stream, first_w, tail, keep=None):
         xin[q, :, : first_in.shape[1]] = first_in
-        y, (pres, _) = _tail_fwd_res(rows(stream) + first_in @ first_w, tail)
+        y, (pres, _) = _tail_fwd_res(rows(stream) + dot(first_in, first_w), tail)
         for l, p in enumerate(pres):
             res[q, l] = p if keep is None else torch.where(keep[:, None], p, 0.0)
         return y
@@ -317,17 +341,19 @@ def recompute_plain(streams: Dict, weights: Dict, x0, i0, aux, packed, solver: s
     return res, xin
 
 
-def contract_plain(res, gres, gy, xin, ev, n_tails: Tuple[int, int], xd: int, idim: int) -> Dict:
+def contract_plain(res, gres, gy, xin, ev, n_tails: Tuple[int, int], xd: int, idim: int,
+                   cdtype=torch.float32) -> Dict:
     """The contraction kernel's plain version: the weight gradients, in the
     layout of ``weights``, from the buffers ``res/gres [E, L, R, h]``, ``gy
     [E, R, max(xd, id)]``, ``xin [E, R, xd+id]`` and the event flags ``ev
-    [R]`` (bool; the AE at the event counts only there). Under teacher
-    forcing ``xin`` holds the true states (:func:`recompute_plain`), so the
-    first layers' gradients need nothing more."""
+    [R]`` (bool; the AE at the event counts only there); ``cdtype``
+    bfloat16 in the bf16 compute mode. Under teacher forcing ``xin`` holds
+    the true states (:func:`recompute_plain`), so the first layers'
+    gradients need nothing more."""
     n_de, n_ae = n_tails
     S = res.shape[0] - 2
-    first, de_tail = net_grads_plain(res, gres, gy, xin, range(S), xd + idim, n_de, xd)
-    gx, ae_tail = net_grads_plain(res, gres, gy, xin, (S, S + 1), xd, n_ae, idim, keep=ev)
+    first, de_tail = net_grads_plain(res, gres, gy, xin, range(S), xd + idim, n_de, xd, cdtype=cdtype)
+    gx, ae_tail = net_grads_plain(res, gres, gy, xin, (S, S + 1), xd, n_ae, idim, keep=ev, cdtype=cdtype)
     return dict(wx_de=first[:xd], wi_de=first[xd:], gx_ae=gx, de_tail=de_tail, ae_tail=ae_tail)
 
 
@@ -341,12 +367,13 @@ def grad_layout(weights: Dict) -> Tuple[List[Tuple[int, Tuple[int, ...]]], int]:
     return out, off
 
 
-def bind_rollout_bwd(lib: ctypes.CDLL):
-    """``(backward, sizes, error string, TF-x backward)``: the C functions
-    of a build of ``csrc/fused_dae_rollout_bwd.cu`` (for the card or, in
-    ``utils/host_build.py``, the host) with their signatures; the TF-x one
-    None for a build that has none (an older checkout's, which
-    ``phase_clock bwd-ab`` binds)."""
+def bind_rollout_bwd(lib: ctypes.CDLL, bf16: bool = False):
+    """``(backward, sizes, error string, TF-x backward, bf16)``: the C
+    functions of a build of ``csrc/fused_dae_rollout_bwd.cu`` (for the card
+    or, in ``utils/host_build.py``, the host) with their signatures, the
+    backward that of the bf16 compute mode where ``bf16``; the TF-x one None
+    for a build that has none (an older checkout's, which ``phase_clock
+    bwd-ab`` binds)."""
     P, I = ctypes.c_void_p, ctypes.c_int
     args = [
         P, P, P, P,  # s_de, s_ae, s_ae_ev, aux
@@ -359,7 +386,7 @@ def bind_rollout_bwd(lib: ctypes.CDLL):
         I, I, I, I, I,  # Tm1, B, h, xd, id
         I, I, I,  # solver, stages, resident weight slots (-1: the DE's hidden weights)
     ]
-    fn = lib.psn_fused_dae_rollout_bwd_f32
+    fn = lib.psn_fused_dae_rollout_bwd_bf16 if bf16 else lib.psn_fused_dae_rollout_bwd_f32
     fn.argtypes = args + [P]  # stream
     fn.restype = ctypes.c_int
     tf = None
@@ -373,13 +400,13 @@ def bind_rollout_bwd(lib: ctypes.CDLL):
     err = lib.psn_cuda_error_string
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
-    return fn, sizes, err, tf
+    return fn, sizes, err, tf, bf16
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
+def _launcher(bf16: bool = False):
     """The C launcher of ``csrc/fused_dae_rollout_bwd.cu`` (:func:`bind_rollout_bwd`)."""
-    return bind_rollout_bwd(cuda_build.load("fused_dae_rollout_bwd"))
+    return bind_rollout_bwd(cuda_build.load("fused_dae_rollout_bwd"), bf16)
 
 
 def bwd_sizes(sizes, Tm1, B, h, xd, idim, n_tails, solver) -> Tuple[int, ...]:
@@ -422,14 +449,15 @@ def _launch_bwd(streams: Dict, weights: Dict, x0, i0, aux, packed, cot, solver: 
     the DE's); ``x_true`` the TF-x mode, ``g_true`` its true-state
     cotangents. Returns ``((g_streams, g_weights, g_x0, g_i0), bufs)``, with
     ``g_true`` a fifth output ``(g_xt, g_xt1)``; the outputs of kernels not
-    launched are left unset. Counts nothing:
+    launched are left unset. bfloat16 streams and weights: the kernels'
+    bf16 compute mode. Counts nothing:
     :func:`fused_dae_rollout_bwd_cuda` is the entry; the smoke times one
     kernel at a time, the tests run the contraction on given buffers, the
     phase clock its own build."""
     solver = normalize_solver(solver)
     if g_true and x_true is None:
         raise ValueError("g_true needs x_true")
-    _check_kernel_inputs(streams, weights, x0, i0, aux, "cpu" if host else "cuda", x_true)
+    bf16 = _check_kernel_inputs(streams, weights, x0, i0, aux, "cpu" if host else "cuda", x_true)
     s_de = streams["s_de"]
     Tm1, B, h = s_de.shape
     xd, idim = x0.shape[-1], i0.shape[-1]
@@ -441,7 +469,9 @@ def _launch_bwd(streams: Dict, weights: Dict, x0, i0, aux, packed, cot, solver: 
             raise ValueError(f"{name} must have shape {shape}, got {tuple(a.shape)}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    fn, sizes, err, fn_tf = launcher or _launcher()
+    fn, sizes, err, fn_tf, mode = launcher or _launcher(bf16)
+    if mode != bf16:
+        raise ValueError(f"a launcher bound for bf16={mode} got the {'bf16' if bf16 else 'float32'} mode's inputs")
     layout, total = grad_layout(weights)
     n_tails = (len(weights["de_tail"]), len(weights["ae_tail"]))
     n_w, n_res, n_gy, n_xin, n_parts, H = bwd_sizes(sizes, Tm1, B, h, xd, idim, n_tails, solver)
@@ -464,9 +494,12 @@ def _launch_bwd(streams: Dict, weights: Dict, x0, i0, aux, packed, cot, solver: 
             g_tf = (torch.empty(Tm1, B, xd, **f32), torch.empty(Tm1, B, xd, **f32))
         tf_args = (x_true.data_ptr(), x_true[1:].data_ptr(),
                    *((g.data_ptr() for g in g_tf) if g_true else (None, None)))
-    # the padded weights must outlive the launch
-    w_de, b_de = pad_net(torch.cat([weights["wx_de"], weights["wi_de"]]), weights["de_tail"], H)
-    w_ae, b_ae = pad_net(weights["gx_ae"], weights["ae_tail"], H)
+    # the padded weights must outlive the launch; in the bf16 mode they hold
+    # the bf16 weights' values in float32 (exact)
+    f = lambda W: W.float()
+    w_de, b_de = pad_net(f(torch.cat([weights["wx_de"], weights["wi_de"]])),
+                         [(f(W), b) for W, b in weights["de_tail"]], H)
+    w_ae, b_ae = pad_net(f(weights["gx_ae"]), [(f(W), b) for W, b in weights["ae_tail"]], H)
     rc = launch(
         fn, s_de.device, s_de.data_ptr(), streams["s_ae"].data_ptr(), streams["s_ae_ev"].data_ptr(),
         aux.data_ptr(), x0.data_ptr(), i0.data_ptr(), packed.data_ptr(), cot.data_ptr(),
@@ -504,20 +537,22 @@ class FusedDaeRollout(torch.autograd.Function):
     """The fused rollout with its reverse-time backward (counterpart of the
     ``jax.custom_vjp`` ``fused_dae_rollout_diff``, :693-720).
 
-    Forward: the forward rollout (the CUDA kernel on the card); it saves
-    the inputs and the packed solution rows, nothing per step. Backward:
-    :func:`fused_dae_rollout_bwd`. Weights enter as flat tensor arguments
-    (:func:`flatten_weights`); ``aux`` (dt, ev) gets no gradient.
+    Forward: the forward rollout (the CUDA kernel on the card) in the
+    compute mode of ``precision`` (:func:`~py_psnode_tpu_torch.ops.
+    fused_dae.cast_compute`); it saves the inputs as the kernels read them
+    (bfloat16 streams and weights in the bf16 mode) and the packed solution
+    rows, nothing per step. Backward: :func:`fused_dae_rollout_bwd`, its
+    float32 gradients to the float32 inputs. Weights enter as flat tensor
+    arguments (:func:`flatten_weights`); ``aux`` (dt, ev) gets no gradient.
     """
 
     @staticmethod
-    def forward(ctx, solver, n_tails, s_de, s_ae, s_ae_ev, x0, i0, aux, *wflat):
-        streams = dict(s_de=s_de, s_ae=s_ae, s_ae_ev=s_ae_ev)
-        packed = fused_dae_rollout_packed(
-            streams, unflatten_weights(wflat, n_tails), x0, i0, aux, solver
-        )
+    def forward(ctx, solver, n_tails, precision, s_de, s_ae, s_ae_ev, x0, i0, aux, *wflat):
+        streams, weights = cast_compute(dict(s_de=s_de, s_ae=s_ae, s_ae_ev=s_ae_ev),
+                                        unflatten_weights(wflat, n_tails), precision)
+        packed = fused_dae_rollout_packed(streams, weights, x0, i0, aux, solver)
         ctx.solver, ctx.n_tails = solver, n_tails
-        ctx.save_for_backward(s_de, s_ae, s_ae_ev, x0, i0, aux, packed, *wflat)
+        ctx.save_for_backward(*streams.values(), x0, i0, aux, packed, *flatten_weights(weights)[0])
         return unpack_solution(packed, x0, i0, s_de.shape[0])
 
     @staticmethod
@@ -532,7 +567,7 @@ class FusedDaeRollout(torch.autograd.Function):
         # the initial rows of the solutions are x0/i0 themselves
         g_x0 = g_x0 + g_xsol[0]
         g_i0 = g_i0 + g_isol[0]
-        return (None, None, g_s["s_de"], g_s["s_ae"], g_s["s_ae_ev"], g_x0, g_i0, None,
+        return (None, None, None, g_s["s_de"], g_s["s_ae"], g_s["s_ae_ev"], g_x0, g_i0, None,
                 *flatten_weights(g_w)[0])
 
 
@@ -542,12 +577,13 @@ def fused_dae_rollout_diff(
 ):
     """Differentiable fused rollout (the training entry): the contract of
     :func:`~py_psnode_tpu_torch.ops.fused_dae.fused_dae_rollout`, with
-    gradients to ``streams``, ``weights``, ``x0`` and ``i0`` through
-    :class:`FusedDaeRollout`; ``dt``/``ev`` get none."""
-    streams, weights = cast_compute(streams, weights, precision)
+    gradients (float32, also in the bf16 compute mode) to ``streams``,
+    ``weights``, ``x0`` and ``i0`` through :class:`FusedDaeRollout`;
+    ``dt``/``ev`` get none."""
+    is_bf16(precision)  # an unknown precision raises here
     wflat, n_tails = flatten_weights(weights)
     return FusedDaeRollout.apply(
-        normalize_solver(solver), n_tails,
+        normalize_solver(solver), n_tails, precision,
         streams["s_de"], streams["s_ae"], streams["s_ae_ev"],
         x0.contiguous(), i0.contiguous(), pack_aux(dt, ev), *wflat,
     )
@@ -602,8 +638,10 @@ def fused_dae_tf_x_rollout_diff(
     contract of :func:`fused_dae_rollout_diff` plus the true states
     ``x_true [T, B, xd]`` (the step reads ``x_true[t]``, the AE at t+1
     ``x_true[t+1]``, the event recompute the rolled state), which get their
-    gradient where they require one (:class:`FusedDaeTfxRollout`)."""
-    streams, weights = cast_compute(streams, weights, precision)
+    gradient where they require one (:class:`FusedDaeTfxRollout`). The
+    bf16 compute mode is not ported for it yet."""
+    if is_bf16(precision):
+        raise NotImplementedError("the bfloat16 compute mode of the TF-x rollout is not ported yet")
     wflat, n_tails = flatten_weights(weights)
     return FusedDaeTfxRollout.apply(
         normalize_solver(solver), n_tails,

@@ -18,7 +18,10 @@ the event streams and the stream precompute run as plain PyTorch
 ``torch.autograd.Function``: the forward and backward CUDA kernels on the
 card. The direct-encode DAE's latent rollout runs the DAE kernels at
 ``dims = (h, zl, h, h)`` with one tail layer a net, the ODE's the ODE
-kernels at ``xd = h``.
+kernels at ``xd = h``. The four non-channel-wise entries take
+``precision`` (``"bfloat16"``: kernels 1-4's bf16 compute mode); the
+stream precompute, the encoders and decoders stay float32 under every
+precision, as the JAX package computes them on the CPU.
 """
 
 from __future__ import annotations
@@ -77,6 +80,8 @@ def fused_dae_apply(
       batch: batch-major tensors ``t/x/z/v/i`` and optionally
         ``event_t/z_jump/v_jump``, on the device to run on.
       solver: defaults to ``model.solver``.
+      precision: ``fused_dae.PRECISIONS``; ``"bfloat16"`` the kernels'
+        bf16 compute mode.
 
     Returns ``(x_pred, i_pred)`` batch-major, the ``DAEModel.forward``
     contract. Where a parameter requires grad (and grad mode is on) the
@@ -110,7 +115,7 @@ def ode_rollout_inputs(model: ODEModel, batch: Dict[str, torch.Tensor]):
     return s_de, weights, xT[0], tT[1:] - tT[:-1]
 
 
-def fused_ode_apply(model: ODEModel, batch: Dict[str, torch.Tensor], solver=None):
+def fused_ode_apply(model: ODEModel, batch: Dict[str, torch.Tensor], solver=None, precision: str = "default"):
     """Forward the ODE no-encode model through the fused rollout.
 
     Args:
@@ -118,6 +123,7 @@ def fused_ode_apply(model: ODEModel, batch: Dict[str, torch.Tensor], solver=None
       batch: batch-major tensors ``t/x/z`` and optionally
         ``event_t/z_jump``, on the device to run on.
       solver: defaults to ``model.solver``.
+      precision: as in :func:`fused_dae_apply`.
 
     Returns ``x_pred [B, T, xd]``, the ``ODEModel.forward`` contract. Where a
     parameter requires grad (and grad mode is on) the result is
@@ -126,7 +132,7 @@ def fused_ode_apply(model: ODEModel, batch: Dict[str, torch.Tensor], solver=None
     solver = normalize_solver(model.solver if solver is None else solver)
     with _grad_mode(model):
         s_de, weights, x0, dt = ode_rollout_inputs(model, batch)
-        sol = fused_ode_rollout_diff(s_de, weights, x0, dt, solver)
+        sol = fused_ode_rollout_diff(s_de, weights, x0, dt, solver, precision)
     return sol.transpose(0, 1)
 
 
@@ -149,16 +155,18 @@ def ode_encode_rollout_inputs(model: ODEEncodeModel, batch: Dict[str, torch.Tens
     return s_de, weights, xhT[0], tT[1:] - tT[:-1], xh
 
 
-def fused_ode_encode_apply(model: ODEEncodeModel, batch: Dict[str, torch.Tensor], solver=None):
+def fused_ode_encode_apply(model: ODEEncodeModel, batch: Dict[str, torch.Tensor], solver=None,
+                           precision: str = "default"):
     """Forward the direct-encode ODE through the fused rollout: the codecs
     run as plain PyTorch, the latent 2-layer dynamics through the ODE
-    kernels at ``xd = h``. Returns batch-major ``(x_pred, x_re)``, the
+    kernels at ``xd = h`` (in the compute mode of ``precision``, as in
+    :func:`fused_dae_apply`). Returns batch-major ``(x_pred, x_re)``, the
     ``ODEEncodeModel.forward`` contract. Differentiable where a parameter
     requires grad, else run under ``torch.no_grad()``."""
     solver = normalize_solver(model.solver if solver is None else solver)
     with _grad_mode(model):
         s_de, weights, xh0, dt, xh = ode_encode_rollout_inputs(model, batch)
-        xh_sol = fused_ode_rollout_diff(s_de, weights, xh0, dt, solver)
+        xh_sol = fused_ode_rollout_diff(s_de, weights, xh0, dt, solver, precision)
         return model.x_decoder(xh_sol.transpose(0, 1)), model.x_decoder(xh)
 
 
@@ -214,10 +222,12 @@ def dae_encode_outputs(model: DAEEncodeModel, s: Dict, xh_sol, ih_sol):
             model.i_decoder(s["ih"]))
 
 
-def fused_dae_encode_apply(model: DAEEncodeModel, batch: Dict[str, torch.Tensor], solver=None):
+def fused_dae_encode_apply(model: DAEEncodeModel, batch: Dict[str, torch.Tensor], solver=None,
+                           precision: str = "default"):
     """Forward the direct-encode DAE through the fused rollout: the codecs
     and Init as plain PyTorch (:func:`dae_encode_setup`), the latent 2-layer
-    DE and AE nets through the DAE kernels at ``dims = (h, zl, h, h)``, the
+    DE and AE nets through the DAE kernels at ``dims = (h, zl, h, h)`` (in
+    the compute mode of ``precision``, as in :func:`fused_dae_apply`), the
     decoders after (:func:`dae_encode_outputs`). Returns ``(x_pred, i_pred,
     x_re, i_re)`` batch-major, the ``DAEEncodeModel.forward`` contract.
     Differentiable where a parameter requires grad, else run under
@@ -226,7 +236,7 @@ def fused_dae_encode_apply(model: DAEEncodeModel, batch: Dict[str, torch.Tensor]
     with _grad_mode(model):
         s = dae_encode_setup(model, batch)
         xh_sol, ih_sol = fused_dae_rollout_diff(s["streams"], s["weights"], s["xh0"], s["i0"], s["dt"], s["ev"],
-                                                solver)
+                                                solver, precision)
         return dae_encode_outputs(model, s, xh_sol, ih_sol)
 
 

@@ -18,9 +18,14 @@ scratch block), on CPU tensors it runs
 :func:`fused_ode_rollout_plain`, the same function as an eager PyTorch
 loop. There is no fallback from the kernel to the plain version.
 
-Not ported: the bf16 compute mode (``_cast_ode`` :58), lanes, and the TPU's
-time blocking with ``dt == 0`` padding (scheduling that does not change the
-result).
+The bf16 compute mode (``precision="bfloat16"``, JAX ``_cast_ode`` :58):
+:func:`cast_ode` rounds ``s_de`` and the 2-D weights to bfloat16; the
+kernel and the plain version then round each product's activation to bf16
+and sum in float32, the biases, the carry and ``dt`` staying float32. The
+mode rides ``s_de``'s dtype.
+
+Not ported: lanes, and the TPU's time blocking with ``dt == 0`` padding
+(scheduling that does not change the result).
 """
 
 from __future__ import annotations
@@ -35,13 +40,14 @@ from py_psnode_tpu_torch.ops.fused_dae import (
     _ONE_THIRD,
     _SOLVER_CODE,
     MAX_TAIL,
+    is_bf16,
     launch_rows,
     mlp_tail_fwd,
     mlp_tail_layers,
     normalize_solver,
     split_de_layer1,
 )
-from py_psnode_tpu_torch.ops.noencode_bwd import launch, pointer_array
+from py_psnode_tpu_torch.ops.noencode_bwd import dot, launch, pointer_array, work_dtype
 from py_psnode_tpu_torch.utils import cuda_build
 
 
@@ -76,6 +82,17 @@ def precompute_ode_streams(
     return s_de.contiguous(), weights
 
 
+def cast_ode(s_de, weights: Dict, precision: str):
+    """The kernels' compute-precision mode (JAX ``_cast_ode`` :58):
+    ``"bfloat16"`` rounds ``s_de``, ``wx_de`` and the tail's ``W`` to
+    bfloat16, the biases stay float32; any other precision of
+    ``fused_dae.PRECISIONS`` is the identity."""
+    if not is_bf16(precision):
+        return s_de, weights
+    bf = lambda a: a.to(torch.bfloat16)
+    return bf(s_de), dict(wx_de=bf(weights["wx_de"]), de_tail=[(bf(W), b) for W, b in weights["de_tail"]])
+
+
 def _step_fwd(f, x0, dt, solver):
     """One explicit step of the selected tableau (the kernels' arithmetic)."""
     if solver == "euler":
@@ -94,25 +111,29 @@ def _step_fwd(f, x0, dt, solver):
 
 def fused_ode_rollout_plain(s_de, weights: Dict, x0, dt, solver: str = "euler") -> torch.Tensor:
     """The rollout as an eager PyTorch loop on any device and in the
-    inputs' dtype: the plain version of the CUDA kernel. Returns the rows
-    ``[T-1, B, xd]`` of steps 1..T-1."""
+    inputs' dtype (float32 for the bf16 compute mode's bfloat16 ``s_de``
+    and weights, :func:`cast_ode`): the plain version of the CUDA kernel.
+    Returns the rows ``[T-1, B, xd]`` of steps 1..T-1."""
     solver = normalize_solver(solver)
     wx, tail = weights["wx_de"], weights["de_tail"]
-    dt = dt.to(s_de.dtype)
+    dt = dt.to(work_dtype(s_de))
     xs, x = [], x0
     for t in range(s_de.shape[0]):
-        f = lambda xx, t=t: mlp_tail_fwd(s_de[t] + xx @ wx, tail)
+        f = lambda xx, t=t: mlp_tail_fwd(s_de[t] + dot(xx, wx), tail)
         x = _step_fwd(f, x, dt[t], solver)
         xs.append(x)
     return torch.stack(xs)
 
 
 def check_inputs(s_de, weights: Dict, x0, dt, device_type: str = "cuda"):
-    """Raise unless the rollout's inputs are float32, contiguous, on one
-    CUDA device (or, for a host build of the kernels, ``device_type``
-    "cpu") and shaped as the kernels take them."""
+    """Raise unless the rollout's inputs are contiguous, on one CUDA device
+    (or, for a host build of the kernels, ``device_type`` "cpu") and shaped
+    as the kernels take them, and float32, or in the bf16 compute mode
+    (bfloat16 ``s_de``) ``s_de`` and the 2-D weights bfloat16 and the rest
+    float32. Returns whether the mode is bf16."""
     if s_de.device.type != device_type:
         raise ValueError(f"the CUDA ODE kernels take CUDA tensors, got {s_de.device}")
+    bf16 = s_de.dtype == torch.bfloat16
     Tm1, B, h = s_de.shape
     xd = x0.shape[-1]
     tail = weights["de_tail"]
@@ -127,19 +148,22 @@ def check_inputs(s_de, weights: Dict, x0, dt, device_type: str = "cuda"):
     for name, (a, shape) in expect.items():
         if a.device != s_de.device:
             raise ValueError(f"{name} is on {a.device}, s_de on {s_de.device}")
-        if a.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {a.dtype}")
+        want = torch.bfloat16 if bf16 and (name in ("s_de", "wx_de") or name.endswith(".W")) else torch.float32
+        if a.dtype != want:
+            raise ValueError(f"{name} must be {want}, got {a.dtype}")
         if tuple(a.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(a.shape)}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return bf16
 
 
-def bind_rollout(lib: ctypes.CDLL):
-    """``(launcher, scratch floats, error string)``: the C functions of a
-    build of ``csrc/fused_ode_rollout.cu`` (for the card or, in
-    ``utils/host_build.py``, the host) with their signatures."""
-    fn = lib.psn_fused_ode_rollout_f32
+def bind_rollout(lib: ctypes.CDLL, bf16: bool = False):
+    """``(launcher, scratch floats, error string, bf16)``: the C functions
+    of a build of ``csrc/fused_ode_rollout.cu`` (for the card or, in
+    ``utils/host_build.py``, the host) with their signatures, the launcher
+    that of the bf16 compute mode where ``bf16``."""
+    fn = lib.psn_fused_ode_rollout_bf16 if bf16 else lib.psn_fused_ode_rollout_f32
     P, I = ctypes.c_void_p, ctypes.c_int
     PP = ctypes.POINTER(ctypes.c_void_p)
     fn.argtypes = [
@@ -157,19 +181,21 @@ def bind_rollout(lib: ctypes.CDLL):
     err = lib.psn_cuda_error_string
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
-    return fn, scratch, err
+    return fn, scratch, err, bf16
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
+def _launcher(bf16: bool = False):
     """The C launcher of ``csrc/fused_ode_rollout.cu`` (:func:`bind_rollout`)."""
-    return bind_rollout(cuda_build.load("fused_ode_rollout"))
+    return bind_rollout(cuda_build.load("fused_ode_rollout"), bf16)
 
 
 def fused_ode_rollout_cuda(s_de, weights: Dict, x0, dt, solver: str = "euler", rows_per_block=None) -> torch.Tensor:
     """Launch the CUDA kernel once for the whole rollout; returns the rows
     ``[T-1, B, xd]``. ``rows_per_block`` (1, 2, 4, 8) is the most rows a
-    block of this call takes, by default ``fused_dae.default_launch``."""
+    block of this call takes, by default ``fused_dae.default_launch``.
+    bfloat16 ``s_de`` and weights (:func:`cast_ode`): the kernel's bf16
+    compute mode."""
     sol = _launch(s_de, weights, x0, dt, solver, rows_per_block)
     fused_ode_rollout.launches += 1
     return sol
@@ -181,11 +207,13 @@ def _launch(s_de, weights: Dict, x0, dt, solver: str, rows_per_block=None, launc
     the default build when None); ``host``: a host build on CPU tensors.
     Counts nothing (:func:`fused_ode_rollout_cuda` is the entry)."""
     solver = normalize_solver(solver)
-    check_inputs(s_de, weights, x0, dt, "cpu" if host else "cuda")
+    bf16 = check_inputs(s_de, weights, x0, dt, "cpu" if host else "cuda")
     Tm1, B, h = s_de.shape
     xd = x0.shape[-1]
     rows = launch_rows(s_de.device, B, rows_per_block)
-    fn, scratch_floats, err = launcher or _launcher()
+    fn, scratch_floats, err, mode = launcher or _launcher(bf16)
+    if mode != bf16:
+        raise ValueError(f"a launcher bound for bf16={mode} got the {'bf16' if bf16 else 'float32'} mode's inputs")
     tail = weights["de_tail"]
     n = scratch_floats(B, h, xd, len(tail), rows)
     # must outlive the launch; sizes it refuses (n < 0) raise below
@@ -201,7 +229,8 @@ def _launch(s_de, weights: Dict, x0, dt, solver: str, rows_per_block=None, launc
     return sol
 
 
-def fused_ode_rollout(s_de, weights: Dict, x0, dt, solver: str = "euler") -> torch.Tensor:
+def fused_ode_rollout(s_de, weights: Dict, x0, dt, solver: str = "euler",
+                      precision: str = "default") -> torch.Tensor:
     """The rollout's rows ``[T-1, B, xd]`` (steps 1..T-1, without ``x0``) on
     the tensors' device: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors, an error otherwise.
@@ -209,9 +238,12 @@ def fused_ode_rollout(s_de, weights: Dict, x0, dt, solver: str = "euler") -> tor
     Args:
       s_de/weights: from :func:`precompute_ode_streams`.
       x0: ``[B, xd]`` initial state; dt: ``[T-1, B, 1]`` float32 step sizes.
+      precision: one of ``fused_dae.PRECISIONS``; ``"bfloat16"`` is the bf16
+        compute mode (:func:`cast_ode`).
 
     ``fused_ode_rollout.launches`` counts kernel launches.
     """
+    s_de, weights = cast_ode(s_de, weights, precision)
     dev = s_de.device
     if dev.type == "cuda":
         return fused_ode_rollout_cuda(s_de, weights, x0, dt, solver)

@@ -25,8 +25,15 @@ the cotangents, and the contraction of the weight gradients
 (:func:`contract_plain`). :class:`FusedOdeRollout` is the
 ``torch.autograd.Function`` around the forward kernel and this backward.
 
-Not ported: the bf16 compute mode and the TPU's time padding and time
-blocking (scheduling that does not change the result).
+The bf16 compute mode (``precision="bfloat16"``): :class:`FusedOdeRollout`
+rounds ``s_de`` and the 2-D weights to bfloat16 inside its forward and keeps
+those rounded tensors for the backward (JAX ``_fwd`` :335-343); every
+product rounds its activation or cotangent, every weight-gradient product
+both operands, and ``g_s_de`` and every gradient stay float32, flowing back
+to the float32 originals.
+
+Not ported: the TPU's time padding and time blocking (scheduling that does
+not change the result).
 """
 
 from __future__ import annotations
@@ -38,10 +45,10 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from py_psnode_tpu_torch.ops.fused_dae import _ONE_THIRD, _SOLVER_CODE, normalize_solver
+from py_psnode_tpu_torch.ops.fused_dae import _ONE_THIRD, _SOLVER_CODE, is_bf16, normalize_solver
 from py_psnode_tpu_torch.ops.fused_dae_vjp import _tail_bwd, _tail_fwd_res
-from py_psnode_tpu_torch.ops.fused_ode import check_inputs, fused_ode_rollout
-from py_psnode_tpu_torch.ops.noencode_bwd import STAGES, launch, net_grads_plain, pad_net
+from py_psnode_tpu_torch.ops.fused_ode import cast_ode, check_inputs, fused_ode_rollout
+from py_psnode_tpu_torch.ops.noencode_bwd import STAGES, dot, dot_t, launch, net_grads_plain, pad_net, work_dtype
 from py_psnode_tpu_torch.utils import cuda_build
 
 
@@ -61,7 +68,8 @@ def unflatten_weights(flat) -> Dict:
 @torch.no_grad()
 def fused_ode_rollout_bwd_plain(s_de, weights: Dict, dt, sol, cot, solver: str = "euler"):
     """The reverse walk as an eager PyTorch loop on any device, in the
-    inputs' dtype: the plain version of the CUDA kernel.
+    inputs' dtype (float32 for the bf16 compute mode's bfloat16 ``s_de``
+    and weights): the plain version of the CUDA kernel.
 
     Args:
       s_de/weights/dt: the forward's inputs.
@@ -73,8 +81,9 @@ def fused_ode_rollout_bwd_plain(s_de, weights: Dict, dt, sol, cot, solver: str =
     """
     solver = normalize_solver(solver)
     wx, tail = weights["wx_de"], weights["de_tail"]
-    dt_all = dt.to(s_de.dtype)
-    z = torch.zeros_like
+    wd, cd = work_dtype(s_de), wx.dtype
+    dt_all = dt.to(wd)
+    z = lambda a: torch.zeros_like(a, dtype=wd)
     g_w = dict(wx_de=z(wx), de_tail=[(z(W), z(b)) for W, b in tail])
     g_s = z(s_de)
     gx = z(sol[0])
@@ -83,15 +92,15 @@ def fused_ode_rollout_bwd_plain(s_de, weights: Dict, dt, sol, cot, solver: str =
         gX1 = cot[t + 1] + gx
 
         def F_fwd(x, t=t):
-            out, res = _tail_fwd_res(s_de[t] + x @ wx, tail)
+            out, res = _tail_fwd_res(s_de[t] + dot(x, wx), tail)
             return out, (x, res)
 
         def F_bwd(xres, gf):
             """Adds the weight grads; returns (g_x, g_s_de of this stage)."""
             x, res = xres
             gp = _tail_bwd(res, gf, tail, g_w["de_tail"])
-            g_w["wx_de"] += x.T @ gp
-            return gp @ wx.T, gp
+            g_w["wx_de"] += dot_t(x, gp, cd)
+            return dot(gp, wx.T), gp
 
         if solver == "euler":
             _, res = F_fwd(x0)
@@ -141,7 +150,8 @@ def fused_ode_rollout_bwd_plain(s_de, weights: Dict, dt, sol, cot, solver: str =
 
 @torch.no_grad()
 def recompute_plain(s_de, weights: Dict, dt, sol, solver: str = "euler"):
-    """The recompute kernel's buffers as plain PyTorch, in the inputs' dtype:
+    """The recompute kernel's buffers as plain PyTorch, in the inputs' dtype
+    (float32 in the bf16 compute mode, its products by ``dot``):
     ``(res [S, n, R, h], xin [S, R, xd])``, every stage's layer
     pre-activations and input at every row-step ``r = t B + b`` (stages in
     evaluation order; the arguments of :func:`fused_ode_rollout_bwd_plain`)."""
@@ -150,13 +160,14 @@ def recompute_plain(s_de, weights: Dict, dt, sol, solver: str = "euler"):
     Tm1, B, h = s_de.shape
     xd, R, S = sol.shape[-1], Tm1 * B, STAGES[solver]
     x, s = sol[:-1].reshape(R, xd), s_de.reshape(R, h)
-    dtr = dt.reshape(R, 1).to(s_de.dtype)
-    res = s_de.new_zeros(S, len(tail), R, h)
-    xin = s_de.new_zeros(S, R, xd)
+    wd = work_dtype(s_de)
+    dtr = dt.reshape(R, 1).to(wd)
+    res = s_de.new_zeros(S, len(tail), R, h, dtype=wd)
+    xin = s_de.new_zeros(S, R, xd, dtype=wd)
 
     def f(q, xq):
         xin[q] = xq
-        y, (pres, _) = _tail_fwd_res(s + xq @ wx, tail)
+        y, (pres, _) = _tail_fwd_res(s + dot(xq, wx), tail)
         for l, p in enumerate(pres):
             res[q, l] = p
         return y
@@ -171,11 +182,12 @@ def recompute_plain(s_de, weights: Dict, dt, sol, solver: str = "euler"):
     return res, xin
 
 
-def contract_plain(res, gres, gy, xin, n_tail: int, xd: int) -> Dict:
+def contract_plain(res, gres, gy, xin, n_tail: int, xd: int, cdtype=torch.float32) -> Dict:
     """The contraction kernel's plain version: the weight gradients, in the
     layout of ``weights``, from the buffers ``res/gres [S, n, R, h]``, ``gy
-    [S, R, xd]`` and ``xin [S, R, xd]``."""
-    first, tail = net_grads_plain(res, gres, gy, xin, range(res.shape[0]), xd, n_tail, xd)
+    [S, R, xd]`` and ``xin [S, R, xd]``; ``cdtype`` bfloat16 in the bf16
+    compute mode."""
+    first, tail = net_grads_plain(res, gres, gy, xin, range(res.shape[0]), xd, n_tail, xd, cdtype=cdtype)
     return dict(wx_de=first, de_tail=tail)
 
 
@@ -189,11 +201,12 @@ def grad_layout(weights: Dict) -> Tuple[List[Tuple[int, Tuple[int, ...]]], int]:
     return out, off
 
 
-def bind_rollout_bwd(lib: ctypes.CDLL):
-    """``(backward, sizes, error string)``: the C functions of a build of
-    ``csrc/fused_ode_rollout_bwd.cu`` (for the card or, in
-    ``utils/host_build.py``, the host) with their signatures."""
-    fn = lib.psn_fused_ode_rollout_bwd_f32
+def bind_rollout_bwd(lib: ctypes.CDLL, bf16: bool = False):
+    """``(backward, sizes, error string, bf16)``: the C functions of a
+    build of ``csrc/fused_ode_rollout_bwd.cu`` (for the card or, in
+    ``utils/host_build.py``, the host) with their signatures, the backward
+    that of the bf16 compute mode where ``bf16``."""
+    fn = lib.psn_fused_ode_rollout_bwd_bf16 if bf16 else lib.psn_fused_ode_rollout_bwd_f32
     P, I = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [
         P, P, P, P,  # s_de, dt, sol, cot
@@ -211,13 +224,13 @@ def bind_rollout_bwd(lib: ctypes.CDLL):
     err = lib.psn_cuda_error_string
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
-    return fn, sizes, err
+    return fn, sizes, err, bf16
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
+def _launcher(bf16: bool = False):
     """The C launcher of ``csrc/fused_ode_rollout_bwd.cu`` (:func:`bind_rollout_bwd`)."""
-    return bind_rollout_bwd(cuda_build.load("fused_ode_rollout_bwd"))
+    return bind_rollout_bwd(cuda_build.load("fused_ode_rollout_bwd"), bf16)
 
 
 def bwd_sizes(sizes, Tm1, B, h, xd, n_tail, solver) -> Tuple[int, ...]:
@@ -253,12 +266,13 @@ def _launch_bwd(s_de, weights: Dict, dt, sol, cot, solver: str, launcher=None, s
     (``utils/host_build.py``); ``slots``: at most this many of the walk's
     hidden weights resident in shared memory (-1: as many as fit). Returns
     ``((g_s_de, g_weights, g_x0), bufs)``; the outputs of kernels not
-    launched are left unset. Counts nothing:
+    launched are left unset. bfloat16 ``s_de`` and weights: the kernels'
+    bf16 compute mode. Counts nothing:
     :func:`fused_ode_rollout_bwd_cuda` is the entry; the smoke times one
     kernel at a time, the tests run the contraction on given buffers, the
     phase clock its own build."""
     solver = normalize_solver(solver)
-    check_inputs(s_de, weights, sol[0], dt, "cpu" if host else "cuda")
+    bf16 = check_inputs(s_de, weights, sol[0], dt, "cpu" if host else "cuda")
     Tm1, B, h = s_de.shape
     xd = sol.shape[-1]
     for name, a in (("sol", sol), ("cot", cot)):
@@ -268,7 +282,9 @@ def _launch_bwd(s_de, weights: Dict, dt, sol, cot, solver: str, launcher=None, s
             raise ValueError(f"{name} must have shape {(Tm1 + 1, B, xd)}, got {tuple(a.shape)}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    fn, sizes, err = launcher or _launcher()
+    fn, sizes, err, mode = launcher or _launcher(bf16)
+    if mode != bf16:
+        raise ValueError(f"a launcher bound for bf16={mode} got the {'bf16' if bf16 else 'float32'} mode's inputs")
     layout, total = grad_layout(weights)
     tail = weights["de_tail"]
     n_w, n_res, n_gy, n_xin, n_parts, H = bwd_sizes(sizes, Tm1, B, h, xd, len(tail), solver)
@@ -282,7 +298,9 @@ def _launch_bwd(s_de, weights: Dict, dt, sol, cot, solver: str, launcher=None, s
     g_s = torch.empty(Tm1, B, h, **f32)
     g_flat = torch.empty(total, **f32)
     g_x0 = torch.empty(B, xd, **f32)
-    w, b = pad_net(weights["wx_de"], tail, H)  # must outlive the launch
+    # must outlive the launch; in the bf16 mode the bf16 weights' values in
+    # float32 (exact)
+    w, b = pad_net(weights["wx_de"].float(), [(W.float(), bias) for W, bias in tail], H)
     rc = launch(
         fn, s_de.device, s_de.data_ptr(), dt.data_ptr(), sol.data_ptr(), cot.data_ptr(),
         w.data_ptr(), b.data_ptr(), len(tail), g_s.data_ptr(), g_flat.data_ptr(), g_x0.data_ptr(),
@@ -314,19 +332,23 @@ fused_ode_rollout_bwd.launches = 0
 class FusedOdeRollout(torch.autograd.Function):
     """The fused ODE rollout with its reverse-time backward.
 
-    Forward: the forward rollout (the CUDA kernel on the card); it saves
-    the solution, nothing per step. Backward: :func:`fused_ode_rollout_bwd`,
-    plus ``g_sol[0]`` into ``g_x0`` (the solution's first row is ``x0``).
-    Weights enter as flat tensor arguments (:func:`flatten_weights`); ``dt``
-    gets no gradient.
+    Forward: the forward rollout (the CUDA kernel on the card) in the
+    compute mode of ``precision`` (:func:`~py_psnode_tpu_torch.ops.
+    fused_ode.cast_ode`); it saves ``s_de`` and the weights as the kernels
+    read them (bfloat16 in the bf16 mode) and the solution, nothing per
+    step. Backward: :func:`fused_ode_rollout_bwd`, plus ``g_sol[0]`` into
+    ``g_x0`` (the solution's first row is ``x0``), its float32 gradients to
+    the float32 inputs. Weights enter as flat tensor arguments
+    (:func:`flatten_weights`); ``dt`` gets no gradient.
     """
 
     @staticmethod
-    def forward(ctx, solver, s_de, x0, dt, *wflat):
-        rows = fused_ode_rollout(s_de, unflatten_weights(wflat), x0, dt, solver)
+    def forward(ctx, solver, precision, s_de, x0, dt, *wflat):
+        s_c, w_c = cast_ode(s_de, unflatten_weights(wflat), precision)
+        rows = fused_ode_rollout(s_c, w_c, x0, dt, solver)
         sol = torch.cat([x0[None], rows], dim=0)
         ctx.solver = solver
-        ctx.save_for_backward(s_de, dt, sol, *wflat)
+        ctx.save_for_backward(s_c, dt, sol, *flatten_weights(w_c))
         return sol
 
     @staticmethod
@@ -336,14 +358,16 @@ class FusedOdeRollout(torch.autograd.Function):
         g_s, g_w, g_x0 = fused_ode_rollout_bwd(
             s_de, unflatten_weights(wflat), dt, sol, g_sol.contiguous(), ctx.solver
         )
-        return (None, g_s, g_x0 + g_sol[0], None, *flatten_weights(g_w))
+        return (None, None, g_s, g_x0 + g_sol[0], None, *flatten_weights(g_w))
 
 
-def fused_ode_rollout_diff(s_de, weights: Dict, x0, dt, solver: str = "euler"):
+def fused_ode_rollout_diff(s_de, weights: Dict, x0, dt, solver: str = "euler", precision: str = "default"):
     """Differentiable fused rollout (the training entry): ``[T, B, xd]``
-    including the initial row, with gradients to ``s_de``, ``weights`` and
-    ``x0`` through :class:`FusedOdeRollout`; ``dt`` gets none."""
+    including the initial row, with gradients (float32, also in the bf16
+    compute mode of ``precision``) to ``s_de``, ``weights`` and ``x0``
+    through :class:`FusedOdeRollout`; ``dt`` gets none."""
+    is_bf16(precision)  # an unknown precision raises here
     return FusedOdeRollout.apply(
-        normalize_solver(solver), s_de.contiguous(), x0.contiguous(),
+        normalize_solver(solver), precision, s_de.contiguous(), x0.contiguous(),
         dt.float().contiguous(), *flatten_weights(weights),
     )

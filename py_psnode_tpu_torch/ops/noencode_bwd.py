@@ -12,6 +12,11 @@ t B + b``; the ``E`` evaluation slots are the solver's stages in evaluation
 order, then, for the DAE, the AE at t+1 and the AE at the event.
 :func:`net_grads_plain` is the contraction's plain version; each family's
 module has the recompute's.
+
+The bf16 compute mode of kernels 1-4 (``precision="bfloat16"``; JAX
+``fused_dae.py:143`` ``_dot``, ``fused_dae_vjp.py:52`` ``_dot_t``) rides
+the dtype of the weights: :func:`dot` and :func:`dot_t` are the products of
+every plain version, the float32 product where the weight is not bfloat16.
 """
 
 from __future__ import annotations
@@ -25,6 +30,43 @@ from py_psnode_tpu_torch.models.funcs import elu
 
 BLOCK = 128  # the kernels cut the padded weights in 128 x 128 blocks
 STAGES = {"euler": 1, "midpoint": 2, "rk4": 4}  # evaluations of the dynamics a step
+
+
+def _acc(*ts: torch.Tensor) -> torch.dtype:
+    """The dtype a bf16-mode product sums in: float32, or float64 where an
+    operand is float64 (a plain version run in float64 arithmetic between
+    the same rounding points, as ``chip_smoke.py`` phase 21 measures how
+    far the arithmetic alone moves a result)."""
+    return torch.float64 if any(t.dtype == torch.float64 for t in ts) else torch.float32
+
+
+def dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` as the kernels compute it. In the bf16 compute mode (``w``
+    bfloat16) ``a`` is rounded to bf16 (round to nearest even, as XLA's
+    ``astype``) and the product taken in float32 (:func:`_acc`): a bf16 x
+    bf16 product is exact in float32, so this is the kernels' arithmetic up
+    to summation order. Any other ``w``: the plain product."""
+    if w.dtype != torch.bfloat16:
+        return a @ w
+    acc = _acc(a)
+    return a.to(torch.bfloat16).to(acc) @ w.to(acc)
+
+
+def dot_t(a: torch.Tensor, b: torch.Tensor, cdtype=torch.float32) -> torch.Tensor:
+    """``a.T @ b``, a weight gradient; with ``cdtype`` bfloat16 (the bf16
+    compute mode) both operands are rounded to bf16 first and the product
+    taken in float32 (:func:`_acc`)."""
+    if cdtype != torch.bfloat16:
+        return a.T @ b
+    acc = _acc(a, b)
+    return a.to(torch.bfloat16).to(acc).T @ b.to(torch.bfloat16).to(acc)
+
+
+def work_dtype(t: torch.Tensor) -> torch.dtype:
+    """The dtype a plain version computes in: float32 for the bf16 compute
+    mode's bfloat16 inputs, else the inputs' own (float64 for the
+    reference walks)."""
+    return torch.float32 if t.dtype == torch.bfloat16 else t.dtype
 
 
 def launch(fn, dev: torch.device, *args) -> int:
@@ -82,8 +124,10 @@ def net_operands(res, gres, gy, xin, slots: Sequence[int], kin: int, n: int, out
     return ops
 
 
-def net_grads_plain(res, gres, gy, xin, slots: Sequence[int], kin: int, n: int, out: int, keep=None):
+def net_grads_plain(res, gres, gy, xin, slots: Sequence[int], kin: int, n: int, out: int, keep=None,
+                    cdtype=torch.float32):
     """The contraction's plain version for one net (the arguments of
-    :func:`net_operands`): ``(dW_first [kin, h], [(dW_l, db_l), ...])``."""
+    :func:`net_operands`; ``cdtype`` bfloat16 in the bf16 compute mode):
+    ``(dW_first [kin, h], [(dW_l, db_l), ...])``."""
     (u0, v0, _), *tail = net_operands(res, gres, gy, xin, slots, kin, n, out, keep)
-    return u0.T @ v0, [(u.T @ v, v.sum(0)) for u, v, _ in tail]
+    return dot_t(u0, v0, cdtype), [(dot_t(u, v, cdtype), v.sum(0)) for u, v, _ in tail]

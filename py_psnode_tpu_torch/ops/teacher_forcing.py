@@ -24,8 +24,10 @@ Teacher forcing changes the shape of the problem:
     dead, so every step is independent: one batched evaluation
     (:func:`tf_parallel_dae_apply`, :func:`tf_parallel_dae_encode_apply`).
 
-The direct-encode variants teacher-force in latent space (``x_true =
-x_encoder(x)``, ``i_true = i_encoder(i)``). Every entry takes the model and
+The kernel entries take ``precision``; the two TF-i ones run kernels 3-4 in
+its bf16 compute mode under ``"bfloat16"``, the TF-x ones refuse that mode
+(not ported yet). The direct-encode variants teacher-force in latent space
+(``x_true = x_encoder(x)``, ``i_true = i_encoder(i)``). Every entry takes the model and
 a batch-major batch, returns its model's ``forward`` contract, and is
 differentiable where a parameter requires grad (else it runs under
 ``torch.no_grad()``).
@@ -126,21 +128,23 @@ def tf_parallel_dae_apply(model: DAEModel, batch: Dict[str, torch.Tensor], solve
         return _tm(torch.cat([s["x0"][None], x1])), _tm(torch.cat([s["i0"][None], i_rest]))
 
 
-def _tf_i_rollout(streams, weights, i_true, x0, dt, solver):
+def _tf_i_rollout(streams, weights, i_true, x0, dt, solver, precision="default"):
     """The differential rollout under ``input_true_i``: the true lagged
-    ``i`` projection folded into ``s_de``, then the ODE kernels 3-4."""
+    ``i`` projection folded into ``s_de`` (float32), then the ODE kernels
+    3-4 in the compute mode of ``precision``."""
     s_de = streams["s_de"] + i_true[:-1] @ weights["wi_de"]
-    return fused_ode_rollout_diff(s_de, dict(wx_de=weights["wx_de"], de_tail=weights["de_tail"]), x0, dt, solver)
+    return fused_ode_rollout_diff(s_de, dict(wx_de=weights["wx_de"], de_tail=weights["de_tail"]), x0, dt, solver,
+                                  precision)
 
 
-def fused_dae_tf_i_apply(model: DAEModel, batch: Dict[str, torch.Tensor], solver=None):
+def fused_dae_tf_i_apply(model: DAEModel, batch: Dict[str, torch.Tensor], solver=None, precision: str = "default"):
     """``DAEModel.forward(..., input_true_i=True)``: the rollout through
     the ODE kernels 3-4 (:func:`_tf_i_rollout`), then the AE at every
     rolled state at once. Returns ``(x_pred, i_pred)`` batch-major."""
     solver = normalize_solver(model.solver if solver is None else solver)
     with _grad_mode(model):
         s = _dae_tf_setup(model, batch, False)
-        x_sol = _tf_i_rollout(s["streams"], s["weights"], s["iT"], s["x0"], s["dt"], solver)
+        x_sol = _tf_i_rollout(s["streams"], s["weights"], s["iT"], s["x0"], s["dt"], solver, precision)
         init_b = _over_steps(s["all_initial"], x_sol.shape[0] - 1)
         i_rest = model.ae_func(init_b, x_sol[1:], s["zT"][1:], s["vT"][1:])
         return _tm(x_sol), _tm(torch.cat([s["i0"][None], i_rest]))
@@ -166,7 +170,8 @@ def tf_parallel_ode_encode_apply(model: ODEEncodeModel, batch: Dict[str, torch.T
         return model.x_decoder(_tm(torch.cat([xhT[0][None], x1]))), model.x_decoder(xh)
 
 
-def fused_dae_encode_tf_x_apply(model: DAEEncodeModel, batch: Dict[str, torch.Tensor], solver=None):
+def fused_dae_encode_tf_x_apply(model: DAEEncodeModel, batch: Dict[str, torch.Tensor], solver=None,
+                                precision: str = "default"):
     """``DAEEncodeModel.forward(..., input_true_x=True)`` through the TF-x
     mode of kernels 1-2 at the latent shape, the true states the encoded
     ``x`` (their cotangents computed: they reach the x encoder). Returns
@@ -175,11 +180,12 @@ def fused_dae_encode_tf_x_apply(model: DAEEncodeModel, batch: Dict[str, torch.Te
     with _grad_mode(model):
         s = dae_encode_setup(model, batch, tf_x=True)
         xh_sol, ih_sol = fused_dae_tf_x_rollout_diff(s["streams"], s["weights"], s["xh0"], s["i0"], s["xhT"],
-                                                     s["dt"], s["ev"], solver)
+                                                     s["dt"], s["ev"], solver, precision)
         return dae_encode_outputs(model, s, xh_sol, ih_sol)
 
 
-def fused_dae_encode_tf_i_apply(model: DAEEncodeModel, batch: Dict[str, torch.Tensor], solver=None):
+def fused_dae_encode_tf_i_apply(model: DAEEncodeModel, batch: Dict[str, torch.Tensor], solver=None,
+                                precision: str = "default"):
     """``DAEEncodeModel.forward(..., input_true_i=True)``: the encoded true
     ``i`` folded into the stream, the latent rollout through the ODE
     kernels 3-4 at ``xd = h``, the AE at every rolled latent state at once.
@@ -187,7 +193,7 @@ def fused_dae_encode_tf_i_apply(model: DAEEncodeModel, batch: Dict[str, torch.Te
     solver = normalize_solver(model.solver if solver is None else solver)
     with _grad_mode(model):
         s = dae_encode_setup(model, batch)
-        xh_sol = _tf_i_rollout(s["streams"], s["weights"], s["ihT"], s["xh0"], s["dt"], solver)
+        xh_sol = _tf_i_rollout(s["streams"], s["weights"], s["ihT"], s["xh0"], s["dt"], solver, precision)
         init_b = _over_steps(s["all_initial"], xh_sol.shape[0] - 1)
         i_rest = model.ae_func(init_b, xh_sol[1:], s["zhT"][1:], s["vhT"][1:])
         return dae_encode_outputs(model, s, xh_sol, torch.cat([s["i0"][None], i_rest]))

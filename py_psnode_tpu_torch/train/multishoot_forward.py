@@ -89,10 +89,12 @@ def multishoot_ode_apply(model: ODEModel, batch: Dict[str, torch.Tensor], n_wind
     return _tm(sol), gaps
 
 
-def fused_multishoot_ode_apply(model: ODEModel, batch: Dict[str, torch.Tensor], n_windows: int, solver=None):
-    """:func:`multishoot_ode_apply` through kernels 3-4: the fused path's
-    ``s_de`` and ``dt`` folded, the true window starts, one rollout of
-    ``K*B`` rows over ``L`` steps. Same contract."""
+def fused_multishoot_ode_apply(model: ODEModel, batch: Dict[str, torch.Tensor], n_windows: int, solver=None,
+                               precision: str = "default"):
+    """:func:`multishoot_ode_apply` through kernels 3-4 (in the compute mode
+    of ``precision``): the fused path's ``s_de`` and ``dt`` folded, the
+    true window starts, one rollout of ``K*B`` rows over ``L`` steps. Same
+    contract."""
     solver = normalize_solver(_solver(model, solver))
     with _grad_mode(model):
         s_de, weights, _, dt = ode_rollout_inputs(model, batch)
@@ -101,7 +103,7 @@ def fused_multishoot_ode_apply(model: ODEModel, batch: Dict[str, torch.Tensor], 
         L = check_windows(T, K)
         x0w = window_starts(xT, K, L)
         s_de_w, dt_w = _fold_steps(K, L, s_de, dt)
-        sol_w = fused_ode_rollout_diff(s_de_w, weights, x0w, dt_w, solver)
+        sol_w = fused_ode_rollout_diff(s_de_w, weights, x0w, dt_w, solver, precision)
         return _tm(_window_unfold(sol_w, K, L, B)), window_gaps(sol_w[-1], x0w, K, B)
 
 
@@ -134,8 +136,10 @@ def multishoot_dae_apply(model: DAEModel, batch: Dict[str, torch.Tensor], n_wind
     return (_tm(x_sol), _tm(i_sol)), gaps
 
 
-def fused_multishoot_dae_apply(model: DAEModel, batch: Dict[str, torch.Tensor], n_windows: int, solver=None):
-    """:func:`multishoot_dae_apply` through kernels 1-2: the fused path's
+def fused_multishoot_dae_apply(model: DAEModel, batch: Dict[str, torch.Tensor], n_windows: int, solver=None,
+                               precision: str = "default"):
+    """:func:`multishoot_dae_apply` through kernels 1-2 (in the compute mode
+    of ``precision``): the fused path's
     streams, ``dt`` and event mask folded, the window starts of
     :func:`multishoot_dae_apply` and each window's AE at its start, one
     rollout of ``K*B`` rows over ``L`` steps. Same contract."""
@@ -148,7 +152,7 @@ def fused_multishoot_dae_apply(model: DAEModel, batch: Dict[str, torch.Tensor], 
                             window_starts(_tm(batch["v"]), K, L))
         folded = dict(zip(streams, _fold_steps(K, L, *streams.values())))
         dt_w, ev_w = _fold_steps(K, L, dt, ev)
-        x_sol_w, i_sol_w = fused_dae_rollout_diff(folded, weights, x0w, i0w, dt_w, ev_w, solver)
+        x_sol_w, i_sol_w = fused_dae_rollout_diff(folded, weights, x0w, i0w, dt_w, ev_w, solver, precision)
         B = batch["t"].shape[0]
         return ((_tm(_window_unfold(x_sol_w, K, L, B)), _tm(_window_unfold(i_sol_w, K, L, B))),
                 window_gaps(x_sol_w[-1], x0w, K, B))
@@ -176,9 +180,9 @@ def multishoot_ode_encode_apply(model: ODEEncodeModel, batch: Dict[str, torch.Te
 
 
 def fused_multishoot_ode_encode_apply(model: ODEEncodeModel, batch: Dict[str, torch.Tensor], n_windows: int,
-                                      solver=None):
+                                      solver=None, precision: str = "default"):
     """:func:`multishoot_ode_encode_apply` through kernels 3-4 at ``xd =
-    h``. Same contract."""
+    h`` (in the compute mode of ``precision``). Same contract."""
     solver = normalize_solver(_solver(model, solver))
     with _grad_mode(model):
         s_de, weights, _, dt, xh = ode_encode_rollout_inputs(model, batch)
@@ -187,7 +191,7 @@ def fused_multishoot_ode_encode_apply(model: ODEEncodeModel, batch: Dict[str, to
         L = check_windows(T, K)
         xh0w = window_starts(_tm(xh), K, L)
         s_de_w, dt_w = _fold_steps(K, L, s_de, dt)
-        sol_w = fused_ode_rollout_diff(s_de_w, weights, xh0w, dt_w, solver)
+        sol_w = fused_ode_rollout_diff(s_de_w, weights, xh0w, dt_w, solver, precision)
         x_pred = model.x_decoder(_tm(_window_unfold(sol_w, K, L, B)))
         return (x_pred, model.x_decoder(xh)), window_gaps(sol_w[-1], xh0w, K, B)
 
@@ -220,9 +224,9 @@ def multishoot_dae_encode_apply(model: DAEEncodeModel, batch: Dict[str, torch.Te
 
 
 def fused_multishoot_dae_encode_apply(model: DAEEncodeModel, batch: Dict[str, torch.Tensor], n_windows: int,
-                                      solver=None):
+                                      solver=None, precision: str = "default"):
     """:func:`multishoot_dae_encode_apply` through kernels 1-2 at ``dims =
-    (h, zl, h, h)``: the streams of :func:`dae_encode_setup` folded, each
+    (h, zl, h, h)`` (in the compute mode of ``precision``): the streams of :func:`dae_encode_setup` folded, each
     window's AE at its latent start. Same contract."""
     solver = normalize_solver(_solver(model, solver))
     K = n_windows
@@ -234,7 +238,8 @@ def fused_multishoot_dae_encode_apply(model: DAEEncodeModel, batch: Dict[str, to
         streams = s["streams"]
         folded = dict(zip(streams, _fold_steps(K, L, *streams.values())))
         dt_w, ev_w = _fold_steps(K, L, s["dt"], s["ev"])
-        xh_sol_w, ih_sol_w = fused_dae_rollout_diff(folded, s["weights"], xh0w, i0w, dt_w, ev_w, solver)
+        xh_sol_w, ih_sol_w = fused_dae_rollout_diff(folded, s["weights"], xh0w, i0w, dt_w, ev_w, solver,
+                                                    precision)
         B = batch["t"].shape[0]
         xh_sol, ih_sol = _window_unfold(xh_sol_w, K, L, B), _window_unfold(ih_sol_w, K, L, B)
         return dae_encode_outputs(model, s, xh_sol, ih_sol), window_gaps(xh_sol_w[-1], xh0w, K, B)

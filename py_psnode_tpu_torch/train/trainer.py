@@ -18,8 +18,13 @@ non-channel-wise variants, the fused route by the JAX package's dispatch
 refuses it as the JAX package does. Multiple shooting (``n_windows``,
 ``gap_weight``) trains all six variants, the four non-channel-wise ones
 through the fused kernels where ``fused`` (``_multishoot_forward``); the
-evaluations stay full rollouts. Not ported yet: orbax checkpoints,
-``auto_resume`` and data parallelism.
+evaluations stay full rollouts. ``matmul_precision="bfloat16"`` with
+``fused`` runs kernels 1-4 in their bf16 compute mode in training and in
+every evaluation (the JAX package's ``_forward_fn``); the plain route, the
+precomputes, the encoders and the optimizer stay float32 under every
+precision (the JAX package on the CPU computes them so). Not ported yet:
+orbax checkpoints, ``auto_resume``, data parallelism, and the bf16 mode of
+the channel-wise kernels and of the TF-x rollout.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from py_psnode_tpu_torch.bridge import load_params
 from py_psnode_tpu_torch.data import DaeSamples, OdeSamples
 from py_psnode_tpu_torch.models.initializers import init_params
 from py_psnode_tpu_torch.ops import teacher_forcing as TF
+from py_psnode_tpu_torch.ops.fused_dae import is_bf16
 from py_psnode_tpu_torch.train import evaluate as E
 from py_psnode_tpu_torch.train import multishoot_forward as MS
 from py_psnode_tpu_torch.train.checkpoints import (
@@ -104,6 +110,11 @@ class TrainConfig:
     # route the forward and backward of every ported variant through the
     # fused rollout (the CUDA kernels on the card)
     fused: bool = False
+    # "default" | "bfloat16" | "float32" | "highest": with fused=True,
+    # "bfloat16" selects kernels 1-4's bf16 compute mode (streams and 2-D
+    # weights rounded to bf16, float32 sums and gradients); everything else
+    # runs in float32 under every value
+    matmul_precision: str = "default"
     # the channel-wise variants' per-channel matmul form: "einsum" or
     # "blockdiag" (models.funcs.PerChannelMLP)
     channel_impl: str = "einsum"
@@ -134,6 +145,19 @@ def _not_ported(cfg: TrainConfig):
     if cfg.auto_resume:
         return "auto_resume"
     return None
+
+
+def _check_precision(cfg: TrainConfig, variant: Variant):
+    """An unknown ``matmul_precision`` raises ``ValueError``; the bf16
+    compute mode of the fused paths the port has not ported yet raises
+    ``NotImplementedError``."""
+    if not (is_bf16(cfg.matmul_precision) and cfg.fused):
+        return
+    if variant.channel_wise:
+        raise NotImplementedError(
+            "the bfloat16 compute mode of the channel-wise kernels (5-6) is not ported yet")
+    if cfg.input_true_x and not cfg.input_true_i and variant.kind == "dae":
+        raise NotImplementedError("the bfloat16 compute mode of the TF-x rollout (kernels 1-2) is not ported yet")
 
 
 def _check_teacher_forcing(cfg: TrainConfig, variant: Variant):
@@ -170,6 +194,10 @@ _TF_FUSED = {
     ("dae_encode", True, False): TF.fused_dae_encode_tf_x_apply,
     ("dae_encode", False, True): TF.fused_dae_encode_tf_i_apply,
 }
+# those of them that run kernels 1-4 and take matmul_precision (the
+# time-parallel ones run none)
+_TF_KERNEL = {TF.fused_dae_tf_x_apply, TF.fused_dae_tf_i_apply, TF.fused_dae_encode_tf_x_apply,
+              TF.fused_dae_encode_tf_i_apply}
 
 # the fused multishoot forwards; the channel-wise ones run plain under
 # either fused setting, as in the JAX package
@@ -194,6 +222,7 @@ class Trainer:
         self.cfg = cfg
         self.variant: Variant = get_variant(cfg.variant)
         _check_teacher_forcing(cfg, self.variant)
+        _check_precision(cfg, self.variant)
         missing = _not_ported(cfg)
         if missing:
             raise NotImplementedError(f"{missing} is not ported yet")
@@ -241,7 +270,8 @@ class Trainer:
         if cfg.input_true_x or cfg.input_true_i:
             return self._teacher_forced_forward(model)
         if cfg.fused:
-            return lambda batch: variant.fused_apply(model, batch, solver=cfg.solver)
+            kw = {} if variant.channel_wise else dict(precision=cfg.matmul_precision)
+            return lambda batch: variant.fused_apply(model, batch, solver=cfg.solver, **kw)
         return lambda batch: model(*[batch.get(k) for k in variant.batch_args])
 
     def _teacher_forced_forward(self, model):
@@ -251,7 +281,8 @@ class Trainer:
         tf_x, tf_i = cfg.input_true_x, cfg.input_true_i
         if cfg.fused:
             apply = _TF_FUSED[(variant.name, tf_x, tf_i)]
-            return lambda batch: apply(model, batch, solver=cfg.solver)
+            kw = dict(precision=cfg.matmul_precision) if apply in _TF_KERNEL else {}
+            return lambda batch: apply(model, batch, solver=cfg.solver, **kw)
         kwargs = {"input_true_x": tf_x}
         if variant.kind == "dae":
             kwargs["input_true_i"] = tf_i
@@ -261,7 +292,11 @@ class Trainer:
         """The training forward under ``n_windows``: ``batch -> (out,
         gaps)`` by the JAX package's dispatch."""
         cfg, name = self.cfg, self.variant.name
-        apply = (_MS_FUSED if cfg.fused else {}).get(name) or _MS_PLAIN.get(name)
+        fused = (_MS_FUSED if cfg.fused else {}).get(name)
+        if fused is not None:
+            return lambda batch: fused(model, batch, cfg.n_windows, solver=cfg.solver,
+                                       precision=cfg.matmul_precision)
+        apply = _MS_PLAIN.get(name)
         if apply is None:
             raise ValueError(f"multi-shooting has no forward for variant {name}")
         return lambda batch: apply(model, batch, cfg.n_windows, solver=cfg.solver)

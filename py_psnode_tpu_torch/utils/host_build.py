@@ -28,7 +28,10 @@ holds the host build against the plain PyTorch version on seeded inputs
 (the card tests' kind) and prints the distance; ``dae-fwd-tfx`` and
 ``dae-bwd-tfx`` (the same arguments as ``dae-fwd`` / ``dae-bwd``) hold
 kernels 1-2 in their TF-x mode on seeded true states, the backward with the
-true states' cotangents. Builds land in
+true states' cotangents; ``dae-fwd-bf16``, ``dae-bwd-bf16``,
+``ode-fwd-bf16`` and ``ode-bwd-bf16`` hold kernels 1-4 in their bf16
+compute mode against the plain bf16 versions by the discrimination bar
+(:func:`bf16_check`). Builds land in
 ``py_psnode_tpu_torch/_build/host/`` (ignored by git).
 """
 
@@ -195,6 +198,11 @@ def _nan_bufs(n_res, n_gy, n_xin, n_parts) -> Dict:
     return dict(res=_nan(n_res), gres=_nan(n_res), gy=_nan(n_gy), xin=_nan(n_xin), parts=_nan(n_parts))
 
 
+def _bf16(weights: Dict) -> bool:
+    """Whether these kernel weights are the bf16 compute mode's."""
+    return weights["wx_de"].dtype == torch.bfloat16
+
+
 def dae_rollout_bwd(streams: Dict, weights: Dict, x0, i0, aux, packed, cot, solver: str = "rk4",
                     stages: int = 7, bufs=None, defines: Tuple[str, ...] = (), x_true=None, g_true=False):
     """Kernel 2's host build (with ``defines``, :func:`load`) on CPU tensors
@@ -202,7 +210,7 @@ def dae_rollout_bwd(streams: Dict, weights: Dict, x0, i0, aux, packed, cot, solv
     mode), on NaN-poisoned buffers unless ``bufs`` are given; returns
     ``((g_streams, g_weights, g_x0, g_i0[, (g_xt, g_xt1)]), bufs)`` as
     ``fused_dae_vjp._launch_bwd`` does."""
-    launcher = V.bind_rollout_bwd(load("fused_dae_rollout_bwd", defines))
+    launcher = V.bind_rollout_bwd(load("fused_dae_rollout_bwd", defines), _bf16(weights))
     if bufs is None:
         Tm1, B, h = streams["s_de"].shape
         n_tails = (len(weights["de_tail"]), len(weights["ae_tail"]))
@@ -218,7 +226,7 @@ def ode_rollout_bwd(s_de, weights: Dict, dt, sol, cot, solver: str = "euler", st
     arguments of ``fused_ode_rollout_bwd_cuda``), on NaN-poisoned buffers
     unless ``bufs`` are given; returns ``((g_s_de, g_weights, g_x0), bufs)``
     as ``fused_ode_vjp._launch_bwd`` does."""
-    launcher = VO.bind_rollout_bwd(load("fused_ode_rollout_bwd", defines))
+    launcher = VO.bind_rollout_bwd(load("fused_ode_rollout_bwd", defines), _bf16(weights))
     if bufs is None:
         Tm1, B, h = s_de.shape
         sizes = VO.bwd_sizes(launcher[1], Tm1, B, h, sol.shape[-1], len(weights["de_tail"]), solver)
@@ -232,14 +240,14 @@ def dae_rollout(streams: Dict, weights: Dict, x0, i0, aux, solver: str = "rk4", 
     (the arguments of ``fused_dae_rollout_packed_cuda``, at most ``rows``
     rows a block, ``x_true`` its TF-x mode); returns the packed rows ``[T-1,
     B, xd + id]``."""
-    launcher = F.bind_rollout(load("fused_dae_rollout", defines))
+    launcher = F.bind_rollout(load("fused_dae_rollout", defines), _bf16(weights))
     return F._launch(streams, weights, x0, i0, aux, solver, rows, launcher, host=True, x_true=x_true)
 
 
 def ode_rollout(s_de, weights: Dict, x0, dt, solver: str = "euler", rows=None, defines: Tuple[str, ...] = ()):
     """Kernel 3's host build on CPU tensors (the arguments of
     ``fused_ode_rollout_cuda``); returns the rows ``[T-1, B, xd]``."""
-    launcher = FO.bind_rollout(load("fused_ode_rollout", defines))
+    launcher = FO.bind_rollout(load("fused_ode_rollout", defines), _bf16(weights))
     return FO._launch(s_de, weights, x0, dt, solver, rows, launcher, host=True)
 
 
@@ -325,11 +333,101 @@ def _worst(got: List[torch.Tensor], ref: List[torch.Tensor]) -> float:
                for g, r in zip(got, ref))
 
 
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b|| in float64 (0 where both are 0)."""
+    a, b = a.double(), b.double()
+    d, n = (a - b).norm().item(), b.norm().item()
+    return d / n if n > 0 else (0.0 if d == 0 else math.inf)
+
+
+# The bf16 mode's bar: per output tensor, rel-L2(kernel - plain bf16) at most
+# this fraction of rel-L2(plain bf16 - plain float32), so that the kernel is
+# shown to round where the plain bf16 version rounds, not merely to land
+# near float32 (summation order flips single bf16 roundings: the bar is an
+# L2 one, not a maximum)
+BF16_BAR = 0.1
+
+
+def bf16_ratios(got: List[torch.Tensor], ref: List[torch.Tensor], f32: List[torch.Tensor]) -> List[float]:
+    """Per tensor, rel-L2(got - ref) / rel-L2(ref - f32): at most
+    :data:`BF16_BAR` passes (``got`` the kernel, ``ref`` the plain bf16
+    version, ``f32`` the plain float32 one)."""
+    out = []
+    for g, r, f in zip(got, ref, f32):
+        err, gap = rel_l2(g, r), rel_l2(r, f)
+        out.append(err / gap if gap > 0 else (0.0 if err == 0 else math.inf))
+    return out
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(a, dev) for a in tree)
+    return tree.to(dev)
+
+
+def bf16_check(family: str, kind: str, B: int, Tm1: int, h: int, solver: str, rows=None, xd=None,
+               n_tail: int = 3, idim: int = 2, defines: Tuple[str, ...] = (), card: bool = False) -> Dict[str, float]:
+    """Kernel 1 or 2 (``family`` "dae", ``kind`` "fwd" or "bwd"; the motor
+    shape by default) or 3 or 4 ("ode") built for the host (``card``: the
+    card's build, on CUDA tensors), in its bf16 compute mode on the seeded
+    inputs of :func:`noencode_fwd_check` / :func:`noencode_bwd_check`
+    rounded by ``cast_compute`` / ``cast_ode``, against the plain bf16
+    version on the same inputs: ``ratio``, the largest :func:`bf16_ratios`
+    of any output tensor (the bar :data:`BF16_BAR`), and ``identical``, 1.0
+    when a relaunch gave the same bits. The backward runs on the bf16
+    forward's solution with unit-scale cotangents; its float32 reference on
+    the float32 forward's."""
+    rng = np.random.default_rng(B + Tm1 + h)
+    dev = "cuda" if card else "cpu"
+    if family == "dae":
+        xd = xd or 3
+        streams, weights, x0, i0, aux = _to(dae_inputs(B, Tm1, h, xd, idim, seed=h, n_tail=n_tail), dev)
+        cs, cw = F.cast_compute(streams, weights, "bfloat16")
+        if kind == "fwd":
+            split = lambda p: [p[..., :xd], p[..., xd:]]
+            ref_f = split(F.fused_dae_rollout_packed_plain(streams, weights, x0, i0, aux, solver))
+            ref = split(F.fused_dae_rollout_packed_plain(cs, cw, x0, i0, aux, solver))
+            run = lambda: split(F.fused_dae_rollout_packed_cuda(cs, cw, x0, i0, aux, solver, rows) if card
+                                else dae_rollout(cs, cw, x0, i0, aux, solver, rows, defines))
+        else:
+            cot = torch.tensor(rng.standard_normal((Tm1 + 1, B, xd + idim)).astype(np.float32), device=dev)
+            flat = lambda g: [*g[0].values(), g[2], g[3]] + V.flatten_weights(g[1])[0]
+            packed = F.fused_dae_rollout_packed_plain(cs, cw, x0, i0, aux, solver)
+            packed_f = F.fused_dae_rollout_packed_plain(streams, weights, x0, i0, aux, solver)
+            ref_f = flat(V.fused_dae_rollout_bwd_plain(streams, weights, x0, i0, aux, packed_f, cot, solver))
+            ref = flat(V.fused_dae_rollout_bwd_plain(cs, cw, x0, i0, aux, packed, cot, solver))
+            run = lambda: flat(V.fused_dae_rollout_bwd_cuda(cs, cw, x0, i0, aux, packed, cot, solver) if card
+                               else dae_rollout_bwd(cs, cw, x0, i0, aux, packed, cot, solver, defines=defines)[0])
+    else:
+        s_de, weights, x0, dt = _to(ode_inputs(B, Tm1, h, xd or 2, n_tail, seed=h,
+                                               readout=1.0 if kind == "fwd" else 0.1), dev)
+        cs, cw = FO.cast_ode(s_de, weights, "bfloat16")
+        if kind == "fwd":
+            ref_f = [FO.fused_ode_rollout_plain(s_de, weights, x0, dt, solver)]
+            ref = [FO.fused_ode_rollout_plain(cs, cw, x0, dt, solver)]
+            run = lambda: [FO.fused_ode_rollout_cuda(cs, cw, x0, dt, solver, rows) if card
+                           else ode_rollout(cs, cw, x0, dt, solver, rows, defines)]
+        else:
+            sol = torch.cat([x0[None], FO.fused_ode_rollout_plain(cs, cw, x0, dt, solver)])
+            sol_f = torch.cat([x0[None], FO.fused_ode_rollout_plain(s_de, weights, x0, dt, solver)])
+            cot = torch.tensor(rng.standard_normal(tuple(sol.shape)).astype(np.float32), device=dev)
+            flat = lambda g: [g[0], g[2]] + VO.flatten_weights(g[1])
+            ref_f = flat(VO.fused_ode_rollout_bwd_plain(s_de, weights, dt, sol_f, cot, solver))
+            ref = flat(VO.fused_ode_rollout_bwd_plain(cs, cw, dt, sol, cot, solver))
+            run = lambda: flat(VO.fused_ode_rollout_bwd_cuda(cs, cw, dt, sol, cot, solver) if card
+                               else ode_rollout_bwd(cs, cw, dt, sol, cot, solver, defines=defines)[0])
+    got, again = run(), run()
+    return dict(ratio=max(bf16_ratios(got, ref, ref_f)),
+                identical=float(all(torch.equal(g, g2) for g, g2 in zip(got, again))))
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    tfx = argv[0].endswith("-tfx")
-    if tfx:
-        argv = [argv[0][:-4]] + argv[1:]
+    tfx, bf16 = argv[0].endswith("-tfx"), argv[0].endswith("-bf16")
+    if tfx or bf16:
+        argv = [argv[0].rsplit("-", 1)[0]] + argv[1:]
     if argv[0] in ("dae-fwd", "ode-fwd", "dae-bwd", "ode-bwd"):
         family = argv[0][:3]
         n_dims = next(k for k, a in enumerate(argv[1:]) if not a.isdigit())  # the solver ends the sizes
@@ -338,6 +436,12 @@ def main(argv=None) -> int:
         # the DAE: B Tm1 h [xd id n_tail]; the ODE: B Tm1 h xd n_tail
         shape = (dict(xd=dims[3], idim=dims[4], n_tail=dims[5]) if family == "dae" and len(dims) == 6
                  else dict(xd=dims[3], n_tail=dims[4]) if family == "ode" else {})
+    if bf16:
+        rows = int(rest[0]) if rest and argv[0].endswith("fwd") else None
+        got = bf16_check(family, argv[0][4:], *dims[:3], solver, rows, **shape)
+        print(f"{argv[0]}-bf16: worst rel-L2(kernel - plain bf16) / rel-L2(plain bf16 - plain float32) "
+              f"{got['ratio']:.3f} (bar {BF16_BAR}); bit-identical on relaunch: {bool(got['identical'])}")
+        return 0 if got["ratio"] <= BF16_BAR and got["identical"] else 1
     if argv[0] in ("dae-fwd", "ode-fwd"):
         got = noencode_fwd_check(family, *dims[:3], solver, int(rest[0]) if rest else None, tfx=tfx, **shape)
         print(f"{argv[0]}: worst |d| / max(1, |plain|) {got['worst']:.2e}; bit-identical on relaunch: "

@@ -38,7 +38,15 @@ with 0, 1, ... of its hidden weights resident in shared memory, the rest
 read from L2 (the launcher keeps the DE's: all of the ODE's, two of the
 DAE's four).
 
-Two comparisons across checkouts, for a change's effect on one card:
+Three comparisons across checkouts, for a change's effect on one card:
+
+    python -m py_psnode_tpu_torch.utils.phase_clock sass-ab OTHER_CSRC
+
+builds the four no-encode sources from ``OTHER_CSRC`` and from this
+checkout (no card needed, only nvcc) and says of each kernel of the other
+build whether this build has one of the same SASS (``[ne-sass-ab]``): a
+kernel template that gained a trailing ``bool`` (the bf16 mode's
+``kBf16``) is matched at ``false``, ``pack_nets`` at ``pack_nets<float>``.
 
     python -m py_psnode_tpu_torch.utils.phase_clock bwd-ab OTHER_CSRC [B Tm1]
 
@@ -261,22 +269,57 @@ def noencode(B: int, Tm1: int, solver: str) -> int:
     return 0
 
 
-def sass(lib: pathlib.Path) -> Dict[str, str]:
+def sass(lib: pathlib.Path, demangle: bool = False) -> Dict[str, str]:
     """Each kernel's SASS in ``lib`` (``cuobjdump -sass``), without the
     lines and operands that name resources or constant-bank offsets (a
     change of a kernel's parameter block moves those alone), by name with
-    the build's own anonymous-namespace tag left out."""
+    the build's own anonymous-namespace tag left out (``demangle``: by its
+    demangled name, ``cu++filt``)."""
     text = subprocess.run([shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump", "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
+    if demangle:
+        filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+        text = subprocess.run([filt], input=text, capture_output=True, text=True, check=True).stdout
     out, name = {}, None
     for line in text.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
+        m = re.match(r"\s*Function : (.+?)\s*$", line)
         if m:
             name = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_(\w+?_cu)_[0-9a-f]{8}", r"_GLOBAL__N__\1", m.group(1))
             out[name] = []
         elif name and re.match(r"\s*/\*[0-9a-f]{4}\*/", line):
             out[name].append(re.sub(r"c\[0x[0-9a-f]+\]\[0x[0-9a-f]+\]", "c[..]", line.split(";")[0]))
     return {k: "\n".join(v) for k, v in out.items()}
+
+
+def sass_ab(other: pathlib.Path) -> int:
+    """``[ne-sass-ab]``: the four no-encode sources built from ``other``
+    and from this checkout; of each kernel of the other build, whether this
+    build has one of the same SASS. Returns 0 when every one has."""
+    names = ("fused_dae_rollout", "fused_dae_rollout_bwd", "fused_ode_rollout", "fused_ode_rollout_bwd")
+    jobs = [(n, d) for n in names for d in (other, SOURCE_DIR)]
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        libs = dict(zip(jobs, pool.map(lambda j: build(j[0], "", (), j[1]), jobs)))
+    # a template that gained a trailing bool, at false; pack_nets at <float>
+    # (cu++filt writes a template's arguments as (bool)0 and its return type)
+    norm = lambda n: re.sub(r"^void (.*)pack_nets<float>", r"\1pack_nets", re.sub(r", \(bool\)0>", ">", n))
+    differ = 0
+    for name in names:
+        a, b = (sass(pathlib.Path(libs[(name, d)]._name), demangle=True) for d in (other, SOURCE_DIR))
+        b_by = {norm(n): text for n, text in b.items()}
+        missing, changed, same = [], [], 0
+        for n, text in a.items():
+            got = b.get(n, b_by.get(n))
+            if got is None:
+                missing.append(n)
+            elif got != text:
+                changed.append(n)
+            else:
+                same += 1
+        differ += len(missing) + len(changed)
+        print(f"[ne-sass-ab] {name}: {same} of {len(a)} kernels of the other build have the same SASS here"
+              + (f"; changed: {changed}" if changed else "") + (f"; not found: {missing}" if missing else "")
+              + f"; this build has {len(b)} kernels", flush=True)
+    return 1 if differ else 0
 
 
 def bwd_ab(other: pathlib.Path, B: int, Tm1: int) -> int:
@@ -415,6 +458,8 @@ def calls(checkouts: Sequence[str] = ()) -> int:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] == "sass-ab":
+        return sass_ab(pathlib.Path(argv[1]).resolve())
     if argv and argv[0] == "bwd-ab":
         rest = argv[2:]
         return bwd_ab(pathlib.Path(argv[1]).resolve(), int(rest[0]) if rest else 64,

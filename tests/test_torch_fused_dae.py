@@ -117,8 +117,10 @@ def test_fused_dae_apply_is_forward_only():
     assert x_g.requires_grad
     np.testing.assert_array_equal(x_g.detach().numpy(), x.numpy())
     model.requires_grad_(False)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        fused_dae_apply(model, tb, precision="bfloat16")
+    # the bf16 compute mode runs forward only too; an unknown precision raises
+    assert fused_dae_apply(model, tb, precision="bfloat16")[0].grad_fn is None
+    with pytest.raises(ValueError, match="precision must be one of"):
+        fused_dae_apply(model, tb, precision="tf32")
     with pytest.raises(ValueError, match="rk4"):
         fused_dae_apply(model, tb, solver="heun")
 

@@ -26,6 +26,7 @@ from py_psnode_tpu_torch.ops import fused_dae as F
 from py_psnode_tpu_torch.ops import fused_dae_vjp as V
 from py_psnode_tpu_torch.ops import fused_ode as FO
 from py_psnode_tpu_torch.ops import fused_ode_vjp as VO
+from py_psnode_tpu_torch.utils import host_build
 from py_psnode_tpu_torch.utils.cw_inputs import seeded_inputs
 from py_psnode_tpu_torch.utils.noencode_inputs import dae_inputs, true_states, with_first_step_events
 from py_psnode_tpu_torch.utils.noencode_inputs import ode_inputs as noencode_ode_inputs
@@ -693,3 +694,25 @@ def test_tfx_kernels_match_plain_on_card(batch, h, solver):
             assert not got[k].any() and torch.equal(got[k], again[k])
         keep = lambda gs: [g for k, g in enumerate(gs) if k not in zero]
         _hold(keep(got), keep(again), keep(want))
+
+
+# (family, kind, B, Tm1, h, shape): kernels 1-4 in their bf16 compute mode
+# at h=16 and, for the 128-wide and wide backwards, h=136 (padded width
+# 256), the DAE also at its direct-encode latent shape, and both forwards
+# at widths whose buffers live in global memory (h=1500, 3000)
+BF16_CASES = [(f, k, 3, 9, h, {}) for f in ("dae", "ode") for k in ("fwd", "bwd") for h in (16, 136)] + [
+    ("dae", k, 3, 9, 16, dict(xd=16, idim=16, n_tail=1)) for k in ("fwd", "bwd")] + [
+    ("dae", "fwd", 1, 3, 1500, {}), ("ode", "fwd", 1, 3, 3000, {})]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,kind,B,Tm1,h,shape", BF16_CASES)
+def test_noencode_bf16_kernels_match_plain_bf16_on_card(family, kind, B, Tm1, h, shape):
+    """Each output tensor: rel-L2(kernel - plain bf16) <= 0.1 x rel-L2(plain
+    bf16 - plain float32) (``host_build.bf16_check``), bit-identical on
+    relaunch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    got = host_build.bf16_check(family, kind, B, Tm1, h, "rk4", card=True, **shape)
+    assert got["ratio"] <= host_build.BF16_BAR, got
+    assert got["identical"] == 1.0

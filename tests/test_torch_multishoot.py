@@ -304,19 +304,21 @@ def test_train_step_adds_the_gap_term():
 
 
 def test_trainer_dispatches_as_the_jax_package(monkeypatch):
-    """Fused: the four fused forwards, the channel-wise ones plain; not
-    fused: the plain ones."""
+    """Fused: the four fused forwards (with the matmul precision, as the JAX
+    package passes it), the channel-wise ones plain; not fused: the plain
+    ones."""
     fused_fns, plain_fns = dict(trainer_mod._MS_FUSED), dict(trainer_mod._MS_PLAIN)
     called = []
     for table in (trainer_mod._MS_FUSED, trainer_mod._MS_PLAIN):
         for name, fn in list(table.items()):
-            monkeypatch.setitem(table, name, lambda m, b, k, solver, fn=fn: called.append((fn, k, solver)))
+            monkeypatch.setitem(table, name, lambda m, b, k, solver, fn=fn, **kw: called.append((fn, k, solver, kw)))
     for variant in plain_fns:
         for fused in (True, False):
             cfg = TrainConfig(variant=variant, device="cpu", fused=fused, n_windows=5, solver="rk4")
             Trainer(cfg)._multishoot_forward(None)({})
             want = fused_fns.get(variant, plain_fns[variant]) if fused else plain_fns[variant]
-            assert called[-1] == (want, 5, "rk4")
+            kw = dict(precision="default") if fused and variant in fused_fns else {}
+            assert called[-1] == (want, 5, "rk4", kw)
     assert sorted(fused_fns) == ["dae_encode", "dae_no_encode", "ode_encode", "ode_no_encode"]
 
 

@@ -1,8 +1,9 @@
 """The no-encode backward pair's own sources (kernels 2 and 4), built for the
 host, against their plain PyTorch versions on the CPU. The forward pair's
 cases (kernels 1 and 3) are in ``test_torch_noencode_host_fwd.py`` and
-``test_torch_noencode_host_fwd_wide.py``: three files, so that the suite's
-workers build and run them at once.
+``test_torch_noencode_host_fwd_wide.py``, the two widest DAE backward cases
+in ``test_torch_noencode_host_bwd_wide.py``: four files, so that the
+suite's workers build and run them at once.
 
 ``py_psnode_tpu_torch.utils.host_build`` compiles
 ``csrc/fused_{dae,ode}_rollout{,_bwd}.cu`` (with ``csrc/noencode_bwd.cuh``
@@ -38,12 +39,11 @@ def need_gxx():
 
 
 # (B, Tm1, h, solver): one row and three, h=40 and an odd h=19 (rows not
-# 16-byte aligned: 4-byte cp.async), each solver; h=136 and 200, the wide
-# kernels (padded width 256: two 128-wide chunks of every layer);
-# dae_inputs puts events in the walk's first step of row 0 and in step
-# Tm1 // 3 of row 1
-DAE_CASES = [(3, 4, 40, "rk4"), (1, 3, 19, "midpoint"), (3, 3, 19, "euler"), (3, 11, 40, "midpoint"),
-             (2, 3, 136, "rk4"), (1, 3, 200, "midpoint")]
+# 16-byte aligned: 4-byte cp.async), each solver (the wide kernels' cases,
+# h=136 and 200, are in test_torch_noencode_host_bwd_wide.py); dae_inputs
+# puts events in the walk's first step of row 0 and in step Tm1 // 3 of
+# row 1
+DAE_CASES = [(3, 4, 40, "rk4"), (1, 3, 19, "midpoint"), (3, 3, 19, "euler"), (3, 11, 40, "midpoint")]
 
 
 @pytest.mark.parametrize("B,Tm1,h,solver", DAE_CASES)
