@@ -69,9 +69,9 @@ Phases, each printed as it ends; any failure exits non-zero:
      training rows at h=128, T=1001, within 1e-4 * max(1, |plain|) (the
      float32 plain loop lies within 2.6e-6 of a float64 one there);
  13. channel-wise backward kernel against the float64 plain walk at B=64
-     (Euler and RK4 over T=1001, Midpoint over T=201, unit-scale
-     cotangents), each output tensor on its own scale, bit-identical on
-     relaunch;
+     (Euler over T=1001, Midpoint and RK4 over T=201: phase 22 has their
+     plain walks' time; unit-scale cotangents), each output tensor on its
+     own scale, bit-identical on relaunch;
  14. channel-wise slice: the Trainer (fused) for one epoch, Euler then RK4,
      and the CLIs ``--training --fused`` (Euler, both kernels' launches
      counted) and ``--testing --fused`` (Euler and RK4) of both variants
@@ -174,7 +174,22 @@ Phases, each printed as it ends; any failure exits non-zero:
      3-4, every launch in the bf16 mode, kernels 5-6 never; then kernels 1-4
      alone in bf16 beside the float32 kernel on the same inputs and their
      bounds, and one fused training step of the motor DAE and the AVR ODE in
-     bf16 and in float32 with its peak memory.
+     bf16 and in float32 with its peak memory;
+ 22. the channel-wise kernels (5-6) at h > 128, their wide layout
+     (``csrc/cw_wide.cuh``): both against their plain versions on seeded
+     inputs at h=256 (B=8, T=201, each solver) and h=512 (B=2, T=51,
+     Euler), at the AVR ODE's channels and the motor DAE's, the forward
+     within KERNEL_TOL and the backward per tensor within BWD_TOL of the
+     float64 plain walk, bit-identical on relaunch; the Trainer (fused, one
+     epoch of two steps, Euler then RK4) of both variants at h=256 on
+     small sets (16 training samples in batches of 8, T=201) from
+     ``cw_start_checkpoint`` at h=256, and the CLIs ``--training --fused
+     --hidden 256`` (both kernels' launches counted) and ``--testing
+     --fused --hidden 256`` (Euler and RK4), every loss against the JAX
+     package's anchors (``CW_WIDE_ANCHORS``) at rtol 1e-3 and nearer its own
+     solver's; then both kernels timed at B=64, T=1001 (h=256 Euler and
+     RK4, and the forward at h=512 Euler) beside their bounds, the plain
+     versions once at h=256 Euler; the phase prints its seconds.
 The line before the last two is the kernels' JSON record, then nvidia-smi's
 line, and the last line is ``{"ok": true, "device": {...}}``. Nothing is
 written into the repository except the kernel builds under
@@ -1415,9 +1430,9 @@ def cw_setup(root):
     return files
 
 
-def cw_model(variant, start, dev, solver="euler"):
+def cw_model(variant, start, dev, solver="euler", hidden=128):
     cls = ChannelWiseODEModel if variant == "ode_channelwise" else ChannelWiseDAEModel
-    model = cls(*CW_DIMS[variant], hidden_dim=128, solver=solver, device="meta")
+    model = cls(*CW_DIMS[variant], hidden_dim=hidden, solver=solver, device="meta")
     return load_params(model, load_checkpoint_params(start), device=dev)
 
 
@@ -1555,14 +1570,15 @@ def phase_cw_kernel_vs_plain(dev, files):
 
 def phase_cw_bwd_vs_plain(dev, files):
     """Kernel 6 against the float64 plain walk at B=64 (the starting
-    checkpoint on 64 training rows, unit-scale cotangents): Euler and RK4
-    over all 1000 steps, Midpoint over the first 200; each output tensor on
-    its own scale; a relaunch must be bit-identical."""
+    checkpoint on 64 training rows, unit-scale cotangents): Euler over all
+    1000 steps, Midpoint and RK4 over the first 200 (the RK4 walk over
+    1000 took 20-21 s a variant of the smoke's time limit); each output
+    tensor on its own scale; a relaunch must be bit-identical."""
     worst_abs = 0.0
     for variant in CW_VARIANTS:
         full = cw_inputs(variant, files, 64, "train", dev)
         for solver, Tm1 in (("euler", CW_STEPS - 1), ("midpoint", min(200, CW_STEPS - 1)),
-                            ("rk4", CW_STEPS - 1)):
+                            ("rk4", min(200, CW_STEPS - 1))):
             streams, weights, x0, dt = cw_cut(full, Tm1)
             sol = torch.cat([x0[None], FC.fused_cw_rollout_cuda(streams, weights, x0, dt, solver)])
             rng = np.random.default_rng(12)
@@ -1610,18 +1626,19 @@ def cw_counts():
     return FC.fused_cw_rollout.launches, VC.fused_cw_rollout_bwd.launches
 
 
-def check_cw_anchor(what, value, variant, solver, key, i, rtol):
-    """Fail unless ``value`` lies within ``rtol`` of the anchor and, where
-    the two solvers' anchors differ by less than 1e-3 but more than
-    CW_SOLVER_RESOLVED (relative), nearer its own solver's anchor than the
-    other's. Returns the relative error."""
-    table = {**CW_ANCHORS, **ENC_ANCHORS}[variant]
+def check_cw_anchor(what, value, variant, solver, key, i, rtol, anchors=None, resolved=CW_SOLVER_RESOLVED):
+    """Fail unless ``value`` lies within ``rtol`` of the anchor (of
+    ``anchors``, by default CW_ANCHORS and ENC_ANCHORS) and, where the two
+    solvers' anchors differ by less than 1e-3 but more than ``resolved``
+    (relative), nearer its own solver's anchor than the other's. Returns
+    the relative error."""
+    table = (anchors or {**CW_ANCHORS, **ENC_ANCHORS})[variant]
     own = table[solver][key][i]
     other = table["rk4" if solver == "euler" else "euler"][key][i]
     if not (np.isfinite(value) and near(value, own, rtol)):
         fail(f"{variant} {what} {value} misses the {solver} anchor {own} at rtol {rtol}")
     gap = abs(own - other) / abs(own)
-    if CW_SOLVER_RESOLVED < gap < 1e-3 and not abs(value - own) < abs(value - other):
+    if resolved < gap < 1e-3 and not abs(value - own) < abs(value - other):
         fail(f"{variant} {what} {value} lies nearer the other solver's anchor {other} than {own}")
     return abs(value - own) / abs(own)
 
@@ -2917,6 +2934,237 @@ def phase_ms(dev, root, ode_files, cw_files, times, ode_times):
     say(f"[ms] phase 20 in {time.perf_counter() - t0:.1f} s")
     return out
 
+# --------------------------------------------------- wide channel-wise (h > 128)
+
+
+# The wide slice's configuration: both variants at h=256 on small sets (the
+# AVR set at 16 training and 8 test samples, seed 0; the motor set; batch
+# 8, both cut to T=201), from cw_start_checkpoint at h=256 (seed 0)
+CW_WIDE = dict(hidden=256, step=201, num=16, batch=8, n_test=8)
+# The JAX package on the CPU in float32 at CW_WIDE: step 1 and step 2 (loss,
+# gradient norm), the epoch-1 eval and the --testing losses; re-derived by
+# `python tests/test_torch_cw_wide.py anchors` (needs JAX)
+CW_WIDE_ANCHORS = {
+    "ode_channelwise": {
+        "euler": dict(step1=(10.635271, 368.33716), step2=(172.73807, 710.29309), eval1=(27.213646,),
+                      test=(12.775037,)),
+        "rk4": dict(step1=(10.635267, 368.34674), step2=(172.74353, 710.15704), eval1=(27.339275,),
+                    test=(12.775055,)),
+    },
+    "dae_channelwise": {
+        "euler": dict(step1=(3.8614087, 416.72964), step2=(63.681862, 905.97833), eval1=(789.72577, 48.335346),
+                      test=(0.60085678, 2.2701085)),
+        "rk4": dict(step1=(3.861398, 416.73367), step2=(63.737835, 905.93274), eval1=(785.0838, 46.922218),
+                    test=(0.60084635, 2.2701085)),
+    },
+}
+# After Adam's first update (step 2, the epoch-1 eval) the port's float32
+# losses at h=256 lie up to 3.8e-5 from their JAX anchors (the plain route on
+# the CPU, the DAE's epoch-1 eval x-loss; the ODE's step-2 loss 1.6e-5, its
+# anchors 3.2e-5 apart), so anchors of the two solvers closer than this
+# (relative) are not told apart there; step 1 and --testing keep
+# CW_SOLVER_RESOLVED
+CW_WIDE_UPDATE_RESOLVED = 1e-4
+# Kernels 5-6 against their plain versions at these (h, B, T, solvers)
+CW_WIDE_CHECKS = ((256, 8, 201, SOLVERS), (512, 2, 51, ("euler",)))
+# and timed at B=64, T=1001: (kernel, h, solver)
+CW_WIDE_TIMES = (("fwd", 256, "euler"), ("fwd", 256, "rk4"), ("bwd", 256, "euler"), ("bwd", 256, "rk4"),
+                 ("fwd", 512, "euler"))
+
+
+def cw_wide_setup(root):
+    """Per variant ``(train, test, start checkpoint)`` of the wide slice."""
+    train_f, test_f = write_avr_dataset(root / "avr", n_train=CW_WIDE["num"], n_test=CW_WIDE["n_test"],
+                                        n_steps=CW_WIDE["step"], seed=0)
+    files = {}
+    for variant, (tr, te) in zip(CW_VARIANTS, ((train_f, test_f), (TRAIN_DATA, TEST_DATA))):
+        start = cw_start_checkpoint(root / f"{variant}.start", variant, CW_DIMS[variant], CW_WIDE["hidden"], seed=0)
+        files[variant] = (pathlib.Path(tr), pathlib.Path(te), start)
+    return files
+
+
+def phase_cw_wide_kernels(dev):
+    """Kernels 5 and 6 in their wide layout against their plain versions on
+    seeded inputs (CW_WIDE_CHECKS), at the AVR ODE's channels and the motor
+    DAE's: the forward within KERNEL_TOL, the backward per output tensor
+    within BWD_TOL of the float64 plain walk, both bit-identical on
+    relaunch. Returns (forward, backward) worst |kernel - plain|."""
+    worst = [0.0, 0.0]
+    for h, B, T, solvers in CW_WIDE_CHECKS:
+        for variant in CW_VARIANTS:
+            xd, zd = CW_DIMS[variant][:2]
+            streams, weights, x0, dt = cw_random_inputs(B, T - 1, h, xd, zd, seed=h + xd, dev=dev)
+            for solver in solvers:
+                what = f"{variant} h={h} B={B} T={T} {solver}"
+                ref = FC.fused_cw_rollout_plain(streams, weights, x0, dt, solver)
+                got = FC.fused_cw_rollout_cuda(streams, weights, x0, dt, solver)
+                again = FC.fused_cw_rollout_cuda(streams, weights, x0, dt, solver)
+                torch.cuda.synchronize()
+                if got.shape != ref.shape or not torch.isfinite(got).all() or not torch.equal(got, again):
+                    fail(f"wide cw kernel {what}: shape, non-finite values or other bits on relaunch")
+                d = (got - ref).abs()
+                if not bool((d <= KERNEL_TOL * ref.abs().clamp(min=1.0)).all()):
+                    fail(f"wide cw kernel {what} disagrees with plain beyond {KERNEL_TOL}: max|d| {d.max().item()}")
+                worst[0] = max(worst[0], d.max().item())
+                sol = torch.cat([x0[None], got])
+                rng = np.random.default_rng(h)
+                cot = torch.tensor(rng.standard_normal(tuple(sol.shape)).astype(np.float32), device=dev)
+                run = lambda: cw_bwd_outputs(VC.fused_cw_rollout_bwd_cuda(streams, weights, dt, sol, cot, solver))
+                g, g2 = run(), run()
+                w64 = FC.unflatten_weights([a.double() for a in FC.flatten_weights(weights)])
+                r = cw_bwd_outputs(VC.fused_cw_rollout_bwd_plain({k: v.double() for k, v in streams.items()}, w64,
+                                                                 dt, sol.double(), cot.double(), solver))
+                k_worst = 0.0
+                for (name, a), (_, a2), (_, b) in zip(g, g2, r):
+                    scale = b.abs().max().item()
+                    dd = (a.double() - b).abs().max().item()
+                    if not (scale > 0 and torch.isfinite(a).all() and torch.equal(a, a2)):
+                        fail(f"wide cw backward {what} {name}: a zero plain gradient, non-finite values or other "
+                             f"bits on relaunch")
+                    if dd > BWD_TOL * scale:
+                        fail(f"wide cw backward {what} {name}: max|d| {dd} > {BWD_TOL} * max|plain| {scale}")
+                    worst[1] = max(worst[1], dd)
+                    k_worst = max(k_worst, dd / scale)
+                say(f"[cw-wide-kernel] {what}: forward max|d| {d.max().item():.3e} (max|plain| "
+                    f"{ref.abs().max().item():.3f}), backward worst max|d|/max|float64 walk| {k_worst:.2e}; "
+                    f"{FC.chosen_cluster(B, h, xd, zd)} / {FC.chosen_cluster(B, h, xd, zd, backward=True)} blocks "
+                    f"a row; bit-identical on relaunch; ok")
+    return tuple(worst)
+
+
+def phase_cw_wide_slice(dev, files, root):
+    """Both channel-wise variants at h=256 through their entry points: the
+    Trainer (fused) for one epoch of two steps, Euler then RK4, then the
+    CLI ``--training --fused`` (Euler; kernels 5-6's counts set to 0 just
+    before and read just after) and ``--testing --fused`` (Euler and RK4);
+    every loss against CW_WIDE_ANCHORS at rtol 1e-3 and nearer its own
+    solver's anchor. Returns the CLI training runs' launches."""
+    size, main_launches = CW_WIDE, {}
+    common = ["--hidden", str(size["hidden"]), "--step", str(size["step"])]
+    hold = lambda what, v, variant, solver, key, i, rtol: check_cw_anchor(
+        what, v, variant, solver, key, i, rtol, CW_WIDE_ANCHORS,
+        CW_SOLVER_RESOLVED if key in ("step1", "test") else CW_WIDE_UPDATE_RESOLVED)
+    for variant in CW_VARIANTS:
+        train_f, test_f, start = files[variant]
+        n_loss = 2 if variant == "dae_channelwise" else 1
+        keys = ("x_loss", "i_loss")[:n_loss]
+        for solver in ("euler", "rk4"):
+            shutil.copy(start, root / f"{variant}_ws_{solver}")
+            cfg = TrainConfig(
+                variant=variant, train_data=str(train_f), test_data=str(test_f),
+                model=str(root / f"{variant}_run_{solver}"), num=size["num"], batch=size["batch"], epoch=200,
+                hidden=size["hidden"], step=size["step"], larger_than=None, seed=0,
+                warm_start=str(root / f"{variant}_ws_{solver}"), stop_after=1, loss_record_iter=1, solver=solver,
+                fused=True, echo_logs=False, device="cuda",
+            )
+            reset_cw_counts()
+            _, run_dir = Trainer(cfg).train()
+            torch.cuda.synchronize()
+            n = cw_counts()
+            recs = [json.loads(line) for line in (run_dir / "train_metrics.jsonl").read_text().splitlines()]
+            steps = [r for r in recs if r["kind"] == "train"]
+            (ev,) = [r for r in recs if r["kind"] == "eval"]
+            if len(steps) != 2 or min(n) < 1:
+                fail(f"wide {variant} fused {solver} training logged {len(steps)} steps, launches {n}")
+            fields = (("loss", "loss"), ("gradient_norm", "grad_norm"))
+            errs = [hold(f"h=256 {solver} step-{k + 1} {name}", steps[k][field], variant, solver, f"step{k + 1}", j,
+                         TRAIN_STEP1_RTOL if k == 0 else TRAIN_EVAL1_RTOL)
+                    for k in (0, 1) for j, (name, field) in enumerate(fields)]
+            errs += [hold(f"h=256 {solver} epoch-1 eval {k}", ev[k], variant, solver, "eval1", i, TRAIN_EVAL1_RTOL)
+                     for i, k in enumerate(keys)]
+            say(f"[cw-wide-train] {variant} h=256 fused {solver}: steps (loss, gradient_norm) "
+                f"{[(r['loss'], r['grad_norm']) for r in steps]}; epoch-1 eval {[ev[k] for k in keys]}; launches: "
+                f"forward {n[0]}, backward {n[1]}; rel. err. to the JAX anchors "
+                f"{', '.join(f'{e:.2e}' for e in errs)}")
+
+        shutil.copy(start, root / f"{variant}_ws_cli")
+        argv = ["--training", "--fused", "--device", "cuda", "--train_data", str(train_f), "--test_data",
+                str(test_f), "--model", str(root / f"{variant}_run_cli"), "--num", str(size["num"]), "--batch",
+                str(size["batch"]), "--epoch", "200", "--stop_after", "1", "--lr", "5e-3", "--larger_than", "none",
+                "--seed", "0", "--warm_start", str(root / f"{variant}_ws_cli")] + common
+        reset_cw_counts()
+        _, run_dir = cli_main(variant, argv)
+        torch.cuda.synchronize()
+        main_launches[variant] = cw_counts()
+        recs = [json.loads(line) for line in (run_dir / "train_metrics.jsonl").read_text().splitlines()]
+        (ev,) = [r for r in recs if r["kind"] == "eval"]
+        errs = [hold(f"h=256 CLI --training epoch-1 eval {k}", ev[k], variant, "euler", "eval1", i,
+                     TRAIN_EVAL1_RTOL) for i, k in enumerate(keys)]
+        if min(main_launches[variant]) < 1 or not (run_dir / "model_checkpoint.1").exists():
+            fail(f"wide {variant} CLI training launched the kernels {main_launches[variant]} times or wrote no "
+                 f"checkpoint")
+        say(f"[cw-wide-cli] {variant} --training --fused --hidden 256: epoch-1 eval {[ev[k] for k in keys]} "
+            f"(rel. err. {', '.join(f'{e:.2e}' for e in errs)}); launches: forward {main_launches[variant][0]}, "
+            f"backward {main_launches[variant][1]}")
+        for solver in ("euler", "rk4"):
+            (root / f"{variant}_test_{solver}").mkdir()
+            ckpt = shutil.copy(start, root / f"{variant}_test_{solver}" / "model_checkpoint.0")
+            reset_cw_counts()
+            res = cli_main(variant, ["--testing", "--fused", "--device", "cuda", "--solver", solver, "--model",
+                                     str(ckpt), "--test_data", str(test_f), "--batch", str(size["batch"])] + common)
+            torch.cuda.synchronize()
+            n = cw_counts()
+            losses = [float(v) for v in res[:n_loss]]
+            errs = [hold(f"h=256 CLI --testing {solver} loss {i}", v, variant, solver, "test", i, ANCHOR_RTOL)
+                    for i, v in enumerate(losses)]
+            if n[0] < 1 or n[1]:
+                fail(f"wide {variant} CLI --testing launched the forward {n[0]} and the backward {n[1]} times")
+            say(f"[cw-wide-cli] {variant} --testing --fused --hidden 256 --solver {solver}: losses {losses} (rel. "
+                f"err. {', '.join(f'{e:.2e}' for e in errs)}); launches: forward {n[0]}, backward {n[1]}")
+    return main_launches
+
+
+def phase_cw_wide_times(dev):
+    """CUDA-event times of kernels 5 and 6 in their wide layout at B=64,
+    T=1001 (CW_WIDE_TIMES, the AVR ODE's channels, seeded inputs) beside
+    their bounds (cw_work at that h), one launch each after one to warm up
+    (none before the launches of a second or more: kernel 6 at RK4 and
+    kernel 5 at h=512, on a card warm from the phase's checks); the plain
+    versions once, at the smallest of these (h=256, Euler). Returns
+    {(kernel, h, solver): record}."""
+    times, inputs = {}, {}
+    for kernel, h, solver in CW_WIDE_TIMES:
+        if h not in inputs:
+            inputs[h] = cw_random_inputs(64, CW_STEPS - 1, h, 2, 2, seed=h, dev=dev)
+        streams, weights, x0, dt = inputs[h]
+        fwd_bytes, fwd_flops, bwd_bytes, bwd_flops, fwd_tc, bwd_tc = cw_work(streams, weights, x0, solver)
+        plain = (h, solver) == (256, "euler")
+        warm = 1 if (kernel, h, solver) in (("fwd", 256, "euler"), ("fwd", 256, "rk4"), ("bwd", 256, "euler")) else 0
+        if kernel == "fwd":
+            k_ms = cuda_ms(lambda: FC.fused_cw_rollout_cuda(streams, weights, x0, dt, solver), warm, 1)
+            p_ms = cuda_ms(lambda: FC.fused_cw_rollout_plain(streams, weights, x0, dt, solver), 0, 1) \
+                if plain else None
+            bound_ms, bound_by = bound(fwd_bytes, fwd_flops, fwd_tc)
+            kc = FC.chosen_cluster(64, h, 2, 2)
+        else:
+            sol = torch.cat([x0[None], FC.fused_cw_rollout_cuda(streams, weights, x0, dt, solver)])
+            cot = torch.full_like(sol, 0.01)
+            k_ms = cuda_ms(lambda: VC.fused_cw_rollout_bwd_cuda(streams, weights, dt, sol, cot, solver), warm, 1)
+            p_ms = cuda_ms(lambda: VC.fused_cw_rollout_bwd_plain(streams, weights, dt, sol, cot, solver), 0, 1) \
+                if plain else None
+            bound_ms, bound_by = bound(bwd_bytes, bwd_flops, bwd_tc)
+            kc = FC.chosen_cluster(64, h, 2, 2, backward=True)
+        times[(kernel, h, solver)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
+        plain_txt = "not timed" if p_ms is None else f"{p_ms:.3f} ms"
+        say(f"[cw-wide-times] kernel {5 if kernel == 'fwd' else 6} h={h} B=64 T={CW_STEPS} {solver}: {k_ms:.3f} ms "
+            f"({kc} blocks a row), plain {plain_txt}, bound {bound_ms:.4f} ms "
+            f"(3xTF32 for the h^3 products, the rest float32; {bound_by}), kernel/bound {k_ms / bound_ms:.2f}x; "
+            f"library n/a: no single PyTorch call computes it")
+    return times
+
+
+def phase_cw_wide(dev, root):
+    """Phase 22: kernels 5-6 at h > 128 (their wide layout) against their
+    plain versions, the wide slice through its entry points, and the
+    kernels' times; prints the phase's seconds."""
+    t0 = time.perf_counter()
+    errs = phase_cw_wide_kernels(dev)
+    launches = phase_cw_wide_slice(dev, cw_wide_setup(root), root)
+    times = phase_cw_wide_times(dev)
+    say(f"[cw-wide] phase 22 took {time.perf_counter() - t0:.1f} s")
+    return dict(kernel_err=errs, launches=launches, times=times)
+
+
 # ------------------------------------------------------------------- bf16
 
 BF16 = "bfloat16"
@@ -3567,6 +3815,8 @@ def main(argv=None):
         ms = phase_ms(dev, root / "ms", ode_files, cw_files, times, ode_times)
         (root / "bf16").mkdir()
         bf16 = phase_bf16(dev, root / "bf16", ode_files)
+        (root / "cw_wide").mkdir()
+        wide = phase_cw_wide(dev, root / "cw_wide")
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all, nvcc "
         f"{', '.join(f'{k} {v:.2f} s' for k, v in nvcc_s.items())}; card {smi}")
     # the forward as the evaluation slice drives it (B=32, Euler); the
@@ -3601,6 +3851,13 @@ def main(argv=None):
         launches=bf16["launches"][variant][0][k - 1], max_abs_err=bf16["kernel_err"][k][3],
         rel_l2_ratio=bf16["kernel_err"][k][0], rel_l2_bar=bf16["kernel_err"][k][1],
         local_ratio=bf16["kernel_err"][k][2], **bf16["times"][k]).items()}
+    # rows 5-6 in their wide layout (phase 22): launches in the ODE
+    # channel-wise CLI's --training --fused --hidden 256 run, max_abs_err the
+    # worst of the wide checks, times at h=256, B=64, T=1001, Euler (the
+    # 512-wide forward as wide512_*)
+    wide_keys = lambda k, kernel: {f"wide_{key}": v for key, v in dict(
+        launches=wide["launches"]["ode_channelwise"][k], max_abs_err=wide["kernel_err"][k],
+        **wide["times"][(kernel, 256, "euler")]).items()}
     record = {"kernels": [
         {**entry("fused_dae_rollout", "py_psnode_tpu_torch/csrc/fused_dae_rollout.cu",
                  "py_psnode_tpu/ops/fused_dae.py:371", fwd_launches, fwd_err, fwd_t),
@@ -3627,10 +3884,11 @@ def main(argv=None):
         {**entry("fused_cw_rollout", "py_psnode_tpu_torch/csrc/fused_cw_rollout.cu",
                  "py_psnode_tpu/ops/fused_channelwise.py:258", cw_launches["ode_channelwise"][0], cw_fwd_err,
                  cw_times[("ode_channelwise", "fwd", 64, "euler")]),
-         "ms_eval_launches": ms["launches"]["ode_channelwise"]},
-        entry("fused_cw_rollout_bwd", "py_psnode_tpu_torch/csrc/fused_cw_rollout_bwd.cu",
-              "py_psnode_tpu/ops/fused_channelwise.py:370", cw_launches["ode_channelwise"][1], cw_bwd_err,
-              cw_times[("ode_channelwise", "bwd", "euler")]),
+         "ms_eval_launches": ms["launches"]["ode_channelwise"], **wide_keys(0, "fwd"),
+         **{f"wide512_{k}": v for k, v in wide["times"][("fwd", 512, "euler")].items()}},
+        {**entry("fused_cw_rollout_bwd", "py_psnode_tpu_torch/csrc/fused_cw_rollout_bwd.cu",
+                 "py_psnode_tpu/ops/fused_channelwise.py:370", cw_launches["ode_channelwise"][1], cw_bwd_err,
+                 cw_times[("ode_channelwise", "bwd", "euler")]), **wide_keys(1, "bwd")},
     ]}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

@@ -34,8 +34,13 @@
 // runs B such clusters at once, else 2 when it runs B of those, else 1:
 // the blocks of a cluster split each product's columns and share the
 // results through distributed shared memory.
+//
+// Above h = 128 (to 724, the JAX package's widest) the tiles outgrow shared
+// memory: fused_cw_rollout_wide_kernel runs the same loop on the wide
+// layout of csrc/cw_wide.cuh (tiles in the row's global scratch, 128 x 128
+// output blocks dealt over a cluster of up to 8 blocks).
 
-#include "cw_tile.cuh"
+#include "cw_wide.cuh"
 
 namespace {
 
@@ -104,22 +109,105 @@ __global__ void __launch_bounds__(kThreads, 1) fused_cw_rollout_kernel(const __g
   cl_wait<KC>();  // no block leaves while another may still write its memory
 }
 
+// The wide rollout (h > kMaxH, csrc/cw_wide.cuh): the kernel above with its
+// activations in the row's two tiles of `tiles` [batch][2][hp][hp].
+struct WideArgs {
+  Args a;
+  float* tiles;
+  int kc;  // blocks a row: the cluster's size
+};
+
+size_t wide_smem_floats(int h, int xd, int zd) {
+  return wide_eval_floats<kKc>(h, xd, zd) + 6 * static_cast<size_t>(xd) * h;  // xc, xs, k1..k4
+}
+
+__global__ void __launch_bounds__(kThreads, 1) fused_cw_rollout_wide_kernel(const __grid_constant__ WideArgs wa) {
+  extern __shared__ __align__(16) float smem[];
+  const Args& a = wa.a;
+  const int h = a.h, xd = a.xd, zd = a.zd, B = a.batch, row = blockIdx.x / wa.kc, tid = threadIdx.x;
+  const int n = xd * h;
+  WideSmem s;
+  float* p = carve_wide<kKc>(s, smem, h, xd, zd);
+  s.hp = wide_pad(h);
+  s.kc = wa.kc;
+  s.rank = static_cast<int>(cluster_rank());
+  const bool lead = s.rank == 0;
+  s.t1 = wa.tiles + static_cast<size_t>(row) * 2 * s.hp * s.hp;
+  s.t2 = s.t1 + static_cast<size_t>(s.hp) * s.hp;
+  float* xc = p;  p += n;
+  float* xs = p;  p += n;
+  float* k1 = p;  p += n;
+  float* k2 = p;  p += n;
+  float* k3 = p;  p += n;
+  float* k4 = p;
+  init_wide(a.w, s, h, xd, zd);
+  for (int e = tid; e < n; e += kThreads) xc[e] = a.x0[static_cast<size_t>(row) * n + e];
+  const float* sv = a.sv + static_cast<size_t>(row) * h * h;
+  cluster_arrive();  // t1 is free: the first evaluation's a0 store waits for this
+
+  const int S = a.solver == 0 ? 1 : (a.solver == 1 ? 2 : 4);
+  for (int t = 0; t < a.tm1; ++t) {
+    const size_t step = static_cast<size_t>(t) * B + row;
+    const float dt = __ldg(a.dt + step);
+    const float* fz_t = a.fz + step * zd * h;
+#ifdef CW_PHASE_CLOCK
+    if (blockIdx.x == 0 && tid == 0) g_phase_on = t == a.tm1 / 2;
+#endif
+    for (int st = 0; st < S; ++st) {
+      __syncthreads();  // publishes xc or xs
+      wide_eval_fwd<true, kKc>(a.w, s, h, xd, zd, st == 0 ? xc : xs, fz_t, sv, k1 + st * n);
+      if (st + 1 < S) {
+        for (int e = tid; e < n; e += kThreads) {
+          if (a.solver == 1) xs[e] = xc[e] + k1[e] * (0.5f * dt);
+          else if (st == 0) xs[e] = xc[e] + dt * k1[e] * kOneThird;
+          else if (st == 1) xs[e] = xc[e] + dt * (k2[e] - k1[e] * kOneThird);
+          else xs[e] = xc[e] + dt * (k1[e] - k2[e] + k3[e]);
+        }
+      }
+    }
+    for (int e = tid; e < n; e += kThreads) {
+      if (a.solver == 0) xc[e] = xc[e] + dt * k1[e];
+      else if (a.solver == 1) xc[e] = xc[e] + dt * k2[e];
+      else xc[e] = xc[e] + (k1[e] + 3.0f * (k2[e] + k3[e]) + k4[e]) * dt * 0.125f;
+      if (lead) a.sol[step * n + e] = xc[e];
+    }
+  }
+  cluster_wait();  // no block leaves while another may still read the tiles
+}
+
+int wide_cluster(int batch, int h, int xd, int zd) {
+  return pick_wide_cluster(fused_cw_rollout_wide_kernel, batch, wide_pad(h),
+                           wide_smem_floats(h, xd, zd) * sizeof(float));
+}
+
 }  // namespace
+
+// Floats of the scratch psn_fused_cw_rollout_f32 takes at these shapes: the
+// wide kernels' tiles, [batch][2][hp][hp] above kMaxH, none below.
+extern "C" long long psn_fused_cw_scratch_floats(int batch, int h) {
+  if (h <= kMaxH) return 0;
+  const long long hp = wide_pad(h);
+  return static_cast<long long>(batch) * 2 * hp * hp;
+}
 
 // C interface, loaded with ctypes. Pointers are device pointers to
 // contiguous float32 arrays; w is a host array of the 15 weight pointers in
 // the order of flatten_weights (ops/fused_channelwise.py). solver: 0 Euler,
 // 1 Midpoint, 2 RK4 (3/8 rule). cluster: blocks per batch row, 1, 2 or 4,
 // or 0 to take 4 when the card runs batch clusters of 4 at once, else 2
-// when it runs batch clusters of 2, else 1. Launches on `stream` without
-// synchronising and returns the launch's error (0 on success);
-// cudaErrorInvalidValue for h outside 1..128 or another cluster size.
+// when it runs batch clusters of 2, else 1; above kMaxH the wide kernel
+// (csrc/cw_wide.cuh) on `scratch` (psn_fused_cw_scratch_floats), 1, 2, 4
+// or 8 blocks a row, 0 for pick_wide_cluster's choice. Launches on
+// `stream` without synchronising and returns the launch's error (0 on
+// success); cudaErrorInvalidValue for h outside 1..kMaxHFwd or another
+// cluster size.
 extern "C" int psn_fused_cw_rollout_f32(const void* fz, const void* dt, const void* sv,
-                                        const void* x0, const void* const* w, void* sol, int tm1,
-                                        int batch, int h, int xd, int zd, int solver, int cluster,
+                                        const void* x0, const void* const* w, void* sol, void* scratch,
+                                        int tm1, int batch, int h, int xd, int zd, int solver, int cluster,
                                         void* stream) {
-  if (tm1 < 0 || batch < 1 || h < 1 || h > kMaxH || xd < 1 || zd < 0 || solver < 0 ||
-      solver > 2 || (cluster != 0 && cluster != 1 && cluster != 2 && cluster != 4))
+  const bool wide = h > kMaxH;
+  if (tm1 < 0 || batch < 1 || h < 1 || h > kMaxHFwd || xd < 1 || zd < 0 || solver < 0 ||
+      solver > 2 || (cluster != 0 && cluster != 1 && cluster != 2 && cluster != 4 && !(wide && cluster == 8)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.fz = static_cast<const float*>(fz);
@@ -135,6 +223,14 @@ extern "C" int psn_fused_cw_rollout_f32(const void* fz, const void* dt, const vo
   a.zd = zd;
   a.solver = solver;
   if (tm1 == 0) return static_cast<int>(cudaSuccess);
+  if (wide) {
+    if (cluster == 0) cluster = wide_cluster(batch, h, xd, zd);
+    const WideArgs wa{a, static_cast<float*>(scratch), cluster};
+    const cudaError_t e = launch_clusters(fused_cw_rollout_wide_kernel, batch, cluster,
+                                          wide_smem_floats(h, xd, zd) * sizeof(float),
+                                          static_cast<cudaStream_t>(stream), wa);
+    return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+  }
   const size_t smem = smem_floats(h, xd, zd) * sizeof(float);
   if (cluster == 0)
     cluster = pick_cluster(fused_cw_rollout_kernel<4>, fused_cw_rollout_kernel<2>, batch, smem);
@@ -149,6 +245,7 @@ extern "C" int psn_fused_cw_rollout_f32(const void* fz, const void* dt, const vo
 // The blocks per batch row psn_fused_cw_rollout_f32 takes for cluster = 0
 // at these shapes on the current device.
 extern "C" int psn_fused_cw_cluster(int batch, int h, int xd, int zd) {
+  if (h > kMaxH) return wide_cluster(batch, h, xd, zd);
   return pick_cluster(fused_cw_rollout_kernel<4>, fused_cw_rollout_kernel<2>, batch,
                       smem_floats(h, xd, zd) * sizeof(float));
 }

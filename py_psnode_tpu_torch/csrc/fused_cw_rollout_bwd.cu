@@ -64,8 +64,14 @@
 // gradient columns, and the lead block writes the row's own results
 // (g_fz, the pairs, g_x0); csrc/cw_tile.cuh holds the tiles and the
 // per-channel products.
+//
+// Above h = 128 (to 572, the JAX package's widest) the walk runs on the wide
+// layout of csrc/cw_wide.cuh: fused_cw_rollout_bwd_wide_kernel below, the
+// tiles in the row's global scratch, each product's 128 x 128 output blocks
+// dealt over a cluster of up to 8 blocks; the contraction takes 128 x 128
+// blocks of each [h, h] sum (contract_pairs_wide).
 
-#include "cw_tile.cuh"
+#include "cw_wide.cuh"
 
 namespace {
 
@@ -544,15 +550,411 @@ __global__ void reduce_pair_parts(const float* __restrict__ parts, int nsplit, i
   out[at] = acc;
 }
 
+
+// ---------------------------------------------------------------------------
+// The wide walk (h > kMaxH, to kMaxHBwd): the kernel above on the wide layout
+// of csrc/cw_wide.cuh. A stage's a1, a2 and their cotangents live in the
+// row's two tiles in global memory, the four h x h x h products of its VJP
+// are dealt in 128 x 128 output blocks over the cluster, as the forward's,
+// staged 16 values of k at a time (the walk's vectors fill the rest of
+// shared memory). g_s_constV is summed in place in the row's g_sv, each
+// entry by the one thread that owns it in the g_P0 product, from zero.
+
+constexpr int kWideKw = 16;  // values of k a wide product stages at once
+
+struct WideArgs {
+  Args a;
+  float* tiles;  // [batch][2][hp][hp]
+  int kc;        // blocks a row: the cluster's size
+};
+
+// fn(l, j) for each entry (l, j < h) of an [h, h] output that this thread
+// owns in the wide products.
+template <class F>
+__device__ __forceinline__ void for_owned(const WideSmem& s, int h, F fn) {
+  const int nbk = s.hp / kWb, nb2 = nbk * nbk;
+  const Frag f = frag<1>();
+  for (int q = s.rank; q < nb2; q += s.kc) {
+    const int l0 = (q / nbk) * kWb, j0 = (q % nbk) * kWb;
+#pragma unroll
+    for (int i = 0; i < Tiling<1>::kMi; ++i)
+#pragma unroll
+      for (int j = 0; j < Tiling<1>::kNi; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int l = l0 + acc_row(f, i, r), c = j0 + acc_col(f, j, r);
+          if (l < h && c < h) fn(l, c);
+        }
+  }
+}
+
+// db[j] += sum_{l < h} t[j][l] for the columns j this thread owns: a bias
+// grad from a cotangent tile (global, stride hp).
+__device__ __forceinline__ void add_bias_grad_wide(const WideSmem& s, float* __restrict__ db, int h,
+                                                   const float* t) {
+  for (int j = s.rank + s.kc * threadIdx.x; j < h; j += s.kc * kThreads) {
+    float sum = 0.f;
+    for (int l = 0; l < h; ++l) sum += __ldcg(t + static_cast<size_t>(j) * s.hp + l);
+    db[j] += sum;
+  }
+}
+
+// The VJP of one evaluation, as eval_bwd above, on the wide layout; gs is the
+// row's g_s_constV [h, h] in global memory.
+__device__ __forceinline__ void eval_bwd_wide(const Args& a, const WideSmem& s, const BwdSmem& b,
+                                              const float* xs, const float* gy, const float* fz_t,
+                                              const float* sv, float* __restrict__ gs,
+                                              float* __restrict__ Pb, float* __restrict__ pr, float* gx) {
+  const int h = a.h, xd = a.xd, zd = a.zd, C = xd + zd, n = xd * h, tid = threadIdx.x, hp = s.hp;
+  const int nbk = hp / kWb, nb2 = nbk * nbk, rank = s.rank, kc = s.kc;
+  const bool lead = rank == 0;
+  const Net& w = a.w;
+  const NetT& wt = a.wt;
+  const WOp wt1 = tile_op(s.t1, hp), wt2 = tile_op(s.t2, hp);
+  Acc<1> acc;
+  CW_PHASE(16);
+  wide_eval_fwd<false, kWideKw>(w, s, h, xd, zd, xs, fz_t, sv, gx);  // t1 = a2, t2 = a1 (gx not read)
+  CW_PHASE(17);
+
+  // head: ghe = (gy H1^T) * elu'(HE), go = ghe H0^T
+  gemv_ch(gy, h, xd, h, wt.hw1t, nullptr, b.ghe, h, h, false, s.he);
+  __syncthreads();
+  gemv_ch(b.ghe, h, xd, h, wt.hw0t, nullptr, b.go, h, h, false, nullptr);
+  __syncthreads();
+  CW_PHASE(18);
+  // last vertical layer: dW3[k][c] += sum_l a2[l][k] go[c][l], db3
+  if (lead) {
+    for (int o = tid; o < h * xd; o += kThreads) {
+      const int k = o / xd, c = o - k * xd;
+      float sum = 0.f;
+      for (int l = 0; l < h; ++l) sum = fmaf(__ldcg(s.t1 + static_cast<size_t>(k) * hp + l), b.go[c * h + l], sum);
+      Pb[a.off.w3 + o] += sum;
+    }
+    for (int c = tid; c < xd; c += kThreads) {
+      float sum = 0.f;
+      for (int l = 0; l < h; ++l) sum += b.go[c * h + l];
+      Pb[a.off.b3 + c] += sum;
+    }
+  }
+  wide_sync();  // no block reads a2 any more
+  // t1: a2 -> g_P2 = (go W3^T) * elu'(a2), in place, over the owned blocks
+  for (int q = rank; q < nb2; q += kc) {
+    const int l0 = (q / nbk) * kWb, k0 = (q % nbk) * kWb;
+    for (int e = tid; e < kWb * kWb; e += kThreads) {
+      const int k = k0 + e / kWb, l = l0 + e % kWb;
+      if (k >= h || l >= h) continue;
+      float g = 0.f;
+      for (int c = 0; c < xd; ++c) g = fmaf(b.go[c * h + l], s.w3[k * xd + c], g);
+      float* p = s.t1 + static_cast<size_t>(k) * hp + l;
+      *p = g * delu_act(__ldcg(p));
+    }
+  }
+  wide_sync();
+  CW_PHASE(19);
+  // dW2 += a1^T g_P2, db2
+  for (int q = rank; q < nb2; q += kc) {
+    const int k0 = (q / nbk) * kWb, j0 = (q % nbk) * kWb;
+    wide_mma<kWideKw, true, true>(wt2, k0, wt1, j0, h, s.sa, s.sb, acc);
+    for_wide(acc, [&](float& v, int m, int nn) {
+      if (k0 + m < h && j0 + nn < h) atomicAdd(Pb + a.off.w2 + (k0 + m) * h + j0 + nn, v);
+    });
+  }
+  add_bias_grad_wide(s, Pb + a.off.b2, h, s.t1);
+  CW_PHASE(20);
+  wide_sync();  // no block reads a1 any more
+  // t2: g_P1 = (g_P2 W2^T) * elu'(a1)
+  for (int q = rank; q < nb2; q += kc) {
+    const int l0 = (q / nbk) * kWb, j0 = (q % nbk) * kWb;
+    wide_mma<kWideKw, false, true>(wt1, l0, weight_op(w.w2, h), j0, h, s.sa, s.sb, acc);
+    for_wide(acc, [&](float& v, int m, int nn) {
+      const int l = l0 + m, j = j0 + nn;
+      float* p = s.t2 + static_cast<size_t>(j) * hp + l;
+      *p = l < h && j < h ? v * delu_act(__ldcg(p)) : 0.f;
+    });
+  }
+  wide_sync();
+  CW_PHASE(21);
+  for (int q = rank; q < nb2; q += kc) wide_first_layer(s, C, h, q, sv, s.t1);  // t1 = a0 again
+  wide_sync();
+  CW_PHASE(22);
+  // dW1 += a0^T g_P1, db1
+  for (int q = rank; q < nb2; q += kc) {
+    const int k0 = (q / nbk) * kWb, j0 = (q % nbk) * kWb;
+    wide_mma<kWideKw, true, true>(wt1, k0, wt2, j0, h, s.sa, s.sb, acc);
+    for_wide(acc, [&](float& v, int m, int nn) {
+      if (k0 + m < h && j0 + nn < h) atomicAdd(Pb + a.off.w1 + (k0 + m) * h + j0 + nn, v);
+    });
+  }
+  add_bias_grad_wide(s, Pb + a.off.b1, h, s.t2);
+  CW_PHASE(23);
+  wide_sync();  // no block reads a0 any more
+  // t1: g_P0 = (g_P1 W1^T) * elu'(a0); g_s_constV += g_P0
+  for (int q = rank; q < nb2; q += kc) {
+    const int l0 = (q / nbk) * kWb, j0 = (q % nbk) * kWb;
+    wide_mma<kWideKw, false, true>(wt2, l0, weight_op(w.w1, h), j0, h, s.sa, s.sb, acc);
+    for_wide(acc, [&](float& v, int m, int nn) {
+      const int l = l0 + m, j = j0 + nn;
+      float* p = s.t1 + static_cast<size_t>(j) * hp + l;
+      const float g = l < h && j < h ? v * delu_act(__ldcg(p)) : 0.f;
+      *p = g;
+      if (l < h && j < h) gs[l * h + j] += g;
+    });
+  }
+  wide_sync();
+  CW_PHASE(24);
+  // the folded first layer: gft[c][l] = sum_j g_P0[l][j] A[c][j] (all),
+  // dA[c][j] += sum_l ft[c][l] g_P0[l][j] (the owned columns j)
+  for (int o = tid; o < C * h; o += kThreads) {
+    const int c = o / h, l = o - c * h;
+    float g = 0.f;
+    for (int j = 0; j < h; ++j) g = fmaf(__ldcg(s.t1 + static_cast<size_t>(j) * hp + l), s.as[c * h + j], g);
+    b.gft[o] = g;
+  }
+  for (int j = rank + kc * tid; j < h; j += kc * kThreads)
+    for (int c = 0; c < C; ++c) {
+      float da = 0.f;
+      for (int l = 0; l < h; ++l) da = fmaf(s.ft[c * h + l], __ldcg(s.t1 + static_cast<size_t>(j) * hp + l), da);
+      Pb[a.off.a + c * h + j] += da;
+    }
+  __syncthreads();
+  CW_PHASE(25);
+  cluster_arrive();  // done with t1 until the next evaluation's a0 store
+  for (int o = tid; o < zd * h; o += kThreads) b.gfz[o] += b.gft[n + o];
+
+  // ext: gep = (gft[:xd] E1^T) * elu'(E), gx = gep E0^T
+  gemv_ch(b.gft, h, xd, h, wt.ew1t, nullptr, b.gep, h, h, false, s.e);
+  __syncthreads();
+  gemv_ch(b.gep, h, xd, h, wt.ew0t, nullptr, gx, h, h, false, nullptr);
+
+  if (lead) {
+    const float* pairs[kPairs][2] = {{s.he, gy}, {s.ot, b.ghe}, {s.e, b.gft}, {xs, b.gep}};
+    for (int q = 0; q < kPairs; ++q)
+      for (int r = 0; r < 2; ++r)
+        for (int e = tid; e < n; e += kThreads) pr[(2 * q + r) * n + e] = pairs[q][r][e];
+  }
+  __syncthreads();
+  CW_PHASE(26);
+}
+
+size_t wide_smem_floats(int h, int xd, int zd) {
+  const size_t xdh = static_cast<size_t>(xd) * h, C = xd + zd;
+  // WideSmem; gft, gfz; ghe, go, gep; the 14 vectors of the walk
+  return wide_eval_floats<kWideKw>(h, xd, zd) + C * h + static_cast<size_t>(zd) * h + 3 * xdh + 14 * xdh;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    fused_cw_rollout_bwd_wide_kernel(const __grid_constant__ WideArgs wa) {
+  extern __shared__ __align__(16) float smem[];
+  const Args& a = wa.a;
+  const int h = a.h, xd = a.xd, zd = a.zd, B = a.batch, row = blockIdx.x / wa.kc, tid = threadIdx.x;
+  const int n = xd * h, C = xd + zd;
+  WideSmem s;
+  BwdSmem b;
+  float* p = carve_wide<kWideKw>(s, smem, h, xd, zd);
+  s.hp = wide_pad(h);
+  s.kc = wa.kc;
+  s.rank = static_cast<int>(cluster_rank());
+  const bool lead = s.rank == 0;
+  s.t1 = wa.tiles + static_cast<size_t>(row) * 2 * s.hp * s.hp;
+  s.t2 = s.t1 + static_cast<size_t>(s.hp) * s.hp;
+  b.gft = p;   p += C * h;
+  b.gfz = p;   p += zd * h;
+  b.y = nullptr;
+  b.ghe = p;   p += n;
+  b.go = p;    p += n;
+  b.gep = p;   p += n;
+  float* xc = p;   p += n;
+  float* x2 = p;   p += n;
+  float* x3 = p;   p += n;
+  float* x4 = p;   p += n;
+  float* k1 = p;   p += n;
+  float* k2 = p;   p += n;
+  float* k3 = p;   p += n;
+  float* gX1 = p;  p += n;
+  float* gxc = p;  p += n;
+  float* gk1 = p;  p += n;
+  float* gk2 = p;  p += n;
+  float* gk3 = p;  p += n;
+  float* gy = p;   p += n;
+  float* tx = p;
+
+  init_wide(a.w, s, h, xd, zd);
+  for (int e = tid; e < n; e += kThreads) gxc[e] = 0.f;
+  const size_t hh = static_cast<size_t>(h) * h;
+  const float* sv = a.sv + row * hh;
+  float* gs = a.g_sv + row * hh;
+  for_owned(s, h, [&](int l, int j) { gs[l * h + j] = 0.f; });
+  float* Pb = a.partial + static_cast<size_t>(row) * a.off.ew0;
+  const int S = n_stages(a.solver);
+  const float* xs_of[4] = {xc, nullptr, nullptr, nullptr};
+  if (a.solver == 1) {
+    xs_of[0] = x2;
+    xs_of[1] = xc;
+  } else if (a.solver == 2) {
+    xs_of[0] = x4;
+    xs_of[1] = x3;
+    xs_of[2] = x2;
+    xs_of[3] = xc;
+  }
+  __syncthreads();
+  cluster_arrive();  // t1 is free: the first evaluation's a0 store waits for this
+
+  for (int t = a.tm1 - 1; t >= 0; --t) {
+#ifdef CW_PHASE_CLOCK
+    if (blockIdx.x == 0 && tid == 0) g_phase_on = t == a.tm1 / 2;
+#endif
+    const size_t step = static_cast<size_t>(t) * B + row;
+    const float dt = __ldg(a.dt + step);
+    const float* fz_t = a.fz + step * zd * h;
+    for (int e = tid; e < n; e += kThreads) {
+      xc[e] = a.sol[step * n + e];
+      gX1[e] = a.cot[(step + B) * n + e] + gxc[e];
+    }
+    for (int e = tid; e < zd * h; e += kThreads) b.gfz[e] = 0.f;
+    __syncthreads();
+    for (int st = 0; st + 1 < S; ++st) {
+      wide_eval_fwd<true, kWideKw>(a.w, s, h, xd, zd, st == 0 ? xc : x2 + (st - 1) * n, fz_t, sv, k1 + st * n);
+      float* xn = x2 + st * n;
+      for (int e = tid; e < n; e += kThreads) {
+        if (a.solver == 1) xn[e] = xc[e] + k1[e] * (0.5f * dt);
+        else if (st == 0) xn[e] = xc[e] + dt * k1[e] * kOneThird;
+        else if (st == 1) xn[e] = xc[e] + dt * (k2[e] - k1[e] * kOneThird);
+        else xn[e] = xc[e] + dt * (k1[e] - k2[e] + k3[e]);
+      }
+      __syncthreads();
+    }
+    const float c8 = dt * 0.125f;
+    for (int e = tid; e < n; e += kThreads) {
+      gxc[e] = gX1[e];
+      if (a.solver == 2) {
+        gk1[e] = gX1[e] * c8;
+        gk2[e] = 3.0f * gX1[e] * c8;
+        gk3[e] = 3.0f * gX1[e] * c8;
+        gy[e] = gX1[e] * c8;
+      } else {
+        gy[e] = dt * gX1[e];
+      }
+    }
+    __syncthreads();
+    for (int st = 0; st < S; ++st) {
+      float* pr = a.pairs + ((static_cast<size_t>(t) * S + st) * B + row) * (2 * kPairs * n);
+      eval_bwd_wide(a, s, b, xs_of[st], gy, fz_t, sv, gs, Pb, pr, tx);
+      for (int e = tid; e < n; e += kThreads) {
+        const float g = tx[e];
+        gxc[e] += g;
+        if (a.solver == 1 && st == 0) {
+          gy[e] = (0.5f * dt) * g;
+        } else if (a.solver == 2) {
+          if (st == 0) {
+            gk1[e] += dt * g;
+            gk2[e] -= dt * g;
+            gy[e] = gk3[e] + dt * g;
+          } else if (st == 1) {
+            gy[e] = gk2[e] + dt * g;
+            gk1[e] -= dt * g * kOneThird;
+          } else if (st == 2) {
+            gy[e] = gk1[e] + dt * g * kOneThird;
+          }
+        }
+      }
+      __syncthreads();
+    }
+    if (lead)
+      for (int e = tid; e < zd * h; e += kThreads) a.g_fz[step * zd * h + e] = b.gfz[e];
+  }
+  if (lead)
+    for (int e = tid; e < n; e += kThreads) a.g_x0[static_cast<size_t>(row) * n + e] = gxc[e];
+  cluster_wait();  // no block leaves while another may still read the tiles
+}
+
+int wide_cluster(int batch, int h, int xd, int zd) {
+  return pick_wide_cluster(fused_cw_rollout_bwd_wide_kernel, batch, wide_pad(h),
+                           wide_smem_floats(h, xd, zd) * sizeof(float));
+}
+
+// contract_pairs for h > kMaxH: block z of the grid's third dimension takes
+// the 128 x 128 block (z / nbk, z % nbk) of each [h, h] sum, and the bias
+// sums where z / nbk is 0; otherwise the same.
+__global__ void __launch_bounds__(kCThreads)
+    contract_pairs_wide(const float* __restrict__ pairs, long long rows, int xd, int h,
+                        float* __restrict__ parts) {
+  extern __shared__ __align__(16) float smem[];
+  float* us = smem;
+  float* vs = smem + kNc * kWb;
+  const int split = blockIdx.x, nsplit = gridDim.x, qc = blockIdx.y, nbk = wide_pad(h) / kWb;
+  const int k0 = (blockIdx.z / nbk) * kWb, c0 = (blockIdx.z % nbk) * kWb;
+  const int q = qc / xd, c = qc - q * xd, n = xd * h, tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const long long r0 = rows * split / nsplit, r1 = rows * (split + 1) / nsplit;
+  const long long stride = 2LL * kPairs * n;
+  const float* u0 = pairs + (2 * q) * n + c * h;
+  const float* v0 = u0 + n;
+  float acc[8][8], bsum[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    bsum[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+  for (long long rb = r0; rb < r1; rb += kNc) {
+    const int nr = r1 - rb < kNc ? static_cast<int>(r1 - rb) : kNc;
+    for (int e = tid; e < kNc * kWb; e += kCThreads) {
+      const int r = e / kWb, k = e % kWb;
+      us[e] = r < nr && k0 + k < h ? __ldg(u0 + (rb + r) * stride + k0 + k) : 0.f;
+      vs[e] = r < nr && c0 + k < h ? __ldg(v0 + (rb + r) * stride + c0 + k) : 0.f;
+    }
+    __syncthreads();
+    for (int r = 0; r < nr; ++r) {
+      float av[8], bv[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) av[i] = us[r * kWb + ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) bv[j] = vs[r * kWb + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      if (ty == 0) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) bsum[j] += bv[j];
+      }
+    }
+    __syncthreads();
+  }
+  const long long slot = static_cast<long long>(h) * h + h;
+  float* out = parts + (static_cast<long long>(split) * gridDim.y + qc) * slot;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int k = k0 + ty + 16 * i, col = c0 + tx + 16 * j;
+      if (k < h && col < h) out[static_cast<long long>(k) * h + col] = acc[i][j];
+    }
+  if (ty == 0 && k0 == 0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = c0 + tx + 16 * j;
+      if (col < h) out[static_cast<long long>(h) * h + col] = bsum[j];
+    }
+  }
+}
+
 // The contraction of `rows` pair rows into out at dest: both kernels on
-// stream st. parts holds nsplit x kPairs xd (h^2 + h) floats.
+// stream st (above kMaxH, contract_pairs_wide in place of contract_pairs).
+// parts holds nsplit x kPairs xd (h^2 + h) floats.
 cudaError_t launch_contraction(const float* pairs, long long rows, int xd, int h,
                                const PairDest& dest, float* parts, float* out,
                                cudaStream_t st) {
   const int nsplit = n_splits(rows);
   const size_t smem = 2 * kNc * kMaxH * sizeof(float);
-  const dim3 grid(nsplit, kPairs * xd);
-  contract_pairs<<<grid, kCThreads, smem, st>>>(pairs, rows, xd, h, parts);
+  if (h > kMaxH) {
+    const int nbk = wide_pad(h) / kWb;
+    const dim3 wgrid(nsplit, kPairs * xd, nbk * nbk);
+    contract_pairs_wide<<<wgrid, kCThreads, smem, st>>>(pairs, rows, xd, h, parts);
+  } else {
+    const dim3 grid(nsplit, kPairs * xd);
+    contract_pairs<<<grid, kCThreads, smem, st>>>(pairs, rows, xd, h, parts);
+  }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const long long per = (static_cast<long long>(h) * h + h) * kPairs * xd;
@@ -565,15 +967,18 @@ cudaError_t launch_contraction(const float* pairs, long long rows, int xd, int h
 
 // sizes[0]: floats of the flat gradient row g_w; sizes[1]: floats of one
 // block's row of dense partials; sizes[2]: floats of the pairs buffer;
-// sizes[3]: floats of the contraction's partial sums.
+// sizes[3]: floats of the contraction's partial sums; sizes[4]: floats of
+// the wide walk's tiles ([batch][2][hp][hp] above kMaxH, else 0).
 extern "C" void psn_fused_cw_bwd_sizes(int tm1, int batch, int h, int xd, int zd, int solver,
                                        long long* sizes) {
   const GradOffsets o = grad_offsets(h, xd, zd);
   const long long rows = static_cast<long long>(tm1) * n_stages(solver) * batch;
+  const long long hp = wide_pad(h);
   sizes[0] = o.total;
   sizes[1] = o.ew0;
   sizes[2] = rows * 2 * kPairs * xd * h;
   sizes[3] = static_cast<long long>(n_splits(rows)) * kPairs * xd * (static_cast<long long>(h) * h + h);
+  sizes[4] = h > kMaxH ? static_cast<long long>(batch) * 2 * hp * hp : 0;
 }
 
 // C interface, loaded with ctypes. Pointers are device pointers to
@@ -582,18 +987,21 @@ extern "C" void psn_fused_cw_bwd_sizes(int tm1, int batch, int h, int xd, int zd
 // transposed_weights (ops/fused_channelwise_vjp.py). `partial` is [batch,
 // sizes[1]] and must be zero; g_w receives the summed gradients in the
 // flatten_weights layout; pairs and parts are scratch of sizes[2] and
-// sizes[3] floats. solver: 0 Euler, 1 Midpoint, 2 RK4 (3/8 rule). cluster:
-// blocks per batch row of the walk, as for psn_fused_cw_rollout_f32.
-// Launches the walk, the dense partials' sum and the contraction on
-// `stream` without synchronising and returns cudaGetLastError() (0 on
-// success).
+// sizes[3] floats, and above kMaxH scratch the wide walk's tiles of
+// sizes[4]. solver: 0 Euler, 1 Midpoint, 2 RK4 (3/8 rule). cluster: blocks
+// per batch row of the walk, as for psn_fused_cw_rollout_f32 (the wide
+// walk's 1, 2, 4 or 8 above kMaxH). Launches the walk, the dense partials'
+// sum and the contraction on `stream` without synchronising and returns
+// cudaGetLastError() (0 on success); cudaErrorInvalidValue for h outside
+// 1..kMaxHBwd or another cluster size.
 extern "C" int psn_fused_cw_rollout_bwd_f32(
     const void* fz, const void* dt, const void* sv, const void* sol, const void* cot,
     const void* const* w, const void* const* wt, void* g_fz, void* g_sv, void* partial,
-    void* g_w, void* g_x0, void* pairs, void* parts, int tm1, int batch, int h, int xd, int zd,
-    int solver, int cluster, void* stream) {
-  if (tm1 < 1 || batch < 1 || h < 1 || h > kMaxH || xd < 1 || zd < 0 || solver < 0 ||
-      solver > 2 || (cluster != 0 && cluster != 1 && cluster != 2 && cluster != 4))
+    void* g_w, void* g_x0, void* pairs, void* parts, void* scratch, int tm1, int batch, int h,
+    int xd, int zd, int solver, int cluster, void* stream) {
+  const bool wide = h > kMaxH;
+  if (tm1 < 1 || batch < 1 || h < 1 || h > kMaxHBwd || xd < 1 || zd < 0 || solver < 0 ||
+      solver > 2 || (cluster != 0 && cluster != 1 && cluster != 2 && cluster != 4 && !(wide && cluster == 8)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.fz = static_cast<const float*>(fz);
@@ -616,14 +1024,21 @@ extern "C" int psn_fused_cw_rollout_bwd_f32(
   a.xd = xd;
   a.zd = zd;
   a.solver = solver;
-  const size_t smem = smem_floats(h, xd, zd) * sizeof(float);
-  if (cluster == 0)
-    cluster = pick_cluster(fused_cw_rollout_bwd_kernel<4>, fused_cw_rollout_bwd_kernel<2>, batch, smem);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e =
-      cluster == 4   ? launch_clusters(fused_cw_rollout_bwd_kernel<4>, batch, 4, smem, st, a)
-      : cluster == 2 ? launch_clusters(fused_cw_rollout_bwd_kernel<2>, batch, 2, smem, st, a)
-                     : launch_clusters(fused_cw_rollout_bwd_kernel<1>, batch, 1, smem, st, a);
+  cudaError_t e;
+  if (wide) {
+    if (cluster == 0) cluster = wide_cluster(batch, h, xd, zd);
+    const WideArgs wa{a, static_cast<float*>(scratch), cluster};
+    e = launch_clusters(fused_cw_rollout_bwd_wide_kernel, batch, cluster, wide_smem_floats(h, xd, zd) * sizeof(float),
+                        st, wa);
+  } else {
+    const size_t smem = smem_floats(h, xd, zd) * sizeof(float);
+    if (cluster == 0)
+      cluster = pick_cluster(fused_cw_rollout_bwd_kernel<4>, fused_cw_rollout_bwd_kernel<2>, batch, smem);
+    e = cluster == 4   ? launch_clusters(fused_cw_rollout_bwd_kernel<4>, batch, 4, smem, st, a)
+        : cluster == 2 ? launch_clusters(fused_cw_rollout_bwd_kernel<2>, batch, 2, smem, st, a)
+                       : launch_clusters(fused_cw_rollout_bwd_kernel<1>, batch, 1, smem, st, a);
+  }
   if (e == cudaSuccess) e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   float* gw = static_cast<float*>(g_w);
@@ -644,7 +1059,7 @@ extern "C" int psn_fused_cw_rollout_bwd_f32(
 // batch = 1, Euler). Launches on `stream`; returns cudaGetLastError().
 extern "C" int psn_cw_contract_pairs_f32(const void* pairs, long long rows, int h, int xd,
                                          void* parts, void* out, void* stream) {
-  if (rows < 1 || h < 1 || h > kMaxH || xd < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows < 1 || h < 1 || h > kMaxHBwd || xd < 1) return static_cast<int>(cudaErrorInvalidValue);
   const long long hh = static_cast<long long>(h) * h;
   PairDest dest{};
   for (int q = 0; q < kPairs; ++q) {
@@ -670,6 +1085,7 @@ extern "C" int psn_cw_phase_clock(long long* out) {
 // The blocks per batch row psn_fused_cw_rollout_bwd_f32 takes for cluster = 0
 // at these shapes on the current device.
 extern "C" int psn_fused_cw_bwd_cluster(int batch, int h, int xd, int zd) {
+  if (h > kMaxH) return wide_cluster(batch, h, xd, zd);
   return pick_cluster(fused_cw_rollout_bwd_kernel<4>, fused_cw_rollout_bwd_kernel<2>, batch,
                       smem_floats(h, xd, zd) * sizeof(float));
 }

@@ -32,8 +32,9 @@ over: in CUDA, building ``V`` is indexing.
 rollout, a cluster of blocks per batch row, the h x h x h products on the
 tensor cores in 3xTF32) and :func:`fused_cw_rollout_plain`, the same
 function as an eager PyTorch loop, on CPU tensors. There is no fallback from the kernel to the
-plain version. The kernel takes ``h <= MAX_HIDDEN`` and the model's
-vertical net of three tail layers.
+plain version. The kernel takes ``h <= MAX_HIDDEN_FWD`` (the backward
+``h <= MAX_HIDDEN_BWD``) and the model's vertical net of three tail
+layers.
 
 Not ported: the bf16 compute mode (``_cast_cw`` :161) and the TPU's block
 and time choice (``choose_cw_blocks``).
@@ -52,7 +53,12 @@ from py_psnode_tpu_torch.ops.fused_dae import _SOLVER_CODE, normalize_solver
 from py_psnode_tpu_torch.ops.fused_ode import _step_fwd, pointer_array
 from py_psnode_tpu_torch.utils import cuda_build
 
-MAX_HIDDEN = 128  # the kernels keep [h, h] tiles of h <= 128 in shared memory
+# The widest h of the CUDA forward and of the backward: those the JAX
+# package's fused channel-wise runs (its block choice, choose_cw_blocks :179,
+# fails past them). Above 128 the kernels take their wide layout
+# (csrc/cw_wide.cuh), the [h, h] tiles in a scratch in global memory.
+MAX_HIDDEN_FWD = 724
+MAX_HIDDEN_BWD = 572
 N_VERT_TAIL = 3  # the vertical net's layers after the folded first one
 
 
@@ -152,20 +158,28 @@ def fused_cw_rollout_plain(streams: Dict, weights: Dict, x0, dt, solver: str = "
     return torch.stack(xs)
 
 
-def check_inputs(streams: Dict, weights: Dict, x0, dt):
+def check_width(h: int, backward: bool = False):
+    """Raise ``ValueError`` unless the forward (``backward``: the backward)
+    takes width ``h``."""
+    most, what = (MAX_HIDDEN_BWD, "backward") if backward else (MAX_HIDDEN_FWD, "forward")
+    if h > most:
+        raise ValueError(f"the channel-wise {what} kernel takes h <= {most} (the JAX package's widest), "
+                         f"got h={h}")
+
+
+def check_inputs(streams: Dict, weights: Dict, x0, dt, backward: bool = False):
     """Raise unless the rollout's inputs are float32, contiguous, on one
     CUDA device, shaped as the kernels take them, with ``h <=
-    MAX_HIDDEN``."""
+    MAX_HIDDEN_FWD`` (with ``backward``, ``h <= MAX_HIDDEN_BWD``)."""
     fz, sV = streams["fz"], streams["s_constV"]
-    if sV.device.type != "cuda":
-        raise ValueError(f"the CUDA channel-wise kernels take CUDA tensors, got {sV.device}")
     if x0.dim() != 3 or fz.dim() != 4:
         raise ValueError(f"x0 must be [B, xd, h] and fz [T-1, B, zd, h], got {tuple(x0.shape)}, "
                          f"{tuple(fz.shape)}")
     B, xd, h = x0.shape
     Tm1, zd = fz.shape[0], fz.shape[2]
-    if h > MAX_HIDDEN:
-        raise ValueError(f"the channel-wise kernels take h <= {MAX_HIDDEN}, got h={h}")
+    check_width(h, backward)
+    if sV.device.type != "cuda":
+        raise ValueError(f"the CUDA channel-wise kernels take CUDA tensors, got {sV.device}")
     if len(weights["vert"]) != N_VERT_TAIL:
         raise ValueError(f"vert must hold {N_VERT_TAIL} layers, got {len(weights['vert'])}")
     C = xd + zd
@@ -191,7 +205,7 @@ def check_inputs(streams: Dict, weights: Dict, x0, dt):
 
 
 def bind_rollout(lib: ctypes.CDLL):
-    """``(launcher, error string)``: the C functions of a build of
+    """``(launcher, error string, scratch floats)``: the C functions of a build of
     ``csrc/fused_cw_rollout.cu`` (for the card or, in
     ``utils/host_build.py``, the host) with their signatures."""
     fn = lib.psn_fused_cw_rollout_f32
@@ -199,7 +213,7 @@ def bind_rollout(lib: ctypes.CDLL):
     fn.argtypes = [
         P, P, P, P,  # fz, dt, s_constV, x0
         ctypes.POINTER(ctypes.c_void_p),  # the 15 weights, flatten_weights order
-        P,  # sol
+        P, P,  # sol, scratch (the wide kernel's tiles)
         I, I, I, I, I,  # Tm1, B, h, xd, zd
         I, I,  # solver, cluster (blocks per row; 0: the launcher picks)
         P,  # stream
@@ -208,7 +222,10 @@ def bind_rollout(lib: ctypes.CDLL):
     err = lib.psn_cuda_error_string
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
-    return fn, err
+    scratch = lib.psn_fused_cw_scratch_floats
+    scratch.argtypes = [I, I]
+    scratch.restype = ctypes.c_longlong
+    return fn, err, scratch
 
 
 @functools.lru_cache(maxsize=None)
@@ -218,10 +235,11 @@ def _launcher():
 
 
 def chosen_cluster(B: int, h: int, xd: int, zd: int, backward: bool = False) -> int:
-    """Blocks per batch row (1, 2 or 4) that the CUDA forward (or, with
-    ``backward``, the reverse walk) takes at these shapes on the current
-    card: 4 when the card runs B clusters of 4 at once, else 2 when it runs
-    B clusters of 2, else 1."""
+    """Blocks per batch row that the CUDA forward (or, with ``backward``,
+    the reverse walk) takes at these shapes on the current card: up to 128,
+    4 when the card runs B clusters of 4 at once, else 2 when it runs B
+    clusters of 2, else 1; above, the wide kernels' 8, 4, 2 or 1
+    (``pick_wide_cluster``, ``csrc/cw_wide.cuh``)."""
     name, fn = (("fused_cw_rollout_bwd", "psn_fused_cw_bwd_cluster") if backward
                 else ("fused_cw_rollout", "psn_fused_cw_cluster"))
     f = getattr(cuda_build.load(name), fn)
@@ -231,7 +249,7 @@ def chosen_cluster(B: int, h: int, xd: int, zd: int, backward: bool = False) -> 
 
 
 def _launch(streams: Dict, weights: Dict, x0, dt, solver: str, cluster: int, launcher=None):
-    """Launch the forward through ``launcher`` (``(fn, err)`` of
+    """Launch the forward through ``launcher`` (``(fn, err, scratch)`` of
     :func:`bind_rollout`; the default build when None) with ``cluster``
     blocks per row (0: the launcher's choice); returns the rows. Counts
     nothing: :func:`fused_cw_rollout_cuda` is the entry, and a fixed
@@ -241,12 +259,13 @@ def _launch(streams: Dict, weights: Dict, x0, dt, solver: str, cluster: int, lau
     fz, sV = streams["fz"], streams["s_constV"]
     Tm1, B, zd, h = fz.shape
     xd = x0.shape[1]
-    fn, err = launcher or _launcher()
+    fn, err, scratch_floats = launcher or _launcher()
     sol = torch.empty(Tm1, B, xd, h, dtype=torch.float32, device=sV.device)
+    scratch = torch.empty(max(1, scratch_floats(B, h)), dtype=torch.float32, device=sV.device)
     with torch.cuda.device(sV.device):
         stream = torch.cuda.current_stream(sV.device).cuda_stream
         rc = fn(fz.data_ptr(), dt.data_ptr(), sV.data_ptr(), x0.data_ptr(),
-                pointer_array(flatten_weights(weights)), sol.data_ptr(),
+                pointer_array(flatten_weights(weights)), sol.data_ptr(), scratch.data_ptr(),
                 Tm1, B, h, xd, zd, _SOLVER_CODE[solver], cluster, stream)
     if rc != 0:
         raise RuntimeError(
@@ -257,8 +276,10 @@ def _launch(streams: Dict, weights: Dict, x0, dt, solver: str, cluster: int, lau
 
 def fused_cw_rollout_cuda(streams: Dict, weights: Dict, x0, dt, solver: str = "euler"):
     """Launch the CUDA kernel once for the whole rollout, a cluster of
-    blocks per batch row (1, 2 or 4, chosen by the launcher from B and the
-    card); returns the rows ``[T-1, B, xd, h]``."""
+    blocks per batch row (chosen by the launcher from B, h and the card:
+    :func:`chosen_cluster`); returns the rows ``[T-1, B, xd, h]``. Above
+    h=128 the wide kernel's scratch, ``2 B hp^2`` floats (``hp`` = h
+    rounded up to 128), lives until the launch ends."""
     sol = _launch(streams, weights, x0, dt, solver, 0)
     fused_cw_rollout.launches += 1
     return sol

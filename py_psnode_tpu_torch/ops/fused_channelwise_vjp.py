@@ -42,8 +42,9 @@ from typing import Dict, List, Tuple
 import torch
 
 from py_psnode_tpu_torch.ops.fused_channelwise import (
-    MAX_HIDDEN,
+    MAX_HIDDEN_BWD,
     check_inputs,
+    check_width,
     cw_eval,
     flatten_weights,
     fused_cw_rollout,
@@ -168,7 +169,7 @@ def bind_rollout_bwd(lib: ctypes.CDLL):
         P, P, P, P, P,  # fz, dt, s_constV, sol, cot
         PP, PP,  # the 15 weights (flatten_weights order), the 6 transposes
         P, P, P, P, P,  # g_fz, g_s_constV, partial, g_w, g_x0
-        P, P,  # pairs, parts (scratch)
+        P, P, P,  # pairs, parts, the wide walk's tiles (scratch)
         I, I, I, I, I,  # Tm1, B, h, xd, zd
         I, I,  # solver, cluster (blocks per row; 0: the launcher picks)
         P,  # stream
@@ -193,11 +194,12 @@ def _launcher():
     return bind_rollout_bwd(cuda_build.load("fused_cw_rollout_bwd"))
 
 
-def bwd_sizes(sizes, Tm1, B, h, xd, zd, solver) -> Tuple[int, int, int, int]:
+def bwd_sizes(sizes, Tm1, B, h, xd, zd, solver) -> Tuple[int, int, int, int, int]:
     """``(g_w floats, dense partial row floats, pairs floats, parts
-    floats)`` of the backward at these shapes, from the C function
-    ``sizes`` of :func:`bind_rollout_bwd`."""
-    got = (ctypes.c_longlong * 4)()
+    floats, tiles floats)`` of the backward at these shapes, from the C
+    function ``sizes`` of :func:`bind_rollout_bwd` (tiles: the wide walk's
+    scratch above h=128, else 0)."""
+    got = (ctypes.c_longlong * 5)()
     sizes(Tm1, B, h, xd, zd, _SOLVER_CODE[solver], got)
     return tuple(got)
 
@@ -210,7 +212,7 @@ def _launch_bwd(streams: Dict, weights: Dict, dt, sol, cot, solver: str, cluster
     is the entry, and a fixed cluster is for timing one choice against
     another."""
     solver = normalize_solver(solver)
-    check_inputs(streams, weights, sol[0], dt)
+    check_inputs(streams, weights, sol[0], dt, backward=True)
     fz, sV = streams["fz"], streams["s_constV"]
     Tm1, B, zd, h = fz.shape
     xd = sol.shape[2]
@@ -223,7 +225,7 @@ def _launch_bwd(streams: Dict, weights: Dict, dt, sol, cot, solver: str, cluster
             raise ValueError(f"{name} must be contiguous")
     fn, sizes, _, err = launcher or _launcher()
     layout, total = grad_layout(weights)
-    n_w, n_dense, n_pairs, n_parts = bwd_sizes(sizes, Tm1, B, h, xd, zd, solver)
+    n_w, n_dense, n_pairs, n_parts, n_tiles = bwd_sizes(sizes, Tm1, B, h, xd, zd, solver)
     if n_w != total:
         raise RuntimeError("gradient layout of the CUDA backward and of its wrapper disagree")
     f32 = dict(dtype=torch.float32, device=sV.device)
@@ -234,14 +236,15 @@ def _launch_bwd(streams: Dict, weights: Dict, dt, sol, cot, solver: str, cluster
     g_x0 = torch.empty(B, xd, h, **f32)
     pairs = torch.empty(n_pairs, **f32)
     parts = torch.empty(n_parts, **f32)
+    tiles = torch.empty(max(1, n_tiles), **f32)
     wts = transposed_weights(weights)  # must outlive the launch
     with torch.cuda.device(sV.device):
         stream = torch.cuda.current_stream(sV.device).cuda_stream
         rc = fn(fz.data_ptr(), dt.data_ptr(), sV.data_ptr(), sol.data_ptr(), cot.data_ptr(),
                 pointer_array(flatten_weights(weights)), pointer_array(wts),
                 g_fz.data_ptr(), g_sV.data_ptr(), partial.data_ptr(), g_flat.data_ptr(),
-                g_x0.data_ptr(), pairs.data_ptr(), parts.data_ptr(), Tm1, B, h, xd, zd,
-                _SOLVER_CODE[solver], cluster, stream)
+                g_x0.data_ptr(), pairs.data_ptr(), parts.data_ptr(), tiles.data_ptr(), Tm1, B, h, xd,
+                zd, _SOLVER_CODE[solver], cluster, stream)
     if rc != 0:
         raise RuntimeError(
             f"fused_cw_rollout_bwd kernel launch failed: CUDA error {rc} ({err(rc).decode()})"
@@ -257,7 +260,8 @@ def fused_cw_rollout_bwd_cuda(streams: Dict, weights: Dict, dt, sol, cot, solver
     partial gradients, and the contraction of the per-channel pairs. Same
     contract as :func:`fused_cw_rollout_bwd_plain`, float32. Scratch: the
     pairs buffer of ``(T-1) S B 8 xd h`` floats (2.1 GB at B=64, RK4, xd=2,
-    h=128) lives until the launch ends."""
+    h=128) and, above h=128, the wide walk's tiles (``2 B hp^2`` floats,
+    ``hp`` = h rounded up to 128) live until the launch ends."""
     out = _launch_bwd(streams, weights, dt, sol, cot, solver, 0)
     fused_cw_rollout_bwd.launches += 1
     return out
@@ -272,8 +276,9 @@ def contract_channel_pairs_cuda(pairs):
         raise ValueError(f"pairs must be contiguous float32 on a CUDA device, got {pairs.dtype} on "
                          f"{pairs.device}")
     *_, P, two, xd, h = pairs.shape
-    if (P, two) != (4, 2) or h > MAX_HIDDEN:
-        raise ValueError(f"pairs must be [..., 4, 2, xd, h <= {MAX_HIDDEN}], got {tuple(pairs.shape)}")
+    if (P, two) != (4, 2):
+        raise ValueError(f"pairs must be [..., 4, 2, xd, h <= {MAX_HIDDEN_BWD}], got {tuple(pairs.shape)}")
+    check_width(h, backward=True)
     rows = pairs.numel() // (8 * xd * h)
     _, sizes, contract, err = _launcher()
     n_parts = bwd_sizes(sizes, rows, 1, h, xd, 1, "euler")[3]

@@ -3,16 +3,19 @@
 A CUDA kernel has no CPU mode, and this package's CPU runs never reach the
 kernels. To check a kernel's source before it meets the card, this module
 compiles ``csrc/<name>.cu`` with ``g++ -std=c++20`` against a host model of
-the CUDA subset it uses (``csrc/host/cuda_host.h``: one OS thread per CUDA
-thread, barriers, warp shuffles, clusters run a cluster at a time,
-NaN-poisoned shared memory; ``csrc/host/hopper_ops.cuh``: TF32 rounding,
-the mma.sync fragment layout, cp.async made at its wait, the cluster
-barrier and shared-memory map) and calls its C launchers through ``ctypes``
-with CPU pointers. The model runs every block's 512 threads as OS threads
-and every mma through a barrier of its warp, so it takes seconds an
-evaluation: keep shapes small. It builds the channel-wise pair
-(``fused_cw_rollout{,_bwd}.cu``) and the no-encode forward and backward
-pairs (``fused_{dae,ode}_rollout{,_bwd}.cu``).
+the CUDA subset it uses (``csrc/host/cuda_host.h``: a cluster's CUDA threads
+as fibers on the calling OS thread, barriers, warp shuffles, clusters run a
+cluster at a time, NaN-poisoned shared memory; ``csrc/host/hopper_ops.cuh``:
+TF32 rounding, the mma.sync fragment layout, cp.async made at its wait, the
+cluster barrier and shared-memory map) and calls its C launchers through
+``ctypes`` with CPU pointers. Every mma passes a barrier of its warp, so the
+model takes a fraction of a second to seconds an evaluation: keep shapes
+small. Each library's ``psn_host_os_threads(1)`` runs its later launches
+with one OS thread a CUDA thread instead, for the test that holds the two
+schedulers bit for bit. It builds the channel-wise pair
+(``fused_cw_rollout{,_bwd}.cu``, at every width: above 128 their wide
+layout) and the no-encode forward and backward pairs
+(``fused_{dae,ode}_rollout{,_bwd}.cu``).
 
     python -m py_psnode_tpu_torch.utils.host_build fwd|bwd|contract B Tm1 h xd zd solver [cluster]
     python -m py_psnode_tpu_torch.utils.host_build dae-bwd B Tm1 h [xd id n_tail] solver
@@ -72,7 +75,7 @@ def host_text(text: str) -> str:
     of ``host_launch_plain`` and the dynamic shared memory the block's
     buffer."""
     text = _LAUNCH.sub(r"host_launch_plain(\1, \2, \3, \4, \5, ", text)
-    return text.replace("extern __shared__ __align__(16) float smem[];", "float* smem = host_t.smem;")
+    return text.replace("extern __shared__ __align__(16) float smem[];", "float* smem = host_cur->smem;")
 
 
 def host_source(name: str) -> str:
@@ -123,7 +126,8 @@ def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
 
 
 def _fwd():
-    return FC.bind_rollout(load("fused_cw_rollout"))[0]
+    fn, _, scratch = FC.bind_rollout(load("fused_cw_rollout"))
+    return fn, scratch
 
 
 def _bwd():
@@ -141,10 +145,11 @@ def rollout(streams: Dict, weights: Dict, x0, dt, solver: str = "euler", cluster
     fz, sV = streams["fz"], streams["s_constV"]
     Tm1, B, zd, h = fz.shape
     xd = x0.shape[1]
-    sol = _nan(Tm1, B, xd, h)
-    rc = _fwd()(fz.data_ptr(), dt.data_ptr(), sV.data_ptr(), x0.data_ptr(),
-                pointer_array(FC.flatten_weights(weights)), sol.data_ptr(), Tm1, B, h, xd, zd,
-                _SOLVER_CODE[solver], cluster, None)
+    fn, scratch_floats = _fwd()
+    sol, scratch = _nan(Tm1, B, xd, h), _nan(max(1, scratch_floats(B, h)))
+    rc = fn(fz.data_ptr(), dt.data_ptr(), sV.data_ptr(), x0.data_ptr(),
+            pointer_array(FC.flatten_weights(weights)), sol.data_ptr(), scratch.data_ptr(), Tm1, B, h, xd,
+            zd, _SOLVER_CODE[solver], cluster, None)
     if rc != 0:
         raise RuntimeError(f"host launch of fused_cw_rollout failed: error {rc}")
     return sol
@@ -161,16 +166,16 @@ def rollout_bwd(streams: Dict, weights: Dict, dt, sol, cot, solver: str = "euler
     xd = sol.shape[2]
     fn, sizes, _ = _bwd()
     layout, total = VC.grad_layout(weights)
-    n_w, n_dense, n_pairs, n_parts = VC.bwd_sizes(sizes, Tm1, B, h, xd, zd, solver)
+    n_w, n_dense, n_pairs, n_parts, n_tiles = VC.bwd_sizes(sizes, Tm1, B, h, xd, zd, solver)
     assert n_w == total
     g_fz, g_sV, g_flat, g_x0 = _nan(Tm1, B, zd, h), _nan(B, h, h), _nan(total), _nan(B, xd, h)
-    partial, pairs, parts = torch.zeros(B, n_dense), _nan(n_pairs), _nan(n_parts)
+    partial, pairs, parts, tiles = torch.zeros(B, n_dense), _nan(n_pairs), _nan(n_parts), _nan(max(1, n_tiles))
     wts = VC.transposed_weights(weights)
     rc = fn(fz.data_ptr(), dt.data_ptr(), sV.data_ptr(), sol.data_ptr(), cot.data_ptr(),
             pointer_array(FC.flatten_weights(weights)), pointer_array(wts), g_fz.data_ptr(),
             g_sV.data_ptr(), partial.data_ptr(), g_flat.data_ptr(), g_x0.data_ptr(),
-            pairs.data_ptr(), parts.data_ptr(), Tm1, B, h, xd, zd, _SOLVER_CODE[solver], cluster,
-            None)
+            pairs.data_ptr(), parts.data_ptr(), tiles.data_ptr(), Tm1, B, h, xd, zd, _SOLVER_CODE[solver],
+            cluster, None)
     if rc != 0:
         raise RuntimeError(f"host launch of fused_cw_rollout_bwd failed: error {rc}")
     S = {"euler": 1, "midpoint": 2, "rk4": 4}[solver]

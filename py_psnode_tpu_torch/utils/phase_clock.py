@@ -5,14 +5,17 @@ Built with ``-DCW_PHASE_CLOCK``, ``csrc/cw_tile.cuh`` has thread 0 of block
 of an evaluation in the middle step (marks 0-9) and of a stage's VJP in the
 backward (marks 16-26). This developer tool builds both channel-wise
 sources so into ``_build/phase_clock/``, apart from the builds the port
-uses (which never carry the clock), launches each on seeded inputs (h=128,
+uses (which never carry the clock), launches each on seeded inputs (h=128 unless given,
 Euler) with one block a row and with the launcher's choice, and prints the
 cycles of each phase:
 
-    python -m py_psnode_tpu_torch.utils.phase_clock [B Tm1 xd zd]
+    python -m py_psnode_tpu_torch.utils.phase_clock [B Tm1 xd zd [h]]
 
-The defaults, 64 100 2 2, are the AVR ODE channel-wise shape at its
-training batch; 64 100 3 1 is the motor DAE's. It needs the card and nvcc.
+The defaults, 64 100 2 2 (h=128), are the AVR ODE channel-wise shape at its
+training batch; 64 100 3 1 is the motor DAE's. Above h=128 the wide kernels
+mark the same phases (``csrc/cw_wide.cuh``: there "first layer" is the wait
+for the tile, "a0 store" the first layer with its store). It needs the card
+and nvcc.
 
 Built with ``-DNE_PHASE_CLOCK``, the no-encode backward walks
 (``csrc/fused_dae_rollout_bwd.cu``, ``csrc/fused_ode_rollout_bwd.cu``) mark
@@ -42,8 +45,9 @@ Three comparisons across checkouts, for a change's effect on one card:
 
     python -m py_psnode_tpu_torch.utils.phase_clock sass-ab OTHER_CSRC
 
-builds the four no-encode sources from ``OTHER_CSRC`` and from this
-checkout (no card needed, only nvcc) and says of each kernel of the other
+builds the four no-encode sources and the two channel-wise ones from
+``OTHER_CSRC`` and from this checkout (no card needed, only nvcc) and says
+of each kernel of the other
 build whether this build has one of the same SASS (``[ne-sass-ab]``): a
 kernel template that gained a trailing ``bool`` (the bf16 mode's
 ``kBf16``) is matched at ``false``, ``pack_nets`` at ``pack_nets<float>``.
@@ -292,12 +296,14 @@ def sass(lib: pathlib.Path, demangle: bool = False) -> Dict[str, str]:
 
 
 def sass_ab(other: pathlib.Path) -> int:
-    """``[ne-sass-ab]``: the four no-encode sources built from ``other``
-    and from this checkout; of each kernel of the other build, whether this
-    build has one of the same SASS. Returns 0 when every one has."""
-    names = ("fused_dae_rollout", "fused_dae_rollout_bwd", "fused_ode_rollout", "fused_ode_rollout_bwd")
+    """``[ne-sass-ab]``: the four no-encode sources and the two
+    channel-wise ones built from ``other`` and from this checkout; of each
+    kernel of the other build, whether this build has one of the same SASS.
+    Returns 0 when every one has."""
+    names = ("fused_dae_rollout", "fused_dae_rollout_bwd", "fused_ode_rollout", "fused_ode_rollout_bwd",
+             "fused_cw_rollout", "fused_cw_rollout_bwd")
     jobs = [(n, d) for n in names for d in (other, SOURCE_DIR)]
-    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+    with concurrent.futures.ThreadPoolExecutor(12) as pool:
         libs = dict(zip(jobs, pool.map(lambda j: build(j[0], "", (), j[1]), jobs)))
     # a template that gained a trailing bool, at false; pack_nets at <float>
     # (cu++filt writes a template's arguments as (bool)0 and its return type)
@@ -470,8 +476,7 @@ def main(argv=None) -> int:
         rest = argv[1:]
         return noencode(int(rest[0]) if rest else 64, int(rest[1]) if len(rest) > 1 else 100,
                         rest[2] if len(rest) > 2 else "rk4")
-    B, Tm1, xd, zd = map(int, argv) if argv else (64, 100, 2, 2)
-    h = FC.MAX_HIDDEN
+    B, Tm1, xd, zd, h = (list(map(int, argv)) + [128])[:5] if argv else (64, 100, 2, 2, 128)
     print(f"[cw-split] card: {card()}", flush=True)
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         fwd_lib, bwd_lib = pool.map(build, ("fused_cw_rollout", "fused_cw_rollout_bwd"))

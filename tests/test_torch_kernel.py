@@ -649,11 +649,96 @@ def test_cw_kernels_refuse_bad_inputs_on_card():
         FC.fused_cw_rollout_cuda(streams, weights, x0.double(), dt)
     with pytest.raises(ValueError, match="shape"):
         FC.fused_cw_rollout_cuda(streams, weights, x0, dt[:, :3].contiguous())
-    with pytest.raises(ValueError, match="h <= 128"):
-        FC.fused_cw_rollout_cuda(*cw_inputs(2, 3, 136, 2, 2, dev="cuda"))
+    # past the JAX package's widest h: 724 forward, 572 backward
+    with pytest.raises(ValueError, match="h <= 724"):
+        FC.fused_cw_rollout_cuda(*cw_inputs(1, 1, 725, 2, 2, dev="cuda"))
+    w_s, w_w, w_x0, w_dt = cw_inputs(1, 1, 573, 2, 2, dev="cuda")
+    w_sol = torch.cat([w_x0[None], FC.fused_cw_rollout_cuda(w_s, w_w, w_x0, w_dt)])
+    with pytest.raises(ValueError, match="h <= 572"):
+        VC.fused_cw_rollout_bwd_cuda(w_s, w_w, w_dt, w_sol, w_sol)
     sol = torch.cat([x0[None], FC.fused_cw_rollout(streams, weights, x0, dt)])
     with pytest.raises(ValueError, match="shape"):
         VC.fused_cw_rollout_bwd_cuda(streams, weights, dt, sol, sol[:6].contiguous())
+
+
+def _hold_cw(got, again, ref):
+    """Per output tensor: within 1e-4 of the plain one's scale, bit-identical
+    on relaunch."""
+    for k, (g, g2, r) in enumerate(zip(got, again, ref)):
+        scale = r.abs().max().item()
+        assert scale > 0, k
+        assert torch.equal(g, g2), k
+        assert (g.double() - r).abs().max() <= 1e-4 * scale, k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["euler", "midpoint", "rk4"])
+@pytest.mark.parametrize("xd,zd", CW_SHAPES)
+@pytest.mark.parametrize("h", [136, 256])  # the wide layout: two 128-wide blocks, the first mostly padding
+def test_cw_wide_kernels_match_plain_on_card(solver, xd, zd, h):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    args = cw_inputs(5, 9, h, xd, zd, seed=h, dev="cuda")
+    ref = FC.fused_cw_rollout_plain(*args, solver)
+    before = FC.fused_cw_rollout.launches
+    got = FC.fused_cw_rollout_cuda(*args, solver)
+    again = FC.fused_cw_rollout_cuda(*args, solver)
+    torch.cuda.synchronize()
+    assert FC.fused_cw_rollout.launches == before + 2
+    assert torch.all((got - ref).abs() <= 1e-4 * ref.abs().clamp(min=1.0))
+    assert torch.equal(got, again)
+    _hold_cw(*cw_bwd_against_float64(*args, solver))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [512, 572, 724])
+def test_cw_wide_kernels_take_the_widest_h_on_card(h):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    args = cw_inputs(2, 3, h, 3, 1, seed=h, dev="cuda")
+    ref = FC.fused_cw_rollout_plain(*args, "euler")
+    got = FC.fused_cw_rollout_cuda(*args, "euler")
+    torch.cuda.synchronize()
+    assert torch.all((got - ref).abs() <= 1e-4 * ref.abs().clamp(min=1.0))
+    if h <= FC.MAX_HIDDEN_BWD:
+        _hold_cw(*cw_bwd_against_float64(*args, "euler"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", [2, 4, 8])
+def test_cw_wide_kernels_give_one_blocks_bits_at_each_cluster_size_on_card(cluster):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    streams, weights, x0, dt = cw_inputs(3, 5, 256, 2, 2, seed=cluster, dev="cuda")
+    ref = FC.fused_cw_rollout_plain(streams, weights, x0, dt, "midpoint")
+    got, one = (FC._launch(streams, weights, x0, dt, "midpoint", c) for c in (cluster, 1))
+    torch.cuda.synchronize()
+    assert torch.all((got - ref).abs() <= 1e-4 * ref.abs().clamp(min=1.0))
+    # the ranks of a cluster deal out each product's output blocks, not sums
+    assert torch.equal(got, one)
+    sol = torch.cat([x0[None], ref])
+    cot = torch.tensor(np.random.default_rng(cluster).standard_normal(tuple(sol.shape)).astype(np.float32),
+                       device="cuda")
+    flat = lambda g_s, g_w, g_x0: [g_s["fz"], g_s["s_constV"], g_x0] + FC.flatten_weights(g_w)
+    got, one = (flat(*VC._launch_bwd(streams, weights, dt, sol, cot, "midpoint", c)) for c in (cluster, 1))
+    torch.cuda.synchronize()
+    for k, (g, g1) in enumerate(zip(got, one)):
+        assert torch.equal(g, g1), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,xd,h", [(1, 2, 136), (300, 3, 256), (20, 2, 572)])
+def test_cw_wide_pair_contraction_matches_plain_on_card(rows, xd, h):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    rng = np.random.default_rng(rows)
+    pairs = torch.tensor(rng.standard_normal((rows, 4, 2, xd, h)).astype(np.float32), device="cuda")
+    got, again = VC.contract_channel_pairs_cuda(pairs), VC.contract_channel_pairs_cuda(pairs)
+    torch.cuda.synchronize()
+    for g, g2, r in zip(got, again, VC.contract_channel_pairs_plain(pairs.double())):
+        assert g.shape == r.shape
+        assert torch.equal(g, g2)
+        assert (g.double() - r).abs().max() <= 1e-5 * r.abs().max()
 
 
 # ---------------------------------------------------------------- TF-x mode
