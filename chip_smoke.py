@@ -7,8 +7,10 @@
 
 Phases, each printed as it ends; any failure exits non-zero:
   1. card: name, device count, and nvidia-smi's name and power limit;
-  2. build: nvcc builds the six libraries (the DAE, ODE and channel-wise
-     forward and backward) all at once (seconds printed for each);
+  2. build: nvcc builds the six sources (the DAE, ODE and channel-wise
+     forward and backward) and the bf16 mode's builds of the DAE forward
+     and the channel-wise pair (``cuda_build.SPLIT_BF16``), all nine at once
+     (seconds printed for each);
   3. forward kernel against plain: the kernel and its eager PyTorch version
      on the same seeded random inputs at the motor evaluation shape (B=32,
      T=1001, h=128, xd=3, id=2, events in some rows), for Euler, Midpoint
@@ -189,7 +191,33 @@ Phases, each printed as it ends; any failure exits non-zero:
      package's anchors (``CW_WIDE_ANCHORS``) at rtol 1e-3 and nearer its own
      solver's; then both kernels timed at B=64, T=1001 (h=256 Euler and
      RK4, and the forward at h=512 Euler) beside their bounds, the plain
-     versions once at h=256 Euler; the phase prints its seconds.
+     versions once at h=256 Euler; the phase prints its seconds;
+ 23. the bf16 compute mode of kernels 5-6 (both layouts) and of kernels
+     1-2's TF-x mode: kernels 5-6 against their plain bf16 versions at
+     h=128, B=64, T=1001, RK4 on the channel-wise slice's inputs and at
+     h=256 on seeded inputs (B=8, T=201, each solver), both channel shapes;
+     kernels 1-2 in the bf16 TF-x mode at B=64, T=1001, h=128, RK4 (the motor
+     DAE from checkpoint 200, its data's x the true states) and at the
+     direct-encode shape with g_xt / g_xt1; all by phase 21's ratio bars:
+     at most 0.1 one step or product from the kernel's own values (kernel
+     5: steps spread over the rollout; kernel 6: one evaluation's VJP from
+     its own (u, v) pairs and the contraction's gradients from them; of
+     kernels 5-6, where a flip puts a local tensor above 0.1, each local
+     tensor at most max(0.25, 2 x its local floor)), and over the whole
+     rollout at most 0.1, or else each tensor at most max(0.25, 2 x its
+     floor), the backward bit-identical on relaunch with float32
+     gradients; the Trainer (fused, bf16, one epoch of two steps, Euler)
+     of both channel-wise variants at h=128 and h=256 (CW_WIDE's sets) and
+     of the two TF-x DAEs, each step-1 loss and gradient norm and each eval
+     within a tenth of the distance between the JAX package's bf16 and
+     float32 anchors (``CW_BF16_ANCHORS``, ``TF_BF16_ANCHORS``) of the bf16
+     one and nearer it (the evals that cannot tell the two apart,
+     ``CW_BF16_EVAL_UNRESOLVED``, printed and not held), every launch
+     counted and in the bf16 mode; then each bf16 kernel
+     timed beside its float32 instantiation on the same inputs with its
+     bound at 989 TFLOP/s (kernels 5-6 at h=128, B=64, T=1001, RK4 and at
+     h=256 Euler; kernels 1-2 TF-x at B=64, RK4); the phase prints its
+     seconds.
 The line before the last two is the kernels' JSON record, then nvidia-smi's
 line, and the last line is ``{"ok": true, "device": {...}}``. Nothing is
 written into the repository except the kernel builds under
@@ -601,15 +629,15 @@ def phase_card():
 
 
 def phase_build():
-    """The six libraries at once (one nvcc each), then load them."""
+    """The nine builds at once (one nvcc each: the six sources, and the bf16
+    mode's builds of the three that build it apart), then load them."""
     t0 = time.perf_counter()
-    names = ("fused_dae_rollout", "fused_dae_rollout_bwd", "fused_ode_rollout",
-             "fused_ode_rollout_bwd", "fused_cw_rollout", "fused_cw_rollout_bwd")
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        nvcc_s = dict(zip(names, pool.map(cuda_build.build, names)))
-    for mod in (F, V, FO, VO, FC, VC):
+    jobs = cuda_build.builds()
+    names = [n + "".join(f" -D{d}" for d in cuda_build.mode_defines(n, bf16)) for n, bf16 in jobs]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        nvcc_s = dict(zip(names, pool.map(lambda j: cuda_build.build(*j), jobs)))
+    for mod in (F, V, FO, VO, FC, VC):  # the float32 and the bf16 compute mode's launchers
         mod._launcher()
-    for mod in (F, V, FO, VO):  # the bf16 compute mode's launchers
         mod._launcher(True)
     for name, t in nvcc_s.items():
         say(f"[build] {name}: nvcc {t:.2f} s")
@@ -2603,11 +2631,12 @@ MS_APPLY = {"dae_no_encode": (MS.fused_multishoot_dae_apply, MS.multishoot_dae_a
 
 @contextlib.contextmanager
 def kernel_calls():
-    """Records the arguments of every launch of kernels 1-4 through their
+    """Records the arguments of every launch of kernels 1-6 through their
     wrappers, by kernel number: ``{k: [(args, kwargs), ...]}``."""
-    calls = {k: [] for k in range(1, 5)}
+    calls = {k: [] for k in range(1, 7)}
     wrappers = ((F, "fused_dae_rollout_packed_cuda", 1), (V, "fused_dae_rollout_bwd_cuda", 2),
-                (FO, "fused_ode_rollout_cuda", 3), (VO, "fused_ode_rollout_bwd_cuda", 4))
+                (FO, "fused_ode_rollout_cuda", 3), (VO, "fused_ode_rollout_bwd_cuda", 4),
+                (FC, "fused_cw_rollout_cuda", 5), (VC, "fused_cw_rollout_bwd_cuda", 6))
     originals = [getattr(mod, name) for mod, name, _ in wrappers]
     for (mod, name, k), orig in zip(wrappers, originals):
         def record(*args, _orig=orig, _k=k, **kwargs):
@@ -2622,9 +2651,12 @@ def kernel_calls():
 
 
 def call_rows(call):
-    """The batch rows of a recorded launch (its ``s_de [T-1, B, h]``)."""
+    """The batch rows of a recorded launch (its ``s_de [T-1, B, h]``, or
+    kernels 5-6's ``fz [T-1, B, zd, h]``)."""
     first = call[0][0]
-    return (first["s_de"] if isinstance(first, dict) else first).shape[1]
+    if isinstance(first, dict):
+        first = first["s_de"] if "s_de" in first else first["fz"]
+    return first.shape[1]
 
 
 def all_counts():
@@ -2732,8 +2764,8 @@ def phase_ms_slice(dev, files, root):
     ``gap_weight=0.3``, one epoch of two steps, Euler, every step logged)
     for each variant, steps 1 and 2 and the full-rollout epoch-1 eval
     against MS_ANCHORS at rtol 1e-3, the launches of kernels 1-6 counted
-    (set to 0 just before, read just after; the rows of each launch of
-    kernels 1-4 recorded); then the CLI ``--training --fused --n_windows
+    (set to 0 just before, read just after; the rows of each launch
+    recorded); then the CLI ``--training --fused --n_windows
     20 --gap_weight 0.3`` of the motor DAE, and ``--n_windows 7`` refused
     with the JAX package's error. Returns the folded launches of kernels
     1-2 (the motor DAE's run) and 3-4 (the ODE's), and kernel 5's launches
@@ -2778,7 +2810,7 @@ def phase_ms_slice(dev, files, root):
         say(f"[ms-train] {variant} --fused --n_windows {MS_WINDOWS} --gap_weight {MS_GAP_WEIGHT} (Trainer, batch "
             f"{size['batch']}, euler): steps {got['step1']}, {got['step2']}; epoch-1 eval (full rollout) "
             f"{got['eval1']}; worst rel. err. to the JAX anchors {max(errs):.2e}; launches of kernels 1-6: {n}, "
-            f"of its kernel pair at {MS_B if size['batch'] == 64 else '-'} rows: {folded}; rows of kernels 1-4: "
+            f"of its kernel pair at {MS_B if size['batch'] == 64 else '-'} rows: {folded}; rows of kernels 1-6: "
             f"{ {k: [call_rows(c) for c in v] for k, v in rows.items() if v} }; wall {wall:.2f} s")
         if not ok:
             fail(f"{variant} multishoot launched kernels 1-6 {n} times ({folded} at {MS_B} rows), not as its "
@@ -3273,17 +3305,22 @@ def f64(tree):
     return tree.double()
 
 
-def bf16_local_dae(cs, cw, streams, weights, x0, i0, aux, packed, solver):
+def bf16_local_dae(cs, cw, streams, weights, x0, i0, aux, packed, solver, x_true=None):
     """Kernel 1's rows against one step of the plain versions from the
     kernel's own states, all row-steps at once: row (t, b) starts from the
     kernel's x_t and i_t (the event recompute at its x_t), the AE at t+1
-    reads its x_{t+1}. Per tensor (x, i): ([plain bf16], [plain float32])."""
+    reads its x_{t+1}; in the TF-x mode (``x_true [T, B, xd]``) the step
+    starts from ``x_true[t]`` and the AE reads ``x_true[t+1]``. Per tensor
+    (x, i): ([plain bf16], [plain float32])."""
     Tm1, B, _ = cs["s_de"].shape
     xd = x0.shape[-1]
     sol = torch.cat([torch.cat([x0, i0], -1)[None], packed])
     rows = lambda a: a.reshape(1, Tm1 * B, -1)
     x_s, i_s = sol[:-1, :, :xd].reshape(Tm1 * B, xd), sol[:-1, :, xd:].reshape(Tm1 * B, -1)
-    x_true = torch.stack([x_s, sol[1:, :, :xd].reshape(Tm1 * B, xd)])
+    if x_true is None:
+        x_true = torch.stack([x_s, sol[1:, :, :xd].reshape(Tm1 * B, xd)])
+    else:
+        x_true = torch.stack([x_true[:-1].reshape(Tm1 * B, xd), x_true[1:].reshape(Tm1 * B, xd)])
     one = lambda s, w: F.fused_dae_rollout_packed_plain(
         {k: rows(v) for k, v in s.items()}, w, x_s, i_s, rows(aux), solver, x_true).reshape(Tm1, B, -1)
     split = lambda q: [q[..., :xd], q[..., xd:]]
@@ -3350,7 +3387,7 @@ def bf16_by_step(g, r, f, n=6):
     return [(t, bf16_ratios([g[t]], [r[t]], [f[t]])[0]) for t in pick]
 
 
-def bf16_hold(what, got, again, ref, ref_f32, floor_fn, local):
+def bf16_hold(what, got, again, ref, ref_f32, floor_fn, local, local_floor=None):
     """The bf16 kernel ``got`` (a list of output tensors) against its plain
     bf16 version ``ref`` over the whole rollout, by the ratio
     rel-L2(kernel - plain bf16) / rel-L2(plain bf16 - float32) per tensor
@@ -3363,26 +3400,41 @@ def bf16_hold(what, got, again, ref, ref_f32, floor_fn, local):
     float32]), one product or step from the kernel's own values, free of
     the rollout's amplification: every tensor at most BF16_BAR (a bias
     gradient, which no rounding touches, within BWD_TOL of the plain
-    version's largest element, as in float32). A relaunch ``again``
-    bit-identical.
+    version's largest element, as in float32); with ``local_floor`` (a
+    function giving the local plain bf16 version in float64 arithmetic from
+    the same values: kernels 5-6), where a local tensor lies above BF16_BAR,
+    every local tensor at most max(BF16_FULL_BAR, 2 x its local floor), as
+    over the whole rollout (a channel-wise model's float32 sums lie close
+    enough to bf16 rounding boundaries that two float32 orders part at one
+    step by about the bar: phase 23; the local floors, and the kernel's
+    ratios against the local float64 version, are printed). A relaunch
+    ``again`` bit-identical.
     Returns (the worst whole-rollout ratio, that tensor's bar, the worst
     local ratio, the largest max|kernel - plain bf16|)."""
-    from py_psnode_tpu_torch.utils.host_build import bf16_ratios, rel_l2
+    from py_psnode_tpu_torch.utils.host_build import bf16_bars, bf16_ratios, rel_l2
 
-    ratios = bf16_ratios(got, ref, ref_f32)
-    bars, floors = [BF16_BAR] * len(ratios), None
-    if max(ratios) > BF16_BAR:
-        floors = bf16_ratios(floor_fn(), ref, ref_f32)
-        bars = [max(BF16_FULL_BAR, 2 * f) for f in floors]
+    ratios, bars, floors = bf16_bars(got, ref, ref_f32, floor_fn)
     exact = [rel_l2(b, f) == 0 for _, b, f in zip(*local)]
-    loc = bf16_ratios(*([t for t, e in zip(ts, exact) if not e] for ts in local))
+    rounded = lambda ts: [t for t, e in zip(ts, exact) if not e]
     if not all((g - b).abs().max() <= BWD_TOL * b.abs().max() for g, b, _, e in zip(*local, exact) if e):
         fail(f"{what}: a tensor that no bf16 rounding touches lies further than BWD_TOL from the plain version")
+    loc_floors = None
+    if local_floor is None:
+        loc = bf16_ratios(*(rounded(ts) for ts in local))
+        loc_bars = [BF16_BAR] * len(loc)
+    else:  # the local floors printed whether or not a bar needs them
+        lf = rounded(local_floor())
+        loc_floors = bf16_ratios(lf, *(rounded(ts) for ts in local[1:]))
+        loc_exact = bf16_ratios(rounded(local[0]), lf, rounded(local[2]))
+        loc, loc_bars, _ = bf16_bars(*(rounded(ts) for ts in local), lambda: lf)
     worst_loc = max(loc)
     say(f"[bf16-hold] {what}: whole rollout, per tensor rel-L2(kernel - plain bf16) / rel-L2(plain bf16 - "
         f"float32) {[f'{r:.4f}' for r in ratios]}"
         + ("" if floors is None else f", floor (plain bf16 in float64 arithmetic) {[f'{f:.4f}' for f in floors]}")
-        + f"; one product or step from the kernel's own values, worst of {len(loc)} tensors {worst_loc:.4f}")
+        + f"; one product or step from the kernel's own values, worst of {len(loc)} tensors {worst_loc:.4f}"
+        + ("" if loc_floors is None else f" (per tensor {[f'{r:.4f}' for r in loc]}, local floor "
+                                         f"{[f'{f:.4f}' for f in loc_floors]}, the kernel against the float64 "
+                                         f"version {[f'{r:.4f}' for r in loc_exact]})"))
     if floors is not None:
         for n, (g, r, f) in enumerate(zip(got, ref, ref_f32)):
             if g.dim() == 3:
@@ -3391,51 +3443,57 @@ def bf16_hold(what, got, again, ref, ref_f32, floor_fn, local):
     if not all(np.isfinite(g.double().sum().item()) for g in got):
         fail(f"{what}: the kernel's output is not finite")
     over = [(n, r, b) for n, (r, b) in enumerate(zip(ratios, bars)) if r > b]
-    if worst_loc > BF16_BAR or over:
-        fail(f"{what}: local worst {worst_loc:.4f} (bar {BF16_BAR}); whole rollout (tensor, ratio, bar) over the "
-             f"bar: {over}")
+    loc_over = [(n, r, b) for n, (r, b) in enumerate(zip(loc, loc_bars)) if r > b]
+    if loc_over or over:
+        fail(f"{what}: local (tensor, ratio, bar) over the bar: {loc_over}; whole rollout (tensor, ratio, bar) over "
+             f"the bar: {over}")
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         fail(f"{what}: a relaunch gave other bits")
     n = max(range(len(ratios)), key=ratios.__getitem__)
     return ratios[n], bars[n], worst_loc, max((g - r).abs().max().item() for g, r in zip(got, ref))
 
 
-def bf16_kernel_pair(what, family, args, solver, cot_seed):
+def bf16_kernel_pair(what, family, args, solver, cot_seed, x_true=None, g_true=False):
     """Kernels 1-2 (``family`` "dae": ``args`` = (streams, weights, x0, i0,
-    aux)) or 3-4 ("ode": (s_de, weights, x0, dt)) in the bf16 mode on the
-    rounded ``args`` (bf16_hold): the forward against the plain versions
-    over the whole rollout and one step from its own states; the backward,
-    on the bf16 forward's solution with unit-scale cotangents, over the
-    whole walk and one product from its own buffers (the recompute's
-    pre-activations, the walk's cotangents, the contraction's gradients),
-    bit-identical on relaunch. Returns ({kernel: bf16_hold's tuple},
-    {kernel: the plain bf16 version's ms, CUDA events, one run})."""
+    aux); with ``x_true`` their TF-x mode, the backward with the true
+    states' cotangents where ``g_true``) or 3-4 ("ode": (s_de, weights, x0,
+    dt)) in the bf16 mode on the rounded ``args`` (bf16_hold): the forward
+    against the plain versions over the whole rollout and one step from its
+    own states; the backward, on the bf16 forward's solution with
+    unit-scale cotangents, over the whole walk and one product from its own
+    buffers (the recompute's pre-activations, the walk's cotangents, the
+    contraction's gradients), bit-identical on relaunch. Returns ({kernel:
+    bf16_hold's tuple}, {kernel: the plain bf16 version's ms, CUDA events,
+    one run})."""
     out, plain_ms = {}, {}
     t0 = time.perf_counter()
     if family == "dae":
         streams, weights, x0, i0, aux = args
+        xt = x_true
         cs, cw = F.cast_compute(streams, weights, BF16)
         xd, idim = x0.shape[-1], i0.shape[-1]
         split = lambda p: [p[..., :xd], p[..., xd:]]
-        fwd = lambda: F.fused_dae_rollout_packed_cuda(cs, cw, x0, i0, aux, solver)
+        fwd = lambda: F.fused_dae_rollout_packed_cuda(cs, cw, x0, i0, aux, solver, x_true=xt)
         packed, again = fwd(), fwd()
-        ref, plain_ms[1] = timed_once(lambda: F.fused_dae_rollout_packed_plain(cs, cw, x0, i0, aux, solver))
-        packed_f = F.fused_dae_rollout_packed_cuda(streams, weights, x0, i0, aux, solver)
+        ref, plain_ms[1] = timed_once(lambda: F.fused_dae_rollout_packed_plain(cs, cw, x0, i0, aux, solver, xt))
+        packed_f = F.fused_dae_rollout_packed_cuda(streams, weights, x0, i0, aux, solver, x_true=xt)
         floor = lambda: split(F.fused_dae_rollout_packed_plain(f64(cs), cw, x0.double(), i0.double(), aux.double(),
-                                                               solver))
-        local = (split(packed), *bf16_local_dae(cs, cw, streams, weights, x0, i0, aux, packed, solver))
+                                                               solver, None if xt is None else xt.double()))
+        local = (split(packed), *bf16_local_dae(cs, cw, streams, weights, x0, i0, aux, packed, solver, xt))
         out[1] = bf16_hold(f"{what} kernel 1", split(packed), split(again), split(ref), split(packed_f), floor, local)
         Tm1, B, h = cs["s_de"].shape
         cot = torch.tensor(np.random.default_rng(cot_seed).standard_normal((Tm1 + 1, B, xd + idim))
                            .astype(np.float32), device=x0.device)
-        flat = lambda g: [v for _, v in bwd_outputs(g)]
-        g, bufs = V._launch_bwd(cs, cw, x0, i0, aux, packed, cot, solver)
-        got, again = flat(g), flat(V._launch_bwd(cs, cw, x0, i0, aux, packed, cot, solver)[0])
+        flat = lambda g: [v for _, v in tf_bwd_outputs(g, g_true)]
+        tf_kw = dict(x_true=xt, g_true=g_true)
+        g, bufs = V._launch_bwd(cs, cw, x0, i0, aux, packed, cot, solver, **tf_kw)
+        got, again = flat(g), flat(V._launch_bwd(cs, cw, x0, i0, aux, packed, cot, solver, **tf_kw)[0])
         ref, plain_ms[2] = timed_once(lambda: flat(V.fused_dae_rollout_bwd_plain(cs, cw, x0, i0, aux, packed, cot,
-                                                                                  solver)))
-        ref_f32 = flat(V._launch_bwd(streams, weights, x0, i0, aux, packed_f, cot, solver)[0])
+                                                                                  solver, xt, g_true)))
+        ref_f32 = flat(V._launch_bwd(streams, weights, x0, i0, aux, packed_f, cot, solver, **tf_kw)[0])
         floor = lambda: [t.float() for t in flat(V.fused_dae_rollout_bwd_plain(
-            f64(cs), cw, x0.double(), i0.double(), aux.double(), packed.double(), cot.double(), solver))]
+            f64(cs), cw, x0.double(), i0.double(), aux.double(), packed.double(), cot.double(), solver,
+            None if xt is None else xt.double(), g_true))]
         if not all(t.dtype == torch.float32 for t in got):
             fail(f"{what} kernel 2 returned a gradient that is not float32")
         S, L = STAGES[solver], max(len(cw["de_tail"]), len(cw["ae_tail"]))
@@ -3452,6 +3510,8 @@ def bf16_kernel_pair(what, family, args, solver, cot_seed):
             bufs["xin"].view(S + 2, R, -1), ev, n_tails, xd, idim, cdtype=cd))[0]
         local = (lg + V.flatten_weights(g[1])[0], lb + ct(torch.bfloat16), lf + ct(torch.float32))
         out[2] = bf16_hold(f"{what} kernel 2", got, again, ref, ref_f32, floor, local)
+        if not all(t.dtype == torch.float32 for t in got):
+            fail(f"{what} kernel 2 returned a gradient that is not float32")
     else:
         s_de, weights, x0, dt = args
         cs, cw = FO.cast_ode(s_de, weights, BF16)
@@ -3611,7 +3671,7 @@ def phase_bf16_slice(dev, files, root):
         n = all_counts()
         pair = (1, 2) if variant.startswith("dae") else (3, 4)
         dtypes = {c[0][0]["s_de"].dtype if isinstance(c[0][0], dict) else c[0][0].dtype
-                  for k in calls for c in calls[k]}
+                  for k in range(1, 5) for c in calls[k]}
         if (not all(n[k - 1] > 0 for k in pair) or any(n[k - 1] for k in range(1, 7) if k not in pair)
                 or dtypes != {torch.bfloat16} or n[pair[1] - 1] != 2):
             fail(f"{name} bf16 Trainer launched kernels 1-6 {n} times (stream dtypes {dtypes}), not kernels {pair} "
@@ -3702,6 +3762,421 @@ def phase_bf16(dev, root, ode_files):
     times, steps = phase_bf16_times(dev, files, plain_ms)
     say(f"[bf16] phase 21 in {time.perf_counter() - t0:.1f} s")
     return dict(kernel_err=kernel_err, launches=launches, times=times, steps=steps)
+
+
+# --------------------------------------- bf16 of kernels 5-6 and of TF-x
+
+# The bf16 compute mode of kernels 5-6 and of the TF-x mode of kernels 1-2
+# (phase 23): the JAX package's Trainer on the CPU (fused=True, the Pallas
+# kernels in interpret mode), Euler, one epoch of two steps, in bf16 and in
+# float32 from the same weights: step 1 (loss, gradient norm) and the
+# epoch-1 eval. The
+# channel-wise variants from cw_start_checkpoint (seed 0) at h=128 and h=256
+# on CW_WIDE's sets (16 AVR training samples of T=201 and 8 test samples,
+# seed 0; the motor set cut to T=201; batches of 8): CW_TRAIN's full ODE set
+# (128 samples of T=1001 in batches of 64) makes the JAX interpret-mode run
+# on the CPU too long. The TF-x DAEs in the settings of TF_ANCHORS (the
+# motor DAE from checkpoint 200, the direct-encode DAE from its starting
+# checkpoint, batch 64, T=1001); beside them the port's own Trainer on the
+# CPU in bf16 (port_cpu: the plain versions, which round where the JAX
+# kernels round, tests/test_torch_cw_bf16.py). Re-derived by `python
+# tests/test_torch_cw_bf16.py anchors` (needs JAX).
+CW_BF16_ANCHORS = {
+    ("dae_channelwise", 128): dict(bf16=dict(step1=(3.7890203, 236.25581), eval1=(0.86215788, 9.4037237)),
+                                   f32=dict(step1=(3.7891843, 236.11955), eval1=(0.93453008, 9.4113598)),
+                                   port_cpu=dict(step1=(3.7890203, 236.2558), eval1=(0.86169094, 9.4072504))),
+    ("ode_channelwise", 128): dict(bf16=dict(step1=(12.87032, 204.50177), eval1=(9.0126514,)),
+                                   f32=dict(step1=(12.870235, 204.60582), eval1=(9.0408382,)),
+                                   port_cpu=dict(step1=(12.870317, 204.5014), eval1=(9.0122013,))),
+    ("dae_channelwise", 256): dict(bf16=dict(step1=(3.8613977, 416.72736), eval1=(782.85901, 45.955429)),
+                                   f32=dict(step1=(3.8614087, 416.72968), eval1=(789.72473, 48.335258)),
+                                   port_cpu=dict(step1=(3.8614008, 416.728), eval1=(782.55023, 45.900188))),
+    ("ode_channelwise", 256): dict(bf16=dict(step1=(10.635276, 368.40375), eval1=(25.203434,)),
+                                   f32=dict(step1=(10.635271, 368.33716), eval1=(27.213701,)),
+                                   port_cpu=dict(step1=(10.635272, 368.40268), eval1=(25.261364,))),
+}
+TF_BF16_ANCHORS = {
+    "dae_no_encode": dict(bf16=dict(step1=(0.18999723, 29.616348), eval1=(0.0002148456, 0.6690352)),
+                          f32=dict(step1=(0.18992327, 28.449408), eval1=(0.00021556605, 0.59755361)),
+                          port_cpu=dict(step1=(0.1899972, 29.616243), eval1=(0.00021484251, 0.66901869))),
+    "dae_encode": dict(bf16=dict(step1=(13.12748, 306.38745), eval1=(0.57753408, 23.194702)),
+                       f32=dict(step1=(13.127804, 306.38052), eval1=(0.57797414, 23.298212)),
+                       port_cpu=dict(step1=(13.127475, 306.38779), eval1=(0.57752639, 23.195568))),
+}
+# steps of a 1 000-step rollout taken one at a time from the kernel's own
+# values (the local checks of kernels 5-6)
+CW_LOCAL_STEPS = 10
+# Where the JAX package's bf16 and float32 anchors of a number lie closer
+# than this (relative), a tenth of their distance falls below the float32
+# agreement of the port with the JAX package at step 1 (3.1e-7 at h=256 on
+# the card): such a number (the channel-wise step-1 losses from the starting
+# checkpoints, 5e-7 to 7e-6 apart, and the DAE's step-1 gradient norm at
+# h=256) is held within this of the bf16 anchor; the others tell bf16 from
+# float32
+BF16_ANCHOR_RESOLVED = 1e-5
+# The epoch-1 evals (after Adam's first two updates) that cannot tell the
+# bf16 mode from float32 at a tenth of their distance: Adam's first step
+# moves every weight by the learning rate times the sign of its gradient,
+# so the signs of the smallest gradients, which any summation order turns,
+# set the eval. The witness (`python tests/test_torch_cw_bf16.py witness`,
+# PERF.md section 6): at the channel-wise DAE at h=128 the port's bf16
+# Trainer on the CPU lies 0.46 of the distance from the JAX bf16 anchor of
+# the i-loss in float32 arithmetic and 0.52 in float64 arithmetic, while
+# its eval of the JAX bf16 run's own updated weights lies 0.0000 from it;
+# at the other three runs the float64 run lies 0.03-0.05 of the distance
+# from every anchor. {(variant, h): indices of the evals printed and not
+# held}; the step-1 numbers and every other eval are held
+# (bf16_anchor_held).
+CW_BF16_EVAL_UNRESOLVED = {("dae_channelwise", 128): (1,)}
+
+
+def bf16_anchor_held(name, key, value, bf_anchor, f32_anchor, held=True):
+    """Fail unless ``value`` lies within 0.1 x |bf16 - float32| of the JAX
+    bf16 anchor and nearer it than the float32 one, where the two anchors
+    lie BF16_ANCHOR_RESOLVED apart or more; else unless it lies within
+    BF16_ANCHOR_RESOLVED of the bf16 anchor. Not ``held``: only finite.
+    Returns |value - bf16| / |bf16 - float32|, or None where the two are
+    not resolved."""
+    gap = abs(bf_anchor - f32_anchor)
+    if not np.isfinite(value):
+        fail(f"{name} bf16 {key} {value} is not finite")
+    if gap <= BF16_ANCHOR_RESOLVED * abs(f32_anchor):
+        if held and not near(value, bf_anchor, BF16_ANCHOR_RESOLVED):
+            fail(f"{name} bf16 {key} {value} misses the JAX bf16 anchor {bf_anchor} at rtol {BF16_ANCHOR_RESOLVED} "
+                 f"(its float32 anchor {f32_anchor} lies too near to tell the two apart)")
+        return None
+    d = abs(value - bf_anchor)
+    if held and not (d < abs(value - f32_anchor) and d <= 0.1 * gap):
+        fail(f"{name} bf16 {key} {value}: {d:.3e} from the JAX bf16 anchor {bf_anchor}, {abs(value - f32_anchor):.3e}"
+             f" from the float32 anchor {f32_anchor}; needs within 0.1 x {gap:.3e} and nearer the bf16 one")
+    return d / gap
+
+
+def local_steps(Tm1, n=CW_LOCAL_STEPS):
+    """``n`` steps spread over a rollout of ``Tm1`` steps."""
+    return sorted({round(j * (Tm1 - 1) / max(n - 1, 1)) for j in range(n)})
+
+
+def cw_local_fwd(cs, cw, streams, weights, x0, dt, rows, solver, n=CW_LOCAL_STEPS):
+    """Kernel 5's rows at ``n`` steps spread over the rollout against one
+    step of the plain versions from the kernel's own state before each:
+    (([kernel], [plain bf16], [plain float32]), a function giving [the
+    plain bf16 version in float64 arithmetic])."""
+    fz = streams["fz"]
+    Tm1, B, zd, h = fz.shape
+    ts = local_steps(Tm1, n)
+    nt = len(ts)
+    states = torch.cat([x0[None], rows[:-1]])[ts].reshape(nt * B, -1, h)
+
+    def one(w, dtype=torch.float32):
+        st = {"fz": fz[ts].reshape(1, nt * B, zd, h).to(dtype),
+              "s_constV": streams["s_constV"].repeat(nt, 1, 1).to(dtype)}
+        return FC.fused_cw_rollout_plain(st, w, states.to(dtype), dt[ts].reshape(1, nt * B, 1),
+                                         solver)[0].reshape(nt, B, -1, h).float()
+
+    return ([rows[ts]], [one(cw)], [one(weights)]), lambda: [one(cw, torch.float64)]
+
+
+def cw_local_bwd(cw, streams, weights, pairs, n=CW_LOCAL_STEPS):
+    """Kernel 6's (u, v) pairs at ``n`` steps spread over the walk against
+    one evaluation's VJP of the plain versions from the kernel's own values:
+    each stage's input (ext W0's u) and output cotangent (head W1's v) give
+    the other pairs' u (the head and ext activations, the vertical output)
+    and v (the head's, the features' and ext's cotangents). Returns
+    (([kernel], [plain bf16], [plain float32]), six tensors each, and a
+    function giving [the plain bf16 version in float64 arithmetic])."""
+    Tm1, S, B, _, _, xd, h = pairs.shape
+    fz = streams["fz"]
+    zd = fz.shape[2]
+    ts = local_steps(Tm1, n)
+    sel = pairs[ts]  # [nt, S, B, 4, 2, xd, h]
+    R = sel.shape[0] * S * B
+    xs, gy = sel[:, :, :, 3, 0].reshape(R, xd, h), sel[:, :, :, 0, 1].reshape(R, xd, h)
+    fz_r = fz[ts][:, None].expand(-1, S, -1, -1, -1).reshape(R, zd, h)
+    sv_r = streams["s_constV"][None, None].expand(len(ts), S, -1, -1, -1).reshape(R, h, h)
+    pick = ((0, 0), (1, 0), (2, 0), (1, 1), (2, 1), (3, 1))  # (layer, u or v) computed from (xs, gy)
+
+    def plain(w, bf16, dtype=torch.float32):
+        rec = []
+        with torch.enable_grad():
+            x = xs.to(dtype).requires_grad_()
+            y = FC.cw_eval(x, fz_r.to(dtype), sv_r.to(dtype), FC.work_weights(w, dtype), rec, bf16)
+            layers = rec[0]  # head W1, head W0, ext W1, ext W0: (u, pre-activation output)
+            vs = torch.autograd.grad(y, [o for _, o in layers], gy.to(dtype))
+        return [(layers[q][0].detach() if r == 0 else vs[q]).float() for q, r in pick]
+
+    got = [sel[:, :, :, q, r].reshape(R, xd, h) for q, r in pick]
+    return (got, plain(cw, True), plain(weights, False)), lambda: plain(cw, True, torch.float64)
+
+
+def cw_bf16_kernel_pair(what, args, solver, cot_seed):
+    """Kernels 5-6 in the bf16 mode on ``args`` = (streams, weights, x0,
+    dt) rounded by ``cast_cw`` (bf16_hold): the forward against the plain
+    versions over the whole rollout and one step from its own states
+    (cw_local_fwd); the backward, on the bf16 forward's solution with
+    unit-scale cotangents, over the whole walk, one evaluation's VJP from
+    its own pairs (cw_local_bwd) and the contraction kernel on its own
+    pairs of those steps, bit-identical on relaunch, its gradients
+    float32. Returns ({kernel: bf16_hold's tuple}, {kernel: the plain bf16
+    version's ms, CUDA events, one run})."""
+    out, plain_ms = {}, {}
+    t0 = time.perf_counter()
+    streams, weights, x0, dt = args
+    cs, cw = FC.cast_cw(streams, weights, BF16)
+    fwd = lambda: FC.fused_cw_rollout_cuda(cs, cw, x0, dt, solver)
+    rows, again = fwd(), fwd()
+    ref, plain_ms[5] = timed_once(lambda: FC.fused_cw_rollout_plain(cs, cw, x0, dt, solver))
+    rows_f = FC.fused_cw_rollout_cuda(streams, weights, x0, dt, solver)
+    floor = lambda: [FC.fused_cw_rollout_plain(f64(cs), cw, x0.double(), dt, solver).float()]
+    local, local_floor = cw_local_fwd(cs, cw, streams, weights, x0, dt, rows, solver)
+    out[5] = bf16_hold(f"{what} kernel 5", [rows], [again], [ref], [rows_f], floor, local, local_floor)
+    sol = torch.cat([x0[None], rows])
+    cot = torch.tensor(np.random.default_rng(cot_seed).standard_normal(tuple(sol.shape)).astype(np.float32),
+                       device=x0.device)
+    flat = lambda g: [v for _, v in cw_bwd_outputs(g)]
+    bufs = {}
+    g = VC._launch_bwd(cs, cw, dt, sol, cot, solver, 0, bufs=bufs)
+    got, again = flat(g), flat(VC._launch_bwd(cs, cw, dt, sol, cot, solver, 0))
+    ref, plain_ms[6] = timed_once(lambda: flat(VC.fused_cw_rollout_bwd_plain(cs, cw, dt, sol, cot, solver)))
+    sol_f = torch.cat([x0[None], rows_f])
+    ref_f32 = flat(VC._launch_bwd(streams, weights, dt, sol_f, cot, solver, 0))
+    floor = lambda: [t.float() for t in flat(VC.fused_cw_rollout_bwd_plain(f64(cs), cw, dt, sol.double(),
+                                                                           cot.double(), solver))]
+    if not all(t.dtype == torch.float32 for t in got):
+        fail(f"{what} kernel 6 returned a gradient that is not float32")
+    pairs = bufs["pairs"]
+    (lg, lb, lf), pairs_floor = cw_local_bwd(cw, streams, weights, pairs)
+    # the contraction (kernel 6's last kernel) on the kernel's own pairs of
+    # the local steps: dW and db (head W1, head W0, ext W1, ext W0)
+    sub = pairs[local_steps(pairs.shape[0])].contiguous()
+    dW, db = VC.contract_channel_pairs_cuda(sub, bf16=True)
+    pb, pf = VC.contract_channel_pairs_plain(sub, bf16=True), VC.contract_channel_pairs_plain(sub)
+    local = (lg + list(dW) + list(db), lb + list(pb[0]) + list(pb[1]), lf + list(pf[0]) + list(pf[1]))
+    local_floor = lambda: pairs_floor() + [t.float() for t in VC.contract_channel_pairs_plain(
+        sub.double(), bf16=True)[0]] + list(db)
+    out[6] = bf16_hold(f"{what} kernel 6", got, again, ref, ref_f32, floor, local, local_floor)
+    del bufs, pairs, sub
+    torch.cuda.synchronize()
+    say(f"[cw-bf16-kernel] {what} {solver}: " + "; ".join(
+        f"kernel {k}: whole rollout worst {r:.4f} (its bar {b:.4f}), one step or product {lo:.4f}, "
+        f"max|d| {d:.3e}, plain bf16 {plain_ms[k]:.1f} ms" for k, (r, b, lo, d) in out.items())
+        + f"; {FC.chosen_cluster(x0.shape[0], x0.shape[2], x0.shape[1], streams['fz'].shape[2], bf16=True)} / "
+        f"{FC.chosen_cluster(x0.shape[0], x0.shape[2], x0.shape[1], streams['fz'].shape[2], True, True)} blocks a "
+        f"row; both bit-identical on relaunch; {time.perf_counter() - t0:.1f} s")
+    return out, plain_ms
+
+
+def worse(worst, held):
+    """Merge bf16_hold tuples by kernel: the worst whole-rollout ratio with
+    its bar, the worst local ratio, the largest max|d|."""
+    for k, got in held.items():
+        prev = worst.get(k, got)
+        worst[k] = (*max(prev[:2], got[:2]), max(prev[2], got[2]), max(prev[3], got[3]))
+
+
+def phase_bf16_more_kernels(dev, files, cw_files):
+    """Phase 23, part 1: kernels 5-6 in the bf16 mode (cw_bf16_kernel_pair)
+    at h=128, B=64, T=1001, RK4 on the channel-wise slice's inputs (the
+    starting checkpoints on 64 training rows) and at h=256 on seeded inputs
+    (B=8, T=201, each solver), both channel shapes; kernels 1-2 in the bf16
+    TF-x mode (bf16_kernel_pair) at B=64, T=1001, h=128, RK4 on the motor
+    DAE from checkpoint 200 (the data's x the true states) and at the
+    direct-encode shape (the encoded x, with g_xt / g_xt1). Returns {kernel:
+    the worst bf16_hold tuple}, {kernel: its plain bf16 ms at h=128 (kernels
+    5-6: the AVR ODE) and on the motor DAE (1-2)} and the h=128 inputs of
+    the AVR ODE and the motor DAE for the times."""
+    torch.manual_seed(0)
+    worst, plain_ms, inputs = {}, {}, {}
+    for variant in CW_VARIANTS:
+        args = cw_inputs(variant, cw_files, 64, "train", dev)
+        held, ms = cw_bf16_kernel_pair(f"{variant} B=64 T=1001 h=128", args, "rk4", 40)
+        worse(worst, held)
+        if variant == "ode_channelwise":
+            plain_ms.update(ms)
+            inputs["cw"] = args
+        del args
+    for variant in CW_VARIANTS:
+        xd, zd = CW_DIMS[variant][:2]
+        args = cw_random_inputs(8, 200, 256, xd, zd, seed=256 + xd, dev=dev)
+        for n, solver in enumerate(SOLVERS):
+            worse(worst, cw_bf16_kernel_pair(f"{variant} seeded B=8 T=201 h=256", args, solver, 41 + n)[0])
+    motor = motor_model(dev, "rk4").requires_grad_(False)
+    with torch.no_grad():
+        s = TF._dae_tf_setup(motor, motor_batch(64, dev), True)
+    args = (s["streams"], s["weights"], s["x0"].contiguous(), s["i0"].contiguous(), F.pack_aux(s["dt"], s["ev"]))
+    inputs["tfx"] = (args, s["xT"].contiguous())
+    held, ms = bf16_kernel_pair("motor DAE TF-x B=64 T=1001 h=128", "dae", args, "rk4", 43, s["xT"].contiguous())
+    worse(worst, held)
+    plain_ms.update(ms)
+    enc = enc_model("dae_encode", files["dae_encode"][2], dev, "rk4").requires_grad_(False)
+    args, x_true = tf_enc_args(enc, enc_batch("dae_encode", TRAIN_DATA, 64, dev))
+    worse(worst, bf16_kernel_pair("direct-encode DAE TF-x B=64 T=1001 xd=id=h=128 with g_xt / g_xt1", "dae", args,
+                                  "rk4", 44, x_true, True)[0])
+    return worst, plain_ms, inputs
+
+
+def cw_bf16_setup(root):
+    """Per (variant, h) ``(train, test, start checkpoint)`` of phase 23's
+    channel-wise Trainer runs: CW_WIDE's sets and cw_start_checkpoint at h
+    (seed 0)."""
+    train_f, test_f = write_avr_dataset(root / "avr", n_train=CW_WIDE["num"], n_test=CW_WIDE["n_test"],
+                                        n_steps=CW_WIDE["step"], seed=0)
+    files = {}
+    for variant, (tr, te) in zip(CW_VARIANTS, ((train_f, test_f), (TRAIN_DATA, TEST_DATA))):
+        for h in (128, 256):
+            start = cw_start_checkpoint(root / f"{variant}_{h}.start", variant, CW_DIMS[variant], h, seed=0)
+            files[(variant, h)] = (pathlib.Path(tr), pathlib.Path(te), start)
+    return files
+
+
+def phase_bf16_more_slice(dev, files, root):
+    """Phase 23, part 2: the Trainer (``fused=True``,
+    ``matmul_precision="bfloat16"``, one epoch of two steps, Euler, every
+    step logged) of both channel-wise variants at h=128 and h=256 (CW_WIDE's
+    sets) and of the two TF-x DAEs (TF_ANCHORS' settings), the launches of
+    kernels 1-6 counted (set to 0 just before, read just after; every launch
+    recorded, each in the bf16 mode): the channel-wise runs launch kernels
+    5-6 alone, kernel 6 twice, the TF-x runs kernels 1-2 alone, kernel 2
+    twice, with their true states; the step-1 loss and gradient norm and
+    the epoch-1 eval against CW_BF16_ANCHORS / TF_BF16_ANCHORS
+    (bf16_anchor_held; the evals of CW_BF16_EVAL_UNRESOLVED printed, not
+    held). Returns each
+    run's (kernel 1-6 launches, the worst |value - bf16| / |bf16 -
+    float32|)."""
+    out = {}
+    cw_files = cw_bf16_setup(root / "cw")
+    cw_size = dict(num=CW_WIDE["num"], batch=CW_WIDE["batch"], step=CW_WIDE["step"])
+    # (name, variant, h, its files, TrainConfig keywords, anchors, the kernels it launches)
+    runs = [(f"{v} h={h}", v, h, cw_files[(v, h)], cw_size, CW_BF16_ANCHORS[(v, h)], (5, 6))
+            for h in (128, 256) for v in CW_VARIANTS]
+    runs += [(f"{v} TF-x", v, 128, files[v], dict(input_true_x=True, num=128, batch=64), TF_BF16_ANCHORS[v], (1, 2))
+             for v in ("dae_no_encode", "dae_encode")]
+    for name, variant, h, (train_f, test_f, start), kw, anchors, pair in runs:
+        tag = name.replace(" ", "_").replace("=", "")
+        cfg = TrainConfig(
+            variant=variant, train_data=str(train_f), test_data=str(test_f), model=str(root / tag), epoch=200,
+            hidden=h, larger_than=None, seed=0, warm_start=str(shutil.copy(start, root / f"{tag}_ws")),
+            stop_after=1, loss_record_iter=1, solver="euler", fused=True, echo_logs=False, device="cuda",
+            matmul_precision=BF16, **kw)
+        trainer = Trainer(cfg)
+        reset_all_counts()
+        t0 = time.perf_counter()
+        with kernel_calls() as calls:
+            _, run_dir = trainer.train()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = all_counts()
+        if pair == (5, 6):
+            modes = {c[0][1]["a"].dtype for k in (5, 6) for c in calls[k]}
+        else:
+            modes = {c[0][0]["s_de"].dtype for k in (1, 2) for c in calls[k]}
+            if not all(c[1].get("x_true") is not None for c in calls[1]) or not all(
+                    len(c[0]) > 8 and c[0][8] is not None for c in calls[2]):
+                fail(f"{name} bf16 Trainer launched kernels 1-2 without their true states")
+        if (not all(n[k - 1] > 0 for k in pair) or any(n[k - 1] for k in range(1, 7) if k not in pair)
+                or modes != {torch.bfloat16} or n[pair[1] - 1] != 2):
+            fail(f"{name} bf16 Trainer launched kernels 1-6 {n} times (dtypes {modes}), not kernels {pair} alone "
+                 f"in the bf16 mode")
+        recs = [json.loads(line) for line in (run_dir / "train_metrics.jsonl").read_text().splitlines()]
+        steps = [r for r in recs if r["kind"] == "train"]
+        (ev,) = [r for r in recs if r["kind"] == "eval"]
+        got_eval = tuple(ev[k] for k in ("x_loss", "i_loss") if k in ev)
+        bf, f32, cpu = anchors["bf16"], anchors["f32"], anchors["port_cpu"]
+        got_step1 = (steps[0]["loss"], steps[0]["grad_norm"])
+        unresolved = CW_BF16_EVAL_UNRESOLVED.get((variant, h), ()) if pair == (5, 6) else ()
+        checks = [(f"step-1 {k}", *vals, True) for k, *vals in zip(("loss", "gradient norm"), got_step1,
+                                                                     bf["step1"], f32["step1"])]
+        checks += [(f"eval {i}", *vals, i not in unresolved)
+                   for i, vals in enumerate(zip(got_eval, bf["eval1"], f32["eval1"]))]
+        ratios = [bf16_anchor_held(name, *c) for c in checks]
+        told = [r for r, c in zip(ratios, checks) if r is not None and c[-1]]
+        say(f"[bf16-more-train] {name} --fused bf16 (Trainer, batch {cfg.batch}, euler): step 1 {got_step1} "
+            f"(JAX bf16 {bf['step1']}, float32 {f32['step1']}, the port on the CPU {cpu['step1']}); epoch-1 eval "
+            f"{got_eval} (JAX bf16 {bf['eval1']}, float32 {f32['eval1']}, the port on the CPU {cpu['eval1']}); "
+            f"|port - bf16| / |bf16 - float32| "
+            f"{['-' if r is None else f'{r:.3f}' for r in ratios]} ('-': not resolved, within "
+            f"{BF16_ANCHOR_RESOLVED} of bf16; evals {list(unresolved)} printed, not held: CW_BF16_EVAL_UNRESOLVED); "
+            f"launches of kernels 1-6 {n}, all in the bf16 mode; wall {wall:.2f} s")
+        if not told:
+            fail(f"{name}: no anchor tells bf16 from float32")
+        out[name] = (n, max(told))
+    return out
+
+
+def cw_bf16_work(streams, weights, x0, solver):
+    """(forward bytes, forward FLOP, backward bytes, backward FLOP) of
+    kernels 5-6 in the bf16 mode: cw_work's with the 2-D weights read at 2
+    B (every product of the mode at the bf16 tensor-core rate)."""
+    fb, ff, bb, bfl, _, _ = cw_work(streams, weights, x0, solver)
+    cw = FC.cast_cw(streams, weights, BF16)[1]
+    w2 = sum(a.numel() for a in FC.flatten_weights(cw) if a.dtype == torch.bfloat16)
+    return fb - 2 * w2, ff, bb - 2 * w2, bfl
+
+
+def phase_bf16_more_times(dev, plain_ms, inputs):
+    """Phase 23, times (CUDA events): kernels 5-6 in the bf16 mode beside
+    their float32 instantiations on the same inputs and their bounds
+    (cw_bf16_work at 989 TFLOP/s) at h=128, B=64, T=1001, RK4 (the AVR
+    ODE's starting checkpoint) and at h=256, Euler (seeded inputs, B=64,
+    T=1001); kernels 1-2 in the bf16 TF-x mode at B=64, T=1001, RK4 (the
+    motor DAE) beside their float32 TF-x mode (bf16_work). Returns
+    {(kernel, tag): record}."""
+    out = {}
+    cases = [("h128", inputs["cw"], "rk4"), ("h256", cw_random_inputs(64, CW_STEPS - 1, 256, 2, 2, seed=256, dev=dev),
+                                              "euler")]
+    for tag, (streams, weights, x0, dt), solver in cases:
+        cs, cw = FC.cast_cw(streams, weights, BF16)
+        fb, ff, bb, bfl = cw_bf16_work(streams, weights, x0, solver)
+        sol = torch.cat([x0[None], FC.fused_cw_rollout_cuda(cs, cw, x0, dt, solver)])
+        cot = torch.full_like(sol, 0.01)
+        for k, run, (n_bytes, flops) in (
+                (5, lambda w: FC.fused_cw_rollout_cuda(streams, w, x0, dt, solver), (fb, ff)),
+                (6, lambda w: VC.fused_cw_rollout_bwd_cuda(streams, w, dt, sol, cot, solver), (bb, bfl))):
+            k_ms = cuda_ms(lambda: run(cw), 1, 1)
+            f_ms = cuda_ms(lambda: run(weights), 1, 1)
+            b_ms, b_by = bound_bf16(n_bytes, flops)
+            p_ms = plain_ms.get(k) if tag == "h128" else None
+            out[(k, tag)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, f32_ms=f_ms)
+            say(f"[bf16-more-times] kernel {k} {tag} B=64 T={CW_STEPS} {solver}: bf16 {k_ms:.3f} ms, float32 "
+                f"{f_ms:.3f} ms on the same inputs (bf16/float32 {k_ms / f_ms:.3f}); plain bf16 "
+                f"{'not timed' if p_ms is None else f'{p_ms:.1f} ms (the check)'}; bound {b_ms:.4f} ms ({b_by}; "
+                f"{n_bytes} B, {flops} FLOP at the bf16 tensor-core rate), kernel/bound {k_ms / b_ms:.1f}x")
+        del sol, cot
+    (streams, weights, x0, i0, aux), xt = inputs["tfx"]
+    cs, cw = F.cast_compute(streams, weights, BF16)
+    packed = F.fused_dae_rollout_packed_cuda(cs, cw, x0, i0, aux, "rk4", x_true=xt)
+    cot = torch.full((packed.shape[0] + 1, *packed.shape[1:]), 0.01, device=dev)
+    for k, run, work_args in (
+            (1, lambda s, w: F.fused_dae_rollout_packed_cuda(s, w, x0, i0, aux, "rk4", x_true=xt),
+             (cs, cw, x0, i0, aux, "rk4")),
+            (2, lambda s, w: V.fused_dae_rollout_bwd_cuda(s, w, x0, i0, aux, packed, cot, "rk4", xt),
+             (cs, cw, x0, i0, aux, packed, cot, "rk4"))):
+        k_ms = cuda_ms(lambda: run(cs, cw), 1, 5)
+        f_ms = cuda_ms(lambda: run(streams, weights), 1, 5)
+        n_bytes, flops = bf16_work(k, work_args)
+        n_bytes += 2 * xt[1:].numel() * 4  # the true states x_true[:-1] and x_true[1:] read
+        b_ms, b_by = bound_bf16(n_bytes, flops)
+        out[(k, "tfx")] = dict(ms=k_ms, plain_ms=plain_ms[k], bound_ms=b_ms, bound_by=b_by, f32_ms=f_ms)
+        say(f"[bf16-more-times] kernel {k} TF-x motor DAE B=64 T=1001 rk4: bf16 {k_ms:.4f} ms, float32 TF-x "
+            f"{f_ms:.4f} ms on the same inputs (bf16/float32 {k_ms / f_ms:.3f}); plain bf16 {plain_ms[k]:.1f} ms (the "
+            f"check); bound {b_ms:.5f} ms ({b_by}), kernel/bound {k_ms / b_ms:.1f}x")
+    return out
+
+
+def phase_bf16_more(dev, root, cw_files):
+    """Phase 23: the bf16 compute mode of kernels 5-6 (both layouts) and of
+    the TF-x mode of kernels 1-2: the kernels against their plain bf16
+    versions, the Trainer through its entry points, the times; prints the
+    phase's seconds."""
+    t0 = time.perf_counter()
+    files = {"dae_no_encode": (TRAIN_DATA, TEST_DATA, CKPT),
+             "dae_encode": (TRAIN_DATA, TEST_DATA, start_checkpoint(
+                 root / "dae_encode.start", DAEEncodeModel(3, 1, 2, 2, hidden_dim=128, device="meta"), seed=0))}
+    kernel_err, plain_ms, inputs = phase_bf16_more_kernels(dev, files, cw_files)
+    launches = phase_bf16_more_slice(dev, files, root)
+    times = phase_bf16_more_times(dev, plain_ms, inputs)
+    say(f"[bf16-more] phase 23 in {time.perf_counter() - t0:.1f} s")
+    return dict(kernel_err=kernel_err, launches=launches, times=times)
 
 
 def probe_bf16_recompute(dev, root):
@@ -3817,6 +4292,8 @@ def main(argv=None):
         bf16 = phase_bf16(dev, root / "bf16", ode_files)
         (root / "cw_wide").mkdir()
         wide = phase_cw_wide(dev, root / "cw_wide")
+        (root / "bf16_more").mkdir()
+        more = phase_bf16_more(dev, root / "bf16_more", cw_files)
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all, nvcc "
         f"{', '.join(f'{k} {v:.2f} s' for k, v in nvcc_s.items())}; card {smi}")
     # the forward as the evaluation slice drives it (B=32, Euler); the
@@ -3858,15 +4335,26 @@ def main(argv=None):
     wide_keys = lambda k, kernel: {f"wide_{key}": v for key, v in dict(
         launches=wide["launches"]["ode_channelwise"][k], max_abs_err=wide["kernel_err"][k],
         **wide["times"][(kernel, 256, "euler")]).items()}
+    # rows 1-2 in their bf16 TF-x mode and rows 5-6 in their bf16 mode
+    # (phase 23): launches in the bf16 Trainer run of the motor DAE with TF-x
+    # (rows 1-2) and of the ODE channel-wise at h=128 (rows 5-6); errors the
+    # worst of phase 23's cases as for bf16_*; times at B=64, T=1001, RK4
+    # (rows 1-2 TF-x, rows 5-6 at h=128), and for rows 5-6 at h=256 Euler as
+    # bf16_wide_*
+    more_keys = lambda k, prefix, run, tag: {f"{prefix}_{key}": v for key, v in dict(
+        launches=more["launches"][run][0][k - 1], max_abs_err=more["kernel_err"][k][3],
+        rel_l2_ratio=more["kernel_err"][k][0], rel_l2_bar=more["kernel_err"][k][1],
+        local_ratio=more["kernel_err"][k][2], **more["times"][(k, tag)]).items()}
+    more_wide = lambda k: {f"bf16_wide_{key}": v for key, v in more["times"][(k, "h256")].items()}
     record = {"kernels": [
         {**entry("fused_dae_rollout", "py_psnode_tpu_torch/csrc/fused_dae_rollout.cu",
                  "py_psnode_tpu/ops/fused_dae.py:371", fwd_launches, fwd_err, fwd_t),
          **tfx(0, tf["times"][("fwd", 32, "euler")]), **folded(1, "dae_no_encode", ms["launches"]["dae_no_encode"][0]),
-         **bf(1, "dae_no_encode")},
+         **bf(1, "dae_no_encode"), **more_keys(1, "bf16_tfx", "dae_no_encode TF-x", "tfx")},
         {**entry("fused_dae_rollout_bwd", "py_psnode_tpu_torch/csrc/fused_dae_rollout_bwd.cu",
                  "py_psnode_tpu/ops/fused_dae_vjp.py:147", train_launches["euler"][1], bwd_err, bwd_t),
          **tfx(1, tf["times"][("bwd", 64, "rk4")]), **folded(2, "dae_no_encode", ms["launches"]["dae_no_encode"][1]),
-         **bf(2, "dae_no_encode")},
+         **bf(2, "dae_no_encode"), **more_keys(2, "bf16_tfx", "dae_no_encode TF-x", "tfx")},
         # the ODE kernels as the CLI's --training --fused drives them (B=64,
         # Euler, the CLI's default solver)
         {**entry("fused_ode_rollout", "py_psnode_tpu_torch/csrc/fused_ode_rollout.cu",
@@ -3885,10 +4373,12 @@ def main(argv=None):
                  "py_psnode_tpu/ops/fused_channelwise.py:258", cw_launches["ode_channelwise"][0], cw_fwd_err,
                  cw_times[("ode_channelwise", "fwd", 64, "euler")]),
          "ms_eval_launches": ms["launches"]["ode_channelwise"], **wide_keys(0, "fwd"),
-         **{f"wide512_{k}": v for k, v in wide["times"][("fwd", 512, "euler")].items()}},
+         **{f"wide512_{k}": v for k, v in wide["times"][("fwd", 512, "euler")].items()},
+         **more_keys(5, "bf16", "ode_channelwise h=128", "h128"), **more_wide(5)},
         {**entry("fused_cw_rollout_bwd", "py_psnode_tpu_torch/csrc/fused_cw_rollout_bwd.cu",
                  "py_psnode_tpu/ops/fused_channelwise.py:370", cw_launches["ode_channelwise"][1], cw_bwd_err,
-                 cw_times[("ode_channelwise", "bwd", "euler")]), **wide_keys(1, "bwd")},
+                 cw_times[("ode_channelwise", "bwd", "euler")]), **wide_keys(1, "bwd"),
+         **more_keys(6, "bf16", "ode_channelwise h=128", "h128"), **more_wide(6)},
     ]}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

@@ -28,6 +28,15 @@
 // h is a runtime value up to kMaxH; the tiles are sized for kMaxH, their
 // rows and columns beyond h are zero (set once, never written), and the
 // staged weight rows and columns beyond h are zero-filled by cp.async.
+//
+// The bf16 compute mode (the template flag kBf16; the TPU kernel's _cast_cw
+// and _dot, py_psnode_tpu/ops/fused_channelwise.py:161, fused_dae.py:143):
+// the 2-D weights hold bf16 values (the wrapper rounds them and widens them
+// to float32, exactly), and every product rounds its activation operand to
+// bf16 as it reads it (the per-channel nets' inputs, the features V, the
+// [h, h] activations) and sums in float32; the h x h x h products run in one
+// TF32 pass, exact for bf16 operands (csrc/mma_tile.cuh). The biases,
+// s_constV, the z-features, the state and every stored tile stay float32.
 
 #pragma once
 
@@ -110,7 +119,8 @@ __device__ __forceinline__ AllRanks<KC> all_ranks(float* t) {
 // sum_{c < C} ft[c][m] as[c][n] + sv[m][n], float32 on the CUDA cores (K =
 // C is a few channels); as in shared memory, sv the row's [h, h] tile in
 // global memory.
-template <int KC>
+// kBf16: each feature rounded to bf16 as it is read (a holds bf16 values).
+template <int KC, bool kBf16 = false>
 __device__ __forceinline__ void first_layer(const float* ft, const float* as, int C, int h,
                                             const float* __restrict__ sv, Acc<KC>& acc) {
   using T = Tiling<KC>;
@@ -138,7 +148,7 @@ __device__ __forceinline__ void first_layer(const float* ft, const float* as, in
 #pragma unroll
     for (int i = 0; i < T::kMi; ++i)
 #pragma unroll
-      for (int u = 0; u < 2; ++u) fr[i][u] = ft[c * kLdt + acc_row(f, i, 2 * u)];
+      for (int u = 0; u < 2; ++u) fr[i][u] = rnd<kBf16>(ft[c * kLdt + acc_row(f, i, 2 * u)]);
 #pragma unroll
     for (int j = 0; j < T::kNi; ++j)
 #pragma unroll
@@ -289,7 +299,9 @@ __device__ __forceinline__ void init_eval(const Net& w, const EvalSmem& s, int h
 // w[c][k][j] (+ b[c][j]) for c < nc, j < n, then elu when act, or times
 // elu'(dact[c][j]) when dact is set. in/out/dact in shared memory with row
 // strides ld_in/ld_out/n, w [nc, K, n] and b [nc, n] in global memory. One
-// thread per output; neighbouring threads read neighbouring weights.
+// thread per output; neighbouring threads read neighbouring weights. kBf16:
+// each input rounded to bf16 as it is read (w holds bf16 values).
+template <bool kBf16 = false>
 __device__ __forceinline__ void gemv_ch(const float* in, int ld_in, int nc, int K,
                                         const float* __restrict__ w, const float* __restrict__ b,
                                         float* out, int ld_out, int n, bool act,
@@ -300,7 +312,7 @@ __device__ __forceinline__ void gemv_ch(const float* in, int ld_in, int nc, int 
     const float* wc = w + static_cast<size_t>(c) * K * n + j;
     float acc = 0.f;
 #pragma unroll 16
-    for (int k = 0; k < K; ++k) acc = fmaf(x[k], __ldg(wc + static_cast<size_t>(k) * n), acc);
+    for (int k = 0; k < K; ++k) acc = fmaf(rnd<kBf16>(x[k]), __ldg(wc + static_cast<size_t>(k) * n), acc);
     if (b) acc += __ldg(b + c * n + j);
     if (act) acc = elu(acc);
     if (dact) acc *= delu_act(dact[c * n + j]);
@@ -314,37 +326,38 @@ __device__ __forceinline__ void gemv_ch(const float* in, int ld_in, int nc, int 
 // row of z-features [zd][h], sv: the row's s_constV tile [h][h]. Ends with
 // a barrier of the block. The a0 store waits at the cluster barrier whose
 // arrival the caller made once done reading t1; with kArrive, the
-// evaluation makes the next one itself, after its readout. Inlined (the
+// evaluation makes the next one itself, after its readout. kBf16: the bf16
+// compute mode, every product rounding its activation operand. Inlined (the
 // steppers call it from one place each), so that no register state of the
 // caller is saved around a call.
-template <int KC, bool kArrive>
+template <int KC, bool kArrive, bool kBf16 = false>
 __device__ __forceinline__ void eval_fwd(const Net& w, const EvalSmem& s, int h, int xd, int zd,
                                          const float* xs, const float* __restrict__ fz_t,
                                          const float* __restrict__ sv, float* y) {
   const int C = xd + zd;
   Acc<KC> acc;
   CW_PHASE(0);
-  gemv_ch(xs, h, xd, h, w.ew0, w.eb0, s.e, h, h, true, nullptr);
+  gemv_ch<kBf16>(xs, h, xd, h, w.ew0, w.eb0, s.e, h, h, true, nullptr);
   for (int o = threadIdx.x; o < zd * h; o += kThreads) {
     const int c = o / h, l = o - c * h;
     s.ft[(xd + c) * kLdt + l] = __ldg(fz_t + o);
   }
   __syncthreads();
   CW_PHASE(1);
-  gemv_ch(s.e, h, xd, h, w.ew1, w.eb1, s.ft, kLdt, h, false, nullptr);
+  gemv_ch<kBf16>(s.e, h, xd, h, w.ew1, w.eb1, s.ft, kLdt, h, false, nullptr);
   __syncthreads();
   CW_PHASE(2);
-  first_layer<KC>(s.ft, s.as, C, h, sv, acc);  // a0 = elu(V A + s_constV)
+  first_layer<KC, kBf16>(s.ft, s.as, C, h, sv, acc);  // a0 = elu(V A + s_constV)
   CW_PHASE(3);
   cl_wait<KC>();  // no block of the cluster reads its t1 any more
   store_act<KC>(acc, h, nullptr, s.t1);
   cl_sync<KC>();
   CW_PHASE(4);
-  mma_tile_weight<KC>(s.t1, h, w.w1, h, s.wbuf, acc);  // a1
+  mma_tile_weight<KC, kBf16>(s.t1, h, w.w1, h, s.wbuf, acc);  // a1
   store_act<KC>(acc, h, s.b1, s.t2);
   cl_sync<KC>();
   CW_PHASE(5);
-  mma_tile_weight<KC>(s.t2, h, w.w2, h, s.wbuf, acc);  // a2
+  mma_tile_weight<KC, kBf16>(s.t2, h, w.w2, h, s.wbuf, acc);  // a2
   store_act<KC>(acc, h, s.b2, s.t1);
   cl_sync<KC>();
   CW_PHASE(6);
@@ -353,16 +366,16 @@ __device__ __forceinline__ void eval_fwd(const Net& w, const EvalSmem& s, int h,
     const int c = o / h, l = o - c * h;
     float v = 0.f;
 #pragma unroll 8
-    for (int k = 0; k < h; ++k) v = fmaf(s.t1[k * kLdt + l], s.w3[k * xd + c], v);
+    for (int k = 0; k < h; ++k) v = fmaf(rnd<kBf16>(s.t1[k * kLdt + l]), s.w3[k * xd + c], v);
     s.ot[o] = v + s.b3[c];
   }
   __syncthreads();
   CW_PHASE(7);
   if constexpr (kArrive) cl_arrive<KC>();
-  gemv_ch(s.ot, h, xd, h, w.hw0, w.hb0, s.he, h, h, true, nullptr);
+  gemv_ch<kBf16>(s.ot, h, xd, h, w.hw0, w.hb0, s.he, h, h, true, nullptr);
   __syncthreads();
   CW_PHASE(8);
-  gemv_ch(s.he, h, xd, h, w.hw1, w.hb1, y, h, h, false, nullptr);
+  gemv_ch<kBf16>(s.he, h, xd, h, w.hw1, w.hb1, y, h, h, false, nullptr);
   __syncthreads();
   CW_PHASE(9);
 }

@@ -18,6 +18,9 @@
 // without clusters is one of a block). The small parts (the per-channel nets, O = a2 W3,
 // the folded first layer's cotangent) every block computes whole, reading
 // the tiles from L2 (ld.global.cg); no distributed shared memory is used.
+// The bf16 compute mode (kBf16) rounds as csrc/cw_tile.cuh says: every
+// product's operands to bf16 as the product reads them (the weights' are
+// bf16 values already), one TF32 pass; the tiles keep float32.
 
 #pragma once
 
@@ -91,8 +94,9 @@ __device__ __forceinline__ void wide_stage(float* buf, const WOp& o, int i0, int
 // acc = sum_{k < K} A(m0 + m, k) B(k, n0 + n) over the 128 x 128 output
 // block, in 3xTF32; sa and sb hold two staged chunks each. Starts by
 // writing sa and sb (no thread of the block may read them then) and ends
-// with a barrier of the block.
-template <int KW, bool kAIm, bool kBIm>
+// with a barrier of the block. kBf16: both operands rounded to bf16 as
+// they are read, in one TF32 pass.
+template <int KW, bool kAIm, bool kBIm, bool kBf16 = false>
 __device__ __forceinline__ void wide_mma(const WOp& A, int m0, const WOp& B, int n0, int K, float* sa,
                                          float* sb, Acc<1>& acc) {
   constexpr int kS = wide_stage_floats<KW>(), la = KW + 4;
@@ -119,9 +123,9 @@ __device__ __forceinline__ void wide_mma(const WOp& A, int m0, const WOp& B, int
 #pragma unroll
     for (int s = 0; s < KW / 8; ++s)
       if (8 * s < kr)
-        mma_k8<1>(
-            f, 8 * s, [&](int m, int k) { return kAIm ? a[m * la + k] : a[k * kLdt + m]; },
-            [&](int k, int n) { return kBIm ? b[n * la + k] : b[k * kLdt + n]; }, acc);
+        mma_k8<1, kBf16>(
+            f, 8 * s, [&](int m, int k) { return rnd<kBf16>(kAIm ? a[m * la + k] : a[k * kLdt + m]); },
+            [&](int k, int n) { return rnd<kBf16>(kBIm ? b[n * la + k] : b[k * kLdt + n]); }, acc);
     __syncthreads();  // done with buffer c & 1 before chunk c + 2 lands there
   }
 }
@@ -216,7 +220,9 @@ __device__ __forceinline__ WOp weight_op(const float* w, int h) {
 }
 
 // a0 = elu(V A + s_constV) over output block q (rows l, columns j) into t
-// as t[j][l]: float32 on the CUDA cores (K = C), zero beyond h.
+// as t[j][l]: float32 on the CUDA cores (K = C), zero beyond h; kBf16:
+// each feature rounded to bf16 as it is read.
+template <bool kBf16 = false>
 __device__ __forceinline__ void wide_first_layer(const WideSmem& s, int C, int h, int q,
                                                  const float* __restrict__ sv, float* t) {
   const int nbk = s.hp / kWb, l0 = (q / nbk) * kWb, j0 = (q % nbk) * kWb;
@@ -226,7 +232,7 @@ __device__ __forceinline__ void wide_first_layer(const WideSmem& s, int C, int h
   });
   for (int c = 0; c < C; ++c)
     for_wide(acc, [&](float& v, int m, int n) {
-      v = fmaf(s.ft[c * h + min(l0 + m, h - 1)], s.as[c * h + min(j0 + n, h - 1)], v);
+      v = fmaf(rnd<kBf16>(s.ft[c * h + min(l0 + m, h - 1)]), s.as[c * h + min(j0 + n, h - 1)], v);
     });
   for_wide(acc, [&](float& v, int m, int n) {
     const int l = l0 + m, j = j0 + n;
@@ -242,24 +248,24 @@ __device__ __forceinline__ void wide_first_layer(const WideSmem& s, int C, int h
 // Stages KW values of k at a time (carve_wide's). Ends with a barrier of
 // the block. The phase clock's marks 0-9 are eval_fwd's, but for the first
 // layer: mark 2 to 3 is the wait for t1, 3 to 4 the first layer and its
-// store.
-template <bool kArrive, int KW>
+// store. kBf16: the bf16 compute mode.
+template <bool kArrive, int KW, bool kBf16 = false>
 __device__ __forceinline__ void wide_eval_fwd(const Net& w, const WideSmem& s, int h, int xd, int zd,
                                               const float* xs, const float* __restrict__ fz_t,
                                               const float* __restrict__ sv, float* y) {
   const int C = xd + zd, hp = s.hp, nb2 = (hp / kWb) * (hp / kWb), rank = s.rank, kc = s.kc;
   const WOp wt1 = tile_op(s.t1, hp), wt2 = tile_op(s.t2, hp);
   CW_PHASE(0);
-  gemv_ch(xs, h, xd, h, w.ew0, w.eb0, s.e, h, h, true, nullptr);
+  gemv_ch<kBf16>(xs, h, xd, h, w.ew0, w.eb0, s.e, h, h, true, nullptr);
   for (int o = threadIdx.x; o < zd * h; o += kThreads) s.ft[xd * h + o] = __ldg(fz_t + o);
   __syncthreads();
   CW_PHASE(1);
-  gemv_ch(s.e, h, xd, h, w.ew1, w.eb1, s.ft, h, h, false, nullptr);
+  gemv_ch<kBf16>(s.e, h, xd, h, w.ew1, w.eb1, s.ft, h, h, false, nullptr);
   __syncthreads();
   CW_PHASE(2);
   cluster_wait();  // no block of the cluster reads t1 any more
   CW_PHASE(3);
-  for (int q = rank; q < nb2; q += kc) wide_first_layer(s, C, h, q, sv, s.t1);
+  for (int q = rank; q < nb2; q += kc) wide_first_layer<kBf16>(s, C, h, q, sv, s.t1);
   wide_sync();
   CW_PHASE(4);
   Acc<1> acc;
@@ -272,7 +278,7 @@ __device__ __forceinline__ void wide_eval_fwd(const Net& w, const WideSmem& s, i
     float* out = layer == 0 ? s.t2 : s.t1;
     for (int q = rank; q < nb2; q += kc) {
       const int l0 = (q / nbk) * kWb, j0 = (q % nbk) * kWb;
-      wide_mma<KW, false, false>(in, l0, wgt, j0, h, s.sa, s.sb, acc);
+      wide_mma<KW, false, false, kBf16>(in, l0, wgt, j0, h, s.sa, s.sb, acc);
       for_wide(acc, [&](float& v, int m, int n) {
         const int l = l0 + m, j = j0 + n;
         out[static_cast<size_t>(j) * hp + l] = l < h && j < h ? elu(v + bias[j]) : 0.f;
@@ -285,16 +291,17 @@ __device__ __forceinline__ void wide_eval_fwd(const Net& w, const WideSmem& s, i
   for (int o = threadIdx.x; o < xd * h; o += kThreads) {
     const int c = o / h, l = o - c * h;
     float v = 0.f;
-    for (int k = 0; k < h; ++k) v = fmaf(__ldcg(s.t1 + static_cast<size_t>(k) * hp + l), s.w3[k * xd + c], v);
+    for (int k = 0; k < h; ++k)
+      v = fmaf(rnd<kBf16>(__ldcg(s.t1 + static_cast<size_t>(k) * hp + l)), s.w3[k * xd + c], v);
     s.ot[o] = v + s.b3[c];
   }
   __syncthreads();
   CW_PHASE(7);
   if constexpr (kArrive) cluster_arrive();
-  gemv_ch(s.ot, h, xd, h, w.hw0, w.hb0, s.he, h, h, true, nullptr);
+  gemv_ch<kBf16>(s.ot, h, xd, h, w.hw0, w.hb0, s.he, h, h, true, nullptr);
   __syncthreads();
   CW_PHASE(8);
-  gemv_ch(s.he, h, xd, h, w.hw1, w.hb1, y, h, h, false, nullptr);
+  gemv_ch<kBf16>(s.he, h, xd, h, w.hw1, w.hb1, y, h, h, false, nullptr);
   __syncthreads();
   CW_PHASE(9);
 }

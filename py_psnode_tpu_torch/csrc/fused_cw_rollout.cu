@@ -3,7 +3,8 @@
 // Replaces the TPU kernel py_psnode_tpu/ops/fused_channelwise.py:_fwd_kernel
 // (:258), launched by _forward (pallas_call at :515). It computes the same
 // function at float32 accuracy, without the TPU's grid, time blocking,
-// dt == 0 padding, sublane relayouts or bf16 mode. Per step t and batch row
+// dt == 0 padding or sublane relayouts; its bf16 compute mode (below) is the
+// TPU kernel's precision="bfloat16". Per step t and batch row
 // b, with the z-features fz and the constant part of the folded first layer
 // s_constV lifted out of the loop (ops/fused_channelwise.py:
 // precompute_cw_streams):
@@ -39,6 +40,15 @@
 // memory: fused_cw_rollout_wide_kernel runs the same loop on the wide
 // layout of csrc/cw_wide.cuh (tiles in the row's global scratch, 128 x 128
 // output blocks dealt over a cluster of up to 8 blocks).
+//
+// The bf16 compute mode (the TPU kernel's _cast_cw :161 and _dot): the
+// template flag kBf16 of both kernels (csrc/cw_tile.cuh says where it
+// rounds), in a build of its own (-DPSN_BF16: psn_fused_cw_rollout_bf16 in
+// place of _f32, utils/cuda_build.py), so that nvcc compiles the two modes
+// at once. Its least time counts every operation at the card's 989 TFLOP/s
+// of bf16 tensor-core products (2.3 ms at B=64, RK4, h=128, xd=2): this
+// simple mode runs its products as one TF32 pass on the float32 kernel's
+// fragments, and its chain of layers as the float32 kernel's.
 
 #include "cw_wide.cuh"
 
@@ -59,7 +69,7 @@ size_t smem_floats(int h, int xd, int zd) {
   return eval_floats(h, xd, zd) + 6 * static_cast<size_t>(xd) * h;
 }
 
-template <int KC>
+template <int KC, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1) fused_cw_rollout_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(16) float smem[];
   const int h = a.h, xd = a.xd, zd = a.zd, B = a.batch, row = blockIdx.x / KC, tid = threadIdx.x;
@@ -88,7 +98,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_cw_rollout_kernel(const __g
 #endif
     for (int st = 0; st < S; ++st) {
       __syncthreads();  // publishes xc or xs
-      eval_fwd<KC, true>(a.w, s, h, xd, zd, st == 0 ? xc : xs, fz_t, sv, k1 + st * n);
+      eval_fwd<KC, true, kBf16>(a.w, s, h, xd, zd, st == 0 ? xc : xs, fz_t, sv, k1 + st * n);
       if (st + 1 < S) {  // the next stage point
         for (int e = tid; e < n; e += kThreads) {
           if (a.solver == 1) xs[e] = xc[e] + k1[e] * (0.5f * dt);  // Midpoint
@@ -121,6 +131,7 @@ size_t wide_smem_floats(int h, int xd, int zd) {
   return wide_eval_floats<kKc>(h, xd, zd) + 6 * static_cast<size_t>(xd) * h;  // xc, xs, k1..k4
 }
 
+template <bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1) fused_cw_rollout_wide_kernel(const __grid_constant__ WideArgs wa) {
   extern __shared__ __align__(16) float smem[];
   const Args& a = wa.a;
@@ -155,7 +166,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_cw_rollout_wide_kernel(cons
 #endif
     for (int st = 0; st < S; ++st) {
       __syncthreads();  // publishes xc or xs
-      wide_eval_fwd<true, kKc>(a.w, s, h, xd, zd, st == 0 ? xc : xs, fz_t, sv, k1 + st * n);
+      wide_eval_fwd<true, kKc, kBf16>(a.w, s, h, xd, zd, st == 0 ? xc : xs, fz_t, sv, k1 + st * n);
       if (st + 1 < S) {
         for (int e = tid; e < n; e += kThreads) {
           if (a.solver == 1) xs[e] = xc[e] + k1[e] * (0.5f * dt);
@@ -176,8 +187,49 @@ __global__ void __launch_bounds__(kThreads, 1) fused_cw_rollout_wide_kernel(cons
 }
 
 int wide_cluster(int batch, int h, int xd, int zd) {
-  return pick_wide_cluster(fused_cw_rollout_wide_kernel, batch, wide_pad(h),
+  return pick_wide_cluster(fused_cw_rollout_wide_kernel<kBuildBf16>, batch, wide_pad(h),
                            wide_smem_floats(h, xd, zd) * sizeof(float));
+}
+
+// A launch of the rollout in this build's compute mode (psn_fused_cw_rollout_f32 / _bf16).
+int rollout(const void* fz, const void* dt, const void* sv, const void* x0, const void* const* w, void* sol,
+            void* scratch, int tm1, int batch, int h, int xd, int zd, int solver, int cluster, void* stream) {
+  const bool wide = h > kMaxH;
+  if (tm1 < 0 || batch < 1 || h < 1 || h > kMaxHFwd || xd < 1 || zd < 0 || solver < 0 ||
+      solver > 2 || (cluster != 0 && cluster != 1 && cluster != 2 && cluster != 4 && !(wide && cluster == 8)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a;
+  a.fz = static_cast<const float*>(fz);
+  a.dt = static_cast<const float*>(dt);
+  a.sv = static_cast<const float*>(sv);
+  a.x0 = static_cast<const float*>(x0);
+  a.w = net_from(w);
+  a.sol = static_cast<float*>(sol);
+  a.tm1 = tm1;
+  a.batch = batch;
+  a.h = h;
+  a.xd = xd;
+  a.zd = zd;
+  a.solver = solver;
+  if (tm1 == 0) return static_cast<int>(cudaSuccess);
+  if (wide) {
+    if (cluster == 0) cluster = wide_cluster(batch, h, xd, zd);
+    const WideArgs wa{a, static_cast<float*>(scratch), cluster};
+    const cudaError_t e = launch_clusters(fused_cw_rollout_wide_kernel<kBuildBf16>, batch, cluster,
+                                          wide_smem_floats(h, xd, zd) * sizeof(float),
+                                          static_cast<cudaStream_t>(stream), wa);
+    return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+  }
+  const size_t smem = smem_floats(h, xd, zd) * sizeof(float);
+  if (cluster == 0)
+    cluster = pick_cluster(fused_cw_rollout_kernel<4, kBuildBf16>, fused_cw_rollout_kernel<2, kBuildBf16>, batch,
+                           smem);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      cluster == 4   ? launch_clusters(fused_cw_rollout_kernel<4, kBuildBf16>, batch, 4, smem, st, a)
+      : cluster == 2 ? launch_clusters(fused_cw_rollout_kernel<2, kBuildBf16>, batch, 2, smem, st, a)
+                     : launch_clusters(fused_cw_rollout_kernel<1, kBuildBf16>, batch, 1, smem, st, a);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace
@@ -200,53 +252,30 @@ extern "C" long long psn_fused_cw_scratch_floats(int batch, int h) {
 // or 8 blocks a row, 0 for pick_wide_cluster's choice. Launches on
 // `stream` without synchronising and returns the launch's error (0 on
 // success); cudaErrorInvalidValue for h outside 1..kMaxHFwd or another
-// cluster size.
+// cluster size. psn_fused_cw_rollout_bf16 (the -DPSN_BF16 build, in place
+// of _f32): the bf16 compute mode, the same arguments with the 2-D weights
+// (a, W1, W2, W3 and the per-channel w0, w1) holding bf16 values.
+#ifdef PSN_BF16
+extern "C" int psn_fused_cw_rollout_bf16(const void* fz, const void* dt, const void* sv,
+                                         const void* x0, const void* const* w, void* sol, void* scratch,
+                                         int tm1, int batch, int h, int xd, int zd, int solver, int cluster,
+                                         void* stream) {
+  return rollout(fz, dt, sv, x0, w, sol, scratch, tm1, batch, h, xd, zd, solver, cluster, stream);
+}
+#else
 extern "C" int psn_fused_cw_rollout_f32(const void* fz, const void* dt, const void* sv,
                                         const void* x0, const void* const* w, void* sol, void* scratch,
                                         int tm1, int batch, int h, int xd, int zd, int solver, int cluster,
                                         void* stream) {
-  const bool wide = h > kMaxH;
-  if (tm1 < 0 || batch < 1 || h < 1 || h > kMaxHFwd || xd < 1 || zd < 0 || solver < 0 ||
-      solver > 2 || (cluster != 0 && cluster != 1 && cluster != 2 && cluster != 4 && !(wide && cluster == 8)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  Args a;
-  a.fz = static_cast<const float*>(fz);
-  a.dt = static_cast<const float*>(dt);
-  a.sv = static_cast<const float*>(sv);
-  a.x0 = static_cast<const float*>(x0);
-  a.w = net_from(w);
-  a.sol = static_cast<float*>(sol);
-  a.tm1 = tm1;
-  a.batch = batch;
-  a.h = h;
-  a.xd = xd;
-  a.zd = zd;
-  a.solver = solver;
-  if (tm1 == 0) return static_cast<int>(cudaSuccess);
-  if (wide) {
-    if (cluster == 0) cluster = wide_cluster(batch, h, xd, zd);
-    const WideArgs wa{a, static_cast<float*>(scratch), cluster};
-    const cudaError_t e = launch_clusters(fused_cw_rollout_wide_kernel, batch, cluster,
-                                          wide_smem_floats(h, xd, zd) * sizeof(float),
-                                          static_cast<cudaStream_t>(stream), wa);
-    return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
-  }
-  const size_t smem = smem_floats(h, xd, zd) * sizeof(float);
-  if (cluster == 0)
-    cluster = pick_cluster(fused_cw_rollout_kernel<4>, fused_cw_rollout_kernel<2>, batch, smem);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      cluster == 4   ? launch_clusters(fused_cw_rollout_kernel<4>, batch, 4, smem, st, a)
-      : cluster == 2 ? launch_clusters(fused_cw_rollout_kernel<2>, batch, 2, smem, st, a)
-                     : launch_clusters(fused_cw_rollout_kernel<1>, batch, 1, smem, st, a);
-  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+  return rollout(fz, dt, sv, x0, w, sol, scratch, tm1, batch, h, xd, zd, solver, cluster, stream);
 }
+#endif
 
-// The blocks per batch row psn_fused_cw_rollout_f32 takes for cluster = 0
-// at these shapes on the current device.
+// The blocks per batch row psn_fused_cw_rollout_f32 (_bf16) takes for
+// cluster = 0 at these shapes on the current device.
 extern "C" int psn_fused_cw_cluster(int batch, int h, int xd, int zd) {
   if (h > kMaxH) return wide_cluster(batch, h, xd, zd);
-  return pick_cluster(fused_cw_rollout_kernel<4>, fused_cw_rollout_kernel<2>, batch,
+  return pick_cluster(fused_cw_rollout_kernel<4, kBuildBf16>, fused_cw_rollout_kernel<2, kBuildBf16>, batch,
                       smem_floats(h, xd, zd) * sizeof(float));
 }
 

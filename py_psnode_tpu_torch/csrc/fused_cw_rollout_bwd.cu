@@ -4,9 +4,10 @@
 //
 // Replaces the TPU kernel py_psnode_tpu/ops/fused_channelwise.py:_bwd_kernel
 // (:370), launched by _vjp_bwd (pallas_call at :580). It computes the same
-// function at float32 accuracy, without the TPU's grid, time blocking or
-// bf16 mode. Per batch row, for t = T-2 down to 0, with x_t = sol[t] and the
-// carry gx_c (zero at first):
+// function at float32 accuracy, without the TPU's grid or time blocking;
+// its bf16 compute mode (below) is the TPU kernel's precision="bfloat16".
+// Per batch row, for t = T-2 down to 0, with x_t = sol[t] and the carry
+// gx_c (zero at first):
 //
 //   gX1 = cot[t+1] + gx_c
 //   recompute the stage points of the Euler / Midpoint / RK4-3/8 step, then
@@ -70,6 +71,21 @@
 // tiles in the row's global scratch, each product's 128 x 128 output blocks
 // dealt over a cluster of up to 8 blocks; the contraction takes 128 x 128
 // blocks of each [h, h] sum (contract_pairs_wide).
+//
+// The bf16 compute mode (the TPU kernel's cd = w[1].dtype :386, _dot_t and
+// _dot_nt on the _cast_cw weights): the template flag kBf16 of the walks
+// and the contraction, in a build of its own (-DPSN_BF16:
+// psn_fused_cw_rollout_bwd_bf16 and psn_cw_contract_pairs_bf16 in place of
+// the _f32 ones, utils/cuda_build.py). The recomputed evaluations round as
+// the forward's (csrc/cw_tile.cuh); every cotangent product rounds its
+// cotangent operand, every weight-gradient product both operands, each as
+// the product reads it: a tile that feeds both a product and an elu' (a1,
+// a2 and their cotangents, a0, g_P0) is stored in float32 and rounded only
+// where the product reads it, and the (u, v) pairs are written as they are
+// and rounded by the contraction as it multiplies them, their bias sums
+// taken from the float32 v. The biases' gradients, g_s_constV, g_fz, the
+// carries and every gradient stay float32; a relaunch is bit-identical as
+// in float32.
 
 #include "cw_wide.cuh"
 
@@ -199,9 +215,9 @@ __device__ __forceinline__ void add_bias_grad(float* __restrict__ db, int h, con
 // first layer and the sums over the dense weights' columns (and the lead
 // adds W3's and b3's); each computes the rest itself. Ends with a barrier
 // of the block and with this block's arrival at the cluster barrier that
-// the next a0 store waits at. Inlined at its one call site, so that gsv
-// stays in registers.
-template <int KC>
+// the next a0 store waits at. kBf16: the bf16 compute mode. Inlined at its
+// one call site, so that gsv stays in registers.
+template <int KC, bool kBf16 = false>
 __device__ __forceinline__ void eval_bwd(const Args& a, const EvalSmem& s, const BwdSmem& b,
                                          const float* xs, const float* gy, const float* fz_t,
                                          const float* sv, Acc<KC>& gsv, float* __restrict__ Pb,
@@ -212,13 +228,13 @@ __device__ __forceinline__ void eval_bwd(const Args& a, const EvalSmem& s, const
   const NetT& wt = a.wt;
   Acc<KC> acc;
   CW_PHASE(16);
-  eval_fwd<KC, false>(w, s, h, xd, zd, xs, fz_t, sv, b.y);  // t1 = a2, t2 = a1
+  eval_fwd<KC, false, kBf16>(w, s, h, xd, zd, xs, fz_t, sv, b.y);  // t1 = a2, t2 = a1
   CW_PHASE(17);
 
   // head: ghe = (gy H1^T) * elu'(HE), go = ghe H0^T
-  gemv_ch(gy, h, xd, h, wt.hw1t, nullptr, b.ghe, h, h, false, s.he);
+  gemv_ch<kBf16>(gy, h, xd, h, wt.hw1t, nullptr, b.ghe, h, h, false, s.he);
   __syncthreads();
-  gemv_ch(b.ghe, h, xd, h, wt.hw0t, nullptr, b.go, h, h, false, nullptr);
+  gemv_ch<kBf16>(b.ghe, h, xd, h, wt.hw0t, nullptr, b.go, h, h, false, nullptr);
   __syncthreads();
   CW_PHASE(18);
 
@@ -228,7 +244,7 @@ __device__ __forceinline__ void eval_bwd(const Args& a, const EvalSmem& s, const
       const int k = o / xd, c = o - k * xd;
       float sum = 0.f;
       for (int i = 0, l = k; i < h; ++i, l = l + 1 == h ? 0 : l + 1)
-        sum = fmaf(s.t1[k * kLdt + l], b.go[c * h + l], sum);
+        sum = fmaf(rnd<kBf16>(s.t1[k * kLdt + l]), rnd<kBf16>(b.go[c * h + l]), sum);
       Pb[a.off.w3 + o] += sum;
     }
     for (int c = tid; c < xd; c += kThreads) {
@@ -242,29 +258,29 @@ __device__ __forceinline__ void eval_bwd(const Args& a, const EvalSmem& s, const
   for (int o = tid; o < h * h; o += kThreads) {
     const int k = o / h, l = o - k * h;
     float g = 0.f;
-    for (int c = 0; c < xd; ++c) g = fmaf(b.go[c * h + l], s.w3[k * xd + c], g);
+    for (int c = 0; c < xd; ++c) g = fmaf(rnd<kBf16>(b.go[c * h + l]), s.w3[k * xd + c], g);
     float* p = s.t1 + k * kLdt + l;
     *p = g * delu_act(*p);
   }
   __syncthreads();
   CW_PHASE(19);
-  mma_tile_tile<KC>(s.t2, s.t1, h, acc);  // dW2 += a1^T g_P2
+  mma_tile_tile<KC, kBf16>(s.t2, s.t1, h, acc);  // dW2 += a1^T g_P2
   add_partial<KC>(Pb + a.off.w2, h, acc);
   add_bias_grad<KC>(Pb + a.off.b2, h, s.t1);
   CW_PHASE(20);
-  mma_tile_weight<KC>(s.t1, h, wt.w2t, h, s.wbuf, acc);  // g_P1 = g_P2 W2^T ...
+  mma_tile_weight<KC, kBf16>(s.t1, h, wt.w2t, h, s.wbuf, acc);  // g_P1 = g_P2 W2^T ...
   cl_sync<KC>();  // ... into t2, which no block reads any more (a1 for dW2)
   store_bwd<KC>(acc, h, s.t2);
   CW_PHASE(21);
-  first_layer<KC>(s.ft, s.as, C, h, sv, acc);  // t1 = a0 again (g_P2 no longer read)
+  first_layer<KC, kBf16>(s.ft, s.as, C, h, sv, acc);  // t1 = a0 again (g_P2 no longer read)
   store_act<KC>(acc, h, nullptr, s.t1);
   cl_sync<KC>();
   CW_PHASE(22);
-  mma_tile_tile<KC>(s.t1, s.t2, h, acc);  // dW1 += a0^T g_P1
+  mma_tile_tile<KC, kBf16>(s.t1, s.t2, h, acc);  // dW1 += a0^T g_P1
   add_partial<KC>(Pb + a.off.w1, h, acc);
   add_bias_grad<KC>(Pb + a.off.b1, h, s.t2);
   CW_PHASE(23);
-  mma_tile_weight<KC>(s.t2, h, wt.w1t, h, s.wbuf, acc);  // g_P0 = g_P1 W1^T ...
+  mma_tile_weight<KC, kBf16>(s.t2, h, wt.w1t, h, s.wbuf, acc);  // g_P0 = g_P1 W1^T ...
   cl_sync<KC>();  // ... into t1, which no block reads any more (a0 for dW1)
   store_bwd<KC>(acc, h, s.t1);
 #pragma unroll
@@ -284,12 +300,12 @@ __device__ __forceinline__ void eval_bwd(const Args& a, const EvalSmem& s, const
     const int c = o / h, j = o - c * h;
     float g = 0.f;
     // here j is the position l of gft and f the feature j of g_P0
-    for (int f = 0; f < h; ++f) g = fmaf(s.t1[f * kLdt + j], s.as[c * kMaxH + f], g);
+    for (int f = 0; f < h; ++f) g = fmaf(rnd<kBf16>(s.t1[f * kLdt + j]), s.as[c * kMaxH + f], g);
     b.gft[o] = g;
     if (j >= j0 && j < j0 + kSlice) {
       float da = 0.f;
       for (int i = 0, l = j; i < h; ++i, l = l + 1 == h ? 0 : l + 1)
-        da = fmaf(s.ft[c * kLdt + l], s.t1[j * kLdt + l], da);
+        da = fmaf(rnd<kBf16>(s.ft[c * kLdt + l]), rnd<kBf16>(s.t1[j * kLdt + l]), da);
       Pb[a.off.a + o] += da;
     }
   }
@@ -299,9 +315,9 @@ __device__ __forceinline__ void eval_bwd(const Args& a, const EvalSmem& s, const
   for (int o = tid; o < zd * h; o += kThreads) b.gfz[o] += b.gft[n + o];
 
   // ext: gep = (gft[:xd] E1^T) * elu'(E), gx = gep E0^T
-  gemv_ch(b.gft, h, xd, h, wt.ew1t, nullptr, b.gep, h, h, false, s.e);
+  gemv_ch<kBf16>(b.gft, h, xd, h, wt.ew1t, nullptr, b.gep, h, h, false, s.e);
   __syncthreads();
-  gemv_ch(b.gep, h, xd, h, wt.ew0t, nullptr, gx, h, h, false, nullptr);
+  gemv_ch<kBf16>(b.gep, h, xd, h, wt.ew0t, nullptr, gx, h, h, false, nullptr);
 
   // the per-channel nets' rank-one pairs (u, v): head W1, head W0, ext W1,
   // ext W0 (PairDest's order)
@@ -322,7 +338,7 @@ size_t smem_floats(int h, int xd, int zd) {
   return eval_floats(h, xd, zd) + C * h + static_cast<size_t>(zd) * h + 4 * xdh + 14 * xdh;
 }
 
-template <int KC>
+template <int KC, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_cw_rollout_bwd_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(16) float smem[];
@@ -391,7 +407,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // the stage points x2 (Midpoint), x2..x4 (RK4) from their evaluations
     for (int st = 0; st + 1 < S; ++st) {
-      eval_fwd<KC, true>(a.w, s, h, xd, zd, st == 0 ? xc : x2 + (st - 1) * n, fz_t, sv, k1 + st * n);
+      eval_fwd<KC, true, kBf16>(a.w, s, h, xd, zd, st == 0 ? xc : x2 + (st - 1) * n, fz_t, sv, k1 + st * n);
       float* xn = x2 + st * n;
       for (int e = tid; e < n; e += kThreads) {
         if (a.solver == 1) xn[e] = xc[e] + k1[e] * (0.5f * dt);  // x + (dt/2) f(x)
@@ -418,7 +434,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     for (int st = 0; st < S; ++st) {
       float* pr = a.pairs + ((static_cast<size_t>(t) * S + st) * B + row) * (2 * kPairs * n);
-      eval_bwd<KC>(a, s, b, xs_of[st], gy, fz_t, sv, gsv, Pb, pr, tx);  // tx = g_a of the stage
+      eval_bwd<KC, kBf16>(a, s, b, xs_of[st], gy, fz_t, sv, gsv, Pb, pr, tx);  // tx = g_a of the stage
       for (int e = tid; e < n; e += kThreads) {
         const float g = tx[e];
         gxc[e] += g;
@@ -466,7 +482,10 @@ __global__ void reduce_partials(const float* __restrict__ partial, int blocks, l
 // (pairs rows of 2 kPairs xd h floats, u then v per pair), into its slot
 // of `parts` [nsplit, kPairs xd, h h + h]. 256 threads, each an 8 x 8
 // register tile of the [h, h] sum; kNc rows staged at once in shared
-// memory (u then v, [kNc][kMaxH] each).
+// memory (u then v, [kNc][kMaxH] each). kBf16: the bf16 compute mode, u and
+// v rounded to bf16 where the products read them, the bias sums of v as it
+// is.
+template <bool kBf16 = false>
 __global__ void __launch_bounds__(kCThreads)
     contract_pairs(const float* __restrict__ pairs, long long rows, int xd, int h,
                    float* __restrict__ parts) {
@@ -492,7 +511,7 @@ __global__ void __launch_bounds__(kCThreads)
     for (int e = tid; e < kNc * kMaxH; e += kCThreads) {
       const int r = e / kMaxH, k = e % kMaxH;
       const bool ok = r < nr && k < h;
-      us[e] = ok ? __ldg(u0 + (rb + r) * stride + k) : 0.f;
+      us[e] = ok ? rnd<kBf16>(__ldg(u0 + (rb + r) * stride + k)) : 0.f;
       vs[e] = ok ? __ldg(v0 + (rb + r) * stride + k) : 0.f;
     }
     __syncthreads();
@@ -505,7 +524,7 @@ __global__ void __launch_bounds__(kCThreads)
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], rnd<kBf16>(bv[j]), acc[i][j]);
       if (ty == 0) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) bsum[j] += bv[j];
@@ -600,7 +619,8 @@ __device__ __forceinline__ void add_bias_grad_wide(const WideSmem& s, float* __r
 }
 
 // The VJP of one evaluation, as eval_bwd above, on the wide layout; gs is the
-// row's g_s_constV [h, h] in global memory.
+// row's g_s_constV [h, h] in global memory. kBf16: the bf16 compute mode.
+template <bool kBf16 = false>
 __device__ __forceinline__ void eval_bwd_wide(const Args& a, const WideSmem& s, const BwdSmem& b,
                                               const float* xs, const float* gy, const float* fz_t,
                                               const float* sv, float* __restrict__ gs,
@@ -613,13 +633,13 @@ __device__ __forceinline__ void eval_bwd_wide(const Args& a, const WideSmem& s, 
   const WOp wt1 = tile_op(s.t1, hp), wt2 = tile_op(s.t2, hp);
   Acc<1> acc;
   CW_PHASE(16);
-  wide_eval_fwd<false, kWideKw>(w, s, h, xd, zd, xs, fz_t, sv, gx);  // t1 = a2, t2 = a1 (gx not read)
+  wide_eval_fwd<false, kWideKw, kBf16>(w, s, h, xd, zd, xs, fz_t, sv, gx);  // t1 = a2, t2 = a1 (gx not read)
   CW_PHASE(17);
 
   // head: ghe = (gy H1^T) * elu'(HE), go = ghe H0^T
-  gemv_ch(gy, h, xd, h, wt.hw1t, nullptr, b.ghe, h, h, false, s.he);
+  gemv_ch<kBf16>(gy, h, xd, h, wt.hw1t, nullptr, b.ghe, h, h, false, s.he);
   __syncthreads();
-  gemv_ch(b.ghe, h, xd, h, wt.hw0t, nullptr, b.go, h, h, false, nullptr);
+  gemv_ch<kBf16>(b.ghe, h, xd, h, wt.hw0t, nullptr, b.go, h, h, false, nullptr);
   __syncthreads();
   CW_PHASE(18);
   // last vertical layer: dW3[k][c] += sum_l a2[l][k] go[c][l], db3
@@ -627,7 +647,8 @@ __device__ __forceinline__ void eval_bwd_wide(const Args& a, const WideSmem& s, 
     for (int o = tid; o < h * xd; o += kThreads) {
       const int k = o / xd, c = o - k * xd;
       float sum = 0.f;
-      for (int l = 0; l < h; ++l) sum = fmaf(__ldcg(s.t1 + static_cast<size_t>(k) * hp + l), b.go[c * h + l], sum);
+      for (int l = 0; l < h; ++l)
+        sum = fmaf(rnd<kBf16>(__ldcg(s.t1 + static_cast<size_t>(k) * hp + l)), rnd<kBf16>(b.go[c * h + l]), sum);
       Pb[a.off.w3 + o] += sum;
     }
     for (int c = tid; c < xd; c += kThreads) {
@@ -644,7 +665,7 @@ __device__ __forceinline__ void eval_bwd_wide(const Args& a, const WideSmem& s, 
       const int k = k0 + e / kWb, l = l0 + e % kWb;
       if (k >= h || l >= h) continue;
       float g = 0.f;
-      for (int c = 0; c < xd; ++c) g = fmaf(b.go[c * h + l], s.w3[k * xd + c], g);
+      for (int c = 0; c < xd; ++c) g = fmaf(rnd<kBf16>(b.go[c * h + l]), s.w3[k * xd + c], g);
       float* p = s.t1 + static_cast<size_t>(k) * hp + l;
       *p = g * delu_act(__ldcg(p));
     }
@@ -654,7 +675,7 @@ __device__ __forceinline__ void eval_bwd_wide(const Args& a, const WideSmem& s, 
   // dW2 += a1^T g_P2, db2
   for (int q = rank; q < nb2; q += kc) {
     const int k0 = (q / nbk) * kWb, j0 = (q % nbk) * kWb;
-    wide_mma<kWideKw, true, true>(wt2, k0, wt1, j0, h, s.sa, s.sb, acc);
+    wide_mma<kWideKw, true, true, kBf16>(wt2, k0, wt1, j0, h, s.sa, s.sb, acc);
     for_wide(acc, [&](float& v, int m, int nn) {
       if (k0 + m < h && j0 + nn < h) atomicAdd(Pb + a.off.w2 + (k0 + m) * h + j0 + nn, v);
     });
@@ -665,7 +686,7 @@ __device__ __forceinline__ void eval_bwd_wide(const Args& a, const WideSmem& s, 
   // t2: g_P1 = (g_P2 W2^T) * elu'(a1)
   for (int q = rank; q < nb2; q += kc) {
     const int l0 = (q / nbk) * kWb, j0 = (q % nbk) * kWb;
-    wide_mma<kWideKw, false, true>(wt1, l0, weight_op(w.w2, h), j0, h, s.sa, s.sb, acc);
+    wide_mma<kWideKw, false, true, kBf16>(wt1, l0, weight_op(w.w2, h), j0, h, s.sa, s.sb, acc);
     for_wide(acc, [&](float& v, int m, int nn) {
       const int l = l0 + m, j = j0 + nn;
       float* p = s.t2 + static_cast<size_t>(j) * hp + l;
@@ -674,13 +695,13 @@ __device__ __forceinline__ void eval_bwd_wide(const Args& a, const WideSmem& s, 
   }
   wide_sync();
   CW_PHASE(21);
-  for (int q = rank; q < nb2; q += kc) wide_first_layer(s, C, h, q, sv, s.t1);  // t1 = a0 again
+  for (int q = rank; q < nb2; q += kc) wide_first_layer<kBf16>(s, C, h, q, sv, s.t1);  // t1 = a0 again
   wide_sync();
   CW_PHASE(22);
   // dW1 += a0^T g_P1, db1
   for (int q = rank; q < nb2; q += kc) {
     const int k0 = (q / nbk) * kWb, j0 = (q % nbk) * kWb;
-    wide_mma<kWideKw, true, true>(wt1, k0, wt2, j0, h, s.sa, s.sb, acc);
+    wide_mma<kWideKw, true, true, kBf16>(wt1, k0, wt2, j0, h, s.sa, s.sb, acc);
     for_wide(acc, [&](float& v, int m, int nn) {
       if (k0 + m < h && j0 + nn < h) atomicAdd(Pb + a.off.w1 + (k0 + m) * h + j0 + nn, v);
     });
@@ -691,7 +712,7 @@ __device__ __forceinline__ void eval_bwd_wide(const Args& a, const WideSmem& s, 
   // t1: g_P0 = (g_P1 W1^T) * elu'(a0); g_s_constV += g_P0
   for (int q = rank; q < nb2; q += kc) {
     const int l0 = (q / nbk) * kWb, j0 = (q % nbk) * kWb;
-    wide_mma<kWideKw, false, true>(wt2, l0, weight_op(w.w1, h), j0, h, s.sa, s.sb, acc);
+    wide_mma<kWideKw, false, true, kBf16>(wt2, l0, weight_op(w.w1, h), j0, h, s.sa, s.sb, acc);
     for_wide(acc, [&](float& v, int m, int nn) {
       const int l = l0 + m, j = j0 + nn;
       float* p = s.t1 + static_cast<size_t>(j) * hp + l;
@@ -707,13 +728,15 @@ __device__ __forceinline__ void eval_bwd_wide(const Args& a, const WideSmem& s, 
   for (int o = tid; o < C * h; o += kThreads) {
     const int c = o / h, l = o - c * h;
     float g = 0.f;
-    for (int j = 0; j < h; ++j) g = fmaf(__ldcg(s.t1 + static_cast<size_t>(j) * hp + l), s.as[c * h + j], g);
+    for (int j = 0; j < h; ++j)
+      g = fmaf(rnd<kBf16>(__ldcg(s.t1 + static_cast<size_t>(j) * hp + l)), s.as[c * h + j], g);
     b.gft[o] = g;
   }
   for (int j = rank + kc * tid; j < h; j += kc * kThreads)
     for (int c = 0; c < C; ++c) {
       float da = 0.f;
-      for (int l = 0; l < h; ++l) da = fmaf(s.ft[c * h + l], __ldcg(s.t1 + static_cast<size_t>(j) * hp + l), da);
+      for (int l = 0; l < h; ++l)
+        da = fmaf(rnd<kBf16>(s.ft[c * h + l]), rnd<kBf16>(__ldcg(s.t1 + static_cast<size_t>(j) * hp + l)), da);
       Pb[a.off.a + c * h + j] += da;
     }
   __syncthreads();
@@ -722,9 +745,9 @@ __device__ __forceinline__ void eval_bwd_wide(const Args& a, const WideSmem& s, 
   for (int o = tid; o < zd * h; o += kThreads) b.gfz[o] += b.gft[n + o];
 
   // ext: gep = (gft[:xd] E1^T) * elu'(E), gx = gep E0^T
-  gemv_ch(b.gft, h, xd, h, wt.ew1t, nullptr, b.gep, h, h, false, s.e);
+  gemv_ch<kBf16>(b.gft, h, xd, h, wt.ew1t, nullptr, b.gep, h, h, false, s.e);
   __syncthreads();
-  gemv_ch(b.gep, h, xd, h, wt.ew0t, nullptr, gx, h, h, false, nullptr);
+  gemv_ch<kBf16>(b.gep, h, xd, h, wt.ew0t, nullptr, gx, h, h, false, nullptr);
 
   if (lead) {
     const float* pairs[kPairs][2] = {{s.he, gy}, {s.ot, b.ghe}, {s.e, b.gft}, {xs, b.gep}};
@@ -742,6 +765,7 @@ size_t wide_smem_floats(int h, int xd, int zd) {
   return wide_eval_floats<kWideKw>(h, xd, zd) + C * h + static_cast<size_t>(zd) * h + 3 * xdh + 14 * xdh;
 }
 
+template <bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_cw_rollout_bwd_wide_kernel(const __grid_constant__ WideArgs wa) {
   extern __shared__ __align__(16) float smem[];
@@ -813,7 +837,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int e = tid; e < zd * h; e += kThreads) b.gfz[e] = 0.f;
     __syncthreads();
     for (int st = 0; st + 1 < S; ++st) {
-      wide_eval_fwd<true, kWideKw>(a.w, s, h, xd, zd, st == 0 ? xc : x2 + (st - 1) * n, fz_t, sv, k1 + st * n);
+      wide_eval_fwd<true, kWideKw, kBf16>(a.w, s, h, xd, zd, st == 0 ? xc : x2 + (st - 1) * n, fz_t, sv,
+                                          k1 + st * n);
       float* xn = x2 + st * n;
       for (int e = tid; e < n; e += kThreads) {
         if (a.solver == 1) xn[e] = xc[e] + k1[e] * (0.5f * dt);
@@ -838,7 +863,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
     for (int st = 0; st < S; ++st) {
       float* pr = a.pairs + ((static_cast<size_t>(t) * S + st) * B + row) * (2 * kPairs * n);
-      eval_bwd_wide(a, s, b, xs_of[st], gy, fz_t, sv, gs, Pb, pr, tx);
+      eval_bwd_wide<kBf16>(a, s, b, xs_of[st], gy, fz_t, sv, gs, Pb, pr, tx);
       for (int e = tid; e < n; e += kThreads) {
         const float g = tx[e];
         gxc[e] += g;
@@ -868,13 +893,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 int wide_cluster(int batch, int h, int xd, int zd) {
-  return pick_wide_cluster(fused_cw_rollout_bwd_wide_kernel, batch, wide_pad(h),
+  return pick_wide_cluster(fused_cw_rollout_bwd_wide_kernel<kBuildBf16>, batch, wide_pad(h),
                            wide_smem_floats(h, xd, zd) * sizeof(float));
 }
 
 // contract_pairs for h > kMaxH: block z of the grid's third dimension takes
 // the 128 x 128 block (z / nbk, z % nbk) of each [h, h] sum, and the bias
 // sums where z / nbk is 0; otherwise the same.
+template <bool kBf16 = false>
 __global__ void __launch_bounds__(kCThreads)
     contract_pairs_wide(const float* __restrict__ pairs, long long rows, int xd, int h,
                         float* __restrict__ parts) {
@@ -900,7 +926,7 @@ __global__ void __launch_bounds__(kCThreads)
     const int nr = r1 - rb < kNc ? static_cast<int>(r1 - rb) : kNc;
     for (int e = tid; e < kNc * kWb; e += kCThreads) {
       const int r = e / kWb, k = e % kWb;
-      us[e] = r < nr && k0 + k < h ? __ldg(u0 + (rb + r) * stride + k0 + k) : 0.f;
+      us[e] = r < nr && k0 + k < h ? rnd<kBf16>(__ldg(u0 + (rb + r) * stride + k0 + k)) : 0.f;
       vs[e] = r < nr && c0 + k < h ? __ldg(v0 + (rb + r) * stride + c0 + k) : 0.f;
     }
     __syncthreads();
@@ -913,7 +939,7 @@ __global__ void __launch_bounds__(kCThreads)
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], rnd<kBf16>(bv[j]), acc[i][j]);
       if (ty == 0) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) bsum[j] += bv[j];
@@ -939,8 +965,9 @@ __global__ void __launch_bounds__(kCThreads)
   }
 }
 
-// The contraction of `rows` pair rows into out at dest: both kernels on
-// stream st (above kMaxH, contract_pairs_wide in place of contract_pairs).
+// The contraction of `rows` pair rows into out at dest, in this build's
+// compute mode: both kernels on stream st (above kMaxH,
+// contract_pairs_wide in place of contract_pairs).
 // parts holds nsplit x kPairs xd (h^2 + h) floats.
 cudaError_t launch_contraction(const float* pairs, long long rows, int xd, int h,
                                const PairDest& dest, float* parts, float* out,
@@ -950,10 +977,10 @@ cudaError_t launch_contraction(const float* pairs, long long rows, int xd, int h
   if (h > kMaxH) {
     const int nbk = wide_pad(h) / kWb;
     const dim3 wgrid(nsplit, kPairs * xd, nbk * nbk);
-    contract_pairs_wide<<<wgrid, kCThreads, smem, st>>>(pairs, rows, xd, h, parts);
+    contract_pairs_wide<kBuildBf16><<<wgrid, kCThreads, smem, st>>>(pairs, rows, xd, h, parts);
   } else {
     const dim3 grid(nsplit, kPairs * xd);
-    contract_pairs<<<grid, kCThreads, smem, st>>>(pairs, rows, xd, h, parts);
+    contract_pairs<kBuildBf16><<<grid, kCThreads, smem, st>>>(pairs, rows, xd, h, parts);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -981,24 +1008,14 @@ extern "C" void psn_fused_cw_bwd_sizes(int tm1, int batch, int h, int xd, int zd
   sizes[4] = h > kMaxH ? static_cast<long long>(batch) * 2 * hp * hp : 0;
 }
 
-// C interface, loaded with ctypes. Pointers are device pointers to
-// contiguous float32 arrays; w is a host array of the 15 weight pointers in
-// the order of flatten_weights, wt one of the 6 transposes of
-// transposed_weights (ops/fused_channelwise_vjp.py). `partial` is [batch,
-// sizes[1]] and must be zero; g_w receives the summed gradients in the
-// flatten_weights layout; pairs and parts are scratch of sizes[2] and
-// sizes[3] floats, and above kMaxH scratch the wide walk's tiles of
-// sizes[4]. solver: 0 Euler, 1 Midpoint, 2 RK4 (3/8 rule). cluster: blocks
-// per batch row of the walk, as for psn_fused_cw_rollout_f32 (the wide
-// walk's 1, 2, 4 or 8 above kMaxH). Launches the walk, the dense partials'
-// sum and the contraction on `stream` without synchronising and returns
-// cudaGetLastError() (0 on success); cudaErrorInvalidValue for h outside
-// 1..kMaxHBwd or another cluster size.
-extern "C" int psn_fused_cw_rollout_bwd_f32(
-    const void* fz, const void* dt, const void* sv, const void* sol, const void* cot,
-    const void* const* w, const void* const* wt, void* g_fz, void* g_sv, void* partial,
-    void* g_w, void* g_x0, void* pairs, void* parts, void* scratch, int tm1, int batch, int h,
-    int xd, int zd, int solver, int cluster, void* stream) {
+namespace {
+
+// The backward's launches in this build's compute mode
+// (psn_fused_cw_rollout_bwd_f32 / _bf16).
+int backward(const void* fz, const void* dt, const void* sv, const void* sol, const void* cot,
+             const void* const* w, const void* const* wt, void* g_fz, void* g_sv, void* partial,
+             void* g_w, void* g_x0, void* pairs, void* parts, void* scratch, int tm1, int batch, int h,
+             int xd, int zd, int solver, int cluster, void* stream) {
   const bool wide = h > kMaxH;
   if (tm1 < 1 || batch < 1 || h < 1 || h > kMaxHBwd || xd < 1 || zd < 0 || solver < 0 ||
       solver > 2 || (cluster != 0 && cluster != 1 && cluster != 2 && cluster != 4 && !(wide && cluster == 8)))
@@ -1029,15 +1046,16 @@ extern "C" int psn_fused_cw_rollout_bwd_f32(
   if (wide) {
     if (cluster == 0) cluster = wide_cluster(batch, h, xd, zd);
     const WideArgs wa{a, static_cast<float*>(scratch), cluster};
-    e = launch_clusters(fused_cw_rollout_bwd_wide_kernel, batch, cluster, wide_smem_floats(h, xd, zd) * sizeof(float),
-                        st, wa);
+    e = launch_clusters(fused_cw_rollout_bwd_wide_kernel<kBuildBf16>, batch, cluster,
+                        wide_smem_floats(h, xd, zd) * sizeof(float), st, wa);
   } else {
     const size_t smem = smem_floats(h, xd, zd) * sizeof(float);
     if (cluster == 0)
-      cluster = pick_cluster(fused_cw_rollout_bwd_kernel<4>, fused_cw_rollout_bwd_kernel<2>, batch, smem);
-    e = cluster == 4   ? launch_clusters(fused_cw_rollout_bwd_kernel<4>, batch, 4, smem, st, a)
-        : cluster == 2 ? launch_clusters(fused_cw_rollout_bwd_kernel<2>, batch, 2, smem, st, a)
-                       : launch_clusters(fused_cw_rollout_bwd_kernel<1>, batch, 1, smem, st, a);
+      cluster = pick_cluster(fused_cw_rollout_bwd_kernel<4, kBuildBf16>, fused_cw_rollout_bwd_kernel<2, kBuildBf16>,
+                             batch, smem);
+    e = cluster == 4   ? launch_clusters(fused_cw_rollout_bwd_kernel<4, kBuildBf16>, batch, 4, smem, st, a)
+        : cluster == 2 ? launch_clusters(fused_cw_rollout_bwd_kernel<2, kBuildBf16>, batch, 2, smem, st, a)
+                       : launch_clusters(fused_cw_rollout_bwd_kernel<1, kBuildBf16>, batch, 1, smem, st, a);
   }
   if (e == cudaSuccess) e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1053,12 +1071,8 @@ extern "C" int psn_fused_cw_rollout_bwd_f32(
                                              static_cast<float*>(parts), gw, st));
 }
 
-// The contraction alone, for its tests and timing: pairs [rows, kPairs, 2,
-// xd, h] into dW [kPairs, xd, h, h] followed by db [kPairs, xd, h] in out;
-// parts as sizes[3] of psn_fused_cw_bwd_sizes for these rows (tm1 = rows,
-// batch = 1, Euler). Launches on `stream`; returns cudaGetLastError().
-extern "C" int psn_cw_contract_pairs_f32(const void* pairs, long long rows, int h, int xd,
-                                         void* parts, void* out, void* stream) {
+// The contraction alone in this build's compute mode (psn_cw_contract_pairs_f32 / _bf16).
+int contract(const void* pairs, long long rows, int h, int xd, void* parts, void* out, void* stream) {
   if (rows < 1 || h < 1 || h > kMaxHBwd || xd < 1) return static_cast<int>(cudaErrorInvalidValue);
   const long long hh = static_cast<long long>(h) * h;
   PairDest dest{};
@@ -1072,6 +1086,59 @@ extern "C" int psn_cw_contract_pairs_f32(const void* pairs, long long rows, int 
                                              st));
 }
 
+}  // namespace
+
+// C interface, loaded with ctypes. Pointers are device pointers to
+// contiguous float32 arrays; w is a host array of the 15 weight pointers in
+// the order of flatten_weights, wt one of the 6 transposes of
+// transposed_weights (ops/fused_channelwise_vjp.py). `partial` is [batch,
+// sizes[1]] and must be zero; g_w receives the summed gradients in the
+// flatten_weights layout; pairs and parts are scratch of sizes[2] and
+// sizes[3] floats, and above kMaxH scratch the wide walk's tiles of
+// sizes[4]. solver: 0 Euler, 1 Midpoint, 2 RK4 (3/8 rule). cluster: blocks
+// per batch row of the walk, as for psn_fused_cw_rollout_f32 (the wide
+// walk's 1, 2, 4 or 8 above kMaxH). Launches the walk, the dense partials'
+// sum and the contraction on `stream` without synchronising and returns
+// cudaGetLastError() (0 on success); cudaErrorInvalidValue for h outside
+// 1..kMaxHBwd or another cluster size. psn_cw_contract_pairs_f32: the
+// contraction alone, for its tests and timing: pairs [rows, kPairs, 2, xd,
+// h] into dW [kPairs, xd, h, h] followed by db [kPairs, xd, h] in out;
+// parts as sizes[3] of psn_fused_cw_bwd_sizes for these rows (tm1 = rows,
+// batch = 1, Euler); launches on `stream` and returns cudaGetLastError().
+// psn_fused_cw_rollout_bwd_bf16 and psn_cw_contract_pairs_bf16 (the
+// -DPSN_BF16 build, in place of the _f32 ones): the bf16 compute mode, the
+// same arguments with the 2-D weights and their transposes holding bf16
+// values; every output float32.
+#ifdef PSN_BF16
+extern "C" int psn_fused_cw_rollout_bwd_bf16(
+    const void* fz, const void* dt, const void* sv, const void* sol, const void* cot,
+    const void* const* w, const void* const* wt, void* g_fz, void* g_sv, void* partial,
+    void* g_w, void* g_x0, void* pairs, void* parts, void* scratch, int tm1, int batch, int h,
+    int xd, int zd, int solver, int cluster, void* stream) {
+  return backward(fz, dt, sv, sol, cot, w, wt, g_fz, g_sv, partial, g_w, g_x0, pairs, parts, scratch, tm1, batch,
+                  h, xd, zd, solver, cluster, stream);
+}
+
+extern "C" int psn_cw_contract_pairs_bf16(const void* pairs, long long rows, int h, int xd, void* parts, void* out,
+                                          void* stream) {
+  return contract(pairs, rows, h, xd, parts, out, stream);
+}
+#else
+extern "C" int psn_fused_cw_rollout_bwd_f32(
+    const void* fz, const void* dt, const void* sv, const void* sol, const void* cot,
+    const void* const* w, const void* const* wt, void* g_fz, void* g_sv, void* partial,
+    void* g_w, void* g_x0, void* pairs, void* parts, void* scratch, int tm1, int batch, int h,
+    int xd, int zd, int solver, int cluster, void* stream) {
+  return backward(fz, dt, sv, sol, cot, w, wt, g_fz, g_sv, partial, g_w, g_x0, pairs, parts, scratch, tm1, batch,
+                  h, xd, zd, solver, cluster, stream);
+}
+
+extern "C" int psn_cw_contract_pairs_f32(const void* pairs, long long rows, int h, int xd, void* parts, void* out,
+                                         void* stream) {
+  return contract(pairs, rows, h, xd, parts, out, stream);
+}
+#endif
+
 #ifdef CW_PHASE_CLOCK
 // The phase clock's kPhaseMarks marks of the last launch (csrc/cw_tile.cuh),
 // copied to out after the device is synchronised; returns the error.
@@ -1082,12 +1149,12 @@ extern "C" int psn_cw_phase_clock(long long* out) {
 }
 #endif
 
-// The blocks per batch row psn_fused_cw_rollout_bwd_f32 takes for cluster = 0
-// at these shapes on the current device.
+// The blocks per batch row psn_fused_cw_rollout_bwd_f32 (_bf16) takes for
+// cluster = 0 at these shapes on the current device.
 extern "C" int psn_fused_cw_bwd_cluster(int batch, int h, int xd, int zd) {
   if (h > kMaxH) return wide_cluster(batch, h, xd, zd);
-  return pick_cluster(fused_cw_rollout_bwd_kernel<4>, fused_cw_rollout_bwd_kernel<2>, batch,
-                      smem_floats(h, xd, zd) * sizeof(float));
+  return pick_cluster(fused_cw_rollout_bwd_kernel<4, kBuildBf16>, fused_cw_rollout_bwd_kernel<2, kBuildBf16>,
+                      batch, smem_floats(h, xd, zd) * sizeof(float));
 }
 
 extern "C" const char* psn_cuda_error_string(int code) {

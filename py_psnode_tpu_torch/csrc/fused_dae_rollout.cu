@@ -24,8 +24,10 @@
 // the other instantiations compile as without it.
 //
 // The bf16 compute mode (the TPU kernel's cast_compute :487 and _dot :143;
-// the template flag kBf16 of instantiations of its own, every path but the
-// TF-x one): the three streams arrive as bfloat16 and are widened to
+// the template flag kBf16 of instantiations of its own, every path, the
+// TF-x one too, in a build of its own: -DPSN_BF16, utils/cuda_build.py, so
+// that nvcc compiles the two modes at once): the three streams arrive as
+// bfloat16 and are widened to
 // float32 (exact) as a step's rows are copied into shared memory, at once
 // (not by cp.async: a 2-byte element has no copy of its own); the weights
 // arrive as bfloat16 and pack_nets widens them into the padded float32
@@ -33,7 +35,8 @@
 // rounds its activation operand (a first layer's inputs, a hidden layer's
 // or readout's activations) to bf16 with __float2bfloat16_rn as it reads
 // it and sums in float32, as the TPU kernel's _dot does. Biases, the
-// carries, dt and the stage updates stay float32. A simple mode that is
+// carries, dt, the true states of the TF-x mode (rounded where a first
+// layer reads them) and the stage updates stay float32. A simple mode that is
 // right: the padded weights stay float32 (the 128 KB of all four hidden
 // weights in bf16 would fit one block's shared memory; not used), and the
 // streams' copy waits for its loads.
@@ -132,7 +135,6 @@ __host__ inline size_t smem_floats(int slots, const Net& de, const Net& ae, int 
 template <int R, bool kFoldPath, bool kGlobal, bool kTfx = false, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1) dae_forward(const __grid_constant__ Args a, int slots) {
   static_assert(!(kTfx && kFoldPath), "the TF-x mode runs the tile path");
-  static_assert(!(kTfx && kBf16), "the bf16 mode has no TF-x path");
   extern __shared__ __align__(16) float smem[];
   const int H = a.H, B = a.batch, h = a.h, xd = a.xd, id = a.id, S = n_stages(a.solver);
   const int X = kTfx ? tf_stride(xd) : 0;
@@ -457,7 +459,8 @@ bool plan(Plan& p, int batch, int h, int xd, int id, int n_de, int n_ae, int row
 }
 
 // A launch of these sizes: the weights packed, then the rollout (the TF-x
-// mode where xt is not null; the bf16 mode where bf16, not with xt).
+// mode where xt is not null) in this build's compute mode, which bf16 must
+// name.
 int rollout(const void* s_de, const void* s_ae, const void* s_ae_ev, const void* aux, const void* x0, const void* i0,
             const void* wx_de, const void* wi_de, const void* const* de_w, const void* const* de_b, int n_de,
             const void* gx_ae, const void* const* ae_w, const void* const* ae_b, int n_ae, void* scratch, void* sol,
@@ -466,7 +469,7 @@ int rollout(const void* s_de, const void* s_ae, const void* s_ae_ev, const void*
   Plan p;
   float* base = static_cast<float*>(scratch);
   const bool tf = xt != nullptr;
-  if (tm1 < 0 || solver < 0 || solver > 2 || !base || (tf && !xt1) || (tf && bf16) ||
+  if (tm1 < 0 || solver < 0 || solver > 2 || !base || (tf && !xt1) || bf16 != kBuildBf16 ||
       !plan(p, batch, h, xd, id, n_de, n_ae, rows_per_block, base, tf))
     return static_cast<int>(cudaErrorInvalidValue);
   if (tm1 == 0) return static_cast<int>(cudaSuccess);
@@ -492,7 +495,7 @@ int rollout(const void* s_de, const void* s_ae, const void* s_ae_ev, const void*
   pk.h = h;
   pk.H = p.H;
   const int pb = pack_blocks(p.weights);
-  if (bf16) {
+  if constexpr (kBuildBf16) {
     pack_nets<__nv_bfloat16><<<pb, kThreads, 0, st>>>(pk);
   } else {
     pack_nets<float><<<pb, kThreads, 0, st>>>(pk);
@@ -520,32 +523,24 @@ int rollout(const void* s_de, const void* s_ae, const void* s_ae_ev, const void*
   a.solver = solver;
   a.xt = static_cast<const float*>(xt);
   a.xt1 = static_cast<const float*>(xt1);
+  constexpr bool bf = kBuildBf16;
   if (tf) {
-    if (p.shape.gmem) return static_cast<int>(launch<1, false, true, true>(a, st));
+    if (p.shape.gmem) return static_cast<int>(launch<1, false, true, true, bf>(a, st));
     switch (p.shape.rows) {
-      case 1: return static_cast<int>(launch<1, false, false, true>(a, st));
-      case 2: return static_cast<int>(launch<2, false, false, true>(a, st));
-      case 4: return static_cast<int>(launch<4, false, false, true>(a, st));
-      default: return static_cast<int>(launch<8, false, false, true>(a, st));
+      case 1: return static_cast<int>(launch<1, false, false, true, bf>(a, st));
+      case 2: return static_cast<int>(launch<2, false, false, true, bf>(a, st));
+      case 4: return static_cast<int>(launch<4, false, false, true, bf>(a, st));
+      default: return static_cast<int>(launch<8, false, false, true, bf>(a, st));
     }
   }
   const bool fold = narrow_in(a.de) && narrow_out(a.de) && narrow_in(a.ae) && narrow_out(a.ae);
-  if (bf16) {
-    if (p.shape.gmem) return static_cast<int>(launch<1, false, true, false, true>(a, st));
-    switch (p.shape.rows) {
-      case 1: return static_cast<int>(fold ? launch<1, true, false, false, true>(a, st)
-                                           : launch<1, false, false, false, true>(a, st));
-      case 2: return static_cast<int>(launch<2, false, false, false, true>(a, st));
-      case 4: return static_cast<int>(launch<4, false, false, false, true>(a, st));
-      default: return static_cast<int>(launch<8, false, false, false, true>(a, st));
-    }
-  }
-  if (p.shape.gmem) return static_cast<int>(launch<1, false, true>(a, st));
+  if (p.shape.gmem) return static_cast<int>(launch<1, false, true, false, bf>(a, st));
   switch (p.shape.rows) {
-    case 1: return static_cast<int>(fold ? launch<1, true>(a, st) : launch<1, false>(a, st));
-    case 2: return static_cast<int>(launch<2, false>(a, st));
-    case 4: return static_cast<int>(launch<4, false>(a, st));
-    default: return static_cast<int>(launch<8, false>(a, st));
+    case 1: return static_cast<int>(fold ? launch<1, true, false, false, bf>(a, st)
+                                         : launch<1, false, false, false, bf>(a, st));
+    case 2: return static_cast<int>(launch<2, false, false, false, bf>(a, st));
+    case 4: return static_cast<int>(launch<4, false, false, false, bf>(a, st));
+    default: return static_cast<int>(launch<8, false, false, false, bf>(a, st));
   }
 }
 
@@ -563,10 +558,12 @@ int rollout(const void* s_de, const void* s_ae, const void* s_ae_ev, const void*
 // `stream` without synchronising and returns the launches' error (0 on
 // success). psn_fused_dae_rollout_tfx_scratch / _tfx_f32: the same in the
 // TF-x mode, with the true states xt = x_true[:-1] and xt1 = x_true[1:]
-// ([tm1][batch][xd] each). psn_fused_dae_rollout_bf16: the bf16 compute
-// mode, the f32 function's arguments with s_de, s_ae, s_ae_ev and the
-// weights (wx_de, wi_de, gx_ae, de_w, ae_w) bfloat16 arrays; the biases,
-// aux, x0 and i0 float32; scratch of psn_fused_dae_rollout_scratch floats.
+// ([tm1][batch][xd] each). psn_fused_dae_rollout_bf16 and _tfx_bf16 (the
+// -DPSN_BF16 build, in place of _f32 and _tfx_f32): the bf16 compute mode,
+// the f32 functions' arguments with s_de, s_ae, s_ae_ev and the weights
+// (wx_de, wi_de, gx_ae, de_w, ae_w) bfloat16 arrays; the biases, aux, x0,
+// i0 and the true states float32; scratch of psn_fused_dae_rollout_scratch
+// (_tfx_scratch) floats.
 extern "C" long long psn_fused_dae_rollout_scratch(int batch, int h, int xd, int id, int n_de, int n_ae,
                                                    int rows_per_block) {
   Plan p;
@@ -581,17 +578,7 @@ extern "C" long long psn_fused_dae_rollout_tfx_scratch(int batch, int h, int xd,
                                                                                : -1;
 }
 
-extern "C" int psn_fused_dae_rollout_f32(const void* s_de, const void* s_ae, const void* s_ae_ev,
-                                         const void* aux, const void* x0, const void* i0, const void* wx_de,
-                                         const void* wi_de, const void* const* de_w, const void* const* de_b,
-                                         int n_de, const void* gx_ae, const void* const* ae_w,
-                                         const void* const* ae_b, int n_ae, void* scratch, void* sol, int tm1,
-                                         int batch, int h, int xd, int id, int solver, int rows_per_block,
-                                         void* stream) {
-  return rollout(s_de, s_ae, s_ae_ev, aux, x0, i0, wx_de, wi_de, de_w, de_b, n_de, gx_ae, ae_w, ae_b, n_ae, scratch,
-                 sol, tm1, batch, h, xd, id, solver, rows_per_block, nullptr, nullptr, false, stream);
-}
-
+#ifdef PSN_BF16
 extern "C" int psn_fused_dae_rollout_bf16(const void* s_de, const void* s_ae, const void* s_ae_ev,
                                           const void* aux, const void* x0, const void* i0, const void* wx_de,
                                           const void* wi_de, const void* const* de_w, const void* const* de_b,
@@ -600,7 +587,30 @@ extern "C" int psn_fused_dae_rollout_bf16(const void* s_de, const void* s_ae, co
                                           int batch, int h, int xd, int id, int solver, int rows_per_block,
                                           void* stream) {
   return rollout(s_de, s_ae, s_ae_ev, aux, x0, i0, wx_de, wi_de, de_w, de_b, n_de, gx_ae, ae_w, ae_b, n_ae, scratch,
-                 sol, tm1, batch, h, xd, id, solver, rows_per_block, nullptr, nullptr, true, stream);
+                 sol, tm1, batch, h, xd, id, solver, rows_per_block, nullptr, nullptr, kBuildBf16, stream);
+}
+
+extern "C" int psn_fused_dae_rollout_tfx_bf16(const void* s_de, const void* s_ae, const void* s_ae_ev,
+                                              const void* aux, const void* x0, const void* i0, const void* wx_de,
+                                              const void* wi_de, const void* const* de_w, const void* const* de_b,
+                                              int n_de, const void* gx_ae, const void* const* ae_w,
+                                              const void* const* ae_b, int n_ae, void* scratch, void* sol, int tm1,
+                                              int batch, int h, int xd, int id, int solver, int rows_per_block,
+                                              const void* xt, const void* xt1, void* stream) {
+  if (!xt) return static_cast<int>(cudaErrorInvalidValue);
+  return rollout(s_de, s_ae, s_ae_ev, aux, x0, i0, wx_de, wi_de, de_w, de_b, n_de, gx_ae, ae_w, ae_b, n_ae, scratch,
+                 sol, tm1, batch, h, xd, id, solver, rows_per_block, xt, xt1, kBuildBf16, stream);
+}
+#else
+extern "C" int psn_fused_dae_rollout_f32(const void* s_de, const void* s_ae, const void* s_ae_ev,
+                                         const void* aux, const void* x0, const void* i0, const void* wx_de,
+                                         const void* wi_de, const void* const* de_w, const void* const* de_b,
+                                         int n_de, const void* gx_ae, const void* const* ae_w,
+                                         const void* const* ae_b, int n_ae, void* scratch, void* sol, int tm1,
+                                         int batch, int h, int xd, int id, int solver, int rows_per_block,
+                                         void* stream) {
+  return rollout(s_de, s_ae, s_ae_ev, aux, x0, i0, wx_de, wi_de, de_w, de_b, n_de, gx_ae, ae_w, ae_b, n_ae, scratch,
+                 sol, tm1, batch, h, xd, id, solver, rows_per_block, nullptr, nullptr, kBuildBf16, stream);
 }
 
 extern "C" int psn_fused_dae_rollout_tfx_f32(const void* s_de, const void* s_ae, const void* s_ae_ev,
@@ -612,8 +622,9 @@ extern "C" int psn_fused_dae_rollout_tfx_f32(const void* s_de, const void* s_ae,
                                              const void* xt, const void* xt1, void* stream) {
   if (!xt) return static_cast<int>(cudaErrorInvalidValue);
   return rollout(s_de, s_ae, s_ae_ev, aux, x0, i0, wx_de, wi_de, de_w, de_b, n_de, gx_ae, ae_w, ae_b, n_ae, scratch,
-                 sol, tm1, batch, h, xd, id, solver, rows_per_block, xt, xt1, false, stream);
+                 sol, tm1, batch, h, xd, id, solver, rows_per_block, xt, xt1, kBuildBf16, stream);
 }
+#endif
 
 extern "C" const char* psn_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

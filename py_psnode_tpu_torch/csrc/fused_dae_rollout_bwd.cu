@@ -34,7 +34,7 @@
 //
 // The bf16 compute mode (the TPU kernel's cdtype :187 and _dot_t :52 on the
 // cast residuals of _vjp_forward :596-625; kernels of their own, the
-// template flag kBf16 of the same bodies, not with TF-x): the streams arrive
+// template flag kBf16 of the same bodies, the TF-x ones too): the streams arrive
 // as bfloat16 (the forward's cast ones), the padded weights hold the bf16
 // weights' values; the recompute rounds each layer's input tile and the
 // walk each cotangent to bf16 as a product reads them, the contraction both
@@ -142,7 +142,6 @@ constexpr int kDaeWalkVecs = 11;
 // ---- kernel 1: every evaluation of every row-step, a tile of kRows at a time ----
 template <bool kWide, bool kTfx = false, bool kBf16 = false>
 __device__ __forceinline__ void dae_recompute_body(const Args& a, float* smem) {
-  static_assert(!(kTfx && kBf16), "the bf16 mode has no TF-x kernels");
   using ST = Stream<kBf16>;
   const ST* s_de = reinterpret_cast<const ST*>(a.s_de);
   const ST* s_ae = reinterpret_cast<const ST*>(a.s_ae);
@@ -226,6 +225,16 @@ __global__ void __launch_bounds__(kThreads, 1) dae_recompute_bf16(const __grid_c
 __global__ void __launch_bounds__(kThreads, 1) dae_recompute_wide_bf16(const __grid_constant__ Args a) {
   extern __shared__ __align__(16) float smem[];
   dae_recompute_body<true, false, true>(a, smem);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) dae_recompute_tfx_bf16(const __grid_constant__ Args a) {
+  extern __shared__ __align__(16) float smem[];
+  dae_recompute_body<false, true, true>(a, smem);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) dae_recompute_wide_tfx_bf16(const __grid_constant__ Args a) {
+  extern __shared__ __align__(16) float smem[];
+  dae_recompute_body<true, true, true>(a, smem);
 }
 
 // ---- kernel 2: the reverse walk, one block per batch row ----
@@ -459,6 +468,16 @@ __global__ void __launch_bounds__(kThreads, 1) dae_walk_wide_bf16(const __grid_c
   dae_walk_body<true, false, true>(a, 0, vec_smem != 0, smem);
 }
 
+__global__ void __launch_bounds__(kThreads, 1) dae_walk_tfx_bf16(const __grid_constant__ Args a, int slots) {
+  extern __shared__ __align__(16) float smem[];
+  dae_walk_body<false, true, true>(a, slots, true, smem);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) dae_walk_wide_tfx_bf16(const __grid_constant__ Args a, int vec_smem) {
+  extern __shared__ __align__(16) float smem[];
+  dae_walk_body<true, true, true>(a, 0, vec_smem != 0, smem);
+}
+
 // The contraction's jobs: the DE over the stages' slots ([wx; wi] from
 // their inputs, then the tail), the AE over the AE slots, the event slot's
 // rows counted only on events.
@@ -503,7 +522,7 @@ extern "C" void psn_fused_dae_bwd_sizes(int tm1, int batch, int h, int xd, int i
 namespace {
 
 // The backward's launches (the TF-x kernels where xt is not null, the bf16
-// ones where bf16; not both).
+// ones where bf16).
 int backward(const void* s_de, const void* s_ae, const void* s_ae_ev, const void* aux, const void* x0,
              const void* i0, const void* sol, const void* cot, const void* w_de, const void* b_de, int n_de,
              const void* w_ae, const void* b_ae, int n_ae, void* g_s_de, void* g_s_ae, void* g_s_ae_ev,
@@ -512,7 +531,7 @@ int backward(const void* s_de, const void* s_ae, const void* s_ae_ev, const void
              const void* xt1, void* g_xt, void* g_xt1, bool bf16, void* stream) {
   const bool tf = xt != nullptr;
   if (tm1 < 1 || batch < 1 || h < 1 || xd < 1 || id < 1 || solver < 0 || solver > 2 || n_de < 1 ||
-      n_de > kMaxTail || n_ae < 1 || n_ae > kMaxTail || (tf && !xt1) || (tf && bf16))
+      n_de > kMaxTail || n_ae < 1 || n_ae > kMaxTail || (tf && !xt1))
     return static_cast<int>(cudaErrorInvalidValue);
   const int S = n_stages(solver), E = S + 2, L = n_de > n_ae ? n_de : n_ae;
   const int H = fwd_width(h > xd + id ? h : xd + id);
@@ -551,7 +570,8 @@ int backward(const void* s_de, const void* s_ae, const void* s_ae_ev, const void
   const int tiles = static_cast<int>((R + kRows - 1) / kRows);
   if ((stages & 1) && H > kMaxH) {
     const size_t smem = rc_wide_smem_bytes();
-    auto kernel = tf ? dae_recompute_wide_tfx : (bf16 ? dae_recompute_wide_bf16 : dae_recompute_wide);
+    auto kernel = tf ? (bf16 ? dae_recompute_wide_tfx_bf16 : dae_recompute_wide_tfx)
+                     : (bf16 ? dae_recompute_wide_bf16 : dae_recompute_wide);
     e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     kernel<<<tiles, kThreads, smem, st>>>(a);
@@ -559,7 +579,8 @@ int backward(const void* s_de, const void* s_ae, const void* s_ae_ev, const void
     if (e != cudaSuccess) return static_cast<int>(e);
   } else if (stages & 1) {
     const size_t smem = rc_smem_bytes();
-    auto kernel = tf ? dae_recompute_tfx : (bf16 ? dae_recompute_bf16 : dae_recompute);
+    auto kernel = tf ? (bf16 ? dae_recompute_tfx_bf16 : dae_recompute_tfx)
+                     : (bf16 ? dae_recompute_bf16 : dae_recompute);
     e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     kernel<<<tiles, kThreads, smem, st>>>(a);
@@ -569,7 +590,8 @@ int backward(const void* s_de, const void* s_ae, const void* s_ae_ev, const void
   if ((stages & 2) && H > kMaxH) {
     const int in_smem = walk_wide_in_smem(kDaeWalkVecs, H);
     const size_t smem = in_smem ? static_cast<size_t>(kDaeWalkVecs) * H * sizeof(float) : 0;
-    auto kernel = tf ? dae_walk_wide_tfx : (bf16 ? dae_walk_wide_bf16 : dae_walk_wide);
+    auto kernel = tf ? (bf16 ? dae_walk_wide_tfx_bf16 : dae_walk_wide_tfx)
+                     : (bf16 ? dae_walk_wide_bf16 : dae_walk_wide);
     e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     kernel<<<batch, kThreads, smem, st>>>(a, in_smem);
@@ -583,7 +605,7 @@ int backward(const void* s_de, const void* s_ae, const void* s_ae_ev, const void
     const int fit = walk_fit(E, L), cap = max_slots >= 0 ? max_slots : n_de - 1;
     const int slots = place(nets, 2, cap < fit ? cap : fit);
     const size_t smem = walk_floats(slots, E, L) * sizeof(float);
-    auto kernel = tf ? dae_walk_tfx : (bf16 ? dae_walk_bf16 : dae_walk);
+    auto kernel = tf ? (bf16 ? dae_walk_tfx_bf16 : dae_walk_tfx) : (bf16 ? dae_walk_bf16 : dae_walk);
     e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     kernel<<<batch, kThreads, smem, st>>>(a, slots);
@@ -619,9 +641,10 @@ int backward(const void* s_de, const void* s_ae, const void* s_ae_ev, const void
 // the DE's hidden ones; the others come from L2). Launches on `stream` without synchronising and returns the first launch error (0 on success). psn_fused_dae_rollout_bwd_tfx_f32: the same in the
 // TF-x mode, with the true states xt = x_true[:-1] and xt1 = x_true[1:]
 // ([tm1][batch][xd] each) and their cotangents g_xt and g_xt1 (null: not
-// written). psn_fused_dae_rollout_bwd_bf16: the bf16 compute mode, the f32
-// function's arguments with s_de, s_ae and s_ae_ev bfloat16 arrays and the
-// padded weights holding bf16 values (every output float32).
+// written). psn_fused_dae_rollout_bwd_bf16 (_tfx_bf16): the bf16 compute
+// mode, the f32 (_tfx_f32) function's arguments with s_de, s_ae and s_ae_ev
+// bfloat16 arrays and the padded weights holding bf16 values (every output
+// float32).
 extern "C" int psn_fused_dae_rollout_bwd_f32(
     const void* s_de, const void* s_ae, const void* s_ae_ev, const void* aux, const void* x0,
     const void* i0, const void* sol, const void* cot, const void* w_de, const void* b_de, int n_de,
@@ -655,6 +678,19 @@ extern "C" int psn_fused_dae_rollout_bwd_tfx_f32(
   return backward(s_de, s_ae, s_ae_ev, aux, x0, i0, sol, cot, w_de, b_de, n_de, w_ae, b_ae, n_ae, g_s_de, g_s_ae,
                   g_s_ae_ev, g_w, g_x0, g_i0, res, gres, gy, xin, parts, tm1, batch, h, xd, id, solver, stages,
                   max_slots, xt, xt1, g_xt, g_xt1, false, stream);
+}
+
+extern "C" int psn_fused_dae_rollout_bwd_tfx_bf16(
+    const void* s_de, const void* s_ae, const void* s_ae_ev, const void* aux, const void* x0,
+    const void* i0, const void* sol, const void* cot, const void* w_de, const void* b_de, int n_de,
+    const void* w_ae, const void* b_ae, int n_ae, void* g_s_de, void* g_s_ae, void* g_s_ae_ev,
+    void* g_w, void* g_x0, void* g_i0, void* res, void* gres, void* gy, void* xin, void* parts,
+    int tm1, int batch, int h, int xd, int id, int solver, int stages, int max_slots, const void* xt,
+    const void* xt1, void* g_xt, void* g_xt1, void* stream) {
+  if (!xt) return static_cast<int>(cudaErrorInvalidValue);
+  return backward(s_de, s_ae, s_ae_ev, aux, x0, i0, sol, cot, w_de, b_de, n_de, w_ae, b_ae, n_ae, g_s_de, g_s_ae,
+                  g_s_ae_ev, g_w, g_x0, g_i0, res, gres, gy, xin, parts, tm1, batch, h, xd, id, solver, stages,
+                  max_slots, xt, xt1, g_xt, g_xt1, true, stream);
 }
 
 extern "C" const char* psn_cuda_error_string(int code) {

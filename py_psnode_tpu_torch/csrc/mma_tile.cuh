@@ -62,6 +62,15 @@ constexpr int kChunk = kKc * kLdt;    // floats in one staged chunk
 // --bf16-probe builds each)
 constexpr int kBf16Acc = NE_BF16_ACC;
 
+// The compute mode of this build's kernels and C functions where a source
+// builds each mode apart (utils/cuda_build.py: SPLIT_BF16): -DPSN_BF16 the
+// bf16 compute mode's, else float32's.
+#ifdef PSN_BF16
+constexpr bool kBuildBf16 = true;
+#else
+constexpr bool kBuildBf16 = false;
+#endif
+
 // How the 16 warps of a block of a KC-block cluster tile its column slice
 // [kMaxH, kSlice] of an [h, h] product: kAlongM warps along the rows, each
 // a kWarpM x kWarpN slice of kMi x kNi mma tiles of 16 x 8.
@@ -294,16 +303,17 @@ __device__ __forceinline__ void mma_tile_weight(const float* tin, int K,
 // acc = sum_{l < L} ta[m][l] tb[n][l] over the block's column slice: two
 // tiles multiplied over their position axis, a^T g for an activation tile
 // aT and a cotangent tile gT (the gradient of a dense weight). Positions
-// beyond L must be zero. No barrier.
-template <int KC>
+// beyond L must be zero. No barrier. kBf16: the bf16 compute mode, both
+// tiles' elements rounded to bf16 as they are read, in one TF32 pass.
+template <int KC, bool kBf16 = false>
 __device__ __forceinline__ void mma_tile_tile(const float* ta, const float* tb, int L,
                                               Acc<KC>& acc) {
   const Frag f = frag<KC>();
   zero<KC>(acc);
   for (int kb = 0; kb < L; kb += 8)
-    mma_k8<KC>(
-        f, kb, [&](int m, int k) { return ta[m * kLdt + k]; },
-        [&](int k, int n) { return tb[n * kLdt + k]; }, acc);
+    mma_k8<KC, kBf16>(
+        f, kb, [&](int m, int k) { return rnd<kBf16>(ta[m * kLdt + k]); },
+        [&](int k, int n) { return rnd<kBf16>(tb[n * kLdt + k]); }, acc);
 }
 
 }  // namespace

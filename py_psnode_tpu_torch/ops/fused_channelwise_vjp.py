@@ -30,6 +30,17 @@ plain version).
 :func:`fused_cw_rollout_bwd_plain` on CPU tensors. The plain walk
 recomputes one step at a time and takes that step's VJP with autograd, so
 its memory is one step's, at any T.
+
+The bf16 compute mode (bfloat16 2-D weights, ``fused_channelwise.cast_cw``;
+JAX ``_vjp_fwd`` :551-555 and ``_cw_bwd_eval``'s ``_dot_t`` / ``_dot_nt``
+with ``cd`` bfloat16): :class:`FusedCwRollout` casts once in its forward
+and keeps the cast weights for the backward, which recomputes what the
+forward computed. Every cotangent product rounds its cotangent, every
+weight-gradient product both operands (``fused_channelwise.RoundedProduct``
+in the plain walk), while each ``elu'`` reads the float32 pre-activation;
+the (u, v) pairs are the float32 values, which the contraction rounds as it
+multiplies them (its bias sums of the float32 v); ``g_s_constV``, ``g_fz``,
+``g_x0`` and every gradient are float32.
 """
 
 from __future__ import annotations
@@ -37,27 +48,34 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from py_psnode_tpu_torch.ops.fused_channelwise import (
     MAX_HIDDEN_BWD,
+    _round,
+    cast_cw,
     check_inputs,
     check_width,
     cw_eval,
     flatten_weights,
     fused_cw_rollout,
+    is_bf16_weights,
+    kernel_weights,
     unflatten_weights,
+    work_weights,
 )
-from py_psnode_tpu_torch.ops.fused_dae import _SOLVER_CODE, normalize_solver
+from py_psnode_tpu_torch.ops.fused_dae import _SOLVER_CODE, is_bf16, normalize_solver
 from py_psnode_tpu_torch.ops.fused_ode import _step_fwd, pointer_array
 from py_psnode_tpu_torch.utils import cuda_build
 
 
 def fused_cw_rollout_bwd_plain(streams: Dict, weights: Dict, dt, sol, cot, solver: str = "euler"):
     """The reverse walk in PyTorch on any device, in the inputs' dtype
-    (float32 or float64): the plain version of the CUDA kernel.
+    (float32 or float64): the plain version of the CUDA kernel, in the bf16
+    compute mode where ``weights`` are bfloat16 (its gradients then in the
+    inputs' dtype, not bfloat16).
 
     Args:
       streams/weights/dt: the forward's inputs.
@@ -70,7 +88,8 @@ def fused_cw_rollout_bwd_plain(streams: Dict, weights: Dict, dt, sol, cot, solve
     """
     solver = normalize_solver(solver)
     fz, sV = streams["fz"], streams["s_constV"]
-    flat = [w.detach() for w in flatten_weights(weights)]
+    bf16 = is_bf16_weights(weights)
+    flat = [w.detach() for w in flatten_weights(work_weights(weights, sV.dtype))]
     dt_all = dt.to(sV.dtype)[..., None]  # [T-1, B, 1, 1]
     g_fz = torch.zeros_like(fz)
     g_sV = torch.zeros_like(sV)
@@ -83,7 +102,7 @@ def fused_cw_rollout_bwd_plain(streams: Dict, weights: Dict, dt, sol, cot, solve
             sV_t = sV.detach().requires_grad_()
             w_t = [w.requires_grad_() for w in (w.detach() for w in flat)]
             wd = unflatten_weights(w_t)
-            x1 = _step_fwd(lambda xx: cw_eval(xx, fz_t, sV_t, wd), x0, dt_all[t], solver)
+            x1 = _step_fwd(lambda xx: cw_eval(xx, fz_t, sV_t, wd, bf16=bf16), x0, dt_all[t], solver)
             grads = torch.autograd.grad(x1, [x0, fz_t, sV_t, *w_t], cot[t + 1] + gx)
         gx, g_fz[t] = grads[0], grads[1]
         g_sV += grads[2]
@@ -97,12 +116,14 @@ def channel_pairs_plain(streams: Dict, weights: Dict, dt, sol, cot, solver: str 
     walk writes them: ``[T-1, S, B, 4, 2, xd, h]``, the stages in the order
     their VJPs are taken (the reverse of their evaluation), the four layers
     in the order head W1, head W0, ext W1, ext W0, ``u`` the layer's input
-    and ``v`` the cotangent of its pre-activation output. Same arguments as
-    :func:`fused_cw_rollout_bwd_plain`; recomputes each step and takes its
-    VJP with autograd."""
+    and ``v`` the cotangent of its pre-activation output, both as computed
+    (in the bf16 compute mode the contraction rounds them). Same arguments
+    as :func:`fused_cw_rollout_bwd_plain`; recomputes each step and takes
+    its VJP with autograd."""
     solver = normalize_solver(solver)
     fz, sV = streams["fz"], streams["s_constV"]
-    w = unflatten_weights([a.detach() for a in flatten_weights(weights)])
+    bf16 = is_bf16_weights(weights)
+    w = unflatten_weights([a.detach() for a in flatten_weights(work_weights(weights, sV.dtype))])
     dt_all = dt.to(sV.dtype)[..., None]  # [T-1, B, 1, 1]
     gx = torch.zeros_like(sol[0])
     steps = []
@@ -110,7 +131,7 @@ def channel_pairs_plain(streams: Dict, weights: Dict, dt, sol, cot, solver: str 
         rec = []  # per evaluation, its four (u, pre-activation output) pairs
         with torch.enable_grad():
             x0 = sol[t].detach().requires_grad_()
-            x1 = _step_fwd(lambda xx: cw_eval(xx, fz[t], sV, w, rec), x0, dt_all[t], solver)
+            x1 = _step_fwd(lambda xx: cw_eval(xx, fz[t], sV, w, rec, bf16), x0, dt_all[t], solver)
             outs = [o for ev in rec for _, o in ev]
             grads = torch.autograd.grad(x1, [x0, *outs], cot[t + 1] + gx)
         gx, v = grads[0], iter(grads[1:])
@@ -120,30 +141,32 @@ def channel_pairs_plain(streams: Dict, weights: Dict, dt, sol, cot, solver: str 
     return torch.stack(steps[::-1])
 
 
-def contract_channel_pairs_plain(pairs):
+def contract_channel_pairs_plain(pairs, bf16: bool = False):
     """``(dW [4, xd, h, h], db [4, xd, h])``: the sums over every row of
     ``pairs [..., 4, 2, xd, h]`` of ``u^T v`` and ``v`` per layer and
     channel, in the pairs' dtype and device, as an eager loop of outer
     products 256 rows at a time: the plain version of the CUDA
-    contraction."""
+    contraction. ``bf16``: the bf16 compute mode's, ``u^T v`` of u and v
+    rounded to bf16, ``v``'s sums as it is."""
     *_, P, _, xd, h = pairs.shape
     rows = pairs.reshape(-1, P, 2, xd, h)
     dW = rows.new_zeros(P, xd, h, h)
     db = rows.new_zeros(P, xd, h)
+    rnd = _round if bf16 else (lambda a: a)
     for r0 in range(0, rows.shape[0], 256):
         u, v = rows[r0:r0 + 256, :, 0], rows[r0:r0 + 256, :, 1]
-        dW += (u[..., :, None] * v[..., None, :]).sum(0)
+        dW += (rnd(u)[..., :, None] * rnd(v)[..., None, :]).sum(0)
         db += v.sum(0)
     return dW, db
 
 
 def transposed_weights(weights: Dict) -> List[torch.Tensor]:
     """``[W1^T, W2^T, ext w0^T, ext w1^T, head w0^T, head w1^T]`` (the
-    per-channel stacks transposed per channel): the backward kernel's
-    cotangent products read these, so that neighbouring threads read
-    neighbouring addresses."""
+    per-channel stacks transposed per channel) in float32 (the bf16 compute
+    mode's widened exactly): the backward kernel's cotangent products read
+    these, so that neighbouring threads read neighbouring addresses."""
     (W1, _), (W2, _), _ = weights["vert"]
-    t = lambda w: w.transpose(-1, -2).contiguous()
+    t = lambda w: w.transpose(-1, -2).float().contiguous()
     return [t(W1), t(W2), t(weights["ext"][0]), t(weights["ext"][2]),
             t(weights["head"][0]), t(weights["head"][2])]
 
@@ -158,11 +181,14 @@ def grad_layout(weights: Dict) -> Tuple[List[Tuple[int, Tuple[int, ...]]], int]:
     return out, off
 
 
-def bind_rollout_bwd(lib: ctypes.CDLL):
+def bind_rollout_bwd(lib: ctypes.CDLL, bf16: bool = False):
     """``(walk, sizes, contraction, error string)``: the C functions of a
     build of ``csrc/fused_cw_rollout_bwd.cu`` (for the card or, in
-    ``utils/host_build.py``, the host) with their signatures."""
-    fn = lib.psn_fused_cw_rollout_bwd_f32
+    ``utils/host_build.py``, the host) with their signatures, the walk and
+    the contraction those of the bf16 compute mode where ``bf16`` (the build
+    with ``cuda_build.BF16_DEFINE``)."""
+    mode = "bf16" if bf16 else "f32"
+    fn = getattr(lib, f"psn_fused_cw_rollout_bwd_{mode}")
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     PP = ctypes.POINTER(ctypes.c_void_p)
     fn.argtypes = [
@@ -178,7 +204,7 @@ def bind_rollout_bwd(lib: ctypes.CDLL):
     sizes = lib.psn_fused_cw_bwd_sizes
     sizes.argtypes = [I, I, I, I, I, I, ctypes.POINTER(L)]
     sizes.restype = None
-    contract = lib.psn_cw_contract_pairs_f32
+    contract = getattr(lib, f"psn_cw_contract_pairs_{mode}")
     contract.argtypes = [P, L, I, I, P, P, P]  # pairs, rows, h, xd, parts, out, stream
     contract.restype = ctypes.c_int
     err = lib.psn_cuda_error_string
@@ -188,10 +214,10 @@ def bind_rollout_bwd(lib: ctypes.CDLL):
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    """The C launchers of ``csrc/fused_cw_rollout_bwd.cu`` with their
-    signatures (:func:`bind_rollout_bwd`)."""
-    return bind_rollout_bwd(cuda_build.load("fused_cw_rollout_bwd"))
+def _launcher(bf16: bool = False):
+    """The C launchers of ``csrc/fused_cw_rollout_bwd.cu`` in the compute
+    mode of ``bf16``, with their signatures (:func:`bind_rollout_bwd`)."""
+    return bind_rollout_bwd(cuda_build.load("fused_cw_rollout_bwd", bf16), bf16)
 
 
 def bwd_sizes(sizes, Tm1, B, h, xd, zd, solver) -> Tuple[int, int, int, int, int]:
@@ -205,14 +231,16 @@ def bwd_sizes(sizes, Tm1, B, h, xd, zd, solver) -> Tuple[int, int, int, int, int
 
 
 def _launch_bwd(streams: Dict, weights: Dict, dt, sol, cot, solver: str, cluster: int,
-                launcher=None):
+                launcher=None, bufs: Optional[Dict] = None):
     """Launch the backward through ``launcher`` (of :func:`bind_rollout_bwd`;
-    the default build when None) with ``cluster`` blocks per row (0: the
-    launcher's choice). Counts nothing: :func:`fused_cw_rollout_bwd_cuda`
-    is the entry, and a fixed cluster is for timing one choice against
-    another."""
+    the default build of the inputs' compute mode when None) with
+    ``cluster`` blocks per row (0: the launcher's choice); ``bufs``, a dict
+    where given, receives the walk's (u, v) pairs as ``bufs["pairs"]``
+    ``[T-1, S, B, 4, 2, xd, h]`` (``channel_pairs_plain``'s layout). Counts
+    nothing: :func:`fused_cw_rollout_bwd_cuda` is the entry, and a fixed
+    cluster is for timing one choice against another."""
     solver = normalize_solver(solver)
-    check_inputs(streams, weights, sol[0], dt, backward=True)
+    bf16 = check_inputs(streams, weights, sol[0], dt, backward=True)
     fz, sV = streams["fz"], streams["s_constV"]
     Tm1, B, zd, h = fz.shape
     xd = sol.shape[2]
@@ -223,7 +251,7 @@ def _launch_bwd(streams: Dict, weights: Dict, dt, sol, cot, solver: str, cluster
             raise ValueError(f"{name} must have shape {(Tm1 + 1, B, xd, h)}, got {tuple(a.shape)}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    fn, sizes, _, err = launcher or _launcher()
+    fn, sizes, _, err = launcher or _launcher(bf16)
     layout, total = grad_layout(weights)
     n_w, n_dense, n_pairs, n_parts, n_tiles = bwd_sizes(sizes, Tm1, B, h, xd, zd, solver)
     if n_w != total:
@@ -237,11 +265,11 @@ def _launch_bwd(streams: Dict, weights: Dict, dt, sol, cot, solver: str, cluster
     pairs = torch.empty(n_pairs, **f32)
     parts = torch.empty(n_parts, **f32)
     tiles = torch.empty(max(1, n_tiles), **f32)
-    wts = transposed_weights(weights)  # must outlive the launch
+    wk, wts = kernel_weights(weights), transposed_weights(weights)  # must outlive the launch
     with torch.cuda.device(sV.device):
         stream = torch.cuda.current_stream(sV.device).cuda_stream
         rc = fn(fz.data_ptr(), dt.data_ptr(), sV.data_ptr(), sol.data_ptr(), cot.data_ptr(),
-                pointer_array(flatten_weights(weights)), pointer_array(wts),
+                pointer_array(wk), pointer_array(wts),
                 g_fz.data_ptr(), g_sV.data_ptr(), partial.data_ptr(), g_flat.data_ptr(),
                 g_x0.data_ptr(), pairs.data_ptr(), parts.data_ptr(), tiles.data_ptr(), Tm1, B, h, xd,
                 zd, _SOLVER_CODE[solver], cluster, stream)
@@ -249,6 +277,8 @@ def _launch_bwd(streams: Dict, weights: Dict, dt, sol, cot, solver: str, cluster
         raise RuntimeError(
             f"fused_cw_rollout_bwd kernel launch failed: CUDA error {rc} ({err(rc).decode()})"
         )
+    if bufs is not None:
+        bufs["pairs"] = pairs.view(Tm1, -1, B, 4, 2, xd, h)
     g_list = [g_flat[off:off + math.prod(shape)].view(shape) for off, shape in layout]
     return dict(fz=g_fz, s_constV=g_sV), unflatten_weights(g_list), g_x0
 
@@ -261,17 +291,19 @@ def fused_cw_rollout_bwd_cuda(streams: Dict, weights: Dict, dt, sol, cot, solver
     contract as :func:`fused_cw_rollout_bwd_plain`, float32. Scratch: the
     pairs buffer of ``(T-1) S B 8 xd h`` floats (2.1 GB at B=64, RK4, xd=2,
     h=128) and, above h=128, the wide walk's tiles (``2 B hp^2`` floats,
-    ``hp`` = h rounded up to 128) live until the launch ends."""
+    ``hp`` = h rounded up to 128) live until the launch ends. bfloat16 2-D
+    weights: the bf16 compute mode (float32 gradients)."""
     out = _launch_bwd(streams, weights, dt, sol, cot, solver, 0)
     fused_cw_rollout_bwd.launches += 1
     return out
 
 
-def contract_channel_pairs_cuda(pairs):
-    """Launch the CUDA contraction alone on ``pairs [..., 4, 2, xd, h]``
-    (float32, contiguous, on the card); returns ``(dW, db)`` as
-    :func:`contract_channel_pairs_plain` does. The backward launches the
-    same kernels on its own pairs buffer."""
+def contract_channel_pairs_cuda(pairs, bf16: bool = False):
+    """Launch the CUDA contraction alone (``bf16``: the bf16 compute
+    mode's) on ``pairs [..., 4, 2, xd, h]`` (float32, contiguous, on the
+    card); returns ``(dW, db)`` as :func:`contract_channel_pairs_plain`
+    does. The backward launches the same kernels on its own pairs
+    buffer."""
     if pairs.device.type != "cuda" or pairs.dtype != torch.float32 or not pairs.is_contiguous():
         raise ValueError(f"pairs must be contiguous float32 on a CUDA device, got {pairs.dtype} on "
                          f"{pairs.device}")
@@ -280,7 +312,7 @@ def contract_channel_pairs_cuda(pairs):
         raise ValueError(f"pairs must be [..., 4, 2, xd, h <= {MAX_HIDDEN_BWD}], got {tuple(pairs.shape)}")
     check_width(h, backward=True)
     rows = pairs.numel() // (8 * xd * h)
-    _, sizes, contract, err = _launcher()
+    _, sizes, contract, err = _launcher(bf16)
     n_parts = bwd_sizes(sizes, rows, 1, h, xd, 1, "euler")[3]
     parts = torch.empty(n_parts, dtype=torch.float32, device=pairs.device)
     out = torch.empty(4 * xd * h * (h + 1), dtype=torch.float32, device=pairs.device)
@@ -314,20 +346,22 @@ fused_cw_rollout_bwd.launches = 0
 class FusedCwRollout(torch.autograd.Function):
     """The fused channel-wise rollout with its reverse-time backward.
 
-    Forward: :func:`fused_cw_rollout` (the CUDA kernel on the card); it
-    saves the solution, nothing per step. Backward:
-    :func:`fused_cw_rollout_bwd`, plus ``g_sol[0]`` into ``g_x0``. Weights
-    enter as flat tensor arguments (:func:`flatten_weights`); ``dt`` gets
-    no gradient.
+    Forward: :func:`fused_cw_rollout` (the CUDA kernel on the card) in the
+    compute mode of ``precision`` (``fused_channelwise.cast_cw``); it saves
+    the weights as the kernels read them (the 2-D ones bfloat16 in the bf16
+    mode) and the solution, nothing per step. Backward:
+    :func:`fused_cw_rollout_bwd`, plus ``g_sol[0]`` into ``g_x0``, its
+    float32 gradients to the float32 inputs. Weights enter as flat tensor
+    arguments (:func:`flatten_weights`); ``dt`` gets no gradient.
     """
 
     @staticmethod
-    def forward(ctx, solver, fz, s_constV, x0, dt, *wflat):
-        streams = dict(fz=fz, s_constV=s_constV)
-        rows = fused_cw_rollout(streams, unflatten_weights(wflat), x0, dt, solver)
+    def forward(ctx, solver, precision, fz, s_constV, x0, dt, *wflat):
+        streams, weights = cast_cw(dict(fz=fz, s_constV=s_constV), unflatten_weights(wflat), precision)
+        rows = fused_cw_rollout(streams, weights, x0, dt, solver)
         sol = torch.cat([x0[None], rows], dim=0)
         ctx.solver = solver
-        ctx.save_for_backward(fz, s_constV, dt, sol, *wflat)
+        ctx.save_for_backward(fz, s_constV, dt, sol, *flatten_weights(weights))
         return sol
 
     @staticmethod
@@ -338,15 +372,17 @@ class FusedCwRollout(torch.autograd.Function):
             dict(fz=fz, s_constV=sV), unflatten_weights(wflat), dt, sol, g_sol.contiguous(),
             ctx.solver,
         )
-        return (None, g_s["fz"], g_s["s_constV"], g_x0 + g_sol[0], None, *flatten_weights(g_w))
+        return (None, None, g_s["fz"], g_s["s_constV"], g_x0 + g_sol[0], None, *flatten_weights(g_w))
 
 
-def fused_cw_rollout_diff(streams: Dict, weights: Dict, x0, dt, solver: str = "euler"):
+def fused_cw_rollout_diff(streams: Dict, weights: Dict, x0, dt, solver: str = "euler",
+                          precision: str = "default"):
     """Differentiable fused rollout (the training entry): ``[T, B, xd, h]``
-    including the initial row, with gradients to ``fz``, ``s_constV``,
-    ``x0`` and every weight through :class:`FusedCwRollout`; ``dt`` gets
-    none."""
+    including the initial row, with gradients (float32, also in the bf16
+    compute mode of ``precision``) to ``fz``, ``s_constV``, ``x0`` and every
+    weight through :class:`FusedCwRollout`; ``dt`` gets none."""
+    is_bf16(precision)  # an unknown precision raises here
     return FusedCwRollout.apply(
-        normalize_solver(solver), streams["fz"].contiguous(), streams["s_constV"].contiguous(),
+        normalize_solver(solver), precision, streams["fz"].contiguous(), streams["s_constV"].contiguous(),
         x0.contiguous(), dt.float().contiguous(), *flatten_weights(weights),
     )

@@ -23,7 +23,10 @@ The bf16 compute mode (``precision="bfloat16"``, JAX ``cast_compute``
 bfloat16; the kernel and the plain version then round each product's
 activation to bf16 and sum in float32 (:func:`~py_psnode_tpu_torch.ops.
 noencode_bwd.dot`), biases, carries and ``dt`` staying float32. The mode
-rides the streams' dtype. Not in the bf16 mode: teacher forcing of ``x``.
+rides the streams' dtype. Under teacher forcing of ``x`` the true states
+stay float32 and are rounded where a product reads them, as the rolled
+states are. The kernel's bf16 mode is a build of its own
+(``utils/cuda_build.py``: ``SPLIT_BF16``).
 
 Not ported: lanes, and the TPU's time blocking with ``dt == 0`` padding
 (scheduling that does not change the result).
@@ -246,8 +249,9 @@ def bind_rollout(lib: ctypes.CDLL, bf16: bool = False):
     """``(launcher, scratch floats, error string, TF-x launcher, TF-x
     scratch floats, bf16)``: the C functions of a build of
     ``csrc/fused_dae_rollout.cu`` (for the card or, in
-    ``utils/host_build.py``, the host) with their signatures, the launcher
-    that of the bf16 compute mode where ``bf16``."""
+    ``utils/host_build.py``, the host) with their signatures, the launchers
+    those of the bf16 compute mode where ``bf16`` (the build with
+    ``cuda_build.BF16_DEFINE``)."""
     P, I = ctypes.c_void_p, ctypes.c_int
     PP = ctypes.POINTER(ctypes.c_void_p)
     args = [
@@ -268,7 +272,7 @@ def bind_rollout(lib: ctypes.CDLL, bf16: bool = False):
     err = lib.psn_cuda_error_string
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
-    tf = lib.psn_fused_dae_rollout_tfx_f32
+    tf = lib.psn_fused_dae_rollout_tfx_bf16 if bf16 else lib.psn_fused_dae_rollout_tfx_f32
     tf.argtypes = args + [P, P, P]  # x_true[:-1], x_true[1:], stream
     tf.restype = ctypes.c_int
     tf_scratch = lib.psn_fused_dae_rollout_tfx_scratch
@@ -279,8 +283,9 @@ def bind_rollout(lib: ctypes.CDLL, bf16: bool = False):
 
 @functools.lru_cache(maxsize=None)
 def _launcher(bf16: bool = False):
-    """The C launcher of ``csrc/fused_dae_rollout.cu`` (:func:`bind_rollout`)."""
-    return bind_rollout(cuda_build.load("fused_dae_rollout"), bf16)
+    """The C launcher of ``csrc/fused_dae_rollout.cu`` in the compute mode of
+    ``bf16`` (:func:`bind_rollout`)."""
+    return bind_rollout(cuda_build.load("fused_dae_rollout", bf16), bf16)
 
 
 def default_launch(batch: int, n_sms: int) -> int:
@@ -320,8 +325,6 @@ def _check_kernel_inputs(streams, weights, x0, i0, aux, device_type: str = "cuda
     if s_de.device.type != device_type:
         raise ValueError(f"the CUDA rollout kernel takes CUDA tensors, got {s_de.device}")
     bf16 = s_de.dtype == torch.bfloat16
-    if bf16 and x_true is not None:
-        raise NotImplementedError("the bfloat16 compute mode of the TF-x rollout is not ported yet")
     low = {"s_de", "s_ae", "s_ae_ev", "wx_de", "wi_de", "gx_ae"}  # bfloat16 in the bf16 mode
     Tm1, B, h = s_de.shape
     xd, idim = x0.shape[-1], i0.shape[-1]
@@ -447,7 +450,7 @@ def fused_dae_rollout(
         under teacher forcing).
       dt: ``[T-1, B, 1]`` step sizes; ev: ``[T-1, B]`` event mask.
       precision: one of :data:`PRECISIONS`; ``"bfloat16"`` is the bf16
-        compute mode (:func:`cast_compute`), not with ``x_true``.
+        compute mode (:func:`cast_compute`).
       x_true: ``[T, B, xd]`` true states, teacher forcing of ``x``: the
         step consumes ``x_true[t]`` and the AE at t+1 ``x_true[t+1]``,
         events still recompute from the rolled state.

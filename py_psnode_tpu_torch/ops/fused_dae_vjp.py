@@ -42,8 +42,9 @@ keeps those rounded tensors for the backward, which recomputes exactly what
 the forward computed (JAX ``_vjp_forward`` :596-625); every product rounds
 its activation or cotangent (``dot``), every weight-gradient product both
 operands (``dot_t``), and the stream cotangents and every gradient stay
-float32, flowing back to the float32 originals. Not in the bf16 mode:
-teacher forcing of ``x``.
+float32, flowing back to the float32 originals. Under teacher forcing of
+``x`` (:class:`FusedDaeTfxRollout`) the true states stay float32, rounded
+where a product reads them, and their cotangents are float32.
 
 Not ported: the TPU's time padding, time blocking, ``any_ev`` scalar
 prefetch and lanes (scheduling that does not change the result).
@@ -371,9 +372,9 @@ def bind_rollout_bwd(lib: ctypes.CDLL, bf16: bool = False):
     """``(backward, sizes, error string, TF-x backward, bf16)``: the C
     functions of a build of ``csrc/fused_dae_rollout_bwd.cu`` (for the card
     or, in ``utils/host_build.py``, the host) with their signatures, the
-    backward that of the bf16 compute mode where ``bf16``; the TF-x one None
-    for a build that has none (an older checkout's, which ``phase_clock
-    bwd-ab`` binds)."""
+    backward that of the bf16 compute mode where ``bf16`` (the TF-x one
+    too); the TF-x one None for a build that has none (an older checkout's,
+    which ``phase_clock bwd-ab`` binds)."""
     P, I = ctypes.c_void_p, ctypes.c_int
     args = [
         P, P, P, P,  # s_de, s_ae, s_ae_ev, aux
@@ -390,8 +391,9 @@ def bind_rollout_bwd(lib: ctypes.CDLL, bf16: bool = False):
     fn.argtypes = args + [P]  # stream
     fn.restype = ctypes.c_int
     tf = None
-    if hasattr(lib, "psn_fused_dae_rollout_bwd_tfx_f32"):
-        tf = lib.psn_fused_dae_rollout_bwd_tfx_f32
+    tf_name = "psn_fused_dae_rollout_bwd_tfx_bf16" if bf16 else "psn_fused_dae_rollout_bwd_tfx_f32"
+    if hasattr(lib, tf_name):
+        tf = getattr(lib, tf_name)
         tf.argtypes = args + [P, P, P, P, P]  # x_true[:-1], x_true[1:], g_xt, g_xt1 (null: none), stream
         tf.restype = ctypes.c_int
     sizes = lib.psn_fused_dae_bwd_sizes
@@ -593,20 +595,20 @@ class FusedDaeTfxRollout(torch.autograd.Function):
     """The fused rollout under teacher forcing of ``x`` with its backward
     (counterpart of the ``jax.custom_vjp`` ``fused_dae_tf_x_rollout_diff``,
     :724-755): :class:`FusedDaeRollout` plus the true states ``x_true [T,
-    B, xd]``. The kernels compute the true states' cotangents only where
-    autograd asks for ``x_true``'s gradient (the encoded states of the
+    B, xd]``, in the compute mode of ``precision`` as there (the true states
+    stay float32). The kernels compute the true states' cotangents only
+    where autograd asks for ``x_true``'s gradient (the encoded states of the
     direct-encode DAE; the no-encode DAE's raw data asks for none); its
     gradient is then ``zeros[T]`` with ``[:-1] += g_xt`` and ``[1:] +=
     g_xt1``."""
 
     @staticmethod
-    def forward(ctx, solver, n_tails, s_de, s_ae, s_ae_ev, x0, i0, aux, x_true, *wflat):
-        streams = dict(s_de=s_de, s_ae=s_ae, s_ae_ev=s_ae_ev)
-        packed = fused_dae_rollout_packed(
-            streams, unflatten_weights(wflat, n_tails), x0, i0, aux, solver, x_true
-        )
+    def forward(ctx, solver, n_tails, precision, s_de, s_ae, s_ae_ev, x0, i0, aux, x_true, *wflat):
+        streams, weights = cast_compute(dict(s_de=s_de, s_ae=s_ae, s_ae_ev=s_ae_ev),
+                                        unflatten_weights(wflat, n_tails), precision)
+        packed = fused_dae_rollout_packed(streams, weights, x0, i0, aux, solver, x_true)
         ctx.solver, ctx.n_tails = solver, n_tails
-        ctx.save_for_backward(s_de, s_ae, s_ae_ev, x0, i0, aux, x_true, packed, *wflat)
+        ctx.save_for_backward(*streams.values(), x0, i0, aux, x_true, packed, *flatten_weights(weights)[0])
         return unpack_solution(packed, x0, i0, s_de.shape[0])
 
     @staticmethod
@@ -615,7 +617,7 @@ class FusedDaeTfxRollout(torch.autograd.Function):
         s_de, s_ae, s_ae_ev, x0, i0, aux, x_true, packed, *wflat = ctx.saved_tensors
         streams = dict(s_de=s_de, s_ae=s_ae, s_ae_ev=s_ae_ev)
         cot = torch.cat([g_xsol, g_isol], dim=-1).contiguous()
-        want = ctx.needs_input_grad[8]
+        want = ctx.needs_input_grad[9]
         out = fused_dae_rollout_bwd(
             streams, unflatten_weights(wflat, ctx.n_tails), x0, i0, aux, packed, cot, ctx.solver, x_true, want
         )
@@ -626,8 +628,8 @@ class FusedDaeTfxRollout(torch.autograd.Function):
             g_x_true = torch.zeros_like(x_true)
             g_x_true[:-1] += g_xt
             g_x_true[1:] += g_xt1
-        return (None, None, g_s["s_de"], g_s["s_ae"], g_s["s_ae_ev"], g_x0 + g_xsol[0], g_i0 + g_isol[0], None,
-                g_x_true, *flatten_weights(g_w)[0])
+        return (None, None, None, g_s["s_de"], g_s["s_ae"], g_s["s_ae_ev"], g_x0 + g_xsol[0], g_i0 + g_isol[0],
+                None, g_x_true, *flatten_weights(g_w)[0])
 
 
 def fused_dae_tf_x_rollout_diff(
@@ -638,13 +640,12 @@ def fused_dae_tf_x_rollout_diff(
     contract of :func:`fused_dae_rollout_diff` plus the true states
     ``x_true [T, B, xd]`` (the step reads ``x_true[t]``, the AE at t+1
     ``x_true[t+1]``, the event recompute the rolled state), which get their
-    gradient where they require one (:class:`FusedDaeTfxRollout`). The
-    bf16 compute mode is not ported for it yet."""
-    if is_bf16(precision):
-        raise NotImplementedError("the bfloat16 compute mode of the TF-x rollout is not ported yet")
+    gradient where they require one (:class:`FusedDaeTfxRollout`), in the
+    compute mode of ``precision``."""
+    is_bf16(precision)  # an unknown precision raises here
     wflat, n_tails = flatten_weights(weights)
     return FusedDaeTfxRollout.apply(
-        normalize_solver(solver), n_tails,
+        normalize_solver(solver), n_tails, precision,
         streams["s_de"], streams["s_ae"], streams["s_ae_ev"],
         x0.contiguous(), i0.contiguous(), pack_aux(dt, ev), x_true.contiguous(), *wflat,
     )

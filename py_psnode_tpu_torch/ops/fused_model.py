@@ -18,10 +18,10 @@ the event streams and the stream precompute run as plain PyTorch
 ``torch.autograd.Function``: the forward and backward CUDA kernels on the
 card. The direct-encode DAE's latent rollout runs the DAE kernels at
 ``dims = (h, zl, h, h)`` with one tail layer a net, the ODE's the ODE
-kernels at ``xd = h``. The four non-channel-wise entries take
-``precision`` (``"bfloat16"``: kernels 1-4's bf16 compute mode); the
-stream precompute, the encoders and decoders stay float32 under every
-precision, as the JAX package computes them on the CPU.
+kernels at ``xd = h``. Every entry takes ``precision`` (``"bfloat16"``:
+the bf16 compute mode of its kernels, 1-4 or 5-6); the stream precompute,
+the encoders and decoders and the channel-wise DAE's readout stay float32
+under every precision, as the JAX package computes them on the CPU.
 """
 
 from __future__ import annotations
@@ -256,31 +256,33 @@ def cw_rollout_inputs(model, batch: Dict[str, torch.Tensor]):
     return streams, weights, xh0, tT[1:] - tT[:-1]
 
 
-def _cw_latent(model, batch, solver):
+def _cw_latent(model, batch, solver, precision):
     solver = normalize_solver(model.solver if solver is None else solver)
     streams, weights, xh0, dt = cw_rollout_inputs(model, batch)
-    return fused_cw_rollout_diff(streams, weights, xh0, dt, solver)  # [T, B, xd, h]
+    return fused_cw_rollout_diff(streams, weights, xh0, dt, solver, precision)  # [T, B, xd, h]
 
 
-def fused_cw_ode_apply(model: ChannelWiseODEModel, batch: Dict[str, torch.Tensor], solver=None):
-    """Forward the channel-wise ODE through the fused rollout: returns
-    batch-major ``(x_pred, x_re)``, the ``ChannelWiseODEModel.forward``
-    contract. Differentiable where a parameter requires grad, else run
-    under ``torch.no_grad()``."""
+def fused_cw_ode_apply(model: ChannelWiseODEModel, batch: Dict[str, torch.Tensor], solver=None,
+                       precision: str = "default"):
+    """Forward the channel-wise ODE through the fused rollout (kernels 5-6
+    in the compute mode of ``precision``): returns batch-major ``(x_pred,
+    x_re)``, the ``ChannelWiseODEModel.forward`` contract. Differentiable
+    where a parameter requires grad, else run under ``torch.no_grad()``."""
     de = model.de_func
     with _grad_mode(model):
-        xh_sol = _cw_latent(model, batch, solver)
+        xh_sol = _cw_latent(model, batch, solver, precision)
         return de.decode_x(xh_sol).transpose(0, 1), de.decode_x(de.encode_x(batch["x"]))
 
 
-def fused_cw_dae_apply(model: ChannelWiseDAEModel, batch: Dict[str, torch.Tensor], solver=None):
-    """Forward the channel-wise DAE through the fused rollout: returns
-    batch-major ``(x_pred, i_pred, x_re)``, the ``ChannelWiseDAEModel``
-    contract. The algebraic readout runs over all T at once after the
-    rollout, as plain PyTorch."""
+def fused_cw_dae_apply(model: ChannelWiseDAEModel, batch: Dict[str, torch.Tensor], solver=None,
+                       precision: str = "default"):
+    """Forward the channel-wise DAE through the fused rollout (kernels 5-6
+    in the compute mode of ``precision``): returns batch-major ``(x_pred,
+    i_pred, x_re)``, the ``ChannelWiseDAEModel`` contract. The algebraic
+    readout runs over all T at once after the rollout, as plain PyTorch."""
     de = model.de_func
     with _grad_mode(model):
-        xh_sol = _cw_latent(model, batch, solver)
+        xh_sol = _cw_latent(model, batch, solver, precision)
         i_pred = model.ae_func(xh_sol, batch["v"].transpose(0, 1))
         return (de.decode_x(xh_sol).transpose(0, 1), i_pred.transpose(0, 1),
                 de.decode_x(de.encode_x(batch["x"])))

@@ -24,9 +24,9 @@ Teacher forcing changes the shape of the problem:
     dead, so every step is independent: one batched evaluation
     (:func:`tf_parallel_dae_apply`, :func:`tf_parallel_dae_encode_apply`).
 
-The kernel entries take ``precision``; the two TF-i ones run kernels 3-4 in
-its bf16 compute mode under ``"bfloat16"``, the TF-x ones refuse that mode
-(not ported yet). The direct-encode variants teacher-force in latent space
+The kernel entries take ``precision``; under ``"bfloat16"`` the two TF-i
+ones run kernels 3-4 in their bf16 compute mode and the TF-x ones kernels
+1-2 in theirs (the encode form's true-state cotangents float32). The direct-encode variants teacher-force in latent space
 (``x_true = x_encoder(x)``, ``i_true = i_encoder(i)``). Every entry takes the model and
 a batch-major batch, returns its model's ``forward`` contract, and is
 differentiable where a parameter requires grad (else it runs under

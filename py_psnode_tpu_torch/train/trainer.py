@@ -19,12 +19,13 @@ refuses it as the JAX package does. Multiple shooting (``n_windows``,
 ``gap_weight``) trains all six variants, the four non-channel-wise ones
 through the fused kernels where ``fused`` (``_multishoot_forward``); the
 evaluations stay full rollouts. ``matmul_precision="bfloat16"`` with
-``fused`` runs kernels 1-4 in their bf16 compute mode in training and in
-every evaluation (the JAX package's ``_forward_fn``); the plain route, the
+``fused`` runs the kernels of every fused path (1-4, the TF-x and TF-i
+ones, 5-6) in their bf16 compute mode in training and in every evaluation
+(the JAX package's ``_forward_fn``; channel-wise multishoot trains its
+windows plain and evaluates on kernel 5); the plain route, the
 precomputes, the encoders and the optimizer stay float32 under every
 precision (the JAX package on the CPU computes them so). Not ported yet:
-orbax checkpoints, ``auto_resume``, data parallelism, and the bf16 mode of
-the channel-wise kernels and of the TF-x rollout.
+orbax checkpoints, ``auto_resume`` and data parallelism.
 """
 
 from __future__ import annotations
@@ -111,9 +112,9 @@ class TrainConfig:
     # fused rollout (the CUDA kernels on the card)
     fused: bool = False
     # "default" | "bfloat16" | "float32" | "highest": with fused=True,
-    # "bfloat16" selects kernels 1-4's bf16 compute mode (streams and 2-D
-    # weights rounded to bf16, float32 sums and gradients); everything else
-    # runs in float32 under every value
+    # "bfloat16" selects the kernels' bf16 compute mode (kernels 1-4: streams
+    # and 2-D weights rounded to bf16; kernels 5-6: the 2-D weights; float32
+    # sums and gradients); everything else runs in float32 under every value
     matmul_precision: str = "default"
     # the channel-wise variants' per-channel matmul form: "einsum" or
     # "blockdiag" (models.funcs.PerChannelMLP)
@@ -147,17 +148,9 @@ def _not_ported(cfg: TrainConfig):
     return None
 
 
-def _check_precision(cfg: TrainConfig, variant: Variant):
-    """An unknown ``matmul_precision`` raises ``ValueError``; the bf16
-    compute mode of the fused paths the port has not ported yet raises
-    ``NotImplementedError``."""
-    if not (is_bf16(cfg.matmul_precision) and cfg.fused):
-        return
-    if variant.channel_wise:
-        raise NotImplementedError(
-            "the bfloat16 compute mode of the channel-wise kernels (5-6) is not ported yet")
-    if cfg.input_true_x and not cfg.input_true_i and variant.kind == "dae":
-        raise NotImplementedError("the bfloat16 compute mode of the TF-x rollout (kernels 1-2) is not ported yet")
+def _check_precision(cfg: TrainConfig):
+    """An unknown ``matmul_precision`` raises ``ValueError``."""
+    is_bf16(cfg.matmul_precision)
 
 
 def _check_teacher_forcing(cfg: TrainConfig, variant: Variant):
@@ -222,7 +215,7 @@ class Trainer:
         self.cfg = cfg
         self.variant: Variant = get_variant(cfg.variant)
         _check_teacher_forcing(cfg, self.variant)
-        _check_precision(cfg, self.variant)
+        _check_precision(cfg)
         missing = _not_ported(cfg)
         if missing:
             raise NotImplementedError(f"{missing} is not ported yet")
@@ -270,8 +263,8 @@ class Trainer:
         if cfg.input_true_x or cfg.input_true_i:
             return self._teacher_forced_forward(model)
         if cfg.fused:
-            kw = {} if variant.channel_wise else dict(precision=cfg.matmul_precision)
-            return lambda batch: variant.fused_apply(model, batch, solver=cfg.solver, **kw)
+            return lambda batch: variant.fused_apply(model, batch, solver=cfg.solver,
+                                                     precision=cfg.matmul_precision)
         return lambda batch: model(*[batch.get(k) for k in variant.batch_args])
 
     def _teacher_forced_forward(self, model):

@@ -45,7 +45,7 @@ class Variant:
     batch_args: Tuple[str, ...]
     make_model: Callable
     loss_fn: Callable
-    # the --fused route: fused_apply(model, batch, solver=...)
+    # the --fused route: fused_apply(model, batch, solver=..., precision=...)
     fused_apply: Callable
     # export_fn(model, dims, path, write_program): the submodules' artifacts
     # into path, the .pt2 programs rewritten where write_program (the first

@@ -34,8 +34,12 @@ kernels 1-2 in their TF-x mode on seeded true states, the backward with the
 true states' cotangents; ``dae-fwd-bf16``, ``dae-bwd-bf16``,
 ``ode-fwd-bf16`` and ``ode-bwd-bf16`` hold kernels 1-4 in their bf16
 compute mode against the plain bf16 versions by the discrimination bar
-(:func:`bf16_check`). Builds land in
-``py_psnode_tpu_torch/_build/host/`` (ignored by git).
+(:func:`bf16_check`), ``dae-fwd-tfx-bf16`` and ``dae-bwd-tfx-bf16`` their
+TF-x mode's, and ``fwd-bf16``, ``bwd-bf16`` and ``contract-bf16`` (the
+arguments of ``fwd`` ...) kernels 5-6's (:func:`cw_bf16_check`). A source
+whose bf16 mode builds apart (``cuda_build.SPLIT_BF16``) builds for the host
+with the same define. Builds land in ``py_psnode_tpu_torch/_build/host/``
+(ignored by git).
 """
 
 from __future__ import annotations
@@ -62,7 +66,7 @@ from py_psnode_tpu_torch.ops import fused_ode as FO
 from py_psnode_tpu_torch.ops import fused_ode_vjp as VO
 from py_psnode_tpu_torch.ops.fused_dae import _SOLVER_CODE
 from py_psnode_tpu_torch.ops.fused_ode import pointer_array
-from py_psnode_tpu_torch.utils.cuda_build import BUILD_DIR, SOURCE_DIR
+from py_psnode_tpu_torch.utils.cuda_build import BUILD_DIR, SOURCE_DIR, mode_defines
 from py_psnode_tpu_torch.utils.cw_inputs import seeded_inputs
 from py_psnode_tpu_torch.utils.noencode_inputs import dae_inputs, ode_inputs, true_states, with_first_step_events
 
@@ -125,13 +129,13 @@ def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
-def _fwd():
-    fn, _, scratch = FC.bind_rollout(load("fused_cw_rollout"))
+def _fwd(bf16: bool = False):
+    fn, _, scratch = FC.bind_rollout(load("fused_cw_rollout", mode_defines("fused_cw_rollout", bf16)), bf16)
     return fn, scratch
 
 
-def _bwd():
-    return VC.bind_rollout_bwd(load("fused_cw_rollout_bwd"))[:3]
+def _bwd(bf16: bool = False):
+    return VC.bind_rollout_bwd(load("fused_cw_rollout_bwd", mode_defines("fused_cw_rollout_bwd", bf16)), bf16)[:3]
 
 
 def _nan(*shape):
@@ -139,16 +143,18 @@ def _nan(*shape):
 
 
 def rollout(streams: Dict, weights: Dict, x0, dt, solver: str = "euler", cluster: int = 0):
-    """Kernel 5's host build on contiguous float32 CPU tensors (the
-    arguments of ``fused_cw_rollout_cuda``); returns the rows ``[T-1, B,
-    xd, h]``."""
+    """Kernel 5's host build on contiguous CPU tensors (the arguments of
+    ``fused_cw_rollout_cuda``: float32, or the bf16 compute mode's bfloat16
+    2-D weights); returns the rows ``[T-1, B, xd, h]``."""
     fz, sV = streams["fz"], streams["s_constV"]
     Tm1, B, zd, h = fz.shape
     xd = x0.shape[1]
-    fn, scratch_floats = _fwd()
+    bf16 = FC.check_inputs(streams, weights, x0, dt, device_type="cpu")
+    fn, scratch_floats = _fwd(bf16)
     sol, scratch = _nan(Tm1, B, xd, h), _nan(max(1, scratch_floats(B, h)))
+    wk = FC.kernel_weights(weights)
     rc = fn(fz.data_ptr(), dt.data_ptr(), sV.data_ptr(), x0.data_ptr(),
-            pointer_array(FC.flatten_weights(weights)), sol.data_ptr(), scratch.data_ptr(), Tm1, B, h, xd,
+            pointer_array(wk), sol.data_ptr(), scratch.data_ptr(), Tm1, B, h, xd,
             zd, _SOLVER_CODE[solver], cluster, None)
     if rc != 0:
         raise RuntimeError(f"host launch of fused_cw_rollout failed: error {rc}")
@@ -158,21 +164,22 @@ def rollout(streams: Dict, weights: Dict, x0, dt, solver: str = "euler", cluster
 def rollout_bwd(streams: Dict, weights: Dict, dt, sol, cot, solver: str = "euler",
                 cluster: int = 0):
     """Kernel 6's host build on CPU tensors (the arguments of
-    ``fused_cw_rollout_bwd_cuda``); returns ``(g_streams, g_weights, g_x0,
-    pairs)``, the last the walk's (u, v) pairs ``[T-1, S, B, 4, 2, xd,
-    h]``."""
+    ``fused_cw_rollout_bwd_cuda``, its bf16 compute mode too); returns
+    ``(g_streams, g_weights, g_x0, pairs)``, the last the walk's (u, v)
+    pairs ``[T-1, S, B, 4, 2, xd, h]``."""
     fz, sV = streams["fz"], streams["s_constV"]
     Tm1, B, zd, h = fz.shape
     xd = sol.shape[2]
-    fn, sizes, _ = _bwd()
+    bf16 = FC.check_inputs(streams, weights, sol[0], dt, backward=True, device_type="cpu")
+    fn, sizes, _ = _bwd(bf16)
     layout, total = VC.grad_layout(weights)
     n_w, n_dense, n_pairs, n_parts, n_tiles = VC.bwd_sizes(sizes, Tm1, B, h, xd, zd, solver)
     assert n_w == total
     g_fz, g_sV, g_flat, g_x0 = _nan(Tm1, B, zd, h), _nan(B, h, h), _nan(total), _nan(B, xd, h)
     partial, pairs, parts, tiles = torch.zeros(B, n_dense), _nan(n_pairs), _nan(n_parts), _nan(max(1, n_tiles))
-    wts = VC.transposed_weights(weights)
+    wk, wts = FC.kernel_weights(weights), VC.transposed_weights(weights)
     rc = fn(fz.data_ptr(), dt.data_ptr(), sV.data_ptr(), sol.data_ptr(), cot.data_ptr(),
-            pointer_array(FC.flatten_weights(weights)), pointer_array(wts), g_fz.data_ptr(),
+            pointer_array(wk), pointer_array(wts), g_fz.data_ptr(),
             g_sV.data_ptr(), partial.data_ptr(), g_flat.data_ptr(), g_x0.data_ptr(),
             pairs.data_ptr(), parts.data_ptr(), tiles.data_ptr(), Tm1, B, h, xd, zd, _SOLVER_CODE[solver],
             cluster, None)
@@ -184,12 +191,12 @@ def rollout_bwd(streams: Dict, weights: Dict, dt, sol, cot, solver: str = "euler
             pairs.view(Tm1, S, B, 4, 2, xd, h))
 
 
-def contract_pairs(pairs):
-    """The contraction's host build on ``pairs [..., 4, 2, xd, h]``;
-    returns ``(dW, db)``."""
+def contract_pairs(pairs, bf16: bool = False):
+    """The contraction's host build (``bf16``: the bf16 compute mode's) on
+    ``pairs [..., 4, 2, xd, h]``; returns ``(dW, db)``."""
     *_, P, _, xd, h = pairs.shape
     rows = pairs.numel() // (8 * xd * h)
-    _, sizes, contract = _bwd()
+    _, sizes, contract = _bwd(bf16)
     parts = _nan(VC.bwd_sizes(sizes, rows, 1, h, xd, 1, "euler")[3])
     out = _nan(4 * xd * h * (h + 1))
     rc = contract(pairs.data_ptr(), rows, h, xd, parts.data_ptr(), out.data_ptr(), None)
@@ -245,7 +252,8 @@ def dae_rollout(streams: Dict, weights: Dict, x0, i0, aux, solver: str = "rk4", 
     (the arguments of ``fused_dae_rollout_packed_cuda``, at most ``rows``
     rows a block, ``x_true`` its TF-x mode); returns the packed rows ``[T-1,
     B, xd + id]``."""
-    launcher = F.bind_rollout(load("fused_dae_rollout", defines), _bf16(weights))
+    bf16 = _bf16(weights)
+    launcher = F.bind_rollout(load("fused_dae_rollout", defines + mode_defines("fused_dae_rollout", bf16)), bf16)
     return F._launch(streams, weights, x0, i0, aux, solver, rows, launcher, host=True, x_true=x_true)
 
 
@@ -351,6 +359,11 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 # near float32 (summation order flips single bf16 roundings: the bar is an
 # L2 one, not a maximum)
 BF16_BAR = 0.1
+# Over a whole rollout a bf16 rounding that the summation order flips is
+# carried to every later step: where a tensor lies above BF16_BAR it is held
+# to max(BF16_FULL_BAR, 2 x its floor) instead (bf16_excess), as
+# chip_smoke.py phases 21 and 23 hold the kernels on the card
+BF16_FULL_BAR = 0.25
 
 
 def bf16_ratios(got: List[torch.Tensor], ref: List[torch.Tensor], f32: List[torch.Tensor]) -> List[float]:
@@ -364,6 +377,27 @@ def bf16_ratios(got: List[torch.Tensor], ref: List[torch.Tensor], f32: List[torc
     return out
 
 
+def bf16_bars(got: List[torch.Tensor], ref: List[torch.Tensor], f32: List[torch.Tensor], floor_fn):
+    """``(ratios, bars, floors)`` of a whole rollout: each tensor's
+    :func:`bf16_ratios` with the bar :data:`BF16_BAR`, or, where a tensor
+    lies above it, every tensor's bar max(:data:`BF16_FULL_BAR`, 2 x its
+    floor), the same ratio of ``floor_fn()`` (the plain bf16 version in
+    float64 arithmetic between the same rounding points; ``floors`` None
+    where it was not needed)."""
+    ratios = bf16_ratios(got, ref, f32)
+    if max(ratios) <= BF16_BAR:
+        return ratios, [BF16_BAR] * len(ratios), None
+    floors = bf16_ratios(floor_fn(), ref, f32)
+    return ratios, [max(BF16_FULL_BAR, 2 * f) for f in floors], floors
+
+
+def bf16_excess(got: List[torch.Tensor], ref: List[torch.Tensor], f32: List[torch.Tensor], floor_fn) -> float:
+    """The largest ratio / bar of any tensor of a whole rollout
+    (:func:`bf16_bars`): at most 1 holds."""
+    ratios, bars, _ = bf16_bars(got, ref, f32, floor_fn)
+    return max(r / b for r, b in zip(ratios, bars))
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -373,7 +407,8 @@ def _to(tree, dev):
 
 
 def bf16_check(family: str, kind: str, B: int, Tm1: int, h: int, solver: str, rows=None, xd=None,
-               n_tail: int = 3, idim: int = 2, defines: Tuple[str, ...] = (), card: bool = False) -> Dict[str, float]:
+               n_tail: int = 3, idim: int = 2, defines: Tuple[str, ...] = (), card: bool = False,
+               tfx: bool = False) -> Dict[str, float]:
     """Kernel 1 or 2 (``family`` "dae", ``kind`` "fwd" or "bwd"; the motor
     shape by default) or 3 or 4 ("ode") built for the host (``card``: the
     card's build, on CUDA tensors), in its bf16 compute mode on the seeded
@@ -383,28 +418,50 @@ def bf16_check(family: str, kind: str, B: int, Tm1: int, h: int, solver: str, ro
     of any output tensor (the bar :data:`BF16_BAR`), and ``identical``, 1.0
     when a relaunch gave the same bits. The backward runs on the bf16
     forward's solution with unit-scale cotangents; its float32 reference on
-    the float32 forward's."""
+    the float32 forward's. ``tfx``: kernels 1-2 in their TF-x mode on seeded
+    true states (the backward with events at step 0 and the true states'
+    cotangents). ``exact``: of the DAE kernels, the largest ratio against
+    the plain bf16 version in float64 arithmetic between the same rounding
+    points instead (the float32 plain version's own sums flip a rounding
+    now and then: a kernel that rounds where it rounds lies within the bar
+    of one of the two), the ODE kernels' ``ratio``. ``excess``:
+    :func:`bf16_excess` of the DAE kernels (where a carried flip puts a
+    tensor above the bar, each tensor against twice its floor), the ODE
+    kernels' ratio over the bar."""
     rng = np.random.default_rng(B + Tm1 + h)
     dev = "cuda" if card else "cpu"
+    floor = None
     if family == "dae":
         xd = xd or 3
         streams, weights, x0, i0, aux = _to(dae_inputs(B, Tm1, h, xd, idim, seed=h, n_tail=n_tail), dev)
+        xt, g_true = None, tfx
+        if tfx:
+            xt = true_states(Tm1, B, xd, seed=h).to(dev)
+            if kind == "bwd":
+                aux = with_first_step_events(aux)
         cs, cw = F.cast_compute(streams, weights, "bfloat16")
+        xt64 = None if xt is None else xt.double()
         if kind == "fwd":
             split = lambda p: [p[..., :xd], p[..., xd:]]
-            ref_f = split(F.fused_dae_rollout_packed_plain(streams, weights, x0, i0, aux, solver))
-            ref = split(F.fused_dae_rollout_packed_plain(cs, cw, x0, i0, aux, solver))
-            run = lambda: split(F.fused_dae_rollout_packed_cuda(cs, cw, x0, i0, aux, solver, rows) if card
-                                else dae_rollout(cs, cw, x0, i0, aux, solver, rows, defines))
+            ref_f = split(F.fused_dae_rollout_packed_plain(streams, weights, x0, i0, aux, solver, xt))
+            ref = split(F.fused_dae_rollout_packed_plain(cs, cw, x0, i0, aux, solver, xt))
+            floor = lambda: split(F.fused_dae_rollout_packed_plain(_f64(cs), cw, x0.double(), i0.double(),
+                                                                   aux.double(), solver, xt64))
+            run = lambda: split(F.fused_dae_rollout_packed_cuda(cs, cw, x0, i0, aux, solver, rows, xt) if card
+                                else dae_rollout(cs, cw, x0, i0, aux, solver, rows, defines, xt))
         else:
             cot = torch.tensor(rng.standard_normal((Tm1 + 1, B, xd + idim)).astype(np.float32), device=dev)
-            flat = lambda g: [*g[0].values(), g[2], g[3]] + V.flatten_weights(g[1])[0]
-            packed = F.fused_dae_rollout_packed_plain(cs, cw, x0, i0, aux, solver)
-            packed_f = F.fused_dae_rollout_packed_plain(streams, weights, x0, i0, aux, solver)
-            ref_f = flat(V.fused_dae_rollout_bwd_plain(streams, weights, x0, i0, aux, packed_f, cot, solver))
-            ref = flat(V.fused_dae_rollout_bwd_plain(cs, cw, x0, i0, aux, packed, cot, solver))
-            run = lambda: flat(V.fused_dae_rollout_bwd_cuda(cs, cw, x0, i0, aux, packed, cot, solver) if card
-                               else dae_rollout_bwd(cs, cw, x0, i0, aux, packed, cot, solver, defines=defines)[0])
+            flat = lambda g: [*g[0].values(), g[2], g[3]] + V.flatten_weights(g[1])[0] + (list(g[4]) if g_true else [])
+            packed = F.fused_dae_rollout_packed_plain(cs, cw, x0, i0, aux, solver, xt)
+            packed_f = F.fused_dae_rollout_packed_plain(streams, weights, x0, i0, aux, solver, xt)
+            ref_f = flat(V.fused_dae_rollout_bwd_plain(streams, weights, x0, i0, aux, packed_f, cot, solver, xt,
+                                                       g_true))
+            ref = flat(V.fused_dae_rollout_bwd_plain(cs, cw, x0, i0, aux, packed, cot, solver, xt, g_true))
+            floor = lambda: flat(V.fused_dae_rollout_bwd_plain(_f64(cs), cw, x0.double(), i0.double(), aux.double(),
+                                                               packed.double(), cot.double(), solver, xt64, g_true))
+            run = lambda: flat(V.fused_dae_rollout_bwd_cuda(cs, cw, x0, i0, aux, packed, cot, solver, xt, g_true)
+                               if card else dae_rollout_bwd(cs, cw, x0, i0, aux, packed, cot, solver, defines=defines,
+                                                            x_true=xt, g_true=g_true)[0])
     else:
         s_de, weights, x0, dt = _to(ode_inputs(B, Tm1, h, xd or 2, n_tail, seed=h,
                                                readout=1.0 if kind == "fwd" else 0.1), dev)
@@ -424,15 +481,83 @@ def bf16_check(family: str, kind: str, B: int, Tm1: int, h: int, solver: str, ro
             run = lambda: flat(VO.fused_ode_rollout_bwd_cuda(cs, cw, dt, sol, cot, solver) if card
                                else ode_rollout_bwd(cs, cw, dt, sol, cot, solver, defines=defines)[0])
     got, again = run(), run()
-    return dict(ratio=max(bf16_ratios(got, ref, ref_f)),
+    ratio = max(bf16_ratios(got, ref, ref_f))
+    return dict(ratio=ratio, exact=max(bf16_ratios(got, floor(), ref_f)) if floor else ratio,
+                excess=bf16_excess(got, ref, ref_f, floor) if floor else ratio / BF16_BAR,
                 identical=float(all(torch.equal(g, g2) for g, g2 in zip(got, again))))
+
+
+def cw_bf16_check(kind: str, B: int, Tm1: int, h: int, xd: int, zd: int, solver: str, cluster: int = 0,
+                  card: bool = False) -> Dict[str, float]:
+    """Kernel 5 (``kind`` "fwd"), 6 ("bwd": the walk, its pairs and the
+    contraction) or the contraction alone ("contract") built for the host
+    (``card``: the card's build, on CUDA tensors; ``cluster`` blocks a row,
+    0 the launcher's choice) in the bf16 compute mode, on
+    ``cw_inputs.seeded_inputs`` rounded by ``cast_cw``, against the plain
+    bf16 version on the same inputs: ``ratio``, the largest
+    :func:`bf16_ratios` of any output tensor (the plain float32 version
+    setting the gap), and ``identical``, 1.0 when a relaunch gave the same
+    bits; ``excess``, :func:`bf16_excess` (at most 1 holds). The backward
+    runs on the bf16 forward's solution with unit-scale cotangents (its
+    float32 reference on the float32 forward's). The contraction alone:
+    seeded pairs, its weight gradients against
+    ``contract_channel_pairs_plain(bf16=True)`` (``ratio``) and, as the
+    same products summed in another order, every output by the largest
+    max|d| / max|plain| (``worst``)."""
+    dev = "cuda" if card else "cpu"
+    streams, weights, x0, dt = _to(seeded_inputs(B, Tm1, h, xd, zd), dev)
+    cs, cw = FC.cast_cw(streams, weights, "bfloat16")
+    c64 = {k: v.double() for k, v in cs.items()}
+    out = {}
+    if kind == "fwd":
+        ref_f = [FC.fused_cw_rollout_plain(streams, weights, x0, dt, solver)]
+        ref = [FC.fused_cw_rollout_plain(cs, cw, x0, dt, solver)]
+        floor = lambda: [FC.fused_cw_rollout_plain(c64, cw, x0.double(), dt, solver)]
+        run = lambda: [FC._launch(cs, cw, x0, dt, solver, cluster) if card
+                       else rollout(cs, cw, x0, dt, solver, cluster)]
+    elif kind == "bwd":
+        sol = torch.cat([x0[None], FC.fused_cw_rollout_plain(cs, cw, x0, dt, solver)])
+        sol_f = torch.cat([x0[None], FC.fused_cw_rollout_plain(streams, weights, x0, dt, solver)])
+        cot = torch.tensor(np.random.default_rng(1).standard_normal(tuple(sol.shape)).astype(np.float32), device=dev)
+        flat = lambda g_s, g_w, g_x0: [g_s["fz"], g_s["s_constV"], g_x0] + FC.flatten_weights(g_w)
+        ref_f = flat(*VC.fused_cw_rollout_bwd_plain(streams, weights, dt, sol_f, cot, solver))
+        ref = flat(*VC.fused_cw_rollout_bwd_plain(cs, cw, dt, sol, cot, solver))
+        floor = lambda: flat(*VC.fused_cw_rollout_bwd_plain(c64, cw, dt, sol.double(), cot.double(), solver))
+        run = lambda: flat(*(VC._launch_bwd(cs, cw, dt, sol, cot, solver, cluster) if card
+                             else rollout_bwd(cs, cw, dt, sol, cot, solver, cluster)[:3]))
+    else:
+        pairs = torch.tensor(np.random.default_rng(2).standard_normal((B * Tm1, 4, 2, xd, h)).astype(np.float32),
+                             device=dev)
+        ref = list(VC.contract_channel_pairs_plain(pairs.double(), bf16=True))
+        ref_f = list(VC.contract_channel_pairs_plain(pairs.double()))
+        floor = lambda: ref
+        run = lambda: list(VC.contract_channel_pairs_cuda(pairs, bf16=True) if card
+                           else contract_pairs(pairs, bf16=True))
+    got, again = run(), run()
+    n = len(got)
+    if kind == "contract":  # the bias sums take no rounding: the same in both modes
+        out["worst"], n = _worst(got, ref), 1
+    out.update(ratio=max(bf16_ratios(got[:n], ref[:n], ref_f[:n])),
+               excess=bf16_excess(got[:n], ref[:n], ref_f[:n], lambda: floor()[:n]),
+               identical=float(all(torch.equal(g, g2) for g, g2 in zip(got, again))))
+    if not all(g.dtype == torch.float32 for g in got):
+        out["excess"] = math.inf
+    return out
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    tfx, bf16 = argv[0].endswith("-tfx"), argv[0].endswith("-bf16")
+    tfx, bf16 = "-tfx" in argv[0], argv[0].endswith("-bf16")
+    if argv[0].split("-")[0] in ("fwd", "bwd", "contract") and bf16:
+        what, (B, Tm1, h, xd, zd), solver = argv[0].split("-")[0], map(int, argv[1:6]), argv[6]
+        got = cw_bf16_check(what, B, Tm1, h, xd, zd, solver, int(argv[7]) if len(argv) > 7 else 0)
+        print(f"{argv[0]}: worst rel-L2(kernel - plain bf16) / rel-L2(plain bf16 - plain float32) {got['ratio']:.4f}, "
+              f"worst ratio / bar {got['excess']:.3f} (bar {BF16_BAR}, or max({BF16_FULL_BAR}, 2 x floor))"
+              + (f", max|d|/max|plain| {got['worst']:.2e}" if "worst" in got else "")
+              + f"; bit-identical on relaunch: {bool(got['identical'])}")
+        return 0 if got["excess"] <= 1 and got["identical"] else 1
     if tfx or bf16:
-        argv = [argv[0].rsplit("-", 1)[0]] + argv[1:]
+        argv = [argv[0].replace("-tfx", "").replace("-bf16", "")] + argv[1:]
     if argv[0] in ("dae-fwd", "ode-fwd", "dae-bwd", "ode-bwd"):
         family = argv[0][:3]
         n_dims = next(k for k, a in enumerate(argv[1:]) if not a.isdigit())  # the solver ends the sizes
@@ -443,10 +568,11 @@ def main(argv=None) -> int:
                  else dict(xd=dims[3], n_tail=dims[4]) if family == "ode" else {})
     if bf16:
         rows = int(rest[0]) if rest and argv[0].endswith("fwd") else None
-        got = bf16_check(family, argv[0][4:], *dims[:3], solver, rows, **shape)
-        print(f"{argv[0]}-bf16: worst rel-L2(kernel - plain bf16) / rel-L2(plain bf16 - plain float32) "
-              f"{got['ratio']:.3f} (bar {BF16_BAR}); bit-identical on relaunch: {bool(got['identical'])}")
-        return 0 if got["ratio"] <= BF16_BAR and got["identical"] else 1
+        got = bf16_check(family, argv[0][4:], *dims[:3], solver, rows, tfx=tfx, **shape)
+        print(f"{argv[0]}{'-tfx' if tfx else ''}-bf16: worst rel-L2(kernel - plain bf16) / rel-L2(plain bf16 - plain float32) "
+              f"{got['ratio']:.3f}, against the plain bf16 version in float64 arithmetic {got['exact']:.3f} (bar "
+              f"{BF16_BAR}); bit-identical on relaunch: {bool(got['identical'])}")
+        return 0 if min(got["ratio"], got["exact"]) <= BF16_BAR and got["identical"] else 1
     if argv[0] in ("dae-fwd", "ode-fwd"):
         got = noencode_fwd_check(family, *dims[:3], solver, int(rest[0]) if rest else None, tfx=tfx, **shape)
         print(f"{argv[0]}: worst |d| / max(1, |plain|) {got['worst']:.2e}; bit-identical on relaunch: "

@@ -50,7 +50,9 @@ builds the four no-encode sources and the two channel-wise ones from
 of each kernel of the other
 build whether this build has one of the same SASS (``[ne-sass-ab]``): a
 kernel template that gained a trailing ``bool`` (the bf16 mode's
-``kBf16``) is matched at ``false``, ``pack_nets`` at ``pack_nets<float>``.
+``kBf16``), or a kernel that became a template of one, is matched at
+``false``, ``pack_nets`` at ``pack_nets<float>``; a source whose bf16 mode
+builds apart (``cuda_build.SPLIT_BF16``) counts both its builds.
 
     python -m py_psnode_tpu_torch.utils.phase_clock bwd-ab OTHER_CSRC [B Tm1]
 
@@ -90,7 +92,7 @@ import torch
 
 from py_psnode_tpu_torch.ops import fused_channelwise as FC
 from py_psnode_tpu_torch.ops import fused_channelwise_vjp as VC
-from py_psnode_tpu_torch.utils.cuda_build import BUILD_DIR, NVCC_FLAGS, SOURCE_DIR, find_nvcc, library_path
+from py_psnode_tpu_torch.utils.cuda_build import BF16_DEFINE, BUILD_DIR, NVCC_FLAGS, SOURCE_DIR, find_nvcc, library_path
 from py_psnode_tpu_torch.utils.cw_inputs import seeded_inputs
 
 # the phases between consecutive marks of an evaluation (marks 0-9) and of
@@ -302,15 +304,27 @@ def sass_ab(other: pathlib.Path) -> int:
     Returns 0 when every one has."""
     names = ("fused_dae_rollout", "fused_dae_rollout_bwd", "fused_ode_rollout", "fused_ode_rollout_bwd",
              "fused_cw_rollout", "fused_cw_rollout_bwd")
-    jobs = [(n, d) for n in names for d in (other, SOURCE_DIR)]
-    with concurrent.futures.ThreadPoolExecutor(12) as pool:
-        libs = dict(zip(jobs, pool.map(lambda j: build(j[0], "", (), j[1]), jobs)))
-    # a template that gained a trailing bool, at false; pack_nets at <float>
-    # (cu++filt writes a template's arguments as (bool)0 and its return type)
-    norm = lambda n: re.sub(r"^void (.*)pack_nets<float>", r"\1pack_nets", re.sub(r", \(bool\)0>", ">", n))
+    # each source's builds: with the bf16 define too where a checkout builds
+    # that mode apart (its source reads PSN_BF16)
+    modes = lambda n, d: [()] + ([(BF16_DEFINE,)] if BF16_DEFINE in (d / f"{n}.cu").read_text() else [])
+    jobs = [(n, d, m) for n in names for d in (other, SOURCE_DIR) for m in modes(n, d)]
+    with concurrent.futures.ThreadPoolExecutor(16) as pool:
+        libs = dict(zip(jobs, pool.map(lambda j: build(j[0], "", j[2], j[1]), jobs)))
+    # a template that gained a trailing bool, and a kernel that became a
+    # template of one bool, at false; pack_nets at <float> (cu++filt writes
+    # a template's arguments as (bool)0 and its return type)
+    norm = lambda n: re.sub(r"^void (.*?)<\(bool\)0>\(", r"\1(", re.sub(
+        r"^void (.*)pack_nets<float>", r"\1pack_nets", re.sub(r", \(bool\)0>", ">", n)))
+
+    def kernels(name, d):  # every build of the source, the float32 one's name first
+        out = {}
+        for m in reversed(modes(name, d)):
+            out.update(sass(pathlib.Path(libs[(name, d, m)]._name), demangle=True))
+        return out
+
     differ = 0
     for name in names:
-        a, b = (sass(pathlib.Path(libs[(name, d)]._name), demangle=True) for d in (other, SOURCE_DIR))
+        a, b = kernels(name, other), kernels(name, SOURCE_DIR)
         b_by = {norm(n): text for n, text in b.items()}
         missing, changed, same = [], [], 0
         for n, text in a.items():

@@ -15,9 +15,9 @@ gradient tensor is held by the discrimination bar
 which shows that the port rounds where the JAX kernels round, not merely
 that it lands near float32; every gradient is float32. Also: a ``Trainer``
 run of ``dae_no_encode`` (``fused=True``, bf16) against the JAX Trainer's
-step 1 by the same bar, the refusals of what is not ported (the channel-wise
-kernels and TF-x under bf16), an unknown precision, ``"highest"`` and the
-plain route under bf16. The kernels themselves against the plain bf16
+step 1 by the same bar, the channel-wise and TF-x configurations that build
+under bf16 (``cast_cw`` casting exactly the 2-D weights), an unknown
+precision, ``"highest"`` and the plain route under bf16. The kernels themselves against the plain bf16
 versions: ``tests/test_torch_kernel.py`` on the card,
 ``tests/test_torch_bf16_host.py`` (their host build) here.
 
@@ -239,7 +239,15 @@ def test_model_entry_bf16_matches_jax(name, solver):
     """The two encode applies, the TF-i DAE and a K=4 fused multishoot
     forward: every output (and gap) and every parameter's gradient of the
     trainer's loss by the bar, the gradients float32."""
-    family, jax_fn, port_fn, ms = ENTRIES[name]
+    check_entry(*ENTRIES[name], solver)
+
+
+def check_entry(family, jax_fn, port_fn, ms, solver):
+    """A model entry (``jax_fn(params, batch, solver, precision)`` against
+    ``port_fn(model, batch, precision)`` on ``family``'s batch of
+    ``test_torch_multishoot.setup``; ``ms``: it returns ``(out, gaps)``):
+    every output and every parameter's gradient of the trainer's loss by
+    the bar, the gradients float32."""
     batch, params, model, _, variant = setup(family, solver)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     jax_loss = getattr(jlosses, f"{variant}_loss")
@@ -318,27 +326,47 @@ def test_trainer_bf16_step_matches_jax(tmp_path):
 
 
 def test_bf16_refusals_and_identities(tmp_path):
-    """Under bf16 with fused, the channel-wise variants and TF-x raise "not
-    ported yet"; an unknown precision raises ValueError; "highest" is the
-    identity of cast_compute; the rollouts' gradients leave in float32."""
+    """Under bf16 with fused, the channel-wise variants (multishoot too) and
+    TF-x build a Trainer, and the TF-x rollout runs in float32 gradients;
+    ``cast_cw`` casts exactly the 2-D weights; an unknown precision raises
+    ValueError; "highest" is the identity of cast_compute and cast_cw; the
+    rollouts' gradients leave in float32."""
+    from py_psnode_tpu_torch.ops import fused_channelwise as FC
+    from py_psnode_tpu_torch.utils.cw_inputs import seeded_inputs
+
     for variant in ("ode_channelwise", "dae_channelwise"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            Trainer(TrainConfig(variant=variant, fused=True, matmul_precision=BF16, device="cpu"))
+        for kw in (dict(), dict(n_windows=4)):
+            Trainer(TrainConfig(variant=variant, fused=True, matmul_precision=BF16, device="cpu", **kw))
         Trainer(TrainConfig(variant=variant, fused=False, matmul_precision=BF16, device="cpu"))  # plain route
     for variant in ("dae_no_encode", "dae_encode"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            Trainer(TrainConfig(variant=variant, fused=True, matmul_precision=BF16, input_true_x=True, device="cpu"))
+        Trainer(TrainConfig(variant=variant, fused=True, matmul_precision=BF16, input_true_x=True, device="cpu"))
         for kw in (dict(input_true_i=True), dict(input_true_x=True, input_true_i=True), dict(n_windows=4)):
             Trainer(TrainConfig(variant=variant, fused=True, matmul_precision=BF16, device="cpu", **kw))
     with pytest.raises(ValueError, match="precision must be one of"):
         Trainer(TrainConfig(variant="dae_no_encode", matmul_precision="tf32", device="cpu"))
+    with pytest.raises(ValueError, match="precision must be one of"):
+        Trainer(TrainConfig(variant="ode_channelwise", fused=True, matmul_precision="tf32", device="cpu"))
     streams, weights, x0, i0, dt, ev = dae_args()
     ts, tw = tree(torch.tensor, streams, weights)
     for precision in ("default", "float32", "highest"):
         assert F.cast_compute(ts, tw, precision) == (ts, tw)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        V.fused_dae_tf_x_rollout_diff(ts, tw, *map(torch.tensor, (x0, i0)), torch.zeros(9, 3, 3),
-                                      *map(torch.tensor, (dt, ev)), "euler", BF16)
+    tw_leaf = tree(lambda a: torch.tensor(a, requires_grad=True), {}, weights)[1]
+    xs, is_ = V.fused_dae_tf_x_rollout_diff(ts, tw_leaf, *map(torch.tensor, (x0, i0)), torch.zeros(9, 3, 3),
+                                            *map(torch.tensor, (dt, ev)), "euler", BF16)
+    (xs.sum() + is_.sum()).backward()
+    assert all(t.grad.dtype == torch.float32 for t in V.flatten_weights(tw_leaf)[0])
+    cw_streams, cw_weights, _, _ = seeded_inputs(2, 3, 8, 2, 2)
+    for precision in ("default", "float32", "highest"):
+        assert FC.cast_cw(cw_streams, cw_weights, precision) == (cw_streams, cw_weights)
+    cs, cwb = FC.cast_cw(cw_streams, cw_weights, BF16)
+    assert cs is cw_streams
+    two_d = {id(w) for w in [cw_weights["a"], *(W for W, _ in cw_weights["vert"]),
+                             *(cw_weights[n][k] for n in ("ext", "head") for k in (0, 2))]}
+    for w, wb in zip(FC.flatten_weights(cw_weights), FC.flatten_weights(cwb)):
+        if id(w) in two_d:
+            assert wb.dtype == torch.bfloat16 and torch.equal(wb, w.to(torch.bfloat16))
+        else:
+            assert wb is w and w.dtype == torch.float32
     with pytest.raises(ValueError, match="precision must be one of"):
         V.fused_dae_rollout_diff(ts, tw, *map(torch.tensor, (x0, i0, dt, ev)), "euler", "tf32")
     cs, cw = F.cast_compute(ts, tw, BF16)

@@ -801,3 +801,54 @@ def test_noencode_bf16_kernels_match_plain_bf16_on_card(family, kind, B, Tm1, h,
     got = host_build.bf16_check(family, kind, B, Tm1, h, "rk4", card=True, **shape)
     assert got["ratio"] <= host_build.BF16_BAR, got
     assert got["identical"] == 1.0
+
+
+# (kind, B, Tm1, h, shape): kernels 1-2 in their bf16 TF-x mode at h=16 and
+# h=136 (the wide backward), at the direct-encode latent shape, and the
+# forward with its buffers in global memory (h=1500)
+TFX_BF16_CASES = [(k, 3, 9, h, {}) for k in ("fwd", "bwd") for h in (16, 136)] + [
+    (k, 3, 9, 16, dict(xd=16, idim=16, n_tail=1)) for k in ("fwd", "bwd")] + [("fwd", 1, 3, 1500, {})]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,B,Tm1,h,shape", TFX_BF16_CASES)
+def test_tfx_bf16_kernels_match_plain_bf16_on_card(kind, B, Tm1, h, shape):
+    """Kernels 1-2 in the bf16 compute mode of their TF-x mode, on seeded
+    true states (the backward with their cotangents): every output tensor
+    by the bar of ``host_build.bf16_check`` against the plain bf16 version
+    in float32 arithmetic (``ratio``) or in float64 arithmetic (``exact``;
+    at h=136 the float32 plain forward's own sums flip a rounding that the
+    float64 one does not: 0.134 between the two, as on the host);
+    bit-identical on relaunch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    got = host_build.bf16_check("dae", kind, B, Tm1, h, "rk4", card=True, tfx=True, **shape)
+    assert min(got["ratio"], got["exact"]) <= host_build.BF16_BAR, got
+    assert got["identical"] == 1.0
+
+
+# (kind, B, Tm1, h, xd, zd, solver, cluster): kernels 5-6 and the
+# contraction in the bf16 compute mode, narrow (every cluster size) and wide
+CW_BF16_CASES = [(k, 5, 9, h, xd, zd, s, 0) for k in ("fwd", "bwd") for h in (40, 136) for (xd, zd) in CW_SHAPES
+                 for s in ("euler", "rk4")] + [
+    ("fwd", 5, 9, 40, 2, 2, "midpoint", c) for c in (1, 2, 4)] + [
+    ("bwd", 5, 9, 40, 3, 1, "midpoint", c) for c in (1, 2, 4)] + [
+    ("fwd", 2, 5, 300, 2, 2, "euler", 8), ("contract", 4, 9, 40, 2, 1, "euler", 0),
+    ("contract", 4, 9, 200, 3, 1, "euler", 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,B,Tm1,h,xd,zd,solver,cluster", CW_BF16_CASES)
+def test_cw_bf16_kernels_match_plain_bf16_on_card(kind, B, Tm1, h, xd, zd, solver, cluster):
+    """Kernels 5-6 in the bf16 compute mode (``host_build.cw_bf16_check``):
+    every output tensor at most 0.1 x the bf16-float32 gap, or where a
+    carried flipped rounding puts a tensor above it, every tensor within
+    max(0.25, 2 x its floor); bit-identical on relaunch; the contraction
+    within 1e-5 of the plain one's largest element."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
+    got = host_build.cw_bf16_check(kind, B, Tm1, h, xd, zd, solver, cluster, card=True)
+    assert got["excess"] <= 1.0, got
+    assert got["identical"] == 1.0
+    if kind == "contract":
+        assert got["worst"] <= 1e-5, got
